@@ -4,15 +4,26 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, checks that the
-port's batcher gives the same greedy tokens on the card as on the CPU,
-then serves full-width qwen3-4b (random weights from a seed) through the
-paged decode, paged extend and prefill kernels.  Prints one JSON line of
-kernel measurements, the card's name and power limit, and as its last
-line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
-script exits non-zero; without a CUDA device it exits non-zero at once.
+port's batcher gives the same greedy tokens on the card as on the CPU
+(qwen3-4b, deepseek-moe-16b and mixtral-8x7b at smoke size, on the paged,
+dense, token-at-a-time and rolling-window paths), then serves at full
+width, with random weights from a seed:
+
+* qwen3-4b on the paged pool (prefill, paged extend, paged decode);
+* qwen3-4b on the dense per-slot cache (dense decode), then token at a
+  time on the paged pool;
+* deepseek-moe-16b on the paged pool (the grouped GEMM in every MoE
+  layer).
+
+Prints each phase's wall time, one JSON line of kernel measurements, the
+card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``.  Any failed phase raises and the script exits
+non-zero; without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -34,10 +45,19 @@ HQ, HKV, DH, PAGE = 32, 8, 128, 16
 LAYERS, LAYER = 36, 17
 SLOTS, MAX_LEN, CHUNK, MAX_NEW = 8, 512, 32, 16
 SHARED, TAIL_LO, TAIL_HI = 64, 8, 64
+# deepseek-moe-16b's routed experts: count, d_model, expert width
+MOE_E, MOE_D, MOE_F = 64, 2048, 1408
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def timed(tag: str):
+    t0 = time.monotonic()
+    yield
+    log(f"[{tag}] phase wall {time.monotonic() - t0:.1f} s")
 
 
 def card() -> str:
@@ -116,11 +136,10 @@ def pages_read(kv_need, n_log):
     return sum(min(-(-n // PAGE), n_log) for n in kv_need)
 
 
-def main_path_prompts(seed: int = 0):
+def main_path_prompts(seed: int = 0, vocab: int = 151936):
     """The two waves of the main path: 8 prompts each, every prompt a
     64-token shared prefix plus its own tail of 8..64 tokens."""
     rng = np.random.default_rng(seed)
-    vocab = 151936
     shared = rng.integers(1, vocab, size=SHARED).astype(np.int32)
     waves = []
     for _ in range(2):
@@ -140,8 +159,12 @@ def check_kernels(dev, kernels: dict):
     PyTorch library call computing the same function."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        paged_decode_attention,
+    )
     from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref,
         paged_decode_attention_ref,
     )
     from repro_torch.kernels.flash_attention.ops import (
@@ -153,6 +176,8 @@ def check_kernels(dev, kernels: dict):
         gather_pages_ref,
         paged_extend_attention_ref,
     )
+    from repro_torch.kernels.moe_gmm.ops import gmm
+    from repro_torch.kernels.moe_gmm.ref import gmm_ref
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     # (q dtype, arena dtype, tolerance on max|err| / max|ref|, reason)
@@ -230,6 +255,73 @@ def check_kernels(dev, kernels: dict):
         torch.cuda.synchronize()
         hold("flash_attention", out, ref, tol, why,
              f"{dt} Sq{sq} Skv{skv} causal={causal} window={window}")
+
+    # dense decode: the DECODE_CASES of tests/test_kernels.py, then the
+    # main path's heads over S = 500 (not a multiple of the 32-slot key
+    # tile), in f32 and bf16
+    for b, hq, hkv, s_c, dh, dt in [
+            (2, 8, 2, 512, 64, f32), (4, 4, 4, 256, 128, bf16),
+            (1, 16, 2, 1024, 64, bf16), (3, 2, 1, 128, 32, f32),
+            (8, HQ, HKV, 500, DH, f32), (8, HQ, HKV, 500, DH, bf16)]:
+        tol, why = ((2e-2, "bf16 output rounding") if dt == bf16
+                    else (2e-5, "f32; summation order"))
+        q = torch.randn((b, 1, hq, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s_c, hkv, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s_c, hkv, dh), generator=gen, device=dev).to(dt)
+        kl = (torch.arange(b, dtype=torch.int32, device=dev) * 37
+              + s_c // 3) % s_c + 1
+        out = decode_attention(q, k, v, kl)
+        ref = decode_attention_ref(q[:, 0], k, v, kl)[:, None]
+        torch.cuda.synchronize()
+        hold("decode_attention", out, ref, tol, why,
+             f"{dt} B{b} Hq{hq} Hkv{hkv} S{s_c} Dh{dh}")
+    # a rolling buffer: 48 slots (not a multiple of the key tile) holding
+    # the last 48 positions at pos % 48, an empty slot, a 40-token window
+    kl = torch.tensor([130, 48, 20, 300], dtype=torch.int32, device=dev)
+    sp = torch.full((4, 48), -1, dtype=torch.int32, device=dev)
+    for b, n in enumerate(kl.tolist()):
+        p = torch.arange(max(n - 48, 0), n, dtype=torch.int32, device=dev)
+        sp[b, (p % 48).long()] = p
+    sp[1, 5] = -1
+    for dt, tol, why in [(f32, 2e-5, "f32; summation order"),
+                         (bf16, 2e-2, "bf16 output rounding")]:
+        q = torch.randn((4, 1, HQ, DH), generator=gen, device=dev).to(dt)
+        k = torch.randn((4, 48, HKV, DH), generator=gen, device=dev).to(dt)
+        v = torch.randn((4, 48, HKV, DH), generator=gen, device=dev).to(dt)
+        out = decode_attention(q, k, v, kl, slot_pos=sp, window=40)
+        ref = decode_attention_ref(q[:, 0], k, v, kl, slot_pos=sp,
+                                   window=40)[:, None]
+        torch.cuda.synchronize()
+        hold("decode_attention", out, ref, tol, why,
+             f"{dt} rolling S48 window40 slot_pos wrapped")
+
+    # grouped GEMM: the counts sweep of tests/test_kernels.py (all-zero
+    # and all-full included), then deepseek-moe-16b's decode (C 8) and
+    # 1024-token prefill (C 192) shapes, D 2048, F 1408, then C, D and F
+    # off every tile with F not a multiple of the 8-wide weight vectors
+    # (the element-wise loads), in bf16 and f32
+    for e_, c_, d_, f_, counts in [
+            (8, 256, 128, 256, [0, 5, 128, 256, 129, 200, 1, 64]),
+            (8, 256, 128, 256, [0] * 8), (8, 256, 128, 256, [256] * 8),
+            (MOE_E, 8, MOE_D, MOE_F, None), (MOE_E, 192, MOE_D, MOE_F, None),
+            (4, 40, 100, 44, [40, 0, 33, 1])]:
+        for dt, tol, why in [
+                (bf16, 2e-2, "bf16 output rounding"),
+                (f32, 1e-4, "f32; up to 2048-term sums in another order")]:
+            x = torch.randn((e_, c_, d_), generator=gen, device=dev).to(dt)
+            w = (torch.randn((e_, d_, f_), generator=gen, device=dev)
+                 * 0.05).to(dt)
+            cnt = (torch.tensor(counts, dtype=torch.int32, device=dev)
+                   if counts is not None else routed_counts(gen, dev, c_))
+            out = gmm(x, w, cnt)
+            ref = gmm_ref(x, w, cnt)
+            torch.cuda.synchronize()
+            pad = torch.arange(c_, device=dev)[None] >= cnt[:, None]
+            if out[pad].any():
+                raise AssertionError("gmm: a row past counts is not zero")
+            hold("gmm", out, ref, tol, why,
+                 f"{dt} E{e_} C{c_} D{d_} F{f_} "
+                 f"counts {'given' if counts else 'routed'}")
 
     # ---- timing at the main path's shapes (bf16) ----------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -310,12 +402,76 @@ def check_kernels(dev, kernels: dict):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kd, vd, attn_mask=mask), flush=flush),
         **bound(n_bytes, n_ops, bf16))
+    # dense decode: the main path's 8 rows over their 512-slot dense cache,
+    # half-way through the cold wave's 16 new tokens (the kernel stops each
+    # row's key walk at kv_len: a non-rolling cache passes no slot_pos)
+    k = torch.randn((SLOTS, MAX_LEN, HKV, DH), generator=gen,
+                    device=dev).to(bf16)
+    v = torch.randn((SLOTS, MAX_LEN, HKV, DH), generator=gen,
+                    device=dev).to(bf16)
+    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    q = torch.randn((SLOTS, 1, HQ, DH), generator=gen, device=dev).to(bf16)
+    ke, ve = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
+              .contiguous() for x in (k, v))
+    mask = (torch.arange(MAX_LEN, device=dev)[None] < kl[:, None]
+            )[:, None, None]
+    qt = q.transpose(1, 2).contiguous()
+    n_bytes = (2 * q.numel() * elem + 4 * SLOTS
+               + sum(kv_lens) * 2 * HKV * DH * elem)
+    n_ops = 4 * DH * HQ * sum(kv_lens)
+    kernels["decode_attention"].update(
+        shape=f"B{SLOTS} S{MAX_LEN} kv_len{min(kv_lens)}..{max(kv_lens)} "
+              f"Hq{HQ} Hkv{HKV} Dh{DH} bf16",
+        ms=time_ms(lambda: decode_attention(q, k, v, kl), flush=flush),
+        plain_ms=time_ms(lambda: decode_attention_ref(q[:, 0], k, v, kl),
+                         flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, attn_mask=mask), flush=flush),
+        **bound(n_bytes, n_ops, bf16))
+
+    # grouped GEMM: one deepseek-moe-16b decode call (8 tokens routed
+    # top-6 over 64 experts, C 8), and the 1024-token prefill call (C 192)
+    for c_, tag in ((8, "decode"), (192, "prefill")):
+        x = torch.randn((MOE_E, c_, MOE_D), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((MOE_E, MOE_D, MOE_F), generator=gen, device=dev)
+             * 0.05).to(bf16)
+        cnt = routed_counts(gen, dev, c_)
+        busy = int((cnt > 0).sum())
+        rows = int(cnt.sum())
+        n_bytes = (busy * MOE_D * MOE_F * elem + rows * MOE_D * elem
+                   + MOE_E * c_ * MOE_F * elem + 4 * MOE_E)
+        n_ops = 2 * rows * MOE_D * MOE_F
+        rep = dict(
+            shape=f"E{MOE_E} C{c_} D{MOE_D} F{MOE_F} bf16, {busy} experts "
+                  f"busy, {rows} rows",
+            ms=time_ms(lambda: gmm(x, w, cnt), flush=flush),
+            plain_ms=time_ms(lambda: gmm_ref(x, w, cnt), flush=flush),
+            library_ms=time_ms(lambda: torch.bmm(x, w), flush=flush),
+            **bound(n_bytes, n_ops, bf16))
+        if tag == "decode":
+            kernels["gmm"].update(rep)
+        else:
+            log(f"  gmm at the prefill shape {rep['shape']}: kernel "
+                f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
+                f"library {rep['library_ms']:.4f} ms, bound "
+                f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = e
     for name, rep in kernels.items():
         log(f"  {name:24s} {rep['shape']}: kernel {rep['ms']:.4f} ms, "
             f"plain {rep['plain_ms']:.4f} ms, library {rep['library_ms']:.4f}"
             f" ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+
+
+def routed_counts(gen, dev, capacity: int):
+    """Per-expert token counts of a top-6 routing over the 64 experts of
+    deepseek-moe-16b: ``capacity`` tokens at decode (8: dropless) or the
+    1024 tokens behind a capacity of 192 at prefill."""
+    tokens = capacity if capacity <= 64 else 1024
+    scores = torch.rand((tokens, MOE_E), generator=gen, device=dev)
+    topi = scores.topk(6, dim=-1).indices.reshape(-1)
+    return torch.bincount(topi, minlength=MOE_E).clamp(max=capacity).to(
+        torch.int32)
 
 
 def bound(n_bytes: int, n_ops: int, dtype) -> dict:
@@ -361,95 +517,110 @@ def phase_build():
 # --------------------------------------------------------------------------
 # phase 4: the port's batcher on the card == on the CPU (float32, smoke)
 # --------------------------------------------------------------------------
-def phase_parity(dev):
+# (name, arch, batcher options, weight seed, prompt seed, waves of prompt
+# tail lengths behind a 20-token shared prefix); seeds under which the
+# greedy tokens vary, so a mismatch cannot hide in a constant stream
+PARITY = [
+    ("qwen3-4b paged, cold and warm", "qwen3-4b",
+     dict(max_len=64, prefill_chunk=8), 0, 4, ([3, 9, 5], [6, 2])),
+    ("deepseek-moe-16b paged, cold and warm", "deepseek-moe-16b",
+     dict(max_len=64, prefill_chunk=8), 1, 4, ([3, 9, 5], [6, 2])),
+    ("qwen3-4b dense cache (kv_pool=None)", "qwen3-4b",
+     dict(max_len=64, prefill_chunk=8, kv_pool=None), 0, 4,
+     ([3, 9, 5], [6, 2])),
+    ("qwen3-4b token at a time (prefill_chunk=None)", "qwen3-4b",
+     dict(max_len=64, prefill_chunk=None), 0, 4, ([3, 9, 5], [6, 2])),
+    ("mixtral-8x7b rolling window 64 < max_len 128", "mixtral-8x7b",
+     dict(max_len=128, prefill_chunk=8), 0, 5, ([60, 45], [70])),
+]
+
+
+def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
+    """The same smoke model, weights and prompts through the port's
+    batcher on the CPU (plain versions) and on the card (kernels).
+    Returns ({device: {rid: tokens}}, {device: prefix-hit tokens})."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
     from repro_torch.models.param import params_from_numpy, tree_map
     from repro_torch.serve.batcher import ContinuousBatcher, Request
 
-    model = Model(smoke_config(get_arch("qwen3-4b")).replace(dtype="float32"))
-    ref_params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    model = Model(smoke_config(get_arch(arch)).replace(dtype="float32"))
+    ref_params = model.init(torch.Generator().manual_seed(weight_seed),
+                            device="cpu")
     host = tree_map(lambda t: t.numpy(), ref_params)
-    rng = np.random.default_rng(4)      # prompts with varied greedy tokens
+    rng = np.random.default_rng(prompt_seed)
     shared = rng.integers(1, model.cfg.vocab, size=20).astype(np.int32)
-    waves = [[np.concatenate([shared, rng.integers(1, model.cfg.vocab,
-                                                   size=n).astype(np.int32)])
-              for n in lens] for lens in ([3, 9, 5], [6, 2])]
-    outs = {}
+    prompts = [[np.concatenate([shared, rng.integers(
+        1, model.cfg.vocab, size=n).astype(np.int32)]) for n in lens]
+        for lens in waves]
+    toks, hits = {}, {}
     for device in ("cpu", dev):
-        params = params_from_numpy(host, dtype=torch.float32, device=device)
-        bat = ContinuousBatcher(model, params, batch_slots=2, max_len=64,
-                                prefill_chunk=8, page_size=8, device=device)
+        params = params_from_numpy(host, dtype=torch.float32, device=device,
+                                   specs=model.param_specs())
+        bat = ContinuousBatcher(model, params, batch_slots=2, page_size=8,
+                                device=device, **opts)
         rid = 0
-        for wave in waves:              # wave 2 hits wave 1's 16-token prefix
+        for wave in prompts:            # wave 2 hits wave 1's prefix
             for p in wave:
                 bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
                 rid += 1
             bat.run_until_drained()
-        outs[str(device)] = ({r.rid: r.output for r in bat.done},
-                             bat.pool.prefix_hit_tokens)
-    (cpu, cpu_hits), (card_, card_hits) = outs["cpu"], outs[str(dev)]
-    log(f"[4] smoke f32 greedy tokens, cpu {cpu}")
-    log(f"[4] smoke f32 greedy tokens, {dev} {card_}")
-    if card_ != cpu or card_hits != cpu_hits or not card_hits:
-        raise AssertionError(f"card tokens differ from cpu: {card_} vs {cpu} "
-                             f"(prefix hits {card_hits} vs {cpu_hits})")
-    log(f"[4] identical on {dev} (kernels) and cpu (plain versions), cold "
-        f"and warm ({card_hits} prefix-hit tokens)")
+        toks[str(device)] = {r.rid: r.output for r in bat.done}
+        hits[str(device)] = bat.pool.prefix_hit_tokens if bat.pool else 0
+    return toks, hits
+
+
+def phase_parity(dev):
+    for name, arch, opts, wseed, pseed, waves in PARITY:
+        toks, hits = parity_run(dev, arch, opts, wseed, pseed, waves)
+        cpu, card_ = toks["cpu"], toks[str(dev)]
+        log(f"[4] {name}: cpu {cpu}")
+        log(f"[4] {name}: {dev} {card_}")
+        if card_ != cpu or hits["cpu"] != hits[str(dev)]:
+            raise AssertionError(f"{name}: card tokens differ from cpu: "
+                                 f"{card_} vs {cpu} (prefix hits {hits})")
+        if opts.get("kv_pool", "auto") == "auto" and opts["prefill_chunk"] \
+                and arch != "mixtral-8x7b" and not hits["cpu"]:
+            raise AssertionError(f"{name}: no prefix hit in wave 2")
+        log(f"[4] {name}: identical on {dev} (kernels) and cpu (plain "
+            f"versions), {hits['cpu']} prefix-hit tokens")
 
 
 # --------------------------------------------------------------------------
-# phase 5: the main path at full width
+# phases 5-7: the main paths at full width
 # --------------------------------------------------------------------------
-def phase_main_path(dev, name_limit: str) -> dict:
-    """Full-width qwen3-4b (bf16, random weights from a seeded generator on
-    the card) behind the batcher: two waves of 8 requests, the second
-    sharing a 64-token prefix with the first (paged extend).  Returns the
-    launches of each kernel in this run and the end-to-end numbers."""
+def full_width(dev, arch: str, tag: str):
+    """(model, params) of ``arch`` at full width in bf16, random weights
+    drawn from a seeded generator on the card."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention,
-        paged_extend_attention,
-    )
     from repro_torch.models.model import Model
-    from repro_torch.serve.batcher import ContinuousBatcher, Request
-
-    cfg = get_arch("qwen3-4b")
+    cfg = get_arch(arch)
     model = Model(cfg)
     t0 = time.monotonic()
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     torch.cuda.synchronize()
-    log(f"[5] {cfg.name} full width: {model.n_params() / 1e9:.3f} B params "
-        f"({model.n_params() * 2 / 1e9:.2f} GB bf16), {cfg.num_layers} "
-        f"layers, init {time.monotonic() - t0:.1f} s")
+    log(f"[{tag}] {cfg.name} full width: {model.n_params() / 1e9:.3f} B "
+        f"params ({model.n_params() * 2 / 1e9:.2f} GB bf16), "
+        f"{cfg.num_layers} layers, init {time.monotonic() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    return model, params
 
-    def batcher():
-        return ContinuousBatcher(model, params, batch_slots=SLOTS,
-                                 max_len=MAX_LEN, page_size=PAGE,
-                                 prefill_chunk=CHUNK, device=dev)
 
-    # warm-up on a separate batcher (library handles, allocator pools)
-    warm = batcher()
-    warm.submit(Request(rid=-1, prompt=main_path_prompts(1)[0][0],
-                        max_new_tokens=2))
-    warm.run_until_drained()
-    del warm
-    torch.cuda.synchronize()
-
-    counters = (flash_attention, paged_extend_attention,
-                paged_decode_attention)
-    bat = batcher()
+def serve(bat, waves, counters, *, max_new=MAX_NEW):
+    """Drive ``bat`` through ``waves`` of prompts (draining between
+    waves) with every launch counter set to 0 just before.  Returns the
+    requests, the launches of each counter, the wall time and the wall
+    times of the steps that only decoded."""
+    from repro_torch.serve.batcher import Request
     for fn in counters:
         fn.launches = 0
     reqs, step_s = [], []
     t_start = time.monotonic()
-    for w, wave in enumerate(main_path_prompts()):
-        for i, p in enumerate(wave):
-            req = Request(rid=w * SLOTS + i, prompt=p,
-                          max_new_tokens=MAX_NEW)
+    for wave in waves:
+        for p in wave:
+            req = Request(rid=len(reqs), prompt=p, max_new_tokens=max_new)
             reqs.append(req)
             bat.submit(req)
         while bat.queue or any(r is not None for r in bat.slot_req):
@@ -461,85 +632,250 @@ def phase_main_path(dev, name_limit: str) -> dict:
                 step_s.append(time.monotonic() - t)
     torch.cuda.synchronize()
     wall = time.monotonic() - t_start
-    launches = {fn.__name__: fn.launches for fn in counters}
-    decode_steps = bat.decode_invocations
+    return reqs, {fn.__name__: fn.launches for fn in counters}, wall, step_s
 
-    # the main path went through all three kernels, every layer
-    L = cfg.num_layers
-    bad = [r.rid for r in reqs if len(r.output) != MAX_NEW
-           or not all(0 <= t < cfg.vocab for t in r.output)]
+
+def report(tag, name_limit, bat, reqs, wall, step_s, launches, vocab,
+           max_new=MAX_NEW) -> dict:
+    """Check every request finished with in-vocab tokens and print the
+    end-to-end numbers."""
+    bad = [r.rid for r in reqs if len(r.output) != max_new
+           or not all(0 <= t < vocab for t in r.output)]
     if bad:
-        raise AssertionError(f"requests {bad} did not finish with {MAX_NEW} "
+        raise AssertionError(f"requests {bad} did not finish with {max_new} "
                              "in-vocab tokens")
-    check_launches(launches, L, decode_steps)
-    pool = bat.pool
-    held = pool.pages_in_use - pool.evictable_pages()
-    if held or any(n.refs for n in pool.tree._walk()):
-        raise AssertionError(f"{held} pool pages still held after the drain")
-    if pool.prefix_hit_tokens < SLOTS * SHARED:
-        raise AssertionError(f"wave 2 hit only {pool.prefix_hit_tokens} "
-                             "prefix tokens")
     ttft = sorted(r.ttft for r in reqs)
     toks = sum(len(r.output) for r in reqs)
     e2e = {"tokens_per_s": toks / wall, "ttft_p50_s": float(np.median(ttft)),
            "decode_step_s": float(np.median(step_s)), "wall_s": wall,
-           "tokens": toks, "decode_steps": decode_steps,
+           "tokens": toks, "decode_steps": bat.decode_invocations,
            "prefill_invocations": bat.prefill_invocations,
-           "prefix_hit_tokens": pool.prefix_hit_tokens,
            "launches": launches}
-    log(f"[5] {len(reqs)} requests x {MAX_NEW} tokens, {decode_steps} decode "
-        f"steps, {bat.prefill_invocations} prefill invocations, "
-        f"{pool.prefix_hit_tokens} prefix-hit tokens; launches {launches}")
-    log(f"[5] {toks / wall:.1f} tokens/s, TTFT p50 "
+    log(f"[{tag}] {len(reqs)} requests x {max_new} tokens, "
+        f"{bat.decode_invocations} decode steps, {bat.prefill_invocations} "
+        f"prefill invocations; launches {launches}")
+    log(f"[{tag}] {toks / wall:.1f} tokens/s, TTFT p50 "
         f"{e2e['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
         f"{e2e['decode_step_s'] * 1e3:.2f} ms ({name_limit})")
     return e2e
 
 
-def check_launches(launches: dict, n_layers: int, decode_steps: int):
-    """Every kernel of the path launched; paged decode once per layer per
-    decode step."""
+def check_drained(pool, min_hits: int):
+    held = pool.pages_in_use - pool.evictable_pages()
+    if held or any(n.refs for n in pool.tree._walk()):
+        raise AssertionError(f"{held} pool pages still held after the drain")
+    if pool.prefix_hit_tokens < min_hits:
+        raise AssertionError(f"wave 2 hit only {pool.prefix_hit_tokens} "
+                             "prefix tokens")
+
+
+def expect(what: str, got: int, want: int):
+    if got != want:
+        raise AssertionError(f"{what}: {got} launches, expected {want}")
+
+
+def warm_up(bat_fn, vocab: int):
+    """One short request on a separate batcher (library handles, allocator
+    pools), before the counted run."""
+    from repro_torch.serve.batcher import Request
+    warm = bat_fn()
+    warm.submit(Request(rid=-1, prompt=main_path_prompts(1, vocab)[0][0],
+                        max_new_tokens=2))
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+
+
+def phase_main_path(dev, name_limit: str, model, params) -> dict:
+    """Full-width qwen3-4b behind the batcher on the paged pool: two waves
+    of 8 requests, the second sharing a 64-token prefix with the first
+    (paged extend).  Returns the launches of each kernel in this run and
+    the end-to-end numbers."""
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    cfg = model.cfg
+
+    def batcher():
+        return ContinuousBatcher(model, params, batch_slots=SLOTS,
+                                 max_len=MAX_LEN, page_size=PAGE,
+                                 prefill_chunk=CHUNK, device=dev)
+
+    warm_up(batcher, cfg.vocab)
+    bat = batcher()
+    counters = (flash_attention, paged_extend_attention,
+                paged_decode_attention)
+    reqs, launches, wall, step_s = serve(bat, main_path_prompts(), counters)
+    # the main path went through all three kernels, every layer
+    L = cfg.num_layers
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {launches}")
-    if launches["paged_decode_attention"] != n_layers * decode_steps:
-        raise AssertionError(f"paged decode launches {launches} != "
-                             f"{n_layers} x {decode_steps} decode steps")
+    expect("paged decode", launches["paged_decode_attention"],
+           L * bat.decode_invocations)
+    check_drained(bat.pool, SLOTS * SHARED)
+    e2e = report(5, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+    log(f"[5] {bat.pool.prefix_hit_tokens} prefix-hit tokens")
+    return e2e
+
+
+def phase_dense(dev, name_limit: str, model, params) -> dict:
+    """Full-width qwen3-4b on the dense per-slot cache (kv_pool=None): the
+    cold wave's 8 requests, chunked prefill, every decode step through the
+    dense decode kernel; then 2 short requests token at a time
+    (prefill_chunk=None) on the paged pool."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    cfg = model.cfg
+    L = cfg.num_layers
+
+    def batcher():
+        return ContinuousBatcher(model, params, batch_slots=SLOTS,
+                                 max_len=MAX_LEN, prefill_chunk=CHUNK,
+                                 kv_pool=None, device=dev)
+
+    warm_up(batcher, cfg.vocab)
+    bat = batcher()
+    counters = (decode_attention, paged_decode_attention, flash_attention)
+    reqs, launches, wall, step_s = serve(bat, main_path_prompts()[:1],
+                                         counters)
+    expect("dense decode", launches["decode_attention"],
+           L * bat.decode_invocations)
+    expect("paged decode on the dense cache",
+           launches["paged_decode_attention"], 0)
+    expect("prefill", launches["flash_attention"],
+           L * bat.prefill_invocations)
+    e2e = report(6, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+
+    tat = ContinuousBatcher(model, params, batch_slots=2, max_len=MAX_LEN,
+                            page_size=PAGE, prefill_chunk=None, device=dev)
+    short = [main_path_prompts(2, cfg.vocab)[0][i][:12] for i in range(2)]
+    reqs, tl, wall, step_s = serve(tat, [short], counters, max_new=4)
+    expect("token at a time: prefill", tl["flash_attention"], 0)
+    expect("token at a time: paged decode", tl["paged_decode_attention"],
+           L * tat.decode_invocations)
+    expect("token at a time: dense decode", tl["decode_attention"], 0)
+    check_drained(tat.pool, 0)
+    e2e["token_at_a_time"] = report("6b", name_limit, tat, reqs, wall,
+                                    step_s, tl, cfg.vocab, max_new=4)
+    return e2e
+
+
+def phase_moe(dev, name_limit: str) -> dict:
+    """Full-width deepseek-moe-16b behind the batcher on the paged pool,
+    the two waves of phase 5: every MoE layer runs the grouped GEMM for
+    its gate, up and down products, in every prefill, extend and decode
+    invocation."""
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.kernels.moe_gmm.ops import gmm
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    model, params = full_width(dev, "deepseek-moe-16b", 7)
+    cfg = model.cfg
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+
+    def batcher():
+        return ContinuousBatcher(model, params, batch_slots=SLOTS,
+                                 max_len=MAX_LEN, page_size=PAGE,
+                                 prefill_chunk=CHUNK, device=dev)
+
+    warm_up(batcher, cfg.vocab)
+    bat = batcher()
+    counters = (gmm, flash_attention, paged_extend_attention,
+                paged_decode_attention)
+    reqs, launches, wall, step_s = serve(
+        bat, main_path_prompts(0, cfg.vocab), counters)
+    invocations = bat.decode_invocations + bat.prefill_invocations
+    expect("grouped GEMM (3 per MoE layer per invocation)", launches["gmm"],
+           3 * n_moe * invocations)
+    expect("paged decode", launches["paged_decode_attention"],
+           cfg.num_layers * bat.decode_invocations)
+    expect("prefill + paged extend", launches["flash_attention"]
+           + launches["paged_extend_attention"],
+           cfg.num_layers * bat.prefill_invocations)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    check_drained(bat.pool, SLOTS * SHARED)
+    e2e = report(7, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+    log(f"[7] {bat.pool.prefix_hit_tokens} prefix-hit tokens, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    return e2e
 
 
 KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36"},
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "path": 5},
     "paged_extend_attention": {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:142"},
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:142",
+        "path": 5},
     "paged_decode_attention": {
         "source": "src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:134"},
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:134",
+        "path": 5},
+    "decode_attention": {
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:48",
+        "path": 6},
+    "gmm": {
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
+        "path": 7},
 }
 
 
 def main() -> int:
+    t_all = time.monotonic()
     name_limit = phase_env()
     dev = torch.device("cuda")
-    phase_build()
+    with timed(2):
+        phase_build()
     kernels = {name: dict(meta) for name, meta in KERNELS.items()}
     log("[3] kernels against their plain versions on the card")
-    check_kernels(dev, kernels)
-    phase_parity(dev)
-    e2e = phase_main_path(dev, name_limit)
+    with timed(3):
+        check_kernels(dev, kernels)
+    with timed(4):
+        phase_parity(dev)
+    runs = {}
+    with timed(5):
+        model, params = full_width(dev, "qwen3-4b", 5)
+        runs[5] = phase_main_path(dev, name_limit, model, params)
+    with timed(6):
+        runs[6] = phase_dense(dev, name_limit, model, params)
+    del model, params               # make room for deepseek-moe-16b
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed(7):
+        runs[7] = phase_moe(dev, name_limit)
     rows = []
     for name, rep in kernels.items():
         rows.append({"name": name, "route": "cuda", "source": rep["source"],
                      "replaces": rep["replaces"],
-                     "launches": e2e["launches"][name],
+                     "launches": runs[rep["path"]]["launches"][name],
                      "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                      "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                      "bound_by": rep["bound_by"],
                      "library_ms": rep["library_ms"]})
+    log(f"[all] wall {time.monotonic() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(name_limit, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Paged decode attention: dispatch by device, plus the LSE combine.
+"""Dense and paged decode attention: dispatch by device, plus the LSE
+combine.
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the hand-written kernel in ``csrc/decode_attention.cu`` or raises.  There
@@ -6,11 +7,70 @@ is no fallback from one to the other.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._paged import arena_args
-from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref,
+    paged_decode_attention_ref,
+)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, slot_pos=None,
+                     window: Optional[int] = None):
+    """q: (B, 1, Hq, Dh) vs dense per-slot caches -> (B, 1, Hq, Dh).
+
+    k/v_cache: (B, S, Hkv, Dh); kv_len: (B,); slot_pos: (B, S) int32
+    absolute position per slot (-1 empty; a rolling buffer), or None
+    meaning slot i holds position i; window: attend only positions
+    ``> kv_len-1-window``.  ``decode_attention.launches`` counts kernel
+    launches."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q[:, 0], k_cache, v_cache, kv_len,
+                                    slot_pos=slot_pos, window=window)[:, None]
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode kernel for device {q.device}")
+    B, S1, Hq, Dh = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    if (S1 != 1 or k_cache.shape != (B, S, Hkv, Dh) or Hq % Hkv
+            or v_cache.shape != k_cache.shape):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} cache "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    if v_cache.stride() != k_cache.stride():
+        raise ValueError("k and v caches must share strides")
+    if k_cache.dtype != q.dtype or q.dtype not in (torch.float32,
+                                                  torch.bfloat16):
+        raise ValueError(f"q {q.dtype} and cache {k_cache.dtype} must share "
+                         "a float32 or bfloat16 dtype")
+    if q.stride(-1) != 1 or k_cache.stride(-1) != 1:
+        raise ValueError("the head dim of q and the caches must be contiguous")
+    if slot_pos is not None and (slot_pos.shape != (B, S)
+                                 or slot_pos.dtype != torch.int32):
+        raise ValueError("slot_pos must be an int32 (B, S) tensor")
+    for t in (k_cache, v_cache, slot_pos):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"tensor on {t.device}, q on {q.device}")
+    if kv_len.shape != (B,):
+        raise ValueError("kv_len needs one entry per query row")
+    kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    sp_strides = slot_pos.stride() if slot_pos is not None else (0, 0)
+    out = torch.empty((B, 1, Hq, Dh), dtype=q.dtype, device=q.device)
+    fn = _build.kernel("rt_decode_attention", "PLLI PPLLL PLL PI PLL IIIII P")
+    rc = fn(q.data_ptr(), q.stride(0), q.stride(2), _build.DTYPE_CODE[q.dtype],
+            k_cache.data_ptr(), v_cache.data_ptr(), *k_cache.stride()[:3],
+            _build.ptr(slot_pos), *sp_strides, kl.data_ptr(),
+            -1 if window is None else int(window),
+            out.data_ptr(), out.stride(0), out.stride(2),
+            B, Hkv, Hq // Hkv, Dh, S, _build.stream_ptr(q.device))
+    decode_attention.launches += 1
+    _build.check(rc, "decode_attention")
+    return out
+
+
+decode_attention.launches = 0
 
 
 def paged_decode_attention(q, k_arena, v_arena, slot_pos, block_table,

@@ -1,10 +1,15 @@
-"""Profile the paged decode step of the port on the card.
+"""Profile the decode step of the port on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         --slots 8 --prompt-len 128 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
+        --arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --dense
 
-Builds full-width qwen3-4b (bf16, random weights from a seed, max_len
-512) and admits one wave of ``--slots`` prompts through the batcher.
+Builds ``--arch`` at full width (bf16, random weights from a seed,
+max_len 512; qwen3-4b by default) and admits one wave of ``--slots``
+prompts through the batcher, on the paged pool or, with ``--dense``, on
+the dense per-slot cache.
 Then it times ``--steps`` decode steps, runs ``--steps`` more under
 ``torch.profiler`` (which slows the host), and prints the wall time of
 each step, the device-busy time and idle share of the profiled window,
@@ -46,15 +51,19 @@ def main(argv=None):
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=128)
     p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--arch", default="qwen3-4b")
+    p.add_argument("--dense", action="store_true",
+                   help="the dense per-slot cache (kv_pool=None)")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
-    arch = get_arch("qwen3-4b")
+    arch = get_arch(args.arch)
     model = build_model(arch)
     params = model.init(torch.Generator(device=device).manual_seed(0),
                         device=device)
     bat = ContinuousBatcher(model, params, batch_slots=args.slots,
-                            max_len=512, device=device)
+                            max_len=512, device=device,
+                            kv_pool=None if args.dense else "auto")
     rng = np.random.default_rng(0)
     for rid in range(args.slots):
         prompt = rng.integers(1, arch.vocab, size=args.prompt_len)
@@ -78,7 +87,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         window = time.monotonic() - t_window
     busy = _busy_us(prof.events()) / 1e6
-    print(f"[profile] {arch.name}: {args.slots} slots, prompts "
+    print(f"[profile] {arch.name} ({'dense' if args.dense else 'paged'} "
+          f"cache): {args.slots} slots, prompts "
           f"{args.prompt_len} tokens, {args.steps} decode steps on "
           f"{torch.cuda.get_device_name(device)}")
     for name, ws in (("unprofiled", plain), ("profiled", walls)):

@@ -44,6 +44,17 @@ def slice_cache_slots(cache: Any, axes: Any, slots: Sequence[int]) -> Any:
     return tree_map(take, cache, axes)
 
 
+def merge_cache_slots(dst: Any, src: Any, axes: Any,
+                      slots: Sequence[int]) -> Any:
+    """Write ``src`` rows (batch dim ``len(slots)``) into ``dst`` at
+    ``slots``, in place.  Returns ``dst``."""
+    def put(d, s, a):
+        d.index_copy_(a, torch.as_tensor(list(slots), device=d.device),
+                      s.to(d.dtype))
+        return d
+    return tree_map(put, dst, src, axes)
+
+
 def kv_cache_nodes(cache: dict) -> list:
     """The cache's KV nodes, in sorted-key order."""
     return [cache[k] for k in sorted(cache) if _is_kv(cache[k])]

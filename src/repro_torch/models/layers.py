@@ -2,10 +2,11 @@
 
 Attention dispatches on the device of its inputs.  On a CUDA tensor it
 runs the hand-written kernels (``kernels/flash_attention`` for prefill and
-paged extend, ``kernels/decode_attention`` for paged decode); on a CPU
-tensor it runs the plain ``chunked_attention``, ``decode_attention_ref``
-and ``extend_attention_ref`` below, the same math the JAX package runs on
-its CPU path.  Sharding constraints of the JAX layers are left out.
+paged extend, ``kernels/decode_attention`` for paged and dense decode); on
+a CPU tensor it runs the plain ``chunked_attention``,
+``decode_attention_ref`` and ``extend_attention_ref`` below, the same math
+the JAX package runs on its CPU path.  Sharding constraints of the JAX
+layers are left out.
 """
 from __future__ import annotations
 
@@ -16,7 +17,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.decode_attention import ref as decode_ref
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    paged_decode_attention,
+)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     paged_extend_attention,
@@ -137,26 +142,11 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len, *,
 
     q: (B, 1, Hq, Dh); k/v_cache: (B, S, Hkv, Dh); kv_len: (B,) valid
     count; slot_pos: (B, S) absolute position per slot, or None meaning
-    slot i holds position i.  Returns (B, 1, Hq, Dh)."""
-    B, S, Hkv, Dh = k_cache.shape
-    Hq = q.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, Dh)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.to(F32),
-                     k_cache.to(F32)) / math.sqrt(Dh)
-    if slot_pos is None:
-        pos = torch.arange(S, device=q.device)[None].expand(B, S)
-    else:
-        pos = slot_pos
-    kl = kv_len[:, None]
-    valid = pos < kl
-    if window is not None:
-        valid &= pos > (kl - 1 - window)
-    valid &= pos >= 0
-    s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(F32))
-    return out.reshape(B, 1, Hq, Dh).to(q.dtype)
+    slot i holds position i.  Returns (B, 1, Hq, Dh).  The dense decode
+    kernel's plain version, in the model's layout."""
+    return decode_ref.decode_attention_ref(
+        q[:, 0], k_cache, v_cache, kv_len, slot_pos=slot_pos,
+        window=window)[:, None]
 
 
 def extend_attention_ref(q, k_cache, v_cache, slot_pos, q_pos, *,
@@ -377,8 +367,9 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
     """Full attention sublayer.  Returns (out (B,S,D), updated cache).
 
     ``prefill`` (cache: a dense KVSlice fixing the cache length) returns a
-    fresh KVSlice; ``extend`` and ``decode`` take a :class:`PagedKVCache`
-    and update its arena in place."""
+    fresh KVSlice; ``extend`` takes a :class:`PagedKVCache` and ``decode``
+    a PagedKVCache or a dense KVSlice, and both update the cache in
+    place."""
     B, S, _ = x.shape
     window = cfg.sliding_window
     on_card = x.is_cuda
@@ -405,11 +396,35 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
             sp = torch.arange(S - S_c, S, dtype=torch.int32, device=x.device)
             new_cache = KVSlice(k=k[:, -S_c:], v=v[:, -S_c:],
                                 slot_pos=sp[None].expand(B, S_c).contiguous())
+    elif mode == "decode" and isinstance(cache, KVSlice):
+        q, k, v = qkv_project(p, x, cfg, pos[:, None])        # S == 1
+        S_c = cache.k.shape[1]
+        rolling = window is not None and S_c <= window
+        if rolling:
+            slot = pos.long() % S_c
+        else:
+            slot = pos.long().clamp(max=S_c - 1)
+        # in place, with 1-D index tensors: nothing is read back to the host
+        rows = torch.arange(B, device=x.device)
+        cache.k.index_put_((rows, slot), k[:, 0])
+        cache.v.index_put_((rows, slot), v[:, 0])
+        cache.slot_pos.index_put_((rows, slot), pos.to(torch.int32))
+        # Outside a rolling buffer every slot s below kv_len = pos + 1 holds
+        # position s (prefill writes position s to slot s, decode position
+        # pos to slot pos; padding at or past a prompt's length is
+        # overwritten before kv_len reaches it), so the slot_pos mask of
+        # JAX's decode_attention_ref reduces to s < kv_len and the kernel
+        # stops its key walk there.  A rolling buffer's positions lie
+        # anywhere: it passes its slot_pos plane and the kernel walks it all.
+        out = decode_attention(q, cache.k, cache.v, pos + 1,
+                               slot_pos=cache.slot_pos if rolling else None,
+                               window=window)
+        new_cache = cache
     elif mode in ("extend", "decode"):
         if not isinstance(cache, PagedKVCache):
             raise NotImplementedError(
-                f"{mode} over a dense per-slot cache needs the dense decode "
-                "kernel (ROADMAP queue 2 item 4)")
+                "extend over a dense per-slot cache comes with the snapshot "
+                "restore of ssm/hybrid (ROADMAP queue 1 item 8)")
         if mode == "extend":
             positions = pos[:, None] + torch.arange(
                 S, dtype=torch.int32, device=x.device)[None, :]

@@ -1,11 +1,14 @@
-"""Model assembly for the dense (and vlm) families: specs, init, caches,
-prefill, ranged prefill, suffix extend and decode.
+"""Model assembly for the dense, vlm and moe families: specs, init,
+caches, prefill, ranged prefill, suffix extend and decode.
 
 The JAX ``Model`` scans a layer function over stacked parameters; here a
-plain Python loop walks the stacked ``(L, ...)`` leaves.  A paged cache
+plain Python loop walks the stacked ``(L, ...)`` leaves, stack by stack
+(DeepSeekMoE: its leading dense layers, then the MoE layers), each stack
+with its own cache node.  A paged cache
 (:class:`~repro_torch.models.layers.PagedKVCache`) is not stacked per
-layer: one arena serves every layer, the loop rebinds the view's ``layer``
-index, and attention updates the arena in place.
+layer: one arena per stack serves its layers, the loop rebinds the view's
+``layer`` index, and attention updates the arena in place.  Decode over a
+dense per-slot cache also writes the stacked cache in place.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from repro_torch.models.param import (
 )
 
 #: ROADMAP queue 1 item that ports each family not yet ported
-FAMILY_ITEM = {"moe": 6, "encdec": 7, "ssm": 8, "hybrid": 8}
+FAMILY_ITEM = {"encdec": 7, "ssm": 8, "hybrid": 8}
 
 
 def stack_specs(specs, n: int):
@@ -54,10 +57,10 @@ def stack_specs(specs, n: int):
 
 
 class Model:
-    """The serving surface of one dense architecture."""
+    """The serving surface of one dense or MoE architecture."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("dense", "vlm"):
+        if cfg.family not in ("dense", "vlm", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
                 f"item {FAMILY_ITEM.get(cfg.family, '?')})")
@@ -75,9 +78,27 @@ class Model:
         }
         if not cfg.tie_embeddings:
             specs["out"] = out_spec(d, self.vocab_padded)
-        specs["layers"] = stack_specs(tfm.dense_layer_specs(cfg),
-                                      cfg.num_layers)
+        if cfg.family != "moe":
+            specs["layers"] = stack_specs(tfm.dense_layer_specs(cfg),
+                                          cfg.num_layers)
+            return specs
+        fd = cfg.moe.first_dense_layers
+        if fd:
+            specs["dense_layers"] = stack_specs(
+                tfm.dense_layer_specs(cfg, d_ff=cfg.moe.dense_d_ff), fd)
+        specs["moe_layers"] = stack_specs(tfm.moe_layer_specs(cfg),
+                                          cfg.num_layers - fd)
         return specs
+
+    def _stacks(self):
+        """(params / cache key, layer function, depth) of each layer stack,
+        in the order the layers run."""
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return [("layers", tfm.dense_layer, cfg.num_layers)]
+        fd = cfg.moe.first_dense_layers
+        out = [("dense_layers", tfm.dense_layer, fd)] if fd else []
+        return out + [("moe_layers", tfm.moe_layer, cfg.num_layers - fd)]
 
     def init(self, generator: torch.Generator, device="cuda"):
         """Random parameters on ``device`` drawn from ``generator`` (a
@@ -93,8 +114,8 @@ class Model:
 
     # -- caches ----------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int):
-        return {"layers": stack_specs(kv_slice_specs(self.cfg, batch, max_len),
-                                      self.cfg.num_layers)}
+        kv = kv_slice_specs(self.cfg, batch, max_len)
+        return {key: stack_specs(kv, n) for key, _, n in self._stacks()}
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return init_params(self.cache_specs(batch, max_len), None,
@@ -118,32 +139,39 @@ class Model:
         return logits_fn(x, w, self.cfg.vocab)
 
     def _backbone(self, params, x, *, mode: str, cache=None, pos=None):
-        """The layer loop.  A dense KVSlice cache is read per layer and the
-        new per-layer slices are stacked back; a PagedKVCache rides the
-        loop with its ``layer`` rebound and its arena updated in place."""
+        """The layer loop over every stack.  In prefill a dense KVSlice
+        cache is read per layer and the new per-layer slices are stacked
+        back; decode writes a dense stacked cache in place, through the
+        per-layer views; a PagedKVCache rides the loop with its ``layer``
+        rebound and its arena updated in place."""
         cfg = self.cfg
-        stacked = params["layers"]
-        node = None if cache is None else cache["layers"]
-        paged = isinstance(node, PagedKVCache)
-        new_slices = []
-        for i in range(cfg.num_layers):
-            lp = tree_map(lambda a: a[i], stacked)
+        new_cache = {}
+        for key, layer_fn, n in self._stacks():
+            stacked = params[key]
+            node = None if cache is None else cache[key]
+            in_place = isinstance(node, PagedKVCache) or mode == "decode"
+            new_slices = []
+            for i in range(n):
+                lp = tree_map(lambda a: a[i], stacked)
+                if node is None:
+                    csl = None
+                elif isinstance(node, PagedKVCache):
+                    csl = node._replace(layer=i)
+                else:
+                    csl = KVSlice(*(a[i] for a in node))
+                x, ncsl = layer_fn(lp, x, cfg, mode=mode, cache=csl, pos=pos)
+                if not in_place and ncsl is not None:
+                    new_slices.append(ncsl)
             if node is None:
-                csl = None
-            elif paged:
-                csl = node._replace(layer=i)
+                continue
+            if isinstance(node, PagedKVCache):
+                new_cache[key] = node._replace(layer=0)
+            elif in_place:
+                new_cache[key] = node
             else:
-                csl = KVSlice(*(a[i] for a in node))
-            x, ncsl = tfm.dense_layer(lp, x, cfg, mode=mode, cache=csl,
-                                      pos=pos)
-            if not paged and ncsl is not None:
-                new_slices.append(ncsl)
-        if cache is None:
-            return x, {}
-        if paged:
-            return x, {"layers": node._replace(layer=0)}
-        return x, {"layers": KVSlice(*(torch.stack(f)
-                                       for f in zip(*new_slices)))}
+                new_cache[key] = KVSlice(*(torch.stack(f)
+                                           for f in zip(*new_slices)))
+        return x, new_cache
 
     def _last_logits(self, params, x, length):
         last = (length.long() - 1).clamp(0, x.shape[1] - 1)

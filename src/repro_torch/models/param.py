@@ -93,9 +93,15 @@ def _init_leaf(spec: PSpec, generator, dtype: torch.dtype, device):
             raise ValueError("normal-initialised parameters need a generator")
         fan_in = spec.shape[spec.init[1]]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-        x = torch.randn(spec.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * scale).to(dtype)
+        # drawn in float32 one leading slice at a time, so the float32
+        # temporary is one layer's, not the whole stack's (deepseek-moe-16b's
+        # routed experts are 5 G values per stack)
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        for part in (out if out.dim() > 1 else [out]):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=device, dtype=torch.float32)
+                       .mul_(scale))
+        return out
     if kind == "const":
         return torch.full(spec.shape, spec.init[1], dtype=dtype, device=device)
     raise NotImplementedError(
@@ -118,14 +124,19 @@ def count_params(spec_tree) -> int:
                    for s in tree_leaves(spec_tree, is_leaf=is_pspec)))
 
 
-def params_from_numpy(tree, *, dtype: torch.dtype, device):
+def params_from_numpy(tree, *, dtype: torch.dtype, device, specs=None):
     """The weight bridge: a tree of numpy arrays -> the same tree of
-    tensors on ``device``.  Floating leaves become ``dtype``; integer
-    leaves keep theirs.  The caller hands floats over as float32, because
-    ``torch.from_numpy`` takes no bfloat16."""
-    def leaf(a):
+    tensors on ``device``.  Floating leaves become ``dtype``, except where
+    ``specs`` (the model's PSpec tree) pins a leaf's own dtype, as it pins
+    the MoE router to float32; integer leaves keep theirs.  The caller
+    hands floats over as float32, because ``torch.from_numpy`` takes no
+    bfloat16."""
+    def leaf(a, spec=None):
         t = torch.from_numpy(np.array(a))
         if t.is_floating_point():
-            t = t.to(dtype)
+            t = t.to(DTYPES[spec.dtype] if spec is not None and spec.dtype
+                     else dtype)
         return t.to(device)
-    return tree_map(leaf, tree)
+    if specs is None:
+        return tree_map(leaf, tree)
+    return tree_map(leaf, tree, specs)

@@ -428,6 +428,10 @@ class KVPool:
         return PrefixLease(nodes=nodes, page_size=self.page_size,
                            foreign=foreign)
 
+    def empty_lease(self) -> PrefixLease:
+        """A zero-page lease (a token-at-a-time admit)."""
+        return PrefixLease(nodes=[], page_size=self.page_size)
+
     def release_lease(self, lease: PrefixLease):
         if lease is None or lease.released:
             return

@@ -1,9 +1,10 @@
-"""Serving programs: chunked prefill and sampling.
+"""Serving programs: chunked prefill, dense decode and sampling.
 
 Prompts are padded to *chunk buckets* (multiples of the batcher's
 ``prefill_chunk``) and same-bucket prompts share one
 ``Model.prefill_ranged`` invocation; the first output token is sampled
-from the same invocation.  The paged decode and extend steps live in
+from the same invocation.  ``build_serve_step`` decodes over a dense
+per-slot cache; the paged decode and extend steps live in
 ``serve/kvpool.py``.
 """
 from __future__ import annotations
@@ -49,6 +50,16 @@ def build_prefill_step(model: Model, temperature: float = 0.0) -> Callable:
         logits, cache = model.prefill_ranged(params, batch, cache)
         return sample_tokens(logits, generator, temperature), logits, cache
     return prefill_step
+
+
+def build_serve_step(model: Model, temperature: float = 0.0) -> Callable:
+    """serve_step(params, cache, batch, generator) -> (next_tokens, logits,
+    cache): one decode step over a dense per-slot cache, which it updates
+    in place.  ``batch`` = {tokens (B, 1), pos (B,)}."""
+    def serve_step(params, cache, batch, generator):
+        logits, cache = model.decode(params, cache, batch)
+        return sample_tokens(logits, generator, temperature), logits, cache
+    return serve_step
 
 
 def run_prefill_prompts(step_fn: Callable, params, scratch_cache, prompts,

@@ -7,10 +7,12 @@ every test here skips.  On the card:
 
 Cases follow ``tests/test_kernels.py`` and ``tests/test_paged_kernels.py``
 (MHA/GQA/MQA, multi-layer arenas, ragged lengths, P not dividing them,
-sentinel rows, int8), plus q lengths that are not a multiple of the
-kernels' q tiles.  Tolerances: rel < 2e-5 in float32 (summation order),
-2e-4 for int8 arenas in float32 (same dequantised values), 2e-2 in bf16
-(output rounding).
+sentinel rows, int8, the grouped GEMM's counts sweep), plus q lengths,
+cache lengths and GEMM shapes that are not a multiple of the kernels'
+tiles, and a rolling-window dense cache.  Tolerances: rel < 2e-5 in
+float32 attention (summation order), 1e-4 in the float32 grouped GEMM
+(2048-term sums in another order), 2e-4 for int8 arenas in float32 (same
+dequantised values), 2e-2 in bf16 (output rounding).
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref,
     paged_decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
@@ -26,6 +29,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
     paged_extend_attention_ref,
 )
+from repro_torch.kernels.moe_gmm import ops as gops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import gmm_ref  # noqa: E402
 from repro_torch.models.cache_utils import quantize_page  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -154,3 +159,87 @@ def test_paged_extend_kernel(dev, case, quant):
                                      L - 1, **sc).transpose(1, 2)
     torch.cuda.synchronize()
     assert _rel(out, ref) < (2e-4 if quant else 2e-5)
+
+
+# the dense decode cases of tests/test_kernels.py (B, Hq, Hkv, S, Dh,
+# dtype), then S not a multiple of the 32-slot key tile
+DENSE_DECODE = [
+    (2, 8, 2, 512, 64, torch.float32),
+    (4, 4, 4, 256, 128, torch.bfloat16),
+    (1, 16, 2, 1024, 64, torch.bfloat16),
+    (3, 2, 1, 128, 32, torch.float32),
+    (3, 32, 8, 100, 128, torch.float32),
+]
+
+
+def _dense_cache(dev, B, Hq, Hkv, S, Dh, dt, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, Hq, Dh), generator=g, device=dev).to(dt)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(dt)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(dt)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", DENSE_DECODE)
+def test_dense_decode_kernel(dev, case):
+    B, Hq, Hkv, S, Dh, dt = case
+    q, k, v = _dense_cache(dev, B, Hq, Hkv, S, Dh, dt)
+    kl = (torch.arange(B, dtype=torch.int32, device=dev) * 37 + S // 3) % S + 1
+    n0 = dops.decode_attention.launches
+    out = dops.decode_attention(q, k, v, kl)
+    ref = decode_attention_ref(q[:, 0], k, v, kl)
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == n0 + 1
+    assert _rel(out[:, 0], ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_rolling_window(dev, dt):
+    """A rolling buffer of S = 48 slots (not a multiple of the key tile)
+    holding the last 48 positions of a longer sequence, wrapped at
+    pos % S, with a window of 40 and an empty slot."""
+    B, Hq, Hkv, S, Dh = 3, 8, 2, 48, 64
+    q, k, v = _dense_cache(dev, B, Hq, Hkv, S, Dh, dt, seed=1)
+    kv_len = torch.tensor([130, 48, 20], dtype=torch.int32, device=dev)
+    sp = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    for b, n in enumerate(kv_len.tolist()):
+        p = torch.arange(max(n - S, 0), n, dtype=torch.int32, device=dev)
+        sp[b, (p % S).long()] = p
+    sp[1, 5] = -1
+    out = dops.decode_attention(q, k, v, kv_len, slot_pos=sp, window=40)
+    ref = decode_attention_ref(q[:, 0], k, v, kv_len, slot_pos=sp, window=40)
+    torch.cuda.synchronize()
+    assert _rel(out[:, 0], ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+# the counts sweep of tests/test_kernels.py (E 8, C 256, D 128, F 256),
+# then deepseek-moe-16b's decode and prefill shapes (C 8 and 192, D 2048,
+# F 1408) on 4 experts, neither C nor F a multiple of the kernel's tiles,
+# then C, D and F all ragged with F not a multiple of the 8-wide vectors
+GMM = [
+    (8, 256, 128, 256, [0, 5, 128, 256, 129, 200, 1, 64]),
+    (8, 256, 128, 256, [0] * 8),
+    (8, 256, 128, 256, [256] * 8),
+    (4, 8, 2048, 1408, [3, 0, 8, 1]),
+    (4, 192, 2048, 1408, [192, 77, 0, 150]),
+    (4, 40, 100, 44, [40, 0, 33, 1]),   # F % 8 != 0: element-wise loads
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GMM)
+def test_gmm_kernel(dev, case, dt):
+    E, C, D, F, counts = case
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((E, C, D), generator=g, device=dev).to(dt)
+    w = (torch.randn((E, D, F), generator=g, device=dev) * 0.05).to(dt)
+    c = torch.tensor(counts, dtype=torch.int32, device=dev)
+    n0 = gops.gmm.launches
+    out = gops.gmm(x, w, c)
+    ref = gmm_ref(x, w, c)
+    torch.cuda.synchronize()
+    assert gops.gmm.launches == n0 + 1
+    for e, n in enumerate(counts):
+        assert not out[e, n:].any()          # padding rows exactly zero
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    assert _rel(out, ref) < tol

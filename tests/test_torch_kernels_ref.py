@@ -1,10 +1,13 @@
-"""The port's plain attention versions against the JAX oracles (CPU).
+"""The port's plain kernel versions against the JAX oracles (CPU).
 
 The same seeded numpy inputs go through the JAX oracle and the port's
 plain PyTorch version, over the cases of ``tests/test_kernels.py``
-(``FLASH_CASES``) and ``tests/test_paged_kernels.py`` (``DECODE_CASES`` /
-``EXTEND_CASES``), at those tests' tolerances.  On CPU tensors the port's
-``ops`` wrappers take the plain version and launch nothing.
+(``FLASH_CASES``, ``DECODE_CASES``, the grouped GEMM's counts sweep) and
+``tests/test_paged_kernels.py`` (``DECODE_CASES`` / ``EXTEND_CASES``), at
+those tests' tolerances; the dense decode version also against the
+rolling-window ``repro.models.layers.decode_attention_ref``.  On CPU
+tensors the port's ``ops`` wrappers take the plain version and launch
+nothing.
 """
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.decode_attention import (  # noqa: E402
+    decode_attention_ref,
     lse_combine as jax_lse_combine,
     paged_decode_attention_ref,
 )
@@ -23,9 +27,14 @@ from repro.kernels.flash_attention import (  # noqa: E402
     attention_ref,
     paged_extend_attention_ref,
 )
+from repro.kernels.moe_gmm import gmm_ref  # noqa: E402
 from repro.models.cache_utils import quantize_page as jax_quantize_page  # noqa: E402
+from repro.models.layers import (  # noqa: E402
+    decode_attention_ref as jax_layers_decode_ref,
+)
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as torch_decode_ref,
     paged_decode_attention_ref as torch_paged_decode_ref,
 )
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
@@ -33,11 +42,14 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref as torch_attention_ref,
     paged_extend_attention_ref as torch_paged_extend_ref,
 )
+from repro_torch.kernels.moe_gmm import ops as gops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import gmm_ref as torch_gmm_ref  # noqa: E402
 from repro_torch.models.cache_utils import (  # noqa: E402
     dequantize_page,
     quantize_page,
 )
 
+from test_kernels import DECODE_CASES as DENSE_DECODE_CASES  # noqa: E402
 from test_kernels import FLASH_CASES  # noqa: E402
 from test_paged_kernels import DECODE_CASES, EXTEND_CASES  # noqa: E402
 
@@ -46,6 +58,9 @@ jax_attention_ref = jax.jit(attention_ref,
                             static_argnames=("causal", "window"))
 jax_paged_decode_ref = jax.jit(paged_decode_attention_ref)
 jax_paged_extend_ref = jax.jit(paged_extend_attention_ref)
+jax_decode_ref = jax.jit(decode_attention_ref)
+jax_layers_decode = jax.jit(jax_layers_decode_ref, static_argnames=("window",))
+jax_gmm_ref = jax.jit(gmm_ref)
 
 
 def _rel(a, b):
@@ -201,6 +216,17 @@ def test_ops_on_cpu_take_the_plain_version():
              fops.paged_extend_attention.launches,
              dops.paged_decode_attention.launches)
     assert after == before == (0, 0, 0)
+    n_new = (dops.decode_attention.launches, gops.gmm.launches)
+    kc = _t(rng.standard_normal((2, 12, 2, 16)).astype(np.float32))
+    out = dops.decode_attention(qd, kc, kc, kl.clamp(max=12))
+    ref = torch_decode_ref(qd[:, 0], kc, kc, kl.clamp(max=12))[:, None]
+    assert torch.equal(out, ref)
+    x = _t(rng.standard_normal((3, 5, 16)).astype(np.float32))
+    w = _t(rng.standard_normal((3, 16, 7)).astype(np.float32))
+    c = torch.tensor([5, 0, 2], dtype=torch.int32)
+    assert torch.equal(gops.gmm(x, w, c), torch_gmm_ref(x, w, c))
+    assert (dops.decode_attention.launches, gops.gmm.launches) == n_new \
+        == (0, 0)
 
 
 def test_lse_combine_matches_jax():
@@ -224,3 +250,64 @@ def test_quantize_page_matches_jax():
     assert np.allclose(ks.numpy(), np.asarray(js), rtol=1e-6, atol=0)
     deq = dequantize_page(kq, ks, keep_axes=(0, 2))
     assert bool((deq[2] == 0).all())
+
+
+@pytest.mark.parametrize("case", DENSE_DECODE_CASES)
+def test_dense_decode_ref_matches_jax(case):
+    B, Hq, Hkv, S, Dh, dt = case
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((B, Hq, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32)
+    kl = ((np.arange(B) * 37 + S // 3) % S + 1).astype(np.int32)
+    tdt = torch.bfloat16 if dt == jnp.bfloat16 else torch.float32
+    ref = jax_decode_ref(*(jnp.asarray(x, dt) for x in (q, k, v)),
+                         jnp.asarray(kl))
+    out = torch_decode_ref(*(_t(x, tdt) for x in (q, k, v)), _t(kl))
+    assert out.dtype == tdt
+    assert _rel(_np(out), _np(ref)) < (2e-2 if dt == jnp.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_dense_decode_ref_rolling_matches_jax_layers(window):
+    """A rolling buffer of 24 slots holding the last 24 positions at
+    ``pos % 24``, an empty slot, and a window: the masks of JAX's
+    ``layers.decode_attention_ref``."""
+    B, Hq, Hkv, S, Dh = 3, 4, 2, 24, 16
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((B, 1, Hq, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32)
+    kl = np.array([61, 24, 9], np.int32)
+    sp = np.full((B, S), -1, np.int32)
+    for b, n in enumerate(kl):
+        p = np.arange(max(n - S, 0), n)
+        sp[b, p % S] = p
+    sp[1, 3] = -1
+    ref = jax_layers_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(kl), window=window,
+                            slot_pos=jnp.asarray(sp))
+    out = torch_decode_ref(_t(q[:, 0]), _t(k), _t(v), _t(kl),
+                           slot_pos=_t(sp), window=window)
+    assert _rel(_np(out), _np(ref)[:, 0]) < 2e-5
+
+
+@pytest.mark.parametrize("dt", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("E,C,D,F,counts", [
+    (8, 256, 128, 256, [0, 5, 128, 256, 129, 200, 1, 64]),
+    (8, 256, 128, 256, [0] * 8),
+    (8, 256, 128, 256, [256] * 8),
+    (4, 12, 64, 40, [12, 0, 7, 1]),          # C, F off any tile size
+])
+def test_gmm_ref_matches_jax(E, C, D, F, counts, dt):
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((E, C, D)).astype(np.float32)
+    w = (rng.standard_normal((E, D, F)) * 0.05).astype(np.float32)
+    c = np.asarray(counts, np.int32)
+    tdt = torch.bfloat16 if dt == jnp.bfloat16 else torch.float32
+    ref = jax_gmm_ref(jnp.asarray(x, dt), jnp.asarray(w, dt), jnp.asarray(c))
+    out = torch_gmm_ref(_t(x, tdt), _t(w, tdt), _t(c))
+    assert out.dtype == tdt
+    assert _rel(_np(out), _np(ref)) < (2e-2 if dt == jnp.bfloat16 else 1e-5)
+    for e, n in enumerate(counts):
+        assert not out[e, n:].any()

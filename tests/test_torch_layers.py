@@ -258,3 +258,50 @@ def test_attention_block_extend():
 
 def test_attention_block_decode():
     _attn_paged("decode", 1, [13, 7])
+
+
+@pytest.mark.parametrize("window,S_c,pos", [
+    (None, 24, [13, 7]),              # plain: slot = pos
+    (None, 12, [13, 7]),              # a position past the cache clamps
+    (16, 16, [37, 5]),                # rolling buffer: slot = pos % S_c
+])
+def test_attention_block_decode_dense(window, S_c, pos):
+    """Decode over a dense per-slot KVSlice: the write (slot ``pos % S_c``
+    for a rolling buffer, else ``min(pos, S_c - 1)``) and the attention
+    with the slot_pos and window masks, against JAX."""
+    jc, tc = _cfgs(sliding_window=window)
+    jp, tp = _weights(jl.attn_specs, jc, tc, seed=11)
+    hkv, dh = jc.num_kv_heads, jc.resolved_head_dim
+    rng = np.random.default_rng(12)
+    k = rng.standard_normal((2, S_c, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((2, S_c, hkv, dh)).astype(np.float32)
+    sp = np.full((2, S_c), -1, np.int32)
+    for b, p in enumerate(pos):           # rows hold positions [0, pos)
+        if window:                        # a rolling buffer keeps the last S_c
+            held = np.arange(max(p - S_c, 0), p)
+            sp[b, held % S_c] = held
+        else:                             # positions past the cache clamp
+            held = np.arange(p)
+            sp[b, np.minimum(held, S_c - 1)] = held
+    x = rng.standard_normal((2, 1, jc.d_model)).astype(np.float32)
+    jcache = jl.KVSlice(*(jnp.asarray(a) for a in (k, v, sp)))
+    tcache = tl.KVSlice(*(_t(a) for a in (k, v, sp)))
+    jy, jn = _jax_attention(jc, "decode")(jp, jnp.asarray(x), jcache,
+                                          jnp.asarray(pos, jnp.int32))
+    ty, tn = tl.attention_block(tp, _t(x), tc, mode="decode", cache=tcache,
+                                pos=torch.tensor(pos, dtype=torch.int32))
+    assert tn is tcache                   # written in place
+    assert _rel(_np(ty), jy) < 1e-5
+    assert _rel(_np(tn.k), jn.k) < 1e-6 and _rel(_np(tn.v), jn.v) < 1e-6
+    assert np.array_equal(tn.slot_pos.numpy(), np.asarray(jn.slot_pos))
+
+
+def test_attention_block_extend_over_a_dense_cache_names_its_item():
+    _, tc = _cfgs()
+    _, tp = _weights(jl.attn_specs, *_cfgs())
+    cache = tl.KVSlice(torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32),
+                       torch.full((1, 8), -1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tl.attention_block(tp, torch.zeros(1, 2, tc.d_model), tc,
+                           mode="extend", cache=cache,
+                           pos=torch.zeros(1, dtype=torch.int32))

@@ -85,6 +85,25 @@ def test_full_width_specs_match_jax_shapes():
     assert tf[("embed",)].shape == (153600, 2560)
 
 
+def test_moe_full_width_specs_match_jax_shapes():
+    """deepseek-moe-16b at full width: one dense layer then 27 MoE layers
+    of 64 routed experts (1408 wide) and 2 shared ones, the JAX shapes and
+    dtypes (the router float32), 16.4 B parameters."""
+    jm = build_model(get_arch("deepseek-moe-16b"), single_device_ctx())
+    tm = Model(t_get_arch("deepseek-moe-16b"))
+    jf = _flat(jm.abstract_params())
+    tf = _flat(tm.abstract_params())
+    assert sorted(jf, key=str) == sorted(tf, key=str)
+    for path, j in jf.items():
+        assert tuple(tf[path].shape) == tuple(j.shape), path
+        assert str(tf[path].dtype).split(".")[-1] == str(j.dtype), path
+    assert tm.n_params() == jm.n_params()
+    assert 16.3e9 < tm.n_params() < 16.5e9
+    assert tf[("moe_layers", "moe", "w_gate")].shape == (27, 64, 2048, 1408)
+    assert tf[("dense_layers", "mlp", "w_up")].shape == (1, 2048, 10944)
+    assert tf[("moe_layers", "moe", "router")].dtype == torch.float32
+
+
 @pytest.mark.parametrize("family", sorted(FAMILY_ITEM))
 def test_unported_families_name_their_roadmap_item(family):
     arch = next(a for a in T_ARCHS.values() if a.family == family)
