@@ -13,7 +13,11 @@ width, with random weights from a seed:
 * qwen3-4b on the dense per-slot cache (dense decode), then token at a
   time on the paged pool;
 * deepseek-moe-16b on the paged pool (the grouped GEMM in every MoE
-  layer).
+  layer);
+* mamba2-2.7b (ssm) and zamba2-2.7b (hybrid) on the snapshot pool: the
+  SSD chunk-scan kernel in every Mamba layer of every prefill and suffix
+  extend, a warm wave restored from interned chunk-boundary states; for
+  zamba2 the attention kernels at head dim 80.
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -47,6 +51,13 @@ SLOTS, MAX_LEN, CHUNK, MAX_NEW = 8, 512, 32, 16
 SHARED, TAIL_LO, TAIL_HI = 64, 8, 64
 # deepseek-moe-16b's routed experts: count, d_model, expert width
 MOE_E, MOE_D, MOE_F = 64, 2048, 1408
+# mamba2-2.7b's SSD: heads, head dim, state (zamba2-2.7b: state 64), and
+# zamba2-2.7b's shared attention: heads (q = kv), head dim
+SSD_H, SSD_P, SSD_N, ZAMBA_N = 80, 64, 128, 64
+ZAMBA_H, ZAMBA_DH = 32, 80
+# snapshot handles of the full-width pools: one payload is 170 MB for
+# mamba2-2.7b, so the default (slots + 2) * max_len / page would allow 54 GB
+SNAP_PAGES = 64
 
 
 def log(msg: str):
@@ -323,6 +334,9 @@ def check_kernels(dev, kernels: dict):
                  f"{dt} E{e_} C{c_} D{d_} F{f_} "
                  f"counts {'given' if counts else 'routed'}")
 
+    check_ssd(dev, gen, hold)
+    check_head_dim_80(dev, gen, hold)
+
     # ---- timing at the main path's shapes (bf16) ----------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     waves = main_path_prompts()
@@ -455,12 +469,274 @@ def check_kernels(dev, kernels: dict):
                 f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
                 f"library {rep['library_ms']:.4f} ms, bound "
                 f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+    time_ssd(dev, gen, flush, kernels)
+    time_head_dim_80(dev, gen, flush)
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = e
     for name, rep in kernels.items():
+        lib = ("none" if rep["library_ms"] is None
+               else f"{rep['library_ms']:.4f} ms")
         log(f"  {name:24s} {rep['shape']}: kernel {rep['ms']:.4f} ms, "
-            f"plain {rep['plain_ms']:.4f} ms, library {rep['library_ms']:.4f}"
-            f" ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+            f"plain {rep['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+
+
+def ssd_inputs(gen, dev, Bb, S, H, P, G, N):
+    """x (B, S, H, P), dt (B, S, H), A_log (H,), B/C (B, S, G, N) float32,
+    drawn as tests/test_kernels.py draws them."""
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+    dt = torch.nn.functional.softplus(r(Bb, S, H) * 0.5)
+    A_log = torch.rand((H,), generator=gen, device=dev) * 1.5
+    return r(Bb, S, H, P), dt, A_log, r(Bb, S, G, N) * 0.3, r(Bb, S, G, N) * 0.3
+
+
+def ssd_chunk_views(x, dt, A_log, B, C, Q):
+    """The chunk kernel's inputs as ``ops.ssd`` forms them: strided
+    five-axis views of the model's (B, S, H, P) and (B, S, G, N) layouts."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2:]
+    nc = S // Q
+    dA = dt * -torch.exp(A_log)
+    xw = x * dt[..., None]
+    return (xw.view(Bb, nc, Q, H, P).permute(0, 3, 1, 2, 4),
+            dA.view(Bb, nc, Q, H).permute(0, 3, 1, 2),
+            B.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4),
+            C.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4))
+
+
+def check_ssd(dev, gen, hold):
+    """The SSD chunk kernel against its plain version at every chunk
+    length of the main paths (Q 1 degenerate, 16 cold prefill, 64 warm
+    extend, 128 and 256 on the dense cache) at mamba2's and zamba2's full
+    widths; the three cases of tests/test_kernels.py through ``ops.ssd``
+    against ``ssd_chunked``; and the pad rows' identity, bit for bit."""
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_chunks
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    from repro_torch.models.mamba2 import ssd_chunked
+    why = "f32 both sides; only the summation order differs"
+    for Bb, S, N, Q in [(1, 64, SSD_N, 1), (2, 128, SSD_N, 16),
+                        (2, 128, ZAMBA_N, 16), (1, 128, SSD_N, 64),
+                        (1, 128, ZAMBA_N, 64), (1, 256, SSD_N, 128),
+                        (1, 256, SSD_N, 256), (1, 256, ZAMBA_N, 256)]:
+        views = ssd_chunk_views(*ssd_inputs(gen, dev, Bb, S, SSD_H, SSD_P, 1,
+                                            N), Q)
+        out = ssd_chunks(*views)
+        ref = ssd_chunk_ref(*views)
+        torch.cuda.synchronize()
+        for part, o, r in zip(("y_diag", "states", "decay"), out, ref):
+            hold("ssd_chunks", o, r, 2e-5, why,
+                 f"{part} B{Bb} S{S} H{SSD_H} P{SSD_P} N{N} Q{Q}")
+    for tag, (Bb, S, H, P, G, N, chunk), kw in [
+            ("G2", (2, 128, 4, 16, 2, 32, 32), {}),
+            ("initial state", (1, 64, 2, 8, 1, 16, 16), {"initial_state": 1}),
+            ("ragged mask", (3, 64, 2, 8, 1, 16, 16), {"mask": 1})]:
+        inp = ssd_inputs(gen, dev, Bb, S, H, P, G, N)
+        if "initial_state" in kw:
+            kw["initial_state"] = torch.randn((Bb, H, P, N), generator=gen,
+                                              device=dev) * 0.2
+        if "mask" in kw:
+            kw["mask"] = (torch.arange(S, device=dev)[None]
+                          < torch.tensor([64, 17, 1], device=dev)[:, None])
+        y, h, ck = ssd(*inp, chunk=chunk, checkpoints=True, **kw)
+        y_r, h_r, ck_r = ssd_chunked(*inp, chunk=chunk, checkpoints=True,
+                                     **kw)
+        torch.cuda.synchronize()
+        if "mask" in kw:
+            y, y_r = y * kw["mask"][..., None, None], y_r * kw["mask"][
+                ..., None, None]
+        for part, o, r in (("y", y, y_r), ("final", h, h_r),
+                           ("checkpoints", ck, ck_r)):
+            hold("ssd_chunks", o, r, 2e-5, why,
+                 f"ops.ssd vs ssd_chunked, {tag}: {part}")
+    # rows whose steps are all masked (the rows riding along a restore)
+    Bb, S = 3, 64
+    x, dt, A_log, B, C = ssd_inputs(gen, dev, Bb, S, SSD_H, SSD_P, 1, SSD_N)
+    mask = torch.ones((Bb, S), dtype=torch.bool, device=dev)
+    mask[1] = False
+    init = torch.randn((Bb, SSD_H, SSD_P, SSD_N), generator=gen, device=dev)
+    dtm = torch.where(mask[..., None], dt, torch.zeros_like(dt))
+    _, st, dec = ssd_chunks(*ssd_chunk_views(x * mask[..., None, None], dtm,
+                                             A_log, B, C, 16))
+    _, final, ck = ssd(x, dt, A_log, B, C, chunk=16, initial_state=init,
+                       mask=mask, checkpoints=True)
+    torch.cuda.synchronize()
+    exact = (torch.equal(dec[1], torch.ones_like(dec[1]))
+             and torch.equal(st[1], torch.zeros_like(st[1]))
+             and torch.equal(final[1], init[1])
+             and all(torch.equal(ck[1, c], init[1]) for c in range(S // 16)))
+    log(f"  {'ssd_chunks':24s} {'pad rows: decay 1, states 0, state kept':44s}"
+        f" bit for bit: {'ok' if exact else 'FAIL'}")
+    if not exact:
+        raise AssertionError("ssd_chunks: a fully masked row is not an "
+                             "exact identity")
+
+
+def check_head_dim_80(dev, gen, hold):
+    """The attention kernels at zamba2-2.7b's shared block (32 q = kv
+    heads of 80): prefill flash, dense decode, and extend over the dense
+    per-slot cache through the paged extend kernel (the snapshot restore's
+    route), each against its plain version."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.layers import (
+        KVSlice,
+        dense_kv_arena,
+        extend_attention_ref,
+    )
+    H, Dh = ZAMBA_H, ZAMBA_DH
+    for dt, tol, why in [(torch.float32, 2e-5, "f32; summation order"),
+                         (torch.bfloat16, 2e-2, "bf16 output rounding")]:
+        r = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
+                                    device=dev).to(dt)
+        q, k, v = r(2, 100, H, Dh), r(2, 100, H, Dh), r(2, 100, H, Dh)
+        out = flash_attention(q, k, v)
+        ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2)).transpose(1, 2)
+        torch.cuda.synchronize()
+        hold("flash_attention", out, ref, tol, why,
+             f"{dt} Sq100 Hq{H} Hkv{H} Dh{Dh} causal")
+        q, k, v = r(4, 1, H, Dh), r(4, MAX_LEN, H, Dh), r(4, MAX_LEN, H, Dh)
+        kl = torch.tensor([87, 129, 1, 500], dtype=torch.int32, device=dev)
+        out = decode_attention(q, k, v, kl)
+        ref = decode_attention_ref(q[:, 0], k, v, kl)[:, None]
+        torch.cuda.synchronize()
+        hold("decode_attention", out, ref, tol, why,
+             f"{dt} B4 S{MAX_LEN} Hq{H} Hkv{H} Dh{Dh}")
+        # three rows at offsets 64 and 16 and one riding along at pos = S
+        S = 40
+        pos = torch.tensor([64, 16, MAX_LEN], dtype=torch.int32, device=dev)
+        slots = torch.arange(MAX_LEN, dtype=torch.int32, device=dev)
+        sp = torch.where(slots[None] < pos[:, None] + S, slots[None], -1)
+        cache = KVSlice(r(3, MAX_LEN, H, Dh), r(3, MAX_LEN, H, Dh),
+                        sp.contiguous())
+        q = r(3, S, H, Dh)
+        out = paged_extend_attention(q, *dense_kv_arena(cache), pos, 0)
+        ref = extend_attention_ref(q, cache.k, cache.v, sp,
+                                   pos[:, None] + slots[None, :S])
+        torch.cuda.synchronize()
+        hold("paged_extend_attention", out[:2], ref[:2], tol, why,
+             f"{dt} dense S{MAX_LEN} as arena, Sq{S} Hq{H} Dh{Dh}")
+
+
+def ssd_work(Bb, S, H, P, G, N, Q):
+    """(bytes, float32 operations) of one chunk-kernel call: x, dA, B and C
+    read once, y_diag, the chunk states and decays written once; the
+    products of the pairs at or below each chunk's diagonal and of the
+    chunk states."""
+    nc = S // Q
+    n_bytes = 4 * (2 * Bb * S * H * P + Bb * S * H + 2 * Bb * S * G * N
+                   + Bb * H * nc * P * N + Bb * H * nc)
+    n_ops = Bb * H * nc * (Q * (Q + 1) // 2 * 2 * (N + P) + 2 * Q * P * N)
+    return n_bytes, n_ops
+
+
+def time_ssd(dev, gen, flush, kernels):
+    """The SSD chunk kernel at mamba2-2.7b's cold prefill (8 rows of the
+    128-token bucket, checkpoints every 16-token page), beside its plain
+    version; no single PyTorch call computes it (library: none).  Also
+    logged: the 128-token chunk of the dense-cache path."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunks
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    for Q, S in ((PAGE, 128), (128, 128)):
+        views = ssd_chunk_views(*ssd_inputs(gen, dev, SLOTS, S, SSD_H, SSD_P,
+                                            1, SSD_N), Q)
+        n_bytes, n_ops = ssd_work(SLOTS, S, SSD_H, SSD_P, 1, SSD_N, Q)
+        rep = dict(shape=f"B{SLOTS} S{S} Q{Q} H{SSD_H} P{SSD_P} N{SSD_N} "
+                         "f32",
+                   ms=time_ms(lambda: ssd_chunks(*views), flush=flush),
+                   plain_ms=time_ms(lambda: ssd_chunk_ref(*views),
+                                    flush=flush),
+                   library_ms=None, **bound(n_bytes, n_ops, torch.float32))
+        if Q == PAGE:
+            kernels["ssd_chunks"].update(rep)
+        else:
+            log(f"  ssd_chunks at the dense-cache chunk {rep['shape']}: "
+                f"kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
+                f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+
+
+def time_head_dim_80(dev, gen, flush):
+    """The three attention kernels at zamba2-2.7b's shapes (32 heads of 80,
+    bf16): the cold prefill (8 rows of 128), the warm suffix extend over the
+    dense cache (8 rows of 64 behind a 64-token prefix), a decode step
+    (kv_len 87..129 of 512).  Logged beside their plain versions, one
+    ``scaled_dot_product_attention`` call each (with a boolean mask over
+    the dense cache where one is needed) and their bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref,
+        paged_extend_attention_ref,
+    )
+    from repro_torch.models.layers import KVSlice, dense_kv_arena
+    bf16, H, Dh, e = torch.bfloat16, ZAMBA_H, ZAMBA_DH, 2
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(bf16)  # noqa: E731
+    rows = []
+    S = 128
+    q, k, v = r(SLOTS, S, H, Dh), r(SLOTS, S, H, Dh), r(SLOTS, S, H, Dh)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    rows.append(("flash_attention", f"B{SLOTS} S{S} causal",
+                 lambda: flash_attention(q, k, v),
+                 lambda: attention_ref(qt, kt, vt),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True),
+                 bound(3 * q.numel() * e + q.numel() * e,
+                       4 * Dh * H * SLOTS * S * (S + 1) // 2, bf16)))
+    S, pos0 = 64, 64
+    pos = torch.full((SLOTS,), pos0, dtype=torch.int32, device=dev)
+    slots = torch.arange(MAX_LEN, dtype=torch.int32, device=dev)
+    sp = torch.where(slots[None] < pos[:, None] + S, slots[None], -1)
+    cache = KVSlice(r(SLOTS, MAX_LEN, H, Dh), r(SLOTS, MAX_LEN, H, Dh),
+                    sp.contiguous())
+    qe = r(SLOTS, S, H, Dh)
+    arena = dense_kv_arena(cache)
+    qet = qe.transpose(1, 2).contiguous()
+    kc, vc = (x.transpose(1, 2).contiguous() for x in (cache.k, cache.v))
+    q_pos = pos[:, None] + torch.arange(S, device=dev)[None]
+    emask = ((sp[:, None, :] >= 0) & (sp[:, None, :] <= q_pos[:, :, None])
+             )[:, None]
+    n_slots = SLOTS * (pos0 + S)
+    rows.append(("paged_extend_attention",
+                 f"dense S{MAX_LEN} as arena, B{SLOTS} Sq{S} pos{pos0}",
+                 lambda: paged_extend_attention(qe, *arena, pos, 0),
+                 lambda: paged_extend_attention_ref(qet, *arena, pos, 0),
+                 lambda: F.scaled_dot_product_attention(qet, kc, vc,
+                                                        attn_mask=emask),
+                 bound(2 * qe.numel() * e + n_slots * (2 * H * Dh * e + 4),
+                       4 * Dh * H * SLOTS * sum(pos0 + i + 1
+                                                for i in range(S)), bf16)))
+    kv_lens = [87, 95, 103, 111, 113, 121, 127, 129]
+    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    qd, kd, vd = r(SLOTS, 1, H, Dh), r(SLOTS, MAX_LEN, H, Dh), r(
+        SLOTS, MAX_LEN, H, Dh)
+    qdt, kdt, vdt = (x.transpose(1, 2).contiguous() for x in (qd, kd, vd))
+    dmask = (torch.arange(MAX_LEN, device=dev)[None] < kl[:, None]
+             )[:, None, None]
+    rows.append(("decode_attention",
+                 f"B{SLOTS} S{MAX_LEN} kv_len{kv_lens[0]}..{kv_lens[-1]}",
+                 lambda: decode_attention(qd, kd, vd, kl),
+                 lambda: decode_attention_ref(qd[:, 0], kd, vd, kl),
+                 lambda: F.scaled_dot_product_attention(qdt, kdt, vdt,
+                                                        attn_mask=dmask),
+                 bound(2 * qd.numel() * e + 4 * SLOTS
+                       + sum(kv_lens) * 2 * H * Dh * e,
+                       4 * Dh * H * sum(kv_lens), bf16)))
+    for name, shape, kern, plain, lib, bd in rows:
+        log(f"  {name} at head dim 80 ({shape} Hq{H} Hkv{H} Dh{Dh} bf16): "
+            f"kernel {time_ms(kern, flush=flush):.4f} ms, plain "
+            f"{time_ms(plain, flush=flush):.4f} ms, library "
+            f"{time_ms(lib, flush=flush):.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
 
 
 def routed_counts(gen, dev, capacity: int):
@@ -532,13 +808,24 @@ PARITY = [
      dict(max_len=64, prefill_chunk=None), 0, 4, ([3, 9, 5], [6, 2])),
     ("mixtral-8x7b rolling window 64 < max_len 128", "mixtral-8x7b",
      dict(max_len=128, prefill_chunk=8), 0, 5, ([60, 45], [70])),
+    ("mamba2-2.7b snapshot pool, cold and warm", "mamba2-2.7b",
+     dict(max_len=64, prefill_chunk=8), 0, 4, ([3, 9, 5], [6, 2])),
+    ("mamba2-2.7b dense cache (kv_pool=None)", "mamba2-2.7b",
+     dict(max_len=64, prefill_chunk=8, kv_pool=None), 0, 4,
+     ([3, 9, 5], [6, 2])),
+    ("zamba2-2.7b snapshot pool, cold and warm", "zamba2-2.7b",
+     dict(max_len=64, prefill_chunk=8), 0, 4, ([3, 9, 5], [6, 2])),
+    ("zamba2-2.7b dense cache (kv_pool=None)", "zamba2-2.7b",
+     dict(max_len=64, prefill_chunk=8, kv_pool=None), 0, 4,
+     ([3, 9, 5], [6, 2])),
 ]
 
 
 def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
     """The same smoke model, weights and prompts through the port's
     batcher on the CPU (plain versions) and on the card (kernels).
-    Returns ({device: {rid: tokens}}, {device: prefix-hit tokens})."""
+    Returns ({device: {rid: tokens}}, {device: prefix-hit tokens}); on
+    a snapshot pool the hits are the snapshot hits."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
@@ -567,7 +854,12 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
                 rid += 1
             bat.run_until_drained()
         toks[str(device)] = {r.rid: r.output for r in bat.done}
-        hits[str(device)] = bat.pool.prefix_hit_tokens if bat.pool else 0
+        if bat.pool is None:
+            hits[str(device)] = 0
+        elif bat.pool.payload_kind == "snapshot":
+            hits[str(device)] = bat.pool.stats()["snapshot_hit_tokens"]
+        else:
+            hits[str(device)] = bat.pool.prefix_hit_tokens
     return toks, hits
 
 
@@ -769,6 +1061,78 @@ def phase_dense(dev, name_limit: str, model, params) -> dict:
     return e2e
 
 
+def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
+    """Full-width mamba2-2.7b or zamba2-2.7b behind the batcher on the
+    snapshot pool, the two waves of phase 5: wave 1 prefills cold (the
+    SSD kernel at the 16-token page chunk, a state checkpoint at every page
+    boundary interned), wave 2 restores its 64-token prefix from the chain
+    and extends only its tail over the dense per-slot cache (one extend
+    over all slots); decode stays on the dense cache (zamba2: the dense
+    decode kernel at head dim 80)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunks
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    model, params = full_width(dev, arch, tag)
+    cfg = model.cfg
+    hybrid = cfg.family == "hybrid"
+    n_attn = cfg.num_layers // cfg.hybrid_attn_every if hybrid else 0
+
+    def batcher():
+        return ContinuousBatcher(model, params, batch_slots=SLOTS,
+                                 max_len=MAX_LEN, page_size=PAGE,
+                                 prefill_chunk=CHUNK, pool_pages=SNAP_PAGES,
+                                 device=dev)
+
+    warm_up(batcher, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    bat = batcher()
+    if bat.pool is None or bat.pool.payload_kind != "snapshot":
+        raise AssertionError(f"{arch}: not on a snapshot pool")
+    counters = (ssd_chunks, flash_attention, paged_extend_attention,
+                decode_attention, paged_decode_attention)
+    reqs, launches, wall, step_s = serve(
+        bat, main_path_prompts(0, cfg.vocab), counters)
+    expect("SSD chunk scan (one per Mamba layer per prefill and extend)",
+           launches["ssd_chunks"], cfg.num_layers * bat.prefill_invocations)
+    expect("prefill + dense extend attention",
+           launches["flash_attention"] + launches["paged_extend_attention"],
+           n_attn * bat.prefill_invocations)
+    expect("dense decode", launches["decode_attention"],
+           n_attn * bat.decode_invocations)
+    expect("paged decode on the snapshot plane",
+           launches["paged_decode_attention"], 0)
+    if hybrid and min(launches["flash_attention"],
+                      launches["paged_extend_attention"]) <= 0:
+        raise AssertionError(f"a zamba2 attention kernel was never launched: "
+                             f"{launches}")
+    check_drained(bat.pool, SLOTS * SHARED)
+    st = bat.pool.stats()
+    if st["snapshot_hit_tokens"] < SLOTS * SHARED:
+        raise AssertionError(f"wave 2 restored only {st} snapshot tokens")
+    e2e = report(tag, name_limit, bat, reqs, wall, step_s, launches,
+                 cfg.vocab)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] snapshot pool: {st['snapshots_interned']} payloads "
+        f"interned, {st['snapshot_hit_tokens']} snapshot-hit tokens, "
+        f"{st['snapshot_bytes_saved'] / 1e9:.2f} GB saved, "
+        f"{st['pages_in_use']} of {st['num_pages']} handles held; peak "
+        f"{peak / 1e9:.1f} GB allocated")
+    e2e["snapshot"] = {k: st[k] for k in ("snapshots_interned",
+                                          "snapshot_hit_tokens",
+                                          "snapshot_bytes_saved")}
+    e2e["peak_gb"] = peak / 1e9
+    del bat, model, params
+    return e2e
+
+
 def phase_moe(dev, name_limit: str) -> dict:
     """Full-width deepseek-moe-16b behind the batcher on the paged pool,
     the two waves of phase 5: every MoE layer runs the grouped GEMM for
@@ -839,6 +1203,10 @@ KERNELS = {
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
         "path": 7},
+    "ssd_chunks": {
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
+        "path": 8},
 }
 
 
@@ -866,6 +1234,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     with timed(7):
         runs[7] = phase_moe(dev, name_limit)
+    for tag, arch in ((8, "mamba2-2.7b"), (9, "zamba2-2.7b")):
+        gc.collect()                # free the previous model
+        torch.cuda.empty_cache()
+        with timed(tag):
+            runs[tag] = phase_recurrent(dev, name_limit, arch, tag)
     rows = []
     for name, rep in kernels.items():
         rows.append({"name": name, "route": "cuda", "source": rep["source"],

@@ -29,6 +29,7 @@ SOURCES = (
     KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
     KERNELS / "decode_attention" / "csrc" / "decode_attention.cu",
     KERNELS / "moe_gmm" / "csrc" / "moe_gmm.cu",
+    KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
 )
 HEADERS = (KERNELS / "csrc" / "tile_attention.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]

@@ -5,11 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --dense
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        --arch mamba2-2.7b
 
 Builds ``--arch`` at full width (bf16, random weights from a seed,
 max_len 512; qwen3-4b by default) and admits one wave of ``--slots``
-prompts through the batcher, on the paged pool or, with ``--dense``, on
-the dense per-slot cache.
+prompts through the batcher, on the pool the model takes (paged KV, or
+state snapshots for mamba2-2.7b and zamba2-2.7b, whose decode runs on the
+dense per-slot cache either way) or, with ``--dense``, on the dense
+per-slot cache alone.
 Then it times ``--steps`` decode steps, runs ``--steps`` more under
 ``torch.profiler`` (which slows the host), and prints the wall time of
 each step, the device-busy time and idle share of the profiled window,
@@ -87,8 +91,9 @@ def main(argv=None):
         torch.cuda.synchronize()
         window = time.monotonic() - t_window
     busy = _busy_us(prof.events()) / 1e6
-    print(f"[profile] {arch.name} ({'dense' if args.dense else 'paged'} "
-          f"cache): {args.slots} slots, prompts "
+    plane = bat.pool.payload_kind if bat.pool is not None else "dense"
+    print(f"[profile] {arch.name} ({plane} cache plane): {args.slots} "
+          f"slots, prompts "
           f"{args.prompt_len} tokens, {args.steps} decode steps on "
           f"{torch.cuda.get_device_name(device)}")
     for name, ws in (("unprofiled", plain), ("profiled", walls)):

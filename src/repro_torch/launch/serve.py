@@ -4,8 +4,14 @@
         --requests 32 --slots 8 --max-new 16             # smoke size, cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke  # full width
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-2.7b                  # ssm on the snapshot pool
 
 The twin of ``repro.launch.serve`` with the same flags plus ``--device``.
+The cache plane is the one ``KVPool.capability``
+picks: paged KV for the dense and MoE families, state snapshots for ssm
+(mamba2-2.7b) and hybrid (zamba2-2.7b), the dense per-slot cache for a
+rolling window.
 Weights are random, drawn from a seeded generator on the device.  The
 supervisor and cells come with ROADMAP queue 1 item 10; this driver builds
 the batcher directly.
@@ -67,8 +73,10 @@ def main(argv=None):
 
     lats = sorted(r.latency for r in done)
     toks = sum(len(r.output) for r in done)
-    print(f"[serve] {arch.name} on {device}: {len(done)} requests, {toks} "
-          f"tokens in {dt:.2f}s ({toks / dt:.1f} tok/s)")
+    plane = bat.pool.payload_kind if bat.pool is not None else "dense"
+    print(f"[serve] {arch.name} on {device} ({plane} cache plane): "
+          f"{len(done)} requests, {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s)")
     print(f"[serve] latency p50={lats[len(lats) // 2] * 1e3:.1f}ms "
           f"p99={lats[max(int(len(lats) * 0.99) - 1, 0)] * 1e3:.1f}ms")
     return 0

@@ -1,11 +1,13 @@
 """The page plane: dense cache rows, the physical page arena, int8 pages.
 
-A serving cache is a dict whose values are either KV nodes
-(:class:`~repro_torch.models.layers.KVSlice`, or a
+A serving cache is a tree (dicts and NamedTuples) whose nodes are either
+KV nodes (:class:`~repro_torch.models.layers.KVSlice`, or a
 :class:`~repro_torch.models.layers.PagedKVCache` view) or dense
-*resident* state (nothing, for the dense family).  The helpers here take
-those explicit NamedTuples of tensors; KV nodes are visited in sorted-key
-order, the order in which JAX flattens the same dict.
+*resident* state: nothing for the dense family, the Mamba states of the
+ssm and hybrid families (hybrid nests its shared-attention KVSlice beside
+them in a ``ZambaGroupCache``).  KV nodes are visited in the order in
+which JAX flattens the same tree: dict keys sorted, NamedTuple fields in
+order.
 
 A *page* is ``page_size`` consecutive positions of one request's KV across
 every layer.  The canonical page layout moves a KV node's (batch, seq)
@@ -23,11 +25,30 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.models.layers import KVSlice, PagedKVCache
-from repro_torch.models.param import tree_map, tree_map_pspec
+from repro_torch.models.param import (
+    is_namedtuple,
+    is_pspec,
+    resolve_dtype,
+    tree_leaves,
+    tree_map,
+    tree_map_pspec,
+)
 
 
 def _is_kv(x) -> bool:
     return isinstance(x, (KVSlice, PagedKVCache))
+
+
+def _map_kv(tree: Any, fn) -> Any:
+    """``tree`` with ``fn`` applied to every KV node, in JAX's flatten
+    order (dict keys sorted); other nodes kept."""
+    if _is_kv(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_kv(tree[k], fn) for k in sorted(tree)}
+    if is_namedtuple(tree):
+        return type(tree)(*(_map_kv(v, fn) for v in tree))
+    return tree
 
 
 def cache_batch_axes(model, batch: int, max_len: int) -> Any:
@@ -55,23 +76,34 @@ def merge_cache_slots(dst: Any, src: Any, axes: Any,
     return tree_map(put, dst, src, axes)
 
 
-def kv_cache_nodes(cache: dict) -> list:
-    """The cache's KV nodes, in sorted-key order."""
-    return [cache[k] for k in sorted(cache) if _is_kv(cache[k])]
+def kv_cache_nodes(cache: Any) -> list:
+    """The cache's KV nodes, in JAX's flatten order."""
+    out: list = []
+    _map_kv(cache, out.append)
+    return out
 
 
-def strip_kv_nodes(cache: dict) -> dict:
+def strip_kv_nodes(cache: Any) -> Any:
     """The cache with every KV node replaced by None: the *resident* part
-    that stays dense per slot (nothing for the dense family)."""
-    return {k: (None if _is_kv(v) else v) for k, v in cache.items()}
+    that stays dense per slot (nothing for the dense family, the Mamba
+    states for ssm and hybrid)."""
+    return _map_kv(cache, lambda n: None)
 
 
-def rebuild_kv_nodes(template: dict, resident: dict, nodes: list) -> dict:
-    """Inverse of ``strip_kv_nodes``: splice ``nodes`` (sorted-key order)
+def rebuild_kv_nodes(template: Any, resident: Any, nodes: list) -> Any:
+    """Inverse of ``strip_kv_nodes``: splice ``nodes`` (flatten order)
     back into ``resident`` where ``template`` holds a KV node."""
     it = iter(nodes)
-    return {k: (next(it) if _is_kv(template[k]) else resident[k])
-            for k in sorted(template)}
+
+    def build(t, r):
+        if _is_kv(t):
+            return next(it)
+        if isinstance(t, dict):
+            return {k: build(t[k], r[k]) for k in sorted(t)}
+        if is_namedtuple(t):
+            return type(r)(*(build(tv, rv) for tv, rv in zip(t, r)))
+        return r
+    return build(template, resident)
 
 
 def kv_node_axes(model, batch: int, max_len: int) -> list:
@@ -82,7 +114,6 @@ def kv_node_axes(model, batch: int, max_len: int) -> list:
 
 def kv_position_bytes(model, max_len: int) -> int:
     """Bytes of KV cache held per token position (all layers, one slot)."""
-    from repro_torch.models.param import resolve_dtype
     total = 0
     for node in kv_cache_nodes(model.cache_specs(1, max_len)):
         for spec in node:
@@ -92,6 +123,44 @@ def kv_position_bytes(model, max_len: int) -> int:
             itemsize = resolve_dtype(spec, model.cfg.dtype).itemsize
             total += n * itemsize // max_len
     return total
+
+
+def recurrent_state_bytes(model, max_len: int) -> int:
+    """Bytes of one slot's non-positional cache state (everything that is
+    not a KV node: the Mamba conv and ssm states): the size of one
+    recurrent-state snapshot."""
+    total = 0
+    for spec in tree_leaves(strip_kv_nodes(model.cache_specs(1, max_len)),
+                            is_leaf=is_pspec):
+        n = 1
+        for d in spec.shape:
+            n *= d
+        total += n * resolve_dtype(spec, model.cfg.dtype).itemsize
+    return total
+
+
+def clear_kv_row(cache: Any, axes: list, row: int) -> Any:
+    """Mark every KV position of one slot row empty (slot_pos -1), in
+    place, so a snapshot restore into a recycled slot leaves no stale
+    attendable position behind the restored prefix.  Returns ``cache``."""
+    for node, a in zip(kv_cache_nodes(cache), axes):
+        _to_canonical(node.slot_pos, a)[row] = -1
+    return cache
+
+
+def load_pages_into_row(cache: Any, axes: list, row: int, stacks: list,
+                        start_page: int, page_size: int) -> Any:
+    """Write canonical page stacks into one row of a dense cache at logical
+    pages ``start_page ..``, in place: how a restored snapshot chain's
+    shared-attention pages become the row's resident prefix.  Returns
+    ``cache``."""
+    lo = start_page * page_size
+    for node, stack, a in zip(kv_cache_nodes(cache), stacks, axes):
+        n = stack.k.shape[0] * page_size
+        for leaf, s in zip(node, stack):
+            _to_canonical(leaf, a)[row, lo:lo + n] = (
+                s.reshape((n,) + s.shape[2:]).to(leaf.dtype))
+    return cache
 
 
 def _to_canonical(leaf: torch.Tensor, axis: int) -> torch.Tensor:
@@ -211,10 +280,10 @@ def dequantize_page(q: torch.Tensor, scale: torch.Tensor, *, keep_axes=(0,)):
     return q.to(torch.float32) * b
 
 
-def mask_pad_slots(cache: dict, length: torch.Tensor) -> dict:
+def mask_pad_slots(cache: Any, length: torch.Tensor) -> Any:
     """Invalidate dense-cache slots at or beyond each row's true prompt
     length (``slot_pos`` -1) so decode attention never sees the bucket
-    padding's K/V."""
+    padding's K/V.  Recurrent state is left alone."""
     def fix(node):
         if isinstance(node, KVSlice):
             s_c = node.slot_pos.shape[-1]
@@ -224,5 +293,5 @@ def mask_pad_slots(cache: dict, length: torch.Tensor) -> dict:
             return node._replace(slot_pos=torch.where(valid, node.slot_pos,
                                                       -1))
         return node
-    return {k: fix(v) for k, v in cache.items()}
+    return _map_kv(cache, fix)
 

@@ -2,7 +2,8 @@
 
 Attention dispatches on the device of its inputs.  On a CUDA tensor it
 runs the hand-written kernels (``kernels/flash_attention`` for prefill and
-paged extend, ``kernels/decode_attention`` for paged and dense decode); on
+for extend, paged or over a dense cache seen as an arena;
+``kernels/decode_attention`` for paged and dense decode); on
 a CPU tensor it runs the plain ``chunked_attention``,
 ``decode_attention_ref`` and ``extend_attention_ref`` below, the same math
 the JAX package runs on its CPU path.  Sharding constraints of the JAX
@@ -343,6 +344,37 @@ def _paged_write_extend(cache: PagedKVCache, k, v, positions):
     return cache
 
 
+def _dense_write_extend(cache: KVSlice, k, v, positions):
+    """Write S suffix tokens per row into a dense (B, S_c, ...) cache at
+    slots ``positions`` (B, S), in place; positions outside [0, S_c) drop
+    their writes, as JAX's ``.at[...].set(mode="drop")``, without a host
+    sync."""
+    B, S_c = cache.slot_pos.shape
+    keep = ((positions >= 0) & (positions < S_c)).reshape(-1)
+    flat = (torch.arange(B, device=positions.device)[:, None] * S_c
+            + positions.long().clamp(0, S_c - 1)).reshape(-1)
+    rows, j = _drop_plan(flat, keep)
+    for dst, vals in ((cache.k, k), (cache.v, v),
+                      (cache.slot_pos, positions)):
+        view = dst.view((B * S_c,) + dst.shape[2:])
+        _put_rows(view, rows, j, keep,
+                  vals.reshape((-1,) + dst.shape[2:]).to(dst.dtype))
+
+
+def dense_kv_arena(cache: KVSlice):
+    """One layer's dense (B, S_c, Hkv, Dh) cache seen, without a copy, as
+    a paged arena (B * S_c / P, P, 1, Hkv, Dh) with P = gcd(S_c, 64), its
+    slot_pos as (B * S_c / P, P, 1) and the block table ``bt[b, j] =
+    b * S_c / P + j``: the arguments after ``q`` of
+    ``paged_extend_attention`` (layer 0)."""
+    B, S_c, Hkv, Dh = cache.k.shape
+    P = math.gcd(S_c, 64)
+    n = B * (S_c // P)
+    bt = torch.arange(n, dtype=torch.int32, device=cache.k.device)
+    return (cache.k.view(n, P, 1, Hkv, Dh), cache.v.view(n, P, 1, Hkv, Dh),
+            cache.slot_pos.view(n, P, 1), bt.view(B, S_c // P))
+
+
 # --------------------------------------------------------------------------
 # attention block (QKV proj + rope + attn + out proj)
 # --------------------------------------------------------------------------
@@ -367,9 +399,8 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
     """Full attention sublayer.  Returns (out (B,S,D), updated cache).
 
     ``prefill`` (cache: a dense KVSlice fixing the cache length) returns a
-    fresh KVSlice; ``extend`` takes a :class:`PagedKVCache` and ``decode``
-    a PagedKVCache or a dense KVSlice, and both update the cache in
-    place."""
+    fresh KVSlice; ``extend`` and ``decode`` take a :class:`PagedKVCache`
+    or a dense KVSlice and update the cache in place."""
     B, S, _ = x.shape
     window = cfg.sliding_window
     on_card = x.is_cuda
@@ -420,11 +451,23 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
                                slot_pos=cache.slot_pos if rolling else None,
                                window=window)
         new_cache = cache
+    elif mode == "extend" and isinstance(cache, KVSlice):
+        # the snapshot restore's suffix over the dense per-slot cache: slot
+        # i holds position i (the pool gate admits no rolling window), and
+        # positions at or past the cache length drop their writes
+        positions = pos[:, None] + torch.arange(
+            S, dtype=torch.int32, device=x.device)[None, :]
+        q, k, v = qkv_project(p, x, cfg, positions)
+        _dense_write_extend(cache, k, v, positions)
+        if on_card:
+            # the paged extend kernel over the cache seen as an arena; its
+            # mask 0 <= slot_pos <= q_pos is extend_attention_ref's
+            out = paged_extend_attention(q, *dense_kv_arena(cache), pos, 0)
+        else:
+            out = extend_attention_ref(q, cache.k, cache.v, cache.slot_pos,
+                                       positions, window=window)
+        new_cache = cache
     elif mode in ("extend", "decode"):
-        if not isinstance(cache, PagedKVCache):
-            raise NotImplementedError(
-                "extend over a dense per-slot cache comes with the snapshot "
-                "restore of ssm/hybrid (ROADMAP queue 1 item 8)")
         if mode == "extend":
             positions = pos[:, None] + torch.arange(
                 S, dtype=torch.int32, device=x.device)[None, :]

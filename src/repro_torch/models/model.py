@@ -1,14 +1,17 @@
-"""Model assembly for the dense, vlm and moe families: specs, init,
-caches, prefill, ranged prefill, suffix extend and decode.
+"""Model assembly for the dense, vlm, moe, ssm and hybrid families: specs,
+init, caches, prefill, ranged prefill, suffix extend, decode, and the
+recurrent-state snapshots of the ssm and hybrid families.
 
 The JAX ``Model`` scans a layer function over stacked parameters; here a
 plain Python loop walks the stacked ``(L, ...)`` leaves, stack by stack
-(DeepSeekMoE: its leading dense layers, then the MoE layers), each stack
-with its own cache node.  A paged cache
+(DeepSeekMoE: its leading dense layers, then the MoE layers; Zamba2: the
+groups of Mamba layers, each followed by the shared attention block), each
+stack with its own cache node.  A paged cache
 (:class:`~repro_torch.models.layers.PagedKVCache`) is not stacked per
 layer: one arena per stack serves its layers, the loop rebinds the view's
-``layer`` index, and attention updates the arena in place.  Decode over a
-dense per-slot cache also writes the stacked cache in place.
+``layer`` index, and attention updates the arena in place.  Decode and
+extend over a dense per-slot cache (KV and Mamba state alike) also write
+the stacked cache in place; prefill builds a new one.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models import zamba2 as zmb
 from repro_torch.models.cache_utils import mask_pad_slots
 from repro_torch.models.layers import (
     KVSlice,
@@ -32,18 +36,20 @@ from repro_torch.models.layers import (
     pad_vocab,
     rms_norm,
 )
+from repro_torch.models.mamba2 import MambaState, mamba_dims
 from repro_torch.models.param import (
     DTYPES,
     PSpec,
     abstract_params,
     count_params,
     init_params,
+    tree_leaves,
     tree_map,
     tree_map_pspec,
 )
 
 #: ROADMAP queue 1 item that ports each family not yet ported
-FAMILY_ITEM = {"encdec": 7, "ssm": 8, "hybrid": 8}
+FAMILY_ITEM = {"encdec": 7}
 
 
 def stack_specs(specs, n: int):
@@ -57,13 +63,13 @@ def stack_specs(specs, n: int):
 
 
 class Model:
-    """The serving surface of one dense or MoE architecture."""
+    """The serving surface of one dense, MoE, ssm or hybrid architecture."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("dense", "vlm", "moe"):
+        if cfg.family in FAMILY_ITEM:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
-                f"item {FAMILY_ITEM.get(cfg.family, '?')})")
+                f"item {FAMILY_ITEM[cfg.family]})")
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, cfg.vocab_pad_multiple)
         self.dtype = DTYPES[cfg.dtype]
@@ -78,6 +84,16 @@ class Model:
         }
         if not cfg.tie_embeddings:
             specs["out"] = out_spec(d, self.vocab_padded)
+        if cfg.family == "ssm":
+            specs["mamba_layers"] = stack_specs(zmb.mamba_layer_specs(cfg),
+                                                cfg.num_layers)
+            return specs
+        if cfg.family == "hybrid":
+            inner = stack_specs(zmb.mamba_layer_specs(cfg),
+                                cfg.hybrid_attn_every)
+            specs["groups"] = stack_specs(inner, self._n_groups)
+            specs["shared"] = zmb.shared_block_specs(cfg)
+            return specs
         if cfg.family != "moe":
             specs["layers"] = stack_specs(tfm.dense_layer_specs(cfg),
                                           cfg.num_layers)
@@ -90,9 +106,14 @@ class Model:
                                           cfg.num_layers - fd)
         return specs
 
+    @property
+    def _n_groups(self) -> int:
+        """Hybrid: the number of (Mamba layers, shared block) groups."""
+        return self.cfg.num_layers // self.cfg.hybrid_attn_every
+
     def _stacks(self):
-        """(params / cache key, layer function, depth) of each layer stack,
-        in the order the layers run."""
+        """(params / cache key, layer function, depth) of each attention
+        layer stack, in the order the layers run."""
         cfg = self.cfg
         if cfg.family != "moe":
             return [("layers", tfm.dense_layer, cfg.num_layers)]
@@ -114,8 +135,28 @@ class Model:
 
     # -- caches ----------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int):
-        kv = kv_slice_specs(self.cfg, batch, max_len)
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return {"mamba_layers": stack_specs(
+                self._mamba_state_specs(batch), cfg.num_layers)}
+        kv = kv_slice_specs(cfg, batch, max_len)
+        if cfg.family == "hybrid":
+            return {"groups": zmb.ZambaGroupCache(
+                mamba=stack_specs(stack_specs(self._mamba_state_specs(batch),
+                                              cfg.hybrid_attn_every),
+                                  self._n_groups),
+                shared=stack_specs(kv, self._n_groups))}
         return {key: stack_specs(kv, n) for key, _, n in self._stacks()}
+
+    def _mamba_state_specs(self, batch: int) -> MambaState:
+        d_inner, H, G, N, K = mamba_dims(self.cfg)
+        return MambaState(
+            conv=PSpec((batch, K - 1, d_inner + 2 * G * N),
+                       ("batch", None, "inner"), ("const", 0.0)),
+            ssm=PSpec((batch, H, self.cfg.ssm.head_dim, N),
+                      ("batch", "ssm_heads", None, None), ("const", 0.0),
+                      dtype="float32"),
+        )
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return init_params(self.cache_specs(batch, max_len), None,
@@ -124,11 +165,30 @@ class Model:
     # -- capabilities (as the JAX Model states them) ---------------------
     @property
     def chunked_prefill_exact(self) -> bool:
+        """``prefill_ranged`` is exact on bucket-padded prompts: KV
+        families mask pad slots; ssm and hybrid mask pad steps out of the
+        SSD scan and snapshot the conv state at each row's last token."""
         return True
 
     @property
     def supports_paged_kv(self) -> bool:
-        return True
+        """Every positional cache leaf is causal KV that can live in a
+        paged arena with prefix sharing.  Recurrent state folds the whole
+        history into one state and shares snapshots instead."""
+        return self.cfg.family in ("dense", "vlm", "moe")
+
+    @property
+    def supports_snapshot_state(self) -> bool:
+        """The serve cache is a recurrent state that can be snapshotted at
+        chunk boundaries and restored to seed a suffix-only prefill."""
+        return self.cfg.family in ("ssm", "hybrid")
+
+    @property
+    def decode_state_positional(self) -> bool:
+        """Every per-slot cache leaf is position-masked KV, so a reused
+        slot's stale rows are invisible; recurrent state is not, and a
+        token-at-a-time admit must reset it first."""
+        return self.cfg.family in ("dense", "vlm", "moe")
 
     # -- forward ---------------------------------------------------------
     def _embed_tokens(self, params, tokens):
@@ -138,13 +198,31 @@ class Model:
         w = params["embed"].T if self.cfg.tie_embeddings else params["out"]
         return logits_fn(x, w, self.cfg.vocab)
 
-    def _backbone(self, params, x, *, mode: str, cache=None, pos=None):
+    def _backbone(self, params, x, *, mode: str, cache=None, pos=None,
+                  x0=None, mask=None, ckpt_every=None):
         """The layer loop over every stack.  In prefill a dense KVSlice
         cache is read per layer and the new per-layer slices are stacked
-        back; decode writes a dense stacked cache in place, through the
-        per-layer views; a PagedKVCache rides the loop with its ``layer``
-        rebound and its arena updated in place."""
+        back; decode and extend write a dense stacked cache in place,
+        through the per-layer views; a PagedKVCache rides the loop with its
+        ``layer`` rebound and its arena updated in place.
+
+        ``mask`` (B, S) marks the real tokens of bucket-padded rows; the
+        recurrent families thread it into the SSD scan (KV families need
+        none).  ``x0`` is the embedding output the hybrid shared block
+        concatenates.  ``ckpt_every`` (prefill, ssm / hybrid): each Mamba
+        stack's new state becomes ``(state, checkpoints)``, split apart by
+        ``_split_checkpoints``."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            node = None if cache is None else cache["mamba_layers"]
+            x, new = self._mamba_stack(params["mamba_layers"], x, node,
+                                       mode=mode, mask=mask,
+                                       ckpt_every=ckpt_every)
+            return x, ({} if node is None else {"mamba_layers": new})
+        if cfg.family == "hybrid":
+            return self._hybrid_backbone(params, x, mode=mode, cache=cache,
+                                         pos=pos, x0=x0, mask=mask,
+                                         ckpt_every=ckpt_every)
         new_cache = {}
         for key, layer_fn, n in self._stacks():
             stacked = params[key]
@@ -173,6 +251,74 @@ class Model:
                                            for f in zip(*new_slices)))
         return x, new_cache
 
+    def _mamba_stack(self, stacked, x, node, *, mode, mask, ckpt_every):
+        """Run a stack of Mamba layers.  ``node``: the stack's MambaState
+        (leaves (n, B, ...)) or None.  Decode and extend write the new
+        states into ``node`` in place; prefill stacks them into a new
+        MambaState.  Returns (x, new node), the node paired with the
+        stacked checkpoints (leaves (n, B, nb, ...)) under
+        ``ckpt_every``."""
+        cfg = self.cfg
+        in_place = node is not None and mode in ("decode", "extend")
+        states, cks = [], []
+        for i in range(tree_leaves(stacked)[0].shape[0]):
+            lp = tree_map(lambda a: a[i], stacked)
+            st = None if node is None else MambaState(*(a[i] for a in node))
+            x, new = zmb.mamba_layer(lp, x, cfg, mode=mode, state=st,
+                                     mask=mask, ckpt_every=ckpt_every)
+            if ckpt_every is not None:
+                new, ck = new
+                cks.append(ck)
+            if in_place:
+                for dst, src in zip(st, new):
+                    dst.copy_(src)
+            else:
+                states.append(new)
+        if node is None:
+            return x, None
+        new_node = node if in_place else MambaState(
+            *(torch.stack(f) for f in zip(*states)))
+        if ckpt_every is not None:
+            new_node = (new_node,
+                        MambaState(*(torch.stack(f) for f in zip(*cks))))
+        return x, new_node
+
+    def _hybrid_backbone(self, params, x, *, mode, cache, pos, x0, mask,
+                         ckpt_every):
+        """Zamba2: per group, its Mamba layers then the shared attention
+        block on ``concat(x, x0)`` with the group's own KV cache."""
+        cfg = self.cfg
+        node = None if cache is None else cache["groups"]
+        in_place = node is not None and mode in ("decode", "extend")
+        shared = params["shared"]
+        mamba_new, kv_new, cks = [], [], []
+        for g in range(self._n_groups):
+            gp = tree_map(lambda a: a[g], params["groups"])
+            m_node = (None if node is None
+                      else MambaState(*(a[g] for a in node.mamba)))
+            x, nm = self._mamba_stack(gp, x, m_node, mode=mode, mask=mask,
+                                      ckpt_every=ckpt_every)
+            if ckpt_every is not None and nm is not None:
+                nm, ck = nm
+                cks.append(ck)
+            kv = None if node is None else KVSlice(*(a[g] for a in node.shared))
+            x, nkv = zmb.shared_block(shared, x, x0, cfg, mode=mode,
+                                      cache=kv, pos=pos)
+            mamba_new.append(nm)
+            kv_new.append(nkv)
+        if node is None:
+            return x, {}
+        if in_place:
+            new = node
+        else:
+            new = zmb.ZambaGroupCache(
+                mamba=MambaState(*(torch.stack(f) for f in zip(*mamba_new))),
+                shared=KVSlice(*(torch.stack(f) for f in zip(*kv_new))))
+        if ckpt_every is not None:
+            new = new._replace(mamba=(
+                new.mamba, MambaState(*(torch.stack(f) for f in zip(*cks)))))
+        return x, {"groups": new}
+
     def _last_logits(self, params, x, length):
         last = (length.long() - 1).clamp(0, x.shape[1] - 1)
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
@@ -182,44 +328,116 @@ class Model:
     def prefill(self, params, batch, cache):
         """Whole prompts (B, S): logits at the last position + new cache."""
         x = self._embed_tokens(params, batch["tokens"])
-        x, new_cache = self._backbone(params, x, mode="prefill", cache=cache)
+        x, new_cache = self._backbone(params, x, mode="prefill", cache=cache,
+                                      x0=x)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x)[:, 0], new_cache
 
-    def prefill_ranged(self, params, batch, cache):
+    def prefill_ranged(self, params, batch, cache, *, checkpoint_every=None):
         """Bucket-padded prompts in one invocation.
 
         ``batch`` = {tokens (B, S_pad) int32, length (B,) int32}; row b's
         prompt is ``tokens[b, :length[b]]`` (``length`` 0 marks a dummy
         padding row).  Returns (logits (B, V) at each row's last real
-        token, cache with the pad slots' ``slot_pos`` masked to -1)."""
+        token, cache exact at each row's length: KV pad slots' ``slot_pos``
+        masked to -1, recurrent state untouched by pad steps).
+
+        ``checkpoint_every`` (ssm / hybrid; must divide S_pad): also
+        return the stacked recurrent-state checkpoints after every
+        ``checkpoint_every`` positions, ``(logits, cache, ckpts)``, for
+        :meth:`slice_checkpoint`.  Checkpoints past a row's length are pad
+        garbage and must not be read."""
         tokens, length = batch["tokens"], batch["length"]
+        if checkpoint_every is not None:
+            if not self.supports_snapshot_state:
+                raise NotImplementedError(
+                    f"no state checkpoints for family {self.cfg.family!r}")
+            if tokens.shape[1] % checkpoint_every:
+                raise ValueError(
+                    f"S_pad={tokens.shape[1]} not a multiple of "
+                    f"checkpoint_every={checkpoint_every}")
+        mask = self._length_mask(tokens, length)
         x = self._embed_tokens(params, tokens)
-        x, new_cache = self._backbone(params, x, mode="prefill", cache=cache)
+        x, new_cache = self._backbone(params, x, mode="prefill", cache=cache,
+                                      x0=x, mask=mask,
+                                      ckpt_every=checkpoint_every)
         logits = self._last_logits(params, x, length)
-        return logits, mask_pad_slots(new_cache, length)
+        if checkpoint_every is None:
+            return logits, mask_pad_slots(new_cache, length)
+        new_cache, ckpts = self._split_checkpoints(new_cache)
+        return logits, mask_pad_slots(new_cache, length), ckpts
 
     def prefill_extend(self, params, batch, cache):
         """Suffix-only prefill behind a resident prefix (prefix sharing).
 
         ``batch`` = {tokens (B, S_ext), pos (B,), length (B,)}: row b's
         suffix ``tokens[b, :length[b]]`` continues a prompt whose first
-        ``pos[b]`` positions already sit in the paged ``cache``.  Suffix
-        K/V is written into the arena in place.  Returns (logits at each
-        row's last real suffix token, cache)."""
+        ``pos[b]`` positions already sit in ``cache``: interned pages of a
+        paged cache, or, for ssm / hybrid, a snapshot restored into the
+        dense per-slot cache (the suffix mask keeps pad steps out of the
+        scan; a ``length`` 0 row is an identity update, and its attention
+        writes drop when ``pos`` is past the cache).  The cache is updated
+        in place.  Returns (logits at each row's last real suffix token,
+        cache)."""
         tokens, pos, length = batch["tokens"], batch["pos"], batch["length"]
         x = self._embed_tokens(params, tokens)
         x, new_cache = self._backbone(params, x, mode="extend", cache=cache,
-                                      pos=pos)
+                                      pos=pos, x0=x,
+                                      mask=self._length_mask(tokens, length))
         return self._last_logits(params, x, length), new_cache
+
+    @staticmethod
+    def _length_mask(tokens, length):
+        """(B, S) bool: the real tokens of each bucket-padded row."""
+        return (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+                < length[:, None])
 
     def decode(self, params, cache, batch):
         """One token per row: batch = {tokens (B, 1), pos (B,)}."""
         x = self._embed_tokens(params, batch["tokens"])     # (B,1,D)
         x, new_cache = self._backbone(params, x, mode="decode", cache=cache,
-                                      pos=batch["pos"])
+                                      pos=batch["pos"], x0=x)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x)[:, 0], new_cache
+
+    # -- recurrent-state snapshots (the ssm / hybrid cache-plane payload) --
+    def _split_checkpoints(self, new_cache):
+        """Split the ``(state, checkpoints)`` pair of the checkpointing
+        backbone into (cache, ckpts); ckpts leaves carry the chunk axis
+        right after batch: ssm (L, B, nb, ...), hybrid (G, E, B, nb, ...)."""
+        if self.cfg.family == "ssm":
+            states, ck = new_cache["mamba_layers"]
+            return {**new_cache, "mamba_layers": states}, ck
+        g = new_cache["groups"]
+        states, ck = g.mamba
+        return {**new_cache, "groups": g._replace(mamba=states)}, ck
+
+    @property
+    def _state_batch_axis(self) -> int:
+        """Batch axis of the stacked recurrent-state leaves: ssm stacks
+        (L,) in front, hybrid (G, E)."""
+        return 1 if self.cfg.family == "ssm" else 2
+
+    def slice_checkpoint(self, ckpts, row: int, chunk_idx: int):
+        """One row's recurrent state after chunk ``chunk_idx``, as a 1-row
+        state shaped like the recurrent part of a dense cache row: the
+        snapshot payload :meth:`restore_state_row` writes back.  A copy: a
+        view would keep the whole checkpoint tensor of its prefill
+        alive."""
+        idx = ((slice(None),) * self._state_batch_axis
+               + (slice(row, row + 1), chunk_idx))
+        return MambaState(*(a[idx].clone() for a in ckpts))
+
+    def restore_state_row(self, cache, state, row: int):
+        """Write a 1-row snapshot ``state`` over slot ``row``'s recurrent
+        cache leaves, in place; KV leaves (hybrid shared attention) are the
+        caller's.  Returns ``cache``."""
+        idx = (slice(None),) * self._state_batch_axis + (slice(row, row + 1),)
+        node = (cache["mamba_layers"] if self.cfg.family == "ssm"
+                else cache["groups"].mamba)
+        for dst, src in zip(node, state):
+            dst[idx] = src.to(dst.dtype)
+        return cache
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -27,7 +27,8 @@ class PSpec:
 
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]   # logical axis name per dim
-    init: Tuple[Any, ...] = ("normal", -2)  # ("normal", fan_in_axis) | ("const", v)
+    # ("normal", fan_in_axis) | ("const", v) | ("alog",) | ("dt_bias",)
+    init: Tuple[Any, ...] = ("normal", -2)
     dtype: Optional[str] = None          # None -> model dtype
 
     def __post_init__(self):
@@ -39,7 +40,7 @@ def is_pspec(x) -> bool:
     return isinstance(x, PSpec)
 
 
-def _is_namedtuple(x) -> bool:
+def is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
@@ -53,7 +54,7 @@ def tree_map(fn, tree, *rest, is_leaf=None):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest),
                                      is_leaf=is_leaf)
                             for i, v in enumerate(tree)))
@@ -104,16 +105,27 @@ def _init_leaf(spec: PSpec, generator, dtype: torch.dtype, device):
         return out
     if kind == "const":
         return torch.full(spec.shape, spec.init[1], dtype=dtype, device=device)
-    raise NotImplementedError(
-        f"init {spec.init!r} comes with the ssm port (ROADMAP queue 1 "
-        "item 8)")
+    if kind in ("alog", "dt_bias"):
+        if generator is None:
+            raise ValueError(f"{kind}-initialised parameters need a generator")
+        u = torch.rand(spec.shape, generator=generator, device=device,
+                       dtype=torch.float32)
+        if kind == "alog":
+            # Mamba A_log: A ~ Uniform[1, 16), stored as log
+            return torch.log(u * 15.0 + 1.0).to(dtype)
+        # Mamba dt bias: softplus^-1 of dt ~ LogUniform[1e-3, 1e-1]
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3))
+                       + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    raise ValueError(f"unknown init {spec.init!r}")
 
 
 def init_params(spec_tree, generator: Optional[torch.Generator],
                 dtype: str, device):
     """Materialise parameters on ``device``.  ``normal`` leaves draw from
     ``generator`` (which must live on ``device``) in tree order with a
-    1/sqrt(fan_in) scale; ``const`` leaves need no generator."""
+    1/sqrt(fan_in) scale; the Mamba ``alog`` and ``dt_bias`` leaves draw
+    uniforms from it; ``const`` leaves need no generator."""
     return tree_map_pspec(
         lambda s: _init_leaf(s, generator, resolve_dtype(s, dtype), device),
         spec_tree)

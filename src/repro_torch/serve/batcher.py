@@ -20,8 +20,15 @@ through the decode step one token per step.  Requests blocked on pool
 pages stay queued; a deficit-round-robin tenant scheduler picks who is
 admitted.
 
-Not ported yet: snapshot pools (ROADMAP queue 1 item 8) and the
-disaggregated hand-off surfaces (queue 1 item 11).
+The recurrent families (ssm, hybrid) get the same prefix cache through a
+*snapshot* pool (``KVPool.capability`` "snapshot"): decode stays on the
+dense per-slot cache, cold prefills emit a state checkpoint at every page
+boundary that interns into the pool's tree, and a warm prompt restores the
+deepest checkpoint of its chain into its slot row and runs only its
+suffix, through one dense extend over all slots.
+
+Not ported yet: the disaggregated hand-off surfaces (ROADMAP queue 1 item
+11).
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ from repro_torch.core.telemetry import (
 from repro_torch.device import resolve_device
 from repro_torch.models.cache_utils import (
     cache_batch_axes,
+    clear_kv_row,
+    load_pages_into_row,
     merge_cache_slots,
     slice_cache_slots,
     strip_kv_nodes,
@@ -54,12 +63,14 @@ from repro_torch.serve.kvpool import (
     PoolExhausted,
     build_paged_extend_step,
     build_paged_serve_step,
+    build_snapshot_payloads,
     public_ctx_key,
     request_ctx_key,
     run_extend_group,
 )
 from repro_torch.serve.serve_step import (
     bucket_len,
+    build_extend_step,
     build_prefill_step,
     build_serve_step,
     run_prefill_group,
@@ -115,8 +126,9 @@ class Request:
 class ContinuousBatcher:
     """Slot-based continuous batching over prefill, extend and decode
     steps, on ``device`` (default ``"cuda"``).  ``kv_pool``: "auto" (a
-    paged pool where the cache layout allows one, else the dense per-slot
-    cache), None (the dense cache) or a prebuilt KVPool."""
+    paged or snapshot pool where the model and cache layout allow one,
+    else the dense per-slot cache), None (the dense cache) or a prebuilt
+    KVPool."""
 
     def __init__(self, model, params, *, batch_slots: int, max_len: int,
                  temperature: float = 0.0, eos_token: Optional[int] = None,
@@ -154,7 +166,10 @@ class ContinuousBatcher:
                        if KVPool.capability(model, max_len, page_size)
                        != "none" else None)
         self.pool: Optional[KVPool] = kv_pool
-        self._paged = self.pool is not None
+        self._paged = (self.pool is not None
+                       and self.pool.payload_kind == "page")
+        self._snapshot = (self.pool is not None
+                          and self.pool.payload_kind == "snapshot")
         self._cache_axes = cache_batch_axes(model, batch_slots, max_len)
         self._resident_axes = strip_kv_nodes(self._cache_axes)
         if self._paged:
@@ -165,21 +180,33 @@ class ContinuousBatcher:
             self._extend = build_paged_extend_step(
                 model, temperature, template=self.pool.template)
         else:
+            # the dense per-slot cache, also the decode plane of a snapshot
+            # pool (recurrent state is O(1) per slot; the pool holds only
+            # the shareable checkpoint chains)
             self.cache = model.init_cache(batch_slots, max_len,
                                           device=self.device)
             self.resident = None
             self._step = build_serve_step(model, temperature)
+            self._extend = build_extend_step(model, temperature)
         self.prefill_chunk = prefill_chunk
         self.chunked = (prefill_chunk is not None
                         and supports_chunked_prefill(model, max_len))
-        self._prefill = (build_prefill_step(model, temperature)
-                         if self.chunked else None)
+        if self.chunked and self._snapshot:
+            # checkpoints sit at page multiples, so every prefill bucket is
+            # page-aligned: the bucket quantum becomes lcm(chunk, page)
+            self.prefill_chunk = int(np.lcm(prefill_chunk, page_size))
+        self._prefill = (
+            build_prefill_step(
+                model, temperature,
+                checkpoint_every=page_size if self._snapshot else None)
+            if self.chunked else None)
         # per slot: index of the next prompt token a token-at-a-time admit
         # feeds through the decode step (the prompt length once consumed)
         self.prompt_cursor = np.zeros(batch_slots, np.int64)
         # sampling draws (temperature > 0) from a seeded generator
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         self._scratch_caches: Dict[int, Any] = {}  # B -> B-row prefill cache
+        self._slot_init_cache = None               # lazy; see _slot_init()
         self.prefill_invocations = 0
         self.prefill_batch_sizes: List[int] = []   # prompts per invocation
         self.decode_invocations = 0
@@ -217,10 +244,21 @@ class ContinuousBatcher:
                 batch, self.max_len, device=self.device)
         return self._scratch_caches[batch]
 
+    def _slot_init(self):
+        """A pristine 1-row cache for resetting a slot at a token-at-a-time
+        admit: recurrent state is not masked by position, so a request
+        admitted into a reused slot would otherwise integrate its
+        predecessor's state.  Built at the first such admit."""
+        if self._slot_init_cache is None:
+            self._slot_init_cache = self.model.init_cache(
+                1, self.max_len, device=self.device)
+        return self._slot_init_cache
+
     def _prefill_group(self, group):
         """ONE prefill invocation over same-bucket (slot, request, lease)
         triples of cold requests, then the KV installs into the pool's
-        pages or the slots' dense rows."""
+        pages or the slots' dense rows; on a snapshot pool each row's
+        chunk checkpoints intern first."""
         B = len(group)
         reqs = [r for _, r, _ in group]
         slots = [s for s, _, _ in group]
@@ -236,6 +274,9 @@ class ContinuousBatcher:
         self.rec.record("prefill_s", t1 - t0)
         self.prefill_invocations += 1
         self.prefill_batch_sizes.append(B)
+        if self._snapshot:
+            rows_cache, ckpts = rows_cache
+            self._intern_snapshot_chains(group, rows_cache, ckpts)
         if not self._paged:
             if b_pad != B:
                 rows_cache = slice_cache_slots(rows_cache, self._cache_axes,
@@ -280,6 +321,66 @@ class ContinuousBatcher:
                                   slots)
         self._post_install(slots, reqs, toks[:len(group)])
 
+    def _intern_snapshot_chains(self, group, rows_cache, ckpts):
+        """Intern each cold request's chunk chain: chunk ``lp``'s payload is
+        the state after position ``(lp+1) * page_size`` plus, for hybrid,
+        the chunk's shared-attention KV page.  Only the prompt's full
+        chunks intern."""
+        for i, (_slot, req, _lease) in enumerate(group):
+            payloads = build_snapshot_payloads(
+                self.model, self.pool.axes, self.pool.page_size, req.prompt,
+                rows_cache, ckpts, i)
+            if payloads:
+                self.pool.intern_snapshots(req.prompt, request_ctx_key(req),
+                                           payloads, tenant=req.tenant)
+
+    def _restore_group(self, group):
+        """The warm path of a snapshot pool: seed each slot's dense cache
+        row from its leased chain (the deepest boundary state, and the
+        chain's shared-attention pages), then run ONE dense suffix extend
+        over all slots.  Rows outside the group ride along unchanged: their
+        ``length`` 0 makes every SSD step an identity update (the state
+        comes back bit for bit) and their ``pos`` = max_len drops every KV
+        write."""
+        P = self.pool.page_size
+        for slot, _req, lease in group:
+            state, stacks = self.pool.snapshot_chain(lease)
+            clear_kv_row(self.cache, self.pool.axes, slot)
+            if state is not None:
+                self.model.restore_state_row(self.cache, state, slot)
+            if stacks:
+                load_pages_into_row(self.cache, self.pool.axes, slot, stacks,
+                                    0, P)
+        s_pad = bucket_len(
+            max(len(r.prompt) - le.tokens for _, r, le in group),
+            self.prefill_chunk, self.max_len)
+        tokens = np.zeros((self.B, s_pad), np.int32)
+        length = np.zeros((self.B,), np.int32)
+        pos = np.full((self.B,), self.max_len, np.int32)
+        for slot, req, lease in group:
+            suf = req.prompt[lease.tokens:]
+            tokens[slot, :len(suf)] = suf
+            length[slot] = len(suf)
+            pos[slot] = lease.tokens
+        dev = self.device
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "pos": torch.from_numpy(pos).to(dev),
+                 "length": torch.from_numpy(length).to(dev)}
+        reqs = [r for _, r, _ in group]
+        t0 = self.rec.clock()
+        toks, _logits, self.cache = self._extend(self.params, self.cache,
+                                                 batch, self.generator)
+        toks = toks.tolist()
+        t1 = self.rec.clock()
+        span_group(self.rec, "prefill", reqs, t0, t1, kind="warm_snapshot",
+                   batch=len(group),
+                   hit_tokens=sum(le.tokens for _, _, le in group))
+        self.rec.record("prefill_s", t1 - t0)
+        self.prefill_invocations += 1
+        self.prefill_batch_sizes.append(len(group))
+        self._post_install([s for s, _, _ in group], reqs,
+                           [toks[s] for s, _, _ in group])
+
     def _install_rows(self, slots, reqs, rows_cache, first_tokens):
         """Write prefilled dense KV rows (batch dim ``len(slots)``) into
         their slots with one scatter, then the per-request bookkeeping."""
@@ -323,8 +424,16 @@ class ContinuousBatcher:
     def _admit_fallback(self, slot: int, req: Request):
         """Token-at-a-time admission: the prompt is fed through the decode
         step one token per step.  A reused slot's stale KV is masked by
-        position, so nothing is reset (the non-positional state of encdec
-        and ssm/hybrid comes with ROADMAP queue 1 items 7 and 8)."""
+        position; non-positional slot state (the ssm / hybrid recurrent
+        state) goes back to its init values first."""
+        if not self.model.decode_state_positional:
+            if self._paged:
+                self.resident = merge_cache_slots(
+                    self.resident, strip_kv_nodes(self._slot_init()),
+                    self._resident_axes, [slot])
+            else:
+                self.cache = merge_cache_slots(self.cache, self._slot_init(),
+                                               self._cache_axes, [slot])
         self.slot_req[slot] = req
         self.pos[slot] = 0
         self.cur_tok[slot] = int(req.prompt[0]) if len(req.prompt) else 0
@@ -382,7 +491,10 @@ class ContinuousBatcher:
         for _, group in sorted(cold.items()):
             self._prefill_group(group)
         for _, group in sorted(warm.items()):
-            self._extend_group(group)
+            if self._paged:
+                self._extend_group(group)
+            else:
+                self._restore_group(group)
 
     # -- one decode step over all busy slots -------------------------------
     def step(self) -> int:

@@ -20,8 +20,15 @@ the pages in place.  The arena is updated in place (the JAX package
 donated it to jitted steps).  With ``kv_dtype="int8"`` the arena stores
 int8 pages with one float32 scale per (page, layer).
 
-Snapshot payloads (recurrent-state families), the slot-less prefill-worker
-cache and replica-to-replica migration are not ported yet.
+A pool's ``payload_kind`` says what a tree node's handle names: a
+physical arena page (``"page"``, KV families) or an interned *snapshot*
+payload (``"snapshot"``, the ssm and hybrid families): the recurrent
+state after the chunk's last position plus, for hybrid, the chunk's
+shared-attention KV page.  Snapshot handles come from the same free list,
+quotas and LRU eviction as pages; evicting one drops its payload.
+
+The slot-less prefill-worker cache and replica-to-replica migration are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from repro_torch.models.cache_utils import (
     paged_view,
     quantize_page,
     read_arena_pages,
+    recurrent_state_bytes,
     strip_kv_nodes,
     write_arena_pages,
 )
@@ -227,20 +235,26 @@ class PrefixLease:
 
 
 class KVPool:
-    """Page-granular KV arena + block table + prefix tree for one batcher.
+    """Page-granular KV arena (or snapshot store) + block table + prefix
+    tree for one batcher.
 
     Admission reserves a private-page pocket of the request's worst case
     (``ceil((prompt + max_new) / page_size)`` minus the shared prefix) so
-    decode growth never fails mid-request."""
+    decode growth never fails mid-request; a snapshot pool reserves
+    nothing per slot (the request's state lives in its dense cache row)."""
 
     def __init__(self, model, *, max_len: int, page_size: int = 16,
                  slots: int = 1, num_pages: Optional[int] = None,
                  accounting=None, quotas: Any = None,
                  kv_dtype: Optional[str] = None, device="cuda"):
-        if not model.supports_paged_kv:
-            raise NotImplementedError(
-                "snapshot pools come with the ssm port (ROADMAP queue 1 "
-                "item 8)")
+        if model.supports_paged_kv:
+            self.payload_kind = "page"
+        elif model.supports_snapshot_state:
+            self.payload_kind = "snapshot"
+        else:
+            raise ValueError(
+                f"family {model.cfg.family!r} has no shareable cache "
+                "payload (neither paged KV nor state snapshots)")
         if max_len % page_size:
             raise ValueError(f"max_len={max_len} not a multiple of "
                              f"page_size={page_size}")
@@ -256,16 +270,31 @@ class KVPool:
             raise ValueError("pool smaller than one request's worst case")
         self.template = model.cache_specs(1, max_len)
         self.axes = kv_node_axes(model, 1, max_len)
+        # a warm hit skips the prefix KV bytes (hybrid shared attention;
+        # none for pure ssm) and, per position, the boundary states
         self.position_bytes = kv_position_bytes(model, max_len)
-        self.arena = page_arena(model, self.num_pages, page_size, self.device)
-        if kv_dtype is None:
+        # snapshot store: handle -> interned payload
+        self._snaps: Dict[int, Any] = {}
+        if self.payload_kind == "snapshot":
+            self.position_bytes += (recurrent_state_bytes(model, max_len)
+                                    // page_size)
+            if kv_dtype is not None:
+                raise ValueError("snapshot pools hold float state payloads; "
+                                 "kv_dtype applies to page arenas only")
+            self.arena = []
+            self.kv_scales = None
+        elif kv_dtype is None:
+            self.arena = page_arena(model, self.num_pages, page_size,
+                                    self.device)
             self.kv_scales = None
         elif kv_dtype == "int8":
             # int8 pages with one float32 scale per (page, layer) per
             # tensor: quantised on page write, dequantised in the kernels
             self.arena = [KVSlice(k=torch.zeros_like(a.k, dtype=torch.int8),
                                   v=torch.zeros_like(a.v, dtype=torch.int8),
-                                  slot_pos=a.slot_pos) for a in self.arena]
+                                  slot_pos=a.slot_pos)
+                          for a in page_arena(model, self.num_pages,
+                                              page_size, self.device)]
             self.kv_scales = [
                 tuple(torch.zeros((self.num_pages, a.k.shape[2]),
                                   dtype=torch.float32, device=self.device)
@@ -304,6 +333,10 @@ class KVPool:
         self.prefix_hit_tokens = 0
         self.prefix_miss_tokens = 0
         self.kv_bytes_saved = 0
+        # snapshot counters, zero on page pools too
+        self.snapshots_interned = 0
+        self.snapshot_hit_tokens = 0
+        self.snapshot_bytes_saved = 0
 
     # -- arena writes (in place) ----------------------------------------
     def _clean_pages(self, page_ids):
@@ -336,13 +369,17 @@ class KVPool:
     # -- capability ------------------------------------------------------
     @staticmethod
     def capability(model, max_len: int, page_size: int) -> str:
-        """What cache payload this config can share: ``"paged"`` (KV in
-        an absolute-position layout) or ``"none"`` (page-misaligned
-        cache, or a rolling window shorter than the cache)."""
+        """What cache payload this config can share, three-way: ``"paged"``
+        (KV in an absolute-position layout), ``"snapshot"`` (ssm / hybrid:
+        chunk-boundary state checkpoints) or ``"none"`` (page-misaligned
+        cache, or a rolling window shorter than the cache).  The one place
+        the payload is decided."""
         w = model.cfg.sliding_window
         if max_len % page_size or not (w is None or w >= max_len):
             return "none"
-        return "paged" if model.supports_paged_kv else "none"
+        if model.supports_paged_kv:
+            return "paged"
+        return "snapshot" if model.supports_snapshot_state else "none"
 
     # -- occupancy -------------------------------------------------------
     @property
@@ -352,6 +389,30 @@ class KVPool:
 
     def evictable_pages(self) -> int:
         return self.tree.evictable_pages()
+
+    def occupancy(self) -> float:
+        """Committed (non-reclaimable) fraction of the pool."""
+        free = len(self.free) + self.evictable_pages()
+        return 1.0 - free / self.num_pages
+
+    def stats(self) -> dict:
+        out = {
+            "num_pages": self.num_pages,
+            "pages_in_use": self.pages_in_use,
+            "pages_evicted": self.pages_evicted,
+            "interned_pages": self.tree.interned,
+            "occupancy": self.occupancy(),
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_miss_tokens": self.prefix_miss_tokens,
+            "kv_bytes_saved": self.kv_bytes_saved,
+            "snapshots_interned": self.snapshots_interned,
+            "snapshot_hit_tokens": self.snapshot_hit_tokens,
+            "snapshot_bytes_saved": self.snapshot_bytes_saved,
+        }
+        if self.quotas is not None:
+            out["quota_pages"] = dict(self.quotas)
+            out["tenant_pages"] = dict(self.used)
+        return out
 
     def _pocket_of(self, tenant: Optional[str]) -> Optional[str]:
         """Charge pocket: a quota'd tenant's own, else the commons."""
@@ -369,7 +430,13 @@ class KVPool:
         if self.accounting is not None:
             self.accounting.record_gauge("pages_in_use", self.pages_in_use)
 
-    def _evicted(self, tenant=None):
+    def _reap(self, handle: int):
+        """Drop the payload behind an evicted handle: snapshot handles
+        release their interned state; an arena page has nothing to drop."""
+        self._snaps.pop(handle, None)
+
+    def _evicted(self, handle: int, tenant=None):
+        self._reap(handle)
         self.pages_evicted += 1
         if self.accounting is not None:
             self.accounting.record_counter("pages_evicted", tenant=tenant)
@@ -384,14 +451,14 @@ class KVPool:
             evicted = self.tree.evict_lru()
             if evicted is None:
                 return None
-            self._evicted()
+            self._evicted(evicted[1])
             return evicted[1]
         pocket = self._pocket_of(tenant)
         if self.used[pocket] >= self.quotas[pocket]:
             evicted = self.tree.evict_lru(self._pocket_visible(pocket))
             if evicted is None:
                 return None             # quota exhausted, pool untouched
-            self._evicted(tenant)
+            self._evicted(evicted[1], tenant)
             return evicted[1]
         if not self.free:
             raise RuntimeError("bulkhead invariant broken: headroom without "
@@ -439,11 +506,15 @@ class KVPool:
         lease.released = True
 
     def note_lookup(self, prompt_len: int, hit_tokens: int):
-        """Record a prefix lookup's hit/miss token split."""
+        """Record a prefix lookup's hit/miss token split (and, on a
+        snapshot pool, its snapshot counters)."""
         self.prefix_hit_tokens += hit_tokens
         self.prefix_miss_tokens += prompt_len - hit_tokens
         saved = hit_tokens * self.position_bytes
         self.kv_bytes_saved += saved
+        if self.payload_kind == "snapshot":
+            self.snapshot_hit_tokens += hit_tokens
+            self.snapshot_bytes_saved += saved
         if self.accounting is not None:
             self.accounting.record_counter("prefix_hit_tokens", hit_tokens)
             self.accounting.record_counter("prefix_miss_tokens",
@@ -455,7 +526,11 @@ class KVPool:
     def required_pages(self, prompt_len: int, max_new: int,
                        shared_pages: int = 0) -> int:
         """Worst-case private pages a request can touch (at least one
-        post-prompt position), minus its shared prefix."""
+        post-prompt position), minus its shared prefix.  None on a
+        snapshot pool: handles are taken only when a finished prefix
+        interns its checkpoints."""
+        if self.payload_kind == "snapshot":
+            return 0
         last = min(prompt_len + max(max_new, 1), self.max_len)
         return -(-last // self.page_size) - shared_pages
 
@@ -489,8 +564,9 @@ class KVPool:
         if got:
             self._clean_pages(got)
         self._pocket[slot] = got
-        for lp, node in enumerate(lease.nodes):
-            self.block_table[slot, lp] = node.page
+        if self.payload_kind == "page":
+            for lp, node in enumerate(lease.nodes):
+                self.block_table[slot, lp] = node.page
         self._shared[slot] = list(lease.nodes)
         lease.released = True            # ownership moved to the slot
         self.note_lookup(prompt_len, lease.tokens)
@@ -510,6 +586,7 @@ class KVPool:
             evicted = self.tree.evict_lru(self._pocket_visible(dst))
             if evicted is None:
                 return False
+            self._reap(evicted[1])
             self.pages_evicted += 1
             self.free.append(evicted[1])
             self.used[dst] -= 1
@@ -631,6 +708,56 @@ class KVPool:
                                    n_total - start_page, P)
         self.install_stacks(slot, prompt, ctx_key, stacks, start_page)
 
+    def intern_snapshots(self, prompt, ctx_key, payloads,
+                         tenant: Optional[str] = None):
+        """Best-effort intern of a prompt's per-chunk snapshot payloads
+        (refcounts stay 0: the chain is reclaimable cache).
+        ``payloads[lp]`` = {"state": the 1-row recurrent state after
+        position ``(lp+1) * page_size``, "pages": per KV node a 1-page
+        canonical stack of the chunk's shared-attention KV ([] for pure
+        ssm)}.  Handles bill the landing namespace's pocket like pages; the
+        walked chain is pinned so an eviction cannot detach it mid-walk."""
+        if self.payload_kind != "snapshot":
+            raise ValueError("page pools intern pages, not snapshots")
+        P = self.page_size
+        owner = _owner(ctx_key, tenant)
+        parent = self.tree.root(ctx_key)
+        path: List[_Node] = []
+        try:
+            for lp in range(min(len(prompt) // P, len(payloads))):
+                key = tuple(int(t) for t in prompt[lp * P:(lp + 1) * P])
+                node = parent.children.get(key)
+                if node is None:
+                    handle = self._alloc_raw(owner)
+                    if handle is None:
+                        break
+                    node = self.tree.insert(parent, key, handle, owner)
+                    self._snaps[handle] = payloads[lp]
+                    self.snapshots_interned += 1
+                    if self.accounting is not None:
+                        self.accounting.record_counter("snapshots_interned")
+                self.tree.acquire([node])
+                path.append(node)
+                parent = node
+        finally:
+            self.tree.release(path)
+            self._gauge()
+
+    def snapshot_chain(self, lease: PrefixLease) -> tuple:
+        """A warm lease's restore payload: ``(state, page_stacks)``, the
+        deepest node's recurrent state (after ``lease.tokens`` positions)
+        and, per KV node, the chain's shared-attention pages concatenated
+        (logical pages ``[0, lease.pages)``; [] for pure ssm).  ``(None,
+        [])`` for an empty lease.  Read-only: the lease keeps its pins."""
+        if not lease.nodes:
+            return None, []
+        payloads = [self._snaps[n.page] for n in lease.nodes]
+        per_chunk = [p["pages"] for p in payloads]
+        stacks = [KVSlice(*(torch.cat(parts) for parts in
+                            zip(*(pc[i] for pc in per_chunk))))
+                  for i in range(len(per_chunk[0]))]
+        return payloads[-1]["state"], stacks
+
     def release_slot(self, slot: int):
         """Free a slot: decref its shared prefix (it stays interned as
         reclaimable cache), return private and pocket pages to the free
@@ -685,6 +812,26 @@ def build_paged_extend_step(model, temperature, *, template):
         toks = sample_tokens(logits, generator, temperature)
         return toks, arena, scales, resident
     return paged_extend
+
+
+def build_snapshot_payloads(model, axes, page_size: int, prompt,
+                            rows_cache, ckpts, row: int) -> list:
+    """Per-chunk snapshot payloads of one cold-prefilled row:
+    ``payloads[lp]`` = {"state": the row's state after position ``(lp+1) *
+    page_size`` (a copy, from ``Model.slice_checkpoint``), "pages": the
+    chunk's shared-attention KV as per-node 1-page stacks, copied out of
+    ``rows_cache`` ([] for pure ssm: ``axes`` empty)}.  Only the
+    ``len(prompt) // page_size`` full chunks are built: checkpoints past
+    the row's length are pad garbage."""
+    n_chunks = len(prompt) // page_size
+    if n_chunks == 0:
+        return []
+    stacks = (extract_row_pages(rows_cache, axes, row, 0, n_chunks,
+                                page_size) if axes else [])
+    return [{"state": model.slice_checkpoint(ckpts, row, lp),
+             "pages": [KVSlice(*(a[lp:lp + 1].clone() for a in s))
+                       for s in stacks]}
+            for lp in range(n_chunks)]
 
 
 def run_extend_group(extend_fn, params, pool: KVPool, reqs,

@@ -1,11 +1,11 @@
-"""Serving programs: chunked prefill, dense decode and sampling.
+"""Serving programs: chunked prefill, dense extend and decode, sampling.
 
 Prompts are padded to *chunk buckets* (multiples of the batcher's
 ``prefill_chunk``) and same-bucket prompts share one
 ``Model.prefill_ranged`` invocation; the first output token is sampled
-from the same invocation.  ``build_serve_step`` decodes over a dense
-per-slot cache; the paged decode and extend steps live in
-``serve/kvpool.py``.
+from the same invocation.  ``build_serve_step`` decodes and
+``build_extend_step`` suffix-extends over a dense per-slot cache; the
+paged decode and extend steps live in ``serve/kvpool.py``.
 """
 from __future__ import annotations
 
@@ -37,19 +37,42 @@ def bucket_len(prompt_len: int, chunk: int, max_len: int) -> int:
 
 def supports_chunked_prefill(model: Model, max_len: int) -> bool:
     """Is ``Model.prefill_ranged`` exact for this model at ``max_len``?
-    A rolling window shorter than the cache is not."""
+    Every ported family's is (KV pad slots masked, recurrent pad steps
+    kept out of the scan); only a rolling window shorter than the cache
+    keeps prompts token at a time."""
     cfg = model.cfg
     return model.chunked_prefill_exact and (
         cfg.sliding_window is None or cfg.sliding_window >= max_len)
 
 
-def build_prefill_step(model: Model, temperature: float = 0.0) -> Callable:
+def build_prefill_step(model: Model, temperature: float = 0.0,
+                       checkpoint_every: Optional[int] = None) -> Callable:
     """prefill_step(params, cache, batch, generator) -> (first_tokens,
-    logits, cache) over ``Model.prefill_ranged``."""
+    logits, cache) over ``Model.prefill_ranged``.  With
+    ``checkpoint_every`` (ssm / hybrid snapshot pools) the third output is
+    ``(cache, ckpts)``, the recurrent-state checkpoints beside the cache;
+    the batching helpers pass it through untouched."""
     def prefill_step(params, cache, batch, generator):
-        logits, cache = model.prefill_ranged(params, batch, cache)
+        if checkpoint_every is None:
+            logits, cache = model.prefill_ranged(params, batch, cache)
+        else:
+            logits, cache, ckpts = model.prefill_ranged(
+                params, batch, cache, checkpoint_every=checkpoint_every)
+            cache = (cache, ckpts)
         return sample_tokens(logits, generator, temperature), logits, cache
     return prefill_step
+
+
+def build_extend_step(model: Model, temperature: float = 0.0) -> Callable:
+    """extend_step(params, cache, batch, generator) -> (first_tokens,
+    logits, cache): the suffix-only sibling of ``prefill_step`` over a
+    dense per-slot cache whose rows already hold each request's restored
+    prefix.  ``batch`` = {tokens (B, S_ext), pos (B,) prefix offsets,
+    length (B,) suffix lengths}; the cache is updated in place."""
+    def extend_step(params, cache, batch, generator):
+        logits, cache = model.prefill_extend(params, batch, cache)
+        return sample_tokens(logits, generator, temperature), logits, cache
+    return extend_step
 
 
 def build_serve_step(model: Model, temperature: float = 0.0) -> Callable:

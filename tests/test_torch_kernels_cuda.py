@@ -7,12 +7,17 @@ every test here skips.  On the card:
 
 Cases follow ``tests/test_kernels.py`` and ``tests/test_paged_kernels.py``
 (MHA/GQA/MQA, multi-layer arenas, ragged lengths, P not dividing them,
-sentinel rows, int8, the grouped GEMM's counts sweep), plus q lengths,
-cache lengths and GEMM shapes that are not a multiple of the kernels'
-tiles, and a rolling-window dense cache.  Tolerances: rel < 2e-5 in
-float32 attention (summation order), 1e-4 in the float32 grouped GEMM
+sentinel rows, int8, the grouped GEMM's counts sweep, the SSD scan with
+G 2, an initial state and a ragged mask), plus q lengths, cache lengths,
+GEMM shapes and SSD chunk lengths that are not a multiple of the kernels'
+tiles, a rolling-window dense cache, the attention kernels at zamba2's
+head dim 80, and the SSD chunk kernel at the chunk lengths and widths of
+mamba2-2.7b and zamba2-2.7b.  Tolerances: rel < 2e-5 in float32
+attention and SSD (summation order), 1e-4 in the float32 grouped GEMM
 (2048-term sums in another order), 2e-4 for int8 arenas in float32 (same
-dequantised values), 2e-2 in bf16 (output rounding).
+dequantised values), 2e-2 in bf16 (output rounding).  Pad steps of the
+SSD scan are exact identities (decay 1, state 0, the initial state back
+bit for bit).
 """
 import numpy as np
 import pytest
@@ -31,7 +36,12 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.moe_gmm import ops as gops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
 from repro_torch.models.cache_utils import quantize_page  # noqa: E402
+from repro_torch.models.layers import KVSlice, dense_kv_arena  # noqa: E402
+from repro_torch.models.layers import extend_attention_ref  # noqa: E402
+from repro_torch.models.mamba2 import ssd_chunked  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +94,8 @@ FLASH = [
     (2, 4, 2, 128, 128, 64, False, None, torch.float32),
     (1, 4, 4, 64, 64, 128, True, None, torch.float32),
     (2, 32, 8, 100, 100, 128, True, None, torch.float32),   # ragged Sq
+    (2, 32, 32, 100, 100, 80, True, None, torch.float32),   # zamba2 Dh 80
+    (2, 32, 32, 128, 128, 80, True, None, torch.bfloat16),
 ]
 
 
@@ -143,6 +155,7 @@ EXTEND = [
     (2, 8, 2, 32, 2, 8, 4, 4, (5, 13)),
     (1, 4, 1, 16, 2, 16, 2, 12, (7,)),
     (3, 32, 8, 128, 3, 16, 8, 40, (0, 64, 33)),           # ragged Sq
+    (2, 32, 32, 80, 1, 64, 8, 40, (64, 16)),              # zamba2 Dh 80
 ]
 
 
@@ -169,6 +182,8 @@ DENSE_DECODE = [
     (1, 16, 2, 1024, 64, torch.bfloat16),
     (3, 2, 1, 128, 32, torch.float32),
     (3, 32, 8, 100, 128, torch.float32),
+    (4, 32, 32, 512, 80, torch.float32),                  # zamba2 Dh 80
+    (4, 32, 32, 512, 80, torch.bfloat16),
 ]
 
 
@@ -243,3 +258,134 @@ def test_gmm_kernel(dev, case, dt):
         assert not out[e, n:].any()          # padding rows exactly zero
     tol = 2e-2 if dt == torch.bfloat16 else 1e-4
     assert _rel(out, ref) < tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_dense_extend_through_the_paged_kernel(dev, dt):
+    """Extend over a dense per-slot cache (the snapshot restore) runs the
+    paged extend kernel over the cache seen as an arena: zamba2's 32 heads
+    of 80, a 512-slot cache, rows at different offsets, one riding along
+    at pos = S (nothing valid past its cache, output discarded)."""
+    B, H, Dh, S_c, S = 3, 32, 80, 512, 40
+    g = torch.Generator(device=dev).manual_seed(3)
+    k = torch.randn((B, S_c, H, Dh), generator=g, device=dev).to(dt)
+    v = torch.randn((B, S_c, H, Dh), generator=g, device=dev).to(dt)
+    pos = torch.tensor([64, 16, S_c], dtype=torch.int32, device=dev)
+    slots = torch.arange(S_c, dtype=torch.int32, device=dev)
+    sp = torch.where(slots[None] < pos[:, None] + S, slots[None], -1)
+    cache = KVSlice(k, v, sp.contiguous())
+    q = torch.randn((B, S, H, Dh), generator=g, device=dev).to(dt)
+    q_pos = pos[:, None] + torch.arange(S, dtype=torch.int32, device=dev)
+    out = fops.paged_extend_attention(q, *dense_kv_arena(cache), pos, 0)
+    ref = extend_attention_ref(q, k, v, sp, q_pos)
+    torch.cuda.synchronize()
+    assert _rel(out[:2], ref[:2]) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+def _ssd_inputs(dev, Bb, S, H, P, G, N, seed=0):
+    """x (B, S, H, P), dt (B, S, H), A_log (H,), B/C (B, S, G, N) float32 on
+    ``dev``, drawn as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(sh).astype(np.float32)).to(dev)
+    x = f(Bb, S, H, P)
+    dt = torch.nn.functional.softplus(f(Bb, S, H) * 0.5)
+    A_log = torch.from_numpy(rng.uniform(0.0, 1.5, H).astype(
+        np.float32)).to(dev)
+    return x, dt, A_log, f(Bb, S, G, N) * 0.3, f(Bb, S, G, N) * 0.3
+
+
+def _ssd_chunk_views(x, dt, A_log, B, C, Q):
+    """The per-chunk kernel's inputs as ``ops.ssd`` hands them over:
+    strided five-axis views of the model's layouts."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2:]
+    nc = S // Q
+    dA = dt * -torch.exp(A_log)
+    xw = x * dt[..., None]
+    return (xw.view(Bb, nc, Q, H, P).permute(0, 3, 1, 2, 4),
+            dA.view(Bb, nc, Q, H).permute(0, 3, 1, 2),
+            B.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4),
+            C.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4))
+
+
+SSD_CHUNKS = [
+    # Bb, S, H, P, G, N, Q: mamba2-2.7b (H 80, P 64, N 128) and zamba2-2.7b
+    # (N 64) at every chunk length the main paths give, a degenerate Q 1,
+    # G 2 with Q off the 32-row tile, and Q above one 256-step scan
+    (1, 64, 80, 64, 1, 128, 1),
+    (2, 128, 80, 64, 1, 128, 16),
+    (2, 128, 80, 64, 1, 64, 16),
+    (1, 128, 80, 64, 1, 128, 32),
+    (1, 128, 80, 64, 1, 64, 64),
+    (1, 256, 80, 64, 1, 128, 128),
+    (1, 256, 80, 64, 1, 128, 256),
+    (1, 256, 80, 64, 1, 64, 256),
+    (2, 96, 4, 16, 2, 32, 24),
+    (1, 300, 4, 64, 1, 128, 300),
+]
+
+
+@pytest.mark.parametrize("case", SSD_CHUNKS)
+def test_ssd_chunks_kernel(dev, case):
+    Bb, S, H, P, G, N, Q = case
+    views = _ssd_chunk_views(*_ssd_inputs(dev, Bb, S, H, P, G, N), Q)
+    n0 = sops.ssd_chunks.launches
+    y, st, dec = sops.ssd_chunks(*views)
+    y_r, st_r, dec_r = ssd_chunk_ref(*views)
+    torch.cuda.synchronize()
+    assert sops.ssd_chunks.launches == n0 + 1
+    assert _rel(y, y_r) < 2e-5
+    assert _rel(st, st_r) < 2e-5
+    assert _rel(dec, dec_r) < 2e-5
+
+
+def test_ssd_pad_rows_are_exact_identities(dev):
+    """Rows whose every step is masked (the rows riding along a snapshot
+    restore's extend): decay exactly 1, chunk states exactly 0, and
+    ``ops.ssd`` hands the initial state back bit for bit."""
+    Bb, S, H, P, G, N = 3, 64, 80, 64, 1, 128
+    x, dt, A_log, B, C = _ssd_inputs(dev, Bb, S, H, P, G, N, seed=1)
+    mask = torch.ones((Bb, S), dtype=torch.bool, device=dev)
+    mask[1] = False
+    init = torch.randn((Bb, H, P, N), device=dev)
+    dtm = torch.where(mask[..., None], dt, torch.zeros_like(dt))
+    y, st, dec = sops.ssd_chunks(*_ssd_chunk_views(
+        x * mask[..., None, None], dtm, A_log, B, C, 16))
+    assert torch.equal(dec[1], torch.ones_like(dec[1]))
+    assert torch.equal(st[1], torch.zeros_like(st[1]))
+    _, final, ck = sops.ssd(x, dt, A_log, B, C, chunk=16,
+                            initial_state=init, mask=mask, checkpoints=True)
+    torch.cuda.synchronize()
+    assert torch.equal(final[1], init[1])
+    assert all(torch.equal(ck[1, c], init[1]) for c in range(S // 16))
+
+
+# the SSD cases of tests/test_kernels.py: G 2 at three chunk lengths, an
+# initial state, a ragged pad mask (full row, ragged row, one real step)
+@pytest.mark.parametrize("case", ["g2-16", "g2-32", "g2-64", "init",
+                                  "mask"])
+def test_ssd_matches_chunked_oracle(dev, case):
+    if case.startswith("g2"):
+        Bb, S, H, P, G, N, chunk = 2, 128, 4, 16, 2, 32, int(case[3:])
+    else:
+        Bb, S, H, P, G, N, chunk = (1, 64, 2, 8, 1, 16, 16) if case == \
+            "init" else (3, 64, 2, 8, 1, 16, 16)
+    x, dt, A_log, B, C = _ssd_inputs(dev, Bb, S, H, P, G, N, seed=4)
+    kw = {}
+    if case == "init":
+        kw["initial_state"] = torch.randn((Bb, H, P, N), device=dev) * 0.2
+    if case == "mask":
+        lengths = torch.tensor([64, 17, 1], device=dev)
+        kw["mask"] = torch.arange(S, device=dev)[None] < lengths[:, None]
+    y_k, h_k, ck_k = sops.ssd(x, dt, A_log, B, C, chunk=chunk,
+                              checkpoints=True, **kw)
+    y_r, h_r, ck_r = ssd_chunked(x, dt, A_log, B, C, chunk=chunk,
+                                 checkpoints=True, **kw)
+    torch.cuda.synchronize()
+    assert _rel(h_k, h_r) < 2e-5 and _rel(ck_k, ck_r) < 2e-5
+    if case == "mask":
+        for b, L in enumerate([64, 17, 1]):
+            assert _rel(y_k[b, :L], y_r[b, :L]) < 2e-5
+    else:
+        assert _rel(y_k, y_r) < 2e-5

@@ -294,14 +294,3 @@ def test_attention_block_decode_dense(window, S_c, pos):
     assert _rel(_np(ty), jy) < 1e-5
     assert _rel(_np(tn.k), jn.k) < 1e-6 and _rel(_np(tn.v), jn.v) < 1e-6
     assert np.array_equal(tn.slot_pos.numpy(), np.asarray(jn.slot_pos))
-
-
-def test_attention_block_extend_over_a_dense_cache_names_its_item():
-    _, tc = _cfgs()
-    _, tp = _weights(jl.attn_specs, *_cfgs())
-    cache = tl.KVSlice(torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32),
-                       torch.full((1, 8), -1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tl.attention_block(tp, torch.zeros(1, 2, tc.d_model), tc,
-                           mode="extend", cache=cache,
-                           pos=torch.zeros(1, dtype=torch.int32))

@@ -28,7 +28,6 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.param import params_from_numpy  # noqa: E402
 from repro_torch.serve.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.serve.batcher import Request  # noqa: E402
-from repro_torch.serve.kvpool import KVPool  # noqa: E402
 
 MAX_LEN = 32
 CHUNK = 8
@@ -132,22 +131,6 @@ def test_pool_releases_every_request_page(kv_dtype):
 def test_launch_serve_on_cpu():
     assert t_serve.main(["--device", "cpu", "--requests", "4", "--max-new",
                          "4", "--max-len", "64"]) == 0
-
-
-def test_unported_paths_raise():
-    """The snapshot cache plane of the recurrent families (mamba2 smoke)
-    is not ported: its model and a pool over a model without paged KV
-    raise, naming ROADMAP queue 1 item 8."""
-    cfg = t_smoke_config(t_get_arch("mamba2-2.7b"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Model(cfg)
-
-    class Recurrent:                    # what the pool reads of a model
-        supports_paged_kv = False
-
-    Recurrent.cfg = cfg
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        KVPool(Recurrent(), max_len=MAX_LEN, page_size=PAGE, device="cpu")
 
 
 def test_cuda_is_the_default_device():
