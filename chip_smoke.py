@@ -19,6 +19,11 @@ width, with random weights from a seed:
   extend, a warm wave restored from interned chunk-boundary states; for
   zamba2 the attention kernels at head dim 80.
 
+bf16 prefill flash attention and bf16 grouped GEMMs take the tensor-core
+kernels, float32 ones the CUDA-core kernels; each full-width path checks
+by the ``launches_tc`` counters that every launch of the two took the
+tensor cores, and phase 4 (float32) that none did.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -248,14 +253,18 @@ def check_kernels(dev, kernels: dict):
         hold("paged_extend_attention", out[:7], ref[:7], tol, why,
              f"q {qdt} arena {adt} Sq40 n_log16 L36 layer17")
 
-    # prefill flash: Sq = 200 not a multiple of the 64-row q tile, GQA 4,
-    # causal, sliding window, bidirectional, q suffix of longer keys
-    for dt, tol, why, sq, skv, causal, window in [
-            (bf16, 2e-2, "bf16 output rounding", 200, 200, True, None),
-            (f32, 2e-5, "f32; summation order", 200, 200, True, None),
-            (f32, 2e-5, "f32; summation order", 200, 200, True, 64),
-            (f32, 2e-5, "f32; summation order", 200, 200, False, None),
-            (f32, 2e-5, "f32; summation order", 72, 200, True, None)]:
+    # prefill flash: Sq = 200 not a multiple of the q tile, GQA 4, causal,
+    # sliding window, bidirectional, q suffix of longer keys; bf16 takes
+    # the tensor-core kernel, f32 the CUDA-core kernel
+    flash_cases = []
+    for sq, skv, causal, window in [(200, 200, True, None),
+                                    (200, 200, True, 64),
+                                    (200, 200, False, None),
+                                    (72, 200, True, None)]:
+        flash_cases += [
+            (bf16, 2e-2, "bf16 output and P rounding", sq, skv, causal, window),
+            (f32, 2e-5, "f32; summation order", sq, skv, causal, window)]
+    for dt, tol, why, sq, skv, causal, window in flash_cases:
         q = torch.randn((2, sq, HQ, DH), generator=gen, device=dev).to(dt)
         k = torch.randn((2, skv, HKV, DH), generator=gen, device=dev).to(dt)
         v = torch.randn((2, skv, HKV, DH), generator=gen, device=dev).to(dt)
@@ -266,6 +275,14 @@ def check_kernels(dev, kernels: dict):
         torch.cuda.synchronize()
         hold("flash_attention", out, ref, tol, why,
              f"{dt} Sq{sq} Skv{skv} causal={causal} window={window}")
+    q = torch.zeros((1, 8, 2, 72), dtype=bf16, device=dev)
+    try:
+        flash_attention(q, q, q)
+    except ValueError:
+        log(f"  {'flash_attention':24s} {'bf16 Dh72 (not a multiple of 16)':44s}"
+            " raises ValueError: ok")
+    else:
+        raise AssertionError("flash_attention took a bf16 head dim of 72")
 
     # dense decode: the DECODE_CASES of tests/test_kernels.py, then the
     # main path's heads over S = 500 (not a multiple of the 32-slot key
@@ -307,15 +324,20 @@ def check_kernels(dev, kernels: dict):
              f"{dt} rolling S48 window40 slot_pos wrapped")
 
     # grouped GEMM: the counts sweep of tests/test_kernels.py (all-zero
-    # and all-full included), then deepseek-moe-16b's decode (C 8) and
-    # 1024-token prefill (C 192) shapes, D 2048, F 1408, then C, D and F
-    # off every tile with F not a multiple of the 8-wide weight vectors
-    # (the element-wise loads), in bf16 and f32
+    # and all-full included), then deepseek-moe-16b's decode (C 8), warm
+    # extend (C 96) and 1024-token prefill (C 192) shapes, D 2048, F 1408,
+    # then C, D and F off every tile with F not a multiple of the 8-wide
+    # vectors (the element-wise loads), then counts at 0, 1, tile - 1,
+    # tile, tile + 1 and C of the bf16 kernel's 128- and 16-row tiles, in
+    # bf16 and f32
     for e_, c_, d_, f_, counts in [
             (8, 256, 128, 256, [0, 5, 128, 256, 129, 200, 1, 64]),
             (8, 256, 128, 256, [0] * 8), (8, 256, 128, 256, [256] * 8),
-            (MOE_E, 8, MOE_D, MOE_F, None), (MOE_E, 192, MOE_D, MOE_F, None),
-            (4, 40, 100, 44, [40, 0, 33, 1])]:
+            (MOE_E, 8, MOE_D, MOE_F, None), (MOE_E, 96, MOE_D, MOE_F, None),
+            (MOE_E, 192, MOE_D, MOE_F, None),
+            (4, 40, 100, 44, [40, 0, 33, 1]),
+            (8, 300, 256, 264, [0, 1, 127, 128, 129, 300, 255, 256]),
+            (5, 16, 512, 384, [0, 1, 15, 16, 9])]:
         for dt, tol, why in [
                 (bf16, 2e-2, "bf16 output rounding"),
                 (f32, 1e-4, "f32; up to 2048-term sums in another order")]:
@@ -323,7 +345,7 @@ def check_kernels(dev, kernels: dict):
             w = (torch.randn((e_, d_, f_), generator=gen, device=dev)
                  * 0.05).to(dt)
             cnt = (torch.tensor(counts, dtype=torch.int32, device=dev)
-                   if counts is not None else routed_counts(gen, dev, c_))
+                   if counts is not None else routed_counts(dev, c_))
             out = gmm(x, w, cnt)
             ref = gmm_ref(x, w, cnt)
             torch.cuda.synchronize()
@@ -444,12 +466,13 @@ def check_kernels(dev, kernels: dict):
         **bound(n_bytes, n_ops, bf16))
 
     # grouped GEMM: one deepseek-moe-16b decode call (8 tokens routed
-    # top-6 over 64 experts, C 8), and the 1024-token prefill call (C 192)
-    for c_, tag in ((8, "decode"), (192, "prefill")):
+    # top-6 over 64 experts, C 8), the 1024-token cold prefill call (C 192)
+    # and the 512-token warm extend call (C 96)
+    for c_, tag in ((8, "gmm"), (192, "gmm_prefill"), (96, "extend")):
         x = torch.randn((MOE_E, c_, MOE_D), generator=gen, device=dev).to(bf16)
         w = (torch.randn((MOE_E, MOE_D, MOE_F), generator=gen, device=dev)
              * 0.05).to(bf16)
-        cnt = routed_counts(gen, dev, c_)
+        cnt = routed_counts(dev, c_)
         busy = int((cnt > 0).sum())
         rows = int(cnt.sum())
         n_bytes = (busy * MOE_D * MOE_F * elem + rows * MOE_D * elem
@@ -462,15 +485,16 @@ def check_kernels(dev, kernels: dict):
             plain_ms=time_ms(lambda: gmm_ref(x, w, cnt), flush=flush),
             library_ms=time_ms(lambda: torch.bmm(x, w), flush=flush),
             **bound(n_bytes, n_ops, bf16))
-        if tag == "decode":
-            kernels["gmm"].update(rep)
+        if tag in kernels:
+            kernels[tag].update(rep)
         else:
-            log(f"  gmm at the prefill shape {rep['shape']}: kernel "
+            log(f"  gmm at the warm extend shape {rep['shape']}: kernel "
                 f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
                 f"library {rep['library_ms']:.4f} ms, bound "
                 f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
     time_ssd(dev, gen, flush, kernels)
     time_head_dim_80(dev, gen, flush)
+    errs["gmm_prefill"] = errs["gmm"]     # one kernel, held at both shapes
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = e
     for name, rep in kernels.items():
@@ -739,11 +763,15 @@ def time_head_dim_80(dev, gen, flush):
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
 
 
-def routed_counts(gen, dev, capacity: int):
+def routed_counts(dev, capacity: int):
     """Per-expert token counts of a top-6 routing over the 64 experts of
-    deepseek-moe-16b: ``capacity`` tokens at decode (8: dropless) or the
-    1024 tokens behind a capacity of 192 at prefill."""
-    tokens = capacity if capacity <= 64 else 1024
+    deepseek-moe-16b: ``capacity`` tokens at decode (8: dropless), else the
+    tokens behind that capacity (C = 6 * 2 * T / 64: 1024 tokens at the
+    cold prefill's C 192, 512 at the warm extend's C 96).  Drawn from a
+    generator of their own, seeded by the capacity, so that the counts at
+    a shape do not depend on what the checks before them drew."""
+    gen = torch.Generator(device=dev).manual_seed(capacity)
+    tokens = capacity if capacity <= 64 else capacity * 16 // 3
     scores = torch.rand((tokens, MOE_E), generator=gen, device=dev)
     topi = scores.topk(6, dim=-1).indices.reshape(-1)
     return torch.bincount(topi, minlength=MOE_E).clamp(max=capacity).to(
@@ -864,6 +892,9 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
 
 
 def phase_parity(dev):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import gmm
+    tc0 = (flash_attention.launches_tc, gmm.launches_tc)
     for name, arch, opts, wseed, pseed, waves in PARITY:
         toks, hits = parity_run(dev, arch, opts, wseed, pseed, waves)
         cpu, card_ = toks["cpu"], toks[str(dev)]
@@ -877,6 +908,8 @@ def phase_parity(dev):
             raise AssertionError(f"{name}: no prefix hit in wave 2")
         log(f"[4] {name}: identical on {dev} (kernels) and cpu (plain "
             f"versions), {hits['cpu']} prefix-hit tokens")
+    if (flash_attention.launches_tc, gmm.launches_tc) != tc0:
+        raise AssertionError("a float32 run launched a tensor-core kernel")
 
 
 # --------------------------------------------------------------------------
@@ -908,6 +941,10 @@ def serve(bat, waves, counters, *, max_new=MAX_NEW):
     from repro_torch.serve.batcher import Request
     for fn in counters:
         fn.launches = 0
+        if hasattr(fn, "launches_tc"):
+            fn.launches_tc = 0
+        if hasattr(fn, "launches_by_capacity"):
+            fn.launches_by_capacity.clear()
     reqs, step_s = [], []
     t_start = time.monotonic()
     for wave in waves:
@@ -924,7 +961,12 @@ def serve(bat, waves, counters, *, max_new=MAX_NEW):
                 step_s.append(time.monotonic() - t)
     torch.cuda.synchronize()
     wall = time.monotonic() - t_start
-    return reqs, {fn.__name__: fn.launches for fn in counters}, wall, step_s
+    launches = {}
+    for fn in counters:
+        launches[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_tc"):
+            launches[fn.__name__ + "_tc"] = fn.launches_tc
+    return reqs, launches, wall, step_s
 
 
 def report(tag, name_limit, bat, reqs, wall, step_s, launches, vocab,
@@ -938,7 +980,11 @@ def report(tag, name_limit, bat, reqs, wall, step_s, launches, vocab,
                              "in-vocab tokens")
     ttft = sorted(r.ttft for r in reqs)
     toks = sum(len(r.output) for r in reqs)
+    # each wave's own TTFT p50 (the cold wave, then the warm one)
+    waves = [float(np.median([r.ttft for r in reqs[i:i + SLOTS]]))
+             for i in range(0, len(reqs), SLOTS)]
     e2e = {"tokens_per_s": toks / wall, "ttft_p50_s": float(np.median(ttft)),
+           "ttft_p50_by_wave_s": waves,
            "decode_step_s": float(np.median(step_s)), "wall_s": wall,
            "tokens": toks, "decode_steps": bat.decode_invocations,
            "prefill_invocations": bat.prefill_invocations,
@@ -947,7 +993,8 @@ def report(tag, name_limit, bat, reqs, wall, step_s, launches, vocab,
         f"{bat.decode_invocations} decode steps, {bat.prefill_invocations} "
         f"prefill invocations; launches {launches}")
     log(f"[{tag}] {toks / wall:.1f} tokens/s, TTFT p50 "
-        f"{e2e['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
+        f"{e2e['ttft_p50_s'] * 1e3:.1f} ms (by wave "
+        f"{' / '.join(f'{w * 1e3:.1f}' for w in waves)} ms), decode step p50 "
         f"{e2e['decode_step_s'] * 1e3:.2f} ms ({name_limit})")
     return e2e
 
@@ -964,6 +1011,14 @@ def check_drained(pool, min_hits: int):
 def expect(what: str, got: int, want: int):
     if got != want:
         raise AssertionError(f"{what}: {got} launches, expected {want}")
+
+
+def expect_tc(launches: dict, *names: str):
+    """Every (bf16) launch of each kernel in ``names`` took its
+    tensor-core kernel."""
+    for name in names:
+        expect(f"{name} on the tensor cores", launches[name + "_tc"],
+               launches[name])
 
 
 def warm_up(bat_fn, vocab: int):
@@ -1008,6 +1063,7 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
         raise AssertionError(f"a kernel was never launched: {launches}")
     expect("paged decode", launches["paged_decode_attention"],
            L * bat.decode_invocations)
+    expect_tc(launches, "flash_attention")
     check_drained(bat.pool, SLOTS * SHARED)
     e2e = report(5, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
     log(f"[5] {bat.pool.prefix_hit_tokens} prefix-hit tokens")
@@ -1045,6 +1101,7 @@ def phase_dense(dev, name_limit: str, model, params) -> dict:
            launches["paged_decode_attention"], 0)
     expect("prefill", launches["flash_attention"],
            L * bat.prefill_invocations)
+    expect_tc(launches, "flash_attention")
     e2e = report(6, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
 
     tat = ContinuousBatcher(model, params, batch_slots=2, max_len=MAX_LEN,
@@ -1113,6 +1170,7 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
                       launches["paged_extend_attention"]) <= 0:
         raise AssertionError(f"a zamba2 attention kernel was never launched: "
                              f"{launches}")
+    expect_tc(launches, "flash_attention")
     check_drained(bat.pool, SLOTS * SHARED)
     st = bat.pool.stats()
     if st["snapshot_hit_tokens"] < SLOTS * SHARED:
@@ -1164,6 +1222,16 @@ def phase_moe(dev, name_limit: str) -> dict:
     invocations = bat.decode_invocations + bat.prefill_invocations
     expect("grouped GEMM (3 per MoE layer per invocation)", launches["gmm"],
            3 * n_moe * invocations)
+    # the decode step's capacity is its 8 tokens (dropless); every other
+    # capacity is a prefill or extend invocation's (C 192 cold, C 96 warm)
+    by_c = dict(sorted(gmm.launches_by_capacity.items()))
+    launches["gmm_prefill"] = sum(n for c, n in by_c.items() if c != SLOTS)
+    expect("grouped GEMM at decode (C 8)", by_c.get(SLOTS, 0),
+           3 * n_moe * bat.decode_invocations)
+    expect("grouped GEMM at the prefill shapes", launches["gmm_prefill"],
+           3 * n_moe * bat.prefill_invocations)
+    expect_tc(launches, "gmm", "flash_attention")
+    log(f"[7] grouped GEMM launches by capacity C: {by_c}")
     expect("paged decode", launches["paged_decode_attention"],
            cfg.num_layers * bat.decode_invocations)
     expect("prefill + paged extend", launches["flash_attention"]
@@ -1175,7 +1243,41 @@ def phase_moe(dev, name_limit: str) -> dict:
     e2e = report(7, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
     log(f"[7] {bat.pool.prefix_hit_tokens} prefix-hit tokens, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    e2e["routing"] = routing_profile(batcher, cfg.vocab)
     return e2e
+
+
+def routing_profile(batcher, vocab: int) -> dict:
+    """The counts the MoE layers hand the grouped GEMM on phase 7's path:
+    the two waves again on a fresh batcher (after the counted run), the
+    model's ``gmm`` wrapped to read each call's counts back to the host.
+    Logs, for each capacity C, the calls' mean number of busy experts and
+    rows; with random weights the router need not spread tokens as a
+    trained (load-balanced) one does, and the GEMM's cost follows the busy
+    experts."""
+    from repro_torch.models import moe
+    seen = {}
+    gmm = moe.gmm
+
+    def spy(x, w, counts):
+        c = counts.to("cpu")
+        seen.setdefault(x.shape[1], []).append(
+            (int((c > 0).sum()), int(c.sum())))
+        return gmm(x, w, counts)
+
+    moe.gmm = spy
+    try:
+        bat = batcher()
+        serve(bat, main_path_prompts(0, vocab), ())
+    finally:
+        moe.gmm = gmm
+    prof = {c: {"calls": len(v), "busy_experts": float(np.mean([b for b, _ in v])),
+                "rows": float(np.mean([r for _, r in v]))}
+            for c, v in sorted(seen.items())}
+    for c, p in prof.items():
+        log(f"[7] routing at C {c}: {p['calls']} calls, {p['busy_experts']:.1f} "
+            f"of {MOE_E} experts busy, {p['rows']:.0f} rows a call (mean)")
+    return prof
 
 
 KERNELS = {
@@ -1200,6 +1302,11 @@ KERNELS = {
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:48",
         "path": 6},
     "gmm": {
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
+        "path": 7},
+    # the same kernel at its prefill shape; launches: those at C != 8
+    "gmm_prefill": {
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
         "path": 7},

@@ -31,7 +31,8 @@ SOURCES = (
     KERNELS / "moe_gmm" / "csrc" / "moe_gmm.cu",
     KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
 )
-HEADERS = (KERNELS / "csrc" / "tile_attention.cuh",)
+HEADERS = (KERNELS / "csrc" / "tile_attention.cuh",
+           KERNELS / "csrc" / "tensor_core.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                  "-I", str(KERNELS / "csrc")]

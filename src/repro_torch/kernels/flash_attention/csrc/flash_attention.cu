@@ -4,16 +4,48 @@
 // flash_attention/flash_attention.py::_flash_kernel (wrapper
 // flash_attention_bhsd): tiled causal or bidirectional attention with GQA
 // (q head h reads kv head h / G), q positions offset by Skv - Sq, an
-// optional sliding window, and the online softmax in float32.
-//   Bound on the H100: at long prefill buckets the QK^T and PV products,
-//   4 * B * Hq * Sq * Skv * Dh flops (about half of it under the causal
-//   mask); at short buckets the K/V bytes.
-//   Design: one block per (row, q head, tile of 64 q positions) loops over
-//   32-key tiles up to the causal limit, skipping tiles wholly outside the
-//   window.  Any Sq is accepted: the ragged last q tile and kv tile are
-//   masked inside the block (the TPU wrapper required Sq % block_q == 0).
-//   The products run on CUDA cores out of shared memory; moving them onto
-//   the tensor cores (wgmma) is the next step for long buckets.
+// optional sliding window, and the online softmax in float32.  The route
+// is by dtype alone:
+//
+// * bf16: flash_tc_kernel, on the tensor cores.
+//   Bound on the H100: at the serving buckets (S 128) the call is bound by
+//   latency and by the Q, K, V and output bytes (B8 S128 Hq32 Hkv8 Dh128:
+//   21 MB, 0.006 ms at 3.35 TB/s, and 1.1 GFLOP of products, 0.001 ms at
+//   the bf16 peak); at long buckets by the QK^T and PV products, 4 * B *
+//   Hq * Sq * Skv * Dh flops (about half under the causal mask).
+//   Design (FlashAttention-2's inner loop, written with mma.sync): a block
+//   of 4 warps owns 64 packed rows, row p = (q position p / G, q head
+//   p % G of kv head blockIdx.y), so one K/V tile in shared memory serves
+//   all G q heads of its kv group and the grid has Hkv, not Hq, heads.
+//   Each warp holds 16 rows.  K/V tiles of 32 keys stay bf16 in shared
+//   memory, padded so that ldmatrix reads have no bank conflicts, and
+//   stream through a two-stage cp.async ring: the next tile's copy is in
+//   flight while this tile is multiplied.  Up to Dh 128 a block takes at
+//   most 128 registers a thread and 52 KB of shared memory, so four fit on
+//   an SM and the serving grids (512 blocks at S 128) run as one wave;
+//   64-key tiles, 8-warp blocks and deeper rings were slower there.  S = Q K^T runs
+//   as m16n8k16 bf16 MMAs from ldmatrix fragments (Q re-read from shared
+//   memory per tile, which keeps registers for the float32 output);
+//   scores, running max and running sum stay in registers, the row max and
+//   sum are reduced across the quad of lanes that holds a row by shuffles,
+//   and P is rounded to bf16 in registers and used directly as the A
+//   operand of the PV MMA (V through ldmatrix.trans).  The block walks only
+//   the kv tiles its rows can see: it stops at the causal limit of its
+//   newest row and starts at the window of its oldest; masks are applied
+//   only in tiles that cross a limit or the ragged end.  A row with no
+//   valid key finishes as 0 / max(l, 1e-30) = 0.  Any Dh % 16 == 0 up to
+//   256 is taken (three instantiations: Dh <= 64, <= 128, <= 256); the
+//   wrapper raises on any other bf16 head dim.
+//
+// * float32: flash_kernel, on CUDA cores, so that the products stay exact
+//   float32 (the card's greedy tokens are held to the CPU's in float32,
+//   and TF32 tensor-core products would break that).  One block per (row,
+//   q head, tile of 64 q positions) loops over 32-key tiles up to the
+//   causal limit, skipping tiles wholly outside the window, with the
+//   online softmax in float32 shared memory (tile_attention.cuh).
+//
+// Any Sq is accepted: the ragged last q tile and kv tile are masked inside
+// the block (the TPU wrapper required Sq % block_q == 0).
 //
 // rt_paged_extend_attention replaces flash_attention.py::
 // _paged_extend_kernel (wrapper paged_extend_attention_bhsd): the Sq suffix
@@ -26,6 +58,7 @@
 //   the row's pages in order with one page as the key tile.  Each of the G
 //   q heads of a group re-reads the group's pages (mostly from L2);
 //   sharing one page read across the group is the next step.
+#include "tensor_core.cuh"
 #include "tile_attention.cuh"
 
 namespace rt {
@@ -72,6 +105,205 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     });
   }
   tile_store(t, nr, out + b * o_sb + i0 * o_ss + hq * o_sh, o_ss);
+}
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcRows = 64;    // packed (q position, q head) rows per block, 16 a warp
+constexpr int kTcBN = 32;      // keys per kv tile
+constexpr int kTcStages = 2;   // kv tiles in the cp.async ring
+
+// Shared memory of flash_tc_kernel: the Q rows and a two-stage ring of K
+// and V tiles, bf16 with a row stride of Dh + 8.
+__host__ __device__ inline size_t flash_tc_smem_bytes(int dh) {
+  return sizeof(bf16) * (size_t)(dh + 8) * (kTcRows + 2 * kTcStages * kTcBN);
+}
+
+// Up to Dh 128 the register budget is held to 128 a thread, so that four
+// blocks fit on an SM (the S 128 grids are one wave of them).
+template <int kDhMax>
+__global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kernel(
+    const bf16* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    const bf16* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    const bf16* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    int Sq, int Skv, int G, int Dh, int causal, int window, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = Dh + 8;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][ld]
+  bf16* ks = qs + kTcRows * ld;                   // [kTcStages][kTcBN][ld]
+  bf16* vs = ks + kTcStages * kTcBN * ld;         // [kTcStages][kTcBN][ld]
+  const int p0 = blockIdx.x * kTcRows, hkv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int off = Skv - Sq;                       // absolute position of q row 0
+  const int chunks = Dh / 8;                      // 16-byte chunks of a row
+  const int n_kk = Dh / 16;                       // 16-deep slices of a row
+
+  // the block's Q rows: packed row p is q position p / G of q head
+  // hkv * G + p % G; rows past Sq are zero-filled and never stored
+  for (int c = tid; c < kTcRows * chunks; c += kThreads) {
+    const int r = c / chunks, d = (c - r * chunks) * 8;
+    const int p = p0 + r, i = p / G;
+    const bool ok = i < Sq;
+    const bf16* src = ok ? q + b * q_sb + i * q_ss + (hkv * G + p % G) * q_sh + d : q;
+    cp_async16(qs + r * ld + d, src, ok);
+  }
+
+  // the kv tiles the block's rows can see: up to the causal limit of its
+  // newest row, from the window of its oldest
+  const int q_lo = off + p0 / G;
+  const int q_hi = off + min(Sq - 1, (p0 + kTcRows - 1) / G);
+  const int n_tiles = (Skv + kTcBN - 1) / kTcBN;
+  const int t_end = causal ? min(n_tiles, q_hi / kTcBN + 1) : n_tiles;
+  const int t_begin = window >= 0 ? max(0, q_lo - window + 1) / kTcBN : 0;
+
+  const bf16* kb = k + b * k_sb + hkv * k_sh;
+  const bf16* vb = v + b * v_sb + hkv * v_sh;
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * kTcBN;
+    bf16* kd = ks + stage * kTcBN * ld;
+    bf16* vd = vs + stage * kTcBN * ld;
+    for (int c = tid; c < kTcBN * chunks; c += kThreads) {
+      const int r = c / chunks, d = (c - r * chunks) * 8;
+      const bool ok = k0 + r < Skv;  // keys past Skv are zeros: 0 * V stays 0
+      const int64_t row = ok ? k0 + r : 0;
+      cp_async16(kd + r * ld + d, kb + row * k_ss + d, ok);
+      cp_async16(vd + r * ld + d, vb + row * v_ss + d, ok);
+    }
+  };
+  // prologue: tiles t_begin .. t_begin + kTcStages - 2 in flight, one
+  // commit group each (Q rides in the first)
+#pragma unroll
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    if (t_begin + st < t_end) load_kv(t_begin + st, st);
+    cp_async_commit();
+  }
+
+  // this thread's two rows of the warp's 16: g and g + 8
+  const int wr = p0 + warp * 16;
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qpos[h] = off + (wr + g + 8 * h) / G;
+  const int wq_lo = off + wr / G, wq_hi = off + (wr + 15) / G;
+  float o[kDhMax / 8][4];
+#pragma unroll
+  for (int j = 0; j < kDhMax / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
+  const bf16* qw = qs + (warp * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) % kTcStages;
+    cp_async_wait<kTcStages - 2>();  // this tile (and Q) landed
+    __syncthreads();                 // ... for every warp; tile t - 1 is consumed
+    const int nxt = t + kTcStages - 1;
+    if (nxt < t_end) load_kv(nxt, (nxt - t_begin) % kTcStages);  // into t - 1's stage
+    cp_async_commit();
+    const bf16* kt = ks + stage * kTcBN * ld;
+    const bf16* vt = vs + stage * kTcBN * ld;
+
+    // S = Q K^T, 16 rows x kTcBN keys per warp
+    float s[kTcBN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kTcBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDhMax / 16; ++kk) {
+      if (kk < n_kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qw + kk * 16);
+#pragma unroll
+        for (int j = 0; j < kTcBN / 16; ++j) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, kt + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * j], a, bk[0], bk[1]);
+          mma_bf16(s[2 * j + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+
+    // scale into log2 units; mask where the tile crosses a limit
+    const int k0 = t * kTcBN;
+    const bool masked = k0 + kTcBN > Skv || (causal && k0 + kTcBN - 1 > wq_lo) ||
+                        (window >= 0 && k0 <= wq_hi - window);
+#pragma unroll
+    for (int j = 0; j < kTcBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (masked) {
+          const int kp = k0 + j * 8 + 2 * t4 + (e & 1), qp = qpos[e >> 1];
+          const bool ok = kp < Skv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
+          if (!ok) x = -INFINITY;
+        }
+        s[j][e] = x;
+      }
+    }
+
+    // online softmax: row max over the quad, p = 2^(s - m), rescale O
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kTcBN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);  // finite: m starts at -1e30
+      const float corr = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTcBN / 8; ++j) {
+        s[j][2 * h] = exp2f(s[j][2 * h] - m_new);  // -inf -> 0
+        s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - m_new);
+        sum += s[j][2 * h] + s[j][2 * h + 1];
+      }
+      l[h] = l[h] * corr + sum;  // this lane's part; the quad sums at the end
+#pragma unroll
+      for (int j = 0; j < kDhMax / 8; ++j) {
+        o[j][2 * h] *= corr;
+        o[j][2 * h + 1] *= corr;
+      }
+    }
+
+    // O += P V: P rounded to bf16 in registers is the A operand
+#pragma unroll
+    for (int kk = 0; kk < kTcBN / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const bf16* vrow = vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+#pragma unroll
+      for (int jd = 0; jd < kDhMax / 16; ++jd) {
+        if (jd < n_kk) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, vrow + jd * 16);
+          mma_bf16(o[2 * jd], a, bv[0], bv[1]);
+          mma_bf16(o[2 * jd + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // out = O / l, rows past Sq dropped
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int p = wr + g + 8 * h, i = p / G;
+    if (i >= Sq) continue;
+    bf16* orow = out + b * o_sb + i * o_ss + (hkv * G + p % G) * o_sh + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < kDhMax / 8; ++j) {
+      if (j < 2 * n_kk)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) =
+            pack_bf16(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+    }
+  }
 }
 
 template <typename QT, typename KT>
@@ -142,6 +374,51 @@ cudaError_t launch_flash(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh
   return cudaGetLastError();
 }
 
+template <int kDhMax>
+cudaError_t launch_flash_tc(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                            const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                            const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                            void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh, int B,
+                            int Hq, int Hkv, int Sq, int Skv, int Dh, int causal, int window,
+                            cudaStream_t stream) {
+  const size_t smem = flash_tc_smem_bytes(Dh);
+  auto kernel = flash_tc_kernel<kDhMax>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int G = Hq / Hkv;
+  const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, Hkv, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), q_sb, q_ss, q_sh, static_cast<const bf16*>(k), k_sb, k_ss,
+      k_sh, static_cast<const bf16*>(v), v_sb, v_ss, v_sh, static_cast<bf16*>(out), o_sb,
+      o_ss, o_sh, Sq, Skv, G, Dh, causal, window,
+      rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// The bf16 route: Dh % 16 == 0 up to 256, 16-byte aligned rows (every
+// stride but the last a multiple of 8 elements); the wrapper checks both.
+inline cudaError_t launch_flash_bf16(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                     const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                                     const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                                     void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                                     int B, int Hq, int Hkv, int Sq, int Skv, int Dh,
+                                     int causal, int window, cudaStream_t stream) {
+  if (Dh % 16 || Dh > 256) return cudaErrorInvalidValue;
+  const int64_t strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh |
+                          o_sb | o_ss | o_sh;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (strides % 8 || bases % 16) return cudaErrorMisalignedAddress;
+#define RT_FLASH_TC(DH)                                                                    \
+  return launch_flash_tc<DH>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh, \
+                             out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, Dh, causal, window, \
+                             stream)
+  if (Dh <= 64) RT_FLASH_TC(64);
+  if (Dh <= 128) RT_FLASH_TC(128);
+  RT_FLASH_TC(256);
+#undef RT_FLASH_TC
+}
+
 template <typename QT, typename KT>
 cudaError_t launch_paged_extend(
     const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh, const void* k, const void* v,
@@ -171,7 +448,8 @@ cudaError_t launch_paged_extend(
 // strides (elements) with a contiguous last dim.  Each returns
 // cudaGetLastError() of its launch.
 
-// q/out: (B, Sq, Hq, Dh); k/v: (B, Skv, Hkv, Dh); window < 0 = none.
+// q/out: (B, Sq, Hq, Dh); k/v: (B, Skv, Hkv, Dh); window < 0 = none.  float32
+// takes the CUDA-core kernel, bf16 the tensor-core kernel.
 extern "C" int rt_flash_attention(
     const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -181,15 +459,18 @@ extern "C" int rt_flash_attention(
     void* stream) {
   using namespace rt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RT_FLASH(T)                                                                    \
-  return launch_flash<T>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh, \
-                         out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, Dh, causal, window, s)
   switch (dtype) {
-    case F32: RT_FLASH(float);
-    case BF16: RT_FLASH(__nv_bfloat16);
-    default: return cudaErrorInvalidValue;
+    case F32:  // CUDA cores: exact float32 products
+      return launch_flash<float>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss,
+                                 v_sh, out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, Dh, causal,
+                                 window, s);
+    case BF16:  // tensor cores
+      return launch_flash_bf16(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh,
+                               out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, Dh, causal, window,
+                               s);
+    default:
+      return cudaErrorInvalidValue;
   }
-#undef RT_FLASH
 }
 
 // q/out: (B, Sq, Hq, Dh); arena k/v: (N, P, L, Hkv, Dh) sharing strides;

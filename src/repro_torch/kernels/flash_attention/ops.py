@@ -23,8 +23,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """q: (B, Sq, Hq, Dh); k/v: (B, Skv, Hkv, Dh) -> (B, Sq, Hq, Dh).
 
-    Any Sq and Skv >= Sq; q positions align to the end of the keys.
-    ``flash_attention.launches`` counts kernel launches."""
+    Any Sq and Skv >= Sq; q positions align to the end of the keys.  On
+    the card the route is by dtype alone: bfloat16 launches the
+    tensor-core kernel, which takes ``Dh % 16 == 0`` and ``Dh <= 256``
+    (any other bfloat16 head dim raises ``ValueError``); float32 launches
+    the CUDA-core kernel, whose products stay exact float32.
+    ``flash_attention.launches`` counts kernel launches,
+    ``flash_attention.launches_tc`` those of the tensor-core kernel."""
     if q.device.type == "cpu":
         return attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -43,6 +48,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError("the head dim of q, k and v must be contiguous")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        if Dh % 16 or Dh > 256:
+            raise ValueError(f"the bfloat16 flash kernel takes a head dim "
+                             f"that is a multiple of 16 up to 256, not {Dh}")
+        q, k, v = (_rows16(t) for t in (q, k, v))
     out = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=q.device)
     fn = _build.kernel("rt_flash_attention",
                        "PLLL PLLL PLLL PLLL IIIIIIIII P")
@@ -52,11 +63,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
             -1 if window is None else int(window),
             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
     flash_attention.launches += 1
+    flash_attention.launches_tc += tc
     _build.check(rc, "flash_attention")
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+
+
+def _rows16(t):
+    """``t`` itself if every row starts on 16 bytes (a 16-byte aligned base
+    and strides that are multiples of 8 elements), as the tensor-core
+    kernel's copies need; else a contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,

@@ -16,7 +16,11 @@ def gmm(x, w, counts):
     """x: (E, C, D) capacity layout; w: (E, D, F); counts: (E,) int ->
     (E, C, F) with ``out[e, c] = x[e, c] @ w[e]`` for ``c < counts[e]`` and
     0 past it.  ``counts`` stays on the device: the kernel reads it there,
-    so nothing is synchronised.  ``gmm.launches`` counts kernel launches."""
+    so nothing is synchronised.  On the card the route is by dtype alone:
+    bfloat16 launches the tensor-core kernel, float32 the CUDA-core kernel,
+    whose products stay exact float32.  ``gmm.launches`` counts kernel
+    launches, ``gmm.launches_tc`` those of the tensor-core kernel, and
+    ``gmm.launches_by_capacity`` all launches by C."""
     if x.device.type == "cpu":
         return gmm_ref(x, w, counts)
     if x.device.type != "cuda":
@@ -40,8 +44,12 @@ def gmm(x, w, counts):
             E, C, D, F, _build.DTYPE_CODE[x.dtype],
             _build.stream_ptr(x.device))
     gmm.launches += 1
+    gmm.launches_tc += x.dtype == torch.bfloat16
+    gmm.launches_by_capacity[C] = gmm.launches_by_capacity.get(C, 0) + 1
     _build.check(rc, "gmm")
     return out
 
 
 gmm.launches = 0
+gmm.launches_tc = 0
+gmm.launches_by_capacity = {}

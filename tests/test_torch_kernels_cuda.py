@@ -12,7 +12,9 @@ G 2, an initial state and a ragged mask), plus q lengths, cache lengths,
 GEMM shapes and SSD chunk lengths that are not a multiple of the kernels'
 tiles, a rolling-window dense cache, the attention kernels at zamba2's
 head dim 80, and the SSD chunk kernel at the chunk lengths and widths of
-mamba2-2.7b and zamba2-2.7b.  Tolerances: rel < 2e-5 in float32
+mamba2-2.7b and zamba2-2.7b.  bf16 takes the tensor-core flash and GEMM
+kernels: their cases cover every mask, head dims 16 to 256, GQA 4 and 5,
+and counts on each side of the GEMM's 16- and 128-row tiles.  Tolerances: rel < 2e-5 in float32
 attention and SSD (summation order), 1e-4 in the float32 grouped GEMM
 (2048-term sums in another order), 2e-4 for int8 arenas in float32 (same
 dequantised values), 2e-2 in bf16 (output rounding).  Pad steps of the
@@ -96,6 +98,17 @@ FLASH = [
     (2, 32, 8, 100, 100, 128, True, None, torch.float32),   # ragged Sq
     (2, 32, 32, 100, 100, 80, True, None, torch.float32),   # zamba2 Dh 80
     (2, 32, 32, 128, 128, 80, True, None, torch.bfloat16),
+    # the bf16 tensor-core kernel at every mask and shape the f32 one takes
+    (2, 32, 8, 100, 100, 128, True, None, torch.bfloat16),  # ragged Sq
+    (1, 2, 2, 128, 256, 64, True, None, torch.bfloat16),    # Skv > Sq
+    (2, 32, 8, 72, 200, 128, True, None, torch.bfloat16),   # ragged, Skv > Sq
+    (2, 4, 2, 128, 128, 64, False, None, torch.bfloat16),   # bidirectional
+    (2, 32, 8, 200, 200, 128, True, 64, torch.bfloat16),    # window, Dh 128
+    (2, 32, 8, 128, 128, 128, True, None, torch.bfloat16),  # GQA 4, qwen3-4b
+    (2, 10, 2, 100, 100, 128, True, None, torch.bfloat16),  # GQA 5
+    (1, 4, 4, 100, 100, 16, True, None, torch.bfloat16),    # Dh 16
+    (1, 8, 2, 100, 100, 192, True, None, torch.bfloat16),   # Dh 192
+    (1, 4, 2, 100, 100, 256, False, 40, torch.bfloat16),    # Dh 256, window
 ]
 
 
@@ -114,6 +127,53 @@ def test_flash_attention_kernel(dev, case):
     torch.cuda.synchronize()
     assert fops.flash_attention.launches == n0 + 1
     assert _rel(out, ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+def test_flash_attention_bf16_rejects_head_dim(dev):
+    """The bf16 route takes Dh % 16 == 0 up to 256 and raises on any other
+    head dim; it is not routed to the float32 kernel."""
+    q = torch.zeros((1, 8, 2, 72), dtype=torch.bfloat16, device=dev)
+    n0 = fops.flash_attention.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fops.flash_attention(q, q, q)
+    assert fops.flash_attention.launches == n0
+
+
+def test_flash_attention_bf16_strided_views(dev):
+    """q, k and v as slices of one fused projection, with rows that do not
+    start on 16 bytes (the wrapper copies them for the kernel)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn((2, 100, 4 + 2 + 2, 68), generator=g,
+                      device=dev).to(torch.bfloat16)[..., 4:]
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    out = fops.flash_attention(q, k, v)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2)).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < 2e-2
+
+
+def test_tensor_core_counters(dev):
+    """bf16 launches of flash attention and the grouped GEMM take the
+    tensor-core kernels and count in ``launches_tc``; float32 launches take
+    the CUDA-core kernels and do not."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    for dt, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q = torch.randn((1, 64, 4, 64), generator=g, device=dev).to(dt)
+        n0 = (fops.flash_attention.launches, fops.flash_attention.launches_tc)
+        fops.flash_attention(q, q[:, :, :2], q[:, :, 2:])
+        assert (fops.flash_attention.launches,
+                fops.flash_attention.launches_tc) == (n0[0] + 1, n0[1] + tc)
+        x = torch.randn((2, 32, 64), generator=g, device=dev).to(dt)
+        w = torch.randn((2, 64, 64), generator=g, device=dev).to(dt)
+        c = torch.tensor([32, 5], dtype=torch.int32, device=dev)
+        n0 = (gops.gmm.launches, gops.gmm.launches_tc,
+              gops.gmm.launches_by_capacity.get(32, 0))
+        gops.gmm(x, w, c)
+        assert (gops.gmm.launches, gops.gmm.launches_tc,
+                gops.gmm.launches_by_capacity[32]) == (n0[0] + 1, n0[1] + tc,
+                                                       n0[2] + 1)
+    torch.cuda.synchronize()
 
 
 DECODE = [
@@ -238,6 +298,12 @@ GMM = [
     (4, 8, 2048, 1408, [3, 0, 8, 1]),
     (4, 192, 2048, 1408, [192, 77, 0, 150]),
     (4, 40, 100, 44, [40, 0, 33, 1]),   # F % 8 != 0: element-wise loads
+    # counts at 0, 1, tile - 1, tile, tile + 1 and C of the bf16 kernel's
+    # 128-row tile (C 300: a ragged third tile; F 264 off the 128 columns)
+    (8, 300, 256, 264, [0, 1, 127, 128, 129, 300, 255, 256]),
+    # ... and of its 16-row tile at C <= 16
+    (5, 16, 512, 384, [0, 1, 15, 16, 9]),
+    (4, 300, 100, 44, [0, 127, 129, 300]),  # element-wise loads, 128-row tile
 ]
 
 
