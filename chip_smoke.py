@@ -19,10 +19,13 @@ width, with random weights from a seed:
   extend, a warm wave restored from interned chunk-boundary states; for
   zamba2 the attention kernels at head dim 80.
 
-bf16 prefill flash attention and bf16 grouped GEMMs take the tensor-core
-kernels, float32 ones the CUDA-core kernels; each full-width path checks
-by the ``launches_tc`` counters that every launch of the two took the
-tensor cores, and phase 4 (float32) that none did.
+bf16 prefill flash attention, bf16 paged extend over a bf16 arena and
+bf16 grouped GEMMs take the tensor-core kernels, float32 ones (and extend
+over an int8 arena) the CUDA-core kernels; each full-width path checks by
+the ``launches_tc`` counters that every launch of the three took the
+tensor cores, and phase 4 (float32) that none did.  Paged decode splits
+each row's pages across a thread-block cluster in one launch; phase 3
+also times it at a long context (kv_len 2048-4096).
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -250,8 +253,24 @@ def check_kernels(dev, kernels: dict):
         torch.cuda.synchronize()
         if not torch.isfinite(out[7].float()).all():
             raise AssertionError("paged extend: fully sentinel row not finite")
+        route = "tensor cores" if (qdt, adt) == (bf16, bf16) else "CUDA cores"
         hold("paged_extend_attention", out[:7], ref[:7], tol, why,
-             f"q {qdt} arena {adt} Sq40 n_log16 L36 layer17")
+             f"q {qdt} arena {adt} Sq40 n_log16 L36 layer17, {route}")
+    q = torch.zeros((1, 8, HQ, 72), dtype=bf16, device=dev)
+    a72 = torch.zeros((2, PAGE, 1, HKV, 80), dtype=bf16, device=dev)
+    sp1 = torch.full((2, PAGE, 1), -1, dtype=torch.int32, device=dev)
+    bt1 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    p1 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for what, arena, qq in [
+            ("bf16 Dh72 (not a multiple of 16)", a72[..., :72], q),
+            ("bf16 arena view off 16 bytes", a72[..., 4:68], q[..., :64])]:
+        try:
+            paged_extend_attention(qq, arena, arena, sp1, bt1, p1, 0)
+        except ValueError:
+            log(f"  {'paged_extend_attention':24s} {what:44s} raises "
+                "ValueError: ok")
+        else:
+            raise AssertionError(f"paged_extend_attention took a {what}")
 
     # prefill flash: Sq = 200 not a multiple of the q tile, GQA 4, causal,
     # sliding window, bidirectional, q suffix of longer keys; bf16 takes
@@ -494,6 +513,7 @@ def check_kernels(dev, kernels: dict):
                 f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
     time_ssd(dev, gen, flush, kernels)
     time_head_dim_80(dev, gen, flush)
+    time_long_decode(dev, gen, flush)
     errs["gmm_prefill"] = errs["gmm"]     # one kernel, held at both shapes
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = e
@@ -763,6 +783,53 @@ def time_head_dim_80(dev, gen, flush):
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
 
 
+def time_long_decode(dev, gen, flush):
+    """Paged decode at a long context, logged on a line of its own: the
+    main path's heads, 8 rows with kv_len 2048..4096 over n_log 256 pages
+    of an arena sized for them (4 layers, layer 2), beside its plain
+    version and one ``scaled_dot_product_attention`` call over the
+    gathered cache.  Here the split across a cluster is what keeps every
+    SM reading."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_splits,
+        paged_decode_attention,
+    )
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref,
+    )
+    from repro_torch.kernels.flash_attention.ref import gather_pages_ref
+    bf16, n_log, layer = torch.bfloat16, 256, 2
+    kv_lens = [2048 + 2048 * i // (SLOTS - 1) for i in range(SLOTS)]
+    a = build_arena(gen, kv_lens, n_log, bf16, dev, n_layers=4)
+    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    q = torch.randn((SLOTS, 1, HQ, DH), generator=gen, device=dev).to(bf16)
+    args = (a["k"], a["v"], a["slot_pos"], a["block_table"], kl, layer)
+    out = paged_decode_attention(q, *args)
+    ref = paged_decode_attention_ref(q[:, 0], *args)[:, None]
+    torch.cuda.synchronize()
+    r = rel(out, ref)
+    if not r < 2e-2:
+        raise AssertionError(f"paged decode at a long context: rel {r}")
+    kd, vd, spd = gather_pages_ref(*args[:4], layer)
+    kd, vd = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
+              .contiguous() for x in (kd, vd))
+    mask = ((spd >= 0) & (spd < kl[:, None]))[:, None, None]
+    qt = q.transpose(1, 2).contiguous()
+    n_slots = pages_read(kv_lens, n_log) * PAGE
+    bd = bound(2 * q.numel() * 2 + n_slots * (2 * HKV * DH * 2 + 4),
+               4 * DH * HQ * sum(kv_lens), bf16)
+    n_split = decode_splits(n_log, SLOTS * HKV, _build.sm_count(dev))
+    log(f"  paged_decode_attention at a long context, B{SLOTS} kv_len "
+        f"{kv_lens[0]}..{kv_lens[-1]} n_log{n_log} P{PAGE} bf16, {n_split} "
+        f"splits: rel={r:.3e} tol=2e-02, kernel "
+        f"{time_ms(lambda: paged_decode_attention(q, *args), flush=flush):.4f}"
+        f" ms, plain {time_ms(lambda: paged_decode_attention_ref(q[:, 0], *args), flush=flush):.4f}"
+        f" ms, library {time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask), flush=flush):.4f}"
+        f" ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+
+
 def routed_counts(dev, capacity: int):
     """Per-expert token counts of a top-6 routing over the 64 experts of
     deepseek-moe-16b: ``capacity`` tokens at decode (8: dropless), else the
@@ -894,7 +961,9 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
 def phase_parity(dev):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import gmm
-    tc0 = (flash_attention.launches_tc, gmm.launches_tc)
+    from repro_torch.kernels.flash_attention.ops import paged_extend_attention
+    tc0 = (flash_attention.launches_tc, gmm.launches_tc,
+           paged_extend_attention.launches_tc)
     for name, arch, opts, wseed, pseed, waves in PARITY:
         toks, hits = parity_run(dev, arch, opts, wseed, pseed, waves)
         cpu, card_ = toks["cpu"], toks[str(dev)]
@@ -908,7 +977,8 @@ def phase_parity(dev):
             raise AssertionError(f"{name}: no prefix hit in wave 2")
         log(f"[4] {name}: identical on {dev} (kernels) and cpu (plain "
             f"versions), {hits['cpu']} prefix-hit tokens")
-    if (flash_attention.launches_tc, gmm.launches_tc) != tc0:
+    if (flash_attention.launches_tc, gmm.launches_tc,
+            paged_extend_attention.launches_tc) != tc0:
         raise AssertionError("a float32 run launched a tensor-core kernel")
 
 
@@ -1063,7 +1133,7 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
         raise AssertionError(f"a kernel was never launched: {launches}")
     expect("paged decode", launches["paged_decode_attention"],
            L * bat.decode_invocations)
-    expect_tc(launches, "flash_attention")
+    expect_tc(launches, "flash_attention", "paged_extend_attention")
     check_drained(bat.pool, SLOTS * SHARED)
     e2e = report(5, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
     log(f"[5] {bat.pool.prefix_hit_tokens} prefix-hit tokens")
@@ -1170,7 +1240,7 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
                       launches["paged_extend_attention"]) <= 0:
         raise AssertionError(f"a zamba2 attention kernel was never launched: "
                              f"{launches}")
-    expect_tc(launches, "flash_attention")
+    expect_tc(launches, "flash_attention", "paged_extend_attention")
     check_drained(bat.pool, SLOTS * SHARED)
     st = bat.pool.stats()
     if st["snapshot_hit_tokens"] < SLOTS * SHARED:
@@ -1230,7 +1300,7 @@ def phase_moe(dev, name_limit: str) -> dict:
            3 * n_moe * bat.decode_invocations)
     expect("grouped GEMM at the prefill shapes", launches["gmm_prefill"],
            3 * n_moe * bat.prefill_invocations)
-    expect_tc(launches, "gmm", "flash_attention")
+    expect_tc(launches, "gmm", "flash_attention", "paged_extend_attention")
     log(f"[7] grouped GEMM launches by capacity C: {by_c}")
     expect("paged decode", launches["paged_decode_attention"],
            cfg.num_layers * bat.decode_invocations)

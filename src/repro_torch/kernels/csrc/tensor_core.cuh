@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16 kernels of the port
-// (prefill flash attention, grouped expert GEMM): 16-byte cp.async copies
+// (prefill flash attention and paged extend, grouped expert GEMM; the
+// paged decode kernel uses the copies): 16-, 8- and 4-byte cp.async copies
 // from device to shared memory, ldmatrix fragment loads and the
 // mma.sync m16n8k16 bf16 product with float32 accumulators, as inline PTX.
 //
@@ -37,6 +38,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
+
+// kBytes (4, 8 or 16) from device to shared memory, asynchronously,
+// through L1 (cp.async.ca: the .cg form takes only 16 bytes).  Both
+// addresses are kBytes-aligned.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(kBytes)
+               : "memory");
+}
+
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

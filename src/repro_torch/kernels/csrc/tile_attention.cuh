@@ -1,5 +1,6 @@
-// Shared-memory attention tile used by the three attention kernels of the
-// port (prefill flash, paged extend, paged decode).
+// Shared-memory attention tile of the port's CUDA-core attention kernels
+// (float32 prefill flash, paged extend over float32 or int8 arenas, dense
+// decode).
 //
 // One thread block owns a tile of `nr` query rows (q heads or q positions)
 // and streams key/value tiles of `nc` rows through shared memory, keeping

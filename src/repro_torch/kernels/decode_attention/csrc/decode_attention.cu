@@ -14,25 +14,63 @@
 // taken: the last key tile is ragged (the Pallas wrapper asserted
 // S % block_k == 0).
 //
-// paged_decode_kernel replaces the TPU kernel src/repro/kernels/decode_attention/
-// decode_attention.py::_paged_decode_kernel (wrapper
+// paged_decode_split_kernel replaces the TPU kernel src/repro/kernels/
+// decode_attention/decode_attention.py::_paged_decode_kernel (wrapper
 // paged_decode_attention_bhd).  One decode query per row and q head attends
 // to the row's pages of a (N, P, L, Hkv, Dh) arena through a (B, n_log)
-// block table.  A slot counts iff 0 <= slot_pos < kv_len[b]; sentinel pages
-// (page id >= N) and pages that start at or past kv_len are skipped; int8
-// arenas dequantise with per-(page, layer) scales.
+// block table.  A slot counts iff 0 <= slot_pos < kv_len[b]; sentinel
+// pages (id < 0 or >= N) and pages that start at or past kv_len are never
+// read; int8 arenas dequantise with per-(page, layer) scales.
 //
 // What bounds both on the H100: the K and V bytes streamed from device
 // memory, B * kv_len * Hkv * Dh * 2 * bytes per layer; the arithmetic is
-// 4 * G flops per K/V element pair, far below the card's ridge point.
+// 4 * G flops per K/V element pair, far below the card's ridge point.  At
+// the serving shapes those bytes are few (B8 kv_len 87..129, Hkv 8, Dh 128:
+// about 4 MB, 0.0012 ms at 3.35 TB/s), so what bounds the call is latency:
+// the dependent round trips to device memory and the work a block does
+// after its last byte lands.
 //
-// What this simple design does about it: one block per (row, kv head) walks
-// the row's key tiles (dense) or pages (paged) in order; the G q heads of
-// the group sit in shared memory, so each K/V tile is read from device
-// memory once for all G heads and the grid reads every live K/V byte
-// exactly once.  m, l and acc stay in
-// float32.  With only B * Hkv blocks most SMs idle at small batch; splitting
-// the key walk across blocks (flash-decoding) is the next step.
+// The dense decode_kernel (one block per (row, kv head) walking the key
+// tiles in order through the float32 shared-memory tile of
+// tile_attention.cuh; the G q heads of the group share each K/V tile, so
+// the grid reads every live K/V byte once) is latency-bound the same way;
+// the split design below is its next step.
+//
+// The paged design (flash-decoding, merged on chip): the blocks of one
+// (row, kv head) form a thread-block cluster of n_split <= 8 (the portable
+// size), each walking a contiguous range of logical pages.  The host picks
+// n_split from n_log, the block count and the SM count alone (ops.
+// decode_splits: the smallest power of two that gives two blocks per SM,
+// capped by 8 and n_log), so no device value is read back.  A block reads
+// kv_len and its block-table entries in one round trip, then issues every
+// key of its pages into a shared-memory tile at once (16-byte cp.async, or
+// 8 or 4 bytes, or element by element, where the head dim or the arena
+// strides need it), bf16, float32 or int8 as stored, with its slot
+// positions and scales beside them; a ring of two tiles of up to 8 KB of K
+// streams longer ranges (small tiles leave room for more blocks on an SM,
+// which is what the long ranges need).  Q of the block's G heads sits in
+// registers, each lane holding kE consecutive elements of the head dim.
+// Each warp takes a quarter of a tile's keys, 8 at a time (4 at G 8), and
+// computes each lane's part of q . k for all 32 (key, head) pairs (8 at
+// G 1); one halving reduction across the lanes (31 shuffles for 32 pairs)
+// leaves each lane with one pair's score, the online softmax runs once
+// per pair in its lane, and shuffles hand every lane the heads'
+// corrections and the pairs' p for its part of P V.  All in float32 on
+// CUDA cores (float32 stays exact float32 for the card-vs-CPU parity),
+// with the softmax state and the output accumulator in registers.  The warps
+// merge in shared memory into the block's (m, l, acc); after
+// cluster.sync(), block rank 0 reads the other blocks' partials through
+// distributed shared memory, merges them with ops.lse_combine's weights
+// and writes the output.  One launch per call, no workspace, nothing read
+// back.  A split with nothing to do still reaches both cluster barriers
+// and adds m = -1e30, l = 0, acc = 0, which weighs 0; a row with no valid
+// key anywhere finishes as 0 / max(0, 1e-30) = 0.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <type_traits>
+
+#include "tensor_core.cuh"
 #include "tile_attention.cuh"
 
 namespace rt {
@@ -98,8 +136,89 @@ cudaError_t launch_decode(const void* q, int64_t q_sb, int64_t q_sh, const void*
   return cudaGetLastError();
 }
 
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+// ---- paged decode: the page walk split across the blocks of a cluster ----
+
+constexpr int kDecodeStages = 2;         // key tiles in the cp.async ring
+constexpr int kDecodeTileBytes = 8192;   // K bytes of a tile, at most
+constexpr int kDecodeWarps = kThreads / 32;
+
+// c ? a : b as one selp: opaque to the compiler, which would otherwise
+// turn a select between two elements of a register array into a load at
+// a computed index and move the array to local memory
+__device__ __forceinline__ float select(bool c, float a, float b) {
+  float r;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n selp.f32 %0, %1, %2, p;\n}\n"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"(static_cast<int>(c)));
+  return r;
+}
+
+// The halving steps of a warp sum of n values a lane, from lane offset o
+// down: at offset o a lane keeps the half of its values that its lane bit
+// o selects and adds its partner's part of that half.  After log2(n)
+// steps x[0] of lane L holds value L >> (5 - log2(n)) summed over the
+// lanes that share those top bits.  A template, so that every index is a
+// constant and x stays in registers.
+template <int kSize, int n, int o>
+__device__ __forceinline__ void halve_sum(float (&x)[kSize], int lane) {
+  if constexpr (n > 1) {
+    constexpr int half = n / 2;
+    const bool up = lane & o;
+#pragma unroll
+    for (int j = 0; j < half; ++j) {
+      const float send = select(up, x[j], x[j + half]);
+      const float keep = select(up, x[j + half], x[j]);
+      x[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    halve_sum<kSize, half, o / 2>(x, lane);
+  }
+}
+
+template <typename T> struct Vec;  // kE elements of T read from shared memory as one load
+template <> struct Vec<float> {
+  template <int kE> __device__ static void load(const float* p, float (&x)[kE]) {
+    if constexpr (kE == 2) {
+      const float2 a = *reinterpret_cast<const float2*>(p);
+      x[0] = a.x; x[1] = a.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kE; i += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(p + i);
+        x[i] = a.x; x[i + 1] = a.y; x[i + 2] = a.z; x[i + 3] = a.w;
+      }
+    }
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  template <int kE> __device__ static void load(const __nv_bfloat16* p, float (&x)[kE]) {
+#pragma unroll
+    for (int i = 0; i < kE; i += 2) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
+      x[i] = a.x; x[i + 1] = a.y;
+    }
+  }
+};
+template <> struct Vec<int8_t> {
+  template <int kE> __device__ static void load(const int8_t* p, float (&x)[kE]) {
+#pragma unroll
+    for (int i = 0; i < kE; i += 2) {
+      const char2 a = *reinterpret_cast<const char2*>(p + i);
+      x[i] = static_cast<float>(a.x); x[i + 1] = static_cast<float>(a.y);
+    }
+  }
+};
+
+// Block of a paged decode call: split s = blockIdx.x (its rank in the
+// cluster of n_split = gridDim.x blocks) of row b = blockIdx.z, kv head
+// blockIdx.y / n_hc, q heads g0 .. g0 + kG - 1 of that group (g0 =
+// kG * (blockIdx.y % n_hc); n_hc > 1 only when G > 8).  The split walks
+// logical pages [s * n_log / n_split, (s + 1) * n_log / n_split) of the
+// row in tiles of kt keys.  Each lane holds kE consecutive elements of the
+// head dim (lane * kE ..); warp w takes keys [w * kt / 4, (w + 1) * kt / 4)
+// of a tile, kB at a time, and keeps its own online softmax (m, l, acc) in
+// registers, in log2 units.
+template <typename QT, typename KT, int kG, int kE>
+__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
     const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
     const KT* __restrict__ k, const KT* __restrict__ v,
     int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
@@ -109,41 +228,376 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     int64_t sc_sn, int64_t sc_sl,
     QT* __restrict__ out, int64_t o_sb, int64_t o_sh,
-    int G, int Dh, int N, int P, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  Tile t = carve_tile(smem, G, P, Dh);
-  int* sp_tile = reinterpret_cast<int*>(tile_end(t, G));   // [P]
-  int* bt_tile = sp_tile + P;                               // [n_log]
+    int G, int Dh, int N, int P, int n_hc, int kt, int ld, int vb, size_t area_bytes,
+    float scale_log2) {
+  constexpr int kDh = 32 * kE;                        // head dims a warp covers
+  // keys a warp takes per step, and the (key, head) pairs of a step: 8 or
+  // 32, so that a step's scores reduce across the warp by halving
+  constexpr int kB = kG == 8 ? 4 : 8;
+  constexpr int kN = kB * kG;
+  constexpr int kLogN = kN == 32 ? 5 : 3;
+  constexpr int kShift = 5 - kLogN;       // lane >> kShift: the lane's pair
+  constexpr int kLogG = kG == 8 ? 3 : (kG == 4 ? 2 : 0);
+  static_assert(kG == 1 || kG == 4 || kG == 8, "kG is 1, 4 or 8");
+  constexpr int kPart = 2 * kG + kG * kDh;            // floats of one (m, l, acc)
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
 
-  load_rows(t.q, q + b * q_sb + (int64_t)h * G * q_sh, q_sh, 1.f, (float*)nullptr,
-            (const QT*)nullptr, 0, 0.f, t.ld, G, G, Dh);
-  load_block_table(bt_tile, block_table + b * bt_sb, n_log);
-  tile_init(t, G);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_split = gridDim.x, split = blockIdx.x;
+  const int h = blockIdx.y / n_hc, g0 = (blockIdx.y - h * n_hc) * kG, b = blockIdx.z;
+  const int gb = min(kG, G - g0);                     // heads of this block
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = static_cast<int>((int64_t)split * n_log / n_split);
+  const int hi = static_cast<int>((int64_t)(split + 1) * n_log / n_split);
+
+  // shared memory: the K/V ring (reused by the warps' partials at the
+  // end), slot positions and scales of each tile, the split's block-table
+  // entries, the block's partial (read by rank 0 through distributed
+  // shared memory) and rank 0's merge weights
+  KT* ring = reinterpret_cast<KT*>(smem_raw);         // [stage][K, V][kt][ld]
+  float* ws = reinterpret_cast<float*>(smem_raw);     // [warp][kPart], after the walk
+  int* sps = reinterpret_cast<int*>(smem_raw + area_bytes);  // [stage][kt]
+  float* kss = reinterpret_cast<float*>(sps + kDecodeStages * kt);  // [stage][kt]
+  float* vss = kss + kDecodeStages * kt;              // [stage][kt]
+  int* bts = reinterpret_cast<int*>(vss + kDecodeStages * kt);      // [hi - lo]
+  float* part = reinterpret_cast<float*>(bts + ((((n_log + n_split - 1) / n_split) + 3) & ~3));
+  float* wts = part + kPart;                          // [8][kG]
+
+  // round trip 1: kv_len, the split's block-table entries and q
   const int len = kv_len[b];
+  for (int j = lo + tid; j < hi; j += kThreads) bts[j - lo] = block_table[b * bt_sb + j];
+  const bool lane_on = lane * kE < Dh;
+  float qf[kG][kE];
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int d = lane * kE + e;
+      qf[g][e] = g < gb && d < Dh
+                     ? to_f(q[b * q_sb + (int64_t)(h * G + g0 + g) * q_sh + d]) * scale_log2
+                     : 0.f;
+    }
+  // the pad columns [Dh, ld) of every ring row stay zero: copies never
+  // write them and the lanes that read them multiply by q = 0
+  const int n_bt = (n_log + n_split - 1) / n_split;
+  const int n_stage = min(kDecodeStages, (n_bt * P + kt - 1) / kt);  // as decode_plan
+  const int pad = (ld - Dh) * static_cast<int>(sizeof(KT));
+  if (pad > 0) {
+    unsigned char* rows = smem_raw + Dh * sizeof(KT);
+    for (int i = tid; i < n_stage * 2 * kt * pad; i += kThreads) {
+      const int r = i / pad;
+      rows[(size_t)r * ld * sizeof(KT) + (i - r * pad)] = 0;
+    }
+  }
   __syncthreads();
 
-  for (int j = 0; j < n_log && j * P < len; ++j) {
-    const int page = bt_tile[j];
-    if (page < 0 || page >= N) continue;  // unmapped sentinel page
-    float ks = 1.f, vs = 1.f;
-    if (k_scale != nullptr) {
-      ks = k_scale[page * sc_sn + layer * sc_sl];
-      vs = v_scale[page * sc_sn + layer * sc_sl];
+  // keys of the split's live pages: pages that start at or past kv_len
+  // are never read
+  const int live_hi = min(hi, len > 0 ? (len + P - 1) / P : 0);
+  const int n_keys = max(0, live_hi - lo) * P;
+  const int n_tiles = (n_keys + kt - 1) / kt;
+  const int esize = sizeof(KT);
+  const int cpr = vb ? Dh * esize / vb : Dh;          // copies per row
+  const int64_t lsl = layer * a_sl + h * a_sh;
+
+  // round trip 2: a tile's K and V rows, slot positions and scales
+  auto load_tile = [&](int t, int stage) {
+    KT* kd = ring + (stage * 2) * kt * ld;
+    KT* vd = kd + kt * ld;
+    for (int c = tid; c < kt * cpr; c += kThreads) {
+      const int r = c / cpr, part_i = c - r * cpr;
+      const int key = t * kt + r;
+      if (key >= n_keys) continue;
+      const int kl = lo * P + key, j = kl / P, slot = kl - j * P;
+      const int page = bts[j - lo];
+      if (page < 0 || page >= N) continue;              // unmapped: never read
+      const int64_t off = page * a_sn + slot * a_sp + lsl;
+      if (vb == 16) {
+        const int d = part_i * (16 / esize);
+        cp_async_ca<16>(kd + r * ld + d, k + off + d);
+        cp_async_ca<16>(vd + r * ld + d, v + off + d);
+      } else if (vb == 8) {
+        const int d = part_i * (8 / esize);
+        cp_async_ca<8>(kd + r * ld + d, k + off + d);
+        cp_async_ca<8>(vd + r * ld + d, v + off + d);
+      } else if (vb == 4) {
+        const int d = part_i * (4 / esize);
+        cp_async_ca<4>(kd + r * ld + d, k + off + d);
+        cp_async_ca<4>(vd + r * ld + d, v + off + d);
+      } else {                                           // element by element
+        kd[r * ld + part_i] = k[off + part_i];
+        vd[r * ld + part_i] = v[off + part_i];
+      }
     }
-    const int64_t base = page * a_sn + layer * a_sl + h * a_sh;
-    const int sp = fetch_slot_pos(slot_pos + page * sp_sn + layer * sp_sl, sp_sp, P);
-    load_rows(t.k, k + base, a_sp, ks, t.v, v + base, a_sp, vs, t.ld, P, P, Dh);
-    if (threadIdx.x < P) sp_tile[threadIdx.x] = sp;
-    __syncthreads();
-    tile_step(t, G, P, scale, [&](int, int c) {
-      const int sp = sp_tile[c];
-      return sp >= 0 && sp < len;
-    });
+    if (tid < kt) {
+      const int key = t * kt + tid;
+      int* dst = sps + stage * kt + tid;
+      int page = -1, slot = 0;
+      if (key < n_keys) {
+        const int kl = lo * P + key, j = kl / P;
+        slot = kl - j * P;
+        page = bts[j - lo];
+      }
+      if (page >= 0 && page < N) {
+        cp_async_ca<4>(dst, slot_pos + page * sp_sn + slot * sp_sp + layer * sp_sl);
+        if (kQuant) {
+          cp_async_ca<4>(kss + stage * kt + tid, k_scale + page * sc_sn + layer * sc_sl);
+          cp_async_ca<4>(vss + stage * kt + tid, v_scale + page * sc_sn + layer * sc_sl);
+        }
+      } else {
+        *dst = -1;                                       // masked, K/V never read
+      }
+    }
+  };
+
+  // Each lane holds the output accumulator of its kE head dims for all
+  // kG heads, and the softmax state (m, l) of head jm % kG, where jm =
+  // lane >> kShift is the (key, head) pair whose score the lane ends with
+  // after a step's reduction; lanes of one head hold equal (m, l).
+  const int jm = lane >> kShift, im = jm / kG;
+  float m_mine = kNegInit, l_mine = 0.f, acc[kG][kE];
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[g][e] = 0.f;
+
+  // prologue: tiles 0 .. kDecodeStages - 2 in flight, one commit group each
+#pragma unroll
+  for (int st = 0; st < kDecodeStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st, st);
+    cp_async_commit();
   }
-  tile_store(t, G, out + b * o_sb + (int64_t)h * G * o_sh, o_sh);
+  const int per_warp = kt / kDecodeWarps;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kDecodeStages;
+    cp_async_wait<kDecodeStages - 2>();  // tile t landed
+    __syncthreads();     // ... for every thread; tile t - 1 is consumed
+    const int nxt = t + kDecodeStages - 1;  // into tile t - 1's stage
+    if (nxt < n_tiles) load_tile(nxt, nxt % kDecodeStages);
+    cp_async_commit();
+    const KT* kt_s = ring + (stage * 2) * kt * ld;
+    const KT* vt_s = kt_s + kt * ld;
+    const int* sp_t = sps + stage * kt;
+    const int r_end = (warp + 1) * per_warp;
+    for (int r0 = warp * per_warp; r0 < r_end; r0 += kB) {
+      unsigned vmask = 0;                                // keys that count
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        const int spv = r0 + i < r_end ? sp_t[r0 + i] : -1;
+        vmask |= (spv >= 0 && spv < len ? 1u : 0u) << i;
+      }
+      if (!vmask) continue;                              // warp-uniform
+      // this lane's part of q . k for every (key i, head g): x[i * kG + g]
+      float x[kN];
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        float kx[kE];
+#pragma unroll
+        for (int e = 0; e < kE; ++e) kx[e] = 0.f;
+        if ((vmask >> i & 1) && lane_on)
+          Vec<KT>::template load<kE>(kt_s + (r0 + i) * ld + lane * kE, kx);
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          float acc_s = 0.f;
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc_s = fmaf(qf[g][e], kx[e], acc_s);
+          x[i * kG + g] = acc_s;
+        }
+      }
+      // sum over the warp by halving (halve_sum), then full xor steps
+      halve_sum<kN, kN, 16>(x, lane);
+#pragma unroll
+      for (int o = 16 >> kLogN; o > 0; o >>= 1) x[0] += __shfl_xor_sync(0xffffffffu, x[0], o);
+      // online softmax of head jm % kG over its kB keys, one score a lane
+      const bool vm = vmask >> im & 1;
+      const float ksc = kQuant && vm ? kss[stage * kt + r0 + im] : 1.f;
+      const float vsc = kQuant && vm ? vss[stage * kt + r0 + im] : 1.f;
+      const float sc = vm ? x[0] * ksc : -INFINITY;
+      float mx = sc;
+#pragma unroll
+      for (int o = 16; o >= (1 << (kShift + kLogG)); o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_mine, mx);             // finite: m starts at -1e30
+      const float corr = exp2f(m_mine - m_new);
+      const float p = exp2f(sc - m_new);                 // masked: 0
+      float sum = p;
+#pragma unroll
+      for (int o = 16; o >= (1 << (kShift + kLogG)); o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l_mine = l_mine * corr + sum;
+      m_mine = m_new;
+      // every lane takes each head's correction, then each pair's p * v_scale
+      const float pv = p * vsc;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const float cg = __shfl_sync(0xffffffffu, corr, g << kShift);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[g][e] *= cg;
+      }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        float pb[kG];                                    // every lane takes part
+#pragma unroll
+        for (int g = 0; g < kG; ++g) pb[g] = __shfl_sync(0xffffffffu, pv, (i * kG + g) << kShift);
+        if (!(vmask >> i & 1) || !lane_on) continue;
+        float vx[kE];
+        Vec<KT>::template load<kE>(vt_s + (r0 + i) * ld + lane * kE, vx);
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[g][e] = fmaf(pb[g], vx[e], acc[g][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it takes the warps' partials
+
+  float* wp = ws + warp * kPart;
+  if (im == 0) {                                         // lanes of pairs (0, g)
+    wp[jm] = m_mine;
+    wp[kG + jm] = l_mine;
+  }
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) wp[2 * kG + g * kDh + lane * kE + e] = acc[g][e];
+  __syncthreads();
+
+  // the block's partial: the warps merged with the LSE weights; an empty
+  // warp (m = -1e30, l = 0, acc = 0) adds 0
+  for (int i = tid; i < kG * kDh; i += kThreads) {
+    const int g = i / kDh;
+    float mx = kNegInit;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) mx = fmaxf(mx, ws[w * kPart + g]);
+    float a = 0.f, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float c = exp2f(ws[w * kPart + g] - mx);
+      a = fmaf(c, ws[w * kPart + 2 * kG + i], a);
+      sum = fmaf(c, ws[w * kPart + kG + g], sum);
+    }
+    part[2 * kG + i] = a;
+    if (i - g * kDh == 0) {
+      part[g] = mx;
+      part[kG + g] = sum;
+    }
+  }
+
+  // every split's partial is ready; rank 0 merges them (ops.lse_combine's
+  // arithmetic, in log2 units) and writes the output.  An empty split
+  // (m = -1e30, l = 0, acc = 0) weighs 0, and if every split is empty the
+  // output is 0 / max(0, 1e-30) = 0.
+  cluster.sync();
+  if (split == 0) {
+    if (tid < gb) {
+      const int g = tid;
+      float mx = kNegInit;
+      for (int r = 0; r < n_split; ++r) mx = fmaxf(mx, cluster.map_shared_rank(part, r)[g]);
+      float sum = 0.f;
+      for (int r = 0; r < n_split; ++r) {
+        const float* rp = cluster.map_shared_rank(part, r);
+        const float c = exp2f(rp[g] - mx);
+        wts[r * kG + g] = c;
+        sum = fmaf(c, rp[kG + g], sum);
+      }
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      for (int r = 0; r < n_split; ++r) wts[r * kG + g] *= inv;
+    }
+    __syncthreads();
+    for (int i = tid; i < gb * Dh; i += kThreads) {
+      const int g = i / Dh, d = i - g * Dh;
+      float a = 0.f;
+      for (int r = 0; r < n_split; ++r)
+        a = fmaf(wts[r * kG + g], cluster.map_shared_rank(part, r)[2 * kG + g * kDh + d], a);
+      out[b * o_sb + (int64_t)(h * G + g0 + g) * o_sh + d] = from_f<QT>(a);
+    }
+  }
+  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
+// Host-side plan of one paged decode launch: keys per tile, shared-memory
+// row stride and copy width, the bytes of the ring and of the whole block.
+struct DecodePlan {
+  int kt, ld, vb;
+  size_t area, smem;
+};
+
+inline DecodePlan decode_plan(int esize, int Dh, int P, int n_log, int n_split,
+                              int kG, int kE, const void* k, const void* v, int64_t a_sn,
+                              int64_t a_sp, int64_t a_sl, int64_t a_sh) {
+  DecodePlan pl;
+  pl.ld = (Dh + 15) / 16 * 16;
+  // copy width: the widest of 16, 8, 4 bytes that every row start and the
+  // row length are multiples of; else element by element
+  const uint64_t align = (uint64_t)Dh * esize | (uint64_t)(a_sn | a_sp | a_sl | a_sh) * esize |
+                         reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  pl.vb = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 0;
+  // a tile holds the split's keys, up to 8 KB of K (and as much V), 16
+  // keys at least; one stage if a tile holds them all
+  const int n_bt = (n_log + n_split - 1) / n_split;
+  const int want = (n_bt * P + 15) / 16 * 16;
+  int kt = 16;
+  while (kt < want && kt < 128 && (size_t)2 * kt * pl.ld * esize <= kDecodeTileBytes) kt *= 2;
+  pl.kt = kt;
+  const int stages = std::min(kDecodeStages, (n_bt * P + kt - 1) / kt);
+  const size_t ring = (size_t)stages * 2 * kt * pl.ld * esize;
+  const size_t part = sizeof(float) * (2 * kG + kG * 32 * kE);
+  pl.area = (std::max(ring, kDecodeWarps * part) + 15) / 16 * 16;
+  pl.smem = pl.area + sizeof(int) * 3 * kDecodeStages * kt + sizeof(int) * ((n_bt + 3) & ~3) +
+            part + sizeof(float) * 8 * kG;
+  return pl;
+}
+
+template <typename QT, typename KT, int kG, int kE>
+cudaError_t launch_paged_decode_split(
+    const void* q, int64_t q_sb, int64_t q_sh, const void* k, const void* v,
+    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
+    const int* slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
+    const int* block_table, int64_t bt_sb, int n_log, const int* kv_len, int layer,
+    const float* k_scale, const float* v_scale, int64_t sc_sn, int64_t sc_sl,
+    void* out, int64_t o_sb, int64_t o_sh,
+    int B, int Hkv, int G, int Dh, int N, int P, int n_split, cudaStream_t stream) {
+  const DecodePlan pl = decode_plan(sizeof(KT), Dh, P, n_log, n_split, kG, kE, k, v, a_sn,
+                                    a_sp, a_sl, a_sh);
+  auto kernel = paged_decode_split_kernel<QT, KT, kG, kE>;
+  cudaError_t err = allow_smem(kernel, pl.smem);
+  if (err != cudaSuccess) return err;
+  const int n_hc = (G + kG - 1) / kG;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hkv * n_hc, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // can a cluster of n_split such blocks be resident at all?  Asked once
+  // per instantiation, cluster size and larger shared-memory size
+  static size_t checked[9] = {0};
+  if (pl.smem > checked[n_split]) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    checked[n_split] = pl.smem;
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const QT*>(q), q_sb, q_sh,
+                            static_cast<const KT*>(k), static_cast<const KT*>(v), a_sn, a_sp,
+                            a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl, block_table, bt_sb,
+                            n_log, kv_len, layer, k_scale, v_scale, sc_sn, sc_sl,
+                            static_cast<QT*>(out), o_sb, o_sh, G, Dh, N, P, n_hc, pl.kt,
+                            pl.ld, pl.vb, pl.area,
+                            rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f);
+}
+
+// q heads per block (kG) and head-dim elements per lane (kE) by G and Dh
 template <typename QT, typename KT>
 cudaError_t launch_paged_decode(
     const void* q, int64_t q_sb, int64_t q_sh, const void* k, const void* v,
@@ -152,18 +606,24 @@ cudaError_t launch_paged_decode(
     const int* block_table, int64_t bt_sb, int n_log, const int* kv_len, int layer,
     const float* k_scale, const float* v_scale, int64_t sc_sn, int64_t sc_sl,
     void* out, int64_t o_sb, int64_t o_sh,
-    int B, int Hkv, int G, int Dh, int N, int P, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(G, P, Dh) + sizeof(int) * (P + n_log);
-  auto kernel = paged_decode_kernel<QT, KT>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), q_sb, q_sh,
-      static_cast<const KT*>(k), static_cast<const KT*>(v), a_sn, a_sp, a_sl, a_sh,
-      slot_pos, sp_sn, sp_sp, sp_sl, block_table, bt_sb, n_log, kv_len, layer,
-      k_scale, v_scale, sc_sn, sc_sl, static_cast<QT*>(out), o_sb, o_sh,
-      G, Dh, N, P, rsqrtf(static_cast<float>(Dh)));
-  return cudaGetLastError();
+    int B, int Hkv, int G, int Dh, int N, int P, int n_split, cudaStream_t stream) {
+  if (Dh > 256 || n_split < 1 || n_split > 8) return cudaErrorInvalidValue;
+#define RT_DECODE_SPLIT(KG, KE)                                                              \
+  return launch_paged_decode_split<QT, KT, KG, KE>(                                          \
+      q, q_sb, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl,            \
+      block_table, bt_sb, n_log, kv_len, layer, k_scale, v_scale, sc_sn, sc_sl, out, o_sb,   \
+      o_sh, B, Hkv, G, Dh, N, P, n_split, stream)
+#define RT_DECODE_KE(KG)                      \
+  {                                           \
+    if (Dh <= 64) RT_DECODE_SPLIT(KG, 2);     \
+    if (Dh <= 128) RT_DECODE_SPLIT(KG, 4);    \
+    RT_DECODE_SPLIT(KG, 8);                   \
+  }
+  if (G == 1) RT_DECODE_KE(1);
+  if (G <= 4) RT_DECODE_KE(4);
+  RT_DECODE_KE(8);
+#undef RT_DECODE_KE
+#undef RT_DECODE_SPLIT
 }
 
 }  // namespace rt
@@ -198,8 +658,9 @@ extern "C" int rt_decode_attention(
   }
 }
 
-// Paged: arena k/v share strides (N, P, L, Hkv) and
-// have a contiguous last dim.
+// Paged: arena k/v share strides (N, P, L, Hkv) and have a contiguous last
+// dim; Dh <= 256; n_split (1..8): the blocks, one cluster, that split a
+// row's pages (ops.decode_splits).
 extern "C" int rt_paged_decode_attention(
     const void* q, int64_t q_sb, int64_t q_sh, int q_dtype,
     const void* k, const void* v, int kv_dtype,
@@ -208,7 +669,7 @@ extern "C" int rt_paged_decode_attention(
     const void* block_table, int64_t bt_sb, int n_log, const void* kv_len, int layer,
     const void* k_scale, const void* v_scale, int64_t sc_sn, int64_t sc_sl,
     void* out, int64_t o_sb, int64_t o_sh,
-    int B, int Hkv, int G, int Dh, int N, int P, void* stream) {
+    int B, int Hkv, int G, int Dh, int N, int P, int n_split, void* stream) {
   using namespace rt;
   const int* sp = static_cast<const int*>(slot_pos);
   const int* bt = static_cast<const int*>(block_table);
@@ -220,7 +681,7 @@ extern "C" int rt_paged_decode_attention(
   return launch_paged_decode<QT, KT>(q, q_sb, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, sp, \
                                      sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, kl, layer, \
                                      ksc, vsc, sc_sn, sc_sl, out, o_sb, o_sh, B, Hkv,  \
-                                     G, Dh, N, P, s)
+                                     G, Dh, N, P, n_split, s)
   const bool quant = kv_dtype == I8;
   if (!quant && kv_dtype != q_dtype) return cudaErrorInvalidValue;
   switch (q_dtype) {

@@ -73,6 +73,31 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, slot_pos=None,
 decode_attention.launches = 0
 
 
+#: the portable thread-block cluster size: at most this many blocks split
+#: one row's pages
+MAX_SPLIT = 8
+#: q heads one decode block serves; a larger group takes several blocks
+HEADS_PER_BLOCK = 8
+
+
+def decode_splits(n_log: int, blocks: int, n_sm: int = 132) -> int:
+    """Blocks (one cluster) that split a row's ``n_log`` logical pages, for
+    a call of ``blocks`` (row, kv head, head chunk) work items on a card of
+    ``n_sm`` SMs: the smallest power of two that gives every SM two blocks,
+    capped at ``MAX_SPLIT`` and at ``n_log``.  Read from shapes alone, so
+    the host never waits for the device."""
+    n = 1
+    while n < MAX_SPLIT and blocks * n < 2 * n_sm:
+        n *= 2
+    return max(1, min(n, n_log))
+
+
+def split_range(n_log: int, n_split: int, s: int):
+    """Logical pages ``[lo, hi)`` of split ``s``: the kernel's
+    ``s * n_log / n_split`` .. ``(s + 1) * n_log / n_split``."""
+    return s * n_log // n_split, (s + 1) * n_log // n_split
+
+
 def paged_decode_attention(q, k_arena, v_arena, slot_pos, block_table,
                            kv_len, layer: int, *, k_scale=None, v_scale=None):
     """q: (B, 1, Hq, Dh) vs a paged arena -> (B, 1, Hq, Dh).
@@ -80,8 +105,10 @@ def paged_decode_attention(q, k_arena, v_arena, slot_pos, block_table,
     k/v_arena: (N, P, L, Hkv, Dh) float, or int8 with (N, L) float32
     ``k_scale``/``v_scale``; slot_pos: (N, P, L) int32; block_table:
     (B, n_log) with entries >= N unmapped; kv_len: (B,); layer: the arena
-    layer to read.  ``paged_decode_attention.launches`` counts kernel
-    launches."""
+    layer to read.  On the card one launch splits each row's pages across
+    a cluster of ``decode_splits`` blocks and merges them on chip; a head
+    dim above 256 raises ``ValueError``.
+    ``paged_decode_attention.launches`` counts kernel launches."""
     layer = int(layer)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
@@ -97,14 +124,20 @@ def paged_decode_attention(q, k_arena, v_arena, slot_pos, block_table,
                                    block_table, layer, k_scale, v_scale)
     if bt.shape[0] != B or kv_len.shape != (B,):
         raise ValueError("block_table and kv_len need one row per query row")
+    if Dh > 256:
+        raise ValueError(f"the paged decode kernel takes a head dim up to "
+                         f"256, not {Dh}")
     kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    G = Hq // Hkv
+    blocks = B * Hkv * -(-G // HEADS_PER_BLOCK)
+    n_split = decode_splits(bt.shape[1], blocks, _build.sm_count(q.device))
     out = torch.empty((B, 1, Hq, Dh), dtype=q.dtype, device=q.device)
     fn = _build.kernel("rt_paged_decode_attention",
-                       "PLLI PPI LLLL PLLL PLI PI PPLL PLL IIIIII P")
+                       "PLLI PPI LLLL PLLL PLI PI PPLL PLL IIIIIII P")
     rc = fn(q.data_ptr(), q.stride(0), q.stride(2),
             _build.DTYPE_CODE[q.dtype], *arena, kl.data_ptr(), layer,
             *scales, out.data_ptr(), out.stride(0), out.stride(2),
-            B, Hkv, Hq // Hkv, Dh, N, P, _build.stream_ptr(q.device))
+            B, Hkv, G, Dh, N, P, n_split, _build.stream_ptr(q.device))
     paged_decode_attention.launches += 1
     _build.check(rc, "paged_decode_attention")
     return out

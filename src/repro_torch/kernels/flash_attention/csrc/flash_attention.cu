@@ -7,7 +7,8 @@
 // optional sliding window, and the online softmax in float32.  The route
 // is by dtype alone:
 //
-// * bf16: flash_tc_kernel, on the tensor cores.
+// * bf16: flash_tc_kernel (the body flash_tc_body over a dense key
+//   source, DenseKeys), on the tensor cores.
 //   Bound on the H100: at the serving buckets (S 128) the call is bound by
 //   latency and by the Q, K, V and output bytes (B8 S128 Hq32 Hkv8 Dh128:
 //   21 MB, 0.006 ms at 3.35 TB/s, and 1.1 GFLOP of products, 0.001 ms at
@@ -51,13 +52,29 @@
 // _paged_extend_kernel (wrapper paged_extend_attention_bhsd): the Sq suffix
 // queries of row b sit at absolute positions pos[b] + i and attend to the
 // row's block-table pages of a (N, P, L, Hkv, Dh) arena.  A slot counts iff
-// 0 <= slot_pos <= q_pos; sentinel pages and pages past the tile's newest
-// query position are skipped; int8 arenas dequantise per (page, layer).
-//   Bound on the H100: the K/V page bytes streamed, as for paged decode.
-//   Design: one block per (row, q head, tile of 32 suffix positions) walks
-//   the row's pages in order with one page as the key tile.  Each of the G
-//   q heads of a group re-reads the group's pages (mostly from L2);
-//   sharing one page read across the group is the next step.
+// 0 <= slot_pos <= q_pos; sentinel pages (id < 0 or >= N) are never read;
+// the key walk stops after the newest query position; int8 arenas
+// dequantise per (page, layer).  Bound on the H100: the bytes of Q, the
+// K/V pages and the output (B8 S64 behind a 64-token prefix, Hq 32, Hkv 8,
+// Dh 128: 12.6 MB, 0.0038 ms at 3.35 TB/s; the products, 0.6 GFLOP, take
+// under 0.001 ms at the bf16 peak), and latency.  The route is by dtype,
+// as for prefill:
+//
+// * bf16 q with a bf16 arena: paged_extend_tc_kernel, which is
+//   flash_tc_kernel's body (flash_tc_body) over a paged key source
+//   (PagedKeys): the same packed (q position, q head) rows, so one page
+//   read serves all G q heads of its kv group, the same bf16 tiles of 32
+//   keys through the two-stage cp.async ring and mma.sync products.  Key
+//   k of a tile is slot k % P of page bt[k / P] (the row's block table in
+//   shared memory), which takes any page size: 16 on the pool, down to 1
+//   for a dense cache of odd length seen as an arena.  The tile's slot
+//   positions land in shared memory beside K and V (4-byte cp.async), and
+//   the mask 0 <= slot_pos <= q_pos applies in every tile; rows of
+//   unmapped pages are zero-filled and masked.
+// * float32 (exact products, for the card-vs-CPU parity) and any int8
+//   arena: paged_extend_kernel on CUDA cores, one block per (row, q head,
+//   32 suffix positions) walking the pages with the tile of
+//   tile_attention.cuh.
 #include "tensor_core.cuh"
 #include "tile_attention.cuh"
 
@@ -119,29 +136,116 @@ __host__ __device__ inline size_t flash_tc_smem_bytes(int dh) {
   return sizeof(bf16) * (size_t)(dh + 8) * (kTcRows + 2 * kTcStages * kTcBN);
 }
 
-// Up to Dh 128 the register budget is held to 128 a thread, so that four
-// blocks fit on an SM (the S 128 grids are one wave of them).
-template <int kDhMax>
-__global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kernel(
+// Key source of flash_tc_body for prefill: key row k of (b, hkv) at
+// kb + k * k_ss; causal and window masks by key index, applied only in
+// tiles that cross a limit or the ragged end.
+struct DenseKeys {
+  const bf16* kb;
+  const bf16* vb;
+  int64_t k_ss, v_ss;
+  int Skv, causal, window;
+
+  __device__ int t_begin(int q_lo) const {
+    return window >= 0 ? max(0, q_lo - window + 1) / kTcBN : 0;
+  }
+  __device__ int t_end(int q_hi) const {
+    const int n_tiles = (Skv + kTcBN - 1) / kTcBN;
+    return causal ? min(n_tiles, q_hi / kTcBN + 1) : n_tiles;
+  }
+  __device__ void load(int t, int stage, bf16* kd, bf16* vd, int ld, int chunks) const {
+    const int k0 = t * kTcBN;
+    for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
+      const int r = c / chunks, d = (c - r * chunks) * 8;
+      const bool ok = k0 + r < Skv;  // keys past Skv are zeros: 0 * V stays 0
+      const int64_t row = ok ? k0 + r : 0;
+      cp_async16(kd + r * ld + d, kb + row * k_ss + d, ok);
+      cp_async16(vd + r * ld + d, vb + row * v_ss + d, ok);
+    }
+  }
+  // does tile t need the per-element mask for rows at [wq_lo, wq_hi]?
+  __device__ bool masked(int k0, int wq_lo, int wq_hi) const {
+    return k0 + kTcBN > Skv || (causal && k0 + kTcBN - 1 > wq_lo) ||
+           (window >= 0 && k0 <= wq_hi - window);
+  }
+  __device__ bool ok(int k0, int c, int, int qp) const {
+    const int kp = k0 + c;
+    return kp < Skv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
+  }
+};
+
+// Key source of flash_tc_body for paged extend: logical key k of row b is
+// slot k % P of page bt[k / P] of a (N, P, L, Hkv, Dh) arena.  The block
+// table row sits in shared memory; each tile's slot positions land beside
+// its K and V (4-byte cp.async), and a key counts iff 0 <= slot_pos <=
+// q_pos.  Keys of unmapped pages (id < 0 or >= N) or past n_log are never
+// read: their K/V rows are zero-filled and their slot_pos is -1.
+struct PagedKeys {
+  const bf16* k;
+  const bf16* v;
+  int64_t a_sn, a_sp, lh;  // lh: the layer's and kv head's offset
+  const int* sp;           // slot_pos + layer * sp_sl
+  int64_t sp_sn, sp_sp;
+  const int* bts;          // the row's block table, shared memory [n_log]
+  int* sps;                // slot positions, shared memory [kTcStages][kTcBN]
+  int n_log, N, P;
+
+  __device__ int t_begin(int) const { return 0; }
+  // the walk stops after the tile holding the newest row's position, as
+  // logical page j holds positions [j * P, (j + 1) * P)
+  __device__ int t_end(int q_hi) const {
+    return min((n_log * P + kTcBN - 1) / kTcBN, q_hi / kTcBN + 1);
+  }
+  __device__ int page_of(int key, int& slot) const {
+    const int j = key / P;
+    slot = key - j * P;
+    const int page = j < n_log ? bts[j] : -1;
+    return page >= 0 && page < N ? page : -1;
+  }
+  __device__ void load(int t, int stage, bf16* kd, bf16* vd, int ld, int chunks) const {
+    const int k0 = t * kTcBN;
+    for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
+      const int r = c / chunks, d = (c - r * chunks) * 8;
+      int slot;
+      const int page = page_of(k0 + r, slot);
+      const int64_t off = page >= 0 ? page * a_sn + slot * a_sp + lh : 0;
+      cp_async16(kd + r * ld + d, k + off + d, page >= 0);
+      cp_async16(vd + r * ld + d, v + off + d, page >= 0);
+    }
+    if (threadIdx.x < kTcBN) {
+      int slot;
+      const int page = page_of(k0 + threadIdx.x, slot);
+      int* dst = sps + stage * kTcBN + threadIdx.x;
+      if (page >= 0)
+        cp_async_ca<4>(dst, sp + page * sp_sn + slot * sp_sp);
+      else
+        *dst = -1;
+    }
+  }
+  __device__ bool masked(int, int, int) const { return true; }
+  __device__ bool ok(int, int c, int stage, int qp) const {
+    const int s = sps[stage * kTcBN + c];
+    return s >= 0 && s <= qp;
+  }
+};
+
+// The body shared by the prefill and paged extend tensor-core kernels:
+// packed rows p0 .. p0 + 63 of kv head hkv in row b; row p is q position
+// p / G (absolute position off + p / G) of q head hkv * G + p % G.
+template <int kDhMax, class Keys>
+__device__ __forceinline__ void flash_tc_body(
     const bf16* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    const bf16* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    const bf16* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int Sq, int Skv, int G, int Dh, int causal, int window, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+    int Sq, int G, int Dh, int off, float scale_log2, const Keys& keys, bf16* qs) {
   const int ld = Dh + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][ld]
   bf16* ks = qs + kTcRows * ld;                   // [kTcStages][kTcBN][ld]
   bf16* vs = ks + kTcStages * kTcBN * ld;         // [kTcStages][kTcBN][ld]
   const int p0 = blockIdx.x * kTcRows, hkv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int off = Skv - Sq;                       // absolute position of q row 0
   const int chunks = Dh / 8;                      // 16-byte chunks of a row
   const int n_kk = Dh / 16;                       // 16-deep slices of a row
 
-  // the block's Q rows: packed row p is q position p / G of q head
-  // hkv * G + p % G; rows past Sq are zero-filled and never stored
+  // the block's Q rows; rows past Sq are zero-filled and never stored
   for (int c = tid; c < kTcRows * chunks; c += kThreads) {
     const int r = c / chunks, d = (c - r * chunks) * 8;
     const int p = p0 + r, i = p / G;
@@ -150,33 +254,18 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
     cp_async16(qs + r * ld + d, src, ok);
   }
 
-  // the kv tiles the block's rows can see: up to the causal limit of its
-  // newest row, from the window of its oldest
+  // the kv tiles the block's rows can see
   const int q_lo = off + p0 / G;
   const int q_hi = off + min(Sq - 1, (p0 + kTcRows - 1) / G);
-  const int n_tiles = (Skv + kTcBN - 1) / kTcBN;
-  const int t_end = causal ? min(n_tiles, q_hi / kTcBN + 1) : n_tiles;
-  const int t_begin = window >= 0 ? max(0, q_lo - window + 1) / kTcBN : 0;
+  const int t_end = keys.t_end(q_hi);
+  const int t_begin = keys.t_begin(q_lo);
 
-  const bf16* kb = k + b * k_sb + hkv * k_sh;
-  const bf16* vb = v + b * v_sb + hkv * v_sh;
-  auto load_kv = [&](int t, int stage) {
-    const int k0 = t * kTcBN;
-    bf16* kd = ks + stage * kTcBN * ld;
-    bf16* vd = vs + stage * kTcBN * ld;
-    for (int c = tid; c < kTcBN * chunks; c += kThreads) {
-      const int r = c / chunks, d = (c - r * chunks) * 8;
-      const bool ok = k0 + r < Skv;  // keys past Skv are zeros: 0 * V stays 0
-      const int64_t row = ok ? k0 + r : 0;
-      cp_async16(kd + r * ld + d, kb + row * k_ss + d, ok);
-      cp_async16(vd + r * ld + d, vb + row * v_ss + d, ok);
-    }
-  };
   // prologue: tiles t_begin .. t_begin + kTcStages - 2 in flight, one
   // commit group each (Q rides in the first)
 #pragma unroll
   for (int st = 0; st < kTcStages - 1; ++st) {
-    if (t_begin + st < t_end) load_kv(t_begin + st, st);
+    if (t_begin + st < t_end)
+      keys.load(t_begin + st, st, ks + st * kTcBN * ld, vs + st * kTcBN * ld, ld, chunks);
     cp_async_commit();
   }
 
@@ -197,7 +286,10 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
     cp_async_wait<kTcStages - 2>();  // this tile (and Q) landed
     __syncthreads();                 // ... for every warp; tile t - 1 is consumed
     const int nxt = t + kTcStages - 1;
-    if (nxt < t_end) load_kv(nxt, (nxt - t_begin) % kTcStages);  // into t - 1's stage
+    if (nxt < t_end) {               // into t - 1's stage
+      const int ns = (nxt - t_begin) % kTcStages;
+      keys.load(nxt, ns, ks + ns * kTcBN * ld, vs + ns * kTcBN * ld, ld, chunks);
+    }
     cp_async_commit();
     const bf16* kt = ks + stage * kTcBN * ld;
     const bf16* vt = vs + stage * kTcBN * ld;
@@ -222,20 +314,15 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
       }
     }
 
-    // scale into log2 units; mask where the tile crosses a limit
+    // scale into log2 units; mask where the key source asks for it
     const int k0 = t * kTcBN;
-    const bool masked = k0 + kTcBN > Skv || (causal && k0 + kTcBN - 1 > wq_lo) ||
-                        (window >= 0 && k0 <= wq_hi - window);
+    const bool masked = keys.masked(k0, wq_lo, wq_hi);
 #pragma unroll
     for (int j = 0; j < kTcBN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * scale_log2;
-        if (masked) {
-          const int kp = k0 + j * 8 + 2 * t4 + (e & 1), qp = qpos[e >> 1];
-          const bool ok = kp < Skv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
-          if (!ok) x = -INFINITY;
-        }
+        if (masked && !keys.ok(k0, j * 8 + 2 * t4 + (e & 1), stage, qpos[e >> 1])) x = -INFINITY;
         s[j][e] = x;
       }
     }
@@ -287,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
   }
   cp_async_wait<0>();
 
-  // out = O / l, rows past Sq dropped
+  // out = O / l, rows past Sq dropped; a row with no valid key stores 0
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float sum = l[h];
@@ -304,6 +391,52 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
             pack_bf16(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
     }
   }
+}
+
+// Up to Dh 128 the register budget is held to 128 a thread, so that four
+// blocks fit on an SM (the S 128 grids are one wave of them).
+template <int kDhMax>
+__global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kernel(
+    const bf16* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    const bf16* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    const bf16* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    int Sq, int Skv, int G, int Dh, int causal, int window, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hkv = blockIdx.y, b = blockIdx.z;
+  const DenseKeys keys{k + b * k_sb + hkv * k_sh, v + b * v_sb + hkv * v_sh, k_ss, v_ss,
+                       Skv, causal, window};
+  flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, Sq, G, Dh, Skv - Sq,
+                        scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
+}
+
+// Shared memory of paged_extend_tc_kernel: flash_tc_kernel's, then the
+// tiles' slot positions and the row's block table.
+__host__ __device__ inline size_t paged_extend_tc_smem_bytes(int dh, int n_log) {
+  return flash_tc_smem_bytes(dh) + sizeof(int) * ((size_t)kTcStages * kTcBN + n_log);
+}
+
+template <int kDhMax>
+__global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) paged_extend_tc_kernel(
+    const bf16* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    const bf16* __restrict__ k, const bf16* __restrict__ v,
+    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
+    const int* __restrict__ slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
+    const int* __restrict__ block_table, int64_t bt_sb, int n_log,
+    const int* __restrict__ pos, int layer,
+    bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    int Sq, int G, int Dh, int N, int P, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hkv = blockIdx.y, b = blockIdx.z;
+  int* sps = reinterpret_cast<int*>(smem_raw + flash_tc_smem_bytes(Dh));
+  int* bts = sps + kTcStages * kTcBN;
+  load_block_table(bts, block_table + b * bt_sb, n_log);
+  const int off = pos[b];
+  __syncthreads();
+  const PagedKeys keys{k, v, a_sn, a_sp, layer * a_sl + hkv * a_sh,
+                       slot_pos + layer * sp_sl, sp_sn, sp_sp, bts, sps, n_log, N, P};
+  flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, Sq, G, Dh, off,
+                        scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
 }
 
 template <typename QT, typename KT>
@@ -442,6 +575,43 @@ cudaError_t launch_paged_extend(
   return cudaGetLastError();
 }
 
+// The bf16 paged extend route: flash_tc_body over a paged key source.
+// Dh % 16 == 0 up to 256; 16-byte aligned q, out and arena rows (the
+// wrapper checks both and copies q if needed; an arena it cannot copy).
+inline cudaError_t launch_paged_extend_tc(
+    const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh, const void* k, const void* v,
+    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
+    const int* slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
+    const int* block_table, int64_t bt_sb, int n_log, const int* pos, int layer,
+    void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    int B, int Hq, int Hkv, int Sq, int Dh, int N, int P, cudaStream_t stream) {
+  if (Dh % 16 || Dh > 256) return cudaErrorInvalidValue;
+  const int64_t strides = q_sb | q_ss | q_sh | a_sn | a_sp | a_sl | a_sh | o_sb | o_ss | o_sh;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (strides % 8 || bases % 16) return cudaErrorMisalignedAddress;
+  const size_t smem = paged_extend_tc_smem_bytes(Dh, n_log);
+  const int G = Hq / Hkv;
+  const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, Hkv, B);
+  const float scale_log2 = rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f;
+#define RT_EXTEND_TC(DH)                                                                    \
+  {                                                                                         \
+    auto kernel = paged_extend_tc_kernel<DH>;                                               \
+    cudaError_t err = allow_smem(kernel, smem);                                             \
+    if (err != cudaSuccess) return err;                                                     \
+    kernel<<<grid, kThreads, smem, stream>>>(                                               \
+        static_cast<const bf16*>(q), q_sb, q_ss, q_sh, static_cast<const bf16*>(k),         \
+        static_cast<const bf16*>(v), a_sn, a_sp, a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl, \
+        block_table, bt_sb, n_log, pos, layer, static_cast<bf16*>(out), o_sb, o_ss, o_sh,   \
+        Sq, G, Dh, N, P, scale_log2);                                                       \
+    return cudaGetLastError();                                                              \
+  }
+  if (Dh <= 64) RT_EXTEND_TC(64);
+  if (Dh <= 128) RT_EXTEND_TC(128);
+  RT_EXTEND_TC(256);
+#undef RT_EXTEND_TC
+}
+
 }  // namespace rt
 
 // Plain C entry points bound with ctypes.  Every tensor is given by its
@@ -499,12 +669,15 @@ extern "C" int rt_paged_extend_attention(
   const bool quant = kv_dtype == I8;
   if (!quant && kv_dtype != q_dtype) return cudaErrorInvalidValue;
   switch (q_dtype) {
-    case F32:
+    case F32:  // CUDA cores: exact float32 products
       if (quant) RT_EXTEND(float, int8_t);
       RT_EXTEND(float, float);
-    case BF16:
+    case BF16:  // an int8 arena: CUDA cores
       if (quant) RT_EXTEND(__nv_bfloat16, int8_t);
-      RT_EXTEND(__nv_bfloat16, __nv_bfloat16);
+      // bf16 arena: tensor cores
+      return launch_paged_extend_tc(q, q_sb, q_ss, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, sp,
+                                    sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, ps, layer, out,
+                                    o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Dh, N, P, s);
     default:
       return cudaErrorInvalidValue;
   }

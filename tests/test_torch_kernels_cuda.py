@@ -12,9 +12,13 @@ G 2, an initial state and a ragged mask), plus q lengths, cache lengths,
 GEMM shapes and SSD chunk lengths that are not a multiple of the kernels'
 tiles, a rolling-window dense cache, the attention kernels at zamba2's
 head dim 80, and the SSD chunk kernel at the chunk lengths and widths of
-mamba2-2.7b and zamba2-2.7b.  bf16 takes the tensor-core flash and GEMM
-kernels: their cases cover every mask, head dims 16 to 256, GQA 4 and 5,
-and counts on each side of the GEMM's 16- and 128-row tiles.  Tolerances: rel < 2e-5 in float32
+mamba2-2.7b and zamba2-2.7b.  bf16 takes the tensor-core flash, paged extend
+and GEMM kernels: their cases cover every mask, head dims 16 to 256, GQA
+4 and 5, page sizes 1 to 64, and counts on each side of the GEMM's 16-
+and 128-row tiles.  Paged decode and extend run every dtype pair (q
+float32 or bf16, arena the same or int8); decode at n_log 1 to 256, so
+that a row's pages split across 1 to 8 blocks, with kv_len 0, 1 and
+n_log * P and rows whose every split is empty.  Tolerances: rel < 2e-5 in float32
 attention and SSD (summation order), 1e-4 in the float32 grouped GEMM
 (2048-term sums in another order), 2e-4 for int8 arenas in float32 (same
 dequantised values), 2e-2 in bf16 (output rounding).  Pad steps of the
@@ -60,7 +64,10 @@ def _rel(a, b):
                  / (b.float().abs().max() + 1e-9))
 
 
-def _arena(dev, B, Hkv, Dh, L, P, n_log, kv_lens, quant, sentinel_rows=()):
+def _arena(dev, B, Hkv, Dh, L, P, n_log, kv_lens, quant, sentinel_rows=(),
+           dtype=torch.float32):
+    """Arena in which logical page j of row b holds positions [j*P,
+    min((j+1)*P, kv_len)); float arenas in ``dtype``, int8 with scales."""
     rng = np.random.default_rng(0)
     N = B * n_log + 2
     k = torch.from_numpy(rng.standard_normal((N, P, L, Hkv, Dh)).astype(
@@ -83,8 +90,24 @@ def _arena(dev, B, Hkv, Dh, L, P, n_log, kv_lens, quant, sentinel_rows=()):
         k, ks = quantize_page(k, keep_axes=(0, 2))
         v, vs = quantize_page(v, keep_axes=(0, 2))
         sc = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v = k.to(dtype), v.to(dtype)
     return (k, v, torch.from_numpy(sp).to(dev), torch.from_numpy(bt).to(dev),
             sc)
+
+
+# (q dtype, int8 arena) -> tolerance on max|err| / max|ref|: float32 sums
+# in another order; int8 dequantised to the same values on both sides; bf16
+# output and P rounding
+PAIRS = [(torch.float32, False), (torch.float32, True),
+         (torch.bfloat16, False), (torch.bfloat16, True)]
+PAIR_IDS = ["float", "int8", "bf16", "bf16-int8"]
+
+
+def _tol(qdt, quant):
+    if qdt == torch.bfloat16:
+        return 2e-2
+    return 2e-4 if quant else 2e-5
 
 
 FLASH = [
@@ -154,10 +177,21 @@ def test_flash_attention_bf16_strided_views(dev):
 
 
 def test_tensor_core_counters(dev):
-    """bf16 launches of flash attention and the grouped GEMM take the
-    tensor-core kernels and count in ``launches_tc``; float32 launches take
-    the CUDA-core kernels and do not."""
+    """bf16 launches of flash attention, paged extend over a bf16 arena and
+    the grouped GEMM take the tensor-core kernels and count in
+    ``launches_tc``; float32 launches, and paged extend over an int8 arena,
+    take the CUDA-core kernels and do not."""
     g = torch.Generator(device=dev).manual_seed(4)
+    ext = fops.paged_extend_attention
+    for dt, quant, tc in ((torch.bfloat16, False, 1), (torch.float32, False, 0),
+                          (torch.bfloat16, True, 0), (torch.float32, True, 0)):
+        k, v, sp, bt, sc = _arena(dev, 1, 2, 64, 1, 16, 2, (24,), quant,
+                                  dtype=dt)
+        q = torch.randn((1, 8, 4, 64), generator=g, device=dev).to(dt)
+        n0 = (ext.launches, ext.launches_tc)
+        ext(q, k, v, sp, bt, torch.tensor([16], dtype=torch.int32,
+                                          device=dev), 0, **sc)
+        assert (ext.launches, ext.launches_tc) == (n0[0] + 1, n0[1] + tc)
     for dt, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
         q = torch.randn((1, 64, 4, 64), generator=g, device=dev).to(dt)
         n0 = (fops.flash_attention.launches, fops.flash_attention.launches_tc)
@@ -182,20 +216,78 @@ DECODE = [
     (3, 8, 2, 32, 3, 8, 4, (8, 29, 1)),
     (2, 4, 1, 16, 2, 16, 2, (5, 32)),
     (4, 32, 8, 128, 4, 16, 8, (128, 77, 1, 100)),
+    (2, 10, 2, 64, 2, 16, 4, (50, 33)),                    # GQA 5
+    # n_log 1, 3, 8 and 256: 1, 3, 8 and 8 splits of a row's pages
+    (2, 4, 2, 64, 1, 16, 1, (16, 9)),
+    (2, 4, 2, 64, 1, 16, 3, (40, 17)),
+    (2, 8, 2, 128, 2, 16, 8, (128, 70)),
+    (2, 8, 2, 128, 1, 16, 256, (4096, 1500)),
+    (8, 32, 32, 80, 1, 16, 16, (200, 1, 87, 129, 64, 100, 3, 256)),  # 2 splits, Dh 80
+    (3, 8, 2, 64, 1, 8, 6, (0, 1, 48)),                     # kv_len 0, 1, n_log * P
 ]
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
 @pytest.mark.parametrize("case", DECODE)
-def test_paged_decode_kernel(dev, case, quant):
+def test_paged_decode_kernel(dev, case, pair):
+    """Rows with kv_len 0 see no key: the kernel gives 0, the plain version
+    the average over its masked keys; they are checked to be 0."""
+    qdt, quant = pair
     B, Hq, Hkv, Dh, L, P, n_log, kv_lens = case
-    k, v, sp, bt, sc = _arena(dev, B, Hkv, Dh, L, P, n_log, kv_lens, quant)
-    q = torch.randn((B, 1, Hq, Dh), device=dev)
+    k, v, sp, bt, sc = _arena(dev, B, Hkv, Dh, L, P, n_log, kv_lens, quant,
+                              dtype=qdt)
+    q = torch.randn((B, 1, Hq, Dh), device=dev).to(qdt)
     kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    n0 = dops.paged_decode_attention.launches
     out = dops.paged_decode_attention(q, k, v, sp, bt, kl, L - 1, **sc)
     ref = paged_decode_attention_ref(q[:, 0], k, v, sp, bt, kl, L - 1, **sc)
     torch.cuda.synchronize()
-    assert _rel(out[:, 0], ref) < (2e-4 if quant else 2e-5)
+    assert dops.paged_decode_attention.launches == n0 + 1
+    live = [b for b, n in enumerate(kv_lens) if n > 0]
+    assert _rel(out[live, 0], ref[live]) < _tol(qdt, quant)
+    empty = [b for b, n in enumerate(kv_lens) if n == 0]
+    assert not out[empty].any()
+
+
+def test_paged_decode_splits(dev):
+    """The split counts the cases above run: 1 to 8."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    got = [dops.decode_splits(n_log, B * Hkv, sms)
+           for B, _, Hkv, _, _, _, n_log, _ in DECODE]
+    assert min(got) == 1 and max(got) == 8 and 2 in got and 3 in got
+
+
+def test_paged_decode_every_split_empty(dev):
+    """At n_log 256 (8 splits) a fully sentinel row and a row with kv_len
+    0 leave every split empty: both come out 0, the live row right."""
+    k, v, sp, bt, _ = _arena(dev, 3, 2, 64, 1, 16, 256, (300, 300, 0),
+                             False, sentinel_rows=(1,))
+    q = torch.randn((3, 1, 8, 64), device=dev)
+    kl = torch.tensor([300, 300, 0], dtype=torch.int32, device=dev)
+    out = dops.paged_decode_attention(q, k, v, sp, bt, kl, 0)
+    ref = paged_decode_attention_ref(q[:, 0], k, v, sp, bt, kl, 0)
+    torch.cuda.synchronize()
+    assert not out[1:].any()
+    assert _rel(out[0, 0], ref[0]) < 2e-5
+
+
+def test_paged_decode_back_to_back(dev):
+    """Two calls in a row at different B, Hkv and split counts, read back
+    after both: each right (the launch plan is per call)."""
+    outs, refs = [], []
+    for B, Hq, Hkv, n_log, kv_lens in ((2, 8, 2, 64, (1000, 300)),
+                                       (8, 32, 32, 16, (200,) * 8)):
+        k, v, sp, bt, _ = _arena(dev, B, Hkv, 64, 1, 16, n_log, kv_lens,
+                                 False, dtype=torch.bfloat16)
+        q = torch.randn((B, 1, Hq, 64), device=dev).to(torch.bfloat16)
+        kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        outs.append(dops.paged_decode_attention(q, k, v, sp, bt, kl, 0))
+        refs.append(paged_decode_attention_ref(q[:, 0], k, v, sp, bt, kl, 0))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert dops.decode_splits(64, 4, sms) != dops.decode_splits(16, 256, sms)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert _rel(out[:, 0], ref) < 2e-2
 
 
 def test_paged_decode_fully_sentinel_row(dev):
@@ -215,23 +307,64 @@ EXTEND = [
     (2, 8, 2, 32, 2, 8, 4, 4, (5, 13)),
     (1, 4, 1, 16, 2, 16, 2, 12, (7,)),
     (3, 32, 8, 128, 3, 16, 8, 40, (0, 64, 33)),           # ragged Sq
-    (2, 32, 32, 80, 1, 64, 8, 40, (64, 16)),              # zamba2 Dh 80
+    (2, 32, 32, 80, 1, 64, 8, 40, (64, 16)),              # zamba2 Dh 80, P 64, G 1
+    (2, 10, 2, 64, 2, 16, 4, 24, (3, 20)),                # GQA 5
+    (8, 32, 8, 128, 4, 16, 16, 40, (0, 16, 64, 5, 100, 0, 33, 7)),  # phase 3's offsets
 ]
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
 @pytest.mark.parametrize("case", EXTEND)
-def test_paged_extend_kernel(dev, case, quant):
+def test_paged_extend_kernel(dev, case, pair):
+    qdt, quant = pair
     B, Hq, Hkv, Dh, L, P, n_log, S, pos = case
     k, v, sp, bt, sc = _arena(dev, B, Hkv, Dh, L, P, n_log,
-                              tuple(p + S for p in pos), quant)
-    q = torch.randn((B, S, Hq, Dh), device=dev)
+                              tuple(p + S for p in pos), quant, dtype=qdt)
+    q = torch.randn((B, S, Hq, Dh), device=dev).to(qdt)
     ps = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n0 = fops.paged_extend_attention.launches
     out = fops.paged_extend_attention(q, k, v, sp, bt, ps, L - 1, **sc)
     ref = paged_extend_attention_ref(q.transpose(1, 2), k, v, sp, bt, ps,
                                      L - 1, **sc).transpose(1, 2)
     torch.cuda.synchronize()
-    assert _rel(out, ref) < (2e-4 if quant else 2e-5)
+    assert fops.paged_extend_attention.launches == n0 + 1
+    assert _rel(out, ref) < _tol(qdt, quant)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+def test_paged_extend_fully_sentinel_row(dev, pair):
+    """A row that maps no page comes out 0 (the plain version averages its
+    masked keys); the other rows right."""
+    qdt, quant = pair
+    k, v, sp, bt, sc = _arena(dev, 3, 2, 64, 1, 16, 4, (40, 40, 40), quant,
+                              sentinel_rows=(1,), dtype=qdt)
+    q = torch.randn((3, 24, 8, 64), device=dev).to(qdt)
+    ps = torch.tensor([16, 16, 3], dtype=torch.int32, device=dev)
+    out = fops.paged_extend_attention(q, k, v, sp, bt, ps, 0, **sc)
+    ref = paged_extend_attention_ref(q.transpose(1, 2), k, v, sp, bt, ps, 0,
+                                     **sc).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert not out[1].any()
+    assert _rel(out[[0, 2]], ref[[0, 2]]) < _tol(qdt, quant)
+
+
+def test_paged_extend_bf16_rejects(dev):
+    """The bf16 route raises on a head dim that is not a multiple of 16
+    and on an arena view whose rows do not start on 16 bytes; it launches
+    nothing."""
+    n0 = fops.paged_extend_attention.launches
+    k, v, sp, bt, _ = _arena(dev, 1, 2, 72, 1, 16, 2, (24,), False,
+                             dtype=torch.bfloat16)
+    q = torch.zeros((1, 8, 4, 72), dtype=torch.bfloat16, device=dev)
+    ps = torch.tensor([16], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fops.paged_extend_attention(q, k, v, sp, bt, ps, 0)
+    # Dh 64 seen inside rows of 72: the view's base is off by 8 bytes
+    k, v = k[..., 4:68], v[..., 4:68]
+    q = q[..., :64]
+    with pytest.raises(ValueError, match="16 bytes"):
+        fops.paged_extend_attention(q, k, v, sp, bt, ps, 0)
+    assert fops.paged_extend_attention.launches == n0
 
 
 # the dense decode cases of tests/test_kernels.py (B, Hq, Hkv, S, Dh,
@@ -346,6 +479,30 @@ def test_dense_extend_through_the_paged_kernel(dev, dt):
     ref = extend_attention_ref(q, k, v, sp, q_pos)
     torch.cuda.synchronize()
     assert _rel(out[:2], ref[:2]) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S_c", [200, 101])
+def test_dense_extend_odd_cache_length(dev, S_c, dt):
+    """Extend over a dense cache whose length is not a multiple of 64:
+    ``dense_kv_arena`` pages it by gcd(S_c, 64), 8 slots at 200 and 1 at
+    101, with GQA 4 at Dh 128."""
+    B, Hq, Hkv, Dh, S = 2, 32, 8, 128, 24
+    g = torch.Generator(device=dev).manual_seed(5)
+    k = torch.randn((B, S_c, Hkv, Dh), generator=g, device=dev).to(dt)
+    v = torch.randn((B, S_c, Hkv, Dh), generator=g, device=dev).to(dt)
+    pos = torch.tensor([S_c - S, 13], dtype=torch.int32, device=dev)
+    slots = torch.arange(S_c, dtype=torch.int32, device=dev)
+    sp = torch.where(slots[None] < pos[:, None] + S, slots[None], -1)
+    cache = KVSlice(k, v, sp.contiguous())
+    q = torch.randn((B, S, Hq, Dh), generator=g, device=dev).to(dt)
+    q_pos = pos[:, None] + torch.arange(S, dtype=torch.int32, device=dev)
+    arena = dense_kv_arena(cache)
+    assert arena[0].shape[1] == (8 if S_c == 200 else 1)
+    out = fops.paged_extend_attention(q, *arena, pos, 0)
+    ref = extend_attention_ref(q, k, v, sp, q_pos)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
 
 
 def _ssd_inputs(dev, Bb, S, H, P, G, N, seed=0):
