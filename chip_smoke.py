@@ -15,17 +15,21 @@ width, with random weights from a seed:
 * deepseek-moe-16b on the paged pool (the grouped GEMM in every MoE
   layer);
 * mamba2-2.7b (ssm) and zamba2-2.7b (hybrid) on the snapshot pool: the
-  SSD chunk-scan kernel in every Mamba layer of every prefill and suffix
-  extend, a warm wave restored from interned chunk-boundary states; for
-  zamba2 the attention kernels at head dim 80.
+  SSD scan (one launch of ``ops.ssd``) in every Mamba layer of every
+  prefill and suffix extend, a warm wave restored from interned
+  chunk-boundary states; for zamba2 the attention kernels at head dim 80.
 
 bf16 prefill flash attention, bf16 paged extend over a bf16 arena and
 bf16 grouped GEMMs take the tensor-core kernels, float32 ones (and extend
 over an int8 arena) the CUDA-core kernels; each full-width path checks by
 the ``launches_tc`` counters that every launch of the three took the
-tensor cores, and phase 4 (float32) that none did.  Paged decode splits
-each row's pages across a thread-block cluster in one launch; phase 3
-also times it at a long context (kv_len 2048-4096).
+tensor cores, and phase 4 (float32) that none did (the SSD scan runs on
+CUDA cores in float32 in every dtype).  Paged and dense decode
+are one kernel that splits each row's keys across a thread-block cluster
+in one launch (block-table pages, or a dense cache's live slots); phase 3
+also times paged decode at a long context (kv_len 2048-4096).  Phase 4
+holds the card's greedy tokens to the CPU's on ten cases, an int8 paged
+pool among them.
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -304,8 +308,8 @@ def check_kernels(dev, kernels: dict):
         raise AssertionError("flash_attention took a bf16 head dim of 72")
 
     # dense decode: the DECODE_CASES of tests/test_kernels.py, then the
-    # main path's heads over S = 500 (not a multiple of the 32-slot key
-    # tile), in f32 and bf16
+    # main path's heads over S = 500 (not a multiple of the key tile), in
+    # f32 and bf16, with and without a window
     for b, hq, hkv, s_c, dh, dt in [
             (2, 8, 2, 512, 64, f32), (4, 4, 4, 256, 128, bf16),
             (1, 16, 2, 1024, 64, bf16), (3, 2, 1, 128, 32, f32),
@@ -322,6 +326,12 @@ def check_kernels(dev, kernels: dict):
         torch.cuda.synchronize()
         hold("decode_attention", out, ref, tol, why,
              f"{dt} B{b} Hq{hq} Hkv{hkv} S{s_c} Dh{dh}")
+        if s_c == 500:              # a window: the live range starts late
+            out = decode_attention(q, k, v, kl, window=64)
+            ref = decode_attention_ref(q[:, 0], k, v, kl, window=64)[:, None]
+            torch.cuda.synchronize()
+            hold("decode_attention", out, ref, tol, why,
+                 f"{dt} S{s_c} window64, no slot_pos")
     # a rolling buffer: 48 slots (not a multiple of the key tile) holding
     # the last 48 positions at pos % 48, an empty slot, a 40-token window
     kl = torch.tensor([130, 48, 20, 300], dtype=torch.int32, device=dev)
@@ -458,8 +468,8 @@ def check_kernels(dev, kernels: dict):
             qt, kd, vd, attn_mask=mask), flush=flush),
         **bound(n_bytes, n_ops, bf16))
     # dense decode: the main path's 8 rows over their 512-slot dense cache,
-    # half-way through the cold wave's 16 new tokens (the kernel stops each
-    # row's key walk at kv_len: a non-rolling cache passes no slot_pos)
+    # half-way through the cold wave's 16 new tokens (a non-rolling cache
+    # passes no slot_pos: the splits share each row's slots below kv_len)
     k = torch.randn((SLOTS, MAX_LEN, HKV, DH), generator=gen,
                     device=dev).to(bf16)
     v = torch.randn((SLOTS, MAX_LEN, HKV, DH), generator=gen,
@@ -534,42 +544,38 @@ def ssd_inputs(gen, dev, Bb, S, H, P, G, N):
     return r(Bb, S, H, P), dt, A_log, r(Bb, S, G, N) * 0.3, r(Bb, S, G, N) * 0.3
 
 
-def ssd_chunk_views(x, dt, A_log, B, C, Q):
-    """The chunk kernel's inputs as ``ops.ssd`` forms them: strided
-    five-axis views of the model's (B, S, H, P) and (B, S, G, N) layouts."""
-    Bb, S, H, P = x.shape
-    G, N = B.shape[2:]
-    nc = S // Q
-    dA = dt * -torch.exp(A_log)
-    xw = x * dt[..., None]
-    return (xw.view(Bb, nc, Q, H, P).permute(0, 3, 1, 2, 4),
-            dA.view(Bb, nc, Q, H).permute(0, 3, 1, 2),
-            B.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4),
-            C.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4))
-
-
 def check_ssd(dev, gen, hold):
-    """The SSD chunk kernel against its plain version at every chunk
-    length of the main paths (Q 1 degenerate, 16 cold prefill, 64 warm
-    extend, 128 and 256 on the dense cache) at mamba2's and zamba2's full
-    widths; the three cases of tests/test_kernels.py through ``ops.ssd``
-    against ``ssd_chunked``; and the pad rows' identity, bit for bit."""
-    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_chunks
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    """The SSD scan (``ops.ssd``, one launch) against its plain version
+    ``ssd_ref`` at every chunk length of the main paths (Q 1 degenerate,
+    16 cold prefill, 64 warm extend, 128 and 256 on the dense cache) at
+    mamba2's and zamba2's full widths, with checkpoints and without, bf16
+    inputs as the full-width models hand them over; the three cases of
+    tests/test_kernels.py against ``ssd_chunked``; and the pad rows'
+    identity, bit for bit."""
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
     from repro_torch.models.mamba2 import ssd_chunked
     why = "f32 both sides; only the summation order differs"
-    for Bb, S, N, Q in [(1, 64, SSD_N, 1), (2, 128, SSD_N, 16),
-                        (2, 128, ZAMBA_N, 16), (1, 128, SSD_N, 64),
-                        (1, 128, ZAMBA_N, 64), (1, 256, SSD_N, 128),
-                        (1, 256, SSD_N, 256), (1, 256, ZAMBA_N, 256)]:
-        views = ssd_chunk_views(*ssd_inputs(gen, dev, Bb, S, SSD_H, SSD_P, 1,
-                                            N), Q)
-        out = ssd_chunks(*views)
-        ref = ssd_chunk_ref(*views)
+    for Bb, S, N, Q, dt in [(1, 64, SSD_N, 1, torch.float32),
+                            (2, 128, SSD_N, 16, torch.float32),
+                            (2, 128, SSD_N, 16, torch.bfloat16),
+                            (2, 128, ZAMBA_N, 16, torch.bfloat16),
+                            (1, 128, SSD_N, 64, torch.float32),
+                            (1, 128, ZAMBA_N, 64, torch.float32),
+                            (1, 256, SSD_N, 128, torch.float32),
+                            (1, 256, SSD_N, 256, torch.float32),
+                            (1, 256, ZAMBA_N, 256, torch.bfloat16)]:
+        x, dtv, A_log, B, C = ssd_inputs(gen, dev, Bb, S, SSD_H, SSD_P, 1, N)
+        x, B, C = x.to(dt), B.to(dt), C.to(dt)
+        out = ssd(x, dtv, A_log, B, C, chunk=Q, checkpoints=True)
+        out2 = ssd(x, dtv, A_log, B, C, chunk=Q)
+        ref = ssd_ref(x, dtv, A_log, B, C, chunk=Q, checkpoints=True)
         torch.cuda.synchronize()
-        for part, o, r in zip(("y_diag", "states", "decay"), out, ref):
-            hold("ssd_chunks", o, r, 2e-5, why,
-                 f"{part} B{Bb} S{S} H{SSD_H} P{SSD_P} N{N} Q{Q}")
+        for part, o, r in zip(("y", "final", "checkpoints", "y (no ckpt)",
+                               "final (no ckpt)"), out + out2, ref + ref[:2]):
+            hold("ssd", o, r, 2e-5, why,
+                 f"{part} B{Bb} S{S} H{SSD_H} P{SSD_P} N{N} Q{Q} "
+                 f"{str(dt)[6:]}")
     for tag, (Bb, S, H, P, G, N, chunk), kw in [
             ("G2", (2, 128, 4, 16, 2, 32, 32), {}),
             ("initial state", (1, 64, 2, 8, 1, 16, 16), {"initial_state": 1}),
@@ -590,7 +596,7 @@ def check_ssd(dev, gen, hold):
                 ..., None, None]
         for part, o, r in (("y", y, y_r), ("final", h, h_r),
                            ("checkpoints", ck, ck_r)):
-            hold("ssd_chunks", o, r, 2e-5, why,
+            hold("ssd", o, r, 2e-5, why,
                  f"ops.ssd vs ssd_chunked, {tag}: {part}")
     # rows whose steps are all masked (the rows riding along a restore)
     Bb, S = 3, 64
@@ -598,21 +604,18 @@ def check_ssd(dev, gen, hold):
     mask = torch.ones((Bb, S), dtype=torch.bool, device=dev)
     mask[1] = False
     init = torch.randn((Bb, SSD_H, SSD_P, SSD_N), generator=gen, device=dev)
-    dtm = torch.where(mask[..., None], dt, torch.zeros_like(dt))
-    _, st, dec = ssd_chunks(*ssd_chunk_views(x * mask[..., None, None], dtm,
-                                             A_log, B, C, 16))
     _, final, ck = ssd(x, dt, A_log, B, C, chunk=16, initial_state=init,
                        mask=mask, checkpoints=True)
+    _, final2 = ssd(x, dt, A_log, B, C, chunk=16, initial_state=init,
+                    mask=mask)
     torch.cuda.synchronize()
-    exact = (torch.equal(dec[1], torch.ones_like(dec[1]))
-             and torch.equal(st[1], torch.zeros_like(st[1]))
-             and torch.equal(final[1], init[1])
+    exact = (torch.equal(final[1], init[1]) and torch.equal(final2[1], init[1])
              and all(torch.equal(ck[1, c], init[1]) for c in range(S // 16)))
-    log(f"  {'ssd_chunks':24s} {'pad rows: decay 1, states 0, state kept':44s}"
+    log(f"  {'ssd':24s} {'pad rows: the initial state kept':44s}"
         f" bit for bit: {'ok' if exact else 'FAIL'}")
     if not exact:
-        raise AssertionError("ssd_chunks: a fully masked row is not an "
-                             "exact identity")
+        raise AssertionError("ssd: a fully masked row is not an exact "
+                             "identity")
 
 
 def check_head_dim_80(dev, gen, hold):
@@ -667,41 +670,55 @@ def check_head_dim_80(dev, gen, hold):
              f"{dt} dense S{MAX_LEN} as arena, Sq{S} Hq{H} Dh{Dh}")
 
 
-def ssd_work(Bb, S, H, P, G, N, Q):
-    """(bytes, float32 operations) of one chunk-kernel call: x, dA, B and C
-    read once, y_diag, the chunk states and decays written once; the
-    products of the pairs at or below each chunk's diagonal and of the
-    chunk states."""
-    nc = S // Q
-    n_bytes = 4 * (2 * Bb * S * H * P + Bb * S * H + 2 * Bb * S * G * N
-                   + Bb * H * nc * P * N + Bb * H * nc)
-    n_ops = Bb * H * nc * (Q * (Q + 1) // 2 * 2 * (N + P) + 2 * Q * P * N)
+def ssd_work(Bb, S, H, P, G, N, Q, *, esize=2, checkpoints=True):
+    """(bytes, float32 operations) of one ``ops.ssd`` call: x, B and C
+    read once at ``esize`` bytes an element, dt read once, y and the final
+    state written once in float32, and with ``checkpoints`` the state
+    after each of the S / Q chunks; the products of the scan's sub-chunks
+    of T = min(Q, 16) steps: C B^T once per group and its product with x
+    per head, at the pairs at or below each diagonal, the state update and
+    the state -> output term per head."""
+    nc, T = S // Q, min(Q, 16)
+    n_bytes = (esize * (Bb * S * H * P + 2 * Bb * S * G * N) + 4 * H
+               + 4 * (Bb * S * H + Bb * S * H * P + Bb * H * P * N))
+    if checkpoints:
+        n_bytes += 4 * Bb * nc * H * P * N
+    n_ops = Bb * S * (G * (T + 1) * N + H * ((T + 1) * P + 4 * P * N))
     return n_bytes, n_ops
 
 
-def time_ssd(dev, gen, flush, kernels):
-    """The SSD chunk kernel at mamba2-2.7b's cold prefill (8 rows of the
-    128-token bucket, checkpoints every 16-token page), beside its plain
-    version; no single PyTorch call computes it (library: none).  Also
-    logged: the 128-token chunk of the dense-cache path."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_chunks
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
-    for Q, S in ((PAGE, 128), (128, 128)):
-        views = ssd_chunk_views(*ssd_inputs(gen, dev, SLOTS, S, SSD_H, SSD_P,
-                                            1, SSD_N), Q)
-        n_bytes, n_ops = ssd_work(SLOTS, S, SSD_H, SSD_P, 1, SSD_N, Q)
-        rep = dict(shape=f"B{SLOTS} S{S} Q{Q} H{SSD_H} P{SSD_P} N{SSD_N} "
-                         "f32",
-                   ms=time_ms(lambda: ssd_chunks(*views), flush=flush),
-                   plain_ms=time_ms(lambda: ssd_chunk_ref(*views),
-                                    flush=flush),
-                   library_ms=None, **bound(n_bytes, n_ops, torch.float32))
-        if Q == PAGE:
-            kernels["ssd_chunks"].update(rep)
-        else:
-            log(f"  ssd_chunks at the dense-cache chunk {rep['shape']}: "
-                f"kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
-                f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+def time_ssd(dev, gen, flush, kernels) -> None:
+    """The SSD scan at mamba2-2.7b's cold prefill (8 rows of the 128-token
+    bucket, bf16 x, B and C as the model hands them over, a checkpoint at
+    every 16-token page) and the same call without checkpoints (the
+    dense-cache prefill's, one 128-step chunk), each beside its plain
+    version; the first is filed as the kernel's row.  No single PyTorch
+    call computes it (library: none).  The bound counts operations at the
+    float32 CUDA-core peak, the route the kernel's products take."""
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    x, dt, A_log, B, C = ssd_inputs(gen, dev, SLOTS, 128, SSD_H, SSD_P, 1,
+                                    SSD_N)
+    x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
+    for Q, ckpt in ((PAGE, True), (128, False)):
+        kw = dict(chunk=Q, checkpoints=ckpt)
+        rep = dict(shape=f"B{SLOTS} S128 Q{Q} H{SSD_H} P{SSD_P} N{SSD_N} "
+                         f"bf16 in, f32 out, checkpoints={ckpt}",
+                   ms=time_ms(lambda: ssd(x, dt, A_log, B, C, **kw),
+                              flush=flush),
+                   library_ms=None,
+                   **bound(*ssd_work(SLOTS, 128, SSD_H, SSD_P, 1, SSD_N, Q,
+                                     checkpoints=ckpt), torch.float32))
+        rep["gb_per_s"] = rep["bytes"] / rep["ms"] / 1e6
+        rep["plain_ms"] = time_ms(lambda: ssd_ref(x, dt, A_log, B, C, **kw),
+                                  flush=flush)
+        log(f"  ssd {rep['shape']}: kernel {rep['ms']:.4f} ms, plain "
+            f"{rep['plain_ms']:.4f} ms, bound "
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
+            f"{rep['gb_per_s']:.0f} GB/s, {rep['bound_ms'] / rep['ms']:.3f}"
+            " of the bound")
+        if ckpt:
+            kernels["ssd"].update(rep)
 
 
 def time_head_dim_80(dev, gen, flush):
@@ -880,9 +897,35 @@ def phase_build():
     log(f"[2] kernels ready in {time.monotonic() - t0:.1f} s "
         f"({'built' if _build.build_seconds is not None else 'cached'}: "
         f"{lib._name})")
-    for line in (_build.BUILD_DIR / "ptxas.log").read_text().splitlines():
-        if "registers" in line or "bytes stack" in line or "==" in line:
-            log(f"[2]   {line.strip()}")
+    for name, regs, spill in ptxas_summary(
+            (_build.BUILD_DIR / "ptxas.log").read_text()):
+        log(f"[2]   {regs:>3} registers, {spill:>3} bytes spilled: {name}")
+
+
+def ptxas_summary(text: str):
+    """(kernel, registers, bytes of spill stores) of each entry function in
+    nvcc's ptxas report, the names demangled where c++filt is on PATH."""
+    import re
+    import shutil
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), spill])
+            name, spill = None, 0
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True).stdout.splitlines()
+        for r, d in zip(rows, out):
+            r[0] = d.split("(")[0].replace("rt::", "").replace(
+                "__nv_bfloat16", "bf16").replace("void ", "")
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -894,6 +937,9 @@ def phase_build():
 PARITY = [
     ("qwen3-4b paged, cold and warm", "qwen3-4b",
      dict(max_len=64, prefill_chunk=8), 0, 4, ([3, 9, 5], [6, 2])),
+    ("qwen3-4b int8 paged, cold and warm", "qwen3-4b",
+     dict(max_len=64, prefill_chunk=8, kv_dtype="int8"), 0, 4,
+     ([3, 9, 5], [6, 2])),
     ("deepseek-moe-16b paged, cold and warm", "deepseek-moe-16b",
      dict(max_len=64, prefill_chunk=8), 1, 4, ([3, 9, 5], [6, 2])),
     ("qwen3-4b dense cache (kv_pool=None)", "qwen3-4b",
@@ -1204,7 +1250,7 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
         flash_attention,
         paged_extend_attention,
     )
-    from repro_torch.kernels.ssd_scan.ops import ssd_chunks
+    from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.serve.batcher import ContinuousBatcher
 
     model, params = full_width(dev, arch, tag)
@@ -1223,12 +1269,12 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
     bat = batcher()
     if bat.pool is None or bat.pool.payload_kind != "snapshot":
         raise AssertionError(f"{arch}: not on a snapshot pool")
-    counters = (ssd_chunks, flash_attention, paged_extend_attention,
+    counters = (ssd, flash_attention, paged_extend_attention,
                 decode_attention, paged_decode_attention)
     reqs, launches, wall, step_s = serve(
         bat, main_path_prompts(0, cfg.vocab), counters)
-    expect("SSD chunk scan (one per Mamba layer per prefill and extend)",
-           launches["ssd_chunks"], cfg.num_layers * bat.prefill_invocations)
+    expect("SSD scan (one launch per Mamba layer per prefill and extend)",
+           launches["ssd"], cfg.num_layers * bat.prefill_invocations)
     expect("prefill + dense extend attention",
            launches["flash_attention"] + launches["paged_extend_attention"],
            n_attn * bat.prefill_invocations)
@@ -1380,7 +1426,7 @@ KERNELS = {
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
         "path": 7},
-    "ssd_chunks": {
+    "ssd": {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
         "path": 8},

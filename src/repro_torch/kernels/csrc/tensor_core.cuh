@@ -1,8 +1,10 @@
 // Tensor-core building blocks shared by the bf16 kernels of the port
 // (prefill flash attention and paged extend, grouped expert GEMM; the
-// paged decode kernel uses the copies): 16-, 8- and 4-byte cp.async copies
-// from device to shared memory, ldmatrix fragment loads and the
-// mma.sync m16n8k16 bf16 product with float32 accumulators, as inline PTX.
+// decode kernel and the SSD scan use the copies): 16-, 8- and 4-byte
+// cp.async copies from device to shared memory, ldmatrix fragment loads
+// and the mma.sync m16n8k16 bf16 product with float32 accumulators, as
+// inline PTX; and the warp reductions of the decode kernel and the SSD
+// scan.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of 2 bf16:
@@ -82,6 +84,39 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c ? a : b as one selp: opaque to the compiler, which would otherwise
+// turn a select between two elements of a register array into a load at
+// a computed index and move the array to local memory
+__device__ __forceinline__ float select(bool c, float a, float b) {
+  float r;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n selp.f32 %0, %1, %2, p;\n}\n"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"(static_cast<int>(c)));
+  return r;
+}
+
+// The halving steps of a warp sum of n values a lane, from lane offset o
+// down: at offset o a lane keeps the half of its values that its lane bit
+// o selects and adds its partner's part of that half.  From o = 16 (the
+// whole warp), after log2(n) steps x[0] of lane L holds value L >> (5 -
+// log2(n)) summed over the lanes that share those top bits; from o = 8
+// with n = 16, value L % 16 summed over the 16 lanes of L's half warp.  A
+// template, so that every index is a constant and x stays in registers.
+template <int kSize, int n, int o>
+__device__ __forceinline__ void halve_sum(float (&x)[kSize], int lane) {
+  if constexpr (n > 1) {
+    constexpr int half = n / 2;
+    const bool up = lane & o;
+#pragma unroll
+    for (int j = 0; j < half; ++j) {
+      const float send = select(up, x[j], x[j + half]);
+      const float keep = select(up, x[j + half], x[j]);
+      x[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    halve_sum<kSize, half, o / 2>(x, lane);
+  }
 }
 
 // Two floats rounded to bf16 in one register, `lo` in the low half (the

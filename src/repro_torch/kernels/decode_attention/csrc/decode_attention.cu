@@ -1,26 +1,28 @@
-// Decode attention for Hopper (sm_90a): dense per-slot caches and paged
-// arenas.
+// Decode attention for Hopper (sm_90a): one kernel over dense per-slot
+// caches and paged arenas.
 //
-// decode_kernel replaces the TPU kernel src/repro/kernels/decode_attention/
-// decode_attention.py::_decode_kernel (wrapper decode_attention_bhd).  One
-// decode query per row and q head attends to the row's dense (S, Hkv, Dh)
-// cache.  A slot counts iff its position p (slot_pos[b, s], or s without a
-// slot_pos plane) has 0 <= p < kv_len[b] and, with a window, p > kv_len[b]-1-
-// window: the masks of repro/models/layers.py::decode_attention_ref, which
-// serves rolling sliding-window buffers (the Pallas kernel had neither).
-// Without slot_pos the key walk stops at kv_len (and starts at the window),
-// as the Pallas kernel skipped blocks past kv_len; a rolling buffer's valid
-// slots lie anywhere, so with slot_pos it walks all S slots.  Any S is
-// taken: the last key tile is ragged (the Pallas wrapper asserted
-// S % block_k == 0).
+// decode_split_kernel<..., DenseKeys> replaces the TPU kernel
+// src/repro/kernels/decode_attention/decode_attention.py::_decode_kernel
+// (wrapper decode_attention_bhd).  One decode query per row and q head
+// attends to the row's dense (S, Hkv, Dh) cache.  A slot counts iff its
+// position p (slot_pos[b, s], or s without a slot_pos plane) has lo < p <
+// kv_len[b], where lo = kv_len[b]-1-window with a window and -1 without:
+// the masks of repro/models/layers.py::decode_attention_ref, which serves
+// rolling sliding-window buffers (the Pallas kernel had neither).  Without
+// slot_pos the key walk covers only the live slots [max(lo+1, 0),
+// min(S, kv_len)), as the Pallas kernel skipped blocks past kv_len; a
+// rolling buffer's valid slots lie anywhere, so with slot_pos it walks all
+// S slots.  Any S is taken: the last key tile is ragged and never read
+// past S (the Pallas wrapper asserted S % block_k == 0).
 //
-// paged_decode_split_kernel replaces the TPU kernel src/repro/kernels/
-// decode_attention/decode_attention.py::_paged_decode_kernel (wrapper
-// paged_decode_attention_bhd).  One decode query per row and q head attends
-// to the row's pages of a (N, P, L, Hkv, Dh) arena through a (B, n_log)
-// block table.  A slot counts iff 0 <= slot_pos < kv_len[b]; sentinel
-// pages (id < 0 or >= N) and pages that start at or past kv_len are never
-// read; int8 arenas dequantise with per-(page, layer) scales.
+// decode_split_kernel<..., PagedKeys> replaces the TPU kernel
+// src/repro/kernels/decode_attention/decode_attention.py::
+// _paged_decode_kernel (wrapper paged_decode_attention_bhd).  One decode
+// query per row and q head attends to the row's pages of a (N, P, L, Hkv,
+// Dh) arena through a (B, n_log) block table.  A slot counts iff 0 <=
+// slot_pos < kv_len[b]; sentinel pages (id < 0 or >= N) and pages that
+// start at or past kv_len are never read; int8 arenas dequantise with
+// per-(page, layer) scales.
 //
 // What bounds both on the H100: the K and V bytes streamed from device
 // memory, B * kv_len * Hkv * Dh * 2 * bytes per layer; the arithmetic is
@@ -30,22 +32,22 @@
 // the dependent round trips to device memory and the work a block does
 // after its last byte lands.
 //
-// The dense decode_kernel (one block per (row, kv head) walking the key
-// tiles in order through the float32 shared-memory tile of
-// tile_attention.cuh; the G q heads of the group share each K/V tile, so
-// the grid reads every live K/V byte once) is latency-bound the same way;
-// the split design below is its next step.
-//
-// The paged design (flash-decoding, merged on chip): the blocks of one
-// (row, kv head) form a thread-block cluster of n_split <= 8 (the portable
-// size), each walking a contiguous range of logical pages.  The host picks
-// n_split from n_log, the block count and the SM count alone (ops.
-// decode_splits: the smallest power of two that gives two blocks per SM,
-// capped by 8 and n_log), so no device value is read back.  A block reads
-// kv_len and its block-table entries in one round trip, then issues every
-// key of its pages into a shared-memory tile at once (16-byte cp.async, or
-// 8 or 4 bytes, or element by element, where the head dim or the arena
-// strides need it), bf16, float32 or int8 as stored, with its slot
+// The design (flash-decoding, merged on chip): the blocks of one (row, kv
+// head) form a thread-block cluster of n_split <= 8 (the portable size),
+// each walking a contiguous range of the row's keys.  A key source gives
+// the range and the copies: PagedKeys splits the logical pages [0, n_log)
+// evenly and finds key k at slot k % P of page bt[k / P] (the split's
+// block-table entries in shared memory); DenseKeys reads slot s of row b
+// at b * c_sb + s * c_ss + h * c_sh with no block table and splits the
+// live slots above (all S slots with a slot_pos plane) evenly, so that on
+// the dense route every split gets keys.  The host picks n_split from the
+// shapes, the block count and the SM count alone (ops.decode_splits: the
+// smallest power of two that gives two blocks per SM, capped by 8 and by
+// n_log pages or S slots), so no device value is read back.  A block reads
+// kv_len (and its block-table entries) in one round trip, then issues
+// every key of its range into a shared-memory tile at once (16-byte
+// cp.async, or 8 or 4 bytes, or element by element, where the head dim or
+// the strides need it), bf16, float32 or int8 as stored, with its slot
 // positions and scales beside them; a ring of two tiles of up to 8 KB of K
 // streams longer ranges (small tiles leave room for more blocks on an SM,
 // which is what the long ranges need).  Q of the block's G heads sits in
@@ -75,104 +77,11 @@
 
 namespace rt {
 
-constexpr int kDenseTile = 32;  // key rows per shared-memory tile, dense kernel
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const T* __restrict__ q, int64_t q_sb, int64_t q_sh,
-    const T* __restrict__ k, const T* __restrict__ v,
-    int64_t c_sb, int64_t c_ss, int64_t c_sh,
-    const int* __restrict__ slot_pos, int64_t sp_sb, int64_t sp_ss,
-    const int* __restrict__ kv_len, int window,
-    T* __restrict__ out, int64_t o_sb, int64_t o_sh,
-    int G, int Dh, int S, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  Tile t = carve_tile(smem, G, kDenseTile, Dh);
-  int* sp_tile = reinterpret_cast<int*>(tile_end(t, G));  // [kDenseTile]
-
-  load_rows(t.q, q + b * q_sb + (int64_t)h * G * q_sh, q_sh, 1.f, (float*)nullptr,
-            (const T*)nullptr, 0, 0.f, t.ld, G, G, Dh);
-  tile_init(t, G);
-  const int len = kv_len[b];
-  const int lo = window >= 0 ? len - 1 - window : -1;  // positions must be > lo
-  const int* sp_row = slot_pos != nullptr ? slot_pos + b * sp_sb : nullptr;
-  const int begin = sp_row != nullptr ? 0 : max(lo + 1, 0);
-  const int end = sp_row != nullptr ? S : min(S, len);
-  __syncthreads();
-
-  for (int s0 = begin; s0 < end; s0 += kDenseTile) {
-    const int n = min(kDenseTile, end - s0);
-    const int i = threadIdx.x;
-    // the slot's position, read before the K/V loads so its latency overlaps
-    const int sp = i < n ? (sp_row != nullptr ? sp_row[(s0 + i) * sp_ss] : s0 + i) : -1;
-    const int64_t base = b * c_sb + (int64_t)s0 * c_ss + h * c_sh;
-    load_rows(t.k, k + base, c_ss, 1.f, t.v, v + base, c_ss, 1.f, t.ld, n, n, Dh);
-    if (i < kDenseTile) sp_tile[i] = sp;
-    __syncthreads();
-    tile_step(t, G, n, scale, [&](int, int c) {
-      const int p = sp_tile[c];
-      return p >= 0 && p < len && p > lo;
-    });
-  }
-  tile_store(t, G, out + b * o_sb + (int64_t)h * G * o_sh, o_sh);
-}
-
-template <typename T>
-cudaError_t launch_decode(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
-                          const void* v, int64_t c_sb, int64_t c_ss, int64_t c_sh,
-                          const int* slot_pos, int64_t sp_sb, int64_t sp_ss,
-                          const int* kv_len, int window, void* out, int64_t o_sb,
-                          int64_t o_sh, int B, int Hkv, int G, int Dh, int S,
-                          cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(G, kDenseTile, Dh) + sizeof(int) * kDenseTile;
-  auto kernel = decode_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), q_sb, q_sh, static_cast<const T*>(k),
-      static_cast<const T*>(v), c_sb, c_ss, c_sh, slot_pos, sp_sb, sp_ss, kv_len, window,
-      static_cast<T*>(out), o_sb, o_sh, G, Dh, S, rsqrtf(static_cast<float>(Dh)));
-  return cudaGetLastError();
-}
-
-// ---- paged decode: the page walk split across the blocks of a cluster ----
+// ---- the key walk split across the blocks of a cluster ----
 
 constexpr int kDecodeStages = 2;         // key tiles in the cp.async ring
 constexpr int kDecodeTileBytes = 8192;   // K bytes of a tile, at most
 constexpr int kDecodeWarps = kThreads / 32;
-
-// c ? a : b as one selp: opaque to the compiler, which would otherwise
-// turn a select between two elements of a register array into a load at
-// a computed index and move the array to local memory
-__device__ __forceinline__ float select(bool c, float a, float b) {
-  float r;
-  asm("{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n selp.f32 %0, %1, %2, p;\n}\n"
-      : "=f"(r)
-      : "f"(a), "f"(b), "r"(static_cast<int>(c)));
-  return r;
-}
-
-// The halving steps of a warp sum of n values a lane, from lane offset o
-// down: at offset o a lane keeps the half of its values that its lane bit
-// o selects and adds its partner's part of that half.  After log2(n)
-// steps x[0] of lane L holds value L >> (5 - log2(n)) summed over the
-// lanes that share those top bits.  A template, so that every index is a
-// constant and x stays in registers.
-template <int kSize, int n, int o>
-__device__ __forceinline__ void halve_sum(float (&x)[kSize], int lane) {
-  if constexpr (n > 1) {
-    constexpr int half = n / 2;
-    const bool up = lane & o;
-#pragma unroll
-    for (int j = 0; j < half; ++j) {
-      const float send = select(up, x[j], x[j + half]);
-      const float keep = select(up, x[j + half], x[j]);
-      x[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-    halve_sum<kSize, half, o / 2>(x, lane);
-  }
-}
 
 template <typename T> struct Vec;  // kE elements of T read from shared memory as one load
 template <> struct Vec<float> {
@@ -208,28 +117,134 @@ template <> struct Vec<int8_t> {
   }
 };
 
-// Block of a paged decode call: split s = blockIdx.x (its rank in the
-// cluster of n_split = gridDim.x blocks) of row b = blockIdx.z, kv head
-// blockIdx.y / n_hc, q heads g0 .. g0 + kG - 1 of that group (g0 =
-// kG * (blockIdx.y % n_hc); n_hc > 1 only when G > 8).  The split walks
-// logical pages [s * n_log / n_split, (s + 1) * n_log / n_split) of the
-// row in tiles of kt keys.  Each lane holds kE consecutive elements of the
-// head dim (lane * kE ..); warp w takes keys [w * kt / 4, (w + 1) * kt / 4)
-// of a tile, kB at a time, and keeps its own online softmax (m, l, acc) in
-// registers, in log2 units.
-template <typename QT, typename KT, int kG, int kE>
-__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
+// ---- key sources ----
+//
+// A key source names the keys of one (row b, kv head h) and the range of
+// them that split `split` of `n_split` walks.  The source itself holds the
+// call's arguments and is never written; what a block derives from it is
+// a Split.  stage() runs in the first round trip (beside the kv_len read;
+// the paged source copies its block-table entries into `ents`, shared
+// memory), plan() once kv_len is known and returns the split's key count;
+// offset() is the element offset of key i of the split in the K and V
+// tensors, or -1 when it is not read, and position() writes its position
+// (cp.async or a plain store), with the int8 scales beside it.  Masked
+// keys get position -1.  kWindowed: whether the kernel applies the window
+// (dense only).
+
+// Keys of a paged arena: logical pages [split * n_log / n_split, (split +
+// 1) * n_log / n_split) of the row; key i of the split is slot i % P of
+// the split's page i / P.
+struct PagedKeys {
+  const int* block_table;
+  int64_t bt_sb;
+  int n_log, N, P, layer;
+  int64_t a_sn, a_sp, a_sl, a_sh;
+  const int* slot_pos;
+  int64_t sp_sn, sp_sp, sp_sl;
+  const float *k_scale, *v_scale;
+  int64_t sc_sn, sc_sl;
+  struct Split {
+    int lo, hi;    // the split's logical pages
+    int64_t base;  // layer and head offset of a page row
+  };
+  __host__ __device__ int max_keys(int n) const { return (n_log + n - 1) / n * P; }
+  __host__ __device__ int smem_ints(int n) const { return ((n_log + n - 1) / n + 3) & ~3; }
+  __host__ uint64_t stride_bits() const { return (uint64_t)(a_sn | a_sp | a_sl | a_sh); }
+  static constexpr bool kWindowed = false;
+  __device__ Split stage(int b, int h, int split, int n_split, int* ents, int tid) const {
+    // 32-bit divisions: a 64-bit one is a subroutine call, whose saved
+    // registers spill
+    Split sp;
+    sp.lo = split * n_log / n_split;
+    sp.hi = (split + 1) * n_log / n_split;
+    for (int j = sp.lo + tid; j < sp.hi; j += kThreads)
+      ents[j - sp.lo] = block_table[b * bt_sb + j];
+    sp.base = layer * a_sl + h * a_sh;
+    return sp;
+  }
+  // pages that start at or past kv_len are never read; no window
+  __device__ int plan(Split& sp, int len, int) const {
+    const int live_hi = min(sp.hi, len > 0 ? (len + P - 1) / P : 0);
+    return max(0, live_hi - sp.lo) * P;
+  }
+  __device__ int64_t offset(const Split& sp, const int* ents, int i) const {
+    const int j = i / P, slot = i - j * P;  // the split's pages start on a page
+    const int page = ents[j];
+    if (page < 0 || page >= N) return -1;  // unmapped: never read
+    return page * a_sn + slot * a_sp + sp.base;
+  }
+  template <bool kQuant>
+  __device__ void position(const Split&, const int* ents, int i, int* dst, float* ks,
+                           float* vs) const {
+    const int j = i / P, slot = i - j * P;
+    const int page = ents[j];
+    if (page < 0 || page >= N) {
+      *dst = -1;  // masked, K/V never read
+      return;
+    }
+    cp_async_ca<4>(dst, slot_pos + page * sp_sn + slot * sp_sp + layer * sp_sl);
+    if (kQuant) {
+      cp_async_ca<4>(ks, k_scale + page * sc_sn + layer * sc_sl);
+      cp_async_ca<4>(vs, v_scale + page * sc_sn + layer * sc_sl);
+    }
+  }
+};
+
+// Keys of a dense (B, S, Hkv, Dh) cache: slot s of row b at b * c_sb + s *
+// c_ss + h * c_sh, no block table.  Without a slot_pos plane slot s holds
+// position s and the splits share the live slots [max(lo + 1, 0), min(S,
+// kv_len)) evenly (ops.dense_live_range); with one (a rolling buffer) they
+// share all S slots and the mask reads each slot's position.
+struct DenseKeys {
+  int64_t c_sb, c_ss, c_sh;
+  const int* slot_pos;
+  int64_t sp_sb, sp_ss;
+  int S;
+  struct Split {
+    int split, n_split;
+    int s0;           // the split's first slot
+    int64_t base;     // row and head offset of slot 0
+    int64_t sp_base;  // row offset of the slot_pos plane
+  };
+  __host__ __device__ int max_keys(int n_split) const { return (S + n_split - 1) / n_split; }
+  __host__ __device__ int smem_ints(int) const { return 0; }
+  __host__ uint64_t stride_bits() const { return (uint64_t)(c_sb | c_ss | c_sh); }
+  static constexpr bool kWindowed = true;
+  __device__ Split stage(int b, int h, int split, int n_split, int*, int) const {
+    return Split{split, n_split, 0, b * c_sb + h * c_sh, b * sp_sb};
+  }
+  __device__ int plan(Split& sp, int len, int lo) const {
+    const int begin = slot_pos != nullptr ? 0 : max(lo + 1, 0);
+    const int end = slot_pos != nullptr ? S : min(S, len);
+    const int n = max(end - begin, 0);
+    sp.s0 = begin + sp.split * n / sp.n_split;
+    return begin + (sp.split + 1) * n / sp.n_split - sp.s0;
+  }
+  __device__ int64_t offset(const Split& sp, const int*, int i) const {
+    return sp.base + (int64_t)(sp.s0 + i) * c_ss;
+  }
+  template <bool kQuant>
+  __device__ void position(const Split& sp, const int*, int i, int* dst, float*, float*) const {
+    if (slot_pos != nullptr) cp_async_ca<4>(dst, slot_pos + sp.sp_base + (sp.s0 + i) * sp_ss);
+    else *dst = sp.s0 + i;
+  }
+};
+
+// Block of a decode call: split s = blockIdx.x (its rank in the cluster
+// of n_split = gridDim.x blocks) of row b = blockIdx.z, kv head blockIdx.y
+// / n_hc, q heads g0 .. g0 + kG - 1 of that group (g0 = kG * (blockIdx.y %
+// n_hc); n_hc > 1 only when G > 8).  The split walks the keys that its key
+// source gives it, in tiles of kt keys.  Each lane holds kE consecutive
+// elements of the head dim (lane * kE ..); warp w takes keys [w * kt / 4,
+// (w + 1) * kt / 4) of a tile, kB at a time, and keeps its own online
+// softmax (m, l, acc) in registers, in log2 units.  window < 0: no window.
+template <typename QT, typename KT, int kG, int kE, typename Keys>
+__global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
-    const KT* __restrict__ k, const KT* __restrict__ v,
-    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
-    const int* __restrict__ slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
-    const int* __restrict__ block_table, int64_t bt_sb, int n_log,
-    const int* __restrict__ kv_len, int layer,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    int64_t sc_sn, int64_t sc_sl,
+    const KT* __restrict__ k, const KT* __restrict__ v, const Keys src,
+    const int* __restrict__ kv_len, int window,
     QT* __restrict__ out, int64_t o_sb, int64_t o_sh,
-    int G, int Dh, int N, int P, int n_hc, int kt, int ld, int vb, size_t area_bytes,
-    float scale_log2) {
+    int G, int Dh, int n_hc, int kt, int ld, int vb, size_t area_bytes, float scale_log2) {
   constexpr int kDh = 32 * kE;                        // head dims a warp covers
   // keys a warp takes per step, and the (key, head) pairs of a step: 8 or
   // 32, so that a step's scores reduce across the warp by halving
@@ -249,25 +264,23 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
   const int h = blockIdx.y / n_hc, g0 = (blockIdx.y - h * n_hc) * kG, b = blockIdx.z;
   const int gb = min(kG, G - g0);                     // heads of this block
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lo = static_cast<int>((int64_t)split * n_log / n_split);
-  const int hi = static_cast<int>((int64_t)(split + 1) * n_log / n_split);
 
   // shared memory: the K/V ring (reused by the warps' partials at the
-  // end), slot positions and scales of each tile, the split's block-table
-  // entries, the block's partial (read by rank 0 through distributed
-  // shared memory) and rank 0's merge weights
+  // end), slot positions and scales of each tile, the key source's
+  // entries (the split's block table), the block's partial (read by rank
+  // 0 through distributed shared memory) and rank 0's merge weights
   KT* ring = reinterpret_cast<KT*>(smem_raw);         // [stage][K, V][kt][ld]
   float* ws = reinterpret_cast<float*>(smem_raw);     // [warp][kPart], after the walk
   int* sps = reinterpret_cast<int*>(smem_raw + area_bytes);  // [stage][kt]
   float* kss = reinterpret_cast<float*>(sps + kDecodeStages * kt);  // [stage][kt]
   float* vss = kss + kDecodeStages * kt;              // [stage][kt]
-  int* bts = reinterpret_cast<int*>(vss + kDecodeStages * kt);      // [hi - lo]
-  float* part = reinterpret_cast<float*>(bts + ((((n_log + n_split - 1) / n_split) + 3) & ~3));
+  int* ents = reinterpret_cast<int*>(vss + kDecodeStages * kt);     // [smem_ints]
+  float* part = reinterpret_cast<float*>(ents + src.smem_ints(n_split));
   float* wts = part + kPart;                          // [8][kG]
 
-  // round trip 1: kv_len, the split's block-table entries and q
+  // round trip 1: kv_len, the key source's entries and q
   const int len = kv_len[b];
-  for (int j = lo + tid; j < hi; j += kThreads) bts[j - lo] = block_table[b * bt_sb + j];
+  typename Keys::Split range = src.stage(b, h, split, n_split, ents, tid);
   const bool lane_on = lane * kE < Dh;
   float qf[kG][kE];
 #pragma unroll
@@ -281,8 +294,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
     }
   // the pad columns [Dh, ld) of every ring row stay zero: copies never
   // write them and the lanes that read them multiply by q = 0
-  const int n_bt = (n_log + n_split - 1) / n_split;
-  const int n_stage = min(kDecodeStages, (n_bt * P + kt - 1) / kt);  // as decode_plan
+  const int n_stage = min(kDecodeStages, (src.max_keys(n_split) + kt - 1) / kt);  // as decode_plan
   const int pad = (ld - Dh) * static_cast<int>(sizeof(KT));
   if (pad > 0) {
     unsigned char* rows = smem_raw + Dh * sizeof(KT);
@@ -291,16 +303,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
       rows[(size_t)r * ld * sizeof(KT) + (i - r * pad)] = 0;
     }
   }
+  // positions must be > lo: kv_len - 1 - window with a window, else -1
+  // (always on a paged key source, which takes no window)
+  const int lo = Keys::kWindowed && window >= 0 ? max(len - 1 - window, -1) : -1;
   __syncthreads();
 
-  // keys of the split's live pages: pages that start at or past kv_len
-  // are never read
-  const int live_hi = min(hi, len > 0 ? (len + P - 1) / P : 0);
-  const int n_keys = max(0, live_hi - lo) * P;
+  const int n_keys = src.plan(range, len, lo);
   const int n_tiles = (n_keys + kt - 1) / kt;
   const int esize = sizeof(KT);
   const int cpr = vb ? Dh * esize / vb : Dh;          // copies per row
-  const int64_t lsl = layer * a_sl + h * a_sh;
 
   // round trip 2: a tile's K and V rows, slot positions and scales
   auto load_tile = [&](int t, int stage) {
@@ -310,10 +321,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
       const int r = c / cpr, part_i = c - r * cpr;
       const int key = t * kt + r;
       if (key >= n_keys) continue;
-      const int kl = lo * P + key, j = kl / P, slot = kl - j * P;
-      const int page = bts[j - lo];
-      if (page < 0 || page >= N) continue;              // unmapped: never read
-      const int64_t off = page * a_sn + slot * a_sp + lsl;
+      const int64_t off = src.offset(range, ents, key);
+      if (off < 0) continue;
       if (vb == 16) {
         const int d = part_i * (16 / esize);
         cp_async_ca<16>(kd + r * ld + d, k + off + d);
@@ -334,20 +343,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
     if (tid < kt) {
       const int key = t * kt + tid;
       int* dst = sps + stage * kt + tid;
-      int page = -1, slot = 0;
       if (key < n_keys) {
-        const int kl = lo * P + key, j = kl / P;
-        slot = kl - j * P;
-        page = bts[j - lo];
-      }
-      if (page >= 0 && page < N) {
-        cp_async_ca<4>(dst, slot_pos + page * sp_sn + slot * sp_sp + layer * sp_sl);
-        if (kQuant) {
-          cp_async_ca<4>(kss + stage * kt + tid, k_scale + page * sc_sn + layer * sc_sl);
-          cp_async_ca<4>(vss + stage * kt + tid, v_scale + page * sc_sn + layer * sc_sl);
-        }
+        src.template position<kQuant>(range, ents, key, dst, kss + stage * kt + tid,
+                                      vss + stage * kt + tid);
       } else {
-        *dst = -1;                                       // masked, K/V never read
+        *dst = -1;                                       // past the split's keys
       }
     }
   };
@@ -386,7 +386,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
 #pragma unroll
       for (int i = 0; i < kB; ++i) {
         const int spv = r0 + i < r_end ? sp_t[r0 + i] : -1;
-        vmask |= (spv >= 0 && spv < len ? 1u : 0u) << i;
+        vmask |= (spv > lo && spv < len ? 1u : 0u) << i;
       }
       if (!vmask) continue;                              // warp-uniform
       // this lane's part of q . k for every (key i, head g): x[i * kG + g]
@@ -518,51 +518,46 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
   cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
-// Host-side plan of one paged decode launch: keys per tile, shared-memory
-// row stride and copy width, the bytes of the ring and of the whole block.
+// Host-side plan of one decode launch: keys per tile, shared-memory row
+// stride and copy width, the bytes of the ring and of the whole block.
 struct DecodePlan {
   int kt, ld, vb;
   size_t area, smem;
 };
 
-inline DecodePlan decode_plan(int esize, int Dh, int P, int n_log, int n_split,
-                              int kG, int kE, const void* k, const void* v, int64_t a_sn,
-                              int64_t a_sp, int64_t a_sl, int64_t a_sh) {
+template <typename Keys>
+inline DecodePlan decode_plan(const Keys& src, int esize, int Dh, int n_split, int kG, int kE,
+                              const void* k, const void* v) {
   DecodePlan pl;
   pl.ld = (Dh + 15) / 16 * 16;
   // copy width: the widest of 16, 8, 4 bytes that every row start and the
   // row length are multiples of; else element by element
-  const uint64_t align = (uint64_t)Dh * esize | (uint64_t)(a_sn | a_sp | a_sl | a_sh) * esize |
+  const uint64_t align = (uint64_t)Dh * esize | src.stride_bits() * esize |
                          reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
   pl.vb = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 0;
   // a tile holds the split's keys, up to 8 KB of K (and as much V), 16
   // keys at least; one stage if a tile holds them all
-  const int n_bt = (n_log + n_split - 1) / n_split;
-  const int want = (n_bt * P + 15) / 16 * 16;
+  const int max_keys = src.max_keys(n_split);
+  const int want = (max_keys + 15) / 16 * 16;
   int kt = 16;
   while (kt < want && kt < 128 && (size_t)2 * kt * pl.ld * esize <= kDecodeTileBytes) kt *= 2;
   pl.kt = kt;
-  const int stages = std::min(kDecodeStages, (n_bt * P + kt - 1) / kt);
+  const int stages = std::min(kDecodeStages, (max_keys + kt - 1) / kt);
   const size_t ring = (size_t)stages * 2 * kt * pl.ld * esize;
   const size_t part = sizeof(float) * (2 * kG + kG * 32 * kE);
   pl.area = (std::max(ring, kDecodeWarps * part) + 15) / 16 * 16;
-  pl.smem = pl.area + sizeof(int) * 3 * kDecodeStages * kt + sizeof(int) * ((n_bt + 3) & ~3) +
+  pl.smem = pl.area + sizeof(int) * 3 * kDecodeStages * kt + sizeof(int) * src.smem_ints(n_split) +
             part + sizeof(float) * 8 * kG;
   return pl;
 }
 
-template <typename QT, typename KT, int kG, int kE>
-cudaError_t launch_paged_decode_split(
-    const void* q, int64_t q_sb, int64_t q_sh, const void* k, const void* v,
-    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
-    const int* slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
-    const int* block_table, int64_t bt_sb, int n_log, const int* kv_len, int layer,
-    const float* k_scale, const float* v_scale, int64_t sc_sn, int64_t sc_sl,
-    void* out, int64_t o_sb, int64_t o_sh,
-    int B, int Hkv, int G, int Dh, int N, int P, int n_split, cudaStream_t stream) {
-  const DecodePlan pl = decode_plan(sizeof(KT), Dh, P, n_log, n_split, kG, kE, k, v, a_sn,
-                                    a_sp, a_sl, a_sh);
-  auto kernel = paged_decode_split_kernel<QT, KT, kG, kE>;
+template <typename QT, typename KT, int kG, int kE, typename Keys>
+cudaError_t launch_decode_split(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
+                                const void* v, const Keys& src, const int* kv_len, int window,
+                                void* out, int64_t o_sb, int64_t o_sh, int B, int Hkv, int G,
+                                int Dh, int n_split, cudaStream_t stream) {
+  const DecodePlan pl = decode_plan(src, sizeof(KT), Dh, n_split, kG, kE, k, v);
+  auto kernel = decode_split_kernel<QT, KT, kG, kE, Keys>;
   cudaError_t err = allow_smem(kernel, pl.smem);
   if (err != cudaSuccess) return err;
   const int n_hc = (G + kG - 1) / kG;
@@ -589,30 +584,22 @@ cudaError_t launch_paged_decode_split(
     checked[n_split] = pl.smem;
   }
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<const QT*>(q), q_sb, q_sh,
-                            static_cast<const KT*>(k), static_cast<const KT*>(v), a_sn, a_sp,
-                            a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl, block_table, bt_sb,
-                            n_log, kv_len, layer, k_scale, v_scale, sc_sn, sc_sl,
-                            static_cast<QT*>(out), o_sb, o_sh, G, Dh, N, P, n_hc, pl.kt,
-                            pl.ld, pl.vb, pl.area,
-                            rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f);
+                            static_cast<const KT*>(k), static_cast<const KT*>(v), src, kv_len,
+                            window, static_cast<QT*>(out), o_sb, o_sh, G, Dh, n_hc, pl.kt, pl.ld,
+                            pl.vb, pl.area, rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f);
 }
 
 // q heads per block (kG) and head-dim elements per lane (kE) by G and Dh
-template <typename QT, typename KT>
-cudaError_t launch_paged_decode(
-    const void* q, int64_t q_sb, int64_t q_sh, const void* k, const void* v,
-    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
-    const int* slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
-    const int* block_table, int64_t bt_sb, int n_log, const int* kv_len, int layer,
-    const float* k_scale, const float* v_scale, int64_t sc_sn, int64_t sc_sl,
-    void* out, int64_t o_sb, int64_t o_sh,
-    int B, int Hkv, int G, int Dh, int N, int P, int n_split, cudaStream_t stream) {
+template <typename QT, typename KT, typename Keys>
+cudaError_t launch_decode(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
+                          const void* v, const Keys& src, const int* kv_len, int window,
+                          void* out, int64_t o_sb, int64_t o_sh, int B, int Hkv, int G, int Dh,
+                          int n_split, cudaStream_t stream) {
   if (Dh > 256 || n_split < 1 || n_split > 8) return cudaErrorInvalidValue;
 #define RT_DECODE_SPLIT(KG, KE)                                                              \
-  return launch_paged_decode_split<QT, KT, KG, KE>(                                          \
-      q, q_sb, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl,            \
-      block_table, bt_sb, n_log, kv_len, layer, k_scale, v_scale, sc_sn, sc_sl, out, o_sb,   \
-      o_sh, B, Hkv, G, Dh, N, P, n_split, stream)
+  return launch_decode_split<QT, KT, KG, KE, Keys>(q, q_sb, q_sh, k, v, src, kv_len, window, \
+                                                   out, o_sb, o_sh, B, Hkv, G, Dh, n_split,  \
+                                                   stream)
 #define RT_DECODE_KE(KG)                      \
   {                                           \
     if (Dh <= 64) RT_DECODE_SPLIT(KG, 2);     \
@@ -630,37 +617,37 @@ cudaError_t launch_paged_decode(
 
 // Plain C entry points bound with ctypes; each returns cudaGetLastError() of
 // its launch.  q/out: (B, Hq, Dh) views given by their batch and head
-// strides.
+// strides; Dh <= 256; n_split (1..8): the blocks, one cluster, that split a
+// row's keys (ops.decode_splits).
 //
 // Dense: k/v caches (B, S, Hkv, Dh) share the strides (c_sb, c_ss, c_sh) and
 // have a contiguous last dim; slot_pos is a (B, S) int32 plane or null;
 // window < 0 means no window.
-extern "C" int rt_decode_attention(
+extern "C" int rt_dense_decode_attention(
     const void* q, int64_t q_sb, int64_t q_sh, int dtype,
     const void* k, const void* v, int64_t c_sb, int64_t c_ss, int64_t c_sh,
     const void* slot_pos, int64_t sp_sb, int64_t sp_ss, const void* kv_len, int window,
     void* out, int64_t o_sb, int64_t o_sh,
-    int B, int Hkv, int G, int Dh, int S, void* stream) {
+    int B, int Hkv, int G, int Dh, int S, int n_split, void* stream) {
   using namespace rt;
-  const int* sp = static_cast<const int*>(slot_pos);
+  const DenseKeys src = {c_sb, c_ss, c_sh, static_cast<const int*>(slot_pos), sp_sb, sp_ss, S};
   const int* kl = static_cast<const int*>(kv_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return launch_decode<float>(q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh, sp, sp_sb, sp_ss,
-                                  kl, window, out, o_sb, o_sh, B, Hkv, G, Dh, S, s);
+      return launch_decode<float, float>(q, q_sb, q_sh, k, v, src, kl, window, out, o_sb, o_sh,
+                                         B, Hkv, G, Dh, n_split, s);
     case BF16:
-      return launch_decode<__nv_bfloat16>(q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh, sp, sp_sb,
-                                          sp_ss, kl, window, out, o_sb, o_sh, B, Hkv, G,
-                                          Dh, S, s);
+      return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, q_sb, q_sh, k, v, src, kl, window,
+                                                         out, o_sb, o_sh, B, Hkv, G, Dh,
+                                                         n_split, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // Paged: arena k/v share strides (N, P, L, Hkv) and have a contiguous last
-// dim; Dh <= 256; n_split (1..8): the blocks, one cluster, that split a
-// row's pages (ops.decode_splits).
+// dim.
 extern "C" int rt_paged_decode_attention(
     const void* q, int64_t q_sb, int64_t q_sh, int q_dtype,
     const void* k, const void* v, int kv_dtype,
@@ -671,17 +658,15 @@ extern "C" int rt_paged_decode_attention(
     void* out, int64_t o_sb, int64_t o_sh,
     int B, int Hkv, int G, int Dh, int N, int P, int n_split, void* stream) {
   using namespace rt;
-  const int* sp = static_cast<const int*>(slot_pos);
-  const int* bt = static_cast<const int*>(block_table);
+  const PagedKeys src = {static_cast<const int*>(block_table), bt_sb, n_log, N, P, layer,
+                         a_sn, a_sp, a_sl, a_sh, static_cast<const int*>(slot_pos), sp_sn, sp_sp,
+                         sp_sl, static_cast<const float*>(k_scale),
+                         static_cast<const float*>(v_scale), sc_sn, sc_sl};
   const int* kl = static_cast<const int*>(kv_len);
-  const float* ksc = static_cast<const float*>(k_scale);
-  const float* vsc = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RT_DECODE(QT, KT)                                                             \
-  return launch_paged_decode<QT, KT>(q, q_sb, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, sp, \
-                                     sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, kl, layer, \
-                                     ksc, vsc, sc_sn, sc_sl, out, o_sb, o_sh, B, Hkv,  \
-                                     G, Dh, N, P, n_split, s)
+#define RT_DECODE(QT, KT)                                                                  \
+  return launch_decode<QT, KT>(q, q_sb, q_sh, k, v, src, kl, -1, out, o_sb, o_sh, B, Hkv, G, \
+                               Dh, n_split, s)
   const bool quant = kv_dtype == I8;
   if (!quant && kv_dtype != q_dtype) return cudaErrorInvalidValue;
   switch (q_dtype) {

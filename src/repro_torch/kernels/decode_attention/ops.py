@@ -26,7 +26,11 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, slot_pos=None,
     k/v_cache: (B, S, Hkv, Dh); kv_len: (B,); slot_pos: (B, S) int32
     absolute position per slot (-1 empty; a rolling buffer), or None
     meaning slot i holds position i; window: attend only positions
-    ``> kv_len-1-window``.  ``decode_attention.launches`` counts kernel
+    ``> kv_len-1-window``.  On the card one launch of the split decode
+    kernel over the cache's own strides: ``decode_splits`` blocks of a
+    cluster share each row's slots (``dense_live_range``, split by
+    ``split_range``) and merge on chip; a head dim above 256 raises
+    ``ValueError``.  ``decode_attention.launches`` counts kernel
     launches."""
     if q.device.type == "cpu":
         return decode_attention_ref(q[:, 0], k_cache, v_cache, kv_len,
@@ -47,6 +51,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, slot_pos=None,
                          "a float32 or bfloat16 dtype")
     if q.stride(-1) != 1 or k_cache.stride(-1) != 1:
         raise ValueError("the head dim of q and the caches must be contiguous")
+    if Dh > 256:
+        raise ValueError(f"the decode kernel takes a head dim up to 256, "
+                         f"not {Dh}")
     if slot_pos is not None and (slot_pos.shape != (B, S)
                                  or slot_pos.dtype != torch.int32):
         raise ValueError("slot_pos must be an int32 (B, S) tensor")
@@ -57,14 +64,18 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, slot_pos=None,
         raise ValueError("kv_len needs one entry per query row")
     kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     sp_strides = slot_pos.stride() if slot_pos is not None else (0, 0)
+    G = Hq // Hkv
+    blocks = B * Hkv * -(-G // HEADS_PER_BLOCK)
+    n_split = decode_splits(S, blocks, _build.sm_count(q.device))
     out = torch.empty((B, 1, Hq, Dh), dtype=q.dtype, device=q.device)
-    fn = _build.kernel("rt_decode_attention", "PLLI PPLLL PLL PI PLL IIIII P")
+    fn = _build.kernel("rt_dense_decode_attention",
+                       "PLLI PPLLL PLL PI PLL IIIIII P")
     rc = fn(q.data_ptr(), q.stride(0), q.stride(2), _build.DTYPE_CODE[q.dtype],
             k_cache.data_ptr(), v_cache.data_ptr(), *k_cache.stride()[:3],
             _build.ptr(slot_pos), *sp_strides, kl.data_ptr(),
             -1 if window is None else int(window),
             out.data_ptr(), out.stride(0), out.stride(2),
-            B, Hkv, Hq // Hkv, Dh, S, _build.stream_ptr(q.device))
+            B, Hkv, G, Dh, S, n_split, _build.stream_ptr(q.device))
     decode_attention.launches += 1
     _build.check(rc, "decode_attention")
     return out
@@ -74,28 +85,44 @@ decode_attention.launches = 0
 
 
 #: the portable thread-block cluster size: at most this many blocks split
-#: one row's pages
+#: one row's keys
 MAX_SPLIT = 8
 #: q heads one decode block serves; a larger group takes several blocks
 HEADS_PER_BLOCK = 8
 
 
 def decode_splits(n_log: int, blocks: int, n_sm: int = 132) -> int:
-    """Blocks (one cluster) that split a row's ``n_log`` logical pages, for
-    a call of ``blocks`` (row, kv head, head chunk) work items on a card of
-    ``n_sm`` SMs: the smallest power of two that gives every SM two blocks,
-    capped at ``MAX_SPLIT`` and at ``n_log``.  Read from shapes alone, so
-    the host never waits for the device."""
+    """Blocks (one cluster) that split a row's ``n_log`` logical pages (on
+    the dense route its S slots), for a call of ``blocks`` (row, kv head,
+    head chunk) work items on a card of ``n_sm`` SMs: the smallest power
+    of two that gives every SM two blocks, capped at ``MAX_SPLIT`` and at
+    ``n_log``.  Read from shapes alone, so the host never waits for the
+    device."""
     n = 1
     while n < MAX_SPLIT and blocks * n < 2 * n_sm:
         n *= 2
     return max(1, min(n, n_log))
 
 
-def split_range(n_log: int, n_split: int, s: int):
-    """Logical pages ``[lo, hi)`` of split ``s``: the kernel's
-    ``s * n_log / n_split`` .. ``(s + 1) * n_log / n_split``."""
-    return s * n_log // n_split, (s + 1) * n_log // n_split
+def split_range(n_log: int, n_split: int, s: int, begin: int = 0):
+    """Logical pages (dense route: slots) ``[lo, hi)`` of split ``s`` of
+    the ``n_log`` starting at ``begin``: the kernel's ``begin + s * n_log /
+    n_split`` .. ``begin + (s + 1) * n_log / n_split``."""
+    return begin + s * n_log // n_split, begin + (s + 1) * n_log // n_split
+
+
+def dense_live_range(S: int, kv_len: int, window: Optional[int] = None,
+                     rolling: bool = False):
+    """Slots ``[begin, end)`` of one row that the dense route splits: all
+    S of a rolling buffer (a slot_pos plane: positions lie anywhere), else
+    the live slots ``[max(lo + 1, 0), min(S, kv_len))`` with ``lo =
+    kv_len - 1 - window``, or -1 without a window (empty when begin >=
+    end)."""
+    if rolling:
+        return 0, S
+    lo = -1 if window is None else max(kv_len - 1 - window, -1)
+    begin, end = max(lo + 1, 0), min(S, kv_len)
+    return begin, max(begin, end)
 
 
 def paged_decode_attention(q, k_arena, v_arena, slot_pos, block_table,

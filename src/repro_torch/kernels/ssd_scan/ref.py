@@ -1,10 +1,34 @@
-"""Plain PyTorch version of the per-chunk SSD computation (the oracle of
-``csrc/ssd_scan.cu``)."""
+"""Plain PyTorch versions of the SSD scan.
+
+``ssd_ref`` is the CPU path of ``ops.ssd`` and the yardstick the CUDA scan
+is held against on the card: the per-chunk ``ssd_chunk_ref`` (the oracle
+of the TPU kernel ``_ssd_chunk_kernel``), the inter-chunk recurrence and
+the state -> output term, as ``repro.kernels.ssd_scan.ops.ssd`` wraps the
+Pallas kernel.  ``ssd_scan_ref`` follows the CUDA scan's own order of
+work (sub-chunks of 16 steps, the running state carried between them).
+"""
 from __future__ import annotations
+
+import math
+import warnings
 
 import torch
 
 F32 = torch.float32
+#: steps of one sub-chunk of the CUDA scan, at most
+SUB = 16
+
+
+def ssd_tiling_chunk(S: int, chunk: int) -> int:
+    """Largest usable SSD chunk that tiles ``S`` exactly: ``chunk`` capped
+    at S, degraded to ``gcd(S, chunk)`` (with a warning: a degenerate gcd
+    is a per-step recurrence) when it does not divide S."""
+    Q = min(chunk, S)
+    if S % Q:
+        Q = math.gcd(S, Q)
+        warnings.warn(f"ssd: S={S} is not a multiple of chunk={chunk}; "
+                      f"degrading to chunk {Q}", stacklevel=3)
+    return Q
 
 
 def ssd_chunk_ref(x, dA, B, C):
@@ -34,3 +58,99 @@ def ssd_chunk_ref(x, dA, B, C):
     states = torch.einsum("bhcqp,bhcqn,bhcq->bhcpn", x, Bh, decay_states)
     decay = torch.exp(cs[..., -1])                             # (Bb,H,nc)
     return y_diag, states, decay
+
+
+def _weighted(x, dt, A_log, mask):
+    """(x dt, dt A) in float32 with ``dt`` zeroed at masked steps: pad
+    steps become identity state updates (dA = 0, no input)."""
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, torch.zeros_like(dt))
+    A = -torch.exp(A_log.to(F32))
+    return x.to(F32) * dt.to(F32)[..., None], dt.to(F32) * A
+
+
+def ssd_ref(x, dt, A_log, B_in, C_in, *, chunk: int = 256,
+            initial_state=None, mask=None, checkpoints: bool = False):
+    """The chunked SSD scan in plain PyTorch (``ops.ssd``'s contract):
+    ``ssd_chunk_ref`` over chunks of Q steps, then the recurrence ``h =
+    states[c] + h * decay[c]`` chunk by chunk and the state -> output term.
+    A row of pad steps has decay 1 and state 0, so its state passes
+    through bit for bit."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    HG = H // G
+    Q = ssd_tiling_chunk(S, chunk)
+    nc = S // Q
+    xw, dA = _weighted(x, dt, A_log, mask)
+    xk = xw.view(Bb, nc, Q, H, P).permute(0, 3, 1, 2, 4)      # (B,H,nc,Q,P)
+    dAk = dA.view(Bb, nc, Q, H).permute(0, 3, 1, 2)           # (B,H,nc,Q)
+    Bk = B_in.to(F32).reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4)
+    Ck = C_in.to(F32).reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4)
+
+    y_diag, states, decay = ssd_chunk_ref(xk, dAk, Bk, Ck)
+
+    # inter-chunk recurrence: hs[c] is the state entering chunk c, hs[nc]
+    # the final state
+    hs = torch.empty((nc + 1, Bb, H, P, N), dtype=F32, device=x.device)
+    if initial_state is None:
+        hs[0].zero_()
+    else:
+        hs[0].copy_(initial_state)
+    for c in range(nc):
+        torch.addcmul(states[:, :, c], hs[c], decay[:, :, c, None, None],
+                      out=hs[c + 1])
+
+    # state -> output: y_off[b,h,c,q,p] = exp(cs) * sum_n C[q,n] prev[p,n]
+    cs = torch.cumsum(dAk, dim=-1)                             # (B,H,nc,Q)
+    prev = hs[:nc].view(nc, Bb, G, HG, P, N)
+    y_off = torch.einsum("bgcqn,cbghpn->bghcqp", Ck, prev)
+    y_off = y_off.reshape(Bb, H, nc, Q, P) * torch.exp(cs)[..., None]
+    y = (y_diag + y_off).permute(0, 2, 3, 1, 4).reshape(Bb, S, H, P)
+    if checkpoints:
+        return y, hs[nc], hs[1:].transpose(0, 1)
+    return y, hs[nc]
+
+
+def ssd_scan_ref(x, dt, A_log, B_in, C_in, *, chunk: int = 256,
+                 initial_state=None, mask=None, checkpoints: bool = False):
+    """The CUDA scan's order of work in plain PyTorch, same contract as
+    ``ssd_ref``: each row walked in sub-chunks of at most ``SUB`` steps
+    that never straddle a checkpoint (chunks of Q steps when
+    ``checkpoints``, else the whole row), with the running state h carried
+    from one to the next.  Per sub-chunk, with cs the cumsum of dt A over
+    its steps: ``y_i = exp(cs_i) C_i h^T + sum_{j <= i} (C_i . B_j)
+    exp(cs_i - cs_j) x'_j``, then ``h = exp(cs_T) h + sum_j exp(cs_T -
+    cs_j) x'_j^T B_j``."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    HG = H // G
+    Q = ssd_tiling_chunk(S, chunk)
+    span = Q if checkpoints else S
+    xw, dA = _weighted(x, dt, A_log, mask)
+    Bh = B_in.to(F32).repeat_interleave(HG, dim=2)             # (B,S,H,N)
+    Ch = C_in.to(F32).repeat_interleave(HG, dim=2)
+    h = (torch.zeros((Bb, H, P, N), dtype=F32, device=x.device)
+         if initial_state is None else initial_state.to(F32).clone())
+    y = torch.empty((Bb, S, H, P), dtype=F32, device=x.device)
+    ck = []
+    for c0 in range(0, S, span):
+        for s0 in range(c0, c0 + span, SUB):
+            s1 = min(s0 + SUB, c0 + span)
+            T = s1 - s0
+            cs = torch.cumsum(dA[:, s0:s1], dim=1)                 # (B,T,H)
+            tril = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                         device=x.device))[None, :, :, None]
+            L = torch.where(tril, torch.exp(cs[:, :, None] - cs[:, None]),
+                            0.0)                                   # (B,Ti,Tj,H)
+            Cs, Bs, xs = Ch[:, s0:s1], Bh[:, s0:s1], xw[:, s0:s1]
+            scores = torch.einsum("bihn,bjhn->bijh", Cs, Bs) * L
+            y_diag = torch.einsum("bijh,bjhp->bihp", scores, xs)
+            y_off = torch.einsum("bihn,bhpn->bihp", Cs, h)
+            y[:, s0:s1] = torch.exp(cs)[..., None] * y_off + y_diag
+            w = torch.exp(cs[:, -1:] - cs)                         # (B,T,H)
+            h = (h * torch.exp(cs[:, -1])[..., None, None]
+                 + torch.einsum("bjhp,bjhn,bjh->bhpn", xs, Bs, w))
+        ck.append(h)
+    if checkpoints:
+        return y, h, torch.stack(ck, dim=1)
+    return y, h

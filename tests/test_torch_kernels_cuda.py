@@ -11,19 +11,22 @@ sentinel rows, int8, the grouped GEMM's counts sweep, the SSD scan with
 G 2, an initial state and a ragged mask), plus q lengths, cache lengths,
 GEMM shapes and SSD chunk lengths that are not a multiple of the kernels'
 tiles, a rolling-window dense cache, the attention kernels at zamba2's
-head dim 80, and the SSD chunk kernel at the chunk lengths and widths of
-mamba2-2.7b and zamba2-2.7b.  bf16 takes the tensor-core flash, paged extend
-and GEMM kernels: their cases cover every mask, head dims 16 to 256, GQA
-4 and 5, page sizes 1 to 64, and counts on each side of the GEMM's 16-
-and 128-row tiles.  Paged decode and extend run every dtype pair (q
-float32 or bf16, arena the same or int8); decode at n_log 1 to 256, so
-that a row's pages split across 1 to 8 blocks, with kv_len 0, 1 and
-n_log * P and rows whose every split is empty.  Tolerances: rel < 2e-5 in float32
+head dim 80, and the SSD scan (``ops.ssd``, one launch) at the chunk
+lengths and widths of mamba2-2.7b and zamba2-2.7b, with and without
+checkpoints, at N 32 to 256.  bf16
+takes the tensor-core flash, paged extend and GEMM kernels: their cases
+cover every mask, head dims 16 to 256, GQA 4 and 5, page sizes 1 to 64,
+and counts on each side of the GEMM's 16- and 128-row tiles.  Paged
+decode and extend run every dtype pair (q float32 or bf16, arena the same
+or int8); decode at n_log 1 to 256, so that a row's pages split across 1
+to 8 blocks, with kv_len 0, 1 and n_log * P, rows whose every split is
+empty, and G 12 at head dim 192; extend up to head dim 256.  Dense decode
+runs the same split kernel over a dense cache's live slots: windows,
+kv_len 0 and above S, G 12 at Dh 192.  Tolerances: rel < 2e-5 in float32
 attention and SSD (summation order), 1e-4 in the float32 grouped GEMM
 (2048-term sums in another order), 2e-4 for int8 arenas in float32 (same
 dequantised values), 2e-2 in bf16 (output rounding).  Pad steps of the
-SSD scan are exact identities (decay 1, state 0, the initial state back
-bit for bit).
+SSD scan are exact identities (the initial state back bit for bit).
 """
 import numpy as np
 import pytest
@@ -43,7 +46,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_ref  # noqa: E402
 from repro_torch.models.cache_utils import quantize_page  # noqa: E402
 from repro_torch.models.layers import KVSlice, dense_kv_arena  # noqa: E402
 from repro_torch.models.layers import extend_attention_ref  # noqa: E402
@@ -224,6 +227,9 @@ DECODE = [
     (2, 8, 2, 128, 1, 16, 256, (4096, 1500)),
     (8, 32, 32, 80, 1, 16, 16, (200, 1, 87, 129, 64, 100, 3, 256)),  # 2 splits, Dh 80
     (3, 8, 2, 64, 1, 8, 6, (0, 1, 48)),                     # kv_len 0, 1, n_log * P
+    # G 12 at Dh 192 (nemotron4-340b's heads): two blocks of heads (n_hc
+    # 2) and 8 head dims a lane
+    (2, 24, 2, 192, 2, 16, 4, (50, 33)),
 ]
 
 
@@ -310,6 +316,8 @@ EXTEND = [
     (2, 32, 32, 80, 1, 64, 8, 40, (64, 16)),              # zamba2 Dh 80, P 64, G 1
     (2, 10, 2, 64, 2, 16, 4, 24, (3, 20)),                # GQA 5
     (8, 32, 8, 128, 4, 16, 16, 40, (0, 16, 64, 5, 100, 0, 33, 7)),  # phase 3's offsets
+    (2, 8, 2, 192, 2, 16, 6, 24, (3, 70)),                # Dh 192
+    (2, 8, 2, 256, 1, 16, 4, 24, (16, 5)),                # Dh 256
 ]
 
 
@@ -368,7 +376,8 @@ def test_paged_extend_bf16_rejects(dev):
 
 
 # the dense decode cases of tests/test_kernels.py (B, Hq, Hkv, S, Dh,
-# dtype), then S not a multiple of the 32-slot key tile
+# dtype), then S not a multiple of the key tile, zamba2's head dim 80,
+# G 12 at Dh 192 (two blocks of heads), and 8 splits of 1 slot or less
 DENSE_DECODE = [
     (2, 8, 2, 512, 64, torch.float32),
     (4, 4, 4, 256, 128, torch.bfloat16),
@@ -377,6 +386,9 @@ DENSE_DECODE = [
     (3, 32, 8, 100, 128, torch.float32),
     (4, 32, 32, 512, 80, torch.float32),                  # zamba2 Dh 80
     (4, 32, 32, 512, 80, torch.bfloat16),
+    (2, 24, 2, 96, 192, torch.float32),
+    (2, 24, 2, 96, 192, torch.bfloat16),
+    (1, 4, 1, 5, 64, torch.float32),
 ]
 
 
@@ -393,12 +405,32 @@ def test_dense_decode_kernel(dev, case):
     B, Hq, Hkv, S, Dh, dt = case
     q, k, v = _dense_cache(dev, B, Hq, Hkv, S, Dh, dt)
     kl = (torch.arange(B, dtype=torch.int32, device=dev) * 37 + S // 3) % S + 1
-    n0 = dops.decode_attention.launches
+    n0 = (dops.decode_attention.launches, dops.paged_decode_attention.launches)
     out = dops.decode_attention(q, k, v, kl)
     ref = decode_attention_ref(q[:, 0], k, v, kl)
     torch.cuda.synchronize()
-    assert dops.decode_attention.launches == n0 + 1
+    assert (dops.decode_attention.launches,
+            dops.paged_decode_attention.launches) == (n0[0] + 1, n0[1])
     assert _rel(out[:, 0], ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_window_and_empty_rows(dev, dt):
+    """A window on a non-rolling cache (the live range starts at kv_len -
+    window), kv_len 0 (every split empty: the row is 0) and kv_len above S
+    (the range ends at S), over 8 splits of the row's slots."""
+    B, Hq, Hkv, S, Dh = 4, 8, 2, 300, 64
+    q, k, v = _dense_cache(dev, B, Hq, Hkv, S, Dh, dt, seed=3)
+    kl = torch.tensor([320, 0, 45, 290], dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert dops.decode_splits(S, B * Hkv, sms) == 8
+    out = dops.decode_attention(q, k, v, kl, window=40)
+    ref = decode_attention_ref(q[:, 0], k, v, kl, window=40)
+    torch.cuda.synchronize()
+    assert not out[1].any()
+    live = [0, 2, 3]
+    assert _rel(out[live, 0], ref[live]) < (2e-2 if dt == torch.bfloat16
+                                            else 2e-5)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -518,24 +550,11 @@ def _ssd_inputs(dev, Bb, S, H, P, G, N, seed=0):
     return x, dt, A_log, f(Bb, S, G, N) * 0.3, f(Bb, S, G, N) * 0.3
 
 
-def _ssd_chunk_views(x, dt, A_log, B, C, Q):
-    """The per-chunk kernel's inputs as ``ops.ssd`` hands them over:
-    strided five-axis views of the model's layouts."""
-    Bb, S, H, P = x.shape
-    G, N = B.shape[2:]
-    nc = S // Q
-    dA = dt * -torch.exp(A_log)
-    xw = x * dt[..., None]
-    return (xw.view(Bb, nc, Q, H, P).permute(0, 3, 1, 2, 4),
-            dA.view(Bb, nc, Q, H).permute(0, 3, 1, 2),
-            B.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4),
-            C.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4))
-
-
 SSD_CHUNKS = [
     # Bb, S, H, P, G, N, Q: mamba2-2.7b (H 80, P 64, N 128) and zamba2-2.7b
     # (N 64) at every chunk length the main paths give, a degenerate Q 1,
-    # G 2 with Q off the 32-row tile, and Q above one 256-step scan
+    # G 2 with Q off the 16-step sub-chunk, Q 300 (sub-chunks of 16 and a
+    # ragged 12)
     (1, 64, 80, 64, 1, 128, 1),
     (2, 128, 80, 64, 1, 128, 16),
     (2, 128, 80, 64, 1, 64, 16),
@@ -546,42 +565,73 @@ SSD_CHUNKS = [
     (1, 256, 80, 64, 1, 64, 256),
     (2, 96, 4, 16, 2, 32, 24),
     (1, 300, 4, 64, 1, 128, 300),
+    # P off the 64-row tile (N 64, 128); N 192 and 256, the widest state
+    # tiles
+    (2, 64, 4, 80, 2, 128, 16),
+    (1, 48, 2, 136, 1, 64, 24),
+    (1, 64, 4, 64, 1, 192, 16),
+    (1, 64, 2, 32, 1, 256, 32),
 ]
 
 
 @pytest.mark.parametrize("case", SSD_CHUNKS)
 def test_ssd_chunks_kernel(dev, case):
+    """``ops.ssd`` (one launch of the scan) against its plain version
+    ``ssd_ref`` with and without checkpoints: y, the final state and the
+    state after every chunk."""
     Bb, S, H, P, G, N, Q = case
-    views = _ssd_chunk_views(*_ssd_inputs(dev, Bb, S, H, P, G, N), Q)
-    n0 = sops.ssd_chunks.launches
-    y, st, dec = sops.ssd_chunks(*views)
-    y_r, st_r, dec_r = ssd_chunk_ref(*views)
+    inp = _ssd_inputs(dev, Bb, S, H, P, G, N)
+    n0 = sops.ssd.launches
+    y, h, ck = sops.ssd(*inp, chunk=Q, checkpoints=True)
+    y2, h2 = sops.ssd(*inp, chunk=Q)
+    y_r, h_r, ck_r = ssd_ref(*inp, chunk=Q, checkpoints=True)
     torch.cuda.synchronize()
-    assert sops.ssd_chunks.launches == n0 + 1
-    assert _rel(y, y_r) < 2e-5
-    assert _rel(st, st_r) < 2e-5
-    assert _rel(dec, dec_r) < 2e-5
+    assert sops.ssd.launches == n0 + 2
+    assert tuple(ck.shape) == (Bb, S // Q, H, P, N)
+    for got, ref in ((y, y_r), (h, h_r), (ck, ck_r), (y2, y_r), (h2, h_r)):
+        assert _rel(got, ref) < 2e-5
+
+
+def test_ssd_scan_reads_bf16_inputs(dev):
+    """x, B and C in bfloat16 (the full-width models' dtype) are read as
+    stored and widened exactly: the result is the float32 scan of the
+    same values."""
+    inp = list(_ssd_inputs(dev, 2, 64, 8, 64, 1, 128, seed=2))
+    for i in (0, 3, 4):
+        inp[i] = inp[i].to(torch.bfloat16)
+    y, h, ck = sops.ssd(*inp, chunk=16, checkpoints=True)
+    y_r, h_r, ck_r = ssd_ref(*inp, chunk=16, checkpoints=True)
+    torch.cuda.synchronize()
+    for got, ref in ((y, y_r), (h, h_r), (ck, ck_r)):
+        assert _rel(got, ref) < 2e-5
 
 
 def test_ssd_pad_rows_are_exact_identities(dev):
     """Rows whose every step is masked (the rows riding along a snapshot
-    restore's extend): decay exactly 1, chunk states exactly 0, and
-    ``ops.ssd`` hands the initial state back bit for bit."""
+    restore's extend): ``ops.ssd`` hands the initial state back bit for
+    bit, as the final state and at every checkpoint."""
     Bb, S, H, P, G, N = 3, 64, 80, 64, 1, 128
     x, dt, A_log, B, C = _ssd_inputs(dev, Bb, S, H, P, G, N, seed=1)
     mask = torch.ones((Bb, S), dtype=torch.bool, device=dev)
     mask[1] = False
     init = torch.randn((Bb, H, P, N), device=dev)
-    dtm = torch.where(mask[..., None], dt, torch.zeros_like(dt))
-    y, st, dec = sops.ssd_chunks(*_ssd_chunk_views(
-        x * mask[..., None, None], dtm, A_log, B, C, 16))
-    assert torch.equal(dec[1], torch.ones_like(dec[1]))
-    assert torch.equal(st[1], torch.zeros_like(st[1]))
     _, final, ck = sops.ssd(x, dt, A_log, B, C, chunk=16,
                             initial_state=init, mask=mask, checkpoints=True)
+    _, final2 = sops.ssd(x, dt, A_log, B, C, chunk=16, initial_state=init,
+                         mask=mask)
     torch.cuda.synchronize()
-    assert torch.equal(final[1], init[1])
+    assert torch.equal(final[1], init[1]) and torch.equal(final2[1], init[1])
     assert all(torch.equal(ck[1, c], init[1]) for c in range(S // 16))
+
+
+def test_ssd_rejects_shapes(dev):
+    """P or N not a multiple of 4, or above 256, raises; nothing launches."""
+    n0 = sops.ssd.launches
+    for P, N in ((6, 16), (8, 18), (260, 16), (8, 260)):
+        inp = _ssd_inputs(dev, 1, 16, 2, P, 1, N)
+        with pytest.raises(ValueError, match="multiples of 4"):
+            sops.ssd(*inp, chunk=16)
+    assert sops.ssd.launches == n0
 
 
 # the SSD cases of tests/test_kernels.py: G 2 at three chunk lengths, an

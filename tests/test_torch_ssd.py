@@ -5,7 +5,9 @@
   ``ops.ssd`` (the Pallas kernel in interpret mode, as
   ``tests/test_kernels.py`` runs it) and against ``ssd_chunked``: chunk
   lengths 16/32/64 with G 2, an initial state, a ragged pad mask with the
-  truncated-row check, and the chunk checkpoints;
+  truncated-row check, and the chunk checkpoints; ``ssd_scan_ref``, the
+  CUDA scan's order of work (16-step sub-chunks, the running state carried
+  between them), against the same at chunk lengths 1, 16 and 128;
 * ``models/mamba2``: ``_causal_conv`` (``length``, ``boundary_every``),
   ``ssd_decode_step``, the softplus, and ``mamba_block`` in prefill (with
   checkpoints), extend and decode;
@@ -40,6 +42,7 @@ from repro_torch.configs.base import smoke_config as t_smoke_config  # noqa: E40
 from repro_torch.configs.registry import get_arch as t_get_arch  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import mamba2 as tm2  # noqa: E402
 from repro_torch.models import zamba2 as tz2  # noqa: E402
@@ -196,6 +199,34 @@ def test_ssd_fully_masked_row_keeps_its_state_bit_for_bit():
         np.zeros_like(inp[0]), np.zeros_like(inp[1]), *inp[2:], 8)))
     assert torch.equal(decay, torch.ones_like(decay))
     assert not states.any() and not yc.any()
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("Q", [1, 16, 128])
+def test_ssd_scan_order_matches_jax(Q, G):
+    """``ssd_scan_ref`` (the CUDA scan's order of work) under an initial
+    state and a ragged mask (a full row, a ragged row, a row with no real
+    step): y and the final state against JAX's ``ops.ssd`` (Pallas,
+    interpret mode), the checkpoints against JAX's ``ssd_chunked``, all
+    within 2e-5; the row with no real step keeps its state bit for bit."""
+    S = 32 if Q == 1 else 128
+    *inp, init = _ssd_inputs(3, S, 4, 8, G, 16, seed=17 + Q + G, init=True)
+    lengths = np.array([S, S // 2 + 3, 0])
+    mask = np.arange(S)[None, :] < lengths[:, None]
+    kw_t = dict(chunk=Q, initial_state=_t(init), mask=torch.from_numpy(mask))
+    kw_j = dict(chunk=Q, initial_state=_j(init), mask=jnp.asarray(mask))
+    y, h = ssd_scan_ref(*(_t(a) for a in inp), **kw_t)
+    y_c, h_c, ck = ssd_scan_ref(*(_t(a) for a in inp), checkpoints=True,
+                                **kw_t)
+    y_k, h_k = jax_ssd(*(_j(a) for a in inp), **kw_j)
+    y_r, h_r, ck_r = jm2.ssd_chunked(*(_j(a) for a in inp), checkpoints=True,
+                                     **kw_j)
+    assert _rel(_np(y), y_k) < 2e-5 and _rel(_np(h), h_k) < 2e-5
+    assert _rel(_np(y_c), y_r) < 2e-5 and _rel(_np(h_c), h_r) < 2e-5
+    assert tuple(ck.shape) == ck_r.shape == (3, S // Q, 4, 8, 16)
+    assert _rel(_np(ck), ck_r) < 2e-5
+    assert torch.equal(h[2], _t(init[2])) and torch.equal(h_c[2], _t(init[2]))
+    assert all(torch.equal(ck[2, c], _t(init[2])) for c in range(S // Q))
 
 
 def test_ssd_tiling_chunk_degrades_with_a_warning():
