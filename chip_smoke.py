@@ -31,6 +31,15 @@ also times paged decode at a long context (kv_len 2048-4096).  Phase 4
 holds the card's greedy tokens to the CPU's on ten cases, an int8 paged
 pool among them.
 
+The batcher's decode step runs as a CUDA graph on the card, one per
+(path, block-table width) key: the first step of a key eagerly, the
+second captured, every later one replayed.  Phase 4's card runs replay
+too.  Each full-width phase checks that its decode steps replayed
+(``replays + eager_steps`` equals its decode steps, no key captured
+twice) and that every launch count stays exact under replay; phases 5-9
+then time one decode step of the drained batcher eagerly (the plain step
+function on the batcher's own buffers) and replayed.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -995,6 +1004,9 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
                 rid += 1
             bat.run_until_drained()
         toks[str(device)] = {r.rid: r.output for r in bat.done}
+        if bat.step_graph is not None:
+            expect_graphed(4, bat)
+            bat.close()
         if bat.pool is None:
             hits[str(device)] = 0
         elif bat.pool.payload_kind == "snapshot":
@@ -1129,6 +1141,61 @@ def expect(what: str, got: int, want: int):
         raise AssertionError(f"{what}: {got} launches, expected {want}")
 
 
+def expect_graphed(tag, bat) -> dict:
+    """The batcher's decode steps ran as CUDA graph replays: all but the
+    first step of each key replayed, and no key was captured twice."""
+    from repro_torch.launch.serve import graph_summary
+    from repro_torch.serve.step_graph import decode_keys
+    g = bat.step_graph.stats()
+    paged = bat.pool is not None and bat.pool.payload_kind == "page"
+    keys = len(decode_keys(bat.pool.n_logical if paged else None))
+    if (g["replays"] <= 0
+            or g["replays"] + g["eager_steps"] != bat.decode_invocations
+            or g["captures"] > min(keys, g["keys"])):
+        raise AssertionError(f"[{tag}] decode steps not replayed as graphs: "
+                             f"{g}, {bat.decode_invocations} decode steps, "
+                             f"{keys} keys possible")
+    log(f"[{tag}] {graph_summary(bat)}")
+    return g
+
+
+def time_decode_step(tag, bat, key, name_limit: str,
+                     reps: int = 25) -> dict:
+    """One decode step of the drained batcher ``bat`` at ``key``, timed
+    eagerly (the plain step function on the batcher's own buffers, its
+    inputs copied to the card as an eager step copies them) and replayed
+    (the copy into the key's static buffers, the address check, one
+    replay), ``reps`` calls each in turns, each call ending in the tokens'
+    read-back as a step does.  A drained batcher's state is scratch, so
+    stepping it harms nothing.  Returns both medians (ms)."""
+    host = {"tokens": bat.cur_tok[:, None], "pos": bat.pos}
+    if key[0] == "paged":
+        host["block_table"] = bat.pool.block_table[:, :key[1]]
+
+    def eager():
+        inputs = {k: torch.from_numpy(np.array(v)).to(bat.device)
+                  for k, v in host.items()}
+        return bat._run_step(bat._decode_state(), inputs)[0].tolist()
+
+    def replayed():
+        return bat._decode(key, host).tolist()
+
+    for _ in range(2):      # the key's eager step and capture, if not done
+        replayed()
+    eager()
+    walls = {"eager": [], "replayed": []}
+    for _ in range(reps):
+        for name, fn in (("eager", eager), ("replayed", replayed)):
+            t = time.monotonic()
+            fn()
+            walls[name].append(time.monotonic() - t)
+    out = {f"{k}_ms": float(np.median(v)) * 1e3 for k, v in walls.items()}
+    log(f"[{tag}] one decode step of the drained batcher at key {key}: "
+        f"eager {out['eager_ms']:.2f} ms, replayed {out['replayed_ms']:.2f} "
+        f"ms (median of {reps} each; {name_limit})")
+    return out
+
+
 def expect_tc(launches: dict, *names: str):
     """Every (bf16) launch of each kernel in ``names`` took its
     tensor-core kernel."""
@@ -1145,6 +1212,7 @@ def warm_up(bat_fn, vocab: int):
     warm.submit(Request(rid=-1, prompt=main_path_prompts(1, vocab)[0][0],
                         max_new_tokens=2))
     warm.run_until_drained()
+    warm.close()
     del warm
     torch.cuda.synchronize()
 
@@ -1182,7 +1250,10 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
     expect_tc(launches, "flash_attention", "paged_extend_attention")
     check_drained(bat.pool, SLOTS * SHARED)
     e2e = report(5, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+    e2e["graphs"] = expect_graphed(5, bat)
     log(f"[5] {bat.pool.prefix_hit_tokens} prefix-hit tokens")
+    e2e["step_ab"] = time_decode_step(5, bat, ("paged", 8), name_limit)
+    bat.close()
     return e2e
 
 
@@ -1197,6 +1268,7 @@ def phase_dense(dev, name_limit: str, model, params) -> dict:
     )
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.serve.step_graph import DENSE_KEY
 
     cfg = model.cfg
     L = cfg.num_layers
@@ -1219,6 +1291,9 @@ def phase_dense(dev, name_limit: str, model, params) -> dict:
            L * bat.prefill_invocations)
     expect_tc(launches, "flash_attention")
     e2e = report(6, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+    e2e["graphs"] = expect_graphed(6, bat)
+    e2e["step_ab"] = time_decode_step(6, bat, DENSE_KEY, name_limit)
+    bat.close()
 
     tat = ContinuousBatcher(model, params, batch_slots=2, max_len=MAX_LEN,
                             page_size=PAGE, prefill_chunk=None, device=dev)
@@ -1231,6 +1306,8 @@ def phase_dense(dev, name_limit: str, model, params) -> dict:
     check_drained(tat.pool, 0)
     e2e["token_at_a_time"] = report("6b", name_limit, tat, reqs, wall,
                                     step_s, tl, cfg.vocab, max_new=4)
+    e2e["token_at_a_time"]["graphs"] = expect_graphed("6b", tat)
+    tat.close()
     return e2e
 
 
@@ -1252,6 +1329,7 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
     )
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.serve.step_graph import DENSE_KEY
 
     model, params = full_width(dev, arch, tag)
     cfg = model.cfg
@@ -1303,6 +1381,9 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
                                           "snapshot_hit_tokens",
                                           "snapshot_bytes_saved")}
     e2e["peak_gb"] = peak / 1e9
+    e2e["graphs"] = expect_graphed(tag, bat)
+    e2e["step_ab"] = time_decode_step(tag, bat, DENSE_KEY, name_limit)
+    bat.close()
     del bat, model, params
     return e2e
 
@@ -1359,6 +1440,10 @@ def phase_moe(dev, name_limit: str) -> dict:
     e2e = report(7, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
     log(f"[7] {bat.pool.prefix_hit_tokens} prefix-hit tokens, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    e2e["graphs"] = expect_graphed(7, bat)
+    e2e["step_ab"] = time_decode_step(7, bat, ("paged", 8), name_limit)
+    bat.close()
+    del bat
     e2e["routing"] = routing_profile(batcher, cfg.vocab)
     return e2e
 
@@ -1384,6 +1469,7 @@ def routing_profile(batcher, vocab: int) -> dict:
     moe.gmm = spy
     try:
         bat = batcher()
+        bat.step_graph = None   # eager steps: the spy runs on every call
         serve(bat, main_path_prompts(0, vocab), ())
     finally:
         moe.gmm = gmm

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels; count their launches.
 
 The kernel sources (``kernels/*/csrc/*.cu``) have plain C entry points.
 At first use on a CUDA device they are compiled with ``nvcc`` for Hopper
@@ -7,6 +7,14 @@ linked into ``build/kernels/libreprotorch.so`` at the repository root and
 loaded with ``ctypes``.  A content hash of the sources and flags decides
 whether a library already built is current.  Nothing is compiled when a
 module is imported, and a build or load failure raises.
+
+Each wrapper counts its launches in attributes of its own (``launches``,
+and on some ``launches_tc`` or ``launches_by_capacity``, a dict by
+capacity) and registers them here with :func:`count_launches`.  A CUDA
+graph replay launches its kernels without running a wrapper, so the
+decode step's graph (``serve/step_graph.py``) reads the registry before
+and after its capture, puts the counts back, and adds the difference on
+each replay.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -145,3 +153,64 @@ def stream_ptr(device: torch.device) -> int:
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# -- launch counters -------------------------------------------------------
+#: (wrapper, counter attribute names) of every wrapper that launches a kernel
+COUNTED: list = []
+
+Counts = Dict[Tuple[object, str], object]
+
+
+def count_launches(fn, *names: str):
+    """Register the launch counters ``names`` of wrapper ``fn``: ints, or
+    dicts of ints (``launches_by_capacity``)."""
+    COUNTED.append((fn, names))
+
+
+def launch_counts() -> Counts:
+    """Every registered counter's value (a copy of a dict counter)."""
+    out = {}
+    for fn, names in COUNTED:
+        for name in names:
+            v = getattr(fn, name)
+            out[fn, name] = dict(v) if isinstance(v, dict) else v
+    return out
+
+
+def set_launch_counts(counts: Counts):
+    """Put the registered counters back to ``counts``; a dict counter
+    keeps its identity."""
+    for (fn, name), v in counts.items():
+        if isinstance(v, dict):
+            d = getattr(fn, name)
+            d.clear()
+            d.update(v)
+        else:
+            setattr(fn, name, v)
+
+
+def launch_delta(before: Counts, after: Counts) -> Counts:
+    """What each counter gained from ``before`` to ``after`` (the nonzero
+    entries only; a dict counter by key)."""
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            d = {c: n - before[k].get(c, 0) for c, n in v.items()}
+            d = {c: n for c, n in d.items() if n}
+            if d:
+                out[k] = d
+        elif v != before[k]:
+            out[k] = v - before[k]
+    return out
+
+
+def add_launch_counts(delta: Counts):
+    """Add ``delta`` (from :func:`launch_delta`) to the counters."""
+    for (fn, name), v in delta.items():
+        if isinstance(v, dict):
+            d = getattr(fn, name)
+            for c, n in v.items():
+                d[c] = d.get(c, 0) + n
+        else:
+            setattr(fn, name, getattr(fn, name) + v)

@@ -82,6 +82,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, slot_pos=None,
 
 
 decode_attention.launches = 0
+_build.count_launches(decode_attention, "launches")
 
 
 #: the portable thread-block cluster size: at most this many blocks split
@@ -171,6 +172,7 @@ def paged_decode_attention(q, k_arena, v_arena, slot_pos, block_table,
 
 
 paged_decode_attention.launches = 0
+_build.count_launches(paged_decode_attention, "launches")
 
 
 def lse_combine(ms, ls, accs):

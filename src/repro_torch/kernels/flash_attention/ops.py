@@ -70,6 +70,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+_build.count_launches(flash_attention, "launches", "launches_tc")
 
 
 def _rows16(t):
@@ -135,3 +136,4 @@ def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,
 
 paged_extend_attention.launches = 0
 paged_extend_attention.launches_tc = 0
+_build.count_launches(paged_extend_attention, "launches", "launches_tc")

@@ -53,3 +53,5 @@ def gmm(x, w, counts):
 gmm.launches = 0
 gmm.launches_tc = 0
 gmm.launches_by_capacity = {}
+_build.count_launches(gmm, "launches", "launches_tc",
+                      "launches_by_capacity")

@@ -96,3 +96,4 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
 
 
 ssd.launches = 0
+_build.count_launches(ssd, "launches")

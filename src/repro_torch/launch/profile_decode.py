@@ -18,6 +18,14 @@ Then it times ``--steps`` decode steps, runs ``--steps`` more under
 ``torch.profiler`` (which slows the host), and prints the wall time of
 each step, the device-busy time and idle share of the profiled window,
 and the device time by kernel.  A CUDA device is required.
+
+The decode step runs as a CUDA graph (``serve/step_graph.py``): the two
+warm-up steps are the key's eager step and its capture, so every timed
+and profiled step is a replay (checked, and the graph counters printed;
+``--prompt-len`` must keep the window in one block-table width bucket).
+Device busy is the union of the device intervals the profiler records;
+the count of kernels it saw says whether it sees the kernels inside the
+graph.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import graph_summary
 from repro_torch.models.model import build_model
 from repro_torch.serve.batcher import ContinuousBatcher, Request
 
@@ -73,8 +82,9 @@ def main(argv=None):
         prompt = rng.integers(1, arch.vocab, size=args.prompt_len)
         bat.submit(Request(rid=rid, max_new_tokens=2 * args.steps + 4,
                            prompt=prompt.astype(np.int32)))
-    bat.step()                      # admits and prefills, then one decode
-    bat.step()                      # one more decode step as warm-up
+    bat.step()                      # admits and prefills, then one eager decode
+    bat.step()                      # captures the key's graph and replays it
+    warm = bat.step_graph.stats()
     plain = []
     for _ in range(args.steps):
         t = time.monotonic()
@@ -90,6 +100,14 @@ def main(argv=None):
             walls.append(time.monotonic() - t)
         torch.cuda.synchronize()
         window = time.monotonic() - t_window
+    g = bat.step_graph.stats()
+    if (g["replays"] - warm["replays"] != 2 * args.steps
+            or g["captures"] != warm["captures"]):
+        raise RuntimeError(f"a timed or profiled step was not a replay "
+                           f"(graph counters {warm} -> {g}): the window "
+                           f"crossed a block-table width bucket")
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us(prof.events()) / 1e6
     plane = bat.pool.payload_kind if bat.pool is not None else "dense"
     print(f"[profile] {arch.name} ({plane} cache plane): {args.slots} "
@@ -100,8 +118,16 @@ def main(argv=None):
         print(f"[profile] {name} step wall ms: "
               + " ".join(f"{w * 1e3:.2f}" for w in ws)
               + f" (median {np.median(ws) * 1e3:.2f})")
+    print(f"[profile] {graph_summary(bat)}")
+    print(f"[profile] the profiler saw {len(kernels)} device events in the "
+          f"window ({len(kernels) / args.steps:.1f} a replayed step)")
     print(f"[profile] window {window * 1e3:.2f} ms, device busy "
           f"{busy * 1e3:.2f} ms, idle share {1 - busy / window:.3f}")
+    # the profiler slows the host's side of every step, a graph launch
+    # too: against the unprofiled step, device busy a step says more
+    print(f"[profile] device busy a step {busy / args.steps * 1e3:.2f} ms, "
+          f"{busy / args.steps / np.median(plain):.3f} of the unprofiled "
+          f"step median")
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=25))
     return 0

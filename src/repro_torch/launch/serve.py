@@ -14,7 +14,11 @@ picks: paged KV for the dense and MoE families, state snapshots for ssm
 rolling window.
 Weights are random, drawn from a seeded generator on the device.  The
 supervisor and cells come with ROADMAP queue 1 item 10; this driver builds
-the batcher directly.
+the batcher directly.  On the card the decode step runs as CUDA graphs,
+one per block-table width bucket (``serve/step_graph.py``); the summary
+says how many keys were used and how many steps ran eagerly (the first of
+each key), captured (the second) and replayed (every step after the
+first of its key); on the CPU every step is eager.
 """
 from __future__ import annotations
 
@@ -79,7 +83,21 @@ def main(argv=None):
           f"({toks / dt:.1f} tok/s)")
     print(f"[serve] latency p50={lats[len(lats) // 2] * 1e3:.1f}ms "
           f"p99={lats[max(int(len(lats) * 0.99) - 1, 0)] * 1e3:.1f}ms")
+    print(f"[serve] {graph_summary(bat)}")
     return 0
+
+
+def graph_summary(bat) -> str:
+    """What the batcher's decode-step graph counters mean, in one line."""
+    n = bat.decode_invocations
+    if bat.step_graph is None:
+        return f"decode step: {n} steps, all eager (no CUDA graph on the CPU)"
+    g = bat.step_graph.stats()
+    return (f"decode step graphs: {n} steps over {g['keys']} keys (path, "
+            f"block-table width); {g['eager_steps']} eager (the first step "
+            f"of a key), {g['replays']} replays (every later step), "
+            f"{g['captures']} of them captured first (the second step of a "
+            f"key)")
 
 
 if __name__ == "__main__":

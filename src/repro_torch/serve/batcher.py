@@ -20,6 +20,12 @@ through the decode step one token per step.  Requests blocked on pool
 pages stay queued; a deficit-round-robin tenant scheduler picks who is
 admitted.
 
+On the card the decode step runs as a CUDA graph, one per (path,
+block-table width) key (``serve/step_graph.py``): the first step of a key
+runs eagerly, the second captures it, every later one is one replay on
+the batcher's own cache tensors, as the JAX batcher calls its jitted,
+donated step.  On the CPU the same step function runs eagerly.
+
 The recurrent families (ssm, hybrid) get the same prefix cache through a
 *snapshot* pool (``KVPool.capability`` "snapshot"): decode stays on the
 dense per-slot cache, cold prefills emit a state checkpoint at every page
@@ -76,6 +82,7 @@ from repro_torch.serve.serve_step import (
     run_prefill_group,
     supports_chunked_prefill,
 )
+from repro_torch.serve.step_graph import DENSE_KEY, StepGraph, paged_key
 from repro_torch.serve.tenancy import (
     DEFAULT_TENANT,
     TenantRegistry,
@@ -205,6 +212,11 @@ class ContinuousBatcher:
         self.prompt_cursor = np.zeros(batch_slots, np.int64)
         # sampling draws (temperature > 0) from a seeded generator
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        # the decode step's CUDA graphs (None on the CPU: eager steps)
+        self.step_graph = (
+            StepGraph(self.device,
+                      generator=self.generator if temperature > 0 else None)
+            if self.device.type == "cuda" else None)
         self._scratch_caches: Dict[int, Any] = {}  # B -> B-row prefill cache
         self._slot_init_cache = None               # lazy; see _slot_init()
         self.prefill_invocations = 0
@@ -503,9 +515,8 @@ class ContinuousBatcher:
         if not busy:
             return 0
         t0 = self.rec.clock()
-        dev = self.device
-        batch = {"tokens": torch.from_numpy(self.cur_tok[:, None].copy()).to(dev),
-                 "pos": torch.from_numpy(self.pos.copy()).to(dev)}
+        host = {"tokens": self.cur_tok[:, None], "pos": self.pos}
+        key = DENSE_KEY
         if self._paged:
             # map the page each busy slot is about to write (from the
             # pocket its admission reserved: cannot fail mid-decode)
@@ -513,17 +524,10 @@ class ContinuousBatcher:
                 self.pool.ensure_decode_page(s, int(self.pos[s]))
             # width-trim the block table to the pow2 page bucket covering
             # the deepest busy slot: the page walk scales with occupancy
-            n_act = max(int(self.pos[s]) // self.pool.page_size + 1
-                        for s in busy)
-            width = min(1 << (n_act - 1).bit_length(), self.pool.n_logical)
-            bt = torch.from_numpy(np.ascontiguousarray(
-                self.pool.block_table[:, :width])).to(dev)
-            toks, self.pool.arena, self.pool.kv_scales, self.resident = \
-                self._step(self.params, self.pool.arena, self.pool.kv_scales,
-                           self.resident, bt, batch, self.generator)
-        else:
-            toks, _logits, self.cache = self._step(self.params, self.cache,
-                                                   batch, self.generator)
+            key = paged_key(max(int(self.pos[s]) // self.pool.page_size + 1
+                                for s in busy), self.pool.n_logical)
+            host["block_table"] = self.pool.block_table[:, :key[1]]
+        toks = self._decode(key, host)
         self.decode_invocations += 1
         toks = toks.tolist()            # sync point: device step complete
         t1 = self.rec.clock()
@@ -556,6 +560,54 @@ class ContinuousBatcher:
             if finished:
                 self._finish(req, now, slot=s)
         return len(busy)
+
+    def _decode(self, key, host):
+        """One decode step over all B slots from the int32 host arrays
+        ``host`` (tokens (B, 1), pos (B,), on the paged plane the block
+        table trimmed to ``key``'s width): on the card through ``key``'s
+        CUDA graph, on the CPU eagerly.  Returns the sampled tokens (B,)
+        on the device."""
+        if self.step_graph is None:
+            inputs = {k: torch.from_numpy(np.array(v)).to(self.device)
+                      for k, v in host.items()}
+            toks, state = self._run_step(self._decode_state(), inputs)
+        else:
+            toks, state = self.step_graph(key, self._run_step,
+                                          self._decode_state(), host)
+        if self._paged:
+            _, self.pool.arena, self.pool.kv_scales, self.resident = state
+        else:
+            _, self.cache = state
+        return toks
+
+    def _decode_state(self) -> tuple:
+        """What the decode step reads and updates in place: (params,
+        arena, scales, resident) on the paged plane, else (params,
+        cache)."""
+        if self._paged:
+            return (self.params, self.pool.arena, self.pool.kv_scales,
+                    self.resident)
+        return self.params, self.cache
+
+    def _run_step(self, state: tuple, inputs: dict):
+        """The plain decode step on ``state`` (:meth:`_decode_state`) and
+        the device ``inputs`` -> (tokens, state)."""
+        batch = {"tokens": inputs["tokens"], "pos": inputs["pos"]}
+        if self._paged:
+            params, arena, scales, resident = state
+            toks, arena, scales, resident = self._step(
+                params, arena, scales, resident, inputs["block_table"],
+                batch, self.generator)
+            return toks, (params, arena, scales, resident)
+        params, cache = state
+        toks, _logits, cache = self._step(params, cache, batch,
+                                          self.generator)
+        return toks, (params, cache)
+
+    def close(self):
+        """Release the decode step's CUDA graphs and their memory pool."""
+        if self.step_graph is not None:
+            self.step_graph.release()
 
     def run_until_drained(self, max_steps: int = 100_000) -> List[Request]:
         steps = 0

@@ -787,7 +787,10 @@ def build_paged_serve_step(model, temperature, *, template):
     each row's block table; attention writes the new token's K/V into its
     physical page in place and the paged decode kernel walks the row's
     pages.  The block table may be width-trimmed to the live page
-    bucket."""
+    bucket.  The step updates ``arena``, ``scales`` and ``resident`` in
+    place and returns their tensors themselves, not copies: the decode
+    step's CUDA graph (``serve/step_graph.py``) replays on the addresses it
+    captured."""
     def paged_step(params, arena, scales, resident, block_table, batch,
                    generator):
         cache = paged_view(template, resident, arena, block_table, scales)

@@ -20,12 +20,15 @@ from repro_torch.models.model import Model
 def sample_tokens(logits, generator: Optional[torch.Generator],
                   temperature: float = 0.0):
     """logits (B, V) -> token ids (B,).  Temperature 0 is greedy; above 0
-    draws from ``generator``."""
+    draws from ``generator`` what ``torch.multinomial(probs, 1)`` draws
+    (the argmax of probs over exponential noise, its own method for one
+    sample), without its checks of ``probs``, which read device values
+    back to the host and so cannot run inside a CUDA graph."""
     if temperature == 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / noise).argmax(dim=-1).to(torch.int32)
 
 
 def bucket_len(prompt_len: int, chunk: int, max_len: int) -> int:
@@ -77,8 +80,10 @@ def build_extend_step(model: Model, temperature: float = 0.0) -> Callable:
 
 def build_serve_step(model: Model, temperature: float = 0.0) -> Callable:
     """serve_step(params, cache, batch, generator) -> (next_tokens, logits,
-    cache): one decode step over a dense per-slot cache, which it updates
-    in place.  ``batch`` = {tokens (B, 1), pos (B,)}."""
+    cache): one decode step over a dense per-slot cache.  ``batch`` =
+    {tokens (B, 1), pos (B,)}.  The step updates ``cache`` in place and
+    returns it, the same tensors, not copies: the decode step's CUDA graph
+    (``serve/step_graph.py``) replays on the addresses it captured."""
     def serve_step(params, cache, batch, generator):
         logits, cache = model.decode(params, cache, batch)
         return sample_tokens(logits, generator, temperature), logits, cache
