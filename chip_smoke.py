@@ -31,14 +31,23 @@ also times paged decode at a long context (kv_len 2048-4096).  Phase 4
 holds the card's greedy tokens to the CPU's on ten cases, an int8 paged
 pool among them.
 
-The batcher's decode step runs as a CUDA graph on the card, one per
-(path, block-table width) key: the first step of a key eagerly, the
-second captured, every later one replayed.  Phase 4's card runs replay
-too.  Each full-width phase checks that its decode steps replayed
-(``replays + eager_steps`` equals its decode steps, no key captured
-twice) and that every launch count stays exact under replay; phases 5-9
+The batcher's steps run as CUDA graphs on the card, one per shape key
+(``serve/step_graph.py``): decode by block-table width, the cold prefill
+by (padded batch, pad bucket), the paged extend by (padded batch, suffix
+bucket, width), the snapshot restore by suffix bucket.  A path's first
+call in the process runs eagerly, a key's first visit otherwise captures,
+every later visit replays.  Every served path runs two rounds: round 2
+has a new shared prefix (its first wave is cold again) and new tokens
+with round 1's tail lengths, so it meets round 1's keys, and each phase
+checks that every round-2 prefill, extend and restore call was a replay,
+that no path captured more graphs than it met keys, that the decode steps
+replayed, and that every launch count stays exact under replay.  Phase
+4's ten cases run both rounds on the CPU and on the card.  Phases 5-9
+print each wave's TTFT p50, the peak memory and the graph pool's size,
 then time one decode step of the drained batcher eagerly (the plain step
-function on the batcher's own buffers) and replayed.
+function on the batcher's own buffers) and replayed, and one prefill a
+path (``time_prefill``: cold prefill, paged extend or restore) eagerly,
+at a first visit (capture, instantiate, replay) and replayed.
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -179,6 +188,20 @@ def main_path_prompts(seed: int = 0, vocab: int = 151936):
                  for n in rng.integers(TAIL_LO, TAIL_HI + 1, size=SLOTS)]
         waves.append([np.concatenate([shared, t]) for t in tails])
     return waves
+
+
+def main_path_rounds(seed: int = 0, vocab: int = 151936):
+    """Two rounds of the main path's two waves: round 1 is
+    ``main_path_prompts``; round 2 has a new shared prefix and new tokens
+    with round 1's tail lengths, so its first wave is cold again and it
+    meets round 1's keys."""
+    first = main_path_prompts(seed, vocab)
+    rng = np.random.default_rng(seed + 1000)
+    shared = rng.integers(1, vocab, size=SHARED).astype(np.int32)
+    second = [[np.concatenate([shared, rng.integers(
+        1, vocab, size=len(p) - SHARED).astype(np.int32)]) for p in wave]
+        for wave in first]
+    return first + second
 
 
 def pow2(n: int) -> int:
@@ -560,7 +583,9 @@ def check_ssd(dev, gen, hold):
     mamba2's and zamba2's full widths, with checkpoints and without, bf16
     inputs as the full-width models hand them over; the three cases of
     tests/test_kernels.py against ``ssd_chunked``; and the pad rows'
-    identity, bit for bit."""
+    identity, bit for bit.  Each case also writes its checkpoints into a
+    given tensor (``ckpt_out``, the snapshot prefill's workspace route),
+    held to the same plain version."""
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     from repro_torch.models.mamba2 import ssd_chunked
@@ -578,10 +603,18 @@ def check_ssd(dev, gen, hold):
         x, B, C = x.to(dt), B.to(dt), C.to(dt)
         out = ssd(x, dtv, A_log, B, C, chunk=Q, checkpoints=True)
         out2 = ssd(x, dtv, A_log, B, C, chunk=Q)
+        buf = torch.full((Bb, S // Q, SSD_H, SSD_P, N), float("nan"),
+                         device=dev)
+        out3 = ssd(x, dtv, A_log, B, C, chunk=Q, checkpoints=True,
+                   ckpt_out=buf)
         ref = ssd_ref(x, dtv, A_log, B, C, chunk=Q, checkpoints=True)
         torch.cuda.synchronize()
+        if out3[2] is not buf:
+            raise AssertionError("ssd: ckpt_out is not returned as the "
+                                 "checkpoints")
         for part, o, r in zip(("y", "final", "checkpoints", "y (no ckpt)",
-                               "final (no ckpt)"), out + out2, ref + ref[:2]):
+                               "final (no ckpt)", "checkpoints (ckpt_out)"),
+                              out + out2 + out3[2:], ref + ref[:2] + ref[2:]):
             hold("ssd", o, r, 2e-5, why,
                  f"{part} B{Bb} S{S} H{SSD_H} P{SSD_P} N{N} Q{Q} "
                  f"{str(dt)[6:]}")
@@ -973,9 +1006,11 @@ PARITY = [
 
 def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
     """The same smoke model, weights and prompts through the port's
-    batcher on the CPU (plain versions) and on the card (kernels).
-    Returns ({device: {rid: tokens}}, {device: prefix-hit tokens}); on
-    a snapshot pool the hits are the snapshot hits."""
+    batcher on the CPU (plain versions) and on the card (kernels), in two
+    rounds: round 2 a new shared prefix and new tokens with round 1's tail
+    lengths (its prefills replay on the card).  Returns ({device: {rid:
+    tokens}}, {device: prefix-hit tokens}); on a snapshot pool the hits
+    are the snapshot hits."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
@@ -987,25 +1022,33 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
                             device="cpu")
     host = tree_map(lambda t: t.numpy(), ref_params)
     rng = np.random.default_rng(prompt_seed)
-    shared = rng.integers(1, model.cfg.vocab, size=20).astype(np.int32)
-    prompts = [[np.concatenate([shared, rng.integers(
-        1, model.cfg.vocab, size=n).astype(np.int32)]) for n in lens]
-        for lens in waves]
+    prompts = []
+    for _ in range(2):
+        shared = rng.integers(1, model.cfg.vocab, size=20).astype(np.int32)
+        prompts.append([[np.concatenate([shared, rng.integers(
+            1, model.cfg.vocab, size=n).astype(np.int32)]) for n in lens]
+            for lens in waves])
     toks, hits = {}, {}
     for device in ("cpu", dev):
         params = params_from_numpy(host, dtype=torch.float32, device=device,
                                    specs=model.param_specs())
         bat = ContinuousBatcher(model, params, batch_slots=2, page_size=8,
                                 device=device, **opts)
-        rid = 0
-        for wave in prompts:            # wave 2 hits wave 1's prefix
-            for p in wave:
-                bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
-                rid += 1
-            bat.run_until_drained()
+        rid, mark = 0, None
+        for r, rnd in enumerate(prompts):
+            if r and bat.step_graph is not None:
+                mark = graph_mark(bat)
+            for wave in rnd:            # wave 2 hits wave 1's prefix
+                for p in wave:
+                    bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+                    rid += 1
+                bat.run_until_drained()
         toks[str(device)] = {r.rid: r.output for r in bat.done}
         if bat.step_graph is not None:
             expect_graphed(4, bat)
+            # a path's first call in the process is eager, so a key of
+            # round 1 may capture in round 2 here; it still replays
+            expect_round2_replayed(4, bat, mark, strict=False)
             bat.close()
         if bat.pool is None:
             hits[str(device)] = 0
@@ -1064,8 +1107,9 @@ def full_width(dev, arch: str, tag: str):
 def serve(bat, waves, counters, *, max_new=MAX_NEW):
     """Drive ``bat`` through ``waves`` of prompts (draining between
     waves) with every launch counter set to 0 just before.  Returns the
-    requests, the launches of each counter, the wall time and the wall
-    times of the steps that only decoded."""
+    requests, the launches of each counter, the wall time, the wall times
+    of the steps that only decoded, and the batcher's :func:`graph_mark`
+    before each wave (None on the CPU)."""
     from repro_torch.serve.batcher import Request
     for fn in counters:
         fn.launches = 0
@@ -1073,9 +1117,10 @@ def serve(bat, waves, counters, *, max_new=MAX_NEW):
             fn.launches_tc = 0
         if hasattr(fn, "launches_by_capacity"):
             fn.launches_by_capacity.clear()
-    reqs, step_s = [], []
+    reqs, step_s, marks = [], [], []
     t_start = time.monotonic()
     for wave in waves:
+        marks.append(graph_mark(bat) if bat.step_graph is not None else None)
         for p in wave:
             req = Request(rid=len(reqs), prompt=p, max_new_tokens=max_new)
             reqs.append(req)
@@ -1094,7 +1139,35 @@ def serve(bat, waves, counters, *, max_new=MAX_NEW):
         launches[fn.__name__] = fn.launches
         if hasattr(fn, "launches_tc"):
             launches[fn.__name__ + "_tc"] = fn.launches_tc
-    return reqs, launches, wall, step_s
+    return reqs, launches, wall, step_s, marks
+
+
+def graph_mark(bat) -> tuple:
+    """The batcher's step-graph counters and prefill invocations now."""
+    return bat.step_graph.stats(), bat.prefill_invocations
+
+
+PREFILL_PATHS = ("prefill", "extend", "restore")
+
+
+def expect_round2_replayed(tag, bat, mark, *, strict: bool = True) -> dict:
+    """Every prefill, extend and restore call since ``mark`` (taken before
+    round 2) was a replay: none eager, no graph dropped and, with
+    ``strict``, none captured.  Returns what each path's counters
+    gained."""
+    g, (g0, n0) = bat.step_graph.stats(), mark
+    gain = {p: {k: g[p][k] - g0[p][k] for k in
+                ("eager_calls", "captures", "replays", "dropped")}
+            for p in PREFILL_PATHS}
+    calls = bat.prefill_invocations - n0
+    bad = [p for p, d in gain.items() if d["eager_calls"] or d["dropped"]
+           or (strict and d["captures"])]
+    if bad or sum(d["replays"] for d in gain.values()) != calls:
+        raise AssertionError(f"[{tag}] round 2's {calls} prefill calls were "
+                             f"not all replays: {gain}")
+    log(f"[{tag}] round 2: {calls} prefill, extend and restore calls, all "
+        f"replays ({ {p: d for p, d in gain.items() if any(d.values())} })")
+    return gain
 
 
 def report(tag, name_limit, bat, reqs, wall, step_s, launches, vocab,
@@ -1142,25 +1215,100 @@ def expect(what: str, got: int, want: int):
 
 
 def expect_graphed(tag, bat) -> dict:
-    """The batcher's decode steps ran as CUDA graph replays: all but the
-    first step of each key replayed, and no key was captured twice."""
+    """The batcher's steps ran as CUDA graph replays: the decode steps and
+    the prefill, extend and restore calls are each path's eager calls
+    (its first in the process, at most one) plus its replays, and no path
+    captured more graphs than it met keys (plus those it dropped when the
+    checkpoint workspace grew)."""
     from repro_torch.launch.serve import graph_summary
     from repro_torch.serve.step_graph import decode_keys
     g = bat.step_graph.stats()
     paged = bat.pool is not None and bat.pool.payload_kind == "page"
     keys = len(decode_keys(bat.pool.n_logical if paged else None))
-    if (g["replays"] <= 0
-            or g["replays"] + g["eager_steps"] != bat.decode_invocations
-            or g["captures"] > min(keys, g["keys"])):
-        raise AssertionError(f"[{tag}] decode steps not replayed as graphs: "
-                             f"{g}, {bat.decode_invocations} decode steps, "
-                             f"{keys} keys possible")
+    d = g["decode"]
+    prefill_calls = sum(g[p]["eager_calls"] + g[p]["replays"]
+                        for p in PREFILL_PATHS)
+    if (d["replays"] <= 0
+            or d["replays"] + d["eager_calls"] != bat.decode_invocations
+            or d["captures"] > min(keys, d["keys"])
+            or prefill_calls != bat.prefill_invocations
+            or any(c["eager_calls"] > 1
+                   or c["captures"] > c["keys"] + c["dropped"]
+                   for c in g.values())):
+        raise AssertionError(f"[{tag}] steps not replayed as graphs: {g}, "
+                             f"{bat.decode_invocations} decode steps, "
+                             f"{bat.prefill_invocations} prefill calls, "
+                             f"{keys} decode keys possible")
     log(f"[{tag}] {graph_summary(bat)}")
     return g
 
 
+def memory_report(tag, bat) -> dict:
+    """Peak memory allocated (since the last reset) and the bytes the
+    allocator holds in the batcher's graph pool."""
+    pool = tuple(bat.step_graph.pool)
+    pool_b = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                 if tuple(seg.get("segment_pool_id", ())) == pool)
+    out = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "graph_pool_gb": pool_b / 1e9}
+    log(f"[{tag}] peak {out['peak_gb']:.2f} GB allocated; the step graphs' "
+        f"pool holds {out['graph_pool_gb']:.3f} GB")
+    return out
+
+
+def time_prefill(tag, bat, path: str, name_limit: str, reps: int = 4,
+                 firsts: int = 2) -> dict:
+    """One prefill call of ``path`` ("cold", "extend", "restore") on the
+    drained batcher ``bat``, at ``profile_decode.prefill_call``'s shapes
+    (8 prompts of 128 tokens; 8 suffixes of 64 behind 64), timed eagerly
+    (the plain step function on the batcher's own buffers, its inputs
+    copied to the card), at a first visit (a fresh step graph: the copy
+    into its static buffers, the capture, the instantiation and one
+    replay; median of ``firsts``) and replayed in the batcher's graph
+    (``reps`` calls each of eager and replayed, in turns), each call
+    ending in the tokens' read-back as the batcher's does.  A drained
+    batcher's state is scratch, so running it harms nothing."""
+    from repro_torch.launch.profile_decode import prefill_call
+    from repro_torch.serve.step_graph import StepGraph
+    key, fn, state, host = prefill_call(bat, path)
+
+    def eager():
+        inputs = {k: torch.from_numpy(np.array(v)).to(bat.device)
+                  for k, v in host.items()}
+        return fn(state, inputs)[0].tolist()
+
+    def replayed():
+        return bat._run(key, fn, state, host)[0].tolist()
+
+    def first_visit():
+        probe = StepGraph(bat.device, generator=bat.step_graph.generator)
+        t = time.monotonic()
+        probe(key, fn, state, host)[0].tolist()
+        wall = time.monotonic() - t
+        probe.release()
+        return wall
+
+    replayed()              # the key's capture, if the run did not meet it
+    eager()
+    first = [first_visit() for _ in range(firsts)]
+    walls = {"eager": [], "replayed": []}
+    for _ in range(reps):
+        for name, f in (("eager", eager), ("replayed", replayed)):
+            t = time.monotonic()
+            f()
+            walls[name].append(time.monotonic() - t)
+    out = {f"{k}_ms": float(np.median(v)) * 1e3 for k, v in walls.items()}
+    out["first_visit_ms"] = float(np.median(first)) * 1e3
+    out["key"] = list(key)
+    log(f"[{tag}] one {path} prefill of the drained batcher at key {key}: "
+        f"eager {out['eager_ms']:.2f} ms, first visit "
+        f"{out['first_visit_ms']:.2f} ms, replayed {out['replayed_ms']:.2f} "
+        f"ms (medians of {reps}, {firsts} and {reps}; {name_limit})")
+    return out
+
+
 def time_decode_step(tag, bat, key, name_limit: str,
-                     reps: int = 25) -> dict:
+                     reps: int = 10) -> dict:
     """One decode step of the drained batcher ``bat`` at ``key``, timed
     eagerly (the plain step function on the batcher's own buffers, its
     inputs copied to the card as an eager step copies them) and replayed
@@ -1205,13 +1353,16 @@ def expect_tc(launches: dict, *names: str):
 
 
 def warm_up(bat_fn, vocab: int):
-    """One short request on a separate batcher (library handles, allocator
-    pools), before the counted run."""
+    """Two short requests sharing a prefix on a separate batcher, one
+    after the other, before the counted run: library handles, allocator
+    pools, and each path's first call in the process (eager: the decode
+    step, the cold prefill, and the paged extend or snapshot restore), so
+    that every key the counted run meets captures at its first visit."""
     from repro_torch.serve.batcher import Request
     warm = bat_fn()
-    warm.submit(Request(rid=-1, prompt=main_path_prompts(1, vocab)[0][0],
-                        max_new_tokens=2))
-    warm.run_until_drained()
+    for i, prompt in enumerate(main_path_prompts(1, vocab)[0][:2]):
+        warm.submit(Request(rid=-1 - i, prompt=prompt, max_new_tokens=2))
+        warm.run_until_drained()
     warm.close()
     del warm
     torch.cuda.synchronize()
@@ -1237,10 +1388,12 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
                                  prefill_chunk=CHUNK, device=dev)
 
     warm_up(batcher, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
     bat = batcher()
     counters = (flash_attention, paged_extend_attention,
                 paged_decode_attention)
-    reqs, launches, wall, step_s = serve(bat, main_path_prompts(), counters)
+    reqs, launches, wall, step_s, marks = serve(bat, main_path_rounds(),
+                                                counters)
     # the main path went through all three kernels, every layer
     L = cfg.num_layers
     if min(launches.values()) <= 0:
@@ -1251,8 +1404,12 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
     check_drained(bat.pool, SLOTS * SHARED)
     e2e = report(5, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
     e2e["graphs"] = expect_graphed(5, bat)
+    e2e["round2"] = expect_round2_replayed(5, bat, marks[2])
+    e2e["memory"] = memory_report(5, bat)
     log(f"[5] {bat.pool.prefix_hit_tokens} prefix-hit tokens")
     e2e["step_ab"] = time_decode_step(5, bat, ("paged", 8), name_limit)
+    e2e["prefill_ab"] = {p: time_prefill(5, bat, p, name_limit)
+                         for p in ("cold", "extend")}
     bat.close()
     return e2e
 
@@ -1279,10 +1436,12 @@ def phase_dense(dev, name_limit: str, model, params) -> dict:
                                  kv_pool=None, device=dev)
 
     warm_up(batcher, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
     bat = batcher()
     counters = (decode_attention, paged_decode_attention, flash_attention)
-    reqs, launches, wall, step_s = serve(bat, main_path_prompts()[:1],
-                                         counters)
+    # the cold wave of each round
+    reqs, launches, wall, step_s, marks = serve(
+        bat, main_path_rounds()[::2], counters)
     expect("dense decode", launches["decode_attention"],
            L * bat.decode_invocations)
     expect("paged decode on the dense cache",
@@ -1292,13 +1451,16 @@ def phase_dense(dev, name_limit: str, model, params) -> dict:
     expect_tc(launches, "flash_attention")
     e2e = report(6, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
     e2e["graphs"] = expect_graphed(6, bat)
+    e2e["round2"] = expect_round2_replayed(6, bat, marks[1])
+    e2e["memory"] = memory_report(6, bat)
     e2e["step_ab"] = time_decode_step(6, bat, DENSE_KEY, name_limit)
+    e2e["prefill_ab"] = {"cold": time_prefill(6, bat, "cold", name_limit)}
     bat.close()
 
     tat = ContinuousBatcher(model, params, batch_slots=2, max_len=MAX_LEN,
                             page_size=PAGE, prefill_chunk=None, device=dev)
     short = [main_path_prompts(2, cfg.vocab)[0][i][:12] for i in range(2)]
-    reqs, tl, wall, step_s = serve(tat, [short], counters, max_new=4)
+    reqs, tl, wall, step_s, _ = serve(tat, [short], counters, max_new=4)
     expect("token at a time: prefill", tl["flash_attention"], 0)
     expect("token at a time: paged decode", tl["paged_decode_attention"],
            L * tat.decode_invocations)
@@ -1349,8 +1511,8 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
         raise AssertionError(f"{arch}: not on a snapshot pool")
     counters = (ssd, flash_attention, paged_extend_attention,
                 decode_attention, paged_decode_attention)
-    reqs, launches, wall, step_s = serve(
-        bat, main_path_prompts(0, cfg.vocab), counters)
+    reqs, launches, wall, step_s, marks = serve(
+        bat, main_path_rounds(0, cfg.vocab), counters)
     expect("SSD scan (one launch per Mamba layer per prefill and extend)",
            launches["ssd"], cfg.num_layers * bat.prefill_invocations)
     expect("prefill + dense extend attention",
@@ -1376,13 +1538,19 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
         f"interned, {st['snapshot_hit_tokens']} snapshot-hit tokens, "
         f"{st['snapshot_bytes_saved'] / 1e9:.2f} GB saved, "
         f"{st['pages_in_use']} of {st['num_pages']} handles held; peak "
-        f"{peak / 1e9:.1f} GB allocated")
+        f"{peak / 1e9:.1f} GB allocated; checkpoint workspace "
+        f"{bat._ckpts.capacity} (row, checkpoint) pairs, "
+        f"{bat._ckpts.regrowths} regrowths")
     e2e["snapshot"] = {k: st[k] for k in ("snapshots_interned",
                                           "snapshot_hit_tokens",
                                           "snapshot_bytes_saved")}
     e2e["peak_gb"] = peak / 1e9
     e2e["graphs"] = expect_graphed(tag, bat)
+    e2e["round2"] = expect_round2_replayed(tag, bat, marks[2])
+    e2e["memory"] = memory_report(tag, bat)
     e2e["step_ab"] = time_decode_step(tag, bat, DENSE_KEY, name_limit)
+    e2e["prefill_ab"] = {p: time_prefill(tag, bat, p, name_limit)
+                         for p in ("cold", "restore")}
     bat.close()
     del bat, model, params
     return e2e
@@ -1414,8 +1582,8 @@ def phase_moe(dev, name_limit: str) -> dict:
     bat = batcher()
     counters = (gmm, flash_attention, paged_extend_attention,
                 paged_decode_attention)
-    reqs, launches, wall, step_s = serve(
-        bat, main_path_prompts(0, cfg.vocab), counters)
+    reqs, launches, wall, step_s, marks = serve(
+        bat, main_path_rounds(0, cfg.vocab), counters)
     invocations = bat.decode_invocations + bat.prefill_invocations
     expect("grouped GEMM (3 per MoE layer per invocation)", launches["gmm"],
            3 * n_moe * invocations)
@@ -1441,7 +1609,11 @@ def phase_moe(dev, name_limit: str) -> dict:
     log(f"[7] {bat.pool.prefix_hit_tokens} prefix-hit tokens, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
     e2e["graphs"] = expect_graphed(7, bat)
+    e2e["round2"] = expect_round2_replayed(7, bat, marks[2])
+    e2e["memory"] = memory_report(7, bat)
     e2e["step_ab"] = time_decode_step(7, bat, ("paged", 8), name_limit)
+    e2e["prefill_ab"] = {p: time_prefill(7, bat, p, name_limit)
+                         for p in ("cold", "extend")}
     bat.close()
     del bat
     e2e["routing"] = routing_profile(batcher, cfg.vocab)

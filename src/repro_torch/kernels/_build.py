@@ -6,15 +6,18 @@ At first use on a CUDA device they are compiled with ``nvcc`` for Hopper
 linked into ``build/kernels/libreprotorch.so`` at the repository root and
 loaded with ``ctypes``.  A content hash of the sources and flags decides
 whether a library already built is current.  Nothing is compiled when a
-module is imported, and a build or load failure raises.
+module is imported, and a build or load failure raises.  Binding the
+library sets up every kernel instantiation once for the process (each
+source's ``rt_prepare_*`` entry: its module loaded, its shared-memory
+limit raised to the device's opt-in maximum), so no launch, and no CUDA
+graph capture, meets a first-use setup.
 
 Each wrapper counts its launches in attributes of its own (``launches``,
 and on some ``launches_tc`` or ``launches_by_capacity``, a dict by
 capacity) and registers them here with :func:`count_launches`.  A CUDA
-graph replay launches its kernels without running a wrapper, so the
-decode step's graph (``serve/step_graph.py``) reads the registry before
-and after its capture, puts the counts back, and adds the difference on
-each replay.
+graph replay launches its kernels without running a wrapper, so a step's
+graph (``serve/step_graph.py``) reads the registry before and after its
+capture, puts the counts back, and adds the difference on each replay.
 """
 from __future__ import annotations
 
@@ -41,6 +44,9 @@ SOURCES = (
 )
 HEADERS = (KERNELS / "csrc" / "tile_attention.cuh",
            KERNELS / "csrc" / "tensor_core.cuh")
+#: each source's once-per-process setup entry (``prepare_kernels``)
+PREPARE = ("rt_prepare_flash", "rt_prepare_decode", "rt_prepare_gmm",
+           "rt_prepare_ssd")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                  "-I", str(KERNELS / "csrc")]
@@ -116,10 +122,16 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first call."""
+    """The loaded kernel library, built at first call and set up for the
+    current device (``PREPARE``)."""
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build()))
+        for name in PREPARE:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            check(fn(), name)
+        _lib = lib
     return _lib
 
 

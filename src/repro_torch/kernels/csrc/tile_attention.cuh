@@ -20,6 +20,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace rt {
 
 // dtype codes shared with the Python wrappers (kernels/_build.py)
@@ -224,13 +226,24 @@ __device__ inline void tile_store(const Tile& t, int nr, T* __restrict__ out, in
   }
 }
 
-// Kernels above the 48 KB default ask for more dynamic shared memory once
-// per instantiation; the attribute persists for the process.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// Once per process, when the library is bound (each source's rt_prepare_*
+// entry): every kernel instantiation its launchers can pick may take all
+// the dynamic shared memory a block can opt in to on the current device.
+// Asking for a kernel's attributes loads its module, so no launch, and no
+// CUDA graph capture, meets a lazy module load or an attribute call.
+inline cudaError_t prepare_kernels(std::initializer_list<const void*> kernels) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  for (const void* kernel : kernels) {
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - static_cast<int>(attr.sharedSizeBytes));
+  }
+  return err;
 }
 
 }  // namespace rt

@@ -558,8 +558,7 @@ cudaError_t launch_decode_split(const void* q, int64_t q_sb, int64_t q_sh, const
                                 int Dh, int n_split, cudaStream_t stream) {
   const DecodePlan pl = decode_plan(src, sizeof(KT), Dh, n_split, kG, kE, k, v);
   auto kernel = decode_split_kernel<QT, KT, kG, kE, Keys>;
-  cudaError_t err = allow_smem(kernel, pl.smem);
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
   const int n_hc = (G + kG - 1) / kG;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, Hkv * n_hc, B);
@@ -613,7 +612,31 @@ cudaError_t launch_decode(const void* q, int64_t q_sb, int64_t q_sh, const void*
 #undef RT_DECODE_SPLIT
 }
 
+// every (kG, kE) instantiation of one dtype pair and key source
+template <typename QT, typename KT, typename Keys>
+cudaError_t prepare_decode() {
+#define RT_DECODE_KERNELS(KG)                                \
+  (const void*)decode_split_kernel<QT, KT, KG, 2, Keys>,     \
+      (const void*)decode_split_kernel<QT, KT, KG, 4, Keys>, \
+      (const void*)decode_split_kernel<QT, KT, KG, 8, Keys>
+  return prepare_kernels({RT_DECODE_KERNELS(1), RT_DECODE_KERNELS(4), RT_DECODE_KERNELS(8)});
+#undef RT_DECODE_KERNELS
+}
+
 }  // namespace rt
+
+// Once per process, when the library is bound: every decode instantiation
+// (prepare_kernels).
+extern "C" int rt_prepare_decode() {
+  using namespace rt;
+  cudaError_t err = prepare_decode<float, float, DenseKeys>();
+  if (err == cudaSuccess) err = prepare_decode<__nv_bfloat16, __nv_bfloat16, DenseKeys>();
+  if (err == cudaSuccess) err = prepare_decode<float, float, PagedKeys>();
+  if (err == cudaSuccess) err = prepare_decode<float, int8_t, PagedKeys>();
+  if (err == cudaSuccess) err = prepare_decode<__nv_bfloat16, __nv_bfloat16, PagedKeys>();
+  if (err == cudaSuccess) err = prepare_decode<__nv_bfloat16, int8_t, PagedKeys>();
+  return err;
+}
 
 // Plain C entry points bound with ctypes; each returns cudaGetLastError() of
 // its launch.  q/out: (B, Hq, Dh) views given by their batch and head

@@ -497,8 +497,6 @@ cudaError_t launch_flash(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh
                          int window, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(kFlashQ, kFlashK, Dh);
   auto kernel = flash_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kFlashQ - 1) / kFlashQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), q_sb, q_ss, q_sh, static_cast<const T*>(k), k_sb, k_ss,
@@ -516,8 +514,6 @@ cudaError_t launch_flash_tc(const void* q, int64_t q_sb, int64_t q_ss, int64_t q
                             cudaStream_t stream) {
   const size_t smem = flash_tc_smem_bytes(Dh);
   auto kernel = flash_tc_kernel<kDhMax>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   const int G = Hq / Hkv;
   const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, Hkv, B);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -563,8 +559,6 @@ cudaError_t launch_paged_extend(
     int B, int Hq, int Hkv, int Sq, int Dh, int N, int P, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(kExtendQ, P, Dh) + sizeof(int) * (P + n_log);
   auto kernel = paged_extend_kernel<QT, KT>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kExtendQ - 1) / kExtendQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), q_sb, q_ss, q_sh,
@@ -596,10 +590,7 @@ inline cudaError_t launch_paged_extend_tc(
   const float scale_log2 = rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f;
 #define RT_EXTEND_TC(DH)                                                                    \
   {                                                                                         \
-    auto kernel = paged_extend_tc_kernel<DH>;                                               \
-    cudaError_t err = allow_smem(kernel, smem);                                             \
-    if (err != cudaSuccess) return err;                                                     \
-    kernel<<<grid, kThreads, smem, stream>>>(                                               \
+    paged_extend_tc_kernel<DH><<<grid, kThreads, smem, stream>>>(                           \
         static_cast<const bf16*>(q), q_sb, q_ss, q_sh, static_cast<const bf16*>(k),         \
         static_cast<const bf16*>(v), a_sn, a_sp, a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl, \
         block_table, bt_sb, n_log, pos, layer, static_cast<bf16*>(out), o_sb, o_ss, o_sh,   \
@@ -613,6 +604,20 @@ inline cudaError_t launch_paged_extend_tc(
 }
 
 }  // namespace rt
+
+// Once per process, when the library is bound: every flash and paged
+// extend instantiation (prepare_kernels).
+extern "C" int rt_prepare_flash() {
+  using namespace rt;
+  return prepare_kernels({(const void*)flash_kernel<float>, (const void*)flash_tc_kernel<64>,
+                          (const void*)flash_tc_kernel<128>, (const void*)flash_tc_kernel<256>,
+                          (const void*)paged_extend_kernel<float, float>,
+                          (const void*)paged_extend_kernel<float, int8_t>,
+                          (const void*)paged_extend_kernel<bf16, int8_t>,
+                          (const void*)paged_extend_tc_kernel<64>,
+                          (const void*)paged_extend_tc_kernel<128>,
+                          (const void*)paged_extend_tc_kernel<256>});
+}
 
 // Plain C entry points bound with ctypes.  Every tensor is given by its
 // strides (elements) with a contiguous last dim.  Each returns

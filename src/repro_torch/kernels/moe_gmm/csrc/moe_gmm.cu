@@ -54,7 +54,7 @@
 // shared memory with 16-byte weight loads issued a slice ahead, and the
 // register budget is held to 4 blocks per SM.
 #include "tensor_core.cuh"
-#include "tile_attention.cuh"  // dtype codes, allow_smem
+#include "tile_attention.cuh"  // dtype codes, prepare_kernels
 
 namespace rt {
 
@@ -354,8 +354,6 @@ cudaError_t launch_gmm_tc(const void* x, const void* w, const int* counts, void*
                    (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   auto kernel = vec ? gmm_tc_kernel<Tile, true> : gmm_tc_kernel<Tile, false>;
-  cudaError_t err = allow_smem(kernel, Tile::kSmem);
-  if (err != cudaSuccess) return err;
   kernel<<<grid, Tile::kThreads, Tile::kSmem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), counts,
       static_cast<bf16*>(out), C, D, F);
@@ -363,6 +361,19 @@ cudaError_t launch_gmm_tc(const void* x, const void* w, const int* counts, void*
 }
 
 }  // namespace rt
+
+// Once per process, when the library is bound: every grouped-GEMM
+// instantiation (prepare_kernels).
+extern "C" int rt_prepare_gmm() {
+  using namespace rt;
+  return prepare_kernels({(const void*)gmm_kernel<true>, (const void*)gmm_kernel<false>,
+                          (const void*)gmm_tc_kernel<TcNarrow, true>,
+                          (const void*)gmm_tc_kernel<TcNarrow, false>,
+                          (const void*)gmm_tc_kernel<TcMedium, true>,
+                          (const void*)gmm_tc_kernel<TcMedium, false>,
+                          (const void*)gmm_tc_kernel<TcWide, true>,
+                          (const void*)gmm_tc_kernel<TcWide, false>});
+}
 
 // Plain C entry point bound with ctypes.  x (E, C, D), w (E, D, F) and out
 // (E, C, F) are contiguous; counts is an (E,) int32 device array.  float32

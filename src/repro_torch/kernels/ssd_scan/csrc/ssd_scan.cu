@@ -401,14 +401,8 @@ __global__ void __launch_bounds__(kScanThreads, 2) ssd_scan_kernel(ScanArgs a) {
 template <typename T, int kNR>
 cudaError_t launch_scan(const ScanArgs& a, int Bb, cudaStream_t stream) {
   const size_t smem = scan_smem(sizeof(T), 16 * kNR).total;
-  auto kernel = ssd_scan_kernel<T, kNR>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   const dim3 grid((a.P + kScanPT - 1) / kScanPT, a.H, Bb);
-  kernel<<<grid, kScanThreads, smem, stream>>>(a);
+  ssd_scan_kernel<T, kNR><<<grid, kScanThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -433,6 +427,18 @@ inline int copy_width(const void* base, int64_t es, int64_t bits, int width, int
 }
 
 }  // namespace rt
+
+// Once per process, when the library is bound: every scan instantiation
+// (prepare_kernels).
+extern "C" int rt_prepare_ssd() {
+  using namespace rt;
+#define RT_SCAN_KERNELS(T)                                                    \
+  (const void*)ssd_scan_kernel<T, 1>, (const void*)ssd_scan_kernel<T, 2>,     \
+      (const void*)ssd_scan_kernel<T, 4>, (const void*)ssd_scan_kernel<T, 8>, \
+      (const void*)ssd_scan_kernel<T, 16>
+  return prepare_kernels({RT_SCAN_KERNELS(float), RT_SCAN_KERNELS(__nv_bfloat16)});
+#undef RT_SCAN_KERNELS
+}
 
 // Plain C entry point bound with ctypes.  x (Bb, S, H, P), B and C (Bb,
 // S, G, N) float32 or bf16 (one dtype code for the three) with their

@@ -19,7 +19,7 @@ F32 = torch.float32
 
 
 def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
-        mask=None, checkpoints: bool = False):
+        mask=None, checkpoints: bool = False, ckpt_out=None):
     """The chunked SSD scan.  x: (B, S, H, P); dt: (B, S, H) (post-softplus);
     A_log: (H,) (A = -exp(A_log)); B_in/C_in: (B, S, G, N).
 
@@ -30,20 +30,32 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
     float32), and with ``checkpoints`` also the state after every chunk of
     ``ssd_tiling_chunk(S, chunk)`` steps, (B, nc, H, P, N), the contract of
     ``ssd_chunked(checkpoints=True)``.  A row of pad steps keeps its state
-    bit for bit.
+    bit for bit.  ``ckpt_out``, a contiguous float32 (B, nc, H, P, N)
+    tensor on x's device (with ``checkpoints`` only): the checkpoints are
+    written into it (on the card by the kernel itself) and it is returned
+    as the checkpoints.
 
     On the card x, B_in and C_in are read as stored when they share a
     float32 or bfloat16 dtype (else they are cast to float32 first), the
     mask and the strides as given; P and N must be multiples of 4, P and N
     at most 256, else ``ValueError``.  ``ssd.launches`` counts kernel
     launches."""
+    Bb, S, H, P = x.shape
+    if ckpt_out is not None:
+        want = (Bb, S // ssd_tiling_chunk(S, chunk), H, P, B_in.shape[3])
+        if (not checkpoints or ckpt_out.shape != want
+                or ckpt_out.dtype != F32 or not ckpt_out.is_contiguous()
+                or ckpt_out.device != x.device):
+            raise ValueError(f"ckpt_out must be a contiguous float32 {want} "
+                             f"tensor on {x.device} (with checkpoints), got "
+                             f"{ckpt_out.dtype} {tuple(ckpt_out.shape)} on "
+                             f"{ckpt_out.device}")
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A_log, B_in, C_in, chunk=chunk,
                        initial_state=initial_state, mask=mask,
-                       checkpoints=checkpoints)
+                       checkpoints=checkpoints, ckpt_out=ckpt_out)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
-    Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
     if (dt.shape != (Bb, S, H) or A_log.shape != (H,)
             or B_in.shape != (Bb, S, G, N) or C_in.shape != B_in.shape
@@ -74,8 +86,9 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
     dev = x.device
     y = torch.empty((Bb, S, H, P), dtype=F32, device=dev)
     final = torch.empty((Bb, H, P, N), dtype=F32, device=dev)
-    ck = (torch.empty((Bb, S // Q, H, P, N), dtype=F32, device=dev)
-          if checkpoints else None)
+    ck = ckpt_out
+    if checkpoints and ck is None:
+        ck = torch.empty((Bb, S // Q, H, P, N), dtype=F32, device=dev)
     fn = _build.kernel("rt_ssd_scan", "PLLLLI PLLLP PLLLL PLLLL PLL PLLLL "
                                       "PPP IIIIIII P")
     rc = fn(x.data_ptr(), *x.stride(), _build.DTYPE_CODE[x.dtype],

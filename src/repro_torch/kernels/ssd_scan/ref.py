@@ -70,12 +70,14 @@ def _weighted(x, dt, A_log, mask):
 
 
 def ssd_ref(x, dt, A_log, B_in, C_in, *, chunk: int = 256,
-            initial_state=None, mask=None, checkpoints: bool = False):
+            initial_state=None, mask=None, checkpoints: bool = False,
+            ckpt_out=None):
     """The chunked SSD scan in plain PyTorch (``ops.ssd``'s contract):
     ``ssd_chunk_ref`` over chunks of Q steps, then the recurrence ``h =
     states[c] + h * decay[c]`` chunk by chunk and the state -> output term.
     A row of pad steps has decay 1 and state 0, so its state passes
-    through bit for bit."""
+    through bit for bit.  ``ckpt_out`` (B, nc, H, P, N): the checkpoints
+    are copied into it, and it is returned as the checkpoints."""
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
     HG = H // G
@@ -107,7 +109,8 @@ def ssd_ref(x, dt, A_log, B_in, C_in, *, chunk: int = 256,
     y_off = y_off.reshape(Bb, H, nc, Q, P) * torch.exp(cs)[..., None]
     y = (y_diag + y_off).permute(0, 2, 3, 1, 4).reshape(Bb, S, H, P)
     if checkpoints:
-        return y, hs[nc], hs[1:].transpose(0, 1)
+        ck = hs[1:].transpose(0, 1)
+        return y, hs[nc], ck if ckpt_out is None else ckpt_out.copy_(ck)
     return y, hs[nc]
 
 

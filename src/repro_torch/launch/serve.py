@@ -14,11 +14,12 @@ picks: paged KV for the dense and MoE families, state snapshots for ssm
 rolling window.
 Weights are random, drawn from a seeded generator on the device.  The
 supervisor and cells come with ROADMAP queue 1 item 10; this driver builds
-the batcher directly.  On the card the decode step runs as CUDA graphs,
-one per block-table width bucket (``serve/step_graph.py``); the summary
-says how many keys were used and how many steps ran eagerly (the first of
-each key), captured (the second) and replayed (every step after the
-first of its key); on the CPU every step is eager.
+the batcher directly.  On the card the decode, prefill, extend and
+restore steps run as CUDA graphs, one per shape key
+(``serve/step_graph.py``); the summary says, per path, how many keys
+were met, how many calls ran eagerly (the path's first in the process)
+and how many replayed (every other call, the key's first visit capturing
+first); on the CPU every step is eager.
 """
 from __future__ import annotations
 
@@ -88,16 +89,20 @@ def main(argv=None):
 
 
 def graph_summary(bat) -> str:
-    """What the batcher's decode-step graph counters mean, in one line."""
-    n = bat.decode_invocations
+    """What the batcher's step-graph counters mean, in one line."""
     if bat.step_graph is None:
-        return f"decode step: {n} steps, all eager (no CUDA graph on the CPU)"
-    g = bat.step_graph.stats()
-    return (f"decode step graphs: {n} steps over {g['keys']} keys (path, "
-            f"block-table width); {g['eager_steps']} eager (the first step "
-            f"of a key), {g['replays']} replays (every later step), "
-            f"{g['captures']} of them captured first (the second step of a "
-            f"key)")
+        return (f"steps: {bat.decode_invocations} decode, "
+                f"{bat.prefill_invocations} prefill and extend, all eager "
+                "(no CUDA graph on the CPU)")
+    parts = []
+    for path, g in bat.step_graph.stats().items():
+        if g["keys"]:
+            dropped = f", {g['dropped']} dropped" if g["dropped"] else ""
+            parts.append(f"{path} {g['keys']} keys: {g['eager_calls']} eager, "
+                         f"{g['replays']} replays ({g['captures']} captured "
+                         f"first{dropped})")
+    return ("step graphs (eager: the path's first call in the process; "
+            "captured: a key's first visit): " + "; ".join(parts))
 
 
 if __name__ == "__main__":

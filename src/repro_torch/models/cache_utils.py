@@ -280,18 +280,17 @@ def dequantize_page(q: torch.Tensor, scale: torch.Tensor, *, keep_axes=(0,)):
     return q.to(torch.float32) * b
 
 
-def mask_pad_slots(cache: Any, length: torch.Tensor) -> Any:
+def mask_pad_slots_(cache: Any, length: torch.Tensor) -> Any:
     """Invalidate dense-cache slots at or beyond each row's true prompt
-    length (``slot_pos`` -1) so decode attention never sees the bucket
-    padding's K/V.  Recurrent state is left alone."""
+    length (``slot_pos`` -1), in place, so decode attention never sees the
+    bucket padding's K/V.  Recurrent state is left alone.  Returns
+    ``cache``."""
     def fix(node):
         if isinstance(node, KVSlice):
             s_c = node.slot_pos.shape[-1]
-            valid = (torch.arange(s_c, dtype=torch.int32,
-                                  device=length.device)
-                     < length[:, None])
-            return node._replace(slot_pos=torch.where(valid, node.slot_pos,
-                                                      -1))
+            pad = (torch.arange(s_c, dtype=torch.int32, device=length.device)
+                   >= length[:, None])
+            node.slot_pos.masked_fill_(pad, -1)
         return node
-    return _map_kv(cache, fix)
-
+    _map_kv(cache, fix)
+    return cache

@@ -394,13 +394,29 @@ def qkv_project(p, x, cfg: ArchConfig, positions):
     return rotate(q, cos, sin), rotate(k, cos, sin), v
 
 
+def _prefill_into(cache: KVSlice, k, v):
+    """Write a prefill's K/V (B, S, ...) into the dense cache ``cache`` in
+    place, every slot: the first S positions with zero K/V and ``slot_pos``
+    -1 past them, or, on a rolling cache shorter than S, the last S_c
+    positions."""
+    B, S = k.shape[:2]
+    S_c = cache.k.shape[1]
+    n = min(S, S_c)
+    for dst, src in ((cache.k, k), (cache.v, v)):
+        dst[:, :n].copy_(src[:, S - n:])
+        dst[:, n:].zero_()
+    sp = torch.arange(S - n, S - n + S_c, dtype=torch.int32, device=k.device)
+    cache.slot_pos.copy_(torch.where(sp < S, sp, -1)[None].expand(B, S_c))
+
+
 def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
                     pos=None) -> Tuple[torch.Tensor, object]:
     """Full attention sublayer.  Returns (out (B,S,D), updated cache).
 
-    ``prefill`` (cache: a dense KVSlice fixing the cache length) returns a
-    fresh KVSlice; ``extend`` and ``decode`` take a :class:`PagedKVCache`
-    or a dense KVSlice and update the cache in place."""
+    ``prefill`` writes the prompt's K/V into a dense KVSlice (which fixes
+    the cache length; nothing in it is read) in place; ``extend`` and
+    ``decode`` take a :class:`PagedKVCache` or a dense KVSlice and update
+    the cache in place."""
     B, S, _ = x.shape
     window = cfg.sliding_window
     on_card = x.is_cuda
@@ -413,20 +429,8 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
             out = chunked_attention(q, k, v, causal=True, window=window,
                                     q_chunk=cfg.attn_q_chunk,
                                     kv_chunk=cfg.attn_kv_chunk)
-        S_c = cache.k.shape[1]
-        if S_c >= S:
-            pad = torch.zeros((B, S_c - S) + k.shape[2:], dtype=k.dtype,
-                              device=k.device)
-            idx = torch.arange(S_c, dtype=torch.int32, device=x.device)
-            sp = torch.where(idx < S, idx, -1)[None].expand(B, S_c)
-            new_cache = KVSlice(k=torch.cat([k, pad], dim=1),
-                                v=torch.cat([v, pad], dim=1),
-                                slot_pos=sp.contiguous())
-        else:
-            # rolling (SWA) cache: keep the last S_c positions
-            sp = torch.arange(S - S_c, S, dtype=torch.int32, device=x.device)
-            new_cache = KVSlice(k=k[:, -S_c:], v=v[:, -S_c:],
-                                slot_pos=sp[None].expand(B, S_c).contiguous())
+        _prefill_into(cache, k, v)
+        new_cache = cache
     elif mode == "decode" and isinstance(cache, KVSlice):
         q, k, v = qkv_project(p, x, cfg, pos[:, None])        # S == 1
         S_c = cache.k.shape[1]

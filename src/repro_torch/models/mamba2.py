@@ -213,7 +213,8 @@ def _causal_conv(seq, w, conv_state=None, length=None, boundary_every=None):
 def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
                 state: Optional[MambaState] = None,
                 mask: Optional[torch.Tensor] = None,
-                ckpt_every: Optional[int] = None
+                ckpt_every: Optional[int] = None,
+                ckpt_out: Optional[MambaState] = None
                 ) -> Tuple[torch.Tensor, object]:
     """x: (B, S, D).  Returns (y (B, S, D), new state or None).
 
@@ -225,7 +226,10 @@ def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
     takes one token per row.  ``ckpt_every`` (prefill only): the new state
     becomes ``(state, checkpoints)`` with checkpoints a MambaState of the
     states after every ``ckpt_every`` positions, conv (B, nb, K-1, C) and
-    ssm (B, nb, H, P, N) with nb = S // ckpt_every."""
+    ssm (B, nb, H, P, N) with nb = S // ckpt_every.  ``ckpt_out``, a
+    MambaState of tensors of those shapes (contiguous, ssm float32): the
+    checkpoints are written into it, the SSD scan's straight from the
+    kernel, and it is returned as the checkpoints."""
     s = cfg.ssm
     d_inner, H, G, N, K = mamba_dims(cfg)
     P_ = s.head_dim
@@ -265,9 +269,12 @@ def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
         if conv_ck is not None:
             # checkpoints land on SSD chunk boundaries, so the scan runs at
             # the checkpoint granularity: exact at any chunk size
-            y, final, ssm_ck = ssd(xh, dt, p["A_log"], Bm_c, Cm_c,
-                                   chunk=ckpt_every, initial_state=init,
-                                   mask=mask, checkpoints=True)
+            y, final, ssm_ck = ssd(
+                xh, dt, p["A_log"], Bm_c, Cm_c, chunk=ckpt_every,
+                initial_state=init, mask=mask, checkpoints=True,
+                ckpt_out=None if ckpt_out is None else ckpt_out.ssm)
+            if ckpt_out is not None:
+                conv_ck = ckpt_out.conv.copy_(conv_ck)
             new_state = (MambaState(conv=new_conv, ssm=final),
                          MambaState(conv=conv_ck, ssm=ssm_ck))
         else:

@@ -9,9 +9,12 @@ groups of Mamba layers, each followed by the shared attention block), each
 stack with its own cache node.  A paged cache
 (:class:`~repro_torch.models.layers.PagedKVCache`) is not stacked per
 layer: one arena per stack serves its layers, the loop rebinds the view's
-``layer`` index, and attention updates the arena in place.  Decode and
-extend over a dense per-slot cache (KV and Mamba state alike) also write
-the stacked cache in place; prefill builds a new one.
+``layer`` index, and attention updates the arena in place.  Prefill,
+decode and extend over a dense per-slot cache (KV and Mamba state alike)
+also write the stacked cache in place: ``prefill`` and ``prefill_ranged``
+into a new cache, as JAX's return one, or on request
+(``prefill_ranged(in_place=True)``) into the cache they were given, the
+state checkpoints into a given tree (``ckpt_out``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models import zamba2 as zmb
-from repro_torch.models.cache_utils import mask_pad_slots
+from repro_torch.models.cache_utils import mask_pad_slots_
 from repro_torch.models.layers import (
     KVSlice,
     PagedKVCache,
@@ -43,6 +46,7 @@ from repro_torch.models.param import (
     abstract_params,
     count_params,
     init_params,
+    resolve_dtype,
     tree_leaves,
     tree_map,
     tree_map_pspec,
@@ -158,6 +162,20 @@ class Model:
                       dtype="float32"),
         )
 
+    def checkpoint_specs(self, batch: int, n_ckpt: int) -> MambaState:
+        """PSpecs of the stacked state checkpoints ``prefill_ranged`` gives
+        for ``batch`` rows and ``n_ckpt`` checkpoints a row (ssm / hybrid):
+        conv (..., B, nb, K-1, C) and ssm (..., B, nb, H, P, N) float32,
+        the stack dims (L,) in front for ssm, (G, E) for hybrid."""
+        per = MambaState(*(
+            PSpec((batch, n_ckpt) + s.shape[1:], ("batch", None) + s.logical[1:],
+                  s.init, s.dtype)
+            for s in self._mamba_state_specs(batch)))
+        if self.cfg.family == "ssm":
+            return stack_specs(per, self.cfg.num_layers)
+        return stack_specs(stack_specs(per, self.cfg.hybrid_attn_every),
+                           self._n_groups)
+
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return init_params(self.cache_specs(batch, max_len), None,
                            self.cfg.dtype, resolve_device(device))
@@ -199,35 +217,38 @@ class Model:
         return logits_fn(x, w, self.cfg.vocab)
 
     def _backbone(self, params, x, *, mode: str, cache=None, pos=None,
-                  x0=None, mask=None, ckpt_every=None):
-        """The layer loop over every stack.  In prefill a dense KVSlice
-        cache is read per layer and the new per-layer slices are stacked
-        back; decode and extend write a dense stacked cache in place,
-        through the per-layer views; a PagedKVCache rides the loop with its
-        ``layer`` rebound and its arena updated in place.
+                  x0=None, mask=None, ckpt_every=None, ckpt_out=None):
+        """The layer loop over every stack.  Prefill and decode write a
+        dense stacked cache in place, through the per-layer views (extend
+        stacks the per-layer slices anew); a PagedKVCache rides the loop
+        with its ``layer`` rebound and its arena updated in place.
 
         ``mask`` (B, S) marks the real tokens of bucket-padded rows; the
         recurrent families thread it into the SSD scan (KV families need
         none).  ``x0`` is the embedding output the hybrid shared block
         concatenates.  ``ckpt_every`` (prefill, ssm / hybrid): each Mamba
-        stack's new state becomes ``(state, checkpoints)``, split apart by
-        ``_split_checkpoints``."""
+        stack's new state becomes ``(state, checkpoints)``, the
+        checkpoints written into ``ckpt_out`` (the stacked checkpoints'
+        tree), split apart by ``_split_checkpoints``."""
         cfg = self.cfg
         if cfg.family == "ssm":
             node = None if cache is None else cache["mamba_layers"]
             x, new = self._mamba_stack(params["mamba_layers"], x, node,
                                        mode=mode, mask=mask,
-                                       ckpt_every=ckpt_every)
+                                       ckpt_every=ckpt_every,
+                                       ckpt_out=ckpt_out)
             return x, ({} if node is None else {"mamba_layers": new})
         if cfg.family == "hybrid":
             return self._hybrid_backbone(params, x, mode=mode, cache=cache,
                                          pos=pos, x0=x0, mask=mask,
-                                         ckpt_every=ckpt_every)
+                                         ckpt_every=ckpt_every,
+                                         ckpt_out=ckpt_out)
         new_cache = {}
         for key, layer_fn, n in self._stacks():
             stacked = params[key]
             node = None if cache is None else cache[key]
-            in_place = isinstance(node, PagedKVCache) or mode == "decode"
+            in_place = (isinstance(node, PagedKVCache)
+                        or mode in ("decode", "prefill"))
             new_slices = []
             for i in range(n):
                 lp = tree_map(lambda a: a[i], stacked)
@@ -251,73 +272,56 @@ class Model:
                                            for f in zip(*new_slices)))
         return x, new_cache
 
-    def _mamba_stack(self, stacked, x, node, *, mode, mask, ckpt_every):
+    def _mamba_stack(self, stacked, x, node, *, mode, mask, ckpt_every,
+                     ckpt_out=None):
         """Run a stack of Mamba layers.  ``node``: the stack's MambaState
-        (leaves (n, B, ...)) or None.  Decode and extend write the new
-        states into ``node`` in place; prefill stacks them into a new
-        MambaState.  Returns (x, new node), the node paired with the
-        stacked checkpoints (leaves (n, B, nb, ...)) under
-        ``ckpt_every``."""
+        (leaves (n, B, ...)) or None; every mode writes the new states
+        into it in place (a prefill reads nothing of it: it starts from
+        zero state).  Returns (x, node), the node paired with
+        ``ckpt_out`` (leaves (n, B, nb, ...)), which receives the
+        checkpoints, under ``ckpt_every``."""
         cfg = self.cfg
-        in_place = node is not None and mode in ("decode", "extend")
-        states, cks = [], []
         for i in range(tree_leaves(stacked)[0].shape[0]):
             lp = tree_map(lambda a: a[i], stacked)
             st = None if node is None else MambaState(*(a[i] for a in node))
-            x, new = zmb.mamba_layer(lp, x, cfg, mode=mode, state=st,
-                                     mask=mask, ckpt_every=ckpt_every)
+            ck = (None if ckpt_out is None
+                  else MambaState(*(a[i] for a in ckpt_out)))
+            x, new = zmb.mamba_layer(lp, x, cfg, mode=mode,
+                                     state=None if mode == "prefill" else st,
+                                     mask=mask, ckpt_every=ckpt_every,
+                                     ckpt_out=ck)
             if ckpt_every is not None:
-                new, ck = new
-                cks.append(ck)
-            if in_place:
+                new = new[0]
+            if st is not None:
                 for dst, src in zip(st, new):
                     dst.copy_(src)
-            else:
-                states.append(new)
         if node is None:
             return x, None
-        new_node = node if in_place else MambaState(
-            *(torch.stack(f) for f in zip(*states)))
-        if ckpt_every is not None:
-            new_node = (new_node,
-                        MambaState(*(torch.stack(f) for f in zip(*cks))))
-        return x, new_node
+        return x, node if ckpt_every is None else (node, ckpt_out)
 
     def _hybrid_backbone(self, params, x, *, mode, cache, pos, x0, mask,
-                         ckpt_every):
+                         ckpt_every, ckpt_out=None):
         """Zamba2: per group, its Mamba layers then the shared attention
-        block on ``concat(x, x0)`` with the group's own KV cache."""
+        block on ``concat(x, x0)`` with the group's own KV cache, both
+        written in place."""
         cfg = self.cfg
         node = None if cache is None else cache["groups"]
-        in_place = node is not None and mode in ("decode", "extend")
-        shared = params["shared"]
-        mamba_new, kv_new, cks = [], [], []
         for g in range(self._n_groups):
             gp = tree_map(lambda a: a[g], params["groups"])
             m_node = (None if node is None
                       else MambaState(*(a[g] for a in node.mamba)))
-            x, nm = self._mamba_stack(gp, x, m_node, mode=mode, mask=mask,
-                                      ckpt_every=ckpt_every)
-            if ckpt_every is not None and nm is not None:
-                nm, ck = nm
-                cks.append(ck)
+            ck = (None if ckpt_out is None
+                  else MambaState(*(a[g] for a in ckpt_out)))
+            x, _ = self._mamba_stack(gp, x, m_node, mode=mode, mask=mask,
+                                     ckpt_every=ckpt_every, ckpt_out=ck)
             kv = None if node is None else KVSlice(*(a[g] for a in node.shared))
-            x, nkv = zmb.shared_block(shared, x, x0, cfg, mode=mode,
-                                      cache=kv, pos=pos)
-            mamba_new.append(nm)
-            kv_new.append(nkv)
+            x, _ = zmb.shared_block(params["shared"], x, x0, cfg, mode=mode,
+                                    cache=kv, pos=pos)
         if node is None:
             return x, {}
-        if in_place:
-            new = node
-        else:
-            new = zmb.ZambaGroupCache(
-                mamba=MambaState(*(torch.stack(f) for f in zip(*mamba_new))),
-                shared=KVSlice(*(torch.stack(f) for f in zip(*kv_new))))
         if ckpt_every is not None:
-            new = new._replace(mamba=(
-                new.mamba, MambaState(*(torch.stack(f) for f in zip(*cks)))))
-        return x, {"groups": new}
+            node = node._replace(mamba=(node.mamba, ckpt_out))
+        return x, {"groups": node}
 
     def _last_logits(self, params, x, length):
         last = (length.long() - 1).clamp(0, x.shape[1] - 1)
@@ -326,14 +330,17 @@ class Model:
         return self._logits(params, x_last)[:, 0]
 
     def prefill(self, params, batch, cache):
-        """Whole prompts (B, S): logits at the last position + new cache."""
+        """Whole prompts (B, S): logits at the last position + new cache
+        (``cache`` fixes its shapes and is left untouched)."""
+        cache = tree_map(torch.empty_like, cache)
         x = self._embed_tokens(params, batch["tokens"])
         x, new_cache = self._backbone(params, x, mode="prefill", cache=cache,
                                       x0=x)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x)[:, 0], new_cache
 
-    def prefill_ranged(self, params, batch, cache, *, checkpoint_every=None):
+    def prefill_ranged(self, params, batch, cache, *, checkpoint_every=None,
+                       in_place=False, ckpt_out=None):
         """Bucket-padded prompts in one invocation.
 
         ``batch`` = {tokens (B, S_pad) int32, length (B,) int32}; row b's
@@ -346,7 +353,14 @@ class Model:
         return the stacked recurrent-state checkpoints after every
         ``checkpoint_every`` positions, ``(logits, cache, ckpts)``, for
         :meth:`slice_checkpoint`.  Checkpoints past a row's length are pad
-        garbage and must not be read."""
+        garbage and must not be read.
+
+        The default is JAX's contract: a new cache, ``cache`` read only
+        for its shapes and left untouched.  ``in_place``: the same values
+        are written into ``cache``'s own tensors, which come back as the
+        cache.  ``ckpt_out`` (with ``checkpoint_every``): a tree shaped as
+        the checkpoints (:meth:`checkpoint_specs`) that receives them and
+        comes back as ``ckpts``."""
         tokens, length = batch["tokens"], batch["length"]
         if checkpoint_every is not None:
             if not self.supports_snapshot_state:
@@ -356,16 +370,28 @@ class Model:
                 raise ValueError(
                     f"S_pad={tokens.shape[1]} not a multiple of "
                     f"checkpoint_every={checkpoint_every}")
+            if ckpt_out is None:
+                ckpt_out = tree_map_pspec(
+                    lambda sp: torch.empty(
+                        sp.shape, dtype=resolve_dtype(sp, self.cfg.dtype),
+                        device=tokens.device),
+                    self.checkpoint_specs(tokens.shape[0],
+                                          tokens.shape[1] // checkpoint_every))
+        elif ckpt_out is not None:
+            raise ValueError("ckpt_out needs checkpoint_every")
+        if not in_place:
+            cache = tree_map(torch.empty_like, cache)
         mask = self._length_mask(tokens, length)
         x = self._embed_tokens(params, tokens)
         x, new_cache = self._backbone(params, x, mode="prefill", cache=cache,
                                       x0=x, mask=mask,
-                                      ckpt_every=checkpoint_every)
+                                      ckpt_every=checkpoint_every,
+                                      ckpt_out=ckpt_out)
         logits = self._last_logits(params, x, length)
         if checkpoint_every is None:
-            return logits, mask_pad_slots(new_cache, length)
+            return logits, mask_pad_slots_(new_cache, length)
         new_cache, ckpts = self._split_checkpoints(new_cache)
-        return logits, mask_pad_slots(new_cache, length), ckpts
+        return logits, mask_pad_slots_(new_cache, length), ckpts
 
     def prefill_extend(self, params, batch, cache):
         """Suffix-only prefill behind a resident prefix (prefix sharing).

@@ -62,9 +62,11 @@ def shared_block(sp, x, x0, cfg: ArchConfig, *, mode: str,
 
 def mamba_layer(lp, x, cfg: ArchConfig, *, mode: str,
                 state: Optional[MambaState] = None, mask=None,
-                ckpt_every: Optional[int] = None):
+                ckpt_every: Optional[int] = None,
+                ckpt_out: Optional[MambaState] = None):
     """Pre-norm residual Mamba layer: (x + mamba(norm(x)), new state)."""
     h = rms_norm(x, lp["norm"], cfg.rms_eps)
     y, new_state = mamba_block(lp["mamba"], h, cfg, mode=mode, state=state,
-                               mask=mask, ckpt_every=ckpt_every)
+                               mask=mask, ckpt_every=ckpt_every,
+                               ckpt_out=ckpt_out)
     return x + y, new_state

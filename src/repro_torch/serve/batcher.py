@@ -20,11 +20,16 @@ through the decode step one token per step.  Requests blocked on pool
 pages stay queued; a deficit-round-robin tenant scheduler picks who is
 admitted.
 
-On the card the decode step runs as a CUDA graph, one per (path,
-block-table width) key (``serve/step_graph.py``): the first step of a key
-runs eagerly, the second captures it, every later one is one replay on
-the batcher's own cache tensors, as the JAX batcher calls its jitted,
-donated step.  On the CPU the same step function runs eagerly.
+On the card every step runs as a CUDA graph, one per shape key
+(``serve/step_graph.py``), as the JAX batcher calls its jitted steps:
+decode by block-table width, cold prefill by (padded batch, pad bucket),
+paged extend by (padded batch, suffix bucket, width), the snapshot
+restore by suffix bucket.  The first call of a path in the process runs
+eagerly; a key's first visit otherwise captures, and every later visit
+is one replay on the batcher's own tensors: the pool's arena, the dense
+cache, a per-batch-size scratch cache the prefill writes in place and,
+on a snapshot pool, one checkpoint workspace.  On the CPU the same step
+functions run eagerly.
 
 The recurrent families (ssm, hybrid) get the same prefix cache through a
 *snapshot* pool (``KVPool.capability`` "snapshot"): decode stays on the
@@ -75,6 +80,7 @@ from repro_torch.serve.kvpool import (
     run_extend_group,
 )
 from repro_torch.serve.serve_step import (
+    CheckpointWorkspace,
     bucket_len,
     build_extend_step,
     build_prefill_step,
@@ -82,7 +88,12 @@ from repro_torch.serve.serve_step import (
     run_prefill_group,
     supports_chunked_prefill,
 )
-from repro_torch.serve.step_graph import DENSE_KEY, StepGraph, paged_key
+from repro_torch.serve.step_graph import (
+    DENSE_KEY,
+    StepGraph,
+    paged_key,
+    restore_key,
+)
 from repro_torch.serve.tenancy import (
     DEFAULT_TENANT,
     TenantRegistry,
@@ -212,11 +223,16 @@ class ContinuousBatcher:
         self.prompt_cursor = np.zeros(batch_slots, np.int64)
         # sampling draws (temperature > 0) from a seeded generator
         self.generator = torch.Generator(device=self.device).manual_seed(0)
-        # the decode step's CUDA graphs (None on the CPU: eager steps)
+        # the steps' CUDA graphs (None on the CPU: eager steps)
         self.step_graph = (
             StepGraph(self.device,
                       generator=self.generator if temperature > 0 else None)
             if self.device.type == "cuda" else None)
+        self._run_step = self._stepper(self._step)
+        self._run_extend = self._stepper(self._extend)
+        # where a snapshot pool's cold prefill writes its checkpoints
+        self._ckpts = (CheckpointWorkspace(model, self.device)
+                       if self._snapshot and self.chunked else None)
         self._scratch_caches: Dict[int, Any] = {}  # B -> B-row prefill cache
         self._slot_init_cache = None               # lazy; see _slot_init()
         self.prefill_invocations = 0
@@ -270,27 +286,26 @@ class ContinuousBatcher:
         """ONE prefill invocation over same-bucket (slot, request, lease)
         triples of cold requests, then the KV installs into the pool's
         pages or the slots' dense rows; on a snapshot pool each row's
-        chunk checkpoints intern first."""
+        chunk checkpoints intern first.  The installs copy out of the
+        scratch cache and the workspace before any other step runs."""
         B = len(group)
         reqs = [r for _, r, _ in group]
         slots = [s for s, _, _ in group]
         t0 = self.rec.clock()
-        toks, rows_cache, b_pad = run_prefill_group(
-            self._prefill, self.params, self._scratch, reqs,
-            chunk=self.prefill_chunk, max_len=self.max_len,
-            generator=self.generator, device=self.device,
-            accounting=self.accounting)
+        toks, key = run_prefill_group(
+            self._prefill_call, reqs, chunk=self.prefill_chunk,
+            max_len=self.max_len, accounting=self.accounting)
         t1 = self.rec.clock()
         span_group(self.rec, "prefill", reqs, t0, t1, kind="cold",
                    batch=len(group))
         self.rec.record("prefill_s", t1 - t0)
         self.prefill_invocations += 1
         self.prefill_batch_sizes.append(B)
+        _, rows_cache, ckpts = self._prefill_state(key)
         if self._snapshot:
-            rows_cache, ckpts = rows_cache
             self._intern_snapshot_chains(group, rows_cache, ckpts)
         if not self._paged:
-            if b_pad != B:
+            if key[1] != B:
                 rows_cache = slice_cache_slots(rows_cache, self._cache_axes,
                                                list(range(B)))
             self._install_rows(slots, reqs, rows_cache, toks[:B])
@@ -300,6 +315,41 @@ class ContinuousBatcher:
                                    rows_cache, i, lease.pages)
         self._merge_resident_rows(rows_cache, list(range(B)), slots)
         self._post_install(slots, reqs, toks[:B])
+
+    def _prefill_state(self, key):
+        """(params, scratch cache, checkpoint views or None) of the cold
+        prefill at ``key`` = ("prefill", b_pad, s_pad): what it reads and
+        writes in place."""
+        _, b_pad, s_pad = key
+        ckpts = None
+        if self._ckpts is not None:
+            n = s_pad // self.pool.page_size
+            self._reserve_checkpoints(b_pad * n)
+            ckpts = self._ckpts.views(b_pad, n)
+        return self.params, self._scratch(b_pad), ckpts
+
+    def _reserve_checkpoints(self, pairs: int):
+        """Grow the checkpoint workspace to ``pairs`` (row, checkpoint)
+        pairs if it is smaller; the prefill graphs captured on the old
+        buffers go with them."""
+        if self._ckpts.reserve(pairs) and self.step_graph is not None:
+            self.step_graph.drop("prefill")
+
+    def _prefill_call(self, key, host):
+        """Run the cold prefill at ``key`` on the int32 host arrays; the
+        first tokens (b_pad,) on the device."""
+        return self._run(key, self._run_prefill, self._prefill_state(key),
+                         host)[0]
+
+    def _run_prefill(self, state, inputs):
+        """The plain prefill step on (params, scratch cache, checkpoint
+        views) and the device inputs -> (tokens, state)."""
+        params, cache, ckpts = state
+        toks, _logits, cache = self._prefill(params, cache, inputs,
+                                             self.generator, ckpt_out=ckpts)
+        if ckpts is not None:
+            cache, ckpts = cache
+        return toks, (params, cache, ckpts)
 
     def _extend_group(self, group):
         """ONE suffix-extend invocation over prefix-hit (slot, request,
@@ -315,9 +365,9 @@ class ContinuousBatcher:
         bt_rows = np.asarray(self.pool.block_table[slots], np.int32)
         t0 = self.rec.clock()
         toks, resident_rows, _b_pad = run_extend_group(
-            self._extend, self.params, self.pool, reqs, leases, bt_rows,
+            self._extend_call, self.pool, reqs, leases, bt_rows,
             chunk=self.prefill_chunk, max_len=self.max_len,
-            generator=self.generator, accounting=self.accounting)
+            accounting=self.accounting)
         t1 = self.rec.clock()
         span_group(self.rec, "prefill", reqs, t0, t1, kind="warm",
                    batch=len(group),
@@ -332,6 +382,16 @@ class ContinuousBatcher:
         self._merge_resident_rows(resident_rows, list(range(len(group))),
                                   slots)
         self._post_install(slots, reqs, toks[:len(group)])
+
+    def _extend_call(self, key, host):
+        """Run the paged extend at ``key`` on the int32 host arrays over
+        the pool's arena: (first tokens on the device, the b_pad rows'
+        resident part)."""
+        state = (self.params, self.pool.arena, self.pool.kv_scales,
+                 strip_kv_nodes(self.pool.template))
+        toks, (_, self.pool.arena, self.pool.kv_scales, rows) = self._run(
+            key, self._run_extend, state, host)
+        return toks, rows
 
     def _intern_snapshot_chains(self, group, rows_cache, ckpts):
         """Intern each cold request's chunk chain: chunk ``lp``'s payload is
@@ -374,14 +434,11 @@ class ContinuousBatcher:
             tokens[slot, :len(suf)] = suf
             length[slot] = len(suf)
             pos[slot] = lease.tokens
-        dev = self.device
-        batch = {"tokens": torch.from_numpy(tokens).to(dev),
-                 "pos": torch.from_numpy(pos).to(dev),
-                 "length": torch.from_numpy(length).to(dev)}
         reqs = [r for _, r, _ in group]
         t0 = self.rec.clock()
-        toks, _logits, self.cache = self._extend(self.params, self.cache,
-                                                 batch, self.generator)
+        toks, (_, self.cache) = self._run(
+            restore_key(s_pad), self._run_extend, (self.params, self.cache),
+            {"tokens": tokens, "pos": pos, "length": length})
         toks = toks.tolist()
         t1 = self.rec.clock()
         span_group(self.rec, "prefill", reqs, t0, t1, kind="warm_snapshot",
@@ -500,6 +557,11 @@ class ContinuousBatcher:
                            self.max_len)
             (warm if hit else cold).setdefault(b, []).append(
                 (slot, req, lease))
+        if self._ckpts is not None and cold:
+            # the workspace grows once a tick, to the tick's largest group
+            self._reserve_checkpoints(max(
+                (1 << (len(g) - 1).bit_length()) * b // self.pool.page_size
+                for b, g in cold.items()))
         for _, group in sorted(cold.items()):
             self._prefill_group(group)
         for _, group in sorted(warm.items()):
@@ -564,21 +626,25 @@ class ContinuousBatcher:
     def _decode(self, key, host):
         """One decode step over all B slots from the int32 host arrays
         ``host`` (tokens (B, 1), pos (B,), on the paged plane the block
-        table trimmed to ``key``'s width): on the card through ``key``'s
-        CUDA graph, on the CPU eagerly.  Returns the sampled tokens (B,)
+        table trimmed to ``key``'s width).  Returns the sampled tokens (B,)
         on the device."""
-        if self.step_graph is None:
-            inputs = {k: torch.from_numpy(np.array(v)).to(self.device)
-                      for k, v in host.items()}
-            toks, state = self._run_step(self._decode_state(), inputs)
-        else:
-            toks, state = self.step_graph(key, self._run_step,
-                                          self._decode_state(), host)
+        toks, state = self._run(key, self._run_step, self._decode_state(),
+                                host)
         if self._paged:
             _, self.pool.arena, self.pool.kv_scales, self.resident = state
         else:
             _, self.cache = state
         return toks
+
+    def _run(self, key, fn, state, host):
+        """``fn(state, inputs) -> (tokens, state)`` on the int32 host arrays
+        ``host``: on the card through ``key``'s CUDA graph, on the CPU
+        eagerly."""
+        if self.step_graph is None:
+            inputs = {k: torch.from_numpy(np.array(v)).to(self.device)
+                      for k, v in host.items()}
+            return fn(state, inputs)
+        return self.step_graph(key, fn, state, host)
 
     def _decode_state(self) -> tuple:
         """What the decode step reads and updates in place: (params,
@@ -589,23 +655,27 @@ class ContinuousBatcher:
                     self.resident)
         return self.params, self.cache
 
-    def _run_step(self, state: tuple, inputs: dict):
-        """The plain decode step on ``state`` (:meth:`_decode_state`) and
-        the device ``inputs`` -> (tokens, state)."""
-        batch = {"tokens": inputs["tokens"], "pos": inputs["pos"]}
-        if self._paged:
-            params, arena, scales, resident = state
-            toks, arena, scales, resident = self._step(
-                params, arena, scales, resident, inputs["block_table"],
-                batch, self.generator)
-            return toks, (params, arena, scales, resident)
-        params, cache = state
-        toks, _logits, cache = self._step(params, cache, batch,
-                                          self.generator)
-        return toks, (params, cache)
+    def _stepper(self, step):
+        """``step``, a decode or extend step over the paged arena
+        (``kvpool``) or the dense cache (``serve_step``), as the plain
+        ``fn(state, inputs) -> (tokens, state)`` over
+        :meth:`_decode_state`'s layout; the inputs other than the block
+        table are the step's batch."""
+        def run(state: tuple, inputs: dict):
+            batch = {k: v for k, v in inputs.items() if k != "block_table"}
+            if self._paged:
+                params, arena, scales, resident = state
+                toks, arena, scales, resident = step(
+                    params, arena, scales, resident, inputs["block_table"],
+                    batch, self.generator)
+                return toks, (params, arena, scales, resident)
+            params, cache = state
+            toks, _logits, cache = step(params, cache, batch, self.generator)
+            return toks, (params, cache)
+        return run
 
     def close(self):
-        """Release the decode step's CUDA graphs and their memory pool."""
+        """Release the steps' CUDA graphs and their memory pool."""
         if self.step_graph is not None:
             self.step_graph.release()
 

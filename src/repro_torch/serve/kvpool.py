@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,11 +51,11 @@ from repro_torch.models.cache_utils import (
     quantize_page,
     read_arena_pages,
     recurrent_state_bytes,
-    strip_kv_nodes,
     write_arena_pages,
 )
 from repro_torch.models.layers import KVSlice
 from repro_torch.serve.serve_step import bucket_len, sample_tokens
+from repro_torch.serve.step_graph import extend_key
 from repro_torch.serve.tenancy import COMMONS, DEFAULT_TENANT, PUBLIC
 
 
@@ -837,17 +837,21 @@ def build_snapshot_payloads(model, axes, page_size: int, prompt,
             for lp in range(n_chunks)]
 
 
-def run_extend_group(extend_fn, params, pool: KVPool, reqs,
+def run_extend_group(run: Callable, pool: KVPool, reqs,
                      leases: List[PrefixLease], bt_rows, *, chunk: int,
-                     max_len: int, generator, accounting=None):
+                     max_len: int, accounting=None):
     """ONE native-paged suffix-extend invocation over prefix-hit rows.
 
     The batch pads to the next power of two with all-sentinel dummy rows
     (writes drop, reads mask, outputs discarded); all suffixes share one
     pad bucket, each row carries its own prefix offset ``pos``.  The block
     table is width-trimmed to the power-of-two page bucket covering the
-    longest prompt.  The suffix K/V lands in the pool's arena in place.
-    Returns (first_tokens, resident rows, b_pad)."""
+    longest prompt.  ``run(key, host)`` runs the extend step at ``key``
+    (``step_graph.extend_key``) on the int32 host arrays {tokens (b_pad,
+    s_pad), pos, length (b_pad,), block_table (b_pad, width)} and returns
+    (first tokens on the device, resident rows); the suffix K/V lands in
+    the pool's arena in place.  Returns (first_tokens, resident rows,
+    b_pad)."""
     B = len(reqs)
     b_pad = 1 << (B - 1).bit_length()
     P = pool.page_size
@@ -860,18 +864,14 @@ def run_extend_group(extend_fn, params, pool: KVPool, reqs,
     for i, s in enumerate(suffixes):
         tokens[i, :len(s)] = s
         lengths[i] = len(s)
-    width = max(-(-len(r.prompt) // P) for r in reqs)
-    width = min(1 << (width - 1).bit_length(), pool.n_logical)
+    key = extend_key(b_pad, s_pad, max(-(-len(r.prompt) // P) for r in reqs),
+                     pool.n_logical)
+    width = key[3]
     bt = np.full((b_pad, width), pool.sentinel, np.int32)
     bt[:B] = np.asarray(bt_rows, np.int32)[:, :width]
-    dev = pool.device
-    batch = {"tokens": torch.from_numpy(tokens).to(dev),
-             "pos": torch.tensor(prefix, dtype=torch.int32, device=dev),
-             "length": torch.from_numpy(lengths).to(dev)}
-    resident = strip_kv_nodes(pool.template)
-    toks, pool.arena, pool.kv_scales, rows = extend_fn(
-        params, pool.arena, pool.kv_scales, resident,
-        torch.from_numpy(bt).to(dev), batch, generator)
+    toks, rows = run(key, {"tokens": tokens,
+                           "pos": np.asarray(prefix, np.int32),
+                           "length": lengths, "block_table": bt})
     if accounting is not None and b_pad != B:
         accounting.record_counter("prefill_dummy_rows", b_pad - B)
     return toks.tolist(), rows, b_pad

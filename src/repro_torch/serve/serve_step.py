@@ -2,10 +2,12 @@
 
 Prompts are padded to *chunk buckets* (multiples of the batcher's
 ``prefill_chunk``) and same-bucket prompts share one
-``Model.prefill_ranged`` invocation; the first output token is sampled
-from the same invocation.  ``build_serve_step`` decodes and
-``build_extend_step`` suffix-extends over a dense per-slot cache; the
-paged decode and extend steps live in ``serve/kvpool.py``.
+``Model.prefill_ranged`` invocation, which writes into the batcher's
+scratch cache (and, on a snapshot pool, its checkpoint workspace) in
+place; the first output token is sampled from the same invocation.
+``build_serve_step`` decodes and ``build_extend_step`` suffix-extends over
+a dense per-slot cache; the paged decode and extend steps live in
+``serve/kvpool.py``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.models.param import resolve_dtype
+from repro_torch.serve.step_graph import prefill_key
 
 
 def sample_tokens(logits, generator: Optional[torch.Generator],
@@ -50,17 +54,22 @@ def supports_chunked_prefill(model: Model, max_len: int) -> bool:
 
 def build_prefill_step(model: Model, temperature: float = 0.0,
                        checkpoint_every: Optional[int] = None) -> Callable:
-    """prefill_step(params, cache, batch, generator) -> (first_tokens,
-    logits, cache) over ``Model.prefill_ranged``.  With
+    """prefill_step(params, cache, batch, generator, ckpt_out=None) ->
+    (first_tokens, logits, cache) over ``Model.prefill_ranged``, in place:
+    the new cache is written into ``cache``'s own tensors (the batcher's
+    scratch cache), which come back as the cache.  With
     ``checkpoint_every`` (ssm / hybrid snapshot pools) the third output is
-    ``(cache, ckpts)``, the recurrent-state checkpoints beside the cache;
-    the batching helpers pass it through untouched."""
-    def prefill_step(params, cache, batch, generator):
+    ``(cache, ckpts)``, the recurrent-state checkpoints beside the cache,
+    written into ``ckpt_out`` when given (a :class:`CheckpointWorkspace`'s
+    views)."""
+    def prefill_step(params, cache, batch, generator, ckpt_out=None):
         if checkpoint_every is None:
-            logits, cache = model.prefill_ranged(params, batch, cache)
+            logits, cache = model.prefill_ranged(params, batch, cache,
+                                                 in_place=True)
         else:
             logits, cache, ckpts = model.prefill_ranged(
-                params, batch, cache, checkpoint_every=checkpoint_every)
+                params, batch, cache, checkpoint_every=checkpoint_every,
+                in_place=True, ckpt_out=ckpt_out)
             cache = (cache, ckpts)
         return sample_tokens(logits, generator, temperature), logits, cache
     return prefill_step
@@ -90,42 +99,84 @@ def build_serve_step(model: Model, temperature: float = 0.0) -> Callable:
     return serve_step
 
 
-def run_prefill_prompts(step_fn: Callable, params, scratch_cache, prompts,
-                        *, chunk: int, max_len: int, generator, device):
-    """Bucket-pad B same-bucket prompts and run ONE ``prefill_step``.
-
-    Zero-length rows are dummy batch padding (``length`` 0).  Rows are
-    independent under prefill attention, so the batched invocation equals
-    B single-row ones.  Returns (first_tokens list, B-row KV cache)."""
-    B = len(prompts)
+def prefill_inputs(prompts, *, chunk: int, max_len: int):
+    """The int32 host inputs of ONE prefill over same-bucket prompts,
+    the batch padded to the next power of two with dummy zero-length
+    rows: (key ``("prefill", b_pad, s_pad)``, {tokens (b_pad, s_pad),
+    length (b_pad,)}).  Rows are independent under prefill attention, so
+    the batched invocation equals B single-row ones."""
+    b_pad = 1 << (len(prompts) - 1).bit_length()
     s_pad = bucket_len(max(len(p) for p in prompts), chunk, max_len)
-    tokens = np.zeros((B, s_pad), np.int32)
-    lengths = np.zeros((B,), np.int32)
+    tokens = np.zeros((b_pad, s_pad), np.int32)
+    lengths = np.zeros((b_pad,), np.int32)
     for i, p in enumerate(prompts):
         if len(p) and bucket_len(len(p), chunk, max_len) != s_pad:
             raise ValueError(f"prompt {i} (len {len(p)}) is not in bucket "
                              f"{s_pad}")
         tokens[i, :len(p)] = p
         lengths[i] = len(p)
-    batch = {"tokens": torch.from_numpy(tokens).to(device),
-             "length": torch.from_numpy(lengths).to(device)}
-    toks, _logits, cache = step_fn(params, scratch_cache, batch, generator)
-    return toks.tolist(), cache
+    return prefill_key(b_pad, s_pad), {"tokens": tokens, "length": lengths}
 
 
-def run_prefill_group(step_fn: Callable, params, scratch: Callable, reqs,
-                      *, chunk: int, max_len: int, generator, device,
+def run_prefill_group(run: Callable, reqs, *, chunk: int, max_len: int,
                       accounting=None):
-    """ONE prefill invocation over a same-bucket request group, the batch
-    padded to the next power of two with dummy zero-length rows.
-    ``scratch`` is a ``batch -> cache`` factory.  Returns (first_tokens,
-    b_pad-row cache, b_pad)."""
-    B = len(reqs)
-    b_pad = 1 << (B - 1).bit_length()
-    prompts = [r.prompt for r in reqs] + [np.zeros(0, np.int32)] * (b_pad - B)
-    toks, cache = run_prefill_prompts(
-        step_fn, params, scratch(b_pad), prompts, chunk=chunk,
-        max_len=max_len, generator=generator, device=device)
-    if accounting is not None and b_pad != B:
-        accounting.record_counter("prefill_dummy_rows", b_pad - B)
-    return toks, cache, b_pad
+    """ONE prefill invocation over a same-bucket request group:
+    ``run(key, host)`` runs the prefill step at ``key`` on the host
+    arrays of :func:`prefill_inputs` and returns the first tokens (b_pad,)
+    on the device.  Returns (first_tokens list, key)."""
+    key, host = prefill_inputs([r.prompt for r in reqs], chunk=chunk,
+                               max_len=max_len)
+    toks = run(key, host).tolist()
+    b_pad = key[1]
+    if accounting is not None and b_pad != len(reqs):
+        accounting.record_counter("prefill_dummy_rows", b_pad - len(reqs))
+    return toks, key
+
+
+def grow_capacity(capacity: int, need: int) -> int:
+    """The growth plan of a :class:`CheckpointWorkspace` holding
+    ``capacity`` (row, checkpoint) pairs and asked for ``need``: unchanged
+    when it suffices, else exactly ``need``.  It grows with what the
+    batcher meets, never to B x max_len / page up front (43.5 GB on
+    mamba2-2.7b)."""
+    return max(capacity, need)
+
+
+class CheckpointWorkspace:
+    """Where the snapshot prefill writes its state checkpoints: one buffer
+    per leaf of ``Model.checkpoint_specs``, each holding ``capacity``
+    (row, checkpoint) pairs, the largest b_pad x checkpoints reserved so
+    far.  ``views(b, nb)`` are contiguous views of the buffers' fronts
+    shaped as the checkpoints of b rows of nb checkpoints, what
+    ``Model.prefill_ranged(ckpt_out=...)`` writes into.  :meth:`reserve`
+    regrows the buffers when a larger key comes (their contents and
+    addresses are dropped; ``regrowths`` counts it)."""
+
+    def __init__(self, model: Model, device):
+        self.model, self.device = model, device
+        self.capacity = self.regrowths = 0
+        self._flat = None
+
+    def reserve(self, pairs: int) -> bool:
+        """Hold at least ``pairs`` (row, checkpoint) pairs; True when the
+        buffers were (re)allocated."""
+        cap = grow_capacity(self.capacity, pairs)
+        if cap == self.capacity:
+            return False
+        self.regrowths += self._flat is not None
+        self._flat = None                   # free the old buffers first
+        self._flat = [torch.empty(int(np.prod(s.shape)), device=self.device,
+                                  dtype=resolve_dtype(s, self.model.cfg.dtype))
+                      for s in self.model.checkpoint_specs(1, cap)]
+        self.capacity = cap
+        return True
+
+    def views(self, b: int, nb: int):
+        """The checkpoints of ``b`` rows of ``nb`` checkpoints, as views
+        into the buffers (``reserve(b * nb)`` first)."""
+        if b * nb > self.capacity:
+            raise ValueError(f"{b} x {nb} checkpoints exceed the workspace's "
+                             f"{self.capacity}")
+        specs = self.model.checkpoint_specs(b, nb)
+        return type(specs)(*(f[:int(np.prod(s.shape))].view(s.shape)
+                             for f, s in zip(self._flat, specs)))

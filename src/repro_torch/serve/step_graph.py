@@ -1,44 +1,60 @@
-"""The decode step as one CUDA graph per batcher shape.
+"""The batcher's steps as CUDA graphs, one per batcher shape.
 
-The port's counterpart of the JAX batcher's ``jax.jit(step,
-donate_argnums=...)`` (``repro/serve/batcher.py``): XLA compiles one
-program per shape, and each call launches it and updates the donated
-buffers in place.  A :class:`StepGraph` holds one ``torch.cuda.CUDAGraph``
-per key, (path, block-table width): the paged plane has one key per
-power-of-two width bucket up to the pool's ``n_logical``
-(:func:`decode_keys`), the dense per-slot cache one.  Each key has its
-own static int32 input buffers on the device (tokens (B, 1), pos (B,) and
-on the paged plane the trimmed block table (B, width)); every call copies
-the host's arrays into them, through one pinned staging buffer.
+The port's counterpart of the JAX batcher's jitted steps
+(``repro/serve/batcher.py``): XLA compiles one program per shape for the
+decode step, the cold prefill, the paged extend and the snapshot
+restore's dense extend, and each call launches it on donated or new
+buffers.  A :class:`StepGraph` holds one ``torch.cuda.CUDAGraph`` per
+key.  A key is a tuple whose first item names its kind:
 
-For each key:
+* decode: ``("paged", width)``, one per power-of-two block-table width
+  bucket up to the pool's ``n_logical`` (:func:`decode_keys`), or
+  ``("dense", None)`` on the dense per-slot cache;
+* cold prefill: ``("prefill", b_pad, s_pad)``, the batch padded to a
+  power of two and the prompts to their pad bucket;
+* paged extend: ``("extend", b_pad, s_pad, width)``, the width trimmed
+  as decode trims it, to cover the longest prompt;
+* the snapshot restore's dense extend over all slots: ``("restore",
+  s_pad)``.
 
-* the first call runs the step eagerly on the static buffers, and is the
-  real step.  It builds and binds the kernels, sets their shared-memory
-  attributes and runs their once-per-instantiation occupancy checks, so
-  the capture meets none of them.  No extra warm-up step runs: the Mamba
-  state and conv-state updates are not idempotent.
-* the second call captures the step, then replays it; every later call
-  replays.  Before each replay the data pointer of every tensor the graph
-  captured (params, arena, scales, resident or cache, and the static
-  buffers) is checked: one that moved raises.  There is no eager
-  fallback.
+At 8 slots, max_len 512 and chunk 32 that is at most 6 decode, 64
+prefill, 384 extend and 16 restore keys, captured as they are met.
 
-The step updates its state in place (``build_serve_step``,
-``build_paged_serve_step``), so a replay's state is the caller's own
-tensors; a capture whose step returned a new state tensor raises.  All
-graphs of one StepGraph share one memory pool, freed by :meth:`release`
-or when the StepGraph is dropped.  A capture launches nothing, so it
-leaves the kernels' launch counters as they were; each replay adds what
-the captured step counted (``kernels/_build.py``).  At temperature above
-0 the sampling generator is registered with every graph, so each replay
+Each key has its own static int32 input buffers on the device (tokens,
+length, pos, the trimmed block table: what its step reads); every call
+copies the host's arrays into them through one pinned staging buffer.
+
+The policy, one for every path:
+
+* the first call of a path (decode, prefill, extend, restore) in the
+  process runs its step eagerly, and is the real step: it warms PyTorch's
+  and cuBLAS's lazy state (handles, workspaces) outside any capture.  The
+  kernels' own one-time setup (module loading, shared-memory attributes)
+  is done when their library is bound (``kernels/_build.py``).
+* every other first visit of a key captures the step, then replays it;
+  every later visit replays.  A capture executes nothing, so the
+  non-idempotent Mamba state updates run once.  Before each replay the
+  data pointer of every tensor the graph captured (params, arena, caches,
+  the checkpoint workspace, the static buffers) is checked: one that
+  moved raises.  There is no eager fallback.
+
+Every step updates its state in place (the prefill into the batcher's
+scratch cache and checkpoint workspace, ``Model.prefill_ranged(
+in_place=True)``), so a replay's state is the caller's own tensors; a
+capture whose step returned a new state tensor raises.  A graph keeps
+only its sampled tokens: the rest of its memory is scratch in the one
+pool all graphs of a StepGraph share, freed by :meth:`release` or when
+the StepGraph is dropped.  A capture launches nothing, so it leaves the
+kernels' launch counters as they were; each replay adds what the
+captured step counted (``kernels/_build.py``).  At temperature above 0
+the sampling generator is registered with every graph, so each replay
 draws new numbers, the ones the eager step would have drawn.  A capture
 that fails raises; it leaves PyTorch's CUDA generators in capture mode,
 so the process draws no more random numbers on the card: it is fatal.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -46,9 +62,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.param import tree_leaves
 
-Key = Tuple[str, Optional[int]]
-#: the one key of a batcher on the dense per-slot cache
+Key = Tuple
+#: the one key of a batcher's decode step on the dense per-slot cache
 DENSE_KEY: Key = ("dense", None)
+#: the path each kind of key belongs to
+PATH_OF = {"paged": "decode", "dense": "decode", "prefill": "prefill",
+           "extend": "extend", "restore": "restore"}
+PATHS = ("decode", "prefill", "extend", "restore")
+#: (device, path) whose first call in this process ran eagerly
+_WARMED: Set[Tuple[str, str]] = set()
 
 
 def paged_key(n_active: int, n_logical: int) -> Key:
@@ -68,6 +90,21 @@ def decode_keys(n_logical: Optional[int]) -> List[Key]:
             if n == 1 or n & (n - 1) == 0 or n == n_logical]
 
 
+def prefill_key(b_pad: int, s_pad: int) -> Key:
+    return ("prefill", b_pad, s_pad)
+
+
+def extend_key(b_pad: int, s_pad: int, n_pages: int, n_logical: int) -> Key:
+    """The key of a paged extend whose longest prompt spans ``n_pages``
+    pages: its block table is trimmed to the decode step's width bucket
+    for that page count."""
+    return ("extend", b_pad, s_pad, paged_key(n_pages, n_logical)[1])
+
+
+def restore_key(s_pad: int) -> Key:
+    return ("restore", s_pad)
+
+
 def leaf_addresses(tree) -> Tuple[int, ...]:
     """Data pointers of the tensor leaves of ``tree``, in flatten order."""
     return tuple(t.data_ptr() for t in tree_leaves(tree)
@@ -81,8 +118,8 @@ def check_unmoved(captured: Tuple[int, ...], tree, what: str):
         moved = (len(now) - len(captured) if len(now) != len(captured)
                  else sum(a != b for a, b in zip(now, captured)))
         raise RuntimeError(
-            f"{what}: {moved} input tensor(s) of the captured decode step "
-            "moved since the capture (a graph replays on the addresses it "
+            f"{what}: {moved} input tensor(s) of the captured step moved "
+            "since the capture (a graph replays on the addresses it "
             "captured); the step's state must be updated in place")
 
 
@@ -118,37 +155,48 @@ class _Entry:
 
 
 class StepGraph:
-    """A batcher's decode-step graphs, one per key, in one memory pool.
+    """A batcher's step graphs, one per key, in one memory pool.
 
     ``__call__(key, fn, state, host)`` runs one step: ``fn(state,
     inputs) -> (tokens, state)`` is the plain step over the device
     ``inputs`` (name -> tensor), ``host`` the same inputs as int32 numpy
-    arrays.  Counters: ``eager_steps`` (first calls of a key),
-    ``captures`` and ``replays`` (every call after the first, the one that
-    captures included); ``eager_steps + replays`` is the number of
-    steps."""
+    arrays.  :meth:`stats` counts per path the keys met, the eager calls
+    (the path's first call in the process), the captures, the replays
+    (every other call, those that captured included: ``eager_calls +
+    replays`` is the number of calls) and the graphs dropped
+    (:meth:`drop`)."""
 
     def __init__(self, device, generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
         self.generator = generator
         self.pool = torch.cuda.graph_pool_handle()
         self._entries: Dict[Key, _Entry] = {}
-        self.captures = self.replays = self.eager_steps = 0
+        self._met: Dict[str, Set[Key]] = {p: set() for p in PATHS}
+        self._counts = {p: {"eager_calls": 0, "captures": 0, "replays": 0,
+                            "dropped": 0} for p in PATHS}
 
     def __call__(self, key: Key, fn: Callable, state, host):
+        path = PATH_OF[key[0]]
+        counts = self._counts[path]
+        self._met[path].add(key)
         entry = self._entries.get(key)
         if entry is None:
             entry = self._entries[key] = _Entry(host, self.device)
-            entry.load(host)
-            self.eager_steps += 1
-            return fn(state, entry.inputs)
+            warm = (str(self.device), path)
+            if warm not in _WARMED:
+                entry.load(host)
+                out = fn(state, entry.inputs)
+                _WARMED.add(warm)
+                counts["eager_calls"] += 1
+                return out
         entry.load(host)
         if entry.graph is None:
             self._capture(entry, fn, state)
+            counts["captures"] += 1
         check_unmoved(entry.addresses, (state, entry.inputs), f"key {key}")
         entry.graph.replay()
         _build.add_launch_counts(entry.delta)
-        self.replays += 1
+        counts["replays"] += 1
         return entry.tokens, state
 
     def _capture(self, entry: _Entry, fn: Callable, state):
@@ -166,11 +214,18 @@ class StepGraph:
         entry.graph, entry.tokens = graph, tokens
         entry.delta = _build.launch_delta(before, after)
         entry.addresses = leaf_addresses((state, entry.inputs))
-        self.captures += 1
+
+    def drop(self, path: str):
+        """Drop the graphs of ``path`` (a buffer they write was
+        reallocated): each key captures again at its next visit."""
+        for key in [k for k in self._entries if PATH_OF[k[0]] == path]:
+            if self._entries.pop(key).graph is not None:
+                self._counts[path]["dropped"] += 1
 
     def stats(self) -> dict:
-        return {"keys": len(self._entries), "captures": self.captures,
-                "replays": self.replays, "eager_steps": self.eager_steps}
+        """{path: {keys, eager_calls, captures, replays, dropped}}."""
+        return {p: {"keys": len(self._met[p]), **self._counts[p]}
+                for p in PATHS}
 
     def release(self):
         """Drop every graph and static buffer; the pool's memory returns

@@ -10,7 +10,9 @@ guard; the in-place contract of every decode step the graph relies on
 serves the JAX batcher's tokens on the paged, dense and snapshot planes.
 
 Card (marked ``cuda``, skipped here): in float32 at smoke size, 12 decode
-steps replayed against the same 12 steps run eagerly from the same state,
+steps replayed (each key captured at its first visit, or at its second
+after the path's eager first call in the process) against the same 12
+steps run eagerly from the same state,
 on qwen3-4b paged across two width buckets, on the dense cache, on an
 int8 pool, deepseek-moe-16b, mamba2-2.7b and zamba2-2.7b: identical
 tokens, every cache leaf within rel 1e-6 (the output says whether
@@ -397,10 +399,11 @@ def test_replayed_steps_equal_eager_steps(dev, case):
         assert [r.output for r in graphed.slot_req] == \
             [r.output for r in eager.slot_req]
     torch.cuda.synchronize()
-    g = graphed.step_graph.stats()
-    # one eager step a key, every other step a replay
-    assert g["eager_steps"] == g["keys"] and g["replays"] >= 13 - g["keys"]
-    assert g["replays"] + g["eager_steps"] == graphed.decode_invocations
+    g = graphed.step_graph.stats()["decode"]
+    # one capture a key; an eager step only as the path's first in the
+    # process; every other step a replay
+    assert g["captures"] == g["keys"] and g["eager_calls"] <= 1
+    assert g["replays"] + g["eager_calls"] == graphed.decode_invocations
     if case == "qwen3-paged":
         assert len(keys) == 2, keys
     rels = [_rel(a, b) for a, b in zip(tree_leaves(graphed._decode_state()[1:]),
@@ -434,7 +437,7 @@ def test_replays_draw_new_numbers_at_temperature(dev):
     print(f"[step graph] temperature 0.8: graphed draws equal eager draws: "
           f"{same}; 8 replays at fixed inputs drew {len(set(draws))} "
           f"distinct token pairs")
-    assert graphed.step_graph.replays > 8
+    assert graphed.step_graph.stats()["decode"]["replays"] > 8
     assert len(set(draws)) > 1
     assert same
     graphed.close()
@@ -443,9 +446,9 @@ def test_replays_draw_new_numbers_at_temperature(dev):
 @pytest.mark.cuda
 def test_moved_state_raises(dev):
     tm, graphed, _ = _pair(dev, "qwen3-4b", {"kv_pool": None})
-    for _ in range(3):                   # eager, then capture and replay
+    for _ in range(3):                   # (eager,) capture and replays
         graphed.step()
-    assert graphed.step_graph.captures == 1
+    assert graphed.step_graph.stats()["decode"]["captures"] == 1
     node = graphed.cache["layers"]
     graphed.cache["layers"] = type(node)(*(a.clone() for a in node))
     with pytest.raises(RuntimeError, match="moved"):
@@ -475,13 +478,14 @@ def test_capture_failure_raises(dev):
 
         host = {"tokens": np.zeros((4, 1), np.int32),
                 "pos": np.arange(4, dtype=np.int32)}
-        graphs(DENSE_KEY, fn, (x,), host)           # eager: x = 1 + 6
+        graphs(DENSE_KEY, fn, (x,), host)   # the path's first call: eager
         counts = _build.launch_counts()
         try:
             graphs(DENSE_KEY, fn, (x,), host)
         except RuntimeError as e:
             print("capture raised", type(e).__name__)
-        assert graphs.replays == 0 and graphs.captures == 0
+        g = graphs.stats()["decode"]
+        assert g["replays"] == 0 and g["captures"] == 0, g
         assert _build.launch_counts() == counts
         assert x.tolist() == [7.0] * 4
     """)
