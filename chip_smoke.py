@@ -5,8 +5,9 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, checks that the
 port's batcher gives the same greedy tokens on the card as on the CPU
-(qwen3-4b, deepseek-moe-16b and mixtral-8x7b at smoke size, on the paged,
-dense, token-at-a-time and rolling-window paths), then serves at full
+(qwen3-4b, deepseek-moe-16b, mixtral-8x7b, mamba2-2.7b, zamba2-2.7b and
+seamless-m4t-large-v2 at smoke size, on the paged, dense,
+token-at-a-time, rolling-window and snapshot paths), then serves at full
 width, with random weights from a seed:
 
 * qwen3-4b on the paged pool (prefill, paged extend, paged decode);
@@ -17,7 +18,13 @@ width, with random weights from a seed:
 * mamba2-2.7b (ssm) and zamba2-2.7b (hybrid) on the snapshot pool: the
   SSD scan (one launch of ``ops.ssd``) in every Mamba layer of every
   prefill and suffix extend, a warm wave restored from interned
-  chunk-boundary states; for zamba2 the attention kernels at head dim 80.
+  chunk-boundary states; for zamba2 the attention kernels at head dim 80;
+* seamless-m4t-large-v2 (encdec) on the paged pool, requests with source
+  features of 96..384 frames (one a wave without): every cold prefill and
+  extend encodes its rows' sources in its graph (flash, bidirectional
+  under the source-length mask), the decoder's cross-attention runs
+  flash under the same mask at prefill and the dense decode kernel over
+  the resident cross memory at decode.
 
 bf16 prefill flash attention, bf16 paged extend over a bf16 arena and
 bf16 grouped GEMMs take the tensor-core kernels, float32 ones (and extend
@@ -27,9 +34,12 @@ tensor cores, and phase 4 (float32) that none did (the SSD scan runs on
 CUDA cores in float32 in every dtype).  Paged and dense decode
 are one kernel that splits each row's keys across a thread-block cluster
 in one launch (block-table pages, or a dense cache's live slots); phase 3
-also times paged decode at a long context (kv_len 2048-4096).  Phase 4
-holds the card's greedy tokens to the CPU's on ten cases, an int8 paged
-pool among them.
+also times paged decode at a long context (kv_len 2048-4096), and the
+three calls of the encdec path under a key-length mask (the encoder's
+flash, cross-attention's flash and dense decode over cross memory) as
+rows of their own.  Phase 4 holds the card's greedy tokens to the CPU's
+on twelve cases, an int8 paged pool and seamless with sources among
+them.
 
 The batcher's steps run as CUDA graphs on the card, one per shape key
 (``serve/step_graph.py``): decode by block-table width, the cold prefill
@@ -38,11 +48,12 @@ bucket, width), the snapshot restore by suffix bucket.  A path's first
 call in the process runs eagerly, a key's first visit otherwise captures,
 every later visit replays.  Every served path runs two rounds: round 2
 has a new shared prefix (its first wave is cold again) and new tokens
-with round 1's tail lengths, so it meets round 1's keys, and each phase
+with round 1's tail lengths (and on the encdec path new sources with
+round 1's lengths), so it meets round 1's keys, and each phase
 checks that every round-2 prefill, extend and restore call was a replay,
 that no path captured more graphs than it met keys, that the decode steps
 replayed, and that every launch count stays exact under replay.  Phase
-4's ten cases run both rounds on the CPU and on the card.  Phases 5-9
+4's twelve cases run both rounds on the CPU and on the card.  Phases 5-10
 print each wave's TTFT p50, the peak memory and the graph pool's size,
 then time one decode step of the drained batcher eagerly (the plain step
 function on the batcher's own buffers) and replayed, and one prefill a
@@ -88,6 +99,13 @@ ZAMBA_H, ZAMBA_DH = 32, 80
 # snapshot handles of the full-width pools: one payload is 170 MB for
 # mamba2-2.7b, so the default (slots + 2) * max_len / page would allow 54 GB
 SNAP_PAGES = 64
+# seamless-m4t-large-v2's attention (16 heads of 64, MHA) and its sources:
+# 96..384 frames of d_model, padded to the memory of source_len(MAX_LEN)
+ENC_H, ENC_DH, ENC_D = 16, 64, 1024
+FRAMES_LO, FRAMES_HI = 96, 384
+# the query lengths cross-attention meets on phase 10: the prompt buckets
+# of its cold prefills (72..128 tokens) and extends (8..64)
+CROSS_SQ = (128, 96, 64, 32)
 
 
 def log(msg: str):
@@ -202,6 +220,30 @@ def main_path_rounds(seed: int = 0, vocab: int = 151936):
         1, vocab, size=len(p) - SHARED).astype(np.int32)]) for p in wave]
         for wave in first]
     return first + second
+
+
+def encdec_frames(seed: int = 0) -> list:
+    """The source lengths (frames) of one wave of the encdec path."""
+    rng = np.random.default_rng(seed + 500)
+    return [int(n) for n in rng.integers(FRAMES_LO, FRAMES_HI + 1,
+                                         size=SLOTS)]
+
+
+def encdec_sources(seed: int = 0) -> list:
+    """Sources of the four waves of ``main_path_rounds`` on the encdec
+    path: each round's first wave gets (frames, d_model) normal features
+    of ``encdec_frames`` lengths, its last request none (``src=None``);
+    the round's second wave reuses them request by request (its prefix
+    hits land under their digests); round 2 draws new values with round
+    1's lengths."""
+    rng = np.random.default_rng(seed + 2000)
+    frames = encdec_frames(seed)
+    waves = []
+    for _ in range(2):
+        wave = [rng.standard_normal((n, ENC_D)).astype(np.float32)
+                for n in frames[:-1]] + [None]
+        waves += [wave, wave]
+    return waves
 
 
 def pow2(n: int) -> int:
@@ -338,6 +380,32 @@ def check_kernels(dev, kernels: dict):
             " raises ValueError: ok")
     else:
         raise AssertionError("flash_attention took a bf16 head dim of 72")
+    # flash under a key-length mask at seamless-m4t-large-v2's heads: the
+    # encoder (Sq = Skv, bidirectional), cross-attention to a longer memory
+    # and to a shorter one; row 1 has kv_len 0 (the kernel stores 0, the
+    # plain version the mean of V: checked to be 0), row 2 one above Skv
+    for sq, skv in ((200, 200), (72, 200), (200, 72)):
+        name = ("flash_attention_encoder" if sq == skv
+                else "flash_attention_cross")
+        kl = torch.tensor([skv // 2 + 1, 0, skv + 5], dtype=torch.int32,
+                          device=dev)
+        for dt, tol, why in ((bf16, 2e-2, "bf16 output and P rounding"),
+                             (f32, 2e-5, "f32; summation order")):
+            q = torch.randn((3, sq, ENC_H, ENC_DH), generator=gen,
+                            device=dev).to(dt)
+            k = torch.randn((3, skv, ENC_H, ENC_DH), generator=gen,
+                            device=dev).to(dt)
+            v = torch.randn((3, skv, ENC_H, ENC_DH), generator=gen,
+                            device=dev).to(dt)
+            out = flash_attention(q, k, v, causal=False, kv_len=kl)
+            ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=False,
+                                kv_len=kl).transpose(1, 2)
+            torch.cuda.synchronize()
+            if out[1].any():
+                raise AssertionError(f"{name}: a kv_len 0 row is not 0")
+            hold(name, out[0::2], ref[0::2], tol, why,
+                 f"{dt} Sq{sq} Skv{skv} kv_len {kl.tolist()}")
 
     # dense decode: the DECODE_CASES of tests/test_kernels.py, then the
     # main path's heads over S = 500 (not a multiple of the key tile), in
@@ -383,6 +451,27 @@ def check_kernels(dev, kernels: dict):
         torch.cuda.synchronize()
         hold("decode_attention", out, ref, tol, why,
              f"{dt} rolling S48 window40 slot_pos wrapped")
+    # dense decode over a cross memory (seamless): G 1 at head dim 64,
+    # kv_len = src_len with a row of 0 (stores 0) and one of all 512
+    kl = torch.tensor([96, 384, 0, 512, 200, 97, 255, 1], dtype=torch.int32,
+                      device=dev)
+    for dt, tol, why in [(f32, 2e-5, "f32; summation order"),
+                         (bf16, 2e-2, "bf16 output rounding")]:
+        q = torch.randn((SLOTS, 1, ENC_H, ENC_DH), generator=gen,
+                        device=dev).to(dt)
+        k = torch.randn((SLOTS, MAX_LEN, ENC_H, ENC_DH), generator=gen,
+                        device=dev).to(dt)
+        v = torch.randn((SLOTS, MAX_LEN, ENC_H, ENC_DH), generator=gen,
+                        device=dev).to(dt)
+        out = decode_attention(q, k, v, kl)
+        ref = decode_attention_ref(q[:, 0], k, v, kl)[:, None]
+        torch.cuda.synchronize()
+        if out[2].any():
+            raise AssertionError("decode over cross memory: a src_len 0 row "
+                                 "is not 0")
+        live = [b for b in range(SLOTS) if b != 2]
+        hold("decode_attention_cross", out[live], ref[live], tol, why,
+             f"{dt} B{SLOTS} S{MAX_LEN} Hkv{ENC_H} Dh{ENC_DH} src_len")
 
     # grouped GEMM: the counts sweep of tests/test_kernels.py (all-zero
     # and all-full included), then deepseek-moe-16b's decode (C 8), warm
@@ -526,6 +615,8 @@ def check_kernels(dev, kernels: dict):
             qt, ke, ve, attn_mask=mask), flush=flush),
         **bound(n_bytes, n_ops, bf16))
 
+    time_encdec(dev, gen, flush, kernels, hold)
+
     # grouped GEMM: one deepseek-moe-16b decode call (8 tokens routed
     # top-6 over 64 experts, C 8), the 1024-token cold prefill call (C 192)
     # and the 512-token warm extend call (C 96)
@@ -565,6 +656,68 @@ def check_kernels(dev, kernels: dict):
         log(f"  {name:24s} {rep['shape']}: kernel {rep['ms']:.4f} ms, "
             f"plain {rep['plain_ms']:.4f} ms, library {lib}, bound "
             f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+
+
+def time_encdec(dev, gen, flush, kernels, hold) -> None:
+    """The three kernel calls of the encdec path at seamless-m4t-large-v2's
+    shapes (bf16, 16 heads of 64, the 512-frame memory, kv_len the wave's
+    source lengths 96..384): the encoder's self-attention (B8 S512,
+    bidirectional), cross-attention at prefill (B8 Sq128 against the
+    memory) and at decode (the dense decode kernel, one query a row), each
+    beside its plain version and one ``scaled_dot_product_attention`` call
+    under the same key mask as a boolean mask.  Each flash call is first
+    held against its plain version on the inputs it is timed on, and so is
+    cross-attention at phase 10's other prompt buckets (Sq 96, 64 and 32:
+    cold prefills and extends); decode is held at this shape in
+    :func:`check_kernels`.  The bounds count the keys below
+    kv_len, the only ones the kernels read: K and V bytes of those keys, Q
+    and the output once, and the products 4 * Dh * Hq * Sq * kv_len a
+    row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    bf16, H, Dh, e = torch.bfloat16, ENC_H, ENC_DH, 2
+    frames = encdec_frames()
+    kl = torch.tensor(frames, dtype=torch.int32, device=dev)
+    n_keys = sum(frames)
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(bf16)  # noqa: E731
+    k, v = r(SLOTS, MAX_LEN, H, Dh), r(SLOTS, MAX_LEN, H, Dh)
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(MAX_LEN, device=dev)[None] < kl[:, None]
+            )[:, None, None]                           # (B, 1, 1, S)
+    kv_bytes = n_keys * 2 * H * Dh * e + 4 * SLOTS
+    for name, sq in (("flash_attention_encoder", MAX_LEN),
+                     *(("flash_attention_cross", sq) for sq in CROSS_SQ),
+                     ("decode_attention_cross", 1)):
+        q = r(SLOTS, sq, H, Dh)
+        qt = q.transpose(1, 2).contiguous()
+        if sq == 1:
+            kern = lambda: decode_attention(q, k, v, kl)  # noqa: E731
+            plain = lambda: decode_attention_ref(q[:, 0], k, v, kl)  # noqa: E731
+            what = f"B{SLOTS} S{MAX_LEN} Hkv{H} Dh{Dh} bf16 src_len"
+        else:
+            kern = lambda: flash_attention(q, k, v, causal=False,  # noqa: E731
+                                           kv_len=kl)
+            plain = lambda: attention_ref(qt, kt, vt, causal=False,  # noqa: E731
+                                          kv_len=kl)
+            what = (f"B{SLOTS} Sq{sq} Skv{MAX_LEN} H{H} Dh{Dh} bf16 "
+                    "bidirectional kv_len")
+            out, ref = kern(), plain().transpose(1, 2)
+            torch.cuda.synchronize()
+            hold(name, out, ref, 2e-2, "bf16 output and P rounding",
+                 f"Sq{sq} Skv{MAX_LEN} kv_len {min(frames)}..{max(frames)}")
+            if sq < CROSS_SQ[0]:    # phase 10's other buckets: held only
+                continue
+        kernels[name].update(
+            shape=f"{what} {min(frames)}..{max(frames)}",
+            ms=time_ms(kern, flush=flush),
+            plain_ms=time_ms(plain, flush=flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), flush=flush),
+            **bound(2 * q.numel() * e + kv_bytes,
+                    4 * Dh * H * sq * n_keys, bf16))
 
 
 def ssd_inputs(gen, dev, Bb, S, H, P, G, N):
@@ -1001,6 +1154,13 @@ PARITY = [
     ("zamba2-2.7b dense cache (kv_pool=None)", "zamba2-2.7b",
      dict(max_len=64, prefill_chunk=8, kv_pool=None), 0, 4,
      ([3, 9, 5], [6, 2])),
+    # encdec: every request but one a wave carries a source (parity_run)
+    ("seamless-m4t-large-v2 paged, cold and warm", "seamless-m4t-large-v2",
+     dict(max_len=64, prefill_chunk=8), 0, 5, ([3, 9, 5], [6, 2])),
+    ("seamless-m4t-large-v2 token at a time, dense cache",
+     "seamless-m4t-large-v2",
+     dict(max_len=64, prefill_chunk=None, kv_pool=None), 0, 5,
+     ([3, 9, 5], [6, 2])),
 ]
 
 
@@ -1008,9 +1168,12 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
     """The same smoke model, weights and prompts through the port's
     batcher on the CPU (plain versions) and on the card (kernels), in two
     rounds: round 2 a new shared prefix and new tokens with round 1's tail
-    lengths (its prefills replay on the card).  Returns ({device: {rid:
-    tokens}}, {device: prefix-hit tokens}); on a snapshot pool the hits
-    are the snapshot hits."""
+    lengths (its prefills replay on the card).  An encdec model's requests
+    carry sources: in each round's first wave ragged ones (5..40 frames)
+    but the middle request's (``src=None``), which the second wave reuses
+    request by request.  Returns ({device: {rid: tokens}}, {device:
+    prefix-hit tokens}); on a snapshot pool the hits are the snapshot
+    hits."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
@@ -1022,12 +1185,18 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
                             device="cpu")
     host = tree_map(lambda t: t.numpy(), ref_params)
     rng = np.random.default_rng(prompt_seed)
-    prompts = []
+    prompts, srcs = [], []
     for _ in range(2):
         shared = rng.integers(1, model.cfg.vocab, size=20).astype(np.int32)
         prompts.append([[np.concatenate([shared, rng.integers(
             1, model.cfg.vocab, size=n).astype(np.int32)]) for n in lens]
             for lens in waves])
+        first = [None] * max(len(lens) for lens in waves)
+        if model.cfg.family == "encdec":
+            first = [None if i == 1 else rng.standard_normal(
+                (int(rng.integers(5, 41)), model.cfg.d_model)).astype(
+                np.float32) for i in range(len(first))]
+        srcs.append([first[:len(lens)] for lens in waves])
     toks, hits = {}, {}
     for device in ("cpu", dev):
         params = params_from_numpy(host, dtype=torch.float32, device=device,
@@ -1035,12 +1204,13 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
         bat = ContinuousBatcher(model, params, batch_slots=2, page_size=8,
                                 device=device, **opts)
         rid, mark = 0, None
-        for r, rnd in enumerate(prompts):
+        for r, (rnd, rsrc) in enumerate(zip(prompts, srcs)):
             if r and bat.step_graph is not None:
                 mark = graph_mark(bat)
-            for wave in rnd:            # wave 2 hits wave 1's prefix
-                for p in wave:
-                    bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+            for wave, wsrc in zip(rnd, rsrc):   # wave 2 hits wave 1's prefix
+                for p, src in zip(wave, wsrc):
+                    bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6,
+                                       src=src))
                     rid += 1
                 bat.run_until_drained()
         toks[str(device)] = {r.rid: r.output for r in bat.done}
@@ -1104,9 +1274,10 @@ def full_width(dev, arch: str, tag: str):
     return model, params
 
 
-def serve(bat, waves, counters, *, max_new=MAX_NEW):
+def serve(bat, waves, counters, *, max_new=MAX_NEW, srcs=None):
     """Drive ``bat`` through ``waves`` of prompts (draining between
-    waves) with every launch counter set to 0 just before.  Returns the
+    waves; ``srcs``: the requests' sources, wave by wave) with every
+    launch counter set to 0 just before.  Returns the
     requests, the launches of each counter, the wall time, the wall times
     of the steps that only decoded, and the batcher's :func:`graph_mark`
     before each wave (None on the CPU)."""
@@ -1115,14 +1286,16 @@ def serve(bat, waves, counters, *, max_new=MAX_NEW):
         fn.launches = 0
         if hasattr(fn, "launches_tc"):
             fn.launches_tc = 0
-        if hasattr(fn, "launches_by_capacity"):
-            fn.launches_by_capacity.clear()
+        for by in ("launches_by_capacity", "launches_kv_len"):
+            if hasattr(fn, by):
+                getattr(fn, by).clear()
     reqs, step_s, marks = [], [], []
     t_start = time.monotonic()
-    for wave in waves:
+    for w, wave in enumerate(waves):
         marks.append(graph_mark(bat) if bat.step_graph is not None else None)
-        for p in wave:
-            req = Request(rid=len(reqs), prompt=p, max_new_tokens=max_new)
+        for i, p in enumerate(wave):
+            req = Request(rid=len(reqs), prompt=p, max_new_tokens=max_new,
+                          src=None if srcs is None else srcs[w][i])
             reqs.append(req)
             bat.submit(req)
         while bat.queue or any(r is not None for r in bat.slot_req):
@@ -1269,13 +1442,11 @@ def time_prefill(tag, bat, path: str, name_limit: str, reps: int = 4,
     ending in the tokens' read-back as the batcher's does.  A drained
     batcher's state is scratch, so running it harms nothing."""
     from repro_torch.launch.profile_decode import prefill_call
-    from repro_torch.serve.step_graph import StepGraph
+    from repro_torch.serve.step_graph import StepGraph, to_device
     key, fn, state, host = prefill_call(bat, path)
 
     def eager():
-        inputs = {k: torch.from_numpy(np.array(v)).to(bat.device)
-                  for k, v in host.items()}
-        return fn(state, inputs)[0].tolist()
+        return fn(state, to_device(host, bat.device))[0].tolist()
 
     def replayed():
         return bat._run(key, fn, state, host)[0].tolist()
@@ -1316,14 +1487,14 @@ def time_decode_step(tag, bat, key, name_limit: str,
     replay), ``reps`` calls each in turns, each call ending in the tokens'
     read-back as a step does.  A drained batcher's state is scratch, so
     stepping it harms nothing.  Returns both medians (ms)."""
+    from repro_torch.serve.step_graph import to_device
     host = {"tokens": bat.cur_tok[:, None], "pos": bat.pos}
     if key[0] == "paged":
         host["block_table"] = bat.pool.block_table[:, :key[1]]
 
     def eager():
-        inputs = {k: torch.from_numpy(np.array(v)).to(bat.device)
-                  for k, v in host.items()}
-        return bat._run_step(bat._decode_state(), inputs)[0].tolist()
+        return bat._run_step(bat._decode_state(),
+                             to_device(host, bat.device))[0].tolist()
 
     def replayed():
         return bat._decode(key, host).tolist()
@@ -1620,6 +1791,102 @@ def phase_moe(dev, name_limit: str) -> dict:
     return e2e
 
 
+def phase_encdec(dev, name_limit: str) -> dict:
+    """Full-width seamless-m4t-large-v2 behind the batcher on the paged
+    pool, the two rounds of phase 5 with sources (``encdec_sources``):
+    every cold prefill and every extend encodes its rows' sources (the
+    flash kernel under a key-length mask in each encoder layer) inside its
+    graph; the decoder's self-attention runs flash (cold), paged extend
+    (warm) and paged decode, its cross-attention flash under the source
+    mask (cold and warm) and the dense decode kernel over the resident
+    cross memory (decode)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    model, params = full_width(dev, "seamless-m4t-large-v2", 10)
+    cfg = model.cfg
+    L, E = cfg.num_layers, cfg.encoder_layers
+
+    def batcher():
+        return ContinuousBatcher(model, params, batch_slots=SLOTS,
+                                 max_len=MAX_LEN, page_size=PAGE,
+                                 prefill_chunk=CHUNK, device=dev)
+
+    warm_up(batcher, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    bat = batcher()
+    cross_b = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(bat.resident))
+    counters = (flash_attention, paged_extend_attention,
+                paged_decode_attention, decode_attention)
+    reqs, launches, wall, step_s, marks = serve(
+        bat, main_path_rounds(0, cfg.vocab), counters,
+        srcs=encdec_sources())
+    g = bat.step_graph.stats()
+    cold = g["prefill"]["eager_calls"] + g["prefill"]["replays"]
+    warm = g["extend"]["eager_calls"] + g["extend"]["replays"]
+    # flash launches under a key-length mask, by (Sq, Skv): the encoder's
+    # run at Sq = Skv = the source length, cross-attention's at the
+    # prompt's bucket against it; phase 3 held each of these shapes
+    by_shape = dict(flash_attention.launches_kv_len)
+    s_src = model.source_len(MAX_LEN)
+    unheld = set(by_shape) - {(sq, s_src) for sq in (s_src, *CROSS_SQ)}
+    if unheld:
+        raise AssertionError(f"flash under kv_len at shapes phase 3 did "
+                             f"not hold: {sorted(unheld)}")
+    launches["flash_attention_encoder"] = by_shape.get((s_src, s_src), 0)
+    launches["flash_attention_cross"] = sum(
+        n for (sq, skv), n in by_shape.items() if (sq, skv) != (s_src, s_src))
+    launches["decode_attention_cross"] = launches["decode_attention"]
+    log(f"[10] {cold} cold prefills, {warm} extends, "
+        f"{bat.decode_invocations} decode steps; flash launches under a "
+        f"key-length mask by (Sq, Skv) {by_shape}")
+    expect("cold prefills + extends", cold + warm, bat.prefill_invocations)
+    # a cold prefill: 24 encoder, 24 causal self and 24 cross flash
+    # launches; an extend: 24 encoder and 24 cross flash, 24 paged extend
+    expect("flash (72 a cold prefill, 48 an extend)",
+           launches["flash_attention"], (E + 2 * L) * cold + (E + L) * warm)
+    expect("flash under kv_len, the encoder (24 a prefill or extend)",
+           launches["flash_attention_encoder"], E * (cold + warm))
+    expect("flash under kv_len, cross-attention (24 a prefill or extend)",
+           launches["flash_attention_cross"], L * (cold + warm))
+    expect("paged extend (24 an extend)", launches["paged_extend_attention"],
+           L * warm)
+    # a decode step: 24 paged decode (self) and 24 dense decode (cross)
+    expect("paged decode (24 a step)", launches["paged_decode_attention"],
+           L * bat.decode_invocations)
+    expect("dense decode over cross memory (24 a step)",
+           launches["decode_attention"], L * bat.decode_invocations)
+    expect_tc(launches, "flash_attention", "paged_extend_attention")
+    if min(cold, warm) <= 0:
+        raise AssertionError(f"no cold prefill or no extend: {cold}, {warm}")
+    check_drained(bat.pool, SLOTS * SHARED)
+    e2e = report(10, name_limit, bat, reqs, wall, step_s, launches,
+                 cfg.vocab)
+    e2e["graphs"] = expect_graphed(10, bat)
+    e2e["round2"] = expect_round2_replayed(10, bat, marks[2])
+    e2e["memory"] = memory_report(10, bat)
+    e2e["cross_memory_gb"] = cross_b / 1e9
+    log(f"[10] {bat.pool.prefix_hit_tokens} prefix-hit tokens; resident "
+        f"cross memory {cross_b / 1e9:.3f} GB ({L} layers x {SLOTS} slots "
+        f"x {model.source_len(MAX_LEN)} frames x {ENC_H} x {ENC_DH} x K, V "
+        f"bf16, and src_len)")
+    e2e["step_ab"] = time_decode_step(10, bat, ("paged", 8), name_limit)
+    e2e["prefill_ab"] = {p: time_prefill(10, bat, p, name_limit)
+                         for p in ("cold", "extend")}
+    bat.close()
+    del bat, model, params
+    return e2e
+
+
 def routing_profile(batcher, vocab: int) -> dict:
     """The counts the MoE layers hand the grouped GEMM on phase 7's path:
     the two waves again on a fresh batcher (after the counted run), the
@@ -1688,6 +1955,25 @@ KERNELS = {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
         "path": 8},
+    # the flash kernel under a key-length mask on the encdec path:
+    # launches those of the encoder (Sq = Skv = the source length) and of
+    # cross-attention
+    "flash_attention_encoder": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "path": 10},
+    "flash_attention_cross": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "path": 10},
+    # the dense decode kernel over the resident cross memory
+    "decode_attention_cross": {
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:48",
+        "path": 10},
 }
 
 
@@ -1720,6 +2006,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         with timed(tag):
             runs[tag] = phase_recurrent(dev, name_limit, arch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed(10):
+        runs[10] = phase_encdec(dev, name_limit)
     rows = []
     for name, rep in kernels.items():
         rows.append({"name": name, "route": "cuda", "source": rep["source"],

@@ -4,8 +4,10 @@
 // flash_attention/flash_attention.py::_flash_kernel (wrapper
 // flash_attention_bhsd): tiled causal or bidirectional attention with GQA
 // (q head h reads kv head h / G), q positions offset by Skv - Sq, an
-// optional sliding window, and the online softmax in float32.  The route
-// is by dtype alone:
+// optional sliding window, an optional key-length mask (row b sees keys
+// below kv_len[b]: an encoder's padded source frames, and cross-attention
+// to them, where Skv may be above or below Sq), and the online softmax in
+// float32.  The route is by dtype alone:
 //
 // * bf16: flash_tc_kernel (the body flash_tc_body over a dense key
 //   source, DenseKeys), on the tensor cores.
@@ -46,7 +48,11 @@
 //   online softmax in float32 shared memory (tile_attention.cuh).
 //
 // Any Sq is accepted: the ragged last q tile and kv tile are masked inside
-// the block (the TPU wrapper required Sq % block_q == 0).
+// the block (the TPU wrapper required Sq % block_q == 0).  Under a key-length
+// mask both routes end the row's key walk at min(Skv, kv_len[b]), so tiles
+// past it are never read and the ragged end is the mask; a row with
+// kv_len 0 stores 0 (the JAX plain version's finite -1e30 gives such a row
+// the mean of V instead: callers must not read it).
 //
 // rt_paged_extend_attention replaces flash_attention.py::
 // _paged_extend_kernel (wrapper paged_extend_attention_bhsd): the Sq suffix
@@ -84,19 +90,28 @@ constexpr int kFlashQ = 64;   // q positions per prefill block
 constexpr int kFlashK = 32;   // key positions per prefill kv tile
 constexpr int kExtendQ = 32;  // suffix positions per extend block
 
+// Keys [0, key_limit) of row b take part: all Skv, or with a key-length
+// mask (kv_len != nullptr) the first min(Skv, kv_len[b]).  The walk stops
+// there, so tiles wholly past the limit are never read.
+__device__ __forceinline__ int key_limit(const int* kv_len, int b, int Skv) {
+  return kv_len != nullptr ? max(0, min(Skv, kv_len[b])) : Skv;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_kernel(
     const T* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     const T* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     const T* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     T* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int Sq, int Skv, int G, int Dh, int causal, int window, float scale) {
+    int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
+    float scale) {
   extern __shared__ float smem[];
   const int i0 = blockIdx.x * kFlashQ, hq = blockIdx.y, b = blockIdx.z;
   const int hkv = hq / G;
   const int nr = min(kFlashQ, Sq - i0);
   const int q_lo = Skv - Sq + i0;           // absolute position of row 0
   const int q_hi = q_lo + nr - 1;
+  const int n_keys = key_limit(kv_len, b, Skv);
   Tile t = carve_tile(smem, kFlashQ, kFlashK, Dh);
 
   load_rows(t.q, q + b * q_sb + i0 * q_ss + hq * q_sh, q_ss, 1.f, (float*)nullptr,
@@ -104,13 +119,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   tile_init(t, nr);
   __syncthreads();
 
-  const int n_tiles = (Skv + kFlashK - 1) / kFlashK;
+  const int n_tiles = (n_keys + kFlashK - 1) / kFlashK;
   const int end = causal ? min(n_tiles, q_hi / kFlashK + 1) : n_tiles;
   const T* kb = k + b * k_sb + hkv * k_sh;
   const T* vb = v + b * v_sb + hkv * v_sh;
   for (int kt = 0; kt < end; ++kt) {
     const int k0 = kt * kFlashK;
-    const int nc = min(kFlashK, Skv - k0);
+    const int nc = min(kFlashK, n_keys - k0);
     // every key of the tile is older than the window of the oldest row
     if (window >= 0 && k0 + nc - 1 <= q_lo - window) continue;
     load_rows(t.k, kb + k0 * k_ss, k_ss, 1.f, t.v, vb + k0 * v_ss, v_ss, 1.f, t.ld,
@@ -401,11 +416,14 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
     const bf16* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     const bf16* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int Sq, int Skv, int G, int Dh, int causal, int window, float scale_log2) {
+    int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
+    float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hkv = blockIdx.y, b = blockIdx.z;
+  // q positions stay aligned to the end of all Skv keys; the key source
+  // ends at the row's limit
   const DenseKeys keys{k + b * k_sb + hkv * k_sh, v + b * v_sb + hkv * v_sh, k_ss, v_ss,
-                       Skv, causal, window};
+                       key_limit(kv_len, b, Skv), causal, window};
   flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, Sq, G, Dh, Skv - Sq,
                         scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
 }
@@ -493,15 +511,15 @@ cudaError_t launch_flash(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh
                          const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                          const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                          void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                         int B, int Hq, int Hkv, int Sq, int Skv, int Dh, int causal,
-                         int window, cudaStream_t stream) {
+                         int B, int Hq, int Hkv, int Sq, int Skv, const int* kv_len, int Dh,
+                         int causal, int window, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(kFlashQ, kFlashK, Dh);
   auto kernel = flash_kernel<T>;
   const dim3 grid((Sq + kFlashQ - 1) / kFlashQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), q_sb, q_ss, q_sh, static_cast<const T*>(k), k_sb, k_ss,
       k_sh, static_cast<const T*>(v), v_sb, v_ss, v_sh, static_cast<T*>(out), o_sb, o_ss,
-      o_sh, Sq, Skv, Hq / Hkv, Dh, causal, window, rsqrtf(static_cast<float>(Dh)));
+      o_sh, Sq, Skv, kv_len, Hq / Hkv, Dh, causal, window, rsqrtf(static_cast<float>(Dh)));
   return cudaGetLastError();
 }
 
@@ -510,8 +528,8 @@ cudaError_t launch_flash_tc(const void* q, int64_t q_sb, int64_t q_ss, int64_t q
                             const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                             const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                             void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh, int B,
-                            int Hq, int Hkv, int Sq, int Skv, int Dh, int causal, int window,
-                            cudaStream_t stream) {
+                            int Hq, int Hkv, int Sq, int Skv, const int* kv_len, int Dh,
+                            int causal, int window, cudaStream_t stream) {
   const size_t smem = flash_tc_smem_bytes(Dh);
   auto kernel = flash_tc_kernel<kDhMax>;
   const int G = Hq / Hkv;
@@ -519,7 +537,7 @@ cudaError_t launch_flash_tc(const void* q, int64_t q_sb, int64_t q_ss, int64_t q
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), q_sb, q_ss, q_sh, static_cast<const bf16*>(k), k_sb, k_ss,
       k_sh, static_cast<const bf16*>(v), v_sb, v_ss, v_sh, static_cast<bf16*>(out), o_sb,
-      o_ss, o_sh, Sq, Skv, G, Dh, causal, window,
+      o_ss, o_sh, Sq, Skv, kv_len, G, Dh, causal, window,
       rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -530,8 +548,9 @@ inline cudaError_t launch_flash_bf16(const void* q, int64_t q_sb, int64_t q_ss, 
                                      const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                      const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                      void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                                     int B, int Hq, int Hkv, int Sq, int Skv, int Dh,
-                                     int causal, int window, cudaStream_t stream) {
+                                     int B, int Hq, int Hkv, int Sq, int Skv,
+                                     const int* kv_len, int Dh, int causal, int window,
+                                     cudaStream_t stream) {
   if (Dh % 16 || Dh > 256) return cudaErrorInvalidValue;
   const int64_t strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh |
                           o_sb | o_ss | o_sh;
@@ -540,8 +559,8 @@ inline cudaError_t launch_flash_bf16(const void* q, int64_t q_sb, int64_t q_ss, 
   if (strides % 8 || bases % 16) return cudaErrorMisalignedAddress;
 #define RT_FLASH_TC(DH)                                                                    \
   return launch_flash_tc<DH>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh, \
-                             out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, Dh, causal, window, \
-                             stream)
+                             out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kv_len, Dh, causal, \
+                             window, stream)
   if (Dh <= 64) RT_FLASH_TC(64);
   if (Dh <= 128) RT_FLASH_TC(128);
   RT_FLASH_TC(256);
@@ -623,26 +642,28 @@ extern "C" int rt_prepare_flash() {
 // strides (elements) with a contiguous last dim.  Each returns
 // cudaGetLastError() of its launch.
 
-// q/out: (B, Sq, Hq, Dh); k/v: (B, Skv, Hkv, Dh); window < 0 = none.  float32
-// takes the CUDA-core kernel, bf16 the tensor-core kernel.
+// q/out: (B, Sq, Hq, Dh); k/v: (B, Skv, Hkv, Dh); window < 0 = none; kv_len:
+// (B,) int32 key-length mask (key kp of row b counts iff kp < kv_len[b]) or
+// null.  float32 takes the CUDA-core kernel, bf16 the tensor-core kernel.
 extern "C" int rt_flash_attention(
     const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int B, int Hq, int Hkv, int Sq, int Skv, int Dh, int causal, int window, int dtype,
-    void* stream) {
+    int B, int Hq, int Hkv, int Sq, int Skv, const void* kv_len, int Dh, int causal,
+    int window, int dtype, void* stream) {
   using namespace rt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* kl = static_cast<const int*>(kv_len);
   switch (dtype) {
     case F32:  // CUDA cores: exact float32 products
       return launch_flash<float>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss,
-                                 v_sh, out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, Dh, causal,
-                                 window, s);
+                                 v_sh, out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kl, Dh,
+                                 causal, window, s);
     case BF16:  // tensor cores
       return launch_flash_bf16(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh,
-                               out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, Dh, causal, window,
-                               s);
+                               out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kl, Dh, causal,
+                               window, s);
     default:
       return cudaErrorInvalidValue;
   }

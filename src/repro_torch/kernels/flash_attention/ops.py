@@ -20,34 +20,44 @@ from repro_torch.kernels.flash_attention.ref import (
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, kv_len=None):
     """q: (B, Sq, Hq, Dh); k/v: (B, Skv, Hkv, Dh) -> (B, Sq, Hq, Dh).
 
-    Any Sq and Skv >= Sq; q positions align to the end of the keys.  On
-    the card the route is by dtype alone: bfloat16 launches the
-    tensor-core kernel, which takes ``Dh % 16 == 0`` and ``Dh <= 256``
-    (any other bfloat16 head dim raises ``ValueError``); float32 launches
-    the CUDA-core kernel, whose products stay exact float32.
+    Any Sq; q positions align to the end of the keys, and a causal call
+    needs Skv >= Sq (a bidirectional one takes any Skv).  ``kv_len``: an
+    optional (B,) int32 key-length mask, key ``kp`` of row b counts iff
+    ``kp < kv_len[b]`` (a row with none stores 0 on the card).  On the
+    card the route is by dtype alone: bfloat16 launches the tensor-core
+    kernel, which takes ``Dh % 16 == 0`` and ``Dh <= 256`` (any other
+    bfloat16 head dim raises ``ValueError``); float32 launches the
+    CUDA-core kernel, whose products stay exact float32.
     ``flash_attention.launches`` counts kernel launches,
-    ``flash_attention.launches_tc`` those of the tensor-core kernel."""
+    ``flash_attention.launches_tc`` those of the tensor-core kernel and
+    ``flash_attention.launches_kv_len`` those under a key-length mask,
+    by the call's ``(Sq, Skv)``."""
     if q.device.type == "cpu":
         return attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window).transpose(1, 2)
+            causal=causal, window=window, kv_len=kv_len).transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if (k.shape != (B, Skv, Hkv, Dh) or v.shape != k.shape or Hq % Hkv
-            or Skv < Sq):
+            or (causal and Skv < Sq)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
+                         f"v {tuple(v.shape)} (causal={causal})")
     if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype == torch.int8:
         raise ValueError("q, k and v must share one float dtype")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+    kl = None
+    if kv_len is not None:
+        if kv_len.shape != (B,):
+            raise ValueError("kv_len needs one entry per row")
+        kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     tc = q.dtype == torch.bfloat16
     if tc:
         if Dh % 16 or Dh > 256:
@@ -56,21 +66,26 @@ def flash_attention(q, k, v, *, causal: bool = True,
         q, k, v = (_rows16(t) for t in (q, k, v))
     out = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=q.device)
     fn = _build.kernel("rt_flash_attention",
-                       "PLLL PLLL PLLL PLLL IIIIIIIII P")
+                       "PLLL PLLL PLLL PLLL IIIIIPIIII P")
     rc = fn(q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
             v.data_ptr(), *v.stride()[:3], out.data_ptr(), *out.stride()[:3],
-            B, Hq, Hkv, Sq, Skv, Dh, int(causal),
+            B, Hq, Hkv, Sq, Skv, _build.ptr(kl), Dh, int(causal),
             -1 if window is None else int(window),
             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
     flash_attention.launches += 1
     flash_attention.launches_tc += tc
+    if kl is not None:
+        flash_attention.launches_kv_len[Sq, Skv] = (
+            flash_attention.launches_kv_len.get((Sq, Skv), 0) + 1)
     _build.check(rc, "flash_attention")
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
-_build.count_launches(flash_attention, "launches", "launches_tc")
+flash_attention.launches_kv_len = {}
+_build.count_launches(flash_attention, "launches", "launches_tc",
+                      "launches_kv_len")
 
 
 def _rows16(t):

@@ -16,11 +16,14 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None, kv_len=None):
     """q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh) -> (B, Hq, Sq, Dh).
 
     GQA by head grouping (head h uses kv head h // (Hq//Hkv)); q positions
-    are aligned to the end of the keys (offset Skv - Sq)."""
+    are aligned to the end of the keys (offset Skv - Sq).  ``kv_len``
+    (B,): key ``kp`` of row b counts iff ``kp < kv_len[b]``; a row left
+    with no key gets the mean of V over all Skv keys, as JAX's finite
+    ``NEG_INF`` gives it (the kernels store 0 there)."""
     B, Hq, Sq, Dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -34,6 +37,8 @@ def attention_ref(q, k, v, *, causal: bool = True,
         mask &= q_pos >= k_pos
     if window is not None:
         mask &= k_pos > q_pos - window
+    if kv_len is not None:
+        mask = mask & (k_pos < kv_len.to(q.device).long()[:, None, None, None])
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vf)

@@ -11,13 +11,17 @@
         --prefill cold                   # or extend (paged), restore (ssm)
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         --extra-graphs 2
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
+        --arch seamless-m4t-large-v2 --prefill cold      # or extend
 
 Builds ``--arch`` at full width (bf16, random weights from a seed,
 max_len 512; qwen3-4b by default) and admits one wave of ``--slots``
 prompts through the batcher, on the pool the model takes (paged KV, or
 state snapshots for mamba2-2.7b and zamba2-2.7b, whose decode runs on the
 dense per-slot cache either way) or, with ``--dense``, on the dense
-per-slot cache alone.
+per-slot cache alone.  An encdec model (seamless-m4t-large-v2) gets
+seeded source features with every prompt, 96..384 frames of d_model
+normal values each.
 Then it times ``--steps`` decode steps, runs ``--steps`` more under
 ``torch.profiler`` (which slows the host), and prints the wall time of
 each step, the device-busy time and idle share of the profiled window,
@@ -37,7 +41,11 @@ then): ``cold``, the cold prefill of ``--slots`` prompts of 128 tokens;
 ``extend`` (paged pool), ``--slots`` suffixes of 64 tokens behind a
 64-token prefix; ``restore`` (snapshot pool), the same suffixes through
 the snapshot restore's dense extend over every slot.  The time to first
-token of a served request is this call plus the host's bookkeeping.
+token of a served request is this call plus the host's bookkeeping.  On
+an encdec model each prefill also encodes the rows' sources; the encoder
+alone over the same sources is profiled too (eager calls, device busy),
+and its busy time a call set against the replayed call's: the encoder's
+share of the prefill.
 
 ``--extra-graphs N`` (decode) times the decode replay again with N more
 CUDA graphs of 2000 small kernels each alive beside the batcher's own,
@@ -57,11 +65,10 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs.registry import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import graph_summary
-from repro_torch.models.cache_utils import strip_kv_nodes
 from repro_torch.models.model import build_model
 from repro_torch.serve.batcher import ContinuousBatcher, Request
 from repro_torch.serve.serve_step import prefill_inputs
-from repro_torch.serve.step_graph import extend_key, restore_key
+from repro_torch.serve.step_graph import extend_key, restore_key, to_device
 
 #: the prefill paths of ``--prefill`` and the step-graph path each takes
 PREFILL_PATHS = {"cold": "prefill", "extend": "extend", "restore": "restore"}
@@ -83,13 +90,23 @@ def _busy_us(events) -> float:
     return busy
 
 
+def sources(model, n: int, rng) -> list:
+    """``n`` seeded source features of an encdec model, (96..384 frames,
+    d_model) float32 normal each; [None] * n for another family."""
+    if model.cfg.family != "encdec":
+        return [None] * n
+    return [rng.standard_normal((int(f), model.cfg.d_model))
+            .astype(np.float32) for f in rng.integers(96, 385, size=n)]
+
+
 def prefill_call(bat, path: str, *, prompt_len: int = 128,
                  suffix: int = 64, seed: int = 0):
     """(key, fn, state, host) of one invocation of prefill ``path`` (a key
     of ``PREFILL_PATHS``) on the drained batcher ``bat``: ``bat.B`` random
     prompts of ``prompt_len`` tokens cold; for extend and restore,
     ``bat.B`` suffixes of ``suffix`` tokens behind a prefix of
-    ``prompt_len - suffix``, on consecutive arena pages.  Run it with
+    ``prompt_len - suffix``, on consecutive arena pages; an encdec
+    model's rows each carry a seeded source (:func:`sources`).  Run it with
     ``bat._run(key, fn, state, host)``; a drained batcher's state is
     scratch, so it harms nothing."""
     rng = np.random.default_rng(seed)
@@ -98,14 +115,16 @@ def prefill_call(bat, path: str, *, prompt_len: int = 128,
     def tokens(n):
         return rng.integers(1, V, size=(B, n)).astype(np.int32)
 
+    srcs = sources(bat.model, B, rng)
     if path == "cold":
-        key, host = prefill_inputs(list(tokens(prompt_len)),
+        key, host = prefill_inputs(list(tokens(prompt_len)), srcs,
                                    chunk=bat.prefill_chunk,
-                                   max_len=bat.max_len)
+                                   max_len=bat.max_len, model=bat.model)
         return key, bat._run_prefill, bat._prefill_state(key), host
     host = {"tokens": tokens(suffix),
             "pos": np.full(B, prompt_len - suffix, np.int32),
-            "length": np.full(B, suffix, np.int32)}
+            "length": np.full(B, suffix, np.int32),
+            **bat.model.ranged_batch_extras(srcs, bat.max_len)}
     if path == "restore":
         if not bat._snapshot:
             raise ValueError("--prefill restore needs a snapshot pool "
@@ -119,9 +138,22 @@ def prefill_call(bat, path: str, *, prompt_len: int = 128,
                      pool.n_logical)
     host["block_table"] = (np.arange(B * key[3], dtype=np.int32)
                            .reshape(B, key[3]) % pool.num_pages)
-    state = (bat.params, pool.arena, pool.kv_scales,
-             strip_kv_nodes(pool.template))
+    state = (bat.params, pool.arena, pool.kv_scales, bat._extend_rows(B))
     return key, bat._run_extend, state, host
+
+
+def encoder_busy_ms(bat, host, n: int) -> float:
+    """Device busy time (ms) of the encoder alone over the sources of
+    ``host``, a call: ``n`` eager calls profiled, the union of their
+    kernels' device intervals over ``n``.  Eager calls leave the card idle
+    between launches, which the union leaves out."""
+    inputs = to_device(host, bat.device)
+
+    def call():
+        bat.model._encode(bat.params, inputs["src"], inputs["src_len"])
+        torch.cuda.synchronize()
+    call()
+    return profile_calls(call, n)[3] / n * 1e3
 
 
 def profile_calls(call, n: int):
@@ -173,10 +205,11 @@ def main(argv=None):
                             max_len=512, device=device,
                             kv_pool=None if args.dense else "auto")
     rng = np.random.default_rng(0)
+    srcs = sources(model, args.slots, rng)
     for rid in range(args.slots):
         prompt = rng.integers(1, arch.vocab, size=args.prompt_len)
         bat.submit(Request(rid=rid, max_new_tokens=4 * args.steps + 6,
-                           prompt=prompt.astype(np.int32)))
+                           prompt=prompt.astype(np.int32), src=srcs[rid]))
     if args.prefill:
         bat.run_until_drained()
         key, fn, state, host = prefill_call(bat, args.prefill,
@@ -236,6 +269,11 @@ def main(argv=None):
     print(f"[profile] device busy a call {busy / args.steps * 1e3:.2f} ms, "
           f"{busy / args.steps / np.median(plain):.3f} of the unprofiled "
           f"median")
+    if args.prefill and model.cfg.family == "encdec":
+        enc = encoder_busy_ms(bat, host, args.steps)
+        print(f"[profile] the encoder alone over the same sources: device "
+              f"busy {enc:.2f} ms a call, {enc / (busy / args.steps * 1e3):.3f}"
+              " of the replayed call's")
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=25))
     bat.close()

@@ -6,12 +6,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-2.7b                  # ssm on the snapshot pool
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch seamless-m4t-large-v2        # encdec on the paged pool
 
 The twin of ``repro.launch.serve`` with the same flags plus ``--device``.
 The cache plane is the one ``KVPool.capability``
-picks: paged KV for the dense and MoE families, state snapshots for ssm
-(mamba2-2.7b) and hybrid (zamba2-2.7b), the dense per-slot cache for a
-rolling window.
+picks: paged KV for the dense, MoE and encdec families (encdec: the
+decoder's self-KV paged, the cross memory dense per slot), state
+snapshots for ssm (mamba2-2.7b) and hybrid (zamba2-2.7b), the dense
+per-slot cache for a rolling window.  Requests carry no source features
+(``src=None``), as in ``repro.launch.serve``.
 Weights are random, drawn from a seeded generator on the device.  The
 supervisor and cells come with ROADMAP queue 1 item 10; this driver builds
 the batcher directly.  On the card the decode, prefill, extend and

@@ -5,9 +5,10 @@ KV nodes (:class:`~repro_torch.models.layers.KVSlice`, or a
 :class:`~repro_torch.models.layers.PagedKVCache` view) or dense
 *resident* state: nothing for the dense family, the Mamba states of the
 ssm and hybrid families (hybrid nests its shared-attention KVSlice beside
-them in a ``ZambaGroupCache``).  KV nodes are visited in the order in
-which JAX flattens the same tree: dict keys sorted, NamedTuple fields in
-order.
+them in a ``ZambaGroupCache``), the cross memory and ``src_len`` of the
+encdec decoder (beside its self-KV node in a ``DecCache``).  KV nodes are
+visited in the order in which JAX flattens the same tree: dict keys
+sorted, NamedTuple fields in order.
 
 A *page* is ``page_size`` consecutive positions of one request's KV across
 every layer.  The canonical page layout moves a KV node's (batch, seq)
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.models.layers import KVSlice, PagedKVCache
 from repro_torch.models.param import (
+    init_params,
     is_namedtuple,
     is_pspec,
     resolve_dtype,
@@ -86,8 +88,31 @@ def kv_cache_nodes(cache: Any) -> list:
 def strip_kv_nodes(cache: Any) -> Any:
     """The cache with every KV node replaced by None: the *resident* part
     that stays dense per slot (nothing for the dense family, the Mamba
-    states for ssm and hybrid)."""
+    states for ssm and hybrid, the cross memory for encdec)."""
     return _map_kv(cache, lambda n: None)
+
+
+def init_resident(model, batch: int, max_len: int, device) -> Any:
+    """The resident part of a ``batch``-row cache at its init values,
+    without allocating the KV nodes."""
+    return init_params(strip_kv_nodes(model.cache_specs(batch, max_len)),
+                       None, model.cfg.dtype, device)
+
+
+def install_cross_memory(cache: Any, mem, slots: Sequence[int]) -> Any:
+    """Write encdec cross memory into rows ``slots`` of a cache (a whole
+    cache or its resident part), in place.  ``mem`` = (cross_k (L, B,
+    S_src, Hkv, Dh), cross_v, src_len (B,)) with B == len(slots), as
+    ``Model.encode_cross_rows`` gives it (JAX's batcher's route for a
+    token-at-a-time admission).  Returns ``cache``."""
+    ck, cv, src_len = mem
+    dec = cache["dec_layers"]
+    idx = torch.as_tensor(list(slots), device=dec.cross_k.device)
+    dec.cross_k.index_copy_(1, idx, ck.to(dec.cross_k.dtype))
+    dec.cross_v.index_copy_(1, idx, cv.to(dec.cross_v.dtype))
+    dec.src_len.index_copy_(1, idx, src_len.to(dec.src_len.dtype)[None]
+                            .expand(dec.src_len.shape[0], -1))
+    return cache
 
 
 def rebuild_kv_nodes(template: Any, resident: Any, nodes: list) -> Any:
@@ -175,10 +200,12 @@ def page_arena(model, num_pages: int, page_size: int, device) -> list:
     """Physical page arena: one contiguous canonical ``(num_pages,
     page_size, *rest)`` KVSlice per KV node, k/v zeroed and slot_pos -1
     (every page empty)."""
-    full = model.init_cache(num_pages, page_size, device=device)
+    nodes = init_params(
+        kv_cache_nodes(model.cache_specs(num_pages, page_size)), None,
+        model.cfg.dtype, device)
     axes = kv_node_axes(model, num_pages, page_size)
     return [KVSlice(*(_to_canonical(x, a).contiguous() for x in n))
-            for n, a in zip(kv_cache_nodes(full), axes)]
+            for n, a in zip(nodes, axes)]
 
 
 def extract_row_pages(cache: dict, axes: list, row: int, start_page: int,

@@ -1,0 +1,131 @@
+"""Encoder-decoder layers (SeamlessM4T backbone): the port of
+``repro/models/encdec.py``.
+
+Encoder: bidirectional self-attention + MLP over precomputed source frame
+embeddings (the audio frontend is a stub), pad frames masked by the row's
+``src_len``.  Decoder: causal self-attention (the KV of any cache plane:
+dense or paged) + cross-attention to the encoder output + MLP.
+
+Cross-attention reads a non-positional memory of ``src_len`` valid
+frames.  On a CUDA tensor it runs the port's kernels: a query block
+(prefill, extend) through the flash kernel, bidirectional under the
+key-length mask, and one query a row (decode) through the dense split
+decode kernel, whose live slots are ``[0, min(S_src, src_len))``; on a
+CPU tensor the plain ``chunked_attention`` with the same mask, as JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import (
+    attention_block,
+    attn_specs,
+    chunked_attention,
+    mlp_block,
+    mlp_specs,
+    norm_spec,
+    rms_norm,
+)
+from repro_torch.models.param import PSpec
+
+
+def cross_attn_specs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    dh = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    return {
+        "wq": PSpec((d, hq, dh), ("embed", "heads", None), ("normal", 0)),
+        "wk": PSpec((d, hkv, dh), ("embed", "kv_heads", None), ("normal", 0)),
+        "wv": PSpec((d, hkv, dh), ("embed", "kv_heads", None), ("normal", 0)),
+        "wo": PSpec((hq, dh, d), ("heads", None, "embed"), ("normal", 0)),
+    }
+
+
+def enc_layer_specs(cfg: ArchConfig) -> dict:
+    return {
+        "attn_norm": norm_spec(cfg.d_model),
+        "attn": attn_specs(cfg),
+        "mlp_norm": norm_spec(cfg.d_model),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def dec_layer_specs(cfg: ArchConfig) -> dict:
+    return {
+        "attn_norm": norm_spec(cfg.d_model),
+        "attn": attn_specs(cfg),
+        "cross_norm": norm_spec(cfg.d_model),
+        "cross": cross_attn_specs(cfg),
+        "mlp_norm": norm_spec(cfg.d_model),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+class DecCache(NamedTuple):
+    """The decoder's cache (per layer, or stacked (L, ...) in front).
+
+    ``self_kv`` is the KV node (a KVSlice, or a PagedKVCache view); the
+    cross memory and ``src_len`` are the *resident* part that stays dense
+    per slot.  ``src_len`` 0 (the init value) masks every frame."""
+    self_kv: Any
+    cross_k: Any             # (B, S_src, Hkv, Dh)
+    cross_v: Any
+    src_len: Any             # (B,) int32 valid source frames
+
+
+def enc_layer(lp, x, cfg: ArchConfig, src_len: Optional[torch.Tensor] = None):
+    """Bidirectional encoder layer; ``src_len`` (B,) masks pad frames out
+    of self-attention, so a row's encoding does not depend on how far its
+    batch was padded (outputs AT pad frames are garbage, masked
+    downstream by the same ``src_len``)."""
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    a, _ = attention_block(lp["attn"], h, cfg, mode="train", causal=False,
+                           kv_len=src_len)
+    x = x + a
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    return x + mlp_block(lp["mlp"], h, cfg)
+
+
+def cross_attend(cp, x, ck, cv, cfg: ArchConfig, src_len: torch.Tensor):
+    """x: (B, Sq, D); ck/cv: (B, S_src, Hkv, Dh) precomputed; attention
+    over each row's first ``src_len`` frames."""
+    q = torch.einsum("bsd,dhk->bshk", x, cp["wq"])
+    if not x.is_cuda:
+        out = chunked_attention(q, ck, cv, causal=False,
+                                q_chunk=cfg.attn_q_chunk,
+                                kv_chunk=cfg.attn_kv_chunk, kv_len=src_len)
+    elif q.shape[1] == 1:
+        out = decode_attention(q, ck, cv, src_len)
+    else:
+        out = flash_attention(q, ck, cv, causal=False, kv_len=src_len)
+    return torch.einsum("bshk,hkd->bsd", out, cp["wo"])
+
+
+def cross_kv(cp, memory):
+    ck = torch.einsum("bsd,dhk->bshk", memory, cp["wk"])
+    cv = torch.einsum("bsd,dhk->bshk", memory, cp["wv"])
+    return ck, cv
+
+
+def dec_layer(lp, x, cfg: ArchConfig, *, mode: str, cache: DecCache,
+              pos=None):
+    """One decoder layer over ``cache``, a per-layer DecCache of views.
+    Cross-attention reads the cross memory and ``src_len`` the cache
+    holds in every mode (``Model.encode_cross_into`` writes them), so the
+    mask that shaped prefill cross-attention is replayed at every decode
+    step; the self KV is updated in place by its attention mode.  Returns
+    (x, cache)."""
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    a, _ = attention_block(lp["attn"], h, cfg, mode=mode,
+                           cache=cache.self_kv, pos=pos)
+    x = x + a
+    h = rms_norm(x, lp["cross_norm"], cfg.rms_eps)
+    x = x + cross_attend(lp["cross"], h, cache.cross_k, cache.cross_v, cfg,
+                         cache.src_len)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    return x + mlp_block(lp["mlp"], h, cfg), cache

@@ -1,4 +1,4 @@
-"""Model layers of the dense path: norms, RoPE, attention, MLP, logits.
+"""Model layers: norms, RoPE, attention, MLP, logits.
 
 Attention dispatches on the device of its inputs.  On a CUDA tensor it
 runs the hand-written kernels (``kernels/flash_attention`` for prefill and
@@ -92,11 +92,15 @@ def _block_mask(q_pos, k_pos, causal: bool, window: Optional[int]):
 
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, q_offset: int = 0,
-                      q_chunk: int = 1024, kv_chunk: int = 1024):
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
+                      kv_len=None):
     """Flash-algorithm attention (running max/sum over KV chunks).
 
     q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh); GQA via head grouping.
-    Returns (B, Sq, Hq, Dh)."""
+    kv_len: optional (B,) valid key count per row, keys at positions >=
+    kv_len[b] masked out (an encoder's padded source frames).  A q row
+    with no valid key gets the mean of V over all keys (never NaN), as in
+    JAX; callers must not read it.  Returns (B, Sq, Hq, Dh)."""
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -124,6 +128,9 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                              kg[:, ki].to(F32)) * scale
             s = torch.where(_block_mask(q_pos, k_pos, causal, window), s,
                             NEG_INF)
+            if kv_len is not None:
+                row_ok = k_pos[None, :] < kv_len[:, None]         # (B, kc)
+                s = torch.where(row_ok[:, None, None, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -410,17 +417,33 @@ def _prefill_into(cache: KVSlice, k, v):
 
 
 def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
-                    pos=None) -> Tuple[torch.Tensor, object]:
+                    pos=None, causal: bool = True,
+                    kv_len=None) -> Tuple[torch.Tensor, object]:
     """Full attention sublayer.  Returns (out (B,S,D), updated cache).
 
-    ``prefill`` writes the prompt's K/V into a dense KVSlice (which fixes
-    the cache length; nothing in it is read) in place; ``extend`` and
-    ``decode`` take a :class:`PagedKVCache` or a dense KVSlice and update
-    the cache in place."""
+    ``train`` (an encoder's self-attention) attends positions 0..S-1,
+    ``causal`` or not, under the optional (B,) key-length mask
+    ``kv_len``, and writes no cache.  ``prefill`` writes the prompt's K/V
+    into a dense KVSlice (which fixes the cache length; nothing in it is
+    read) in place; ``extend`` and ``decode`` take a
+    :class:`PagedKVCache` or a dense KVSlice and update the cache in
+    place."""
     B, S, _ = x.shape
     window = cfg.sliding_window
     on_card = x.is_cuda
-    if mode == "prefill":
+    if mode == "train":
+        positions = torch.arange(S, device=x.device)[None, :]
+        q, k, v = qkv_project(p, x, cfg, positions)
+        if on_card:
+            out = flash_attention(q, k, v, causal=causal, window=window,
+                                  kv_len=kv_len)
+        else:
+            out = chunked_attention(q, k, v, causal=causal, window=window,
+                                    q_chunk=cfg.attn_q_chunk,
+                                    kv_chunk=cfg.attn_kv_chunk,
+                                    kv_len=kv_len)
+        new_cache = None
+    elif mode == "prefill":
         positions = torch.arange(S, device=x.device)[None, :]
         q, k, v = qkv_project(p, x, cfg, positions)
         if on_card:

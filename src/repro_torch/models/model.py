@@ -1,12 +1,14 @@
-"""Model assembly for the dense, vlm, moe, ssm and hybrid families: specs,
-init, caches, prefill, ranged prefill, suffix extend, decode, and the
-recurrent-state snapshots of the ssm and hybrid families.
+"""Model assembly for the dense, vlm, moe, ssm, hybrid and encdec
+families: specs, init, caches, prefill, ranged prefill, suffix extend,
+decode, the recurrent-state snapshots of the ssm and hybrid families and
+the cross memory of the encdec family.
 
 The JAX ``Model`` scans a layer function over stacked parameters; here a
 plain Python loop walks the stacked ``(L, ...)`` leaves, stack by stack
 (DeepSeekMoE: its leading dense layers, then the MoE layers; Zamba2: the
-groups of Mamba layers, each followed by the shared attention block), each
-stack with its own cache node.  A paged cache
+groups of Mamba layers, each followed by the shared attention block;
+encdec: the encoder layers over the source, then the decoder layers),
+each stack with its own cache node.  A paged cache
 (:class:`~repro_torch.models.layers.PagedKVCache`) is not stacked per
 layer: one arena per stack serves its layers, the loop rebinds the view's
 ``layer`` index, and attention updates the arena in place.  Prefill,
@@ -14,20 +16,25 @@ decode and extend over a dense per-slot cache (KV and Mamba state alike)
 also write the stacked cache in place: ``prefill`` and ``prefill_ranged``
 into a new cache, as JAX's return one, or on request
 (``prefill_ranged(in_place=True)``) into the cache they were given, the
-state checkpoints into a given tree (``ckpt_out``).
+state checkpoints into a given tree (``ckpt_out``).  The encdec decoder's
+cross memory is written in place too, by ``encode_cross_into`` alone:
+inside a prefill, a suffix extend given the rows' sources, and the
+token-at-a-time admission (into the slot's rows).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import zamba2 as zmb
-from repro_torch.models.cache_utils import mask_pad_slots_
+from repro_torch.models.cache_utils import init_resident, mask_pad_slots_
 from repro_torch.models.layers import (
     KVSlice,
     PagedKVCache,
@@ -52,10 +59,6 @@ from repro_torch.models.param import (
     tree_map_pspec,
 )
 
-#: ROADMAP queue 1 item that ports each family not yet ported
-FAMILY_ITEM = {"encdec": 7}
-
-
 def stack_specs(specs, n: int):
     """Stack per-layer PSpecs along a leading 'layers' dim."""
     def bump(s: PSpec) -> PSpec:
@@ -67,13 +70,9 @@ def stack_specs(specs, n: int):
 
 
 class Model:
-    """The serving surface of one dense, MoE, ssm or hybrid architecture."""
+    """The serving surface of one architecture of any registered family."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family in FAMILY_ITEM:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
-                f"item {FAMILY_ITEM[cfg.family]})")
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, cfg.vocab_pad_multiple)
         self.dtype = DTYPES[cfg.dtype]
@@ -97,6 +96,14 @@ class Model:
                                 cfg.hybrid_attn_every)
             specs["groups"] = stack_specs(inner, self._n_groups)
             specs["shared"] = zmb.shared_block_specs(cfg)
+            return specs
+        if cfg.family == "encdec":
+            specs["src_proj"] = PSpec((d, d), ("embed", None), ("normal", 0))
+            specs["enc_layers"] = stack_specs(
+                encdec_mod.enc_layer_specs(cfg), cfg.encoder_layers)
+            specs["enc_norm"] = norm_spec(d)
+            specs["dec_layers"] = stack_specs(
+                encdec_mod.dec_layer_specs(cfg), cfg.num_layers)
             return specs
         if cfg.family != "moe":
             specs["layers"] = stack_specs(tfm.dense_layer_specs(cfg),
@@ -144,6 +151,17 @@ class Model:
             return {"mamba_layers": stack_specs(
                 self._mamba_state_specs(batch), cfg.num_layers)}
         kv = kv_slice_specs(cfg, batch, max_len)
+        if cfg.family == "encdec":
+            L, s_src = cfg.num_layers, self.source_len(max_len)
+            cross = PSpec((L, batch, s_src, cfg.num_kv_heads,
+                           cfg.resolved_head_dim),
+                          ("layers", "batch", "kv_seq", None, None),
+                          ("const", 0.0))
+            return {"dec_layers": encdec_mod.DecCache(
+                self_kv=stack_specs(kv, L), cross_k=cross, cross_v=cross,
+                # valid source frames per row; 0 (init) = no memory yet
+                src_len=PSpec((L, batch), ("layers", "batch"), ("const", 0),
+                              dtype="int32"))}
         if cfg.family == "hybrid":
             return {"groups": zmb.ZambaGroupCache(
                 mamba=stack_specs(stack_specs(self._mamba_state_specs(batch),
@@ -180,20 +198,29 @@ class Model:
         return init_params(self.cache_specs(batch, max_len), None,
                            self.cfg.dtype, resolve_device(device))
 
+    def source_len(self, seq_len: int) -> int:
+        """Encoder source length for encdec shapes (audio capped at 4k
+        frames): the frames a cache row of ``seq_len`` positions holds."""
+        return int(min(seq_len, 4096) * self.cfg.source_len_ratio)
+
     # -- capabilities (as the JAX Model states them) ---------------------
     @property
     def chunked_prefill_exact(self) -> bool:
         """``prefill_ranged`` is exact on bucket-padded prompts: KV
         families mask pad slots; ssm and hybrid mask pad steps out of the
-        SSD scan and snapshot the conv state at each row's last token."""
+        SSD scan and snapshot the conv state at each row's last token;
+        encdec masks each row's pad source frames by its ``src_len``."""
         return True
 
     @property
     def supports_paged_kv(self) -> bool:
         """Every positional cache leaf is causal KV that can live in a
-        paged arena with prefix sharing.  Recurrent state folds the whole
-        history into one state and shares snapshots instead."""
-        return self.cfg.family in ("dense", "vlm", "moe")
+        paged arena with prefix sharing (encdec: its decoder self-KV, the
+        cross memory riding the dense resident remainder; pages are shared
+        only between requests with byte-identical sources).  Recurrent
+        state folds the whole history into one state and shares snapshots
+        instead."""
+        return self.cfg.family in ("dense", "vlm", "moe", "encdec")
 
     @property
     def supports_snapshot_state(self) -> bool:
@@ -204,8 +231,9 @@ class Model:
     @property
     def decode_state_positional(self) -> bool:
         """Every per-slot cache leaf is position-masked KV, so a reused
-        slot's stale rows are invisible; recurrent state is not, and a
-        token-at-a-time admit must reset it first."""
+        slot's stale rows are invisible; recurrent state and encdec cross
+        memory are not, and a token-at-a-time admit must reset them
+        first."""
         return self.cfg.family in ("dense", "vlm", "moe")
 
     # -- forward ---------------------------------------------------------
@@ -323,6 +351,59 @@ class Model:
             node = node._replace(mamba=(node.mamba, ckpt_out))
         return x, {"groups": node}
 
+    def _encode(self, params, src, src_len=None):
+        """src (B, S_src, d_model) -> encoder memory; ``src_len`` (B,)
+        masks pad frames out of the bidirectional self-attention."""
+        cfg = self.cfg
+        x = src.to(self.dtype) @ params["src_proj"]
+        for i in range(cfg.encoder_layers):
+            lp = tree_map(lambda a: a[i], params["enc_layers"])
+            x = encdec_mod.enc_layer(lp, x, cfg, src_len)
+        return rms_norm(x, params["enc_norm"], cfg.rms_eps)
+
+    def _decode_stack(self, params, x, *, mode, cache, pos=None):
+        """The encdec decoder layers.  Each layer sees a DecCache of views
+        into the stacked cache (its self KV: the dense rows of layer i, or
+        the paged view rebound to layer i; its cross memory), which it
+        updates in place; the cache comes back as it was given."""
+        node = cache["dec_layers"]
+        for i in range(self.cfg.num_layers):
+            lp = tree_map(lambda a: a[i], params["dec_layers"])
+            kv = node.self_kv
+            kv = (kv._replace(layer=i) if isinstance(kv, PagedKVCache)
+                  else KVSlice(*(a[i] for a in kv)))
+            csl = encdec_mod.DecCache(kv, node.cross_k[i], node.cross_v[i],
+                                      node.src_len[i])
+            x, _ = encdec_mod.dec_layer(lp, x, self.cfg, mode=mode,
+                                        cache=csl, pos=pos)
+        return x, cache
+
+    def _encdec_prefill(self, params, batch, cache):
+        """Encode the batch's sources into ``cache``'s cross memory, then
+        the decoder in prefill mode over it (both in place).  Returns (x,
+        cache)."""
+        self.encode_cross_into(params, cache["dec_layers"], batch["src"],
+                               batch.get("src_len"))
+        x = self._embed_tokens(params, batch["tokens"])
+        return self._decode_stack(params, x, mode="prefill", cache=cache)
+
+    def encode_cross_into(self, params, node, src, src_len=None):
+        """Encode sources ``src`` (B, S_src, d_model) into the cross memory
+        and ``src_len`` of ``node``, a stacked DecCache of B rows (or views
+        of some rows), in place: every decoder layer's cross K/V
+        projection of the encoder output; the one writer of cross memory.
+        ``src_len`` None: every frame is valid."""
+        if src_len is None:
+            src_len = torch.full((src.shape[0],), src.shape[1],
+                                 dtype=torch.int32, device=src.device)
+        memory = self._encode(params, src, src_len)
+        for i in range(self.cfg.num_layers):
+            cp = tree_map(lambda a: a[i], params["dec_layers"]["cross"])
+            ck, cv = encdec_mod.cross_kv(cp, memory)
+            node.cross_k[i].copy_(ck)
+            node.cross_v[i].copy_(cv)
+            node.src_len[i].copy_(src_len)
+
     def _last_logits(self, params, x, length):
         last = (length.long() - 1).clamp(0, x.shape[1] - 1)
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
@@ -333,9 +414,12 @@ class Model:
         """Whole prompts (B, S): logits at the last position + new cache
         (``cache`` fixes its shapes and is left untouched)."""
         cache = tree_map(torch.empty_like, cache)
-        x = self._embed_tokens(params, batch["tokens"])
-        x, new_cache = self._backbone(params, x, mode="prefill", cache=cache,
-                                      x0=x)
+        if self.cfg.family == "encdec":
+            x, new_cache = self._encdec_prefill(params, batch, cache)
+        else:
+            x = self._embed_tokens(params, batch["tokens"])
+            x, new_cache = self._backbone(params, x, mode="prefill",
+                                          cache=cache, x0=x)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x)[:, 0], new_cache
 
@@ -345,7 +429,10 @@ class Model:
 
         ``batch`` = {tokens (B, S_pad) int32, length (B,) int32}; row b's
         prompt is ``tokens[b, :length[b]]`` (``length`` 0 marks a dummy
-        padding row).  Returns (logits (B, V) at each row's last real
+        padding row).  encdec batches add {src (B, S_src, d_model),
+        src_len (B,)} (:meth:`ranged_batch_extras`): the encoder runs
+        under the ``src_len`` mask, and the cache carries the cross memory
+        and the mask for decode.  Returns (logits (B, V) at each row's last real
         token, cache exact at each row's length: KV pad slots' ``slot_pos``
         masked to -1, recurrent state untouched by pad steps).
 
@@ -381,12 +468,14 @@ class Model:
             raise ValueError("ckpt_out needs checkpoint_every")
         if not in_place:
             cache = tree_map(torch.empty_like, cache)
-        mask = self._length_mask(tokens, length)
-        x = self._embed_tokens(params, tokens)
-        x, new_cache = self._backbone(params, x, mode="prefill", cache=cache,
-                                      x0=x, mask=mask,
-                                      ckpt_every=checkpoint_every,
-                                      ckpt_out=ckpt_out)
+        if self.cfg.family == "encdec":
+            x, new_cache = self._encdec_prefill(params, batch, cache)
+        else:
+            x = self._embed_tokens(params, tokens)
+            x, new_cache = self._backbone(
+                params, x, mode="prefill", cache=cache, x0=x,
+                mask=self._length_mask(tokens, length),
+                ckpt_every=checkpoint_every, ckpt_out=ckpt_out)
         logits = self._last_logits(params, x, length)
         if checkpoint_every is None:
             return logits, mask_pad_slots_(new_cache, length)
@@ -402,14 +491,24 @@ class Model:
         paged cache, or, for ssm / hybrid, a snapshot restored into the
         dense per-slot cache (the suffix mask keeps pad steps out of the
         scan; a ``length`` 0 row is an identity update, and its attention
-        writes drop when ``pos`` is past the cache).  The cache is updated
-        in place.  Returns (logits at each row's last real suffix token,
-        cache)."""
+        writes drop when ``pos`` is past the cache).  encdec reads its
+        cross memory from the cache; given the rows' sources (``src``,
+        ``src_len`` as :meth:`ranged_batch_extras` makes them, one row per
+        cache row) it first encodes them into the cache's cross memory.
+        The cache is updated in place.  Returns (logits at each row's last
+        real suffix token, cache)."""
         tokens, pos, length = batch["tokens"], batch["pos"], batch["length"]
         x = self._embed_tokens(params, tokens)
-        x, new_cache = self._backbone(params, x, mode="extend", cache=cache,
-                                      pos=pos, x0=x,
-                                      mask=self._length_mask(tokens, length))
+        if self.cfg.family == "encdec":
+            if "src" in batch:
+                self.encode_cross_into(params, cache["dec_layers"],
+                                       batch["src"], batch.get("src_len"))
+            x, new_cache = self._decode_stack(params, x, mode="extend",
+                                              cache=cache, pos=pos)
+        else:
+            x, new_cache = self._backbone(
+                params, x, mode="extend", cache=cache, pos=pos, x0=x,
+                mask=self._length_mask(tokens, length))
         return self._last_logits(params, x, length), new_cache
 
     @staticmethod
@@ -421,10 +520,55 @@ class Model:
     def decode(self, params, cache, batch):
         """One token per row: batch = {tokens (B, 1), pos (B,)}."""
         x = self._embed_tokens(params, batch["tokens"])     # (B,1,D)
-        x, new_cache = self._backbone(params, x, mode="decode", cache=cache,
-                                      pos=batch["pos"], x0=x)
+        if self.cfg.family == "encdec":
+            x, new_cache = self._decode_stack(params, x, mode="decode",
+                                              cache=cache, pos=batch["pos"])
+        else:
+            x, new_cache = self._backbone(params, x, mode="decode",
+                                          cache=cache, pos=batch["pos"],
+                                          x0=x)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x)[:, 0], new_cache
+
+    # -- the batch helpers of the serving layer (family knowledge here) ----
+    def ranged_batch_extras(self, srcs, max_len: int) -> dict:
+        """Extra batch keys of a prefill or extend over ``len(srcs)`` rows,
+        as CPU tensors.  ``srcs``: per-row source features (S_src_i,
+        d_model) or None (no source: zero features, ``src_len`` 0).
+        Families without side inputs return {}; encdec returns {src
+        (B, S_src, d_model) in the model dtype, src_len (B,) int32},
+        padded to the cache's source length so every key has one shape."""
+        if self.cfg.family != "encdec":
+            return {}
+        s_src = self.source_len(max_len)
+        src = torch.zeros((len(srcs), s_src, self.cfg.d_model),
+                          dtype=self.dtype)
+        src_len = torch.zeros((len(srcs),), dtype=torch.int32)
+        for i, s in enumerate(srcs):
+            if s is None:
+                continue
+            n = min(len(s), s_src)
+            src[i, :n] = torch.from_numpy(
+                np.asarray(s, np.float32)[:n]).to(self.dtype)
+            src_len[i] = n
+        return {"src": src, "src_len": src_len}
+
+    def encode_cross_rows(self, params, srcs, max_len: int):
+        """Cross memory rows as JAX's batcher installs them: (cross_k
+        (L, B, S_src, Hkv, Dh), cross_v, src_len (B,)) on the params'
+        device, for :func:`~repro_torch.models.cache_utils.
+        install_cross_memory`; None when this family has no cross memory
+        or no row carries a source.  The port's own batcher encodes
+        straight into a slot's rows (:meth:`encode_cross_into`)."""
+        if self.cfg.family != "encdec" or all(s is None for s in srcs):
+            return None
+        dev = params["src_proj"].device
+        extras = {k: v.to(dev)
+                  for k, v in self.ranged_batch_extras(srcs, max_len).items()}
+        node = init_resident(self, len(srcs), max_len, dev)["dec_layers"]
+        self.encode_cross_into(params, node, extras["src"],
+                               extras["src_len"])
+        return node.cross_k, node.cross_v, extras["src_len"]
 
     # -- recurrent-state snapshots (the ssm / hybrid cache-plane payload) --
     def _split_checkpoints(self, new_cache):

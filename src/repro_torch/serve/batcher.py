@@ -63,6 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.cache_utils import (
     cache_batch_axes,
     clear_kv_row,
+    init_resident,
     load_pages_into_row,
     merge_cache_slots,
     slice_cache_slots,
@@ -93,6 +94,7 @@ from repro_torch.serve.step_graph import (
     StepGraph,
     paged_key,
     restore_key,
+    to_device,
 )
 from repro_torch.serve.tenancy import (
     DEFAULT_TENANT,
@@ -115,6 +117,9 @@ class Request:
     # request bills; ``public`` interns its prompt in the shared namespace
     tenant: str = DEFAULT_TENANT
     public: bool = False
+    # encdec: the request's source features (S_src, d_model); None = no
+    # source (zero cross memory).  Other families ignore it.
+    src: Optional[np.ndarray] = None
 
     @property
     def latency(self) -> Optional[float]:
@@ -192,7 +197,10 @@ class ContinuousBatcher:
         self._resident_axes = strip_kv_nodes(self._cache_axes)
         if self._paged:
             self.cache = None
-            self.resident = strip_kv_nodes(self.pool.template)
+            # the cache's non-paged remainder, dense per slot (encdec: the
+            # cross memory; nothing for the dense and MoE families)
+            self.resident = init_resident(model, batch_slots, max_len,
+                                          self.device)
             self._step = build_paged_serve_step(model, temperature,
                                                 template=self.pool.template)
             self._extend = build_paged_extend_step(
@@ -294,7 +302,8 @@ class ContinuousBatcher:
         t0 = self.rec.clock()
         toks, key = run_prefill_group(
             self._prefill_call, reqs, chunk=self.prefill_chunk,
-            max_len=self.max_len, accounting=self.accounting)
+            max_len=self.max_len, model=self.model,
+            accounting=self.accounting)
         t1 = self.rec.clock()
         span_group(self.rec, "prefill", reqs, t0, t1, kind="cold",
                    batch=len(group))
@@ -336,7 +345,7 @@ class ContinuousBatcher:
             self.step_graph.drop("prefill")
 
     def _prefill_call(self, key, host):
-        """Run the cold prefill at ``key`` on the int32 host arrays; the
+        """Run the cold prefill at ``key`` on the host inputs; the
         first tokens (b_pad,) on the device."""
         return self._run(key, self._run_prefill, self._prefill_state(key),
                          host)[0]
@@ -384,14 +393,24 @@ class ContinuousBatcher:
         self._post_install(slots, reqs, toks[:len(group)])
 
     def _extend_call(self, key, host):
-        """Run the paged extend at ``key`` on the int32 host arrays over
-        the pool's arena: (first tokens on the device, the b_pad rows'
+        """Run the paged extend at ``key`` on the host inputs over the
+        pool's arena: (first tokens on the device, the b_pad rows'
         resident part)."""
         state = (self.params, self.pool.arena, self.pool.kv_scales,
-                 strip_kv_nodes(self.pool.template))
+                 self._extend_rows(key[1]))
         toks, (_, self.pool.arena, self.pool.kv_scales, rows) = self._run(
             key, self._run_extend, state, host)
         return toks, rows
+
+    def _extend_rows(self, b_pad: int):
+        """The resident rows a paged extend of ``b_pad`` rows writes in
+        place: those of the b_pad prefill scratch cache (encdec: the
+        rows' cross memory, which the extend encodes before the decoder
+        stack), or, for a family with no resident state, the template's
+        empty remainder."""
+        if not tree_leaves(self.resident):
+            return strip_kv_nodes(self.pool.template)
+        return strip_kv_nodes(self._scratch(b_pad))
 
     def _intern_snapshot_chains(self, group, rows_cache, ckpts):
         """Intern each cold request's chunk chain: chunk ``lp``'s payload is
@@ -458,9 +477,10 @@ class ContinuousBatcher:
         self._post_install(slots, reqs, first_tokens)
 
     def _merge_resident_rows(self, rows_cache, rows, slots):
-        """Copy the non-paged remainder of the given prefill rows into the
-        batcher's resident tree (the dense and MoE families have none;
-        encdec cross memory comes with ROADMAP queue 1 item 7)."""
+        """Copy the non-paged remainder of the given prefill or extend rows
+        into the batcher's resident tree, in place (``index_copy_``), so
+        the decode graphs' addresses hold (encdec: the cross memory; the
+        dense and MoE families have none)."""
         res = strip_kv_nodes(rows_cache)
         if not tree_leaves(res):
             return
@@ -494,7 +514,10 @@ class ContinuousBatcher:
         """Token-at-a-time admission: the prompt is fed through the decode
         step one token per step.  A reused slot's stale KV is masked by
         position; non-positional slot state (the ssm / hybrid recurrent
-        state) goes back to its init values first."""
+        state, encdec cross memory) goes back to its init values first,
+        then the request's own side state (encdec: its source's cross
+        memory, encoded eagerly straight into the slot's rows) lands in
+        the slot, all in place."""
         if not self.model.decode_state_positional:
             if self._paged:
                 self.resident = merge_cache_slots(
@@ -503,6 +526,15 @@ class ContinuousBatcher:
             else:
                 self.cache = merge_cache_slots(self.cache, self._slot_init(),
                                                self._cache_axes, [slot])
+        if req.src is not None and self.model.cfg.family == "encdec":
+            ex = self.model.ranged_batch_extras([req.src], self.max_len)
+            dec = (self.resident if self._paged else self.cache)["dec_layers"]
+            row = lambda a: a[:, slot:slot + 1]     # noqa: E731
+            self.model.encode_cross_into(
+                self.params, dec._replace(cross_k=row(dec.cross_k),
+                                          cross_v=row(dec.cross_v),
+                                          src_len=row(dec.src_len)),
+                ex["src"].to(self.device), ex["src_len"].to(self.device))
         self.slot_req[slot] = req
         self.pos[slot] = 0
         self.cur_tok[slot] = int(req.prompt[0]) if len(req.prompt) else 0
@@ -637,13 +669,11 @@ class ContinuousBatcher:
         return toks
 
     def _run(self, key, fn, state, host):
-        """``fn(state, inputs) -> (tokens, state)`` on the int32 host arrays
+        """``fn(state, inputs) -> (tokens, state)`` on the host inputs
         ``host``: on the card through ``key``'s CUDA graph, on the CPU
         eagerly."""
         if self.step_graph is None:
-            inputs = {k: torch.from_numpy(np.array(v)).to(self.device)
-                      for k, v in host.items()}
-            return fn(state, inputs)
+            return fn(state, to_device(host, self.device))
         return self.step_graph(key, fn, state, host)
 
     def _decode_state(self) -> tuple:

@@ -33,6 +33,7 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -63,24 +64,45 @@ class PoolExhausted(RuntimeError):
     """No free or evictable page is left — the caller must requeue."""
 
 
+def _src_part(req) -> Optional[tuple]:
+    """The source digest of a ctx key: encdec decoder KV depends on the
+    request's source features as well as its tokens, so prompts share
+    pages only when their sources are byte-identical.  Computed once per
+    source and kept on the request (``_src_digest``, beside the source it
+    digests)."""
+    src = getattr(req, "src", None)
+    if src is None:
+        return None
+    memo = getattr(req, "_src_digest", None)
+    if memo is None or memo[0] is not src:
+        a = np.ascontiguousarray(np.asarray(src))
+        memo = (src, ("src", a.shape, hashlib.sha1(a.tobytes()).hexdigest()))
+        req._src_digest = memo
+    return memo[1]
+
+
 def request_ctx_key(req) -> Optional[tuple]:
-    """Prefix-tree root key for a request: its tenant namespace.  The
-    default tenant keeps the root None; a ``public`` request lives under
-    the shared public root; any other tenant gets a private root."""
+    """Prefix-tree root key for a request: its tenant namespace plus its
+    source digest, if any.  The default tenant keeps the root None (or
+    the bare digest); a ``public`` request lives under the shared public
+    root; any other tenant gets a private root."""
+    src = _src_part(req)
     if getattr(req, "public", False):
-        return ("public",)
+        return ("public",) if src is None else ("public", src)
     tenant = getattr(req, "tenant", DEFAULT_TENANT)
     if tenant != DEFAULT_TENANT:
-        return ("tenant", tenant)
-    return None
+        return ("tenant", tenant) if src is None else ("tenant", tenant, src)
+    return src
 
 
 def public_ctx_key(req) -> Optional[tuple]:
-    """The public-namespace root a granted tenant may match read-only;
-    None when the request already lives there."""
+    """The public-namespace root (with the request's source digest) a
+    granted tenant may match read-only; None when the request already
+    lives there."""
     if getattr(req, "public", False):
         return None
-    return ("public",)
+    src = _src_part(req)
+    return ("public",) if src is None else ("public", src)
 
 
 def _owner(ctx_key, tenant) -> str:
@@ -847,11 +869,13 @@ def run_extend_group(run: Callable, pool: KVPool, reqs,
     pad bucket, each row carries its own prefix offset ``pos``.  The block
     table is width-trimmed to the power-of-two page bucket covering the
     longest prompt.  ``run(key, host)`` runs the extend step at ``key``
-    (``step_graph.extend_key``) on the int32 host arrays {tokens (b_pad,
-    s_pad), pos, length (b_pad,), block_table (b_pad, width)} and returns
-    (first tokens on the device, resident rows); the suffix K/V lands in
-    the pool's arena in place.  Returns (first_tokens, resident rows,
-    b_pad)."""
+    (``step_graph.extend_key``) on the host arrays {tokens (b_pad,
+    s_pad), pos, length (b_pad,), block_table (b_pad, width)} int32 and
+    the model's ``ranged_batch_extras`` of each row's source (encdec: the
+    extend encodes them into the b_pad resident rows before the decoder
+    stack; dummy rows have none) and returns (first tokens on the device,
+    resident rows); the suffix K/V lands in the pool's arena in place.
+    Returns (first_tokens, resident rows, b_pad)."""
     B = len(reqs)
     b_pad = 1 << (B - 1).bit_length()
     P = pool.page_size
@@ -869,9 +893,11 @@ def run_extend_group(run: Callable, pool: KVPool, reqs,
     width = key[3]
     bt = np.full((b_pad, width), pool.sentinel, np.int32)
     bt[:B] = np.asarray(bt_rows, np.int32)[:, :width]
+    srcs = [r.src for r in reqs] + [None] * (b_pad - B)
     toks, rows = run(key, {"tokens": tokens,
                            "pos": np.asarray(prefix, np.int32),
-                           "length": lengths, "block_table": bt})
+                           "length": lengths, "block_table": bt,
+                           **pool.model.ranged_batch_extras(srcs, max_len)})
     if accounting is not None and b_pad != B:
         accounting.record_counter("prefill_dummy_rows", b_pad - B)
     return toks.tolist(), rows, b_pad

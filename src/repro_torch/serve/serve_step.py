@@ -99,12 +99,14 @@ def build_serve_step(model: Model, temperature: float = 0.0) -> Callable:
     return serve_step
 
 
-def prefill_inputs(prompts, *, chunk: int, max_len: int):
-    """The int32 host inputs of ONE prefill over same-bucket prompts,
-    the batch padded to the next power of two with dummy zero-length
-    rows: (key ``("prefill", b_pad, s_pad)``, {tokens (b_pad, s_pad),
-    length (b_pad,)}).  Rows are independent under prefill attention, so
-    the batched invocation equals B single-row ones."""
+def prefill_inputs(prompts, srcs, *, chunk: int, max_len: int, model):
+    """The host inputs of ONE prefill over same-bucket prompts, the batch
+    padded to the next power of two with dummy zero-length rows: (key
+    ``("prefill", b_pad, s_pad)``, {tokens (b_pad, s_pad), length (b_pad,)}
+    int32, plus ``model.ranged_batch_extras`` of the rows' sources
+    ``srcs`` (per-row encdec source features or None)).  Rows are
+    independent under prefill attention, so the batched invocation equals
+    B single-row ones."""
     b_pad = 1 << (len(prompts) - 1).bit_length()
     s_pad = bucket_len(max(len(p) for p in prompts), chunk, max_len)
     tokens = np.zeros((b_pad, s_pad), np.int32)
@@ -115,17 +117,22 @@ def prefill_inputs(prompts, *, chunk: int, max_len: int):
                              f"{s_pad}")
         tokens[i, :len(p)] = p
         lengths[i] = len(p)
-    return prefill_key(b_pad, s_pad), {"tokens": tokens, "length": lengths}
+    extras = model.ranged_batch_extras(
+        list(srcs) + [None] * (b_pad - len(srcs)), max_len)
+    return prefill_key(b_pad, s_pad), {"tokens": tokens, "length": lengths,
+                                       **extras}
 
 
 def run_prefill_group(run: Callable, reqs, *, chunk: int, max_len: int,
-                      accounting=None):
+                      model: Model, accounting=None):
     """ONE prefill invocation over a same-bucket request group:
     ``run(key, host)`` runs the prefill step at ``key`` on the host
-    arrays of :func:`prefill_inputs` and returns the first tokens (b_pad,)
-    on the device.  Returns (first_tokens list, key)."""
-    key, host = prefill_inputs([r.prompt for r in reqs], chunk=chunk,
-                               max_len=max_len)
+    arrays of :func:`prefill_inputs` (with each request's ``src``) and
+    returns the first tokens (b_pad,) on the device.  Returns
+    (first_tokens list, key)."""
+    key, host = prefill_inputs([r.prompt for r in reqs],
+                               [r.src for r in reqs], chunk=chunk,
+                               max_len=max_len, model=model)
     toks = run(key, host).tolist()
     b_pad = key[1]
     if accounting is not None and b_pad != len(reqs):

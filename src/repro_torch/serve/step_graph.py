@@ -20,9 +20,11 @@ key.  A key is a tuple whose first item names its kind:
 At 8 slots, max_len 512 and chunk 32 that is at most 6 decode, 64
 prefill, 384 extend and 16 restore keys, captured as they are met.
 
-Each key has its own static int32 input buffers on the device (tokens,
-length, pos, the trimmed block table: what its step reads); every call
-copies the host's arrays into them through one pinned staging buffer.
+Each key has its own static input buffers on the device (tokens,
+length, pos, the trimmed block table: what its step reads, int32; an
+encdec step's source features in the model dtype), one buffer per dtype;
+every call copies the host's inputs into them through one pinned staging
+buffer per dtype.
 
 The policy, one for every path:
 
@@ -123,35 +125,56 @@ def check_unmoved(captured: Tuple[int, ...], tree, what: str):
             "captured); the step's state must be updated in place")
 
 
+def host_tensor(value) -> torch.Tensor:
+    """A host input as a CPU tensor: a tensor as it is, a numpy array (the
+    int32 inputs; a view, such as the trimmed block table) copied."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.array(value))
+
+
+def to_device(host: Dict, device) -> Dict[str, torch.Tensor]:
+    """The host inputs as new tensors on ``device``: what an eager step
+    reads."""
+    return {k: host_tensor(v).to(device) for k, v in host.items()}
+
+
 class _Entry:
     """One key's static input buffers and, once captured, its graph."""
 
-    def __init__(self, host: Dict[str, np.ndarray], device):
-        self.shapes = {k: np.shape(v) for k, v in host.items()}
-        n = sum(int(np.prod(s)) for s in self.shapes.values())
-        self.staging = torch.empty(n, dtype=torch.int32, pin_memory=True)
-        self.buffer = torch.empty(n, dtype=torch.int32, device=device)
-        self.inputs, self._host, at = {}, {}, 0
-        stage = self.staging.numpy()
-        for k, s in self.shapes.items():
-            size = int(np.prod(s))
-            self.inputs[k] = self.buffer[at:at + size].view(s)
-            self._host[k] = stage[at:at + size].reshape(s)
-            at += size
+    def __init__(self, host: Dict, device):
+        self.shapes = {k: tuple(np.shape(v)) for k, v in host.items()}
+        dtypes = {k: host_tensor(v).dtype for k, v in host.items()}
+        self.inputs, self._host = {}, {}
+        self._copies: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        for dt in dict.fromkeys(dtypes.values()):
+            keys = [k for k in host if dtypes[k] == dt]
+            n = sum(int(np.prod(self.shapes[k])) for k in keys)
+            staging = torch.empty(n, dtype=dt, pin_memory=True)
+            buffer = torch.empty(n, dtype=dt, device=device)
+            at = 0
+            for k in keys:
+                size = int(np.prod(self.shapes[k]))
+                self.inputs[k] = buffer[at:at + size].view(self.shapes[k])
+                self._host[k] = staging[at:at + size].view(self.shapes[k])
+                at += size
+            self._copies.append((buffer, staging))
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tokens = None
         self.delta: _build.Counts = {}
         self.addresses: Tuple[int, ...] = ()
 
-    def load(self, host: Dict[str, np.ndarray]):
-        """Copy the host arrays into the static buffers: one copy, which
-        returns once it has landed, so the staging buffer is free again."""
+    def load(self, host: Dict):
+        """Copy the host inputs into the static buffers: one copy a dtype,
+        which returns once it has landed, so the staging buffers are free
+        again."""
         for k, v in host.items():
-            if np.shape(v) != self.shapes[k]:
+            if tuple(np.shape(v)) != self.shapes[k]:
                 raise ValueError(f"input {k!r} {np.shape(v)} does not fit "
                                  f"the key's {self.shapes[k]}")
-            self._host[k][...] = v
-        self.buffer.copy_(self.staging)
+            self._host[k].copy_(host_tensor(v))
+        for buffer, staging in self._copies:
+            buffer.copy_(staging)
 
 
 class StepGraph:
@@ -159,8 +182,8 @@ class StepGraph:
 
     ``__call__(key, fn, state, host)`` runs one step: ``fn(state,
     inputs) -> (tokens, state)`` is the plain step over the device
-    ``inputs`` (name -> tensor), ``host`` the same inputs as int32 numpy
-    arrays.  :meth:`stats` counts per path the keys met, the eager calls
+    ``inputs`` (name -> tensor), ``host`` the same inputs on the host
+    (int32 numpy arrays, or CPU tensors of another dtype).  :meth:`stats` counts per path the keys met, the eager calls
     (the path's first call in the process), the captures, the replays
     (every other call, those that captured included: ``eager_calls +
     replays`` is the number of calls) and the graphs dropped

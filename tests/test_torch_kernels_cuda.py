@@ -11,7 +11,9 @@ sentinel rows, int8, the grouped GEMM's counts sweep, the SSD scan with
 G 2, an initial state and a ragged mask), plus q lengths, cache lengths,
 GEMM shapes and SSD chunk lengths that are not a multiple of the kernels'
 tiles, a rolling-window dense cache, the attention kernels at zamba2's
-head dim 80, and the SSD scan (``ops.ssd``, one launch) at the chunk
+head dim 80 and at seamless-m4t-large-v2's (G 1, Dh 64: flash under a
+key-length mask, bidirectional with Skv below and above Sq and causal,
+rows with kv_len 0 and above Skv; dense decode over a cross memory), and the SSD scan (``ops.ssd``, one launch) at the chunk
 lengths and widths of mamba2-2.7b and zamba2-2.7b, with and without
 checkpoints, at N 32 to 256.  bf16
 takes the tensor-core flash, paged extend and GEMM kernels: their cases
@@ -155,6 +157,45 @@ def test_flash_attention_kernel(dev, case):
     assert _rel(out, ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
 
 
+# the key-length mask (encdec): B, Hq, Hkv, Sq, Skv, Dh, causal, kv_len
+FLASH_KV_LEN = [
+    (3, 16, 16, 512, 512, 64, False, (384, 96, 0)),       # the encoder
+    (3, 16, 16, 128, 512, 64, False, (200, 512, 0)),      # cross, Skv > Sq
+    (3, 16, 16, 130, 70, 64, False, (70, 33, 0)),         # Skv < Sq
+    (2, 8, 2, 100, 100, 128, True, (64, 1)),              # causal
+    (3, 4, 4, 40, 200, 128, False, (0, 150, 1000)),       # kv_len above Skv
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_KV_LEN)
+def test_flash_attention_kv_len(dev, case, dt):
+    """Both routes under a key-length mask: rows with keys match the plain
+    version; a row with kv_len 0 stores 0 (the plain version gives it the
+    mean of V: the serving path never reads such a row)."""
+    B, Hq, Hkv, Sq, Skv, Dh, causal, kv_lens = case
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((B, Sq, Hq, Dh), generator=g, device=dev).to(dt)
+    k = torch.randn((B, Skv, Hkv, Dh), generator=g, device=dev).to(dt)
+    v = torch.randn((B, Skv, Hkv, Dh), generator=g, device=dev).to(dt)
+    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    f = fops.flash_attention
+    n0 = (f.launches, f.launches_tc, dict(f.launches_kv_len))
+    out = f(q, k, v, causal=causal, kv_len=kl)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        kv_len=kl).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_tc) == (n0[0] + 1,
+                                           n0[1] + (dt == torch.bfloat16))
+    assert f.launches_kv_len[Sq, Skv] == n0[2].get((Sq, Skv), 0) + 1
+    live = [b for b, n in enumerate(kv_lens) if n > 0]
+    assert _rel(out[live], ref[live]) < (2e-2 if dt == torch.bfloat16
+                                         else 2e-5)
+    empty = [b for b, n in enumerate(kv_lens) if n == 0]
+    assert not out[empty].any()
+
+
 def test_flash_attention_bf16_rejects_head_dim(dev):
     """The bf16 route takes Dh % 16 == 0 up to 256 and raises on any other
     head dim; it is not routed to the float32 kernel."""
@@ -230,6 +271,8 @@ DECODE = [
     # G 12 at Dh 192 (nemotron4-340b's heads): two blocks of heads (n_hc
     # 2) and 8 head dims a lane
     (2, 24, 2, 192, 2, 16, 4, (50, 33)),
+    # seamless-m4t-large-v2's decoder self-attention: G 1, Dh 64
+    (8, 16, 16, 64, 3, 16, 8, (80, 128, 65, 100, 72, 1, 90, 127)),
 ]
 
 
@@ -318,6 +361,7 @@ EXTEND = [
     (8, 32, 8, 128, 4, 16, 16, 40, (0, 16, 64, 5, 100, 0, 33, 7)),  # phase 3's offsets
     (2, 8, 2, 192, 2, 16, 6, 24, (3, 70)),                # Dh 192
     (2, 8, 2, 256, 1, 16, 4, 24, (16, 5)),                # Dh 256
+    (8, 16, 16, 64, 3, 16, 8, 64, (64,) * 7 + (0,)),      # seamless: G 1, Dh 64
 ]
 
 
@@ -412,6 +456,24 @@ def test_dense_decode_kernel(dev, case):
     assert (dops.decode_attention.launches,
             dops.paged_decode_attention.launches) == (n0[0] + 1, n0[1])
     assert _rel(out[:, 0], ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_dense_decode_cross_memory(dev, dt):
+    """seamless-m4t-large-v2's cross-attention at decode: G 1 at head dim
+    64 over a 512-frame memory, kv_len = src_len (ragged, one row 0, one
+    the whole memory), no slot_pos."""
+    B, Hq, Hkv, S, Dh = 8, 16, 16, 512, 64
+    q, k, v = _dense_cache(dev, B, Hq, Hkv, S, Dh, dt, seed=5)
+    kl = torch.tensor([96, 384, 0, 512, 200, 97, 255, 1], dtype=torch.int32,
+                      device=dev)
+    out = dops.decode_attention(q, k, v, kl)
+    ref = decode_attention_ref(q[:, 0], k, v, kl)
+    torch.cuda.synchronize()
+    assert not out[2].any()
+    live = [b for b in range(B) if b != 2]
+    assert _rel(out[live, 0], ref[live]) < (2e-2 if dt == torch.bfloat16
+                                            else 2e-5)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

@@ -24,7 +24,7 @@ from repro.models.model import build_model  # noqa: E402
 from repro.sharding.rules import single_device_ctx  # noqa: E402
 from repro_torch.configs.registry import ARCHS as T_ARCHS  # noqa: E402
 from repro_torch.configs.registry import get_arch as t_get_arch  # noqa: E402
-from repro_torch.models.model import FAMILY_ITEM, Model  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.param import params_from_numpy  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -102,14 +102,6 @@ def test_moe_full_width_specs_match_jax_shapes():
     assert tf[("moe_layers", "moe", "w_gate")].shape == (27, 64, 2048, 1408)
     assert tf[("dense_layers", "mlp", "w_up")].shape == (1, 2048, 10944)
     assert tf[("moe_layers", "moe", "router")].dtype == torch.float32
-
-
-@pytest.mark.parametrize("family", sorted(FAMILY_ITEM))
-def test_unported_families_name_their_roadmap_item(family):
-    arch = next(a for a in T_ARCHS.values() if a.family == family)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 item {FAMILY_ITEM[family]}"):
-        Model(arch)
 
 
 def test_init_defaults_to_cuda():

@@ -519,6 +519,83 @@ def test_replayed_prefills_equal_eager_ones(dev, case):
     graphed.close()
 
 
+def _sources(rounds, d, seed=31):
+    """A source per prompt of ``_rounds``: in each round the first cold
+    prompt and the warm one share a source (so the warm one hits under its
+    digest), the second cold prompt has none."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(rounds):
+        a = rng.randn(int(rng.randint(6, 40)), d).astype(np.float32)
+        out += [[a, None], [a]]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"kv_pool": None}], ids=["paged", "dense"])
+def test_encdec_replayed_prefills_equal_eager_ones(dev, kw):
+    """seamless smoke with sources: two rounds through a graphed batcher
+    and an eager one give the same tokens and every state tensor bitwise
+    (the resident cross memory and ``src_len`` included), round 2's
+    prefill and extend calls all replays; each replayed cold prefill
+    launched flash 3 times a decoder layer plus once an encoder layer,
+    each extend the encoder's and the cross-attention's flash and one
+    paged extend a decoder layer."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    arch = "seamless-m4t-large-v2"
+    _warm(dev, arch, kw)
+    graphed = _card_batcher(dev, arch, kw)
+    eager = _card_batcher(dev, arch, kw, graphs=False)
+    cfg = graphed.model.cfg
+    waves = _rounds(cfg.vocab)
+    srcs = _sources(2, cfg.d_model)
+    stats = []
+    for r in range(2):
+        outs = []
+        for bat in (graphed, eager):
+            done0, rid = len(bat.done), 100 * r
+            if bat is graphed:
+                f0 = flash_attention.launches
+                e0 = paged_extend_attention.launches
+                n0 = graphed.prefill_invocations
+            for wave, wsrc in zip(waves[2 * r:2 * r + 2],
+                                  srcs[2 * r:2 * r + 2]):
+                for prompt, src in zip(wave, wsrc):
+                    bat.submit(Request(rid=rid, prompt=prompt,
+                                       max_new_tokens=6, src=src))
+                    rid += 1
+                bat.run_until_drained()
+            if bat is graphed:
+                calls = graphed.prefill_invocations - n0
+                ext = paged_extend_attention.launches - e0
+                flash = flash_attention.launches - f0
+            outs.append({q.rid: q.output for q in bat.done[done0:]})
+        torch.cuda.synchronize()
+        assert outs[0] == outs[1]
+        bitwise = [torch.equal(a, b) for a, b in
+                   zip(_state_leaves(graphed), _state_leaves(eager))]
+        stats.append(graphed.step_graph.stats())
+        print(f"[prefill graph] seamless {kw} round {r + 1}: {stats[-1]}; "
+              f"state leaves bitwise equal: {sum(bitwise)} of "
+              f"{len(bitwise)}")
+        assert all(bitwise)
+        n_ext = ext // cfg.num_layers
+        assert flash == (
+            (cfg.encoder_layers + 2 * cfg.num_layers) * (calls - n_ext)
+            + (cfg.encoder_layers + cfg.num_layers) * n_ext)
+        assert n_ext == (1 if kw == {} else 0)
+    for path, g in stats[1].items():
+        assert g["eager_calls"] == 0 and g["dropped"] == 0, (path, g)
+        if path != "decode" and g["keys"]:
+            assert g["captures"] == stats[0][path]["captures"], stats
+    assert graphed.resident is None or float(
+        graphed.resident["dec_layers"].cross_k.abs().max()) > 0
+    graphed.close()
+
+
 @pytest.mark.cuda
 def test_workspace_regrowth_recaptures(dev):
     """mamba2 on the snapshot pool: a one-row cold prefill, then a

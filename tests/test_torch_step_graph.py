@@ -16,7 +16,8 @@ steps run eagerly from the same state,
 on qwen3-4b paged across two width buckets, on the dense cache, on an
 int8 pool, deepseek-moe-16b, mamba2-2.7b and zamba2-2.7b: identical
 tokens, every cache leaf within rel 1e-6 (the output says whether
-bitwise); at temperature 0.8 the draws differ from replay to replay and
+bitwise); seamless-m4t-large-v2 with a source, paged and dense: identical
+tokens and every state tensor bitwise, the cross memory included; at temperature 0.8 the draws differ from replay to replay and
 equal the eager draws; a moved state tensor and a step that cannot be
 captured raise.
 
@@ -186,7 +187,8 @@ def test_every_kernel_wrapper_registers_its_counters():
     reg = {fn: names for fn, names in _build.COUNTED}
     assert reg[paged_decode_attention] == ("launches",)
     assert reg[decode_attention] == ("launches",)
-    assert reg[flash_attention] == ("launches", "launches_tc")
+    assert reg[flash_attention] == ("launches", "launches_tc",
+                                    "launches_kv_len")
     assert reg[paged_extend_attention] == ("launches", "launches_tc")
     assert reg[gmm] == ("launches", "launches_tc", "launches_by_capacity")
     assert reg[ssd] == ("launches",)
@@ -414,6 +416,59 @@ def test_replayed_steps_equal_eager_steps(dev, case):
     print(f"[step graph] {case}: {g}; cache leaves max rel "
           f"{max(rels):.3e}, bitwise equal: {bitwise}")
     assert max(rels) <= 1e-6
+    graphed.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"kv_pool": None}], ids=["paged", "dense"])
+def test_encdec_replayed_decode_equals_eager(dev, kw):
+    """seamless smoke, one request with a 30-frame source and one with
+    none: after the same prefill, 12 decode steps replayed and eager give
+    the same tokens and every state tensor bitwise (the cross memory and
+    ``src_len`` in the resident tree or the dense cache included); each
+    step launched one self and one cross decode a decoder layer (paged:
+    paged decode for self; dense: dense decode for both)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    tm = Model(t_smoke_config(t_get_arch("seamless-m4t-large-v2"))
+               .replace(dtype="float32"))
+    tp = tm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    kw = {"batch_slots": 2, "max_len": 64, "page_size": PAGE,
+          "prefill_chunk": 8, **kw}
+    graphed = ContinuousBatcher(tm, tp, device=dev, **kw)
+    eager = ContinuousBatcher(tm, tp, device=dev, **kw)
+    eager.step_graph = None
+    src = np.random.RandomState(2).randn(30, tm.cfg.d_model).astype(
+        np.float32)
+    for bat in (graphed, eager):
+        for i, (p, s) in enumerate(zip(_prompts(tm.cfg.vocab, [3, 9]),
+                                       (src, None))):
+            bat.submit(Request(rid=i, prompt=p, max_new_tokens=16, src=s))
+        bat.step()
+    for dst, s in zip(tree_leaves(eager._decode_state()[1:]),
+                      tree_leaves(graphed._decode_state()[1:])):
+        dst.copy_(s)
+    L = tm.cfg.num_layers
+    for _ in range(12):
+        n0 = (decode_attention.launches, paged_decode_attention.launches)
+        graphed.step()
+        n1 = (decode_attention.launches, paged_decode_attention.launches)
+        eager.step()
+        assert [r.output for r in graphed.slot_req] == \
+            [r.output for r in eager.slot_req]
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == (
+            (2 * L, 0) if graphed.pool is None else (L, L))
+    torch.cuda.synchronize()
+    g = graphed.step_graph.stats()["decode"]
+    assert g["replays"] >= 12 - g["eager_calls"]
+    leaves = list(zip(tree_leaves(graphed._decode_state()[1:]),
+                      tree_leaves(eager._decode_state()[1:])))
+    bitwise = all(torch.equal(a, b) for a, b in leaves)
+    print(f"[step graph] seamless {'dense' if 'kv_pool' in kw else 'paged'}: {g}; state "
+          f"leaves bitwise equal: {bitwise}")
+    assert bitwise
     graphed.close()
 
 
