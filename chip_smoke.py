@@ -60,6 +60,19 @@ function on the batcher's own buffers) and replayed, and one prefill a
 path (``time_prefill``: cold prefill, paged extend or restore) eagerly,
 at a first visit (capture, instantiate, replay) and replayed.
 
+Phase 11 serves full-width qwen3-4b in two cells of one supervisor on
+the card (``repro_torch.core``): cell ``a``, with phase 5's weights and
+batcher, serves phase 5's round 1 while cell ``b`` serves a wave of its
+own, stepped in turns, and must give phase 5's tokens; a daemon tick
+under an SLO set below ``a``'s measured TTFT moves a column ``b -> a``
+(dropping ``a``'s graphs, moving its epoch on), and ``a``'s round 2,
+recaptured at the new epoch, must give phase 5's tokens and prefix hits;
+every request ends with a closed span tree in its cell's flight
+recorder; a channel carries one request's pages bitwise; destroying
+``b`` frees its weights.  It prints the supervisor's verb times, the
+decode step with the recorder live and the Chrome trace's size, and its
+launches add to the main path's rows of the kernels line.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -1274,14 +1287,8 @@ def full_width(dev, arch: str, tag: str):
     return model, params
 
 
-def serve(bat, waves, counters, *, max_new=MAX_NEW, srcs=None):
-    """Drive ``bat`` through ``waves`` of prompts (draining between
-    waves; ``srcs``: the requests' sources, wave by wave) with every
-    launch counter set to 0 just before.  Returns the
-    requests, the launches of each counter, the wall time, the wall times
-    of the steps that only decoded, and the batcher's :func:`graph_mark`
-    before each wave (None on the CPU)."""
-    from repro_torch.serve.batcher import Request
+def reset_counters(counters):
+    """Set every launch counter of ``counters`` to 0."""
     for fn in counters:
         fn.launches = 0
         if hasattr(fn, "launches_tc"):
@@ -1289,9 +1296,34 @@ def serve(bat, waves, counters, *, max_new=MAX_NEW, srcs=None):
         for by in ("launches_by_capacity", "launches_kv_len"):
             if hasattr(fn, by):
                 getattr(fn, by).clear()
+
+
+def read_counters(counters) -> dict:
+    """{name: launches} of ``counters`` (and ``name_tc``: those on the
+    tensor cores)."""
+    launches = {}
+    for fn in counters:
+        launches[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_tc"):
+            launches[fn.__name__ + "_tc"] = fn.launches_tc
+    return launches
+
+
+def serve(bat, waves, counters, *, max_new=MAX_NEW, srcs=None, hits=None):
+    """Drive ``bat`` through ``waves`` of prompts (draining between
+    waves; ``srcs``: the requests' sources, wave by wave) with every
+    launch counter set to 0 just before.  Returns the
+    requests, the launches of each counter, the wall time, the wall times
+    of the steps that only decoded, and the batcher's :func:`graph_mark`
+    before each wave (None on the CPU).  ``hits``, a list, gets the
+    pool's prefix-hit tokens before each wave and after the last."""
+    from repro_torch.serve.batcher import Request
+    reset_counters(counters)
     reqs, step_s, marks = [], [], []
     t_start = time.monotonic()
     for w, wave in enumerate(waves):
+        if hits is not None:
+            hits.append(bat.pool.prefix_hit_tokens)
         marks.append(graph_mark(bat) if bat.step_graph is not None else None)
         for i, p in enumerate(wave):
             req = Request(rid=len(reqs), prompt=p, max_new_tokens=max_new,
@@ -1307,12 +1339,9 @@ def serve(bat, waves, counters, *, max_new=MAX_NEW, srcs=None):
                 step_s.append(time.monotonic() - t)
     torch.cuda.synchronize()
     wall = time.monotonic() - t_start
-    launches = {}
-    for fn in counters:
-        launches[fn.__name__] = fn.launches
-        if hasattr(fn, "launches_tc"):
-            launches[fn.__name__ + "_tc"] = fn.launches_tc
-    return reqs, launches, wall, step_s, marks
+    if hits is not None:
+        hits.append(bat.pool.prefix_hit_tokens)
+    return reqs, read_counters(counters), wall, step_s, marks
 
 
 def graph_mark(bat) -> tuple:
@@ -1563,8 +1592,9 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
     bat = batcher()
     counters = (flash_attention, paged_extend_attention,
                 paged_decode_attention)
+    hits = []
     reqs, launches, wall, step_s, marks = serve(bat, main_path_rounds(),
-                                                counters)
+                                                counters, hits=hits)
     # the main path went through all three kernels, every layer
     L = cfg.num_layers
     if min(launches.values()) <= 0:
@@ -1574,6 +1604,10 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
     expect_tc(launches, "flash_attention", "paged_extend_attention")
     check_drained(bat.pool, SLOTS * SHARED)
     e2e = report(5, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+    # what phase 11's cell a must reproduce, round by round
+    e2e["tokens_by_round"] = [[r.output for r in reqs[:2 * SLOTS]],
+                              [r.output for r in reqs[2 * SLOTS:]]]
+    e2e["hits_by_round"] = [hits[2] - hits[0], hits[4] - hits[2]]
     e2e["graphs"] = expect_graphed(5, bat)
     e2e["round2"] = expect_round2_replayed(5, bat, marks[2])
     e2e["memory"] = memory_report(5, bat)
@@ -1921,6 +1955,314 @@ def routing_profile(batcher, vocab: int) -> dict:
     return prof
 
 
+# --------------------------------------------------------------------------
+# phase 11: two serve cells under the supervisor and its daemon
+# --------------------------------------------------------------------------
+def drive_cells(cells: dict, rids: dict, step_s: dict):
+    """Step every cell's batcher in turns until each has drained all its
+    waves: ``cells`` maps a name to (cell, batcher, waves, max_new), a
+    cell's next wave submitted once its batcher drained the previous one
+    (as ``serve`` does), its requests numbered on from ``rids[name]``.
+    Each step ends with the cell's heartbeat (the liveness its
+    supervisor's health check reads).  Returns {name: requests}; the wall
+    times of each cell's steps that only decoded are
+    appended to ``step_s[name]``."""
+    from repro_torch.serve.batcher import Request
+    reqs = {name: [] for name in cells}
+    pending = {name: list(w) for name, (_, _, w, _) in cells.items()}
+
+    def busy(bat):
+        return bat.queue or any(r is not None for r in bat.slot_req)
+
+    while True:
+        live = 0
+        for name, (cell, bat, _, max_new) in cells.items():
+            if not busy(bat) and pending[name]:
+                for p in pending[name].pop(0):
+                    req = Request(rid=rids[name], prompt=p,
+                                  max_new_tokens=max_new)
+                    rids[name] += 1
+                    reqs[name].append(req)
+                    bat.submit(req)
+            if not busy(bat):
+                continue
+            live += 1
+            before = (bat.prefill_invocations, bat.decode_invocations)
+            t = time.monotonic()
+            bat.step()
+            if bat.prefill_invocations == before[0] and \
+                    bat.decode_invocations > before[1]:
+                step_s[name].append(time.monotonic() - t)
+            cell.heartbeat()
+        if not live:
+            break
+    torch.cuda.synchronize()
+    return reqs
+
+
+def check_span_trees(tag, rec, reqs):
+    """Every request ended with one closed span tree in the cell's
+    recorder: a closed root, every span of its trace parented to it, no
+    span left open."""
+    if rec.open_spans:
+        raise AssertionError(f"[{tag}] spans left open: "
+                             f"{[s.name for s in rec.open_spans]}")
+    roots = {e["trace_id"]: e for e in rec.log if e["name"] == "request"}
+    rids = {r.rid for r in reqs}
+    if set(roots) != rids or any(e["dur"] is None for e in roots.values()):
+        raise AssertionError(f"[{tag}] request roots {sorted(roots)} for "
+                             f"requests {sorted(rids)}")
+    for e in rec.log:
+        tid = e["trace_id"]
+        if tid is None or e["name"] == "request":
+            continue
+        if e["parent_id"] != roots[tid]["span_id"]:
+            raise AssertionError(f"[{tag}] span {e} is not parented to its "
+                                 "request's root")
+    names = sorted({e["name"] for e in rec.log})
+    log(f"[{tag}] {len(roots)} closed span trees, "
+        f"{len(rec.log)} events ({names}), none open")
+
+
+def check_ttft_sketch(tag, acct):
+    """The recorder's TTFT p50 (a log-bucket sketch of rel_err 0.01, its
+    rank ceil(n / 2)) is within 1% of that order statistic of the request
+    log ``serving_summary`` reads; ``serving_summary``'s p50 interpolates
+    between it and the next one."""
+    ttft = sorted(r.ttft for r in acct.requests)
+    k = int(np.ceil(0.5 * len(ttft)))
+    sketch = acct.recorder.hists["ttft_s"].quantile(0.5)
+    summary = acct.serving_summary()["ttft_p50"]
+    if not (abs(sketch - ttft[k - 1]) <= 0.01 * ttft[k - 1]
+            and ttft[k - 1] <= summary <= ttft[min(k, len(ttft) - 1)]):
+        raise AssertionError(
+            f"[{tag}] recorder TTFT p50 {sketch} vs the log's order "
+            f"statistic {ttft[k - 1]} (serving_summary p50 {summary})")
+    return sketch, summary
+
+
+def verb_seconds(events) -> dict:
+    """Seconds of each supervisor verb in the event log: create, the
+    transfer with the moves of its two resizes, destroy."""
+    out = {}
+    for e in events:
+        if e["op"] in ("create", "destroy"):
+            out[f"{e['op']} {e['cell']}"] = e["seconds"]
+        elif e["op"] == "transfer":
+            key = f"transfer {e['src']}->{e['dst']}"
+            out[key] = e["seconds"]
+            out[key + " shrink"] = e["resize_seconds"]["shrink"]
+            out[key + " grow"] = e["resize_seconds"]["grow"]
+    return out
+
+
+def phase_cells(dev, name_limit: str, ref: dict) -> dict:
+    """Full-width qwen3-4b in two serve cells of one supervisor on this
+    card (a 1x1x4 grid, the device repeated): cell ``a`` (2 columns, a
+    TTFT SLO) with phase 5's weight seed and batcher serves phase 5's
+    round 1 while cell ``b`` (2 columns, another seed) serves a wave of
+    its own, stepped in turns; ``a``'s tokens must be phase 5's.  Then a
+    daemon tick under an SLO set below ``a``'s measured TTFT moves a
+    column ``b -> a`` (``a``'s graphs dropped, its epoch moved on), and
+    ``a`` serves round 2, recapturing its graphs at the new epoch: tokens
+    and prefix hits must be phase 5's round 2.  A channel ``a -> b``
+    carries one request's pages, bitwise; destroying ``b`` frees its
+    weights.  Both cells' batchers report to their cell's flight
+    recorder throughout."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (
+        CellSpec,
+        ClusterSpec,
+        DeviceGrid,
+        SLOTarget,
+        Supervisor,
+        SupervisorDaemon,
+        chrome_trace,
+        collect_traces,
+        tree_bytes,
+    )
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.models.cache_utils import read_arena_pages
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.serve.kvpool import request_ctx_key
+
+    cfg = get_arch("qwen3-4b")
+    L = cfg.num_layers
+    sup = Supervisor(DeviceGrid.from_flat([dev], 1, 1, 4, allow_reuse=True))
+    spec = ClusterSpec(cells=(
+        CellSpec("a", cfg, "serve", ncols=2, min_ncols=1, max_ncols=3,
+                 slo=SLOTarget(ttft_p99=60.0)),
+        CellSpec("b", cfg, "serve", ncols=2, min_ncols=1, max_ncols=3)))
+    sup.apply(spec)
+    a, b = sup.cells["a"], sup.cells["b"]
+    t0 = time.monotonic()
+    for cell, seed in ((a, 0), (b, 1)):
+        cell.init_serve(generator=torch.Generator(device=dev)
+                        .manual_seed(seed))
+    torch.cuda.synchronize()
+    b_weights = tree_bytes(b.serve_params)
+    log(f"[11] cells a and b of {cfg.name} at full width (seeds 0 and 1): "
+        f"zones {[(z.name, z.c0, z.c1) for z in sup.table.zones]}, epoch "
+        f"{sup.table.epoch}, weights {time.monotonic() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    kw = dict(batch_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+              prefill_chunk=CHUNK)
+    bat_a, bat_b = a.make_batcher(**kw), b.make_batcher(**kw)
+    daemon = SupervisorDaemon(sup)
+    daemon.add_slo_policy("a", donor="b")
+    rounds = main_path_rounds()
+    b_wave = main_path_prompts(7, cfg.vocab)[0]
+    counters = (flash_attention, paged_extend_attention,
+                paged_decode_attention)
+    rids = {"a": 0, "b": 0}
+    step_s = {"a": [], "b": []}
+    hits = [bat_a.pool.prefix_hit_tokens]
+
+    # round 1 on a beside a wave of b's, stepped in turns
+    reset_counters(counters)
+    t0 = time.monotonic()
+    reqs = drive_cells({"a": (a, bat_a, rounds[:2], MAX_NEW),
+                        "b": (b, bat_b, [b_wave], MAX_NEW)}, rids, step_s)
+    wall1 = time.monotonic() - t0
+    hits.append(bat_a.pool.prefix_hit_tokens)
+    r1 = [r.output for r in reqs["a"]]
+    if r1 != ref["tokens_by_round"][0]:
+        bad = [i for i, (x, y) in enumerate(zip(r1, ref["tokens_by_round"][0]))
+               if x != y]
+        raise AssertionError(f"[11] cell a's round 1 differs from phase 5's "
+                             f"at requests {bad}")
+    if hits[1] - hits[0] != ref["hits_by_round"][0]:
+        raise AssertionError(f"[11] round 1 hit {hits[1] - hits[0]} prefix "
+                             f"tokens, phase 5 {ref['hits_by_round'][0]}")
+    log(f"[11] round 1 on a beside b's wave: a's {len(r1)} requests' tokens "
+        f"equal phase 5's round 1, {hits[1] - hits[0]} prefix-hit tokens "
+        f"as phase 5; b served {len(reqs['b'])} requests; {wall1:.2f} s")
+    check_span_trees("11 a", a.accounting.recorder, reqs["a"])
+    check_span_trees("11 b", b.accounting.recorder, reqs["b"])
+    sketch, summary = check_ttft_sketch("11 a", a.accounting)
+    log(f"[11] a's TTFT p50: recorder sketch {sketch * 1e3:.3f} ms, "
+        f"serving_summary {summary * 1e3:.3f} ms (interpolated)")
+
+    # the daemon: an SLO below a's measured TTFT moves a column b -> a
+    ttft_p99 = a.accounting.tenant_percentile("ttft", 99)
+    sup.apply(sup.desired.with_cell(CellSpec(
+        "a", cfg, "serve", ncols=2, min_ncols=1, max_ncols=3,
+        slo=SLOTarget(ttft_p99=ttft_p99 / 2))))
+    epoch, g0 = a.zone_epoch, bat_a.step_graph.stats()
+    captured0 = len(bat_a.step_graph.captured())
+    tick = daemon.tick()
+    acts = [x for x in tick["actions"] if x["kind"] == "grow_server"]
+    why = daemon.audit.query(kind="grow_server", cell="a")
+    g1 = bat_a.step_graph.stats()
+    dropped = sum(g1[p]["dropped"] - g0[p]["dropped"] for p in g1)
+    if (len(acts) != 1 or "transfer:1" not in acts[0]["plan"]
+            or (a.zone.ncols, b.zone.ncols) != (3, 1) or len(why) != 1
+            or a.zone_epoch <= epoch or bat_a.step_graph.captured()
+            or dropped != captured0 or bat_a.step_graph.epoch != a.zone_epoch):
+        raise AssertionError(f"[11] the SLO tick did not move a column b -> "
+                             f"a and drop a's graphs: {tick}, audit {why}, "
+                             f"{dropped} of {captured0} graphs dropped")
+    log(f"[11] daemon tick {tick['tick']}: {why[0]['reason']} (plan "
+        f"{acts[0]['plan']}); a's epoch {epoch} -> {a.zone_epoch}, its "
+        f"{dropped} graphs dropped; zones "
+        f"{[(z.name, z.c0, z.c1) for z in sup.table.zones]}")
+
+    # round 2 on a, recapturing its graphs at the new epoch
+    reqs2 = drive_cells({"a": (a, bat_a, rounds[2:], MAX_NEW)}, rids, step_s)
+    launches = read_counters(counters)
+    hits.append(bat_a.pool.prefix_hit_tokens)
+    r2 = [r.output for r in reqs2["a"]]
+    if r2 != ref["tokens_by_round"][1] or \
+            hits[2] - hits[1] != ref["hits_by_round"][1]:
+        raise AssertionError(f"[11] cell a's round 2 ({hits[2] - hits[1]} "
+                             "prefix-hit tokens) differs from phase 5's "
+                             f"({ref['hits_by_round'][1]})")
+    g2 = bat_a.step_graph.stats()
+    graphs = bat_a.step_graph.captured()
+    if (not graphs or any(e.epoch != a.zone_epoch for e in graphs.values())
+            or sum(g2[p]["captures"] - g1[p]["captures"] for p in g2) <= 0):
+        raise AssertionError(f"[11] round 2's graphs were not captured at "
+                             f"epoch {a.zone_epoch}: {g2}")
+    checked = sup.validate_cell_programs("a")
+    check_span_trees("11 a", a.accounting.recorder, reqs["a"] + reqs2["a"])
+    log(f"[11] round 2 on a: tokens and {hits[2] - hits[1]} prefix-hit "
+        f"tokens equal phase 5's round 2; {len(graphs)} graphs recaptured at "
+        f"epoch {a.zone_epoch}; validate_cell_programs('a') passed over "
+        f"{checked} programs")
+
+    # the main path's kernels, every layer, on the tensor cores
+    decodes = bat_a.decode_invocations + bat_b.decode_invocations
+    prefills = bat_a.prefill_invocations + bat_b.prefill_invocations
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[11] a kernel was never launched: {launches}")
+    expect("[11] paged decode", launches["paged_decode_attention"],
+           L * decodes)
+    expect("[11] flash and paged extend",
+           launches["flash_attention"] + launches["paged_extend_attention"],
+           L * prefills)
+    expect_tc(launches, "flash_attention", "paged_extend_attention")
+    log(f"[11] launches {launches}: {decodes} decode steps and {prefills} "
+        f"prefill invocations of both cells")
+
+    # a channel a -> b: one request's interned pages, bitwise
+    req = reqs2["a"][0]
+    pages = [n.page for n in bat_a.pool.tree.match(req.prompt,
+                                                   request_ctx_key(req))]
+    stacks = read_arena_pages(bat_a.pool.arena, pages)
+    ch = sup.open_channel("a", "b", kind="pages")
+    stats = ch.send_pages(stacks, meta={"rid": req.rid, "pages": pages})
+    env = ch.poll_pages()
+    torch.cuda.synchronize()
+    sent, got = tree_leaves(stacks), tree_leaves(env.cache)
+    if (not pages or len(got) != len(sent)
+            or not all(torch.equal(x, y) for x, y in zip(got, sent))
+            or stats["bytes"] != tree_bytes(stacks)
+            or ch.bytes_sent != stats["bytes"]):
+        raise AssertionError(f"[11] send_pages of {len(pages)} pages did not "
+                             f"arrive bitwise with its bytes counted: {stats}")
+    log(f"[11] channel a -> b: {len(pages)} pages of request {req.rid}, "
+        f"{stats['bytes']} bytes, bitwise equal")
+
+    # the recorder's cost on the decode step, and the trace
+    a_step = float(np.median(step_s["a"]))
+    rec_step = a.accounting.recorder.hists["decode_step_s"].quantile(0.5)
+    trace = chrome_trace(collect_traces(
+        sup, {n: c.accounting.recorder for n, c in sup.cells.items()}),
+        audit=daemon.audit)
+    log(f"[11] decode step p50 with the recorder live {a_step * 1e3:.2f} ms "
+        f"(the recorder's own decode_step_s p50 {rec_step * 1e3:.2f} ms), "
+        f"phase 5 without one {ref['decode_step_s'] * 1e3:.2f} ms; "
+        f"Chrome trace {len(trace['traceEvents'])} events ({name_limit})")
+
+    # destroy b: its weights, pool and graphs go
+    bat_b.close()
+    del bat_b, b
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    sup.destroy_cell("b")
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    if freed < b_weights or "b" in sup.cells or ch.open:
+        raise AssertionError(f"[11] destroying b freed {freed} bytes, its "
+                             f"weights are {b_weights}")
+    log(f"[11] destroy b freed {freed / 1e9:.2f} GB (weights "
+        f"{b_weights / 1e9:.2f} GB)")
+    verbs = verb_seconds(sup.events)
+    log(f"[11] supervisor verbs (event log seconds, {name_limit}): " +
+        ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in verbs.items()))
+    bat_a.close()
+    sup.destroy_cell("a")
+    return {"launches": launches, "verb_seconds": verbs,
+            "decode_step_s": a_step, "recorder_decode_step_s": rec_step,
+            "trace_events": len(trace["traceEvents"]), "freed_b": freed}
+
+
 KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2010,11 +2352,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     with timed(10):
         runs[10] = phase_encdec(dev, name_limit)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed(11):
+        runs[11] = phase_cells(dev, name_limit, runs[5])
     rows = []
     for name, rep in kernels.items():
+        launches = runs[rep["path"]]["launches"][name]
+        if rep["path"] == 5:        # phase 11 runs the main path's kernels
+            launches += runs[11]["launches"][name]
         rows.append({"name": name, "route": "cuda", "source": rep["source"],
                      "replaces": rep["replaces"],
-                     "launches": runs[rep["path"]]["launches"][name],
+                     "launches": launches,
                      "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                      "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                      "bound_by": rep["bound_by"],

@@ -1,0 +1,218 @@
+"""Cell — the subOS abstraction for GPU computing.
+
+A cell *directly manages* its resources: it owns its zone's device, builds
+its own model and batchers there, holds its serve state, and runs steps
+without any supervisor involvement on the step path.  The supervisor
+only creates/destroys/resizes it — and applications do not call even
+those verbs directly: they declare a :class:`~repro_torch.core.spec.CellSpec`
+(arch, role, ``[min,max]`` column bounds, replicas, SLO targets) inside a
+ClusterSpec, and the reconciler (``Supervisor.apply``/``reconcile``)
+drives the primitives that keep this cell converged to it.
+
+Paper §4.3 properties implemented here:
+  1. management facility      -> CellSpec desired state; the reconciler
+                                 executes create/destroy/resize_cell as
+                                 its plan-executor layer
+  2. exact accounting         -> CellAccounting + the cell's flight
+                                 recorder, handed to every batcher the
+                                 cell makes (per-request TTFT/TPOT, what
+                                 elastic ReconcilePolicies read)
+  3. IPC-like channels        -> ArrayChannel / ControlPlane endpoints
+                                 (declared via ChannelSpec or opened on
+                                 demand)
+  4. fork-like spawn          -> Supervisor.spawn_child (sub-zone carved
+                                 from the parent; lineage() walks it)
+
+A cell runs on one device: its zone's columns may all name one card
+(``DeviceGrid.from_flat(..., allow_reuse=True)``), but a zone over more
+than one distinct device raises :class:`CellError` until sharding lands
+(ROADMAP queue 1 item 13).  A cell's programs are the step graphs of the
+batchers it made (``serve/step_graph.py``), bound to the zone epoch they
+were captured at: a resize drops them, and each key captures again at
+its next visit.  The training role (``init_train``, ``train_steps``)
+comes with ROADMAP queue 1 item 12; a train cell is created, resized and
+destroyed as any other.
+"""
+from __future__ import annotations
+
+import time
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.accounting import CellAccounting
+from repro_torch.core.guard import Program
+from repro_torch.core.partition import DeviceGrid, Zone
+from repro_torch.core.resharding import reshard_tree
+from repro_torch.models.model import build_model
+from repro_torch.models.param import tree_leaves
+from repro_torch.serve.step_graph import PATHS
+from repro_torch.train.optimizer import OptConfig
+
+#: where the training role lands
+TRAINING_ITEM = "training comes with ROADMAP queue 1 item 12"
+
+
+class CellError(Exception):
+    pass
+
+
+class Cell:
+    def __init__(
+        self,
+        name: str,
+        zone: Zone,
+        grid: DeviceGrid,
+        arch: ArchConfig,
+        role: str,                       # "train" | "serve"
+        *,
+        epoch: int,
+        opt_cfg: Optional[OptConfig] = None,
+        parent: Optional[str] = None,
+    ):
+        self.name = name
+        self.arch = arch
+        self.role = role
+        self.parent = parent
+        self.grid = grid
+        self.opt_cfg = opt_cfg or OptConfig()
+        self.accounting = CellAccounting(name)
+        self.status = "created"
+        self.step = 0
+        self.last_heartbeat = time.monotonic()
+        self.state = None
+        self.serve_params = None
+        self.serve_cache = None
+        self.batchers: List = []         # every batcher this cell made
+        self._bind_zone(zone, epoch)
+
+    # ------------------------------------------------------------------
+    # zone binding / resize
+    # ------------------------------------------------------------------
+    def _bind_zone(self, zone: Zone, epoch: int):
+        devices = self.grid.distinct_devices(zone)
+        if len(devices) != 1:
+            raise CellError(
+                f"cell {self.name!r}: zone {zone.name!r} spans "
+                f"{len(devices)} distinct devices; a cell over more than "
+                "one device comes with sharding (ROADMAP queue 1 item 13)")
+        self.zone = zone
+        self.devices = devices
+        self.device = devices[0]
+        self.model = build_model(self.arch)
+        self.bound_epoch = epoch      # epoch programs are captured under
+        self.zone_epoch = epoch       # epoch of the last zone change
+        for bat in self.batchers:     # the JAX cell's _programs.clear()
+            if bat.step_graph is not None:
+                for path in PATHS:
+                    bat.step_graph.drop(path)
+                bat.step_graph.epoch = epoch
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
+    def heartbeat(self):
+        self.last_heartbeat = time.monotonic()
+
+    # ------------------------------------------------------------------
+    # training role
+    # ------------------------------------------------------------------
+    def init_train(self, rng=None, *, compress: bool = False):
+        raise NotImplementedError(f"cell {self.name!r}: {TRAINING_ITEM}")
+
+    def train_steps(self, batches, n: int) -> dict:
+        raise NotImplementedError(f"cell {self.name!r}: {TRAINING_ITEM}")
+
+    # ------------------------------------------------------------------
+    # serving role
+    # ------------------------------------------------------------------
+    def init_serve(self, params=None,
+                   generator: Optional[torch.Generator] = None):
+        """Place serving weights on the cell's device: ``params`` as
+        given (moved there), else ``model.init``'s seeded weights from
+        ``generator`` (default: seed 0 on the device), the weights a
+        directly built batcher gets from the same generator."""
+        if self.role != "serve":
+            raise CellError(f"cell {self.name!r} has role {self.role!r}")
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            params = self.model.init(generator, device=self.device)
+        else:
+            params, _ = reshard_tree(params, self.device)
+        self.serve_params = params
+        self.status = "running"
+        return self.serve_params
+
+    def make_batcher(self, *, batch_slots: int, max_len: int, **kw):
+        """A batcher over the cell's weights on its device, reporting to
+        the cell's accounting and flight recorder; the cell keeps it
+        (its graphs are the cell's programs)."""
+        from repro_torch.serve.batcher import ContinuousBatcher
+        if self.serve_params is None:
+            self.init_serve()
+        kw.setdefault("accounting", self.accounting)
+        kw.setdefault("device", self.device)
+        bat = ContinuousBatcher(
+            self.model, self.serve_params,
+            batch_slots=batch_slots, max_len=max_len, **kw,
+        )
+        if bat.step_graph is not None:
+            bat.step_graph.epoch = self.zone_epoch
+        self.batchers.append(bat)
+        return bat
+
+    def programs(self) -> List[Program]:
+        """What the BoundaryGuard checks: the serving weights, each
+        batcher's state, and each captured graph with its static inputs
+        and capture epoch."""
+        out = [Program("serve_params", tree_leaves(self.serve_params))]
+        for i, bat in enumerate(self.batchers):
+            state = bat.state_tensors()
+            out.append(Program(f"batcher{i}", state))
+            if bat.step_graph is None:
+                continue
+            for key, entry in bat.step_graph.captured().items():
+                out.append(Program(f"batcher{i}{key}",
+                                   state + list(entry.inputs.values()),
+                                   entry.epoch))
+        return out
+
+    # ------------------------------------------------------------------
+    # resize: live reshard onto the new zone
+    # ------------------------------------------------------------------
+    def resize_to(self, zone: Zone, epoch: int) -> dict:
+        """Bind the new zone (dropping every graph of the cell's
+        batchers: the next visit of a key captures under ``epoch``) and
+        move the serve weights onto its device (no copy on the same
+        device).  The batchers keep serving."""
+        old = self.zone
+        state = self.state if self.role == "train" else self.serve_params
+        self._bind_zone(zone, epoch)
+        stats = {"bytes": 0, "seconds": 0.0}
+        if state is not None:
+            new_state, stats = reshard_tree(state, self.device)
+            if self.role == "train":
+                self.state = new_state
+            else:
+                self.serve_params = new_state
+        stats.update(old=f"{old.ncols}cols", new=f"{zone.ncols}cols")
+        return stats
+
+    # ------------------------------------------------------------------
+    def snapshot_state(self):
+        return self.state if self.role == "train" else self.serve_params
+
+    def destroy(self):
+        """Close the cell's batchers (their graph pools) and drop every
+        reference the cell holds; the memory returns to the allocator
+        once the caller drops its own references too."""
+        self.status = "destroyed"
+        for bat in self.batchers:
+            bat.close()
+        self.batchers = []
+        self.state = None
+        self.serve_params = None
+        self.serve_cache = None

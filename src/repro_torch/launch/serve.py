@@ -1,4 +1,4 @@
-"""Serving driver: build the model and a batcher, run batched requests.
+"""Serving entry point: spawn a serving cell and run batched requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --requests 32 --slots 8 --max-new 16             # smoke size, cuda
@@ -16,9 +16,12 @@ decoder's self-KV paged, the cross memory dense per slot), state
 snapshots for ssm (mamba2-2.7b) and hybrid (zamba2-2.7b), the dense
 per-slot cache for a rolling window.  Requests carry no source features
 (``src=None``), as in ``repro.launch.serve``.
-Weights are random, drawn from a seeded generator on the device.  The
-supervisor and cells come with ROADMAP queue 1 item 10; this driver builds
-the batcher directly.  On the card the decode, prefill, extend and
+As the JAX entry point does, it serves through the control plane: a
+``Supervisor`` over a one-device grid applies a ``ClusterSpec`` of one
+serve cell, the cell places the weights (random, from a seeded generator
+on the device) and makes the batcher, which reports to the cell's
+accounting and flight recorder; the last line prints the cell's serving
+summary and the supervisor's event log.  On the card the decode, prefill, extend and
 restore steps run as CUDA graphs, one per shape key
 (``serve/step_graph.py``); the summary says, per path, how many keys
 were met, how many calls ran eagerly (the path's first in the process)
@@ -28,6 +31,7 @@ first); on the CPU every step is eager.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -35,9 +39,14 @@ import torch
 
 from repro_torch.configs.base import smoke_config, with_opt_level
 from repro_torch.configs.registry import get_arch
+from repro_torch.core import (
+    CellSpec,
+    ClusterSpec,
+    Supervisor,
+    single_device_grid,
+)
 from repro_torch.device import resolve_device
-from repro_torch.models.model import build_model
-from repro_torch.serve.batcher import ContinuousBatcher, Request
+from repro_torch.serve.batcher import Request
 
 
 def main(argv=None):
@@ -61,14 +70,14 @@ def main(argv=None):
     arch = with_opt_level(arch, True)
     device = resolve_device(args.device)
 
-    model = build_model(arch)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = model.init(gen, device=device)
-    bat = ContinuousBatcher(model, params, batch_slots=args.slots,
-                            max_len=args.max_len,
+    sup = Supervisor(single_device_grid(device))
+    sup.apply(ClusterSpec(cells=(CellSpec(arch.name, arch, "serve",
+                                          ncols=1),)))
+    cell = sup.cells[arch.name]
+    cell.init_serve(generator=torch.Generator(device=device).manual_seed(0))
+    bat = cell.make_batcher(batch_slots=args.slots, max_len=args.max_len,
                             temperature=args.temperature,
-                            prefill_chunk=args.prefill_chunk or None,
-                            device=device)
+                            prefill_chunk=args.prefill_chunk or None)
 
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -89,6 +98,9 @@ def main(argv=None):
     print(f"[serve] latency p50={lats[len(lats) // 2] * 1e3:.1f}ms "
           f"p99={lats[max(int(len(lats) * 0.99) - 1, 0)] * 1e3:.1f}ms")
     print(f"[serve] {graph_summary(bat)}")
+    print(f"[serve] cell {cell.name}: "
+          f"{json.dumps(cell.accounting.serving_summary())}; supervisor "
+          f"events: {json.dumps(sup.events)}")
     return 0
 
 

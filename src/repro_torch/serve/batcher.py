@@ -608,7 +608,7 @@ class ContinuousBatcher:
         busy = [s for s in range(self.B) if self.slot_req[s] is not None]
         if not busy:
             return 0
-        t0 = self.rec.clock()
+        t0 = self.rec.clock() if self.rec.enabled else 0.0
         host = {"tokens": self.cur_tok[:, None], "pos": self.pos}
         key = DENSE_KEY
         if self._paged:
@@ -624,8 +624,11 @@ class ContinuousBatcher:
         toks = self._decode(key, host)
         self.decode_invocations += 1
         toks = toks.tolist()            # sync point: device step complete
-        t1 = self.rec.clock()
-        self.rec.record("decode_step_s", t1 - t0)
+        if self.rec.enabled:
+            t1 = self.rec.clock()
+            self.rec.add_complete("decode_step", t0, t1 - t0,
+                                  busy=len(busy))
+            self.rec.record("decode_step_s", t1 - t0)
         now = time.monotonic()
         for s in busy:
             req = self.slot_req[s]
@@ -703,6 +706,20 @@ class ContinuousBatcher:
             toks, _logits, cache = step(params, cache, batch, self.generator)
             return toks, (params, cache)
         return run
+
+    def state_tensors(self) -> list:
+        """Every tensor the batcher's steps read or update in place (and
+        so every tensor its graphs capture, beside their static inputs):
+        params, the pool's arena and scales, the resident rows, the dense
+        cache, the prefill scratch caches, the checkpoint workspace and
+        the token-at-a-time slot reset."""
+        trees = [self.params, self.resident, self.cache,
+                 self._scratch_caches, self._slot_init_cache]
+        if self.pool is not None:
+            trees += [self.pool.arena, self.pool.kv_scales]
+        if self._ckpts is not None:
+            trees.append(self._ckpts._flat)
+        return [t for t in tree_leaves(trees) if isinstance(t, torch.Tensor)]
 
     def close(self):
         """Release the steps' CUDA graphs and their memory pool."""

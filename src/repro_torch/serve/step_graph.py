@@ -46,7 +46,13 @@ in_place=True)``), so a replay's state is the caller's own tensors; a
 capture whose step returned a new state tensor raises.  A graph keeps
 only its sampled tokens: the rest of its memory is scratch in the one
 pool all graphs of a StepGraph share, freed by :meth:`release` or when
-the StepGraph is dropped.  A capture launches nothing, so it leaves the
+the StepGraph is dropped (a :meth:`drop` that leaves no graph starts a
+new pool).  Each capture records the StepGraph's
+``epoch``: the partition-table epoch its cell's zone was bound at
+(``core/cell.py``; 0 for a batcher outside a cell).  A cell's resize
+drops every graph and moves the epoch on, so the next visit of a key
+captures again; ``core/guard.py`` refuses a graph whose epoch is not its
+cell's.  A capture launches nothing, so it leaves the
 kernels' launch counters as they were; each replay adds what the
 captured step counted (``kernels/_build.py``).  At temperature above 0
 the sampling generator is registered with every graph, so each replay
@@ -160,6 +166,7 @@ class _Entry:
                 at += size
             self._copies.append((buffer, staging))
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.epoch: Optional[int] = None     # the StepGraph's at capture
         self.tokens = None
         self.delta: _build.Counts = {}
         self.addresses: Tuple[int, ...] = ()
@@ -192,6 +199,7 @@ class StepGraph:
     def __init__(self, device, generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
         self.generator = generator
+        self.epoch = 0          # recorded by each capture (see above)
         self.pool = torch.cuda.graph_pool_handle()
         self._entries: Dict[Key, _Entry] = {}
         self._met: Dict[str, Set[Key]] = {p: set() for p in PATHS}
@@ -234,16 +242,26 @@ class StepGraph:
             after = _build.launch_counts()
             _build.set_launch_counts(before)   # nothing ran yet
         check_unmoved(leaf_addresses(state), out, "capture")
-        entry.graph, entry.tokens = graph, tokens
+        entry.graph, entry.tokens, entry.epoch = graph, tokens, self.epoch
         entry.delta = _build.launch_delta(before, after)
         entry.addresses = leaf_addresses((state, entry.inputs))
 
     def drop(self, path: str):
         """Drop the graphs of ``path`` (a buffer they write was
-        reallocated): each key captures again at its next visit."""
+        reallocated, or the cell's zone changed): each key captures again
+        at its next visit.  Once no graph is left, later captures go to a
+        new pool: the allocator keeps a pool whose every graph is gone
+        until its memory is freed, and refuses a capture into it."""
         for key in [k for k in self._entries if PATH_OF[k[0]] == path]:
             if self._entries.pop(key).graph is not None:
                 self._counts[path]["dropped"] += 1
+        if not self.captured():
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def captured(self) -> Dict[Key, _Entry]:
+        """The keys that hold a graph, with their entries (static inputs
+        and the epoch of the capture)."""
+        return {k: e for k, e in self._entries.items() if e.graph is not None}
 
     def stats(self) -> dict:
         """{path: {keys, eager_calls, captures, replays, dropped}}."""

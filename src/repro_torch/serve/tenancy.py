@@ -1,8 +1,7 @@
 """Tenant QoS runtime: token buckets, weighted-fair scheduling, quotas.
 
 The paper's "isolate first, then share" applied to *users* instead of
-cells: every tenant named by a tenant spec (``name``, ``weight``,
-``rate``, ``burst``, ``page_quota``, ``share_public``, ``slo``) gets
+cells: every tenant named by a :class:`~repro_torch.core.spec.TenantSpec` gets
 bulkheaded resources by default —
 
 * a **token bucket** (``rate``/``burst``) bounds how much work the
@@ -90,8 +89,8 @@ class TokenBucket:
 class TenantRegistry:
     """Resolved per-tenant QoS state for one serving surface.
 
-    Built from the tenant specs a serving cell declares (the spec types
-    come with the control-plane port).  Unknown tenants
+    Built from the :class:`~repro_torch.core.spec.TenantSpec`\\ s a serving
+    :class:`~repro_torch.core.spec.CellSpec` declares.  Unknown tenants
     resolve to commons defaults (weight 1, no bucket, commons pocket),
     so tagging requests is never mandatory.
     """

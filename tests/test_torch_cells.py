@@ -1,0 +1,411 @@
+"""The port's supervisor, cells, guard and channels (CPU).
+
+* ``python -m repro_torch.launch.serve --device cpu`` serves through
+  ``Supervisor.apply`` -> ``Cell.init_serve`` -> ``Cell.make_batcher``,
+  and its float32 greedy tokens equal those of ``python -m
+  repro.launch.serve`` on the same weights (JAX's ``Model.init(PRNGKey(0))``
+  through ``params_from_numpy``).
+* On a 1x1x4 grid with one device reused, create, resize, transfer,
+  ``spawn_child``, ``fail_column``, recover, ``restore_column``,
+  ``mitigate_straggler`` and destroy (imperative and through
+  ``apply``/``reconcile``) give the same events, zones and epochs as the
+  JAX supervisor on the matching grid (times aside).
+* A cell's batcher gives the same tokens across a resize as a batcher
+  that was never resized; the guard refuses a cell tensor off the zone's
+  device and a graph record from an older epoch.
+* ``ArrayChannel`` and ``ControlPlane`` round-trip as in
+  ``tests/test_core.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # tiny tensors; leave the cores to the other test workers
+
+import jax  # noqa: E402
+
+import repro.core.cell as j_cell_mod  # noqa: E402
+import repro.launch.serve as j_serve  # noqa: E402
+import repro_torch.core.cell as t_cell_mod  # noqa: E402
+import repro_torch.launch.serve as t_serve  # noqa: E402
+from repro.configs.base import smoke_config, with_opt_level  # noqa: E402
+from repro.configs.registry import get_arch  # noqa: E402
+from repro.core import DeviceGrid as JGrid  # noqa: E402
+from repro.core import Supervisor as JSupervisor  # noqa: E402
+from repro.core import spec as j_spec  # noqa: E402
+from repro.models.model import build_model  # noqa: E402
+from repro.sharding.rules import single_device_ctx  # noqa: E402
+from repro_torch.configs.base import smoke_config as t_smoke_config  # noqa: E402
+from repro_torch.configs.registry import get_arch as t_get_arch  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    BoundaryViolation,
+    CellError,
+    CellSpec,
+    ChannelError,
+    ClusterSpec,
+    ControlPlane,
+    DeviceGrid,
+    KVEnvelope,
+    Supervisor,
+    single_device_grid,
+)
+from repro_torch.core import spec as t_spec  # noqa: E402
+from repro_torch.core.guard import Program  # noqa: E402
+from repro_torch.models.param import params_from_numpy, tree_leaves  # noqa: E402
+from repro_torch.serve.batcher import ContinuousBatcher, Request  # noqa: E402
+
+_CACHE = {}
+
+
+def _jax_params(jcfg):
+    """JAX's Model.init(PRNGKey(0)) of ``jcfg`` as float32 CPU tensors."""
+    key = repr(jcfg)
+    if key not in _CACHE:
+        jp = build_model(jcfg, single_device_ctx()).init(jax.random.PRNGKey(0))
+        _CACHE[key] = params_from_numpy(
+            jax.tree.map(lambda a: np.asarray(a, np.float32), jp),
+            dtype=torch.float32, device="cpu")
+    return _CACHE[key]
+
+
+def _f32(smoke):
+    return lambda arch: smoke(arch).replace(dtype="float32")
+
+
+# ---------------------------------------------------------------------------
+# launch.serve through the supervisor == the JAX entry
+# ---------------------------------------------------------------------------
+def _capture(monkeypatch, mod):
+    """Record the cells and batchers ``mod``'s Cell.make_batcher makes."""
+    made = []
+    orig = mod.Cell.make_batcher
+
+    def make_batcher(self, **kw):
+        bat = orig(self, **kw)
+        made.append((self, bat))
+        return bat
+
+    monkeypatch.setattr(mod.Cell, "make_batcher", make_batcher)
+    return made
+
+
+def test_launch_serve_goes_through_a_cell_and_matches_jax(monkeypatch,
+                                                          capsys):
+    argv = ["--requests", "4", "--max-new", "4", "--max-len", "64"]
+    monkeypatch.setattr(j_serve, "smoke_config", _f32(smoke_config))
+    monkeypatch.setattr(t_serve, "smoke_config", _f32(t_smoke_config))
+    j_made = _capture(monkeypatch, j_cell_mod)
+    t_made = _capture(monkeypatch, t_cell_mod)
+    jcfg = with_opt_level(_f32(smoke_config)(get_arch("qwen3-4b")), True)
+    weights = _jax_params(jcfg)
+    orig_init = t_cell_mod.Cell.init_serve
+    inits = []
+
+    def init_serve(self, params=None, generator=None):
+        inits.append(generator)
+        return orig_init(self, params=weights)
+
+    monkeypatch.setattr(t_cell_mod.Cell, "init_serve", init_serve)
+    assert j_serve.main(argv) == 0
+    assert t_serve.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "supervisor events" in out and '"op": "create"' in out
+    (jcell, jbat), = j_made
+    (tcell, tbat), = t_made
+    assert len(inits) == 1 and inits[0] is not None   # seeded by the entry
+    assert tbat.accounting is tcell.accounting
+    assert tcell.status == "running" and tcell.batchers == [tbat]
+    assert len(tcell.accounting.requests) == 4
+    assert tcell.accounting.recorder.open_spans == []
+    tout = {r.rid: r.output for r in tbat.done}
+    jout = {r.rid: r.output for r in jbat.done}
+    assert sorted(tout) == [0, 1, 2, 3]
+    assert tout == jout
+
+
+# ---------------------------------------------------------------------------
+# lifecycle events and zones == the JAX supervisor's
+# ---------------------------------------------------------------------------
+TIMES = {"ts", "seconds", "seconds_total", "gbps", "resize_seconds"}
+
+
+def _events(sup):
+    return [{k: v for k, v in e.items() if k not in TIMES}
+            for e in sup.events]
+
+
+def _zones(sup):
+    t = sup.table
+    return (t.epoch, [(z.name, z.pods, z.c0, z.c1) for z in t.zones],
+            sorted(t.failed_columns),
+            {n: (c.status, c.zone.ncols, c.parent)
+             for n, c in sorted(sup.cells.items())})
+
+
+def _lifecycle(sup, cfg, spec_mod):
+    seen = []
+    a = sup.create_cell("a", cfg, "serve", ncols=2)
+    sup.create_cell("b", cfg, "train", ncols=1)
+    seen.append(_zones(sup))
+    seen.append(sorted(sup.resize_cell("b", 2)))
+    seen.append(_zones(sup))
+    out = sup.transfer_columns("b", "a", 1)
+    seen.append((sorted(out), out["shrink"]["new"], out["grow"]["new"]))
+    seen.append(_zones(sup))
+    sup.spawn_child("a", "c", cfg, "serve", ncols=1)
+    seen.append((sup.lineage("c"), _zones(sup)))
+    affected = sup.fail_column(0, sup.cells["b"].zone.c0)
+    seen.append((affected, _zones(sup)))
+    sup.destroy_cell("c")
+    sup.recover_cell("b", ncols=2)               # degrades to what fits
+    seen.append(_zones(sup))
+    seen.append(sup.restore_column(*sorted(sup.table.failed_columns)[0]))
+    seen.append(sup.restore_column(0, 0))        # not quarantined
+    a.last_heartbeat -= 1e6
+    a.status = "running"
+    seen.append(sup.check_health())
+    seen.append(sup.mitigate_straggler("a", a.zone.c0)["action"])
+    seen.append(_zones(sup))
+    for name in sorted(sup.cells):
+        sup.destroy_cell(name)
+    # the declarative layer over the same primitives
+    spec = spec_mod.ClusterSpec(cells=(
+        spec_mod.CellSpec("x", cfg, "serve", ncols=1, max_ncols=3),
+        spec_mod.CellSpec("y", cfg, "train", ncols=2, min_ncols=1,
+                          max_ncols=3)))
+    for s in (spec, spec.scale("x", 2).scale("y", 1), spec.scale("x", 3)
+              .scale("y", 1), spec.without_cell("y")):
+        for sup_restored in list(sup.table.failed_columns):
+            sup.restore_column(*sup_restored)
+        plan = sup.apply(s)
+        seen.append([(op.verb, op.cell, op.args, op.status)
+                     for op in plan.ops])
+        seen.append(_zones(sup))
+    seen.append(_events(sup))
+    return seen
+
+
+def test_supervisor_lifecycle_matches_jax():
+    jcfg = smoke_config(get_arch("qwen3-4b"))
+    tcfg = t_smoke_config(t_get_arch("qwen3-4b"))
+    jsup = JSupervisor(JGrid.from_flat(jax.devices()[:1], 1, 1, 4,
+                                       allow_reuse=True))
+    tsup = Supervisor(DeviceGrid.from_flat(["cpu"], 1, 1, 4,
+                                           allow_reuse=True))
+    jseen = _lifecycle(jsup, jcfg, j_spec)
+    tseen = _lifecycle(tsup, tcfg, t_spec)
+    assert tseen == jseen
+    ops = {e["op"] for e in tseen[-1]}
+    assert {"create", "resize", "transfer", "spawn_child", "fail_column",
+            "recover", "recover_degraded", "restore_column", "dead_cell",
+            "destroy", "apply", "reconcile"} <= ops
+    assert all(e["cell"] != "?" for e in tsup.events if "cell" in e)
+
+
+def test_a_zone_over_two_devices_is_refused():
+    """A cell runs on one device: a zone whose columns name two raises
+    CellError (sharding is ROADMAP queue 1 item 13) and leaves the table
+    as it was; one device repeated is one device."""
+    cfg = t_smoke_config(t_get_arch("qwen3-4b"))
+    sup = Supervisor(DeviceGrid.from_flat(["cpu", "meta"], 1, 1, 2))
+    with pytest.raises(CellError, match="item 13"):
+        sup.create_cell("a", cfg, "serve", ncols=2)
+    assert sup.table.epoch == 0 and not sup.cells and not sup.table.zones
+    cell = sup.create_cell("a", cfg, "serve", ncols=1)
+    assert cell.device == torch.device("cpu") and cell.n_devices == 1
+    with pytest.raises(CellError, match="item 13"):
+        sup.resize_cell("a", 2)
+    assert sup.cells["a"].zone.ncols == 1 and sup.table.epoch == 1
+    with pytest.raises(NotImplementedError, match="item 12"):
+        cell.init_train()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sup.recover_cell("a", ckpt_dir="/ckpts/a")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sup.restore_from_ckpt(cell, "/ckpts/a")
+    assert single_device_grid("cpu").shape == (1, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# a cell's batcher across a resize; the guard
+# ---------------------------------------------------------------------------
+MAX_LEN, CHUNK, PAGE = 32, 8, 8
+
+
+def _prompts(vocab, seed, lens):
+    sysp = np.random.RandomState(1234).randint(1, vocab, size=18)
+    rng = np.random.RandomState(seed)
+    return [np.concatenate([sysp, rng.randint(1, vocab, size=L)])
+            .astype(np.int32) for L in lens]
+
+
+def _serve_wave(bat, prompts, rid0):
+    for i, p in enumerate(prompts):
+        bat.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=4))
+    bat.run_until_drained()
+    return {r.rid: r.output for r in bat.done if r.rid >= rid0}
+
+
+def _cells_sup():
+    tcfg = t_smoke_config(t_get_arch("qwen3-4b")).replace(dtype="float32")
+    sup = Supervisor(DeviceGrid.from_flat(["cpu"], 1, 1, 4,
+                                          allow_reuse=True))
+    spec = ClusterSpec(cells=(
+        CellSpec("a", tcfg, "serve", ncols=2, min_ncols=1, max_ncols=3),
+        CellSpec("b", tcfg, "serve", ncols=2, min_ncols=1, max_ncols=3)))
+    sup.apply(spec)
+    return sup, spec, tcfg
+
+
+def test_batcher_tokens_hold_across_a_resize():
+    sup, spec, tcfg = _cells_sup()
+    weights = _jax_params(
+        with_opt_level(_f32(smoke_config)(get_arch("qwen3-4b")), True))
+    kw = dict(batch_slots=2, max_len=MAX_LEN, prefill_chunk=CHUNK,
+              page_size=PAGE)
+    a = sup.cells["a"]
+    a.init_serve(params=weights)
+    bat = a.make_batcher(**kw)
+    ref = ContinuousBatcher(a.model, weights, device="cpu", **kw)
+    waves = [(_prompts(tcfg.vocab, 0, [3, 5, 2]), 0),
+             (_prompts(tcfg.vocab, 5, [4, 7]), 10)]
+    got = _serve_wave(bat, *waves[0])
+    epoch = a.zone_epoch
+    plan = sup.apply(spec.scale("a", 3).scale("b", 1))
+    assert [op.verb for op in plan.ops] == ["transfer"]
+    assert a.zone.ncols == 3 and a.zone_epoch > epoch
+    assert sup.cells["a"] is a and a.batchers == [bat]
+    assert sup.validate_cell_programs("a") == 2      # weights + batcher
+    got.update(_serve_wave(bat, *waves[1]))
+    want = _serve_wave(ref, *waves[0])
+    want.update(_serve_wave(ref, *waves[1]))
+    assert got == want
+    assert bat.pool.prefix_hit_tokens == ref.pool.prefix_hit_tokens > 0
+    # the recorder closed every request's tree, across the resize
+    rec = a.accounting.recorder
+    assert rec.open_spans == []
+    assert sorted(e["trace_id"] for e in rec.log if e["name"] == "request") \
+        == sorted(got)
+    # destroy drops the batchers and the weights
+    sup.destroy_cell("a")
+    assert a.batchers == [] and a.serve_params is None
+    assert a.status == "destroyed" and "a" not in sup.cells
+
+
+class _FakeEntry:
+    def __init__(self, epoch, inputs):
+        self.epoch, self.inputs = epoch, inputs
+
+
+class _FakeGraphs:
+    """A step-graph record as the card keeps it (``StepGraph.captured``),
+    with the epoch of its capture."""
+
+    def __init__(self, epoch, inputs=()):
+        self.epoch = epoch
+        self.entries = {("paged", 1): _FakeEntry(epoch, dict(inputs))}
+        self.dropped = []
+
+    def captured(self):
+        return dict(self.entries)
+
+    def drop(self, path):
+        self.dropped.append(path)
+
+
+def test_guard_refuses_off_zone_tensors_and_stale_graphs():
+    sup, spec, tcfg = _cells_sup()
+    a = sup.cells["a"]
+    a.init_serve(generator=torch.Generator().manual_seed(0))
+    bat = a.make_batcher(batch_slots=2, max_len=MAX_LEN, page_size=PAGE)
+    assert sup.validate_cell_programs("a") == 2
+    # a graph captured at the cell's epoch passes; its inputs are checked
+    bat.step_graph = _FakeGraphs(a.zone_epoch,
+                                 {"tokens": torch.zeros(2, 1)})
+    assert sup.validate_cell_programs("a") == 3
+    # a graph record from an older epoch is stale
+    bat.step_graph = _FakeGraphs(a.zone_epoch - 1)
+    with pytest.raises(BoundaryViolation, match="stale graph"):
+        sup.validate_cell_programs("a")
+    with pytest.raises(BoundaryViolation, match="stale graph"):
+        sup.guard.validate(a, Program("g", [], epoch=a.zone_epoch - 1))
+    # a resize drops every path's graphs and moves the epoch on
+    sup.apply(spec.scale("a", 1).scale("b", 3))
+    assert bat.step_graph.dropped == ["decode", "prefill", "extend",
+                                      "restore"]
+    assert bat.step_graph.epoch == a.zone_epoch
+    bat.step_graph = None
+    assert sup.validate_cell_programs("a") == 2
+    # a cell tensor on meta while the zone is cpu
+    key = next(iter(a.serve_params))
+    a.serve_params[key] = torch.empty(1, device="meta")
+    with pytest.raises(BoundaryViolation, match="meta"):
+        sup.validate_cell_programs("a")
+    with pytest.raises(BoundaryViolation, match="outside its zone"):
+        sup.guard.validate(a, Program("x", [torch.empty(1, device="meta")]))
+    assert tree_leaves(a.serve_params)
+
+
+# ---------------------------------------------------------------------------
+# channels
+# ---------------------------------------------------------------------------
+def test_control_plane_unicast_multicast_broadcast():
+    cp = ControlPlane()
+    for n in ("sup", "a", "b", "c"):
+        cp.register(n)
+    cp.unicast("sup", "a", "resize", {"ncols": 3})
+    m = cp.poll("a")
+    assert m.kind == "resize" and m.payload["ncols"] == 3 and m.src == "sup"
+    assert cp.poll("a") is None
+    cp.multicast("sup", ["a", "b"], "ping")
+    assert cp.poll("a").kind == "ping" and cp.poll("b").kind == "ping"
+    assert cp.poll("c") is None
+    cp.broadcast("a", "hello")
+    assert {n for n in ("sup", "b", "c") if cp.poll(n)} == {"sup", "b", "c"}
+    assert cp.poll("a") is None
+    cp.unicast("sup", "c", "x", 1)
+    cp.unicast("b", "c", "y", 2)
+    assert [(m.src, m.kind, m.payload) for m in cp.drain("c")] == \
+        [("sup", "x", 1), ("b", "y", 2)]
+    assert dict(cp.stats) == {"unicast": 8, "multicast": 1, "broadcast": 1}
+    with pytest.raises(ChannelError):
+        cp.unicast("sup", "ghost", "x")
+    cp.unregister("b")
+    with pytest.raises(ChannelError):
+        cp.unicast("sup", "b", "x")
+
+
+def test_array_channel_round_trips():
+    sup, spec, tcfg = _cells_sup()
+    ch = sup.open_channel("a", "b", kind="pages")
+    assert sup.find_channel("a", "b", "pages") is ch
+    assert sup.find_channel("b", "a", "pages") is None
+    tree = {"k": torch.arange(12, dtype=torch.float32).view(3, 4),
+            "v": [torch.ones(2, 2, dtype=torch.bfloat16)], "n": 3}
+    stats = ch.send(tree)
+    assert stats["bytes"] == 12 * 4 + 4 * 2
+    got = ch.recv()
+    assert torch.equal(got["k"], tree["k"]) and got["n"] == 3
+    assert got["k"].data_ptr() != tree["k"].data_ptr()      # a copy
+    ch.send_kv({"k": tree["k"]}, meta={"rid": 5})
+    env = ch.recv_kv()
+    assert isinstance(env, KVEnvelope) and env.meta == {"rid": 5}
+    pages = [torch.randn(2, 4, 8, generator=torch.Generator().manual_seed(1))]
+    ch.send_pages(pages, meta={"tree": [1, 2]})
+    env = ch.poll_pages()
+    assert torch.equal(env.cache[0], pages[0]) and env.meta["tree"] == [1, 2]
+    assert ch.poll_kv() is None
+    assert ch.map(tree)["zero_copy"] and ch.recv() is tree   # one device
+    assert (ch.bytes_sent, ch.transfers) == (56 + 48 + 256, 4)
+    ch.send(tree)
+    with pytest.raises(ChannelError, match="not a KV envelope"):
+        ch.recv_kv()
+    ch.recv()
+    with pytest.raises(ChannelError, match="empty"):
+        ch.recv()
+    rec = sup.cells["a"].accounting.recorder
+    assert [e["name"] for e in rec.log] == ["xfer:pages"] * 4
+    assert rec.hists["xfer_pages_bytes"].count == 4
+    sup.destroy_cell("b")                # closes the channel
+    assert not ch.open and sup.find_channel("a", "b", "pages") is None
+    with pytest.raises(ChannelError, match="closed"):
+        ch.send(tree)
