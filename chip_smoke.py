@@ -73,6 +73,23 @@ recorder; a channel carries one request's pages bitwise; destroying
 decode step with the recorder live and the Chrome trace's size, and its
 launches add to the main path's rows of the kernels line.
 
+Phase 12 serves full-width qwen3-4b disaggregated
+(``repro_torch.serve.disagg``): a prefill cell and a decode spec of two
+replicas joined by a ``kv`` channel, the weights fanned out from
+``decode/0`` (phase 5's seed) over array channels; right after round 1's
+first pump a spec scales decode to one replica, and the drain migrates
+``decode/1``'s prefix pages and hands its in-flight slots to ``decode/0``
+over a ``pages`` channel.  Round 1, its second wave again and round 2
+must give phase 5's tokens request by request, with no requeue, every
+worker prefill and replica step a graph replay; it prints tokens/s, TTFT
+by wave, the decode step, the KV handoff's bytes (cold and warm a
+request), the fan-out's and the migration's bytes and seconds and the
+peak memory, and destroying the cells must free their memory.  Its
+launches add to the main path's rows.  Phase 4 also runs the
+disaggregated plane at smoke size (qwen3-4b paged with two replicas,
+mamba2-2.7b on the snapshot plane, seamless with ragged sources): the
+card's tokens equal the CPU's and a colocated batcher's.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -1242,6 +1259,103 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
     return toks, hits
 
 
+# the disaggregated plane at smoke size: (name, arch, decode replicas,
+# weight seed, prompt seed, waves of tail lengths behind a shared prefix)
+DISAGG_PARITY = [
+    ("qwen3-4b disaggregated, paged, 2 decode replicas", "qwen3-4b", 2, 0,
+     4, ([3, 9, 5, 12], [6, 2, 11])),
+    ("mamba2-2.7b disaggregated, snapshot plane", "mamba2-2.7b", 1, 0, 4,
+     ([3, 9, 5], [6, 2])),
+    ("seamless-m4t-large-v2 disaggregated, ragged sources",
+     "seamless-m4t-large-v2", 2, 2, 6, ([3, 9, 5], [6, 2])),
+]
+
+
+def disagg_parity_run(dev, arch, replicas, weight_seed, prompt_seed, waves):
+    """The same smoke model, weights and requests through the port's
+    ``DisaggServer`` (a prefill cell, ``replicas`` decode cells, a ``kv``
+    channel on a grid of one device) on the CPU and on the card, and
+    through a colocated batcher on the CPU: two waves behind a 20-token
+    shared prefix (the second warm in the prefill worker's and the
+    replicas' pools), drained in turn; an encdec model's requests carry
+    ragged sources (5..40 frames), the middle one none.  Returns ({what:
+    {rid: tokens}}, {device: the card's worker and decode graph counts})."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (
+        CellSpec,
+        ChannelSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+    )
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import params_from_numpy, tree_map
+    from repro_torch.serve.batcher import ContinuousBatcher, Request
+    from repro_torch.serve.disagg import DisaggServer
+
+    cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
+    model = Model(cfg)
+    host = tree_map(lambda t: t.numpy(), model.init(
+        torch.Generator().manual_seed(weight_seed), device="cpu"))
+    rng = np.random.default_rng(prompt_seed)
+    shared = rng.integers(1, cfg.vocab, size=20).astype(np.int32)
+    prompts = [[np.concatenate([shared, rng.integers(
+        1, cfg.vocab, size=n).astype(np.int32)]) for n in lens]
+        for lens in waves]
+    srcs = [[None if i == 1 or cfg.family != "encdec" else
+             rng.standard_normal((int(rng.integers(5, 41)), cfg.d_model))
+             .astype(np.float32) for i in range(len(w))] for w in waves]
+    kw = dict(max_len=64, page_size=8)
+
+    def drive(submit, drain):
+        rid = 0
+        for wave, wsrc in zip(prompts, srcs):
+            for p, src in zip(wave, wsrc):
+                submit(Request(rid=rid, prompt=p, max_new_tokens=6,
+                               src=src))
+                rid += 1
+            drain()
+
+    toks, graphs = {}, {}
+    for device in ("cpu", dev):
+        sup = Supervisor(DeviceGrid.from_flat([device], 1, 1, 1 + replicas,
+                                              allow_reuse=True))
+        spec = ClusterSpec(
+            cells=(CellSpec("prefill", cfg, "serve", ncols=1),
+                   CellSpec("decode", cfg, "serve", ncols=1,
+                            replicas=replicas)),
+            channels=(ChannelSpec("prefill", "decode", kind="kv"),))
+        sup.apply(spec)
+        names = spec.cell("decode").instances()
+        sup.cells[names[0]].init_serve(params=params_from_numpy(
+            host, dtype=torch.float32, device=device,
+            specs=model.param_specs()))
+        srv = DisaggServer(sup, "prefill", names, batch_slots=2, chunk=8,
+                           **kw)
+        drive(srv.submit, srv.run_until_drained)
+        toks[str(device)] = {r.rid: r.output for r in srv.done}
+        if srv.worker.step_graph is not None:
+            graphs[str(device)] = {
+                "worker": srv.worker.step_graph.stats(),
+                "decode": [r.batcher.step_graph.stats()["decode"]
+                           for r in srv.replicas]}
+        st = srv.stats()
+        if len(toks[str(device)]) != sum(map(len, waves)) or \
+                st["requeued"] or not st["prefix_hit_tokens"]:
+            raise AssertionError(f"{arch} on {device}: {st}")
+        srv.close()
+        for name in list(sup.cells):
+            sup.destroy_cell(name)
+    params = params_from_numpy(host, dtype=torch.float32, device="cpu",
+                               specs=model.param_specs())
+    bat = ContinuousBatcher(model, params, batch_slots=2, prefill_chunk=8,
+                            device="cpu", **kw)
+    drive(bat.submit, bat.run_until_drained)
+    toks["colocated"] = {r.rid: r.output for r in bat.done}
+    return toks, graphs
+
+
 def phase_parity(dev):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import gmm
@@ -1261,6 +1375,14 @@ def phase_parity(dev):
             raise AssertionError(f"{name}: no prefix hit in wave 2")
         log(f"[4] {name}: identical on {dev} (kernels) and cpu (plain "
             f"versions), {hits['cpu']} prefix-hit tokens")
+    for name, arch, replicas, wseed, pseed, waves in DISAGG_PARITY:
+        toks, graphs = disagg_parity_run(dev, arch, replicas, wseed, pseed,
+                                         waves)
+        log(f"[4] {name}: {dev} {toks[str(dev)]}")
+        if not toks["cpu"] == toks[str(dev)] == toks["colocated"]:
+            raise AssertionError(f"{name}: tokens differ: {toks}")
+        log(f"[4] {name}: identical on {dev}, on cpu and in a colocated "
+            f"batcher on cpu; the card's step graphs {graphs[str(dev)]}")
     if (flash_attention.launches_tc, gmm.launches_tc,
             paged_extend_attention.launches_tc) != tc0:
         raise AssertionError("a float32 run launched a tensor-core kernel")
@@ -2263,6 +2385,252 @@ def phase_cells(dev, name_limit: str, ref: dict) -> dict:
             "trace_events": len(trace["traceEvents"]), "freed_b": freed}
 
 
+# --------------------------------------------------------------------------
+# phase 12: disaggregated serving and the cluster cache plane
+# --------------------------------------------------------------------------
+def drive_disagg(srv, waves, reqs, step_s, *, after_pump=None):
+    """Submit each wave of prompts to ``srv`` (requests numbered on from
+    ``len(reqs)``) and step until it drained, before the next wave.
+    ``after_pump(wave)``, when given, runs once right after the wave's
+    first pump, before any decode step.  The wall times of the ticks that
+    only decoded go to ``step_s``."""
+    from repro_torch.serve.batcher import Request
+    for w, wave in enumerate(waves):
+        for p in wave:
+            req = Request(rid=len(reqs), prompt=p, max_new_tokens=MAX_NEW)
+            reqs.append(req)
+            srv.submit(req)
+        if after_pump is not None:
+            srv.pump()
+            after_pump(w)
+        while srv._busy():
+            n0 = srv.worker.invocations
+            t = time.monotonic()
+            srv.step()
+            if srv.worker.invocations == n0:
+                step_s.append(time.monotonic() - t)
+    torch.cuda.synchronize()
+
+
+def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
+    """Full-width qwen3-4b disaggregated on this card (a 1x1x4 grid, the
+    device repeated): a prefill cell and a decode spec of 2 replicas
+    joined by a ``kv`` channel; ``decode/0`` takes phase 5's weight seed,
+    the prefill cell and ``decode/1`` pull the weights over array
+    channels.  ``DisaggServer(migrate=True)`` serves phase 5's round 1;
+    right after its first wave's pump a spec scales ``decode`` to 1
+    replica: the reconciler's drain hook migrates ``decode/1``'s prefix
+    pages and hands its in-flight slots to ``decode/0`` over a ``pages``
+    channel, and the sync detaches it.  Then round 1's wave 2 again and
+    phase 5's round 2, on the survivor.  Tokens must be phase 5's, request
+    by request (the replay wave's round 1's wave 2's), with no requeue;
+    every worker prefill and replica step a graph replay."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (
+        CellSpec,
+        ChannelSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+        tree_bytes,
+    )
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.serve.disagg import DisaggServer
+
+    cfg = get_arch("qwen3-4b")
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sup = Supervisor(DeviceGrid.from_flat([dev], 1, 1, 4, allow_reuse=True))
+    spec = ClusterSpec(
+        cells=(CellSpec("prefill", cfg, "serve", ncols=1),
+               CellSpec("decode", cfg, "serve", ncols=1, replicas=2,
+                        min_replicas=1, max_replicas=2)),
+        channels=(ChannelSpec("prefill", "decode", kind="kv"),))
+    sup.apply(spec)
+    sup.cells["decode/0"].init_serve(
+        generator=torch.Generator(device=dev).manual_seed(0))
+    weights = tree_bytes(sup.cells["decode/0"].serve_params)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    srv = DisaggServer(sup, "prefill", spec.cell("decode").instances(),
+                       batch_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+                       chunk=CHUNK, migrate=True)
+    torch.cuda.synchronize()
+    fanout_wall = time.monotonic() - t0
+    arrays = [ch for ch in sup.channels if ch.kind == "array"]
+    fanout = {"bytes": sum(ch.bytes_sent for ch in arrays),
+              "transfers": sum(ch.transfers for ch in arrays),
+              "enqueue_s": sum(ch.seconds for ch in arrays),
+              "server_build_wall_s": fanout_wall}
+    if fanout["transfers"] != 2 or fanout["bytes"] != 2 * weights:
+        raise AssertionError(f"[12] weight fan-out {fanout}, weights "
+                             f"{weights} bytes")
+    log(f"[12] cells {sorted(sup.cells)} on zones "
+        f"{[(z.name, z.c0, z.c1) for z in sup.table.zones]}; weight fan-out "
+        f"decode/0 -> prefill, decode/1: {fanout['transfers']} transfers, "
+        f"{fanout['bytes'] / 1e9:.2f} GB, {fanout['enqueue_s'] * 1e3:.2f} ms "
+        f"to enqueue, the server built in {fanout_wall:.2f} s with the "
+        f"copies landed")
+    counters = (flash_attention, paged_extend_attention,
+                paged_decode_attention)
+    rounds = main_path_rounds()
+    reqs, step_s = [], []
+    scale = {}
+
+    def scale_down(w):
+        if w:
+            return
+        victim = srv.replicas[1]
+        held = sum(r is not None for r in victim.batcher.slot_req)
+        t = time.monotonic()
+        sup.apply(sup.desired.with_cell(dataclasses.replace(
+            sup.desired.cell("decode"), replicas=1)))
+        out = srv.sync(sup.desired)
+        torch.cuda.synchronize()
+        pages = [ch for ch in sup.channels if ch.kind == "pages"]
+        scale.update(held=held, sync=out, wall_s=time.monotonic() - t,
+                     bytes=sum(ch.bytes_sent for ch in pages),
+                     transfers=sum(ch.transfers for ch in pages),
+                     enqueue_s=sum(ch.seconds for ch in pages),
+                     pages_migrated=srv.pages_migrated,
+                     handoffs=srv.drain_handoffs)
+
+    reset_counters(counters)
+    t_start = time.monotonic()
+    drive_disagg(srv, rounds[:2], reqs, step_s, after_pump=scale_down)
+    survivor = srv.replicas[0].batcher
+    drive_disagg(srv, rounds[1:2] + rounds[2:], reqs, step_s)
+    wall = time.monotonic() - t_start
+    launches = read_counters(counters)
+    st = srv.stats()
+
+    # the same tokens as phase 5, request by request
+    out = [r.output for r in reqs]
+    want = ref["tokens_by_round"][0] + ref["tokens_by_round"][0][SLOTS:] \
+        + ref["tokens_by_round"][1]
+    bad = [r.rid for r, o, w in zip(reqs, out, want) if o != w]
+    if bad:
+        raise AssertionError(f"[12] requests {bad} differ from phase 5's "
+                             f"(the replay wave is rids {2 * SLOTS}.."
+                             f"{3 * SLOTS - 1})")
+    if (scale["sync"]["detached"] != ["decode/1"] or st["requeued"]
+            or not scale["held"] or scale["handoffs"] != scale["held"]
+            or scale["pages_migrated"] <= 0 or len(srv.done) != len(reqs)
+            or any(len(r.output) != MAX_NEW for r in reqs)):
+        raise AssertionError(f"[12] the scale-down did not hand off: "
+                             f"{scale}, {st['requeued']} requeued")
+    log(f"[12] {len(reqs)} requests' tokens equal phase 5's request by "
+        f"request (the replay wave's its round 1 wave 2's); scale-down "
+        f"2 -> 1 replica after wave 1's pump: {scale['handoffs']} in-flight "
+        f"slots of {scale['held']} handed off, {scale['pages_migrated']} "
+        f"prefix pages migrated, over {scale['transfers']} pages transfers "
+        f"of {scale['bytes'] / 1e6:.2f} MB ({scale['enqueue_s'] * 1e3:.2f} "
+        f"ms to enqueue); apply + sync {scale['wall_s'] * 1e3:.1f} ms; "
+        f"0 requeued")
+
+    # every worker prefill and replica step after warm-up: a replay
+    g = srv.worker.step_graph.stats()
+    d = survivor.step_graph.stats()["decode"]
+    calls = sum(g[p]["eager_calls"] + g[p]["replays"] for p in g)
+    if (any(c["eager_calls"] or c["dropped"] for c in g.values())
+            or calls != srv.worker.invocations or d["eager_calls"]
+            or d["replays"] != survivor.decode_invocations):
+        raise AssertionError(f"[12] not every step replayed: worker {g} "
+                             f"({srv.worker.invocations} invocations), "
+                             f"survivor decode {d} "
+                             f"({survivor.decode_invocations} steps)")
+    log(f"[12] worker: {srv.worker.invocations} prefill invocations, all "
+        f"replays ({ {p: c for p, c in g.items() if c['keys']} }); "
+        f"survivor: {survivor.decode_invocations} decode steps, all replays "
+        f"({d})")
+
+    # the kernels of the path, every layer, on the tensor cores
+    decodes = st["decode_invocations"]
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[12] a kernel was never launched: {launches}")
+    expect("[12] paged decode", launches["paged_decode_attention"],
+           L * decodes)
+    expect("[12] flash and paged extend",
+           launches["flash_attention"] + launches["paged_extend_attention"],
+           L * srv.worker.invocations)
+    expect_tc(launches, "flash_attention", "paged_extend_attention")
+
+    # end to end
+    toks = sum(len(r.output) for r in reqs)
+    ttft = [float(np.median([r.ttft for r in reqs[i:i + SLOTS]]))
+            for i in range(0, len(reqs), SLOTS)]
+    per_req = {}
+    for e in sup.cells["prefill"].accounting.recorder.log:
+        if e["name"] == "channel":
+            kind = "cold" if e["trace_id"] // SLOTS in (0, 3) else "warm"
+            per_req.setdefault(kind, []).append(e["attrs"]["bytes"])
+    handoff = {"bytes": st["kv_bytes"], "transfers": st["kv_transfers"],
+               "enqueue_s": st["kv_seconds"],
+               "bytes_per_request": {k: float(np.mean(v))
+                                     for k, v in per_req.items()}}
+    # decode/1 handed its slots off before its first decode step
+    replica_step = {"decode/0": sup.cells["decode/0"].accounting.recorder
+                    .hists["decode_step_s"].quantile(0.5)}
+    if "decode_step_s" in srv._detached_hists:
+        replica_step["decode/1"] = \
+            srv._detached_hists["decode_step_s"].quantile(0.5)
+    peak = torch.cuda.max_memory_allocated()
+    e2e = {"tokens_per_s": toks / wall, "ttft_p50_by_wave_s": ttft,
+           "decode_step_s": float(np.median(step_s)), "wall_s": wall,
+           "replica_decode_step_p50_s": replica_step, "handoff": handoff,
+           "fanout": fanout, "scale_down": {k: v for k, v in scale.items()
+                                            if k != "sync"},
+           "peak_gb": peak / 1e9, "launches": launches,
+           "worker_invocations": srv.worker.invocations,
+           "decode_invocations": decodes}
+    log(f"[12] {len(reqs)} requests x {MAX_NEW} tokens in {wall:.2f} s: "
+        f"{toks / wall:.1f} tokens/s; TTFT p50 by wave "
+        f"{' / '.join(f'{w * 1e3:.1f}' for w in ttft)} ms (wave 3 the "
+        f"replay); decode step p50 by replica (recorder) "
+        + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in replica_step.items())
+        + f", a decode-only tick {e2e['decode_step_s'] * 1e3:.2f} ms")
+    log(f"[12] KV handoff: {handoff['transfers']} transfers, "
+        f"{handoff['bytes'] / 1e6:.2f} MB, {handoff['enqueue_s'] * 1e3:.2f} "
+        f"ms to enqueue; bytes a request "
+        + ", ".join(f"{k} {v / 1e6:.3f} MB"
+                    for k, v in handoff["bytes_per_request"].items())
+        + f"; peak {peak / 1e9:.2f} GB allocated; launches {launches} "
+        f"({name_limit})")
+    e2e["verb_seconds"] = verb_seconds(sup.events)
+    log(f"[12] supervisor verbs (event log seconds, {name_limit}): " +
+        ", ".join(f"{k} {v * 1e3:.3f} ms"
+                  for k, v in e2e["verb_seconds"].items()))
+
+    # destroy the cells: the weights, pools and graphs go
+    srv.close()
+    del srv, survivor
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    for name in list(sup.cells):
+        sup.destroy_cell(name)
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    left = torch.cuda.memory_allocated() - base
+    if freed < 2 * weights or left > 1e9:
+        raise AssertionError(f"[12] destroying the cells freed {freed} "
+                             f"bytes, {left} bytes are left above the "
+                             "phase's start")
+    log(f"[12] destroy freed {freed / 1e9:.2f} GB; "
+        f"{left / 1e6:.1f} MB left above the phase's start")
+    e2e["freed_gb"] = freed / 1e9
+    return e2e
+
+
 KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2356,11 +2724,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with timed(11):
         runs[11] = phase_cells(dev, name_limit, runs[5])
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed(12):
+        runs[12] = phase_disagg(dev, name_limit, runs[5])
     rows = []
     for name, rep in kernels.items():
         launches = runs[rep["path"]]["launches"][name]
-        if rep["path"] == 5:        # phase 11 runs the main path's kernels
-            launches += runs[11]["launches"][name]
+        if rep["path"] == 5:        # phases 11 and 12 run the main path's
+            launches += (runs[11]["launches"][name]     # kernels
+                         + runs[12]["launches"][name])
         rows.append({"name": name, "route": "cuda", "source": rep["source"],
                      "replaces": rep["replaces"],
                      "launches": launches,

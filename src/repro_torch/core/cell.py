@@ -27,16 +27,19 @@ A cell runs on one device: its zone's columns may all name one card
 (``DeviceGrid.from_flat(..., allow_reuse=True)``), but a zone over more
 than one distinct device raises :class:`CellError` until sharding lands
 (ROADMAP queue 1 item 13).  A cell's programs are the step graphs of the
-batchers it made (``serve/step_graph.py``), bound to the zone epoch they
-were captured at: a resize drops them, and each key captures again at
-its next visit.  The training role (``init_train``, ``train_steps``)
+batchers it made and of a disaggregated prefill worker on it
+(``serve/step_graph.py``), bound to the zone epoch they were captured
+at: a resize drops them, and each key captures again at its next visit.
+The cell holds them weakly: one its caller drops goes with its memory.
+The training role (``init_train``, ``train_steps``)
 comes with ROADMAP queue 1 item 12; a train cell is created, resized and
 destroyed as any other.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+import weakref
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -84,7 +87,11 @@ class Cell:
         self.state = None
         self.serve_params = None
         self.serve_cache = None
-        self.batchers: List = []         # every batcher this cell made
+        # the batchers this cell made, held weakly as (number, ref): a
+        # batcher its caller drops is collected with its arena, as JAX's
+        # cell keeps none; the number names it in programs() for life
+        self._batchers: List[Tuple[int, weakref.ref]] = []
+        self._made = 0
         self._bind_zone(zone, epoch)
 
     # ------------------------------------------------------------------
@@ -108,6 +115,18 @@ class Cell:
                 for path in PATHS:
                     bat.step_graph.drop(path)
                 bat.step_graph.epoch = epoch
+
+    def live_batchers(self) -> List[Tuple[int, object]]:
+        """(number, batcher) of each batcher this cell made that is still
+        alive, in the order made; dead references are pruned."""
+        live = [(n, ref, ref()) for n, ref in self._batchers]
+        self._batchers = [(n, ref) for n, ref, b in live if b is not None]
+        return [(n, b) for n, _, b in live if b is not None]
+
+    @property
+    def batchers(self) -> list:
+        """The live batchers this cell made."""
+        return [b for _, b in self.live_batchers()]
 
     @property
     def n_devices(self) -> int:
@@ -148,8 +167,9 @@ class Cell:
 
     def make_batcher(self, *, batch_slots: int, max_len: int, **kw):
         """A batcher over the cell's weights on its device, reporting to
-        the cell's accounting and flight recorder; the cell keeps it
-        (its graphs are the cell's programs)."""
+        the cell's accounting and flight recorder.  The cell holds it
+        weakly (its graphs are the cell's programs while it lives); the
+        caller's reference keeps it alive."""
         from repro_torch.serve.batcher import ContinuousBatcher
         if self.serve_params is None:
             self.init_serve()
@@ -159,23 +179,31 @@ class Cell:
             self.model, self.serve_params,
             batch_slots=batch_slots, max_len=max_len, **kw,
         )
-        if bat.step_graph is not None:
-            bat.step_graph.epoch = self.zone_epoch
-        self.batchers.append(bat)
-        return bat
+        return self.track(bat)
+
+    def track(self, engine):
+        """Hold ``engine`` (a batcher, or a disaggregated prefill worker:
+        anything with ``step_graph``, ``state_tensors()`` and ``close()``)
+        weakly among the cell's programs, its graphs bound to the zone
+        epoch; returns it."""
+        if engine.step_graph is not None:
+            engine.step_graph.epoch = self.zone_epoch
+        self._batchers.append((self._made, weakref.ref(engine)))
+        self._made += 1
+        return engine
 
     def programs(self) -> List[Program]:
         """What the BoundaryGuard checks: the serving weights, each
-        batcher's state, and each captured graph with its static inputs
-        and capture epoch."""
+        live batcher's state, and each captured graph with its static
+        inputs and capture epoch; a batcher is named by its number."""
         out = [Program("serve_params", tree_leaves(self.serve_params))]
-        for i, bat in enumerate(self.batchers):
+        for i, bat in self.live_batchers():
             state = bat.state_tensors()
-            out.append(Program(f"batcher{i}", state))
+            out.append(Program(f"{bat.PROGRAM}{i}", state))
             if bat.step_graph is None:
                 continue
             for key, entry in bat.step_graph.captured().items():
-                out.append(Program(f"batcher{i}{key}",
+                out.append(Program(f"{bat.PROGRAM}{i}{key}",
                                    state + list(entry.inputs.values()),
                                    entry.epoch))
         return out
@@ -206,13 +234,13 @@ class Cell:
         return self.state if self.role == "train" else self.serve_params
 
     def destroy(self):
-        """Close the cell's batchers (their graph pools) and drop every
-        reference the cell holds; the memory returns to the allocator
-        once the caller drops its own references too."""
+        """Close the cell's live batchers (their graph pools) and drop
+        every reference the cell holds; the memory returns to the
+        allocator once the caller drops its own references too."""
         self.status = "destroyed"
         for bat in self.batchers:
             bat.close()
-        self.batchers = []
+        self._batchers = []
         self.state = None
         self.serve_params = None
         self.serve_cache = None

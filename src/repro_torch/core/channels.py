@@ -111,9 +111,9 @@ class ArrayChannel:
     zones share a device (zero-copy shared mapping); ``send_kv``/
     ``recv_kv`` carry per-request KV-cache rows for a prefill-cell ->
     decode-cell handoff; ``send_pages``/``poll_pages`` carry page stacks
-    between decode replicas (``kind="pages"``).  The disaggregated server
-    and the cache plane that use the last two come with ROADMAP queue 1
-    item 11.
+    between decode replicas (``kind="pages"``): the disaggregated server
+    (``serve/disagg.py``) and the cluster cache plane
+    (``serve/cacheplane.py``) use them.
     """
 
     _ids = itertools.count()

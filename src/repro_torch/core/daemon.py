@@ -27,11 +27,10 @@ Tick order (each stage feeds the next):
    ``drain_hooks`` fire from the reconciler's destroy branch while the
    doomed cell and its channels are still live, letting a migrating
    ``DisaggServer`` (``migrate=True``) hand the victim's hot KV pages
-   and in-flight slots to survivors (the cache plane, ROADMAP queue 1
-   item 11).
-4. **sync** — attached servers (duck-typed: ``sync(spec, base)`` and
-   ``_decode_base``; the disaggregated server is ROADMAP queue 1 item 11)
-   converge their live replica surface to the (possibly rescaled) spec:
+   and in-flight slots to survivors (``serve/cacheplane.py``).
+4. **sync** — attached servers (a
+   :class:`~repro_torch.serve.disagg.DisaggServer`, or anything with
+   ``sync(spec, base)`` and ``_decode_base``) converge their live replica surface to the (possibly rescaled) spec:
    fresh decode instances attach, vanished ones detach with their
    requests requeued.
 

@@ -18,8 +18,7 @@ TWO axes of a :class:`~repro_torch.core.spec.CellSpec`:
   queue depth plus the TPOT tail drive the desired replica count of the
   server spec within ``[min_replicas, max_replicas]`` — reconcile then
   creates/destroys uniform decode instances and an attached server's
-  ``sync`` live-attaches/detaches them (the disaggregated server comes
-  with ROADMAP queue 1 item 11).
+  ``sync`` live-attaches/detaches them (``serve/disagg.py``).
 
 Threshold bands need not be hand-picked: :meth:`ElasticPolicy.from_slo`
 derives ``(lt, ut)`` from the spec's declared

@@ -59,8 +59,7 @@ class Supervisor:
         # cell's name while the cell and its channels are still live —
         # the serving plane's chance to hand state (hot KV pages,
         # in-flight requests) to survivors before the zone is released
-        # (the paper's live subOS resize; the cache plane is ROADMAP
-        # queue 1 item 11)
+        # (the paper's live subOS resize; see serve/cacheplane.py)
         self.drain_hooks: List = []
 
     # ------------------------------------------------------------------
@@ -299,9 +298,9 @@ class Supervisor:
 
         ``kind`` is a label for the event log / introspection: "array" for
         generic tensor-tree transfer (weight sync), "kv" for the
-        disaggregated prefill->decode KV handoff, "pages" for
-        replica-to-replica KV page migration (both users come with
-        ROADMAP queue 1 item 11).
+        disaggregated prefill->decode KV handoff (``serve/disagg.py``),
+        "pages" for replica-to-replica KV page migration
+        (``serve/cacheplane.py``).
         """
         ch = ArrayChannel(self.cells[src], self.cells[dst], kind=kind)
         self.channels.append(ch)

@@ -38,8 +38,15 @@ boundary that interns into the pool's tree, and a warm prompt restores the
 deepest checkpoint of its chain into its slot row and runs only its
 suffix, through one dense extend over all slots.
 
-Not ported yet: the disaggregated hand-off surfaces (ROADMAP queue 1 item
-11).
+Slots can also be filled from outside, by the disaggregated server
+(``serve/disagg.py``): :meth:`ContinuousBatcher.install_prefilled`,
+:meth:`~ContinuousBatcher.install_snapshot` and
+:meth:`~ContinuousBatcher.install_paged` take a request prefilled on
+another cell, :meth:`~ContinuousBatcher.export_slot` and
+:meth:`~ContinuousBatcher.adopt_slot` move a request mid-decode between
+replicas, and :meth:`~ContinuousBatcher.drop_slot` evicts one unfinished.
+Each writes in place (``index_copy_``, ``copy_``) into the tensors the
+step graphs captured: the arena, the resident rows, the dense cache.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ import torch
 from repro_torch.core.telemetry import (
     finish_request,
     mark_admitted,
+    migrate_decode,
     open_decode,
     open_request,
     recorder_of,
@@ -69,7 +77,7 @@ from repro_torch.models.cache_utils import (
     slice_cache_slots,
     strip_kv_nodes,
 )
-from repro_torch.models.param import tree_leaves
+from repro_torch.models.param import is_pspec, tree_leaves
 from repro_torch.serve.kvpool import (
     KVPool,
     PoolExhausted,
@@ -146,7 +154,119 @@ class Request:
         return (self.finished_at - self.first_token_at) / n
 
 
-class ContinuousBatcher:
+class StepRunner:
+    """The steps of a batcher's prefill and extend paths, shared by
+    :class:`ContinuousBatcher` and the disaggregated prefill worker
+    (``serve/disagg.py``): each runs through :attr:`step_graph` on the
+    card (a CUDA graph per key) and eagerly on the CPU.  The host class
+    sets ``model``, ``params``, ``device``, ``max_len``, ``pool``,
+    ``_paged``, ``generator``, ``step_graph``, ``_prefill``,
+    ``_run_extend``, ``_ckpts`` and ``_scratch_caches``."""
+
+    #: how a cell's guard names it among the cell's programs
+    PROGRAM = "batcher"
+
+    def _scratch(self, batch: int):
+        """B-row prefill scratch cache (fixes the cache length), reused."""
+        if batch not in self._scratch_caches:
+            self._scratch_caches[batch] = self.model.init_cache(
+                batch, self.max_len, device=self.device)
+        return self._scratch_caches[batch]
+
+    def _prefill_state(self, key):
+        """(params, scratch cache, checkpoint views or None) of the cold
+        prefill at ``key`` = ("prefill", b_pad, s_pad): what it reads and
+        writes in place."""
+        _, b_pad, s_pad = key
+        ckpts = None
+        if self._ckpts is not None:
+            n = s_pad // self.pool.page_size
+            self._reserve_checkpoints(b_pad * n)
+            ckpts = self._ckpts.views(b_pad, n)
+        return self.params, self._scratch(b_pad), ckpts
+
+    def _reserve_checkpoints(self, pairs: int):
+        """Grow the checkpoint workspace to ``pairs`` (row, checkpoint)
+        pairs if it is smaller; the prefill graphs captured on the old
+        buffers go with them."""
+        if self._ckpts.reserve(pairs) and self.step_graph is not None:
+            self.step_graph.drop("prefill")
+
+    def _prefill_call(self, key, host):
+        """Run the cold prefill at ``key`` on the host inputs; the
+        first tokens (b_pad,) on the device."""
+        return self._run(key, self._run_prefill, self._prefill_state(key),
+                         host)[0]
+
+    def _run_prefill(self, state, inputs):
+        """The plain prefill step on (params, scratch cache, checkpoint
+        views) and the device inputs -> (tokens, state)."""
+        params, cache, ckpts = state
+        toks, _logits, cache = self._prefill(params, cache, inputs,
+                                             self.generator, ckpt_out=ckpts)
+        if ckpts is not None:
+            cache, ckpts = cache
+        return toks, (params, cache, ckpts)
+
+    def _extend_call(self, key, host):
+        """Run the paged extend at ``key`` on the host inputs over the
+        pool's arena: (first tokens on the device, the b_pad rows'
+        resident part)."""
+        state = (self.params, self.pool.arena, self.pool.kv_scales,
+                 self._extend_rows(key[1]))
+        toks, (_, self.pool.arena, self.pool.kv_scales, rows) = self._run(
+            key, self._run_extend, state, host)
+        return toks, rows
+
+    def _extend_rows(self, b_pad: int):
+        """The resident rows a paged extend of ``b_pad`` rows writes in
+        place: those of the b_pad prefill scratch cache (encdec: the
+        rows' cross memory, which the extend encodes before the decoder
+        stack), or, for a family with no resident state, the template's
+        empty remainder."""
+        if not self._has_resident:
+            return strip_kv_nodes(self.pool.template)
+        return strip_kv_nodes(self._scratch(b_pad))
+
+    def _run(self, key, fn, state, host):
+        """``fn(state, inputs) -> (tokens, state)`` on the host inputs
+        ``host``: on the card through ``key``'s CUDA graph, on the CPU
+        eagerly."""
+        if self.step_graph is None:
+            return fn(state, to_device(host, self.device))
+        return self.step_graph(key, fn, state, host)
+
+    def _stepper(self, step):
+        """``step``, a decode or extend step over the paged arena
+        (``kvpool``) or the dense cache (``serve_step``), as the plain
+        ``fn(state, inputs) -> (tokens, state)`` over
+        the layout of ``ContinuousBatcher._decode_state``; the inputs
+        other than the block table are the step's batch."""
+        paged, generator = self._paged, self.generator   # not self: the
+        # batcher stays free of reference cycles, so dropping it frees it
+
+        def run(state: tuple, inputs: dict):
+            batch = {k: v for k, v in inputs.items() if k != "block_table"}
+            if paged:
+                params, arena, scales, resident = state
+                toks, arena, scales, resident = step(
+                    params, arena, scales, resident, inputs["block_table"],
+                    batch, generator)
+                return toks, (params, arena, scales, resident)
+            params, cache = state
+            toks, _logits, cache = step(params, cache, batch, generator)
+            return toks, (params, cache)
+        return run
+
+    def _has_resident_rows(self) -> bool:
+        """Does the model's cache keep a dense remainder beside its KV
+        nodes (encdec: the cross memory)?"""
+        return bool(tree_leaves(
+            strip_kv_nodes(self.model.cache_specs(1, self.max_len)),
+            is_leaf=is_pspec))
+
+
+class ContinuousBatcher(StepRunner):
     """Slot-based continuous batching over prefill, extend and decode
     steps, on ``device`` (default ``"cuda"``).  ``kv_pool``: "auto" (a
     paged or snapshot pool where the model and cache layout allow one,
@@ -236,6 +356,7 @@ class ContinuousBatcher:
             StepGraph(self.device,
                       generator=self.generator if temperature > 0 else None)
             if self.device.type == "cuda" else None)
+        self._has_resident = self._has_resident_rows()
         self._run_step = self._stepper(self._step)
         self._run_extend = self._stepper(self._extend)
         # where a snapshot pool's cold prefill writes its checkpoints
@@ -273,13 +394,6 @@ class ContinuousBatcher:
                 tenant=req.tenant)
 
     # -- chunked prefill ---------------------------------------------------
-    def _scratch(self, batch: int):
-        """B-row prefill scratch cache (fixes the cache length), reused."""
-        if batch not in self._scratch_caches:
-            self._scratch_caches[batch] = self.model.init_cache(
-                batch, self.max_len, device=self.device)
-        return self._scratch_caches[batch]
-
     def _slot_init(self):
         """A pristine 1-row cache for resetting a slot at a token-at-a-time
         admit: recurrent state is not masked by position, so a request
@@ -319,46 +433,7 @@ class ContinuousBatcher:
                                                list(range(B)))
             self._install_rows(slots, reqs, rows_cache, toks[:B])
             return
-        for i, (slot, req, lease) in enumerate(group):
-            self.pool.install_rows(slot, req.prompt, request_ctx_key(req),
-                                   rows_cache, i, lease.pages)
-        self._merge_resident_rows(rows_cache, list(range(B)), slots)
-        self._post_install(slots, reqs, toks[:B])
-
-    def _prefill_state(self, key):
-        """(params, scratch cache, checkpoint views or None) of the cold
-        prefill at ``key`` = ("prefill", b_pad, s_pad): what it reads and
-        writes in place."""
-        _, b_pad, s_pad = key
-        ckpts = None
-        if self._ckpts is not None:
-            n = s_pad // self.pool.page_size
-            self._reserve_checkpoints(b_pad * n)
-            ckpts = self._ckpts.views(b_pad, n)
-        return self.params, self._scratch(b_pad), ckpts
-
-    def _reserve_checkpoints(self, pairs: int):
-        """Grow the checkpoint workspace to ``pairs`` (row, checkpoint)
-        pairs if it is smaller; the prefill graphs captured on the old
-        buffers go with them."""
-        if self._ckpts.reserve(pairs) and self.step_graph is not None:
-            self.step_graph.drop("prefill")
-
-    def _prefill_call(self, key, host):
-        """Run the cold prefill at ``key`` on the host inputs; the
-        first tokens (b_pad,) on the device."""
-        return self._run(key, self._run_prefill, self._prefill_state(key),
-                         host)[0]
-
-    def _run_prefill(self, state, inputs):
-        """The plain prefill step on (params, scratch cache, checkpoint
-        views) and the device inputs -> (tokens, state)."""
-        params, cache, ckpts = state
-        toks, _logits, cache = self._prefill(params, cache, inputs,
-                                             self.generator, ckpt_out=ckpts)
-        if ckpts is not None:
-            cache, ckpts = cache
-        return toks, (params, cache, ckpts)
+        self._install_pool_rows(group, rows_cache, toks[:B])
 
     def _extend_group(self, group):
         """ONE suffix-extend invocation over prefix-hit (slot, request,
@@ -391,26 +466,6 @@ class ContinuousBatcher:
         self._merge_resident_rows(resident_rows, list(range(len(group))),
                                   slots)
         self._post_install(slots, reqs, toks[:len(group)])
-
-    def _extend_call(self, key, host):
-        """Run the paged extend at ``key`` on the host inputs over the
-        pool's arena: (first tokens on the device, the b_pad rows'
-        resident part)."""
-        state = (self.params, self.pool.arena, self.pool.kv_scales,
-                 self._extend_rows(key[1]))
-        toks, (_, self.pool.arena, self.pool.kv_scales, rows) = self._run(
-            key, self._run_extend, state, host)
-        return toks, rows
-
-    def _extend_rows(self, b_pad: int):
-        """The resident rows a paged extend of ``b_pad`` rows writes in
-        place: those of the b_pad prefill scratch cache (encdec: the
-        rows' cross memory, which the extend encodes before the decoder
-        stack), or, for a family with no resident state, the template's
-        empty remainder."""
-        if not tree_leaves(self.resident):
-            return strip_kv_nodes(self.pool.template)
-        return strip_kv_nodes(self._scratch(b_pad))
 
     def _intern_snapshot_chains(self, group, rows_cache, ckpts):
         """Intern each cold request's chunk chain: chunk ``lp``'s payload is
@@ -469,6 +524,17 @@ class ContinuousBatcher:
         self._post_install([s for s, _, _ in group], reqs,
                            [toks[s] for s, _, _ in group])
 
+    def _install_pool_rows(self, group, rows_cache, first_tokens):
+        """Map each (slot, request, lease)'s computed pages out of row i of
+        a dense rows cache into its slot (full prompt pages interned),
+        copy the resident remainder in place, then the bookkeeping."""
+        for i, (slot, req, lease) in enumerate(group):
+            self.pool.install_rows(slot, req.prompt, request_ctx_key(req),
+                                   rows_cache, i, lease.pages)
+        slots = [s for s, _, _ in group]
+        self._merge_resident_rows(rows_cache, list(range(len(group))), slots)
+        self._post_install(slots, [r for _, r, _ in group], first_tokens)
+
     def _install_rows(self, slots, reqs, rows_cache, first_tokens):
         """Write prefilled dense KV rows (batch dim ``len(slots)``) into
         their slots with one scatter, then the per-request bookkeeping."""
@@ -509,6 +575,164 @@ class ContinuousBatcher:
             else:
                 self.slot_req[slot] = req
                 open_decode(self.rec, req, ts=now)
+
+    # -- slots filled from outside (disaggregated serving) ----------------
+    def _merge_resident_row(self, resident_row, slot: int):
+        """Copy a 1-row resident tree (encdec: cross memory and src_len)
+        into ``slot``'s resident rows, in place."""
+        if resident_row is not None and tree_leaves(resident_row):
+            self.resident = merge_cache_slots(
+                self.resident, resident_row, self._resident_axes, [slot])
+
+    def install_prefilled(self, req: Request, row_cache,
+                          first_token: int) -> bool:
+        """Take a request prefilled on another cell: ``row_cache`` is a
+        1-row dense cache on this batcher's device.  False when no slot
+        is free or, on a paged pool, admission would exhaust it."""
+        free = self.free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        if self.pool is None:
+            self._install_rows([slot], [req], row_cache, [first_token])
+            return True
+        if not self._paged:
+            return self.install_snapshot(req, row_cache, first_token)
+        ctx = request_ctx_key(req)
+        alt = (public_ctx_key(req) if self.tenants.share_public(req.tenant)
+               else None)
+        lease = self.pool.lease(req.prompt, ctx, alt)
+        try:
+            self.pool.admit(slot, lease, len(req.prompt), req.max_new_tokens,
+                            tenant=req.tenant)
+        except PoolExhausted:
+            self.pool.release_lease(lease)
+            return False
+        self._install_pool_rows([(slot, req, lease)], row_cache,
+                                [first_token])
+        return True
+
+    def install_snapshot(self, req: Request, row_cache, first_token: int,
+                         lease=None, chain=None) -> bool:
+        """Take a request prefilled on another cell onto a snapshot pool:
+        the dense 1-row install plus the prefix bookkeeping.  The lease
+        (the router's, or taken here) moves to the slot at admission, and
+        a cold handoff's chunk ``chain`` interns so the next request with
+        this prefix restores warm.  False (lease released) when no slot
+        is free."""
+        free = self.free_slots()
+        if not free:
+            self.pool.release_lease(lease)
+            return False
+        slot = free[0]
+        ctx = request_ctx_key(req)
+        if lease is None:
+            alt = (public_ctx_key(req)
+                   if self.tenants.share_public(req.tenant) else None)
+            lease = self.pool.lease(req.prompt, ctx, alt)
+        try:
+            self.pool.admit(slot, lease, len(req.prompt), req.max_new_tokens,
+                            tenant=req.tenant)
+        except PoolExhausted:       # a snapshot admit reserves nothing
+            self.pool.release_lease(lease)
+            return False
+        if chain:
+            self.pool.intern_snapshots(req.prompt, ctx, chain,
+                                       tenant=req.tenant)
+        self._install_rows([slot], [req], row_cache, [first_token])
+        return True
+
+    def install_paged(self, req: Request, stacks, resident_row,
+                      start_page: int, first_token: int, lease) -> bool:
+        """Take a request prefilled on another cell from page stacks: only
+        the pages from ``start_page`` on crossed the channel; pages
+        ``[0, start_page)`` map from this pool's interned prefix, held by
+        ``lease``, which moves to the slot.  False (lease untouched) when
+        no slot is free or the pool is exhausted."""
+        free = self.free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        try:
+            self.pool.admit(slot, lease, len(req.prompt), req.max_new_tokens,
+                            tenant=req.tenant)
+        except PoolExhausted:
+            return False
+        self.pool.install_stacks(slot, req.prompt, request_ctx_key(req),
+                                 stacks, start_page)
+        self._merge_resident_row(resident_row, slot)
+        self._post_install([slot], [req], [first_token])
+        return True
+
+    def export_slot(self, slot: int) -> dict:
+        """A busy paged slot's mid-decode state, for migration: the
+        request, its cursor (``pos``, ``cur_tok``), its written pages
+        (positions ``[0, pos)``, as copies) and its resident row.
+        Read-only: the caller drops the slot once a survivor adopted it."""
+        req = self.slot_req[slot]
+        if req is None or not self._paged:
+            raise ValueError("slot export needs a busy slot of a paged pool "
+                             "(snapshot and dense slots requeue)")
+        pos = int(self.pos[slot])
+        n_pages = -(-pos // self.pool.page_size)
+        page_ids = np.asarray(self.pool.block_table[slot, :n_pages],
+                              np.int32)
+        if (page_ids == self.pool.sentinel).any():
+            raise RuntimeError("a written page is unmapped: the block-table "
+                               "invariant is broken")
+        resident_row = None
+        if tree_leaves(self.resident):
+            resident_row = slice_cache_slots(self.resident,
+                                             self._resident_axes, [slot])
+        return {"req": req, "pos": pos, "cur_tok": int(self.cur_tok[slot]),
+                "stacks": self.pool.read_pages(page_ids),
+                "resident": resident_row}
+
+    def adopt_slot(self, req: Request, stacks, resident_row, pos: int,
+                   cur_tok: int) -> bool:
+        """Take a migrated request mid-decode (the other half of
+        :meth:`export_slot`): admit it into a free slot, map its written
+        pages (the prefix this pool interned already from its own pages,
+        the rest from ``stacks``, full prompt pages interned) and resume
+        its cursor where the source left it.  Its tokens are not
+        re-run.  False (nothing changed) when no slot is free or the
+        pool is exhausted."""
+        free = self.free_slots()
+        if not free or not self._paged:
+            return False
+        slot = free[0]
+        ctx = request_ctx_key(req)
+        alt = (public_ctx_key(req) if self.tenants.share_public(req.tenant)
+               else None)
+        lease = self.pool.lease(req.prompt, ctx, alt)
+        try:
+            self.pool.admit(slot, lease, len(req.prompt), req.max_new_tokens,
+                            tenant=req.tenant)
+        except PoolExhausted:
+            self.pool.release_lease(lease)
+            return False
+        start = lease.pages
+        if start:
+            stacks = [type(s)(*(a[start:] for a in s)) for s in stacks]
+        self.pool.install_stacks(slot, req.prompt, ctx, stacks, start)
+        self._merge_resident_row(resident_row, slot)
+        self.slot_req[slot] = req
+        self.pos[slot] = pos
+        self.cur_tok[slot] = cur_tok
+        self.prompt_cursor[slot] = len(req.prompt)
+        migrate_decode(req, self.rec)
+        return True
+
+    def drop_slot(self, slot: int) -> Optional[Request]:
+        """Evict a slot's request without finishing it (detach, requeue):
+        the slot, its pool pages and its prompt cursor are released; the
+        caller re-homes the request."""
+        req = self.slot_req[slot]
+        self.slot_req[slot] = None
+        self.prompt_cursor[slot] = 0
+        if self.pool is not None:
+            self.pool.release_slot(slot)
+        return req
 
     def _admit_fallback(self, slot: int, req: Request):
         """Token-at-a-time admission: the prompt is fed through the decode
@@ -671,14 +895,6 @@ class ContinuousBatcher:
             _, self.cache = state
         return toks
 
-    def _run(self, key, fn, state, host):
-        """``fn(state, inputs) -> (tokens, state)`` on the host inputs
-        ``host``: on the card through ``key``'s CUDA graph, on the CPU
-        eagerly."""
-        if self.step_graph is None:
-            return fn(state, to_device(host, self.device))
-        return self.step_graph(key, fn, state, host)
-
     def _decode_state(self) -> tuple:
         """What the decode step reads and updates in place: (params,
         arena, scales, resident) on the paged plane, else (params,
@@ -687,25 +903,6 @@ class ContinuousBatcher:
             return (self.params, self.pool.arena, self.pool.kv_scales,
                     self.resident)
         return self.params, self.cache
-
-    def _stepper(self, step):
-        """``step``, a decode or extend step over the paged arena
-        (``kvpool``) or the dense cache (``serve_step``), as the plain
-        ``fn(state, inputs) -> (tokens, state)`` over
-        :meth:`_decode_state`'s layout; the inputs other than the block
-        table are the step's batch."""
-        def run(state: tuple, inputs: dict):
-            batch = {k: v for k, v in inputs.items() if k != "block_table"}
-            if self._paged:
-                params, arena, scales, resident = state
-                toks, arena, scales, resident = step(
-                    params, arena, scales, resident, inputs["block_table"],
-                    batch, self.generator)
-                return toks, (params, arena, scales, resident)
-            params, cache = state
-            toks, _logits, cache = step(params, cache, batch, self.generator)
-            return toks, (params, cache)
-        return run
 
     def state_tensors(self) -> list:
         """Every tensor the batcher's steps read or update in place (and

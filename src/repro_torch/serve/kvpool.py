@@ -27,8 +27,14 @@ state after the chunk's last position plus, for hybrid, the chunk's
 shared-attention KV page.  Snapshot handles come from the same free list,
 quotas and LRU eviction as pages; evicting one drops its payload.
 
-The slot-less prefill-worker cache and replica-to-replica migration are
-not ported yet.
+Two deployments share the class: a *decode* pool (``slots`` > 0) backs a
+batcher's slots; a *prefill* pool (``slots`` 0) backs the disaggregated
+prefill worker (``serve/disagg.py``) as a prefix cache only, interning
+cold prompts' pages (:meth:`KVPool.intern_rows`) and running warm ones'
+suffixes over temp pages that intern by ownership transfer
+(:meth:`KVPool.intern_arena_pages`).  :meth:`KVPool.export_subtree` and
+:meth:`KVPool.import_subtree` carry interned prefixes replica to replica
+(the cluster cache plane, ``serve/cacheplane.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.cache_utils import (
     clean_arena_pages,
+    dequantize_page,
     extract_paged,
     extract_row_pages,
     kv_node_axes,
@@ -263,10 +270,11 @@ class KVPool:
     Admission reserves a private-page pocket of the request's worst case
     (``ceil((prompt + max_new) / page_size)`` minus the shared prefix) so
     decode growth never fails mid-request; a snapshot pool reserves
-    nothing per slot (the request's state lives in its dense cache row)."""
+    nothing per slot (the request's state lives in its dense cache row).
+    A slot-less pool (``slots`` 0) is a prefill worker's prefix cache."""
 
     def __init__(self, model, *, max_len: int, page_size: int = 16,
-                 slots: int = 1, num_pages: Optional[int] = None,
+                 slots: int = 0, num_pages: Optional[int] = None,
                  accounting=None, quotas: Any = None,
                  kv_dtype: Optional[str] = None, device="cuda"):
         if model.supports_paged_kv:
@@ -287,7 +295,8 @@ class KVPool:
         self.slots = slots
         self.n_logical = max_len // page_size
         self.num_pages = int(num_pages if num_pages is not None
-                             else (slots + 2) * self.n_logical)
+                             else (slots + 2) * self.n_logical if slots
+                             else 8 * self.n_logical)
         if self.num_pages < self.n_logical:
             raise ValueError("pool smaller than one request's worst case")
         self.template = model.cache_specs(1, max_len)
@@ -326,15 +335,16 @@ class KVPool:
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
         self.kv_dtype = kv_dtype
         self.sentinel = self.num_pages          # unmapped block-table entry
-        self.block_table = np.full((slots, self.n_logical), self.sentinel,
+        rows = max(slots, 1)
+        self.block_table = np.full((rows, self.n_logical), self.sentinel,
                                    np.int32)
         self.tree = PrefixTree(page_size)
         self.free: deque = deque(range(self.num_pages))
         self.accounting = accounting
         # per slot: shared tree nodes, private pages, reserved pocket
-        self._shared: List[List[_Node]] = [[] for _ in range(slots)]
-        self._private: List[List[int]] = [[] for _ in range(slots)]
-        self._pocket: List[List[int]] = [[] for _ in range(slots)]
+        self._shared: List[List[_Node]] = [[] for _ in range(rows)]
+        self._private: List[List[int]] = [[] for _ in range(rows)]
+        self._pocket: List[List[int]] = [[] for _ in range(rows)]
         # tenant bulkheads: pocket name -> page budget; every allocated
         # page is charged to exactly one pocket in ``used``
         if callable(quotas):
@@ -349,8 +359,8 @@ class KVPool:
         self.quotas = dict(quotas) if quotas is not None else None
         self.used: Dict[str, int] = ({p: 0 for p in quotas}
                                      if quotas is not None else {})
-        self._slot_tenant: List[Optional[str]] = [None] * slots
-        self._slot_foreign: List[bool] = [False] * slots
+        self._slot_tenant: List[Optional[str]] = [None] * rows
+        self._slot_foreign: List[bool] = [False] * rows
         self.pages_evicted = 0
         self.prefix_hit_tokens = 0
         self.prefix_miss_tokens = 0
@@ -411,6 +421,17 @@ class KVPool:
 
     def evictable_pages(self) -> int:
         return self.tree.evictable_pages()
+
+    def available_pages(self, tenant: Optional[str] = None) -> int:
+        """Pages an admission could obtain now: free plus reclaimable
+        refcount-0 cache; under quotas, the headroom of the pocket the
+        admission would charge plus that pocket's evictable cache."""
+        if self.quotas is None:
+            return len(self.free) + self.evictable_pages()
+        pocket = self._pocket_of(tenant)
+        headroom = self.quotas[pocket] - self.used.get(pocket, 0)
+        return headroom + self.tree.evictable_pages(
+            self._pocket_visible(pocket))
 
     def occupancy(self) -> float:
         """Committed (non-reclaimable) fraction of the pool."""
@@ -527,22 +548,25 @@ class KVPool:
         self.tree.release(lease.nodes)
         lease.released = True
 
-    def note_lookup(self, prompt_len: int, hit_tokens: int):
+    def note_lookup(self, prompt_len: int, hit_tokens: int,
+                    accounting=None, saved_bytes: bool = True):
         """Record a prefix lookup's hit/miss token split (and, on a
-        snapshot pool, its snapshot counters)."""
+        snapshot pool, its snapshot counters) in ``accounting`` (default
+        the pool's).  A prefill worker's hits skip compute, not bytes
+        (``saved_bytes=False``)."""
+        acc = accounting if accounting is not None else self.accounting
         self.prefix_hit_tokens += hit_tokens
         self.prefix_miss_tokens += prompt_len - hit_tokens
-        saved = hit_tokens * self.position_bytes
+        saved = hit_tokens * self.position_bytes if saved_bytes else 0
         self.kv_bytes_saved += saved
         if self.payload_kind == "snapshot":
             self.snapshot_hit_tokens += hit_tokens
             self.snapshot_bytes_saved += saved
-        if self.accounting is not None:
-            self.accounting.record_counter("prefix_hit_tokens", hit_tokens)
-            self.accounting.record_counter("prefix_miss_tokens",
-                                           prompt_len - hit_tokens)
+        if acc is not None:
+            acc.record_counter("prefix_hit_tokens", hit_tokens)
+            acc.record_counter("prefix_miss_tokens", prompt_len - hit_tokens)
             if saved:
-                self.accounting.record_counter("kv_bytes_saved", saved)
+                acc.record_counter("kv_bytes_saved", saved)
 
     # -- slot lifecycle --------------------------------------------------
     def required_pages(self, prompt_len: int, max_new: int,
@@ -796,6 +820,193 @@ class KVPool:
         self._slot_foreign[slot] = False
         self.block_table[slot, :] = self.sentinel
         self._gauge()
+
+    def release_all(self):
+        for slot in range(len(self._shared)):
+            self.release_slot(slot)
+
+    # -- the prefill worker's prefix cache (slot-less) ---------------------
+    def intern_rows(self, prompt, ctx_key, rows_cache, row: int,
+                    tenant: Optional[str] = None):
+        """Best-effort intern of a prompt's full pages from one row of a
+        dense prefill cache (refcounts stay 0: reclaimable cache); stops
+        when no page can be had.  Pages bill the namespace they land in.
+        The walked chain is pinned so an eviction cannot detach it."""
+        P = self.page_size
+        owner = _owner(ctx_key, tenant)
+        parent = self.tree.root(ctx_key)
+        path: List[_Node] = []
+        new_ids: List[int] = []
+        new_lps: List[int] = []
+        try:
+            for lp in range(len(prompt) // P):
+                key = tuple(int(t) for t in prompt[lp * P:(lp + 1) * P])
+                node = parent.children.get(key)
+                if node is None:
+                    # a new node has no children, so every page from the
+                    # first miss on is new: one arena write below
+                    page = self._alloc_raw(owner)
+                    if page is None:
+                        break
+                    node = self.tree.insert(parent, key, page, owner)
+                    new_ids.append(page)
+                    new_lps.append(lp)
+                self.tree.acquire([node])
+                path.append(node)
+                parent = node
+            if new_ids:
+                self._write_pages(new_ids, extract_row_pages(
+                    rows_cache, self.axes, row, new_lps[0], len(new_lps), P))
+        finally:
+            self.tree.release(path)
+            self._gauge()
+
+    def alloc_temp_pages(self, n: int,
+                         tenant: Optional[str] = None) -> List[int]:
+        """``n`` cleaned scratch pages for a slot-less paged extend (the
+        worker's warm suffix writes into them), charged to ``tenant``'s
+        pocket; raises :class:`PoolExhausted`, holding nothing, when they
+        cannot be had."""
+        got: List[int] = []
+        for _ in range(n):
+            page = self._alloc_raw(tenant)
+            if page is None:
+                self._uncharge(tenant, len(got))
+                self.free.extend(got)
+                raise PoolExhausted(
+                    f"need {n} temp pages, got {len(got)} "
+                    f"(free={len(self.free)}, "
+                    f"evictable={self.evictable_pages()})")
+            got.append(page)
+        if got:
+            self._clean_pages(got)
+        return got
+
+    def free_temp_pages(self, pages: List[int],
+                        tenant: Optional[str] = None):
+        """Return temp pages that did not transfer into the tree."""
+        self._uncharge(tenant, len(pages))
+        self.free.extend(pages)
+
+    def intern_arena_pages(self, prompt, ctx_key, lease: PrefixLease,
+                           temp_pages: List[int],
+                           tenant: Optional[str] = None):
+        """Intern the worker's warm suffix by ownership transfer:
+        ``temp_pages[i]`` holds logical page ``lease.pages + i``, already
+        written in place by the paged extend.  Full pages join the tree
+        as refcount-0 cache (or are freed when the chunk is interned
+        already); the partial tail page is freed; a foreign lease interns
+        nothing.  The walked chain is pinned meanwhile."""
+        P = self.page_size
+        owner = _owner(ctx_key, tenant)
+        can_intern = not lease.foreign
+        parent = lease.nodes[-1] if lease.nodes else self.tree.root(ctx_key)
+        path: List[_Node] = []
+        leftover: List[int] = []
+        try:
+            for i, page in enumerate(temp_pages):
+                lp = lease.pages + i
+                node = None
+                if can_intern and (lp + 1) * P <= len(prompt):
+                    key = tuple(int(t) for t in prompt[lp * P:(lp + 1) * P])
+                    node = parent.children.get(key)
+                    if node is None:
+                        if self._transfer_charge(tenant, owner):
+                            node = self.tree.insert(parent, key, page, owner)
+                            page = None         # the tree owns it now
+                        else:
+                            can_intern = False
+                if page is not None:
+                    leftover.append(page)
+                if node is not None:
+                    self.tree.acquire([node])
+                    path.append(node)
+                    parent = node
+        finally:
+            self.tree.release(path)
+            if leftover:
+                self._uncharge(tenant, len(leftover))
+                self.free.extend(leftover)
+            self._gauge()
+
+    def read_pages(self, page_ids) -> list:
+        """Canonical page stacks of ``page_ids`` (copies); an int8 arena
+        dequantizes to float32."""
+        stacks = read_arena_pages(self.arena, page_ids)
+        if self.kv_scales is None:
+            return stacks
+        idx = torch.as_tensor(page_ids, dtype=torch.long, device=self.device)
+        return [KVSlice(k=dequantize_page(s.k, ks[idx], keep_axes=(0, 2)),
+                        v=dequantize_page(s.v, vs[idx], keep_axes=(0, 2)),
+                        slot_pos=s.slot_pos)
+                for s, (ks, vs) in zip(stacks, self.kv_scales)]
+
+    # -- replica-to-replica migration (the cluster cache plane) ------------
+    def export_subtree(self, ctx_key=None,
+                       max_pages: Optional[int] = None) -> tuple:
+        """One namespace's interned prefix tree, for migration: (records,
+        stacks), ``records[i]`` = {"key": the chunk's tokens, "owner",
+        "parent": index of the parent record, -1 for the root} in
+        pre-order; ``stacks`` the page data row for row (a snapshot pool:
+        each record's payload).  ``max_pages`` caps it (an unexported
+        node's children go with it).  Read-only."""
+        root = self.tree._roots.get(ctx_key)
+        records: List[dict] = []
+        pages: List[int] = []
+        if root is None:
+            return records, []
+        stack: List[tuple] = [(root, -1)]
+        while stack and (max_pages is None or len(records) < max_pages):
+            node, pidx = stack.pop()
+            if node.page is not None:
+                idx = len(records)
+                records.append({"key": node.key, "owner": node.owner,
+                                "parent": pidx})
+                pages.append(node.page)
+            else:
+                idx = pidx
+            stack.extend((c, idx) for c in node.children.values())
+        if self.payload_kind == "snapshot":
+            return records, [self._snaps[p] for p in pages]
+        return records, (self.read_pages(pages) if pages else [])
+
+    def import_subtree(self, ctx_key, records, stacks) -> int:
+        """Best-effort re-intern of an exported subtree: new nodes arrive
+        as refcount-0 cache charged to their record's owner, nodes held
+        already are skipped, a record whose page cannot be had (or whose
+        parent was dropped) is dropped with its descendants.  The walked
+        nodes are pinned meanwhile.  Returns the number of new pages."""
+        root = self.tree.root(ctx_key)
+        nodes: List[Optional[_Node]] = [None] * len(records)
+        pinned: List[_Node] = []
+        new_ids: List[int] = []
+        new_rows: List[int] = []
+        try:
+            for i, rec in enumerate(records):
+                parent = root if rec["parent"] < 0 else nodes[rec["parent"]]
+                if parent is None:          # parent dropped: drop subtree
+                    continue
+                key = tuple(rec["key"])
+                node = parent.children.get(key)
+                if node is None:
+                    page = self._alloc_raw(rec["owner"])
+                    if page is None:
+                        continue    # exhausted: siblings may still fit
+                    node = self.tree.insert(parent, key, page, rec["owner"])
+                    if self.payload_kind == "snapshot":
+                        self._snaps[page] = stacks[i]
+                        self.snapshots_interned += 1
+                    new_ids.append(page)
+                    new_rows.append(i)
+                self.tree.acquire([node])
+                pinned.append(node)
+                nodes[i] = node
+            if new_ids and self.payload_kind == "page":
+                self._write_pages(new_ids, read_arena_pages(stacks, new_rows))
+        finally:
+            self.tree.release(pinned)
+            self._gauge()
+        return len(new_ids)
 
 
 # --------------------------------------------------------------------------

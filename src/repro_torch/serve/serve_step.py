@@ -123,17 +123,37 @@ def prefill_inputs(prompts, srcs, *, chunk: int, max_len: int, model):
                                        **extras}
 
 
+def run_prefill_prompts(run: Callable, prompts, *, chunk: int,
+                        max_len: int, model: Model, srcs=None):
+    """ONE prefill invocation over same-bucket prompts (``srcs``: their
+    sources, default none): ``run(key, host)`` runs the prefill step at
+    ``key`` on the host arrays of :func:`prefill_inputs` and returns the
+    first tokens (b_pad,) on the device; the cache it wrote is the
+    caller's scratch for that key.  Returns (the b_pad first tokens as a
+    list, key)."""
+    srcs = list(srcs) if srcs is not None else [None] * len(prompts)
+    key, host = prefill_inputs(prompts, srcs, chunk=chunk, max_len=max_len,
+                               model=model)
+    return run(key, host).tolist(), key
+
+
+def run_prefill_prompt(run: Callable, prompt, *, chunk: int, max_len: int,
+                       model: Model, src=None):
+    """:func:`run_prefill_prompts` of one prompt: (first token, key)."""
+    toks, key = run_prefill_prompts(run, [prompt], chunk=chunk,
+                                    max_len=max_len, model=model, srcs=[src])
+    return toks[0], key
+
+
 def run_prefill_group(run: Callable, reqs, *, chunk: int, max_len: int,
                       model: Model, accounting=None):
-    """ONE prefill invocation over a same-bucket request group:
-    ``run(key, host)`` runs the prefill step at ``key`` on the host
-    arrays of :func:`prefill_inputs` (with each request's ``src``) and
-    returns the first tokens (b_pad,) on the device.  Returns
-    (first_tokens list, key)."""
-    key, host = prefill_inputs([r.prompt for r in reqs],
-                               [r.src for r in reqs], chunk=chunk,
-                               max_len=max_len, model=model)
-    toks = run(key, host).tolist()
+    """ONE prefill invocation over a same-bucket request group
+    (:func:`run_prefill_prompts` of their prompts and sources), the
+    dummy rows of its padding counted as ``prefill_dummy_rows``.
+    Returns (first_tokens list, key)."""
+    toks, key = run_prefill_prompts(run, [r.prompt for r in reqs],
+                                    chunk=chunk, max_len=max_len,
+                                    model=model, srcs=[r.src for r in reqs])
     b_pad = key[1]
     if accounting is not None and b_pad != len(reqs):
         accounting.record_counter("prefill_dummy_rows", b_pad - len(reqs))

@@ -15,7 +15,8 @@ key.  A key is a tuple whose first item names its kind:
 * paged extend: ``("extend", b_pad, s_pad, width)``, the width trimmed
   as decode trims it, to cover the longest prompt;
 * the snapshot restore's dense extend over all slots: ``("restore",
-  s_pad)``.
+  s_pad)``; a disaggregated prefill worker's over its b_pad scratch
+  rows: ``("restore", s_pad, b_pad)``.
 
 At 8 slots, max_len 512 and chunk 32 that is at most 6 decode, 64
 prefill, 384 extend and 16 restore keys, captured as they are met.
@@ -109,8 +110,11 @@ def extend_key(b_pad: int, s_pad: int, n_pages: int, n_logical: int) -> Key:
     return ("extend", b_pad, s_pad, paged_key(n_pages, n_logical)[1])
 
 
-def restore_key(s_pad: int) -> Key:
-    return ("restore", s_pad)
+def restore_key(s_pad: int, b_pad: Optional[int] = None) -> Key:
+    """The key of a dense suffix extend over a snapshot restore: over all
+    of a batcher's slots, or (``b_pad``) over the b_pad rows of a
+    disaggregated prefill worker's scratch cache."""
+    return ("restore", s_pad) if b_pad is None else ("restore", s_pad, b_pad)
 
 
 def leaf_addresses(tree) -> Tuple[int, ...]:

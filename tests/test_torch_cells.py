@@ -13,9 +13,15 @@
 * A cell's batcher gives the same tokens across a resize as a batcher
   that was never resized; the guard refuses a cell tensor off the zone's
   device and a graph record from an older epoch.
+* A cell holds its batchers weakly, as JAX's holds none: one its caller
+  drops is collected with its arena, while a live one keeps its number in
+  the guard's programs and still loses its graphs on a resize.
 * ``ArrayChannel`` and ``ControlPlane`` round-trip as in
   ``tests/test_core.py``.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 
@@ -114,7 +120,7 @@ def test_launch_serve_goes_through_a_cell_and_matches_jax(monkeypatch,
     (tcell, tbat), = t_made
     assert len(inits) == 1 and inits[0] is not None   # seeded by the entry
     assert tbat.accounting is tcell.accounting
-    assert tcell.status == "running" and tcell.batchers == [tbat]
+    assert tcell.status == "running" and tcell.live_batchers() == [(0, tbat)]
     assert len(tcell.accounting.requests) == 4
     assert tcell.accounting.recorder.open_spans == []
     tout = {r.rid: r.output for r in tbat.done}
@@ -273,7 +279,7 @@ def test_batcher_tokens_hold_across_a_resize():
     plan = sup.apply(spec.scale("a", 3).scale("b", 1))
     assert [op.verb for op in plan.ops] == ["transfer"]
     assert a.zone.ncols == 3 and a.zone_epoch > epoch
-    assert sup.cells["a"] is a and a.batchers == [bat]
+    assert sup.cells["a"] is a and a.live_batchers() == [(0, bat)]
     assert sup.validate_cell_programs("a") == 2      # weights + batcher
     got.update(_serve_wave(bat, *waves[1]))
     want = _serve_wave(ref, *waves[0])
@@ -311,6 +317,9 @@ class _FakeGraphs:
     def drop(self, path):
         self.dropped.append(path)
 
+    def release(self):
+        self.entries = {}
+
 
 def test_guard_refuses_off_zone_tensors_and_stale_graphs():
     sup, spec, tcfg = _cells_sup()
@@ -343,6 +352,36 @@ def test_guard_refuses_off_zone_tensors_and_stale_graphs():
     with pytest.raises(BoundaryViolation, match="outside its zone"):
         sup.guard.validate(a, Program("x", [torch.empty(1, device="meta")]))
     assert tree_leaves(a.serve_params)
+
+
+def test_a_dropped_batcher_is_collected_live_ones_keep_their_programs():
+    sup, spec, tcfg = _cells_sup()
+    a = sup.cells["a"]
+    a.init_serve(generator=torch.Generator().manual_seed(0))
+    kw = dict(batch_slots=2, max_len=MAX_LEN, page_size=PAGE)
+    first = a.make_batcher(**kw)
+    live = a.make_batcher(**kw)
+    live.step_graph = _FakeGraphs(a.zone_epoch, {"tokens": torch.zeros(2)})
+    gone, arena = weakref.ref(first), weakref.ref(first.pool.arena[0].k)
+    assert [p.name for p in a.programs()] == [
+        "serve_params", "batcher0", "batcher1", "batcher1('paged', 1)"]
+    del first
+    gc.collect()
+    assert gone() is None and arena() is None     # collected, arena too
+    # the live batcher keeps its number: no guard report renames it
+    assert [p.name for p in a.programs()] == [
+        "serve_params", "batcher1", "batcher1('paged', 1)"]
+    assert sup.validate_cell_programs("a") == 3
+    assert a.batchers == [live]
+    # a resize still drops the live batcher's graphs and moves its epoch
+    sup.apply(spec.scale("a", 1).scale("b", 3))
+    assert live.step_graph.dropped == ["decode", "prefill", "extend",
+                                       "restore"]
+    assert live.step_graph.epoch == a.zone_epoch
+    later = a.make_batcher(**kw)
+    assert a.live_batchers() == [(1, live), (2, later)]
+    sup.destroy_cell("a")
+    assert a.batchers == [] and a.live_batchers() == []
 
 
 # ---------------------------------------------------------------------------

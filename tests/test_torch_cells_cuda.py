@@ -11,7 +11,9 @@ graphs of the cells' batchers:
 * a graph kept from before the resize fails ``validate_cell_programs``;
 * ``destroy`` frees the cell's graph pool and weights;
 * ``send_pages`` of one request's interned pages arrives bitwise equal,
-  with its bytes counted.
+  with its bytes counted;
+* a batcher its caller drops frees at least its arena (the cell holds
+  its batchers weakly).
 
     PYTHONPATH=src python -m pytest -q -s -m cuda tests/test_torch_cells_cuda.py
 """
@@ -189,3 +191,29 @@ def test_send_pages_arrives_bitwise_equal(dev):
     assert [e["name"] for e in rec.log if e["name"].startswith("xfer")] == \
         ["xfer:pages"]
     bat.close()
+
+
+@pytest.mark.cuda
+def test_a_dropped_batcher_frees_its_arena(dev):
+    sup, spec = _cluster(dev)
+    a = sup.cells["a"]
+    bat = a.make_batcher(**KW)
+    keep = a.make_batcher(**KW)
+    _submit(bat, a.model.cfg.vocab, max_new=6)
+    bat.run_until_drained()
+    assert bat.step_graph.captured()
+    arena = sum(t.numel() * t.element_size()
+                for t in tree_leaves(bat.pool.arena))
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    bat.close()
+    del bat
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    print(f"[cells] dropping a batcher freed {freed} bytes; its arena "
+          f"{arena} bytes")
+    assert freed >= arena
+    assert a.live_batchers() == [(1, keep)]
+    assert sup.validate_cell_programs("a") == 2     # weights + keep
