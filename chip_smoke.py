@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, checks that the
+each against its plain PyTorch version on the card, trains full-width
+qwen3-4b (phases 13 and 13b, below), checks that the
 port's batcher gives the same greedy tokens on the card as on the CPU
 (qwen3-4b, deepseek-moe-16b, mixtral-8x7b, mamba2-2.7b, zamba2-2.7b and
 seamless-m4t-large-v2 at smoke size, on the paged, dense,
@@ -89,6 +90,24 @@ launches add to the main path's rows.  Phase 4 also runs the
 disaggregated plane at smoke size (qwen3-4b paged with two replicas,
 mamba2-2.7b on the snapshot plane, seamless with ragged sources): the
 card's tokens equal the CPU's and a colocated batcher's.
+
+Phase 3 also holds flash attention's backward kernel
+(``csrc/flash_attention_bwd.cu``) against ``flash_attention_bwd_ref`` under
+every mask the forward takes, checks that two calls are bitwise equal,
+and times it at qwen3-4b's training shape (row ``flash_attention_bwd``;
+the library's time is SDPA's forward + backward less its forward).
+Phase 13 trains full-width qwen3-4b (all 36 layers, random weights from a
+seed) for 6 steps through the control plane (``Supervisor.apply`` of a
+train cell, ``Cell.train_steps`` on bigram batches, global batch 8 at seq
+512 in the config's 2 microbatches): xent must fall, grad norms stay
+finite, and every attention layer must launch the flash kernel twice a
+microbatch (forward and remat recompute) and the backward kernel once;
+it prints the step wall p50, tokens/s, MFU, the step's reckoned bound,
+the peak memory and one profiled step's largest kernels.  Phase 13b, at
+smoke size, kills a train cell after an asynchronous checkpoint and
+recovers it from the checkpoint (``recover_cell(ckpt_dir=)``): its next
+losses must equal an uninterrupted run's bit for bit; float32 train steps
+on the card must give the CPU's losses within 1e-5.
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -538,6 +557,7 @@ def check_kernels(dev, kernels: dict):
 
     check_ssd(dev, gen, hold)
     check_head_dim_80(dev, gen, hold)
+    check_flash_bwd(dev, gen, hold)
 
     # ---- timing at the main path's shapes (bf16) ----------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -677,6 +697,7 @@ def check_kernels(dev, kernels: dict):
     time_ssd(dev, gen, flush, kernels)
     time_head_dim_80(dev, gen, flush)
     time_long_decode(dev, gen, flush)
+    time_flash_bwd(dev, gen, flush, kernels)
     errs["gmm_prefill"] = errs["gmm"]     # one kernel, held at both shapes
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = e
@@ -893,6 +914,115 @@ def check_head_dim_80(dev, gen, hold):
         torch.cuda.synchronize()
         hold("paged_extend_attention", out[:2], ref[:2], tol, why,
              f"{dt} dense S{MAX_LEN} as arena, Sq{S} Hq{H} Dh{Dh}")
+
+
+# qwen3-4b's training shape: one microbatch of the global batch 8 at
+# seq 512 under the config's microbatch 2
+TRAIN_B, TRAIN_S = 4, 512
+
+
+def check_flash_bwd(dev, gen, hold):
+    """Flash attention's backward kernel against ``flash_attention_bwd_ref``
+    on the same q, k, v, dout and the forward kernel's out and LSE: at
+    qwen3-4b's training shape (causal, GQA 4) and under the other masks
+    the forward takes (a window, bidirectional under a key-length mask,
+    cross-attention with Sq above and below Skv), bf16 and float32; and
+    two calls bitwise equal (deterministic)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_forward,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    cases = [(TRAIN_B, TRAIN_S, TRAIN_S, HQ, HKV, DH, True, None, None),
+             (2, 200, 200, HQ, HKV, DH, True, 64, None),
+             (3, 200, 200, ENC_H, ENC_H, ENC_DH, False, None, (101, 200, 37)),
+             (3, 72, 200, ENC_H, ENC_H, ENC_DH, False, None, (101, 1, 200)),
+             (3, 200, 72, ENC_H, ENC_H, ENC_DH, False, None, (37, 72, 5))]
+    for dt, tol, why in ((torch.bfloat16, 2e-2,
+                          "bf16 output rounding; plain version float32"),
+                         (torch.float32, 1e-4,
+                          "f32; sums over G x Sq terms in another order")):
+        for B, sq, skv, hq, hkv, dh, causal, window, kv in cases:
+            r = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
+                                        device=dev).to(dt)
+            q, k, v, do = r(B, sq, hq, dh), r(B, skv, hkv, dh), \
+                r(B, skv, hkv, dh), r(B, sq, hq, dh)
+            kl = (None if kv is None
+                  else torch.tensor(kv, dtype=torch.int32, device=dev))
+            out, lse = _flash_forward(q, k, v, causal, window, kl, True)
+            got = flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                      window=window, kv_len=kl)
+            want = flash_attention_bwd_ref(
+                *(t.transpose(1, 2) for t in (q, k, v, out, do)), lse,
+                causal=causal, window=window, kv_len=kl)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                hold("flash_attention_bwd", g, w.transpose(1, 2), tol, why,
+                     f"{name} {dt} B{B} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} "
+                     f"Dh{dh} causal={causal} window={window} kv_len={kv}")
+                errs.append(float((g.float() - w.transpose(1, 2).float())
+                                  .abs().max()))
+            log(f"  {'flash_attention_bwd':24s} max abs err dq "
+                f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+            if (B, sq) == (TRAIN_B, TRAIN_S):
+                again = flash_attention_bwd(q, k, v, out, do, lse,
+                                            causal=causal)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError("flash_attention_bwd: two calls "
+                                         "differ")
+    log(f"  {'flash_attention_bwd':24s} two calls at the training shape "
+        "bitwise equal: ok")
+
+
+def time_flash_bwd(dev, gen, flush, kernels):
+    """Row 1e: the backward at qwen3-4b's training shape (bf16, causal,
+    B4 S512 Hq32 Hkv8 Dh128) beside its plain version and, as the
+    library's time, one SDPA forward + backward less its forward (SDPA
+    over K/V repeated to the 32 q heads; its dK and dV are per q head)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_forward,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    bf16, B, S = torch.bfloat16, TRAIN_B, TRAIN_S
+    r = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
+                                device=dev).to(bf16)
+    q, k, v, do = r(B, S, HQ, DH), r(B, S, HKV, DH), r(B, S, HKV, DH), \
+        r(B, S, HQ, DH)
+    out, lse = _flash_forward(q, k, v, True, None, None, True)
+    plain = [t.transpose(1, 2) for t in (q, k, v, out, do)]
+    lib = [t.transpose(1, 2).contiguous().requires_grad_() for t in
+           (q, k.repeat_interleave(HQ // HKV, dim=2),
+            v.repeat_interleave(HQ // HKV, dim=2))]
+    do_t = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(*lib, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*lib, is_causal=True)
+        torch.autograd.grad(o, lib, do_t)
+
+    elem = 2
+    # q, out, dout in and dq out; k, v in and dk, dv out; the LSE in
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4
+    n_ops = 5 * 2 * DH * HQ * B * S * (S + 1) // 2
+    fwd = time_ms(sdpa_fwd, flush=flush)
+    kernels["flash_attention_bwd"].update(
+        shape=f"B{B} S{S} Hq{HQ} Hkv{HKV} Dh{DH} bf16 causal",
+        ms=time_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse),
+                   flush=flush),
+        plain_ms=time_ms(lambda: flash_attention_bwd_ref(*plain, lse),
+                         flush=flush),
+        library_ms=time_ms(sdpa_fwd_bwd, flush=flush) - fwd,
+        **bound(n_bytes, n_ops, bf16))
+    log(f"  flash_attention_bwd library: SDPA forward {fwd:.4f} ms, "
+        f"forward + backward less forward "
+        f"{kernels['flash_attention_bwd']['library_ms']:.4f} ms")
 
 
 def ssd_work(Bb, S, H, P, G, N, Q, *, esize=2, checkpoints=True):
@@ -2631,6 +2761,217 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
     return e2e
 
 
+# --------------------------------------------------------------------------
+# phase 13: qwen3-4b trained at full width; 13b: checkpoint and recovery
+# --------------------------------------------------------------------------
+TRAIN_STEPS, TRAIN_BATCH = 6, 8
+
+
+def phase_train(dev, name_limit: str) -> dict:
+    """qwen3-4b at full width and full depth trained for 6 steps through
+    the control plane: ``Supervisor.apply`` of a train cell,
+    ``init_train`` from a seeded generator on the card, ``train_steps``
+    on the bigram pipeline, global batch 8 at seq 512 in the config's 2
+    microbatches, bf16 params with float32 AdamW moments and float32
+    gradient accumulators.  Every attention layer's forward runs the
+    flash kernel (twice: the remat recompute) and its backward the
+    backward kernel; the launch counts must be exactly those.  Prints
+    each step's xent and grad norm, the step wall p50 over steps 2-6,
+    tokens/s, MFU at 6 N T against 989 TFLOP/s, the step's reckoned
+    bound and the peak memory."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (
+        CellSpec,
+        ClusterSpec,
+        Supervisor,
+        single_device_grid,
+    )
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.moe_gmm.ops import gmm
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.train.optimizer import OptConfig
+    cfg = get_arch("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sup = Supervisor(single_device_grid(dev))
+    opt = OptConfig(lr=1e-4, warmup_steps=1, total_steps=100)
+    sup.apply(ClusterSpec(cells=(CellSpec("train", cfg, "train", ncols=1,
+                                          opt_cfg=opt),)))
+    cell = sup.cells["train"]
+    t0 = time.monotonic()
+    cell.init_train(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = cell.model.n_params()
+    log(f"[13] {cfg.name} train cell: {n / 1e9:.3f} B params, "
+        f"{cfg.num_layers} layers, microbatch {cfg.microbatch}, init "
+        f"{time.monotonic() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated "
+        "(bf16 params, float32 m and v)")
+    pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg,
+                             ShapeConfig("train", "train", TRAIN_S,
+                                         TRAIN_BATCH), device=dev)
+    batches = [pipe.get_batch(i) for i in range(TRAIN_STEPS)]
+    counters = (flash_attention, flash_attention_bwd, gmm, ssd)
+    reset_counters(counters)
+    rows, walls = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        m = cell.train_steps(batches.__getitem__, 1)   # floats: synchronised
+        walls.append(time.monotonic() - t0)
+        rows.append(m)
+        log(f"[13] step {i + 1}: xent {m['xent']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.2e} wall "
+            f"{walls[-1] * 1e3:.1f} ms")
+    launches = read_counters(counters)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite([r["xent"], r["grad_norm"]]).all() for r in rows):
+        raise AssertionError(f"[13] a metric is not finite: {rows}")
+    if not rows[-1]["xent"] < rows[0]["xent"]:
+        raise AssertionError(f"[13] xent did not fall: {rows[0]['xent']} -> "
+                             f"{rows[-1]['xent']}")
+    n_attn = TRAIN_STEPS * cfg.microbatch * cfg.num_layers
+    expect("[13] flash forward launches (forward and remat recompute)",
+           launches["flash_attention"], 2 * n_attn)
+    expect("[13] flash forward launches on the tensor cores",
+           launches["flash_attention_tc"], 2 * n_attn)
+    expect("[13] flash backward launches", launches["flash_attention_bwd"],
+           n_attn)
+    expect("[13] grouped GEMM and SSD launches",
+           launches["gmm"] + launches["ssd"], 0)
+    step_s = float(np.median(walls[1:]))
+    tokens = TRAIN_BATCH * TRAIN_S
+    busy, shares = profile_step(lambda: cell.train_steps(
+        lambda _: batches[0], 1))
+    prog = cell.accounting.programs["train_step"]
+    yard = max(prog.flops_per_device / PEAK_FLOPS[torch.bfloat16],
+               prog.bytes_per_device / HBM_BYTES_PER_S)
+    mfu = 6 * n * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"[13] step wall p50 (steps 2-{TRAIN_STEPS}) {step_s * 1e3:.1f} ms; "
+        f"{tokens / step_s:,.0f} tokens/s; MFU {mfu:.4f} at 6 N T against "
+        f"989 TFLOP/s; reckoned step {prog.flops_per_device / 1e12:.1f} "
+        f"TFLOP and {prog.bytes_per_device / 1e9:.1f} GB of state traffic: "
+        f"bound {yard * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB allocated; "
+        f"launches {launches} ({name_limit})")
+    log(f"[13] one more step under torch.profiler: device busy "
+        f"{busy * 1e3:.1f} ms; largest kernel shares: " + "; ".join(
+            f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
+            for name, t, n in shares))
+    sup.destroy_cell("train")
+    del cell, batches, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    if left > 1e9:
+        raise AssertionError(f"[13] {left} bytes left after destroy")
+    return {"launches": launches, "xent": [r["xent"] for r in rows],
+            "grad_norm": [r["grad_norm"] for r in rows],
+            "step_s": step_s, "tokens_per_s": tokens / step_s, "mfu": mfu,
+            "peak_gb": peak / 1e9}
+
+
+def profile_step(fn, top: int = 8):
+    """(device busy seconds, [(kernel, seconds, calls)] of the ``top``
+    kernels by device time) of one call of ``fn`` under torch.profiler;
+    busy is the union of the kernels' intervals (``launch.profile_decode``
+    reads it the same way)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_decode import _busy_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    by_name = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + (e.time_range.end - e.time_range.start)
+                               * 1e-6, n + 1)
+    rows = sorted(((k[:60], t, n) for k, (t, n) in by_name.items()),
+                  key=lambda r: -r[1])
+    return _busy_us(events) * 1e-6, rows[:top]
+
+
+def phase_train_recovery(dev, name_limit: str) -> dict:
+    """Phase 13b, at smoke size (a full-width TrainState is 48 GB on
+    disk): a train cell trains 4 steps with ``save(blocking=False)`` after
+    step 2; ``fail_column`` kills it and ``recover_cell(ckpt_dir=)``
+    restores it on another column of the card; steps 3-4 must give an
+    uninterrupted run's xent bit for bit.  Then float32 smoke train steps
+    on the card must give the CPU's losses within 1e-5 relative (on the
+    same weights, drawn on the CPU: a CUDA generator draws other
+    numbers)."""
+    import shutil
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.base import ShapeConfig, smoke_config
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import DeviceGrid, Supervisor
+    from repro_torch.core.resharding import reshard_tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state
+    d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+
+    def run(cfg, device, kill: bool, cpu_weights: bool = False):
+        sup = Supervisor(DeviceGrid.from_flat([torch.device(device)], 1, 1,
+                                              2, allow_reuse=True))
+        cell = sup.create_cell("t", cfg, "train", ncols=1, opt_cfg=opt)
+        cell.init_train(torch.Generator(device=device).manual_seed(0))
+        if cpu_weights:
+            cell.state, _ = reshard_tree(init_train_state(
+                cell.model, torch.Generator().manual_seed(0), opt),
+                cell.device)
+        pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg,
+                                 ShapeConfig("t", "train", 64, 8),
+                                 device=device)
+        xent = []
+        for i in range(4):
+            if kill and i == 2:
+                fut.result(timeout=120)
+                sup.fail_column(0, cell.zone.c0)
+                cell = sup.recover_cell("t", ckpt_dir=d)
+                if cell.step != 2 or cell.state.params["embed"].device.type \
+                        != torch.device(device).type:
+                    raise AssertionError(f"[13b] recovered at step "
+                                         f"{cell.step}")
+            m = cell.train_steps(pipe.get_batch, 1)
+            xent.append(m["xent"])
+            if kill and i == 1:
+                fut = ckpt.save(d, cell.step, cell.state, blocking=False)
+        return xent, [e["op"] for e in sup.events]
+
+    cfg = smoke_config(get_arch("qwen3-4b"))
+    want, _ = run(cfg, dev, kill=False)
+    got, ops = run(cfg, dev, kill=True)
+    if got != want:
+        raise AssertionError(f"[13b] xent after recovery {got} != "
+                             f"uninterrupted {want}")
+    log(f"[13b] smoke qwen3-4b bf16 on the card: killed after step 2 "
+        f"(checkpoint saved asynchronously), recovered from it; xent "
+        f"{got} equal the uninterrupted run's bit for bit; events {ops}")
+    f32 = cfg.replace(dtype="float32")
+    card_x, _ = run(f32, dev, kill=False, cpu_weights=True)
+    cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card_x, cpu_x))
+    if worst > 1e-5:
+        raise AssertionError(f"[13b] float32 card {card_x} vs CPU {cpu_x}: "
+                             f"rel {worst}")
+    log(f"[13b] float32 smoke train steps: card xent {card_x}, CPU "
+        f"{cpu_x}, worst rel {worst:.2e} (tol 1e-5)")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"xent": got, "f32_rel": worst}
+
+
 KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2684,6 +3025,13 @@ KERNELS = {
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:48",
         "path": 10},
+    # the backward of the flash kernel (the TPU package has none: JAX
+    # trains through chunked_attention's XLA gradient), on phase 13
+    "flash_attention_bwd": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "path": 13},
 }
 
 
@@ -2728,6 +3076,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with timed(12):
         runs[12] = phase_disagg(dev, name_limit, runs[5])
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed(13):
+        runs[13] = phase_train(dev, name_limit)
+    with timed("13b"):
+        phase_train_recovery(dev, name_limit)
     rows = []
     for name, rep in kernels.items():
         launches = runs[rep["path"]]["launches"][name]

@@ -8,9 +8,10 @@ which belong to that cell alone because nothing is shared.
 
 Where the JAX package reads a program's costs out of the compiled XLA
 executable, :meth:`CellAccounting.register_program` takes them as
-arguments.  No serving path registers a program; the caller that counts
-comes with training (ROADMAP queue 1 item 12).  The HLO-text parser of
-collective bytes comes with sharding (item 13).
+arguments.  No serving path registers a program; a train cell registers
+its train step with the FLOPs and state bytes reckoned from its config
+and batch shape (``train.train_step.step_cost``).  The HLO-text parser of
+collective bytes comes with sharding (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 

@@ -31,9 +31,10 @@ batchers it made and of a disaggregated prefill worker on it
 (``serve/step_graph.py``), bound to the zone epoch they were captured
 at: a resize drops them, and each key captures again at its next visit.
 The cell holds them weakly: one its caller drops goes with its memory.
-The training role (``init_train``, ``train_steps``)
-comes with ROADMAP queue 1 item 12; a train cell is created, resized and
-destroyed as any other.
+A train cell's program is its train step (``train/train_step.py``),
+built at the zone epoch of its first ``train_steps`` after a bind; its
+state (``TrainState``: params, AdamW moments, error-feedback buffers)
+moves with a resize as serve weights do.
 """
 from __future__ import annotations
 
@@ -45,16 +46,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.accounting import CellAccounting
-from repro_torch.core.guard import Program
+from repro_torch.core.guard import BoundaryGuard, Program
 from repro_torch.core.partition import DeviceGrid, Zone
 from repro_torch.core.resharding import reshard_tree
 from repro_torch.models.model import build_model
 from repro_torch.models.param import tree_leaves
 from repro_torch.serve.step_graph import PATHS
 from repro_torch.train.optimizer import OptConfig
-
-#: where the training role lands
-TRAINING_ITEM = "training comes with ROADMAP queue 1 item 12"
+from repro_torch.train.train_step import (
+    TrainState,
+    build_train_step,
+    init_train_state,
+    step_cost,
+)
 
 
 class CellError(Exception):
@@ -84,7 +88,8 @@ class Cell:
         self.status = "created"
         self.step = 0
         self.last_heartbeat = time.monotonic()
-        self.state = None
+        self.state: Optional[TrainState] = None
+        self._compress = False
         self.serve_params = None
         self.serve_cache = None
         # the batchers this cell made, held weakly as (number, ref): a
@@ -110,6 +115,7 @@ class Cell:
         self.model = build_model(self.arch)
         self.bound_epoch = epoch      # epoch programs are captured under
         self.zone_epoch = epoch       # epoch of the last zone change
+        self._train_step = None       # (step fn, epoch it was built at)
         for bat in self.batchers:     # the JAX cell's _programs.clear()
             if bat.step_graph is not None:
                 for path in PATHS:
@@ -138,11 +144,50 @@ class Cell:
     # ------------------------------------------------------------------
     # training role
     # ------------------------------------------------------------------
-    def init_train(self, rng=None, *, compress: bool = False):
-        raise NotImplementedError(f"cell {self.name!r}: {TRAINING_ITEM}")
+    def init_train(self, generator: Optional[torch.Generator] = None, *,
+                   compress: bool = False) -> TrainState:
+        """A fresh TrainState on the cell's device: ``model.init``'s seeded
+        weights from ``generator`` (default: seed 0 on the device), zero
+        AdamW moments and, with ``compress``, error-feedback buffers."""
+        if self.role != "train":
+            raise CellError(f"cell {self.name!r} has role {self.role!r}")
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.state = init_train_state(self.model, generator, self.opt_cfg,
+                                      compress=compress, device=self.device)
+        self._compress = compress
+        self.status = "running"
+        return self.state
 
     def train_steps(self, batches, n: int) -> dict:
-        raise NotImplementedError(f"cell {self.name!r}: {TRAINING_ITEM}")
+        """Run n steps; batches: callable step -> batch.
+
+        The first call after a bind builds the step for this zone, runs
+        the BoundaryGuard over it (the state and the batch on the zone's
+        device, the step bound to the zone's epoch) and registers its cost
+        with the cell's accounting, reckoned from the config and the batch
+        shape (``step_cost``).  Returns the last step's metrics as floats.
+        """
+        if self.state is None:
+            self.init_train()
+        metrics = {}
+        for _ in range(n):
+            batch = batches(self.step)
+            if self._train_step is None:
+                self._train_step = (build_train_step(
+                    self.model, self.opt_cfg, compress=self._compress),
+                    self.zone_epoch)
+                BoundaryGuard(lambda: None).validate(self, Program(
+                    "train_step", tree_leaves(self.state) + tree_leaves(batch),
+                    self.zone_epoch))
+                self.accounting.register_program(
+                    "train_step", **step_cost(self.model, self.opt_cfg, batch,
+                                              compress=self._compress))
+            self.state, metrics = self._train_step[0](self.state, batch)
+            self.step += 1
+            self.heartbeat()
+        self.accounting.record_invocation("train_step", n)
+        return {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
     # serving role
@@ -195,7 +240,14 @@ class Cell:
     def programs(self) -> List[Program]:
         """What the BoundaryGuard checks: the serving weights, each
         live batcher's state, and each captured graph with its static
-        inputs and capture epoch; a batcher is named by its number."""
+        inputs and capture epoch; a batcher is named by its number.  A
+        train cell's state, and its train step with its build epoch."""
+        if self.role == "train":
+            out = [Program("train_state", tree_leaves(self.state))]
+            if self._train_step is not None:
+                out.append(Program("train_step", tree_leaves(self.state),
+                                   self._train_step[1]))
+            return out
         out = [Program("serve_params", tree_leaves(self.serve_params))]
         for i, bat in self.live_batchers():
             state = bat.state_tensors()
@@ -213,9 +265,10 @@ class Cell:
     # ------------------------------------------------------------------
     def resize_to(self, zone: Zone, epoch: int) -> dict:
         """Bind the new zone (dropping every graph of the cell's
-        batchers: the next visit of a key captures under ``epoch``) and
-        move the serve weights onto its device (no copy on the same
-        device).  The batchers keep serving."""
+        batchers, and its train step: the next visit of a key captures,
+        and the next ``train_steps`` builds, under ``epoch``) and move the
+        serve weights or the train state onto its device (no copy on the
+        same device).  The batchers keep serving."""
         old = self.zone
         state = self.state if self.role == "train" else self.serve_params
         self._bind_zone(zone, epoch)
@@ -242,5 +295,6 @@ class Cell:
             bat.close()
         self._batchers = []
         self.state = None
+        self._train_step = None
         self.serve_params = None
         self.serve_cache = None

@@ -30,9 +30,7 @@ Conventions:
   (train state for ``role="train"``, params for ``role="serve"``) —
   not just an empty zone.  Whoever runs the cell is still responsible
   for writing checkpoints there; the spec only says where to look on
-  recovery.  The port's checkpoint restore comes with training (ROADMAP
-  queue 1 item 12): until then a recover that names a ``ckpt_dir``
-  raises.
+  recovery.
 * A :class:`ChannelSpec` between replicated specs expands to the cross
   product of instances (one prefill cell fanning out to N decode cells
   declares a single channel spec).

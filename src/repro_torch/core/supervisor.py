@@ -21,12 +21,11 @@ layers:
 Every operation is timestamped into an event log (the Table-4 elasticity
 measurements read from it).
 
-The port's supervisor keeps every verb of the JAX package's.  Restoring a
-cell from a checkpoint (``restore_from_ckpt``, ``recover_cell(ckpt_dir=)``)
-comes with training (ROADMAP queue 1 item 12) and raises until then.  A
-new table is committed only once the cell has bound its new zone, so a
-zone that a cell refuses (one over more than one distinct device) leaves
-the table as it was.
+The port's supervisor keeps every verb of the JAX package's, the restore
+of a cell from its checkpoint directory by role (``restore_from_ckpt``,
+``recover_cell(ckpt_dir=)``) among them.  A new table is committed only
+once the cell has bound its new zone, so a zone that a cell refuses (one
+over more than one distinct device) leaves the table as it was.
 """
 from __future__ import annotations
 
@@ -34,13 +33,14 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.cell import TRAINING_ITEM, Cell, CellError
+from repro_torch.core.cell import Cell, CellError
 from repro_torch.core.channels import ArrayChannel, ControlPlane
 from repro_torch.core.guard import BoundaryGuard
 from repro_torch.core.partition import DeviceGrid, PartitionError, PartitionTable
 from repro_torch.core.reconciler import Plan, Reconciler
 from repro_torch.core.spec import ClusterSpec, SpecError
-from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.optimizer import OptConfig, init_adam_state
+from repro_torch.train.train_step import TrainState
 
 
 class Supervisor:
@@ -234,11 +234,7 @@ class Supervisor:
 
     def recover_cell(self, name: str, *, ncols: Optional[int] = None,
                      ckpt_dir: Optional[str] = None) -> Cell:
-        """Re-carve a zone for a failed cell (restoring from a checkpoint
-        comes with training, ROADMAP queue 1 item 12: ``ckpt_dir`` raises)."""
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                f"recover {name!r} from {ckpt_dir!r}: {TRAINING_ITEM}")
+        """Re-carve a zone for a failed cell and restore from checkpoint."""
         t0 = time.monotonic()
         old = self.cells[name]
         arch, role, opt_cfg = old.arch, old.role, old.opt_cfg
@@ -266,14 +262,39 @@ class Supervisor:
         if cell.zone.ncols < want:
             self._log("recover_degraded", cell=name, want=want,
                       got=cell.zone.ncols)
+        if ckpt_dir is not None:
+            self.restore_from_ckpt(cell, ckpt_dir)
         self._log("recover", cell=name, seconds=time.monotonic() - t0)
         return cell
 
     def restore_from_ckpt(self, cell: Cell, ckpt_dir: str) -> bool:
-        """Restore a cell's state from its latest checkpoint, by role:
-        comes with training (ROADMAP queue 1 item 12)."""
-        raise NotImplementedError(
-            f"restore {cell.name!r} from {ckpt_dir!r}: {TRAINING_ITEM}")
+        """Restore a cell's state from its latest checkpoint, by role.
+
+        Train cells restore a full TrainState (params, AdamW moments; no
+        error-feedback buffers, as JAX's target has none); serve cells
+        checkpoint bare params (``snapshot_state``), so restoring those
+        as a TrainState would raise on the leaf-count mismatch.  The
+        leaves land on the cell's device.  Returns True when a checkpoint
+        was restored; when none exists the cell comes back empty and
+        ``recover_no_ckpt`` is logged so a misconfigured ``ckpt_dir`` is
+        visible, not silent."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+        step = ckpt.latest_step(ckpt_dir)
+        if step is None:
+            self._log("recover_no_ckpt", cell=cell.name, ckpt_dir=ckpt_dir)
+            return False
+        params = cell.model.abstract_params()
+        if cell.role == "train":
+            target = TrainState(params=params,
+                                opt=init_adam_state(params, cell.opt_cfg))
+            cell.state = ckpt.restore(ckpt_dir, step, target, cell.device)
+        else:
+            cell.serve_params = ckpt.restore(ckpt_dir, step, params,
+                                             cell.device)
+        cell.step = step
+        cell.status = "running"
+        self._log("restore_ckpt", cell=cell.name, ckpt_dir=ckpt_dir, step=step)
+        return True
 
     def mitigate_straggler(self, name: str, slow_col: int) -> dict:
         """Straggler policy: shrink the cell off a slow column and re-grow

@@ -47,6 +47,12 @@
 //   causal limit, skipping tiles wholly outside the window, with the
 //   online softmax in float32 shared memory (tile_attention.cuh).
 //
+// Both routes also write, when given a float32 (B, Hq, Sq) pointer, each
+// row's log-sum-exp of its scaled scores (the running max plus the log of
+// the running sum, in natural-log units), which the backward in
+// flash_attention_bwd.cu reads to recompute P; a null pointer (every
+// serving launch) skips the store.
+//
 // Any Sq is accepted: the ragged last q tile and kv tile are masked inside
 // the block (the TPU wrapper required Sq % block_q == 0).  Under a key-length
 // mask both routes end the row's key walk at min(Skv, kv_len[b]), so tiles
@@ -104,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     const T* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     T* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
     int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
-    float scale) {
+    float scale, float* __restrict__ lse) {
   extern __shared__ float smem[];
   const int i0 = blockIdx.x * kFlashQ, hq = blockIdx.y, b = blockIdx.z;
   const int hkv = hq / G;
@@ -137,6 +143,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     });
   }
   tile_store(t, nr, out + b * o_sb + i0 * o_ss + hq * o_sh, o_ss);
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < nr; r += blockDim.x)
+      lse[((int64_t)b * gridDim.y + hq) * Sq + i0 + r] = t.m[r] + logf(fmaxf(t.l[r], 1e-30f));
 }
 
 using bf16 = __nv_bfloat16;
@@ -249,7 +258,7 @@ struct PagedKeys {
 template <int kDhMax, class Keys>
 __device__ __forceinline__ void flash_tc_body(
     const bf16* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh, float* __restrict__ lse,
     int Sq, int G, int Dh, int off, float scale_log2, const Keys& keys, bf16* qs) {
   const int ld = Dh + 8;
   bf16* ks = qs + kTcRows * ld;                   // [kTcStages][kTcBN][ld]
@@ -389,7 +398,8 @@ __device__ __forceinline__ void flash_tc_body(
   }
   cp_async_wait<0>();
 
-  // out = O / l, rows past Sq dropped; a row with no valid key stores 0
+  // out = O / l, rows past Sq dropped; a row with no valid key stores 0;
+  // lse (when given) = (m + log2 l) ln 2, m and l being in log2 units
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float sum = l[h];
@@ -398,6 +408,9 @@ __device__ __forceinline__ void flash_tc_body(
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int p = wr + g + 8 * h, i = p / G;
     if (i >= Sq) continue;
+    if (lse != nullptr && t4 == 0)
+      lse[((int64_t)b * gridDim.y * G + hkv * G + p % G) * Sq + i] =
+          (m[h] + log2f(fmaxf(sum, 1e-30f))) * 0.6931471805599453f;
     bf16* orow = out + b * o_sb + i * o_ss + (hkv * G + p % G) * o_sh + 2 * t4;
 #pragma unroll
     for (int j = 0; j < kDhMax / 8; ++j) {
@@ -417,14 +430,14 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
     const bf16* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
     int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
-    float scale_log2) {
+    float scale_log2, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hkv = blockIdx.y, b = blockIdx.z;
   // q positions stay aligned to the end of all Skv keys; the key source
   // ends at the row's limit
   const DenseKeys keys{k + b * k_sb + hkv * k_sh, v + b * v_sb + hkv * v_sh, k_ss, v_ss,
                        key_limit(kv_len, b, Skv), causal, window};
-  flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, Sq, G, Dh, Skv - Sq,
+  flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, lse, Sq, G, Dh, Skv - Sq,
                         scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
 }
 
@@ -453,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) paged_extend_
   __syncthreads();
   const PagedKeys keys{k, v, a_sn, a_sp, layer * a_sl + hkv * a_sh,
                        slot_pos + layer * sp_sl, sp_sn, sp_sp, bts, sps, n_log, N, P};
-  flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, Sq, G, Dh, off,
+  flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, nullptr, Sq, G, Dh, off,
                         scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
 }
 
@@ -512,14 +525,14 @@ cudaError_t launch_flash(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh
                          const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                          void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                          int B, int Hq, int Hkv, int Sq, int Skv, const int* kv_len, int Dh,
-                         int causal, int window, cudaStream_t stream) {
+                         int causal, int window, float* lse, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(kFlashQ, kFlashK, Dh);
   auto kernel = flash_kernel<T>;
   const dim3 grid((Sq + kFlashQ - 1) / kFlashQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), q_sb, q_ss, q_sh, static_cast<const T*>(k), k_sb, k_ss,
       k_sh, static_cast<const T*>(v), v_sb, v_ss, v_sh, static_cast<T*>(out), o_sb, o_ss,
-      o_sh, Sq, Skv, kv_len, Hq / Hkv, Dh, causal, window, rsqrtf(static_cast<float>(Dh)));
+      o_sh, Sq, Skv, kv_len, Hq / Hkv, Dh, causal, window, rsqrtf(static_cast<float>(Dh)), lse);
   return cudaGetLastError();
 }
 
@@ -529,7 +542,7 @@ cudaError_t launch_flash_tc(const void* q, int64_t q_sb, int64_t q_ss, int64_t q
                             const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                             void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh, int B,
                             int Hq, int Hkv, int Sq, int Skv, const int* kv_len, int Dh,
-                            int causal, int window, cudaStream_t stream) {
+                            int causal, int window, float* lse, cudaStream_t stream) {
   const size_t smem = flash_tc_smem_bytes(Dh);
   auto kernel = flash_tc_kernel<kDhMax>;
   const int G = Hq / Hkv;
@@ -538,7 +551,7 @@ cudaError_t launch_flash_tc(const void* q, int64_t q_sb, int64_t q_ss, int64_t q
       static_cast<const bf16*>(q), q_sb, q_ss, q_sh, static_cast<const bf16*>(k), k_sb, k_ss,
       k_sh, static_cast<const bf16*>(v), v_sb, v_ss, v_sh, static_cast<bf16*>(out), o_sb,
       o_ss, o_sh, Sq, Skv, kv_len, G, Dh, causal, window,
-      rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f);
+      rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f, lse);
   return cudaGetLastError();
 }
 
@@ -550,7 +563,7 @@ inline cudaError_t launch_flash_bf16(const void* q, int64_t q_sb, int64_t q_ss, 
                                      void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                                      int B, int Hq, int Hkv, int Sq, int Skv,
                                      const int* kv_len, int Dh, int causal, int window,
-                                     cudaStream_t stream) {
+                                     float* lse, cudaStream_t stream) {
   if (Dh % 16 || Dh > 256) return cudaErrorInvalidValue;
   const int64_t strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh |
                           o_sb | o_ss | o_sh;
@@ -560,7 +573,7 @@ inline cudaError_t launch_flash_bf16(const void* q, int64_t q_sb, int64_t q_ss, 
 #define RT_FLASH_TC(DH)                                                                    \
   return launch_flash_tc<DH>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh, \
                              out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kv_len, Dh, causal, \
-                             window, stream)
+                             window, lse, stream)
   if (Dh <= 64) RT_FLASH_TC(64);
   if (Dh <= 128) RT_FLASH_TC(128);
   RT_FLASH_TC(256);
@@ -644,26 +657,28 @@ extern "C" int rt_prepare_flash() {
 
 // q/out: (B, Sq, Hq, Dh); k/v: (B, Skv, Hkv, Dh); window < 0 = none; kv_len:
 // (B,) int32 key-length mask (key kp of row b counts iff kp < kv_len[b]) or
-// null.  float32 takes the CUDA-core kernel, bf16 the tensor-core kernel.
+// null; lse: float32 (B, Hq, Sq) contiguous, each row's log-sum-exp, or null.
+// float32 takes the CUDA-core kernel, bf16 the tensor-core kernel.
 extern "C" int rt_flash_attention(
     const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
     int B, int Hq, int Hkv, int Sq, int Skv, const void* kv_len, int Dh, int causal,
-    int window, int dtype, void* stream) {
+    int window, int dtype, void* lse, void* stream) {
   using namespace rt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(kv_len);
+  float* ls = static_cast<float*>(lse);
   switch (dtype) {
     case F32:  // CUDA cores: exact float32 products
       return launch_flash<float>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss,
                                  v_sh, out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kl, Dh,
-                                 causal, window, s);
+                                 causal, window, ls, s);
     case BF16:  // tensor cores
       return launch_flash_bf16(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh,
                                out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kl, Dh, causal,
-                               window, s);
+                               window, ls, s);
     default:
       return cudaErrorInvalidValue;
   }

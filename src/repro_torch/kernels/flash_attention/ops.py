@@ -1,6 +1,7 @@
-"""Prefill flash attention and paged extend attention: dispatch by device.
+"""Prefill flash attention (with its backward) and paged extend attention:
+dispatch by device.
 
-Both wrappers take the model's (B, S, H, Dh) layout.  A CPU tensor takes
+The wrappers take the model's (B, S, H, Dh) layout.  A CPU tensor takes
 the plain version in ``ref.py``; a CUDA tensor launches the hand-written
 kernel in ``csrc/flash_attention.cu`` or raises.  There is no fallback
 from one to the other.
@@ -15,6 +16,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._paged import arena_args
 from repro_torch.kernels.flash_attention.ref import (
     attention_ref,
+    flash_attention_bwd_ref,
     paged_extend_attention_ref,
 )
 
@@ -34,11 +36,49 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``flash_attention.launches`` counts kernel launches,
     ``flash_attention.launches_tc`` those of the tensor-core kernel and
     ``flash_attention.launches_kv_len`` those under a key-length mask,
-    by the call's ``(Sq, Skv)``."""
+    by the call's ``(Sq, Skv)``.
+
+    Differentiable: when grad is enabled and q, k or v requires it, the
+    forward also writes each row's log-sum-exp and saves q, k, v, the
+    output and the LSE for :func:`flash_attention_bwd` (on a CPU tensor
+    ``ref.attention_ref`` with its LSE and ``ref.flash_attention_bwd_ref``).
+    Under ``no_grad`` or ``inference_mode`` it is the serving launch, no
+    LSE and nothing saved."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, kv_len)
+    return _flash_forward(q, k, v, causal, window, kv_len, False)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len):
+        out, lse = _flash_forward(q, k, v, causal, window, kv_len, True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_len = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         kv_len=kv_len)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_forward(q, k, v, causal, window, kv_len, with_lse: bool):
+    """(out, the float32 (B, Hq, Sq) LSE when ``with_lse`` else None)."""
     if q.device.type == "cpu":
-        return attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, kv_len=kv_len).transpose(1, 2)
+        out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window,
+                            kv_len=kv_len, return_lse=with_lse)
+        if with_lse:
+            return out[0].transpose(1, 2), out[1]
+        return out.transpose(1, 2), None
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     B, Sq, Hq, Dh = q.shape
@@ -53,11 +93,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError("the head dim of q, k and v must be contiguous")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    kl = None
-    if kv_len is not None:
-        if kv_len.shape != (B,):
-            raise ValueError("kv_len needs one entry per row")
-        kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    kl = _kv_len_arg(kv_len, B, q.device)
     tc = q.dtype == torch.bfloat16
     if tc:
         if Dh % 16 or Dh > 256:
@@ -65,20 +101,33 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              f"that is a multiple of 16 up to 256, not {Dh}")
         q, k, v = (_rows16(t) for t in (q, k, v))
     out = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn = _build.kernel("rt_flash_attention",
-                       "PLLL PLLL PLLL PLLL IIIIIPIIII P")
+                       "PLLL PLLL PLLL PLLL IIIIIPIIII PP")
     rc = fn(q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
             v.data_ptr(), *v.stride()[:3], out.data_ptr(), *out.stride()[:3],
             B, Hq, Hkv, Sq, Skv, _build.ptr(kl), Dh, int(causal),
             -1 if window is None else int(window),
-            _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
+            _build.DTYPE_CODE[q.dtype], _build.ptr(lse),
+            _build.stream_ptr(q.device))
     flash_attention.launches += 1
     flash_attention.launches_tc += tc
     if kl is not None:
         flash_attention.launches_kv_len[Sq, Skv] = (
             flash_attention.launches_kv_len.get((Sq, Skv), 0) + 1)
     _build.check(rc, "flash_attention")
-    return out
+    return out, lse
+
+
+def _kv_len_arg(kv_len, B: int, device):
+    """The key-length mask as the kernels read it: (B,) int32 contiguous on
+    ``device``, or None."""
+    if kv_len is None:
+        return None
+    if kv_len.shape != (B,):
+        raise ValueError("kv_len needs one entry per row")
+    return kv_len.to(device=device, dtype=torch.int32).contiguous()
 
 
 flash_attention.launches = 0
@@ -86,6 +135,65 @@ flash_attention.launches_tc = 0
 flash_attention.launches_kv_len = {}
 _build.count_launches(flash_attention, "launches", "launches_tc",
                       "launches_kv_len")
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: Optional[int] = None, kv_len=None):
+    """The gradient of :func:`flash_attention`: (dq, dk, dv) in the shapes
+    and dtypes of q, k, v, from the forward's ``out``, its cotangent
+    ``dout`` (both (B, Sq, Hq, Dh)) and ``lse`` (B, Hq, Sq) float32, under
+    the forward's masks.  A CPU tensor takes ``ref.flash_attention_bwd_ref``;
+    a CUDA tensor launches the kernels of ``csrc/flash_attention_bwd.cu``
+    (float32 or bfloat16, ``Dh % 4 == 0`` up to 256, else ``ValueError``),
+    deterministic: no atomics.  ``flash_attention_bwd.launches`` counts its
+    calls on the card."""
+    if q.device.type == "cpu":
+        g = flash_attention_bwd_ref(
+            *(t.transpose(1, 2) for t in (q, k, v, out, dout)), lse,
+            causal=causal, window=window, kv_len=kv_len)
+        return tuple(t.transpose(1, 2) for t in g)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention backward for device {q.device}")
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if (k.shape != (B, Skv, Hkv, Dh) or v.shape != k.shape
+            or out.shape != q.shape or dout.shape != q.shape
+            or lse.shape != (B, Hq, Sq) or Hq % Hkv):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"out {tuple(out.shape)} dout {tuple(dout.shape)} "
+                         f"lse {tuple(lse.shape)}")
+    if (q.dtype not in (torch.float32, torch.bfloat16)
+            or any(t.dtype != q.dtype for t in (k, v, out, dout))):
+        raise ValueError("q, k, v, out and dout must share a float32 or "
+                         "bfloat16 dtype")
+    if Dh % 4 or Dh > 256:
+        raise ValueError(f"the flash backward takes a head dim that is a "
+                         f"multiple of 4 up to 256, not {Dh}")
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    lse = lse.to(torch.float32).contiguous()
+    kl = _kv_len_arg(kv_len, B, q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("rt_flash_attention_bwd",
+                       "PLLL PLLL PLLL PLLL PLLL PP PLLL PLLL PLLL "
+                       "IIIIIPIIII P")
+    rc = fn(*(x for t in (q, k, v, out, dout)
+              for x in (t.data_ptr(), *t.stride()[:3])),
+            lse.data_ptr(), D.data_ptr(),
+            *(x for t in (dq, dk, dv) for x in (t.data_ptr(), *t.stride()[:3])),
+            B, Hq, Hkv, Sq, Skv, _build.ptr(kl), Dh, int(causal),
+            -1 if window is None else int(window),
+            _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
+    flash_attention_bwd.launches += 1
+    _build.check(rc, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+_build.count_launches(flash_attention_bwd, "launches")
 
 
 def _rows16(t):

@@ -11,6 +11,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
+#: why training a moe model on the card raises
+GRAD_ITEM = ("the grouped GEMM kernel has no backward yet: training a moe "
+             "model on the card comes with ROADMAP queue 2 item 7")
+
 
 def gmm(x, w, counts):
     """x: (E, C, D) capacity layout; w: (E, D, F); counts: (E,) int ->
@@ -18,13 +22,18 @@ def gmm(x, w, counts):
     0 past it.  ``counts`` stays on the device: the kernel reads it there,
     so nothing is synchronised.  On the card the route is by dtype alone:
     bfloat16 launches the tensor-core kernel, float32 the CUDA-core kernel,
-    whose products stay exact float32.  ``gmm.launches`` counts kernel
+    whose products stay exact float32.  The kernel has no backward: on
+    the card a call that autograd would record raises
+    ``NotImplementedError`` (the CPU's plain version is differentiable).
+    ``gmm.launches`` counts kernel
     launches, ``gmm.launches_tc`` those of the tensor-core kernel, and
     ``gmm.launches_by_capacity`` all launches by C."""
     if x.device.type == "cpu":
         return gmm_ref(x, w, counts)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped GEMM kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(GRAD_ITEM)
     E, C, D = x.shape
     F = w.shape[2]
     if w.shape != (E, D, F) or counts.shape != (E,):

@@ -16,6 +16,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_tiling_chunk
 
 F32 = torch.float32
+#: why training an ssm or hybrid model on the card raises
+GRAD_ITEM = ("the SSD scan kernel has no backward yet: training an ssm or "
+             "hybrid model on the card comes with ROADMAP queue 2 item 8")
 
 
 def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
@@ -38,8 +41,10 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
     On the card x, B_in and C_in are read as stored when they share a
     float32 or bfloat16 dtype (else they are cast to float32 first), the
     mask and the strides as given; P and N must be multiples of 4, P and N
-    at most 256, else ``ValueError``.  ``ssd.launches`` counts kernel
-    launches."""
+    at most 256, else ``ValueError``.  The kernel has no backward: on the
+    card a call that autograd would record raises ``NotImplementedError``
+    (the CPU's plain version is differentiable).  ``ssd.launches`` counts
+    kernel launches."""
     Bb, S, H, P = x.shape
     if ckpt_out is not None:
         want = (Bb, S // ssd_tiling_chunk(S, chunk), H, P, B_in.shape[3])
@@ -56,6 +61,10 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
                        checkpoints=checkpoints, ckpt_out=ckpt_out)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A_log, B_in, C_in, initial_state)):
+        raise NotImplementedError(GRAD_ITEM)
     G, N = B_in.shape[2], B_in.shape[3]
     if (dt.shape != (Bb, S, H) or A_log.shape != (H,)
             or B_in.shape != (Bb, S, G, N) or C_in.shape != B_in.shape

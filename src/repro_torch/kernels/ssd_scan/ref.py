@@ -49,7 +49,9 @@ def ssd_chunk_ref(x, dA, B, C):
     cs = torch.cumsum(dA, dim=-1)                              # (Bb,H,nc,Q)
     diff = cs[..., :, None] - cs[..., None, :]
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(tril, torch.exp(diff), 0.0)
+    # exp of -inf above the diagonal: 0 with a zero gradient (exp(diff)
+    # there can overflow, and where() would pass inf * 0 back)
+    L = torch.exp(torch.where(tril, diff, -torch.inf))
     Bh = B.repeat_interleave(HG, dim=1)                        # (Bb,H,nc,Q,N)
     Ch = C.repeat_interleave(HG, dim=1)
     scores = torch.einsum("bhcqn,bhckn->bhcqk", Ch, Bh) * L
@@ -93,14 +95,13 @@ def ssd_ref(x, dt, A_log, B_in, C_in, *, chunk: int = 256,
 
     # inter-chunk recurrence: hs[c] is the state entering chunk c, hs[nc]
     # the final state
-    hs = torch.empty((nc + 1, Bb, H, P, N), dtype=F32, device=x.device)
-    if initial_state is None:
-        hs[0].zero_()
-    else:
-        hs[0].copy_(initial_state)
+    # (a list, so that autograd can run through it in training)
+    hs = [torch.zeros((Bb, H, P, N), dtype=F32, device=x.device)
+          if initial_state is None else initial_state.to(F32)]
     for c in range(nc):
-        torch.addcmul(states[:, :, c], hs[c], decay[:, :, c, None, None],
-                      out=hs[c + 1])
+        hs.append(torch.addcmul(states[:, :, c], hs[c],
+                                decay[:, :, c, None, None]))
+    hs = torch.stack(hs)
 
     # state -> output: y_off[b,h,c,q,p] = exp(cs) * sum_n C[q,n] prev[p,n]
     cs = torch.cumsum(dAk, dim=-1)                             # (B,H,nc,Q)

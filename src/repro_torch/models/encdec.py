@@ -99,7 +99,7 @@ def cross_attend(cp, x, ck, cv, cfg: ArchConfig, src_len: torch.Tensor):
         out = chunked_attention(q, ck, cv, causal=False,
                                 q_chunk=cfg.attn_q_chunk,
                                 kv_chunk=cfg.attn_kv_chunk, kv_len=src_len)
-    elif q.shape[1] == 1:
+    elif q.shape[1] == 1 and not q.requires_grad:
         out = decode_attention(q, ck, cv, src_len)
     else:
         out = flash_attention(q, ck, cv, causal=False, kv_len=src_len)
@@ -112,20 +112,32 @@ def cross_kv(cp, memory):
     return ck, cv
 
 
-def dec_layer(lp, x, cfg: ArchConfig, *, mode: str, cache: DecCache,
-              pos=None):
+def dec_layer(lp, x, cfg: ArchConfig, *, mode: str,
+              cache: Optional[DecCache] = None, pos=None, memory=None,
+              src_len: Optional[torch.Tensor] = None):
     """One decoder layer over ``cache``, a per-layer DecCache of views.
     Cross-attention reads the cross memory and ``src_len`` the cache
-    holds in every mode (``Model.encode_cross_into`` writes them), so the
-    mask that shaped prefill cross-attention is replayed at every decode
-    step; the self KV is updated in place by its attention mode.  Returns
-    (x, cache)."""
+    holds in every serving mode (``Model.encode_cross_into`` writes them),
+    so the mask that shaped prefill cross-attention is replayed at every
+    decode step; the self KV is updated in place by its attention mode.
+    Returns (x, cache).  ``mode="train"`` takes no cache: the layer
+    projects its cross K/V from the encoder ``memory`` (B, S_src, D),
+    ``src_len`` (B,) masking its pad frames (None: all valid), and returns
+    (x, None)."""
+    if mode == "train":
+        ck, cv = cross_kv(lp["cross"], memory)
+        if src_len is None:
+            src_len = torch.full((x.shape[0],), memory.shape[1],
+                                 dtype=torch.int32, device=x.device)
+        self_kv = None
+    else:
+        ck, cv, src_len = cache.cross_k, cache.cross_v, cache.src_len
+        self_kv = cache.self_kv
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    a, _ = attention_block(lp["attn"], h, cfg, mode=mode,
-                           cache=cache.self_kv, pos=pos)
+    a, _ = attention_block(lp["attn"], h, cfg, mode=mode, cache=self_kv,
+                           pos=pos)
     x = x + a
     h = rms_norm(x, lp["cross_norm"], cfg.rms_eps)
-    x = x + cross_attend(lp["cross"], h, cache.cross_k, cache.cross_v, cfg,
-                         cache.src_len)
+    x = x + cross_attend(lp["cross"], h, ck, cv, cfg, src_len)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
     return x + mlp_block(lp["mlp"], h, cfg), cache

@@ -1,13 +1,15 @@
 """Model layers: norms, RoPE, attention, MLP, logits.
 
 Attention dispatches on the device of its inputs.  On a CUDA tensor it
-runs the hand-written kernels (``kernels/flash_attention`` for prefill and
-for extend, paged or over a dense cache seen as an arena;
-``kernels/decode_attention`` for paged and dense decode); on
-a CPU tensor it runs the plain ``chunked_attention``,
+runs the hand-written kernels (``kernels/flash_attention`` for training,
+prefill and extend, paged or over a dense cache seen as an arena, with
+the backward kernel under autograd; ``kernels/decode_attention`` for
+paged and dense decode); on a CPU tensor it runs the plain versions:
+``flash_attention``'s ``attention_ref`` in train mode (differentiable,
+with the written-out backward), and ``chunked_attention``,
 ``decode_attention_ref`` and ``extend_attention_ref`` below, the same math
-the JAX package runs on its CPU path.  Sharding constraints of the JAX
-layers are left out.
+the JAX package runs on its CPU path.  ``softmax_xent`` is the training
+loss.  Sharding constraints of the JAX layers are left out.
 """
 from __future__ import annotations
 
@@ -421,9 +423,10 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
                     kv_len=None) -> Tuple[torch.Tensor, object]:
     """Full attention sublayer.  Returns (out (B,S,D), updated cache).
 
-    ``train`` (an encoder's self-attention) attends positions 0..S-1,
-    ``causal`` or not, under the optional (B,) key-length mask
-    ``kv_len``, and writes no cache.  ``prefill`` writes the prompt's K/V
+    ``train`` (training, and an encoder's self-attention) attends
+    positions 0..S-1, ``causal`` or not, under the optional (B,) key-length
+    mask ``kv_len``, through the differentiable ``flash_attention``, and
+    writes no cache.  ``prefill`` writes the prompt's K/V
     into a dense KVSlice (which fixes the cache length; nothing in it is
     read) in place; ``extend`` and ``decode`` take a
     :class:`PagedKVCache` or a dense KVSlice and update the cache in
@@ -432,16 +435,13 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
     window = cfg.sliding_window
     on_card = x.is_cuda
     if mode == "train":
+        # differentiable on both devices: the flash kernel and its
+        # hand-written backward on the card, attention_ref and
+        # flash_attention_bwd_ref on the CPU
         positions = torch.arange(S, device=x.device)[None, :]
         q, k, v = qkv_project(p, x, cfg, positions)
-        if on_card:
-            out = flash_attention(q, k, v, causal=causal, window=window,
-                                  kv_len=kv_len)
-        else:
-            out = chunked_attention(q, k, v, causal=causal, window=window,
-                                    q_chunk=cfg.attn_q_chunk,
-                                    kv_chunk=cfg.attn_kv_chunk,
-                                    kv_len=kv_len)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              kv_len=kv_len)
         new_cache = None
     elif mode == "prefill":
         positions = torch.arange(S, device=x.device)[None, :]
@@ -608,3 +608,16 @@ def logits_fn(x, out_w, real_vocab: int):
         mask = torch.arange(V, device=x.device) < real_vocab
         logits = torch.where(mask, logits, NEG_INF)
     return logits
+
+
+def softmax_xent(logits, labels, z_loss: float = 0.0):
+    """float32 cross entropy: the mean over (B, S) of logsumexp(logits)
+    minus the label's logit, plus ``z_loss`` times the mean squared
+    logsumexp.  logits (B, S, V) float32; labels (B, S) int."""
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse).mean()
+    return loss

@@ -223,7 +223,8 @@ def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
     state is snapshotted at each row's last real token.  ``mode="extend"``
     continues from ``state`` (a restored snapshot): its conv state seeds
     the left pad and its ssm state seeds the recurrence.  ``mode="decode"``
-    takes one token per row.  ``ckpt_every`` (prefill only): the new state
+    takes one token per row; ``mode="train"`` starts from zero state and
+    returns None for it.  ``ckpt_every`` (prefill only): the new state
     becomes ``(state, checkpoints)`` with checkpoints a MambaState of the
     states after every ``ckpt_every`` positions, conv (B, nb, K-1, C) and
     ssm (B, nb, H, P, N) with nb = S // ckpt_every.  ``ckpt_out``, a
@@ -280,7 +281,9 @@ def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
         else:
             y, final = ssd(xh, dt, p["A_log"], Bm_c, Cm_c, chunk=s.chunk,
                            initial_state=init, mask=mask)
-            new_state = MambaState(conv=new_conv, ssm=final)
+            # training keeps no state, as JAX's train mode
+            new_state = (None if mode == "train"
+                         else MambaState(conv=new_conv, ssm=final))
 
     y = y + xh.to(F32) * p["D_skip"][None, None, :, None].to(F32)
     y = y.reshape(Bb, S, d_inner).to(x.dtype)

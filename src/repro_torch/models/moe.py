@@ -8,7 +8,10 @@ row-major (token, choice) order, so the tokens a full expert drops are the
 ones JAX drops).  The expert SwiGLU runs the grouped GEMM
 (``kernels/moe_gmm``) three times over the (E, C, D) capacity layout,
 where JAX wrote einsums; ``counts[e] = min(tokens routed to e, C)`` stays
-on the device, so routing reads nothing back to the host.
+on the device, so routing reads nothing back to the host.  In training the
+block is differentiable on the CPU (the plain grouped GEMM); on the card
+the grouped GEMM kernel has no backward yet and raises (ROADMAP queue 2
+item 7).
 """
 from __future__ import annotations
 
@@ -88,9 +91,13 @@ def _moe_local(xf, router, w_gate, w_up, w_down, *, cfg: ArchConfig,
     # row e*C + slot of a flat (E*C + 1, D) buffer; dropped choices land in
     # the extra last row, which nothing reads.  Every row below
     # counts[e] of each expert is written, and the GEMM reads no row past
-    # it, so the buffer needs no zeroing.
+    # it, so a serving buffer needs no zeroing.
     dest = torch.where(keep, flat_e * C + slot, E * C)
-    buf = torch.empty((E * C + 1, D), dtype=xf.dtype, device=xf.device)
+    # in training the rows past counts[e] are zeros, as JAX's buffer: the
+    # grouped GEMM's weight gradient multiplies every row by its (zero)
+    # output gradient, and uninitialised rows could hold NaNs
+    buf = (torch.zeros if train else torch.empty)(
+        (E * C + 1, D), dtype=xf.dtype, device=xf.device)
     buf.index_copy_(0, dest, xf.repeat_interleave(K, dim=0))
     buf = buf[:E * C].view(E, C, D)
 

@@ -71,6 +71,43 @@ def tree_leaves(tree, is_leaf=None) -> list:
     return out
 
 
+def jax_leaves(tree) -> list:
+    """The leaves in JAX's flatten order: dict keys sorted, sequences and
+    NamedTuple fields in order, ``None`` holding no leaf.  A tree written
+    by one package and read by the other lines up leaf by leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in jax_leaves(v)]
+    return [tree]
+
+
+def jax_unflatten(tree, leaves):
+    """``tree`` with its leaves replaced by ``leaves``, given in
+    :func:`jax_leaves` order (dicts keep their own key order)."""
+    leaves = list(leaves)
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if is_namedtuple(t):
+            return type(t)(*(build(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    n = len(jax_leaves(tree))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
+    return build(tree)
+
+
 def tree_map_pspec(fn, tree):
     return tree_map(fn, tree, is_leaf=is_pspec)
 

@@ -34,7 +34,8 @@ def moe_layer_specs(cfg: ArchConfig) -> dict:
 
 
 def dense_layer(lp, x, cfg: ArchConfig, *, mode: str, cache=None, pos=None):
-    """Pre-norm attention + MLP with residuals.  Returns (x, new_cache)."""
+    """Pre-norm attention + MLP with residuals.  Returns (x, new_cache);
+    ``mode="train"`` writes no cache and returns (x, None)."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     a, new_cache = attention_block(lp["attn"], h, cfg, mode=mode,
                                    cache=cache, pos=pos)
@@ -46,11 +47,14 @@ def dense_layer(lp, x, cfg: ArchConfig, *, mode: str, cache=None, pos=None):
 
 def moe_layer(lp, x, cfg: ArchConfig, *, mode: str, cache=None, pos=None):
     """Pre-norm attention + MoE FFN with residuals.  Returns (x,
-    new_cache); the serving modes drop the load-balance loss."""
+    new_cache); the serving modes drop the load-balance loss, and
+    ``mode="train"`` (which writes no cache) returns (x, the Switch
+    load-balance loss) with the training capacity."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     a, new_cache = attention_block(lp["attn"], h, cfg, mode=mode,
                                    cache=cache, pos=pos)
     x = x + a
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    y, _aux = moe_mod.moe_block(lp["moe"], h, cfg, train=False)
-    return x + y, new_cache
+    train = mode == "train"
+    y, aux = moe_mod.moe_block(lp["moe"], h, cfg, train=train)
+    return x + y, aux if train else new_cache

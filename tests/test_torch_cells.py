@@ -18,6 +18,12 @@
   the guard's programs and still loses its graphs on a resize.
 * ``ArrayChannel`` and ``ControlPlane`` round-trip as in
   ``tests/test_core.py``.
+* A train cell killed by ``fail_column`` and recovered from its
+  ``ckpt_dir`` (imperatively, and by the reconciler from the spec's
+  ``ckpt_dir``) trains on with the uninterrupted run's losses, bit for
+  bit; a resize mid-run changes nothing either; the recover's events are
+  JAX's.  A serve cell restores its params; a directory without a
+  checkpoint logs ``recover_no_ckpt`` and brings the cell back empty.
 """
 import gc
 import weakref
@@ -222,12 +228,12 @@ def test_a_zone_over_two_devices_is_refused():
     with pytest.raises(CellError, match="item 13"):
         sup.resize_cell("a", 2)
     assert sup.cells["a"].zone.ncols == 1 and sup.table.epoch == 1
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the train role is a train cell's: a serve cell refuses it, and a
+    # restore from a directory that holds no checkpoint is logged
+    with pytest.raises(CellError, match="role 'serve'"):
         cell.init_train()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sup.recover_cell("a", ckpt_dir="/ckpts/a")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sup.restore_from_ckpt(cell, "/ckpts/a")
+    assert sup.restore_from_ckpt(cell, "/nonexistent/ckpts/a") is False
+    assert sup.events[-1]["op"] == "recover_no_ckpt"
     assert single_device_grid("cpu").shape == (1, 1, 1)
 
 
@@ -448,3 +454,121 @@ def test_array_channel_round_trips():
     assert not ch.open and sup.find_channel("a", "b", "pages") is None
     with pytest.raises(ChannelError, match="closed"):
         ch.send(tree)
+
+
+# ---------------------------------------------------------------------------
+# the train role: checkpoints and recovery
+# ---------------------------------------------------------------------------
+def _train_setup(tmp_path, cols=2):
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    cfg = t_smoke_config(t_get_arch("qwen3-4b")).replace(dtype="float32")
+    sup = Supervisor(DeviceGrid.from_flat(["cpu"], 1, 1, cols,
+                                          allow_reuse=True))
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    sup.apply(ClusterSpec(cells=(CellSpec("t", cfg, "train", ncols=1,
+                                          opt_cfg=opt,
+                                          ckpt_dir=str(tmp_path)),)))
+    pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg,
+                             ShapeConfig("t", "train", 16, 4), device="cpu")
+    cell = sup.cells["t"]
+    cell.init_train(torch.Generator().manual_seed(0))
+    return sup, cell, pipe
+
+
+def _losses(cell, pipe, n):
+    return [cell.train_steps(pipe.get_batch, 1)["loss_step"]
+            for _ in range(n)]
+
+
+def _uninterrupted(tmp_path):
+    sup, cell, pipe = _train_setup(tmp_path / "ref")
+    return _losses(cell, pipe, 4)
+
+
+@pytest.mark.parametrize("how", ["recover_cell", "reconcile"])
+def test_a_killed_train_cell_resumes_from_its_checkpoint(tmp_path, how):
+    from repro_torch.checkpoint import checkpoint as ckpt
+    want = _uninterrupted(tmp_path)
+    sup, cell, pipe = _train_setup(tmp_path / "run")
+    got = _losses(cell, pipe, 2)
+    ckpt.save(str(tmp_path / "run"), cell.step, cell.state,
+              blocking=False).result(timeout=60)
+    _losses(cell, pipe, 1)                   # lost with the cell
+    sup.fail_column(0, cell.zone.c0)
+    if how == "recover_cell":
+        new = sup.recover_cell("t", ckpt_dir=str(tmp_path / "run"))
+    else:
+        sup.reconcile()
+        new = sup.cells["t"]
+    assert new is not cell and new.status == "running" and new.step == 2
+    assert [e["op"] for e in sup.events if e["op"] in
+            ("fail_column", "restore_ckpt", "recover")] == \
+        ["fail_column", "restore_ckpt", "recover"]
+    got += _losses(new, pipe, 2)
+    assert got == want
+    assert sup.validate_cell_programs("t") == 2   # state, train step
+    prog = new.accounting.programs["train_step"]
+    assert prog.flops_per_device > 0 and prog.invocations == 2
+
+
+def test_a_resize_mid_run_keeps_the_losses(tmp_path):
+    want = _uninterrupted(tmp_path)
+    sup, cell, pipe = _train_setup(tmp_path / "run")
+    got = _losses(cell, pipe, 2)
+    epoch = cell._train_step[1]
+    sup.resize_cell("t", 2)
+    assert cell._train_step is None           # the step is rebuilt
+    got += _losses(cell, pipe, 2)
+    assert got == want and cell._train_step[1] > epoch
+    sup.validate_cell_programs("t")
+
+
+def test_recover_with_a_checkpoint_matches_jax_events(tmp_path):
+    """The JAX and port supervisors recover a train cell from a
+    checkpoint of its state with the same events, zones and step."""
+    from repro.checkpoint import checkpoint as j_ckpt
+    from repro_torch.checkpoint import checkpoint as t_ckpt
+    jcfg = smoke_config(get_arch("qwen3-4b"))
+    tcfg = t_smoke_config(t_get_arch("qwen3-4b"))
+    seen = []
+    for sup, cfg, ck, init in (
+            (JSupervisor(JGrid.from_flat(jax.devices()[:1], 1, 1, 3,
+                                         allow_reuse=True)), jcfg, j_ckpt,
+             lambda c: c.init_train(jax.random.PRNGKey(0))),
+            (Supervisor(DeviceGrid.from_flat(["cpu"], 1, 1, 3,
+                                             allow_reuse=True)), tcfg, t_ckpt,
+             lambda c: c.init_train(torch.Generator().manual_seed(0)))):
+        d = str(tmp_path / "ck")      # one name in both event logs
+        cell = sup.create_cell("t", cfg, "train", ncols=1)
+        init(cell)
+        ck.save(d, 6, cell.state)
+        sup.fail_column(0, cell.zone.c0)
+        new = sup.recover_cell("t", ckpt_dir=d)
+        sup.fail_column(0, new.zone.c0)
+        sup.recover_cell("t", ckpt_dir=str(tmp_path / "empty"))
+        seen.append((_events(sup), _zones(sup), new.step, new.status))
+    assert seen[1] == seen[0]
+
+
+def test_a_serve_cell_restores_its_params(tmp_path):
+    from repro_torch.checkpoint import checkpoint as ckpt
+    cfg = t_smoke_config(t_get_arch("qwen3-4b"))
+    sup = Supervisor(DeviceGrid.from_flat(["cpu"], 1, 1, 2,
+                                          allow_reuse=True))
+    cell = sup.create_cell("srv", cfg, "serve", ncols=1)
+    cell.init_serve(generator=torch.Generator().manual_seed(0))
+    ref = [t.clone() for t in tree_leaves(cell.serve_params)]
+    ckpt.save(str(tmp_path), 7, cell.snapshot_state())
+    cell.status = "failed"
+    rec = sup.recover_cell("srv", ckpt_dir=str(tmp_path))
+    assert rec.status == "running" and rec.step == 7 and rec.state is None
+    got = tree_leaves(rec.serve_params)
+    assert len(got) == len(ref)
+    assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    rec.status = "failed"
+    rec2 = sup.recover_cell("srv", ckpt_dir=str(tmp_path / "empty"))
+    assert rec2.serve_params is None
+    assert [e["op"] for e in sup.events[-2:]] == ["recover_no_ckpt",
+                                                  "recover"]

@@ -9,7 +9,7 @@ invocations, token-at-a-time fallbacks, prefix-hit tokens, warm and cold
 routings, decode invocations, the kinds and ends of the channels the
 supervisor opened) and the span names of every request's trace in the
 cells' flight recorders.  The two scenarios that restore a cell from a
-checkpoint wait for training.
+checkpoint write it with each package's own ``checkpoint.save``.
 """
 import collections
 import dataclasses
@@ -100,6 +100,20 @@ class Side:
                 prompt=rng.randint(1, self.cfg.vocab, size=L)
                 .astype(np.int32)))
         return out
+
+    @property
+    def ckpt(self):
+        if self.port:
+            from repro_torch.checkpoint import checkpoint
+        else:
+            from repro.checkpoint import checkpoint
+        return checkpoint
+
+    def leaves(self, tree):
+        if self.port:
+            from repro_torch.models.param import jax_leaves
+            return [t.numpy() for t in jax_leaves(tree)]
+        return [np.asarray(x) for x in jax.tree.leaves(tree)]
 
     def recorder(self, cell):
         if self.port:
@@ -395,3 +409,88 @@ def test_worker_and_replicas_are_programs_of_their_cells():
     gc.collect()
     assert gone() is None       # the detached batcher went, arena and all
     srv.close()
+
+
+def test_recover_serve_role_restores_params(tmp_path):
+    """recover_cell(ckpt_dir=...) of a serve cell restores its bare params
+    (not a train state), and an empty ckpt_dir logs recover_no_ckpt."""
+    def run(side):
+        d = tmp_path / ("port" if side.port else "jax")
+        sup = side.supervisor(2)
+        cell = sup.create_cell("srv", side.cfg, "serve", ncols=1)
+        side.init(cell)
+        ref = side.leaves(cell.serve_params)
+        side.ckpt.save(str(d), 7, cell.serve_params)
+        cell.status = "failed"
+        rec = sup.recover_cell("srv", ckpt_dir=str(d))
+        got = side.leaves(rec.serve_params)
+        c = {"restored": (rec.status, rec.step, len(got) == len(ref) and all(
+            np.array_equal(a, b) for a, b in zip(ref, got)))}
+        rec.status = "failed"
+        rec2 = sup.recover_cell("srv", ckpt_dir=str(d / "empty"))
+        c["empty"] = rec2.serve_params is None
+        c["ops"] = [e["op"] for e in sup.events]
+        return {}, c
+
+    _, c = both(run)
+    assert c["restored"] == ("running", 7, True) and c["empty"]
+    assert c["ops"].count("restore_ckpt") == 1
+    assert c["ops"][-2:] == ["recover_no_ckpt", "recover"]
+
+
+def test_daemon_e2e_kill_recover_reattach(tmp_path):
+    """With traffic flowing, fail_column on a decode replica: the daemon
+    recovers the cell, restoring its params from the spec's ckpt_dir,
+    DisaggServer.sync re-attaches it, no request is lost and the SLO tail
+    reconverges; nothing here calls a primitive."""
+    def run(side):
+        c = side.core
+        d = tmp_path / ("port" if side.port else "jax")
+        sup = side.supervisor(4)
+        slo = c.SLOTarget(ttft_p99=60.0, tpot_p99=60.0)  # generous: wall clock
+        spec = side.spec(2, min_replicas=2, max_replicas=2, slo=slo,
+                         ckpt_dir=str(d))
+        sup.apply(spec)                  # 1 spare column for recovery
+        side.init(sup.cells["decode/0"])
+        srv = side.disagg.DisaggServer(sup, "prefill",
+                                       spec.cell("decode").instances(),
+                                       batch_slots=2, max_len=MAX_LEN,
+                                       chunk=16)
+        side.ckpt.save(str(d), 3, sup.cells["decode/0"].serve_params)
+        daemon = c.SupervisorDaemon(sup)
+        daemon.attach_server(srv)
+        pol = daemon.add_slo_policy("decode", autoscale_replicas=True,
+                                    queue_depth=lambda: len(srv.pending),
+                                    queue_high=64)
+        for r in side.requests([9, 33, 17, 21, 40, 12, 28, 35], max_new=4):
+            srv.submit(r)
+        for _ in range(2):
+            srv.step()
+            daemon.tick()
+        victim = srv.replicas[1].cell
+        affected = sup.fail_column(0, victim.zone.c0)
+        got = drained(srv, max_steps=2_000, on_step=daemon.tick)
+        out = counters(side, sup, srv)
+        ops = [e["op"] for e in sup.events]
+        out["recovered"] = (
+            victim.name in affected
+            and sup.cells[victim.name] is not victim
+            and all(rep.cell.status == "running" for rep in srv.replicas)
+            and ("recover" in ops
+                 or "create" in ops[ops.index("fail_column"):])
+            and any(e["op"] == "restore_ckpt" and e["cell"] == victim.name
+                    for e in sup.events))
+        for r in side.requests([11, 22], max_new=4, seed=1, rid0=100):
+            srv.submit(r)
+        got.update(drained(srv, max_steps=2_000, on_step=daemon.tick))
+        pol.pull()
+        tail = pol.replica_tail()
+        out["tail_ok"] = tail is not None and tail < slo.tpot_p99
+        out["converged"] = sup.reconcile().empty
+        return got, out
+
+    got, c = both(run)
+    assert sorted(got) == list(range(8)) + [100, 101]
+    assert all(len(v) == 4 for v in got.values())
+    assert c["replicas"] == ["decode/0", "decode/1"]
+    assert c["recovered"] and c["tail_ok"] and c["converged"]
