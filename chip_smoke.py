@@ -92,22 +92,27 @@ mamba2-2.7b on the snapshot plane, seamless with ragged sources): the
 card's tokens equal the CPU's and a colocated batcher's.
 
 Phase 3 also holds flash attention's backward kernel
-(``csrc/flash_attention_bwd.cu``) against ``flash_attention_bwd_ref`` under
-every mask the forward takes, checks that two calls are bitwise equal,
-and times it at qwen3-4b's training shape (row ``flash_attention_bwd``;
-the library's time is SDPA's forward + backward less its forward).
+(``csrc/flash_attention_bwd.cu``) against ``flash_attention_bwd_ref``
+through both routes (bf16 on the tensor cores, float32 on CUDA cores)
+under every mask the forward takes at head dims 64, 80 and 128, checks
+that two calls are bitwise equal, and times both at qwen3-4b's training
+shape (rows ``flash_attention_bwd`` and ``flash_attention_bwd_f32``; the
+library's time is SDPA's forward + backward less its forward), beside
+the forward with its LSE at that shape (row ``flash_attention_train``).
 Phase 13 trains full-width qwen3-4b (all 36 layers, random weights from a
 seed) for 6 steps through the control plane (``Supervisor.apply`` of a
 train cell, ``Cell.train_steps`` on bigram batches, global batch 8 at seq
 512 in the config's 2 microbatches): xent must fall, grad norms stay
 finite, and every attention layer must launch the flash kernel twice a
-microbatch (forward and remat recompute) and the backward kernel once;
-it prints the step wall p50, tokens/s, MFU, the step's reckoned bound,
-the peak memory and one profiled step's largest kernels.  Phase 13b, at
+microbatch (forward and remat recompute) and the backward kernel once,
+on the tensor cores; it prints the step wall p50, tokens/s, MFU, the
+step's reckoned bound, the peak memory and one profiled step's largest
+kernels and the port's kernels' shares.  Phase 13b, at
 smoke size, kills a train cell after an asynchronous checkpoint and
 recovers it from the checkpoint (``recover_cell(ckpt_dir=)``): its next
 losses must equal an uninterrupted run's bit for bit; float32 train steps
-on the card must give the CPU's losses within 1e-5.
+on the card must give the CPU's losses within 1e-5, their backward
+launches all on the CUDA-core route.
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -697,7 +702,7 @@ def check_kernels(dev, kernels: dict):
     time_ssd(dev, gen, flush, kernels)
     time_head_dim_80(dev, gen, flush)
     time_long_decode(dev, gen, flush)
-    time_flash_bwd(dev, gen, flush, kernels)
+    time_flash_bwd(dev, gen, flush, kernels, hold)
     errs["gmm_prefill"] = errs["gmm"]     # one kernel, held at both shapes
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = e
@@ -923,25 +928,37 @@ TRAIN_B, TRAIN_S = 4, 512
 
 def check_flash_bwd(dev, gen, hold):
     """Flash attention's backward kernel against ``flash_attention_bwd_ref``
-    on the same q, k, v, dout and the forward kernel's out and LSE: at
-    qwen3-4b's training shape (causal, GQA 4) and under the other masks
-    the forward takes (a window, bidirectional under a key-length mask,
-    cross-attention with Sq above and below Skv), bf16 and float32; and
-    two calls bitwise equal (deterministic)."""
+    on the same q, k, v, dout and the forward kernel's out and LSE, through
+    both routes (bf16: the tensor-core kernels, row
+    ``flash_attention_bwd``; float32: the CUDA-core kernels, row
+    ``flash_attention_bwd_f32``): at qwen3-4b's training shape (causal,
+    GQA 4) and under every mask the forward takes (causal, a window that
+    crosses several q tiles, causal with q aligned to the end of longer
+    keys, bidirectional under a key-length mask, cross-attention with Sq
+    above and below Skv) at head dims 64 (seamless, MHA), 80 (zamba2, MHA)
+    and 128 (qwen3-4b, GQA 4), at lengths no tile divides; and two calls
+    at the training shape bitwise equal (deterministic)."""
     from repro_torch.kernels.flash_attention.ops import (
         _flash_forward,
         flash_attention_bwd,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
-    cases = [(TRAIN_B, TRAIN_S, TRAIN_S, HQ, HKV, DH, True, None, None),
-             (2, 200, 200, HQ, HKV, DH, True, 64, None),
-             (3, 200, 200, ENC_H, ENC_H, ENC_DH, False, None, (101, 200, 37)),
-             (3, 72, 200, ENC_H, ENC_H, ENC_DH, False, None, (101, 1, 200)),
-             (3, 200, 72, ENC_H, ENC_H, ENC_DH, False, None, (37, 72, 5))]
-    for dt, tol, why in ((torch.bfloat16, 2e-2,
-                          "bf16 output rounding; plain version float32"),
-                         (torch.float32, 1e-4,
-                          "f32; sums over G x Sq terms in another order")):
+    masks = [(2, 200, 200, True, None, None),        # (B, Sq, Skv, causal,
+             (2, 200, 200, True, 64, None),          # window, kv_len)
+             (2, 72, 200, True, None, None),
+             (3, 200, 200, False, None, (101, 200, 37)),
+             (3, 72, 200, False, None, (101, 1, 200)),
+             (3, 200, 72, False, None, (37, 72, 5))]
+    heads = [(ENC_H, ENC_H, ENC_DH), (ZAMBA_H, ZAMBA_H, ZAMBA_DH),
+             (HQ, HKV, DH)]
+    cases = [(TRAIN_B, TRAIN_S, TRAIN_S, HQ, HKV, DH, True, None, None)] + [
+        (B, sq, skv, hq, hkv, dh, causal, window, kv)
+        for hq, hkv, dh in heads for B, sq, skv, causal, window, kv in masks]
+    for dt, name, tol, why in (
+            (torch.bfloat16, "flash_attention_bwd", 2e-2,
+             "bf16 P, dS and outputs; plain version float32"),
+            (torch.float32, "flash_attention_bwd_f32", 1e-4,
+             "f32; sums over G x Sq terms in another order")):
         for B, sq, skv, hq, hkv, dh, causal, window, kv in cases:
             r = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
                                         device=dev).to(dt)
@@ -957,72 +974,98 @@ def check_flash_bwd(dev, gen, hold):
                 causal=causal, window=window, kv_len=kl)
             torch.cuda.synchronize()
             errs = []
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                hold("flash_attention_bwd", g, w.transpose(1, 2), tol, why,
-                     f"{name} {dt} B{B} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} "
+            for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+                hold(name, g, w.transpose(1, 2), tol, why,
+                     f"{grad} {dt} B{B} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} "
                      f"Dh{dh} causal={causal} window={window} kv_len={kv}")
                 errs.append(float((g.float() - w.transpose(1, 2).float())
                                   .abs().max()))
-            log(f"  {'flash_attention_bwd':24s} max abs err dq "
-                f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+            log(f"  {name:24s} max abs err dq {errs[0]:.3e} dk "
+                f"{errs[1]:.3e} dv {errs[2]:.3e}")
             if (B, sq) == (TRAIN_B, TRAIN_S):
                 again = flash_attention_bwd(q, k, v, out, do, lse,
                                             causal=causal)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise AssertionError("flash_attention_bwd: two calls "
-                                         "differ")
-    log(f"  {'flash_attention_bwd':24s} two calls at the training shape "
-        "bitwise equal: ok")
+                    raise AssertionError(f"{name}: two calls differ")
+        log(f"  {name:24s} two calls at the training shape bitwise equal: "
+            "ok")
 
 
-def time_flash_bwd(dev, gen, flush, kernels):
-    """Row 1e: the backward at qwen3-4b's training shape (bf16, causal,
-    B4 S512 Hq32 Hkv8 Dh128) beside its plain version and, as the
+def time_flash_bwd(dev, gen, flush, kernels, hold):
+    """Rows 1e and 1f: the backward at qwen3-4b's training shape (causal,
+    B4 S512 Hq32 Hkv8 Dh128) through the bf16 tensor-core route and the
+    float32 CUDA-core route, each beside its plain version and, as the
     library's time, one SDPA forward + backward less its forward (SDPA
-    over K/V repeated to the 32 q heads; its dK and dV are per q head)."""
+    over K/V repeated to the 32 q heads; its dK and dV are per q head).
+    Row 1g: the forward with its LSE at the same shape in bf16 (phase 13
+    launches it twice a layer a microbatch), held against its plain
+    version and timed beside SDPA's forward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
         _flash_forward,
         flash_attention_bwd,
     )
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
-    bf16, B, S = torch.bfloat16, TRAIN_B, TRAIN_S
-    r = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
-                                device=dev).to(bf16)
-    q, k, v, do = r(B, S, HQ, DH), r(B, S, HKV, DH), r(B, S, HKV, DH), \
-        r(B, S, HQ, DH)
-    out, lse = _flash_forward(q, k, v, True, None, None, True)
-    plain = [t.transpose(1, 2) for t in (q, k, v, out, do)]
-    lib = [t.transpose(1, 2).contiguous().requires_grad_() for t in
-           (q, k.repeat_interleave(HQ // HKV, dim=2),
-            v.repeat_interleave(HQ // HKV, dim=2))]
-    do_t = do.transpose(1, 2).contiguous()
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref,
+        flash_attention_bwd_ref,
+    )
+    B, S = TRAIN_B, TRAIN_S
+    for dt, name in ((torch.bfloat16, "flash_attention_bwd"),
+                     (torch.float32, "flash_attention_bwd_f32")):
+        r = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
+                                    device=dev).to(dt)
+        q, k, v, do = r(B, S, HQ, DH), r(B, S, HKV, DH), r(B, S, HKV, DH), \
+            r(B, S, HQ, DH)
+        out, lse = _flash_forward(q, k, v, True, None, None, True)
+        plain = [t.transpose(1, 2) for t in (q, k, v, out, do)]
+        lib = [t.transpose(1, 2).contiguous().requires_grad_() for t in
+               (q, k.repeat_interleave(HQ // HKV, dim=2),
+                v.repeat_interleave(HQ // HKV, dim=2))]
+        do_t = do.transpose(1, 2).contiguous()
 
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(*lib, is_causal=True)
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(*lib, is_causal=True)
 
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(*lib, is_causal=True)
-        torch.autograd.grad(o, lib, do_t)
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*lib, is_causal=True)
+            torch.autograd.grad(o, lib, do_t)
 
-    elem = 2
-    # q, out, dout in and dq out; k, v in and dk, dv out; the LSE in
-    n_bytes = (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4
-    n_ops = 5 * 2 * DH * HQ * B * S * (S + 1) // 2
-    fwd = time_ms(sdpa_fwd, flush=flush)
-    kernels["flash_attention_bwd"].update(
-        shape=f"B{B} S{S} Hq{HQ} Hkv{HKV} Dh{DH} bf16 causal",
-        ms=time_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse),
-                   flush=flush),
-        plain_ms=time_ms(lambda: flash_attention_bwd_ref(*plain, lse),
-                         flush=flush),
-        library_ms=time_ms(sdpa_fwd_bwd, flush=flush) - fwd,
-        **bound(n_bytes, n_ops, bf16))
-    log(f"  flash_attention_bwd library: SDPA forward {fwd:.4f} ms, "
-        f"forward + backward less forward "
-        f"{kernels['flash_attention_bwd']['library_ms']:.4f} ms")
+        elem = q.element_size()
+        # q, out, dout in and dq out; k, v in and dk, dv out; the LSE in
+        n_bytes = (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4
+        n_ops = 5 * 2 * DH * HQ * B * S * (S + 1) // 2
+        fwd = time_ms(sdpa_fwd, flush=flush)
+        kernels[name].update(
+            shape=f"B{B} S{S} Hq{HQ} Hkv{HKV} Dh{DH} {dt} causal",
+            ms=time_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse),
+                       flush=flush),
+            plain_ms=time_ms(lambda: flash_attention_bwd_ref(*plain, lse),
+                             flush=flush),
+            library_ms=time_ms(sdpa_fwd_bwd, flush=flush) - fwd,
+            **bound(n_bytes, n_ops, dt))
+        log(f"  {name} library: SDPA forward {fwd:.4f} ms, forward + "
+            f"backward less forward {kernels[name]['library_ms']:.4f} ms")
+        if dt != torch.bfloat16:
+            continue
+        want, want_lse = attention_ref(*plain[:3], return_lse=True)
+        hold("flash_attention_train", out, want.transpose(1, 2), 2e-2,
+             "bf16 output rounding", f"out B{B} S{S} Hq{HQ} Hkv{HKV} Dh{DH} "
+             "causal, with the LSE")
+        hold("flash_attention_train", lse, want_lse, 1e-3,
+             "bf16 products, float32 sums", f"lse B{B} S{S} Hq{HQ} Hkv{HKV} "
+             f"Dh{DH} causal")
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * elem + lse.numel() * 4
+        n_ops = 4 * DH * HQ * B * S * (S + 1) // 2
+        kernels["flash_attention_train"].update(
+            shape=f"B{B} S{S} Hq{HQ} Hkv{HKV} Dh{DH} bf16 causal, LSE",
+            ms=time_ms(lambda: _flash_forward(q, k, v, True, None, None,
+                                              True), flush=flush),
+            plain_ms=time_ms(lambda: attention_ref(*plain[:3],
+                                                   return_lse=True),
+                             flush=flush),
+            library_ms=fwd, **bound(n_bytes, n_ops, dt))
 
 
 def ssd_work(Bb, S, H, P, G, N, Q, *, esize=2, checkpoints=True):
@@ -2841,6 +2884,8 @@ def phase_train(dev, name_limit: str) -> dict:
            launches["flash_attention_tc"], 2 * n_attn)
     expect("[13] flash backward launches", launches["flash_attention_bwd"],
            n_attn)
+    expect("[13] flash backward launches on the tensor cores",
+           launches["flash_attention_bwd_tc"], n_attn)
     expect("[13] grouped GEMM and SSD launches",
            launches["gmm"] + launches["ssd"], 0)
     step_s = float(np.median(walls[1:]))
@@ -2860,7 +2905,10 @@ def phase_train(dev, name_limit: str) -> dict:
     log(f"[13] one more step under torch.profiler: device busy "
         f"{busy * 1e3:.1f} ms; largest kernel shares: " + "; ".join(
             f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
-            for name, t, n in shares))
+            for name, t, n in shares[:8]))
+    log("[13] the port's kernels in that step: " + "; ".join(
+        f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
+        for name, t, n in shares if name.startswith("void rt::")))
     sup.destroy_cell("train")
     del cell, batches, pipe
     gc.collect()
@@ -2874,11 +2922,11 @@ def phase_train(dev, name_limit: str) -> dict:
             "peak_gb": peak / 1e9}
 
 
-def profile_step(fn, top: int = 8):
-    """(device busy seconds, [(kernel, seconds, calls)] of the ``top``
-    kernels by device time) of one call of ``fn`` under torch.profiler;
-    busy is the union of the kernels' intervals (``launch.profile_decode``
-    reads it the same way)."""
+def profile_step(fn):
+    """(device busy seconds, [(kernel, seconds, calls)] of every kernel,
+    the largest device time first) of one call of ``fn`` under
+    torch.profiler; busy is the union of the kernels' intervals
+    (``launch.profile_decode`` reads it the same way)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile_decode import _busy_us
@@ -2896,7 +2944,7 @@ def profile_step(fn, top: int = 8):
                                * 1e-6, n + 1)
     rows = sorted(((k[:60], t, n) for k, (t, n) in by_name.items()),
                   key=lambda r: -r[1])
-    return _busy_us(events) * 1e-6, rows[:top]
+    return _busy_us(events) * 1e-6, rows
 
 
 def phase_train_recovery(dev, name_limit: str) -> dict:
@@ -2916,6 +2964,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     from repro_torch.core import DeviceGrid, Supervisor
     from repro_torch.core.resharding import reshard_tree
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import init_train_state
     d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
@@ -2960,16 +3009,24 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
         f"(checkpoint saved asynchronously), recovered from it; xent "
         f"{got} equal the uninterrupted run's bit for bit; events {ops}")
     f32 = cfg.replace(dtype="float32")
+    reset_counters((flash_attention_bwd,))
     card_x, _ = run(f32, dev, kill=False, cpu_weights=True)
+    launches = read_counters((flash_attention_bwd,))
+    if launches["flash_attention_bwd"] == 0:
+        raise AssertionError("[13b] the float32 steps launched no backward")
+    expect("[13b] float32 backward launches on the tensor cores",
+           launches["flash_attention_bwd_tc"], 0)
     cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True)
     worst = max(abs(a - b) / abs(b) for a, b in zip(card_x, cpu_x))
     if worst > 1e-5:
         raise AssertionError(f"[13b] float32 card {card_x} vs CPU {cpu_x}: "
                              f"rel {worst}")
     log(f"[13b] float32 smoke train steps: card xent {card_x}, CPU "
-        f"{cpu_x}, worst rel {worst:.2e} (tol 1e-5)")
+        f"{cpu_x}, worst rel {worst:.2e} (tol 1e-5); backward launches "
+        f"{launches}")
     shutil.rmtree(d, ignore_errors=True)
-    return {"xent": got, "f32_rel": worst}
+    return {"xent": got, "f32_rel": worst, "launches": {
+        "flash_attention_bwd_f32": launches["flash_attention_bwd"]}}
 
 
 KERNELS = {
@@ -3025,13 +3082,27 @@ KERNELS = {
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:48",
         "path": 10},
+    # the flash kernel with its LSE at the training shape: launches those
+    # of phase 13 (forward and remat recompute)
+    "flash_attention_train": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "path": 13, "count": "flash_attention"},
     # the backward of the flash kernel (the TPU package has none: JAX
-    # trains through chunked_attention's XLA gradient), on phase 13
+    # trains through chunked_attention's XLA gradient): the bf16
+    # tensor-core route on phase 13, the float32 CUDA-core route on phase
+    # 13b's float32 steps
     "flash_attention_bwd": {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
-        "path": 13},
+        "path": 13, "count": "flash_attention_bwd_tc"},
+    "flash_attention_bwd_f32": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "path": "13b", "count": "flash_attention_bwd_f32"},
 }
 
 
@@ -3081,13 +3152,15 @@ def main() -> int:
     with timed(13):
         runs[13] = phase_train(dev, name_limit)
     with timed("13b"):
-        phase_train_recovery(dev, name_limit)
+        runs["13b"] = phase_train_recovery(dev, name_limit)
     rows = []
     for name, rep in kernels.items():
-        launches = runs[rep["path"]]["launches"][name]
+        launches = runs[rep["path"]]["launches"][rep.get("count", name)]
         if rep["path"] == 5:        # phases 11 and 12 run the main path's
             launches += (runs[11]["launches"][name]     # kernels
                          + runs[12]["launches"][name])
+        if launches == 0:
+            raise AssertionError(f"{name}: no launch on phase {rep['path']}")
         rows.append({"name": name, "route": "cuda", "source": rep["source"],
                      "replaces": rep["replaces"],
                      "launches": launches,

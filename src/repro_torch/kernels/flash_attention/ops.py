@@ -143,10 +143,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     and dtypes of q, k, v, from the forward's ``out``, its cotangent
     ``dout`` (both (B, Sq, Hq, Dh)) and ``lse`` (B, Hq, Sq) float32, under
     the forward's masks.  A CPU tensor takes ``ref.flash_attention_bwd_ref``;
-    a CUDA tensor launches the kernels of ``csrc/flash_attention_bwd.cu``
-    (float32 or bfloat16, ``Dh % 4 == 0`` up to 256, else ``ValueError``),
-    deterministic: no atomics.  ``flash_attention_bwd.launches`` counts its
-    calls on the card."""
+    a CUDA tensor launches the kernels of ``csrc/flash_attention_bwd.cu``,
+    deterministic (no atomics), routed by dtype alone as the forward is:
+    bfloat16 takes the tensor-core kernels, which take ``Dh % 16 == 0`` up
+    to 256; float32 the CUDA-core kernels (exact float32 products), which
+    take ``Dh % 4 == 0`` up to 256; any other head dim raises
+    ``ValueError``.  ``flash_attention_bwd.launches`` counts its calls on
+    the card, ``flash_attention_bwd.launches_tc`` those on the tensor
+    cores."""
     if q.device.type == "cpu":
         g = flash_attention_bwd_ref(
             *(t.transpose(1, 2) for t in (q, k, v, out, dout)), lse,
@@ -166,11 +170,15 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
             or any(t.dtype != q.dtype for t in (k, v, out, dout))):
         raise ValueError("q, k, v, out and dout must share a float32 or "
                          "bfloat16 dtype")
-    if Dh % 4 or Dh > 256:
-        raise ValueError(f"the flash backward takes a head dim that is a "
-                         f"multiple of 4 up to 256, not {Dh}")
+    tc = q.dtype == torch.bfloat16
+    step = 16 if tc else 4
+    if Dh % step or Dh > 256:
+        raise ValueError(f"the {q.dtype} flash backward takes a head dim "
+                         f"that is a multiple of {step} up to 256, not {Dh}")
     q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
                           for t in (q, k, v, out, dout))
+    if tc:
+        q, k, v, out, dout = (_rows16(t) for t in (q, k, v, out, dout))
     lse = lse.to(torch.float32).contiguous()
     kl = _kv_len_arg(kv_len, B, q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -188,12 +196,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
             -1 if window is None else int(window),
             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_tc += tc
     _build.check(rc, "flash_attention_bwd")
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-_build.count_launches(flash_attention_bwd, "launches")
+flash_attention_bwd.launches_tc = 0
+_build.count_launches(flash_attention_bwd, "launches", "launches_tc")
 
 
 def _rows16(t):

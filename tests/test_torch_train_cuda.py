@@ -8,11 +8,14 @@ every test here skips.  On the card:
 
 The backward kernel (``csrc/flash_attention_bwd.cu``) is held against
 ``flash_attention_bwd_ref`` on the same q, k, v, out, dout and LSE (the
-forward kernel's), under every mask the forward takes: causal, a sliding
-window, bidirectional with a key-length mask, cross-attention (Sq below
-and above Skv), GQA 4, head dims 32 to 128.  Tolerances: rel < 1e-4 in
-float32 (sums over up to G x Sq terms in another order), 2e-2 in bf16
-(the kernel rounds its outputs to bf16; the plain version stays float32).
+forward kernel's), through both routes (bf16: the tensor-core kernels;
+float32: the CUDA-core kernels), under every mask the forward takes:
+causal (also at an Sq and Skv that no tile size divides), a sliding
+window (also one that crosses several q tiles), bidirectional with a
+key-length mask, cross-attention (Sq below and above Skv), GQA 4, head
+dims 32 to 256.  Tolerances: rel < 1e-4 in float32 (sums over up to G x
+Sq terms in another order), 2e-2 in bf16 (the kernels round P, dS and
+their outputs to bf16; the plain version stays float32).
 The forward's LSE is held to the plain version's at 1e-5 (float32) and
 1e-3 (bf16, tensor-core products) absolute.
 """
@@ -45,6 +48,10 @@ CASES = {
     "cross_long_q": (2, 90, 40, 4, 2, 32, False, None, (17, 40)),
     "causal_suffix_q": (1, 48, 100, 4, 2, 64, True, None, None),
     "gqa4_dh128": (1, 160, 160, 16, 4, 128, True, None, None),
+    "dh80": (2, 96, 96, 4, 4, 80, True, None, None),
+    "dh256": (1, 70, 70, 4, 2, 256, True, None, None),
+    "causal_ragged": (2, 75, 75, 8, 4, 128, True, None, None),
+    "window_wide": (1, 300, 300, 4, 2, 128, True, 100, None),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -91,9 +98,12 @@ def test_backward_kernel_matches_plain(dev, case, dtype):
     assert float((lse - lse_ref).abs().max()) < atol * max(
         1.0, float(lse_ref.abs().max()))
     n0 = fops.flash_attention_bwd.launches
+    tc0 = fops.flash_attention_bwd.launches_tc
     got = fops.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
     torch.cuda.synchronize()
     assert fops.flash_attention_bwd.launches == n0 + 1
+    assert (fops.flash_attention_bwd.launches_tc
+            == tc0 + (dtype == torch.bfloat16))
     want = flash_attention_bwd_ref(*_bhsd(q, k, v, out, dout), lse, **mask)
     for name, g, w, x in zip("qkv", got, want, (q, k, v)):
         assert g.shape == x.shape and g.dtype == x.dtype
@@ -108,6 +118,24 @@ def test_backward_kernel_is_deterministic(dev):
     b = fops.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_tensor_core_route_refuses_a_head_dim_it_does_not_take(dev):
+    """bf16 takes Dh % 16 == 0 only: Dh 72 raises (no fallback), while
+    float32 at Dh 72 runs on the CUDA-core kernels."""
+    B, S, H, Dh = 1, 40, 2, 72
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, dout = (torch.randn((B, S, H, Dh), generator=gen, device=dev)
+                     for _ in range(4))
+    out, lse = fops._flash_forward(q, k, v, True, None, None, True)
+    n0 = fops.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fops.flash_attention_bwd(*(t.to(torch.bfloat16)
+                                   for t in (q, k, v, out, dout)), lse)
+    assert fops.flash_attention_bwd.launches == n0
+    fops.flash_attention_bwd(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    assert fops.flash_attention_bwd.launches == n0 + 1
 
 
 def test_autograd_runs_the_kernels(dev):
@@ -207,8 +235,10 @@ def _np_tree(tree):
 
 def test_float32_train_steps_match_the_cpu(dev):
     f0 = fops.flash_attention_bwd.launches
+    tc0 = fops.flash_attention_bwd.launches_tc
     card, _ = _smoke_run(dev)
     assert fops.flash_attention_bwd.launches > f0
+    assert fops.flash_attention_bwd.launches_tc == tc0   # CUDA cores only
     cpu, _ = _smoke_run("cpu")
     for c, h in zip(card, cpu):
         for k in ("loss", "xent", "grad_norm"):
