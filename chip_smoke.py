@@ -112,7 +112,20 @@ smoke size, kills a train cell after an asynchronous checkpoint and
 recovers it from the checkpoint (``recover_cell(ckpt_dir=)``): its next
 losses must equal an uninterrupted run's bit for bit; float32 train steps
 on the card must give the CPU's losses within 1e-5, their backward
-launches all on the CUDA-core route.
+launches all on the CUDA-core route; so must float32 smoke
+train steps of mamba2-2.7b and zamba2-2.7b through the SSD scan's backward.
+
+Phase 3 also holds the SSD scan's backward kernel
+(``csrc/ssd_scan_bwd.cu``) against ``ssd_bwd_ref`` at mamba2's and
+zamba2's training microbatch (B 4, S 512, H 80, P 64, state 128 and 64,
+bf16 x, B and C) and at smoke shapes (two groups, two P tiles, masks, an
+initial state), checks two calls bitwise equal and times both training
+shapes (rows ``ssd_scan_bwd`` and ``ssd_scan_bwd_zamba2``).  Phases 14
+and 14b train full-width mamba2-2.7b (64 layers, 6 steps) and
+zamba2-2.7b (54 layers and the shared block, 4 steps) as phase 13 trains
+qwen3-4b: every Mamba layer launches the scan twice a microbatch (forward
+and remat recompute) and its backward once, zamba2's shared block the
+flash kernel twice and its backward once, on the tensor cores.
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -341,8 +354,11 @@ def check_kernels(dev, kernels: dict):
     ]
     errs = {name: 0.0 for name in kernels}
 
-    def hold(name, out, ref, tol, why, what):
-        r = rel(out, ref)
+    def hold(name, out, ref, tol, why, what, scale=None):
+        """``scale``: what the error is taken relative to (default: the
+        plain version's largest entry)."""
+        r = (rel(out, ref) if scale is None
+             else float((out.float() - ref.float()).abs().max() / scale))
         errs[name] = max(errs[name], float((out.float() - ref.float())
                                            .abs().max()))
         ok = r < tol
@@ -561,6 +577,7 @@ def check_kernels(dev, kernels: dict):
                  f"counts {'given' if counts else 'routed'}")
 
     check_ssd(dev, gen, hold)
+    check_ssd_bwd(dev, gen, hold)
     check_head_dim_80(dev, gen, hold)
     check_flash_bwd(dev, gen, hold)
 
@@ -700,6 +717,7 @@ def check_kernels(dev, kernels: dict):
                 f"library {rep['library_ms']:.4f} ms, bound "
                 f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
     time_ssd(dev, gen, flush, kernels)
+    time_ssd_bwd(dev, gen, flush, kernels)
     time_head_dim_80(dev, gen, flush)
     time_long_decode(dev, gen, flush)
     time_flash_bwd(dev, gen, flush, kernels, hold)
@@ -867,6 +885,133 @@ def check_ssd(dev, gen, hold):
     if not exact:
         raise AssertionError("ssd: a fully masked row is not an exact "
                              "identity")
+
+
+# the training microbatch of mamba2-2.7b and zamba2-2.7b: one of the global
+# batch 8 at seq 512 under the configs' microbatch 2
+SSD_TRAIN = [("ssd_scan_bwd", SSD_N), ("ssd_scan_bwd_zamba2", ZAMBA_N)]
+
+
+def ssd_bwd_case(gen, dev, Bb, S, H, P, G, N, dtype, *, lens=None,
+                 init=False, dfin=False):
+    """Inputs of one ``ssd_bwd`` call: (x, dt, A_log, B, C, dy, d_final)
+    with x, B and C in ``dtype``, and its keywords (mask from row lengths,
+    an initial state)."""
+    x, dt, A_log, B, C = ssd_inputs(gen, dev, Bb, S, H, P, G, N)
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+    mask = (None if lens is None else torch.arange(S, device=dev)[None]
+            < torch.tensor(lens, device=dev)[:, None])
+    kw = dict(chunk=256, mask=mask,
+              initial_state=r(Bb, H, P, N) * 0.2 if init else None)
+    return ((x.to(dtype), dt, A_log, B.to(dtype), C.to(dtype), r(Bb, S, H, P),
+             r(Bb, H, P, N) if dfin else None), kw)
+
+
+def check_ssd_bwd(dev, gen, hold):
+    """The SSD scan's backward (``ops.ssd_bwd``: ``csrc/ssd_scan_bwd.cu``)
+    against ``ssd_bwd_ref`` on the card, on the same inputs, cotangents and
+    the forward kernel's states: at mamba2's and zamba2's training
+    microbatch (B 4, S 512, H 80, P 64, G 1, N 128 and 64; x, B and C bf16,
+    dy float32, as training hands them over; rows ``ssd_scan_bwd`` and
+    ``ssd_scan_bwd_zamba2``) and at smoke shapes with two groups, a head
+    dim of 80 (two P tiles), ragged masks and a fully masked row, an
+    initial state and the final state's cotangent, in float32.  Float32
+    gradients within 1e-4 relative, bf16 ones (dx, dB, dC of bf16 inputs)
+    1e-2, dA_log 1e-5 of its summands' scale (``ssd_dA_log_scale``: its
+    terms cancel); two calls at the training shape bitwise equal."""
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
+    from repro_torch.kernels.ssd_scan.ref import (
+        ssd_bwd_ref,
+        ssd_dA_log_scale,
+    )
+    names = ("dx", "ddt", "dA_log", "dB", "dC", "d_init")
+    cases = [(name, (TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, n, torch.bfloat16),
+              {}) for name, n in SSD_TRAIN] + [
+        ("ssd_scan_bwd", (2, 64, 4, 64, 2, SSD_N, torch.float32),
+         dict(lens=(64, 0), init=True, dfin=True)),
+        ("ssd_scan_bwd", (2, 96, 4, 80, 2, ZAMBA_N, torch.float32),
+         dict(lens=(96, 41), dfin=True)),
+        ("ssd_scan_bwd_zamba2", (1, 128, 8, SSD_P, 1, ZAMBA_N, torch.float32),
+         dict(init=True, dfin=True))]
+    for name, (Bb, S, H, P, G, N, dt), kw in cases:
+        args, call = ssd_bwd_case(gen, dev, Bb, S, H, P, G, N, dt, **kw)
+        with torch.no_grad():
+            states = ssd(*args[:5], chunk=16, checkpoints=True,
+                         initial_state=call["initial_state"],
+                         mask=call["mask"])[2]
+        got = ssd_bwd(*args, states=states, **call)
+        want = ssd_bwd_ref(*args, **call)
+        torch.cuda.synchronize()
+        scale = float(ssd_dA_log_scale(args[0], args[1], call["mask"],
+                                       want[0], want[1]).max())
+        what = f"B{Bb} S{S} H{H} P{P} G{G} N{N} {str(dt)[6:]} " + " ".join(
+            f"{k}={v}" for k, v in kw.items())
+        for part, g, w in zip(names, got, want):
+            if part == "dA_log":
+                hold(name, g, w, 1e-5, "a sum whose terms cancel",
+                     f"{part} {what}", scale=scale)
+            elif g.dtype == torch.bfloat16:
+                hold(name, g, w, 1e-2, "bf16 output rounding",
+                     f"{part} {what}")
+            else:
+                hold(name, g, w, 1e-4, "f32; sums in another order",
+                     f"{part} {what}")
+        log(f"  {name:24s} max abs err " + ", ".join(
+            f"{part} {float((g.float() - w.float()).abs().max()):.3e}"
+            for part, g, w in zip(names, got, want)))
+        if (Bb, S) == (TRAIN_B, TRAIN_S):
+            again = ssd_bwd(*args, states=states, **call)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two calls differ")
+            log(f"  {name:24s} two calls bitwise equal: ok")
+
+
+def ssd_bwd_work(Bb, S, H, P, G, N, K, *, esize=2):
+    """(bytes, float32 operations) of one ``ssd_bwd`` call: x, B, C read at
+    ``esize`` bytes an element, dt, dy and the forward's S / K states read
+    once in float32; dx, dB and dC written at ``esize``, ddt in float32;
+    the products of ``train_step.ssd_step_flops``'s backward (T = K)."""
+    n_bytes = (esize * (2 * Bb * S * H * P + 4 * Bb * S * G * N) + 8 * H
+               + 4 * (2 * Bb * S * H + Bb * S * H * P
+                      + Bb * (S // K) * H * P * N))
+    n_ops = Bb * S * (H * (8 * P * N + 2 * (K + 1) * (P + N))
+                      + G * (K + 1) * N)
+    return n_bytes, n_ops
+
+
+def time_ssd_bwd(dev, gen, flush, kernels) -> None:
+    """Rows 6d and 6e: the backward at mamba2's and zamba2's training
+    microbatch (B 4, S 512, H 80, P 64, N 128 and 64, bf16 x, B and C,
+    float32 dy, no mask: what phases 14 and 14b launch), from the states of
+    the forward's training launch, beside its plain version.  No single
+    PyTorch call computes it (library: none).  The bound counts operations
+    at the float32 CUDA-core peak.  Also the forward as training runs it
+    (a checkpoint every 16 steps, the states the backward reads)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+    for name, N in SSD_TRAIN:
+        args, call = ssd_bwd_case(gen, dev, TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1,
+                                  N, torch.bfloat16)
+        with torch.no_grad():
+            states = ssd(*args[:5], chunk=16, checkpoints=True)[2]
+        rep = dict(shape=f"B{TRAIN_B} S{TRAIN_S} H{SSD_H} P{SSD_P} G1 N{N} "
+                         "bf16 x/B/C, f32 dy, K16",
+                   ms=time_ms(lambda: ssd_bwd(*args, states=states, **call),
+                              flush=flush),
+                   plain_ms=time_ms(lambda: ssd_bwd_ref(*args, **call),
+                                    flush=flush),
+                   library_ms=None,
+                   **bound(*ssd_bwd_work(TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1,
+                                         N, 16), torch.float32))
+        fwd = time_ms(lambda: ssd(*args[:5], chunk=16, checkpoints=True),
+                      flush=flush)
+        log(f"  {name} {rep['shape']}: kernel {rep['ms']:.4f} ms, plain "
+            f"{rep['plain_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
+            f"({rep['bound_by']}; {rep['bytes'] / 1e9:.3f} GB, "
+            f"{rep['operations'] / 1e9:.2f} GFLOP), "
+            f"{rep['bound_ms'] / rep['ms']:.3f} of the bound; the training "
+            f"forward with its states {fwd:.4f} ms")
+        kernels[name].update(rep)
 
 
 def check_head_dim_80(dev, gen, hold):
@@ -2810,18 +2955,39 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
 TRAIN_STEPS, TRAIN_BATCH = 6, 8
 
 
-def phase_train(dev, name_limit: str) -> dict:
-    """qwen3-4b at full width and full depth trained for 6 steps through
-    the control plane: ``Supervisor.apply`` of a train cell,
+def train_launches(cfg, steps: int) -> dict:
+    """The exact launch counts of ``steps`` full-width train steps of
+    ``cfg`` (each of its ``microbatch`` microbatches runs every layer under
+    remat): an attention layer launches the flash kernel twice (forward
+    and recompute) and its backward once, all on the tensor cores; a
+    Mamba layer the SSD scan twice and its backward once; zamba2's shared
+    block (every ``hybrid_attn_every`` Mamba layers) counts as an
+    attention layer."""
+    micro = steps * cfg.microbatch
+    n_ssd = micro * cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = (0 if cfg.family == "ssm"
+              else micro * cfg.num_layers // cfg.hybrid_attn_every
+              if cfg.family == "hybrid" else micro * cfg.num_layers)
+    return {"flash_attention": 2 * n_attn, "flash_attention_tc": 2 * n_attn,
+            "flash_attention_bwd": n_attn, "flash_attention_bwd_tc": n_attn,
+            "gmm": 0, "ssd": 2 * n_ssd, "ssd_bwd": n_ssd}
+
+
+def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
+                tag: str = "13", steps: int = TRAIN_STEPS) -> dict:
+    """``arch`` at full width and full depth trained for ``steps`` steps
+    through the control plane: ``Supervisor.apply`` of a train cell,
     ``init_train`` from a seeded generator on the card, ``train_steps``
     on the bigram pipeline, global batch 8 at seq 512 in the config's 2
     microbatches, bf16 params with float32 AdamW moments and float32
-    gradient accumulators.  Every attention layer's forward runs the
-    flash kernel (twice: the remat recompute) and its backward the
-    backward kernel; the launch counts must be exactly those.  Prints
-    each step's xent and grad norm, the step wall p50 over steps 2-6,
-    tokens/s, MFU at 6 N T against 989 TFLOP/s, the step's reckoned
-    bound and the peak memory."""
+    gradient accumulators.  Every layer runs its forward kernels twice
+    (the remat recompute) and its backward kernel once
+    (``train_launches``); the launch counts must be exactly those.
+    Prints each step's xent and grad norm, the step wall p50 over steps
+    2 on, tokens/s, MFU at 6 N T against 989 TFLOP/s, the step's reckoned
+    bound (the SSD scan's float32 products at 67 TFLOP/s, the rest at
+    989) and the peak memory, then one profiled step's largest kernels
+    and the port's kernels' shares."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import (
@@ -2836,9 +3002,10 @@ def phase_train(dev, name_limit: str) -> dict:
         flash_attention_bwd,
     )
     from repro_torch.kernels.moe_gmm.ops import gmm
-    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
     from repro_torch.train.optimizer import OptConfig
-    cfg = get_arch("qwen3-4b")
+    from repro_torch.train.train_step import ssd_step_flops
+    cfg = get_arch(arch)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     sup = Supervisor(single_device_grid(dev))
@@ -2850,7 +3017,7 @@ def phase_train(dev, name_limit: str) -> dict:
     cell.init_train(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n = cell.model.n_params()
-    log(f"[13] {cfg.name} train cell: {n / 1e9:.3f} B params, "
+    log(f"[{tag}] {cfg.name} train cell: {n / 1e9:.3f} B params, "
         f"{cfg.num_layers} layers, microbatch {cfg.microbatch}, init "
         f"{time.monotonic() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated "
@@ -2858,55 +3025,50 @@ def phase_train(dev, name_limit: str) -> dict:
     pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg,
                              ShapeConfig("train", "train", TRAIN_S,
                                          TRAIN_BATCH), device=dev)
-    batches = [pipe.get_batch(i) for i in range(TRAIN_STEPS)]
-    counters = (flash_attention, flash_attention_bwd, gmm, ssd)
+    batches = [pipe.get_batch(i) for i in range(steps)]
+    counters = (flash_attention, flash_attention_bwd, gmm, ssd, ssd_bwd)
     reset_counters(counters)
     rows, walls = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.monotonic()
         m = cell.train_steps(batches.__getitem__, 1)   # floats: synchronised
         walls.append(time.monotonic() - t0)
         rows.append(m)
-        log(f"[13] step {i + 1}: xent {m['xent']:.4f} grad_norm "
+        log(f"[{tag}] step {i + 1}: xent {m['xent']:.4f} grad_norm "
             f"{m['grad_norm']:.4f} lr {m['lr']:.2e} wall "
             f"{walls[-1] * 1e3:.1f} ms")
     launches = read_counters(counters)
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite([r["xent"], r["grad_norm"]]).all() for r in rows):
-        raise AssertionError(f"[13] a metric is not finite: {rows}")
+        raise AssertionError(f"[{tag}] a metric is not finite: {rows}")
     if not rows[-1]["xent"] < rows[0]["xent"]:
-        raise AssertionError(f"[13] xent did not fall: {rows[0]['xent']} -> "
-                             f"{rows[-1]['xent']}")
-    n_attn = TRAIN_STEPS * cfg.microbatch * cfg.num_layers
-    expect("[13] flash forward launches (forward and remat recompute)",
-           launches["flash_attention"], 2 * n_attn)
-    expect("[13] flash forward launches on the tensor cores",
-           launches["flash_attention_tc"], 2 * n_attn)
-    expect("[13] flash backward launches", launches["flash_attention_bwd"],
-           n_attn)
-    expect("[13] flash backward launches on the tensor cores",
-           launches["flash_attention_bwd_tc"], n_attn)
-    expect("[13] grouped GEMM and SSD launches",
-           launches["gmm"] + launches["ssd"], 0)
+        raise AssertionError(f"[{tag}] xent did not fall: {rows[0]['xent']}"
+                             f" -> {rows[-1]['xent']}")
+    for key, want in train_launches(cfg, steps).items():
+        expect(f"[{tag}] {key} launches", launches[key], want)
     step_s = float(np.median(walls[1:]))
     tokens = TRAIN_BATCH * TRAIN_S
     busy, shares = profile_step(lambda: cell.train_steps(
         lambda _: batches[0], 1))
     prog = cell.accounting.programs["train_step"]
-    yard = max(prog.flops_per_device / PEAK_FLOPS[torch.bfloat16],
+    f32_flops = ssd_step_flops(cfg, TRAIN_BATCH, TRAIN_S)
+    yard = max((prog.flops_per_device - f32_flops)
+               / PEAK_FLOPS[torch.bfloat16]
+               + f32_flops / PEAK_FLOPS[torch.float32],
                prog.bytes_per_device / HBM_BYTES_PER_S)
     mfu = 6 * n * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
-    log(f"[13] step wall p50 (steps 2-{TRAIN_STEPS}) {step_s * 1e3:.1f} ms; "
+    log(f"[{tag}] step wall p50 (steps 2-{steps}) {step_s * 1e3:.1f} ms; "
         f"{tokens / step_s:,.0f} tokens/s; MFU {mfu:.4f} at 6 N T against "
         f"989 TFLOP/s; reckoned step {prog.flops_per_device / 1e12:.1f} "
-        f"TFLOP and {prog.bytes_per_device / 1e9:.1f} GB of state traffic: "
-        f"bound {yard * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB allocated; "
-        f"launches {launches} ({name_limit})")
-    log(f"[13] one more step under torch.profiler: device busy "
+        f"TFLOP ({f32_flops / 1e12:.2f} of them the SSD scan's float32 "
+        f"products) and {prog.bytes_per_device / 1e9:.1f} GB of state "
+        f"traffic: bound {yard * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB "
+        f"allocated; launches {launches} ({name_limit})")
+    log(f"[{tag}] one more step under torch.profiler: device busy "
         f"{busy * 1e3:.1f} ms; largest kernel shares: " + "; ".join(
             f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
             for name, t, n in shares[:8]))
-    log("[13] the port's kernels in that step: " + "; ".join(
+    log(f"[{tag}] the port's kernels in that step: " + "; ".join(
         f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
         for name, t, n in shares if name.startswith("void rt::")))
     sup.destroy_cell("train")
@@ -2915,11 +3077,11 @@ def phase_train(dev, name_limit: str) -> dict:
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() - base
     if left > 1e9:
-        raise AssertionError(f"[13] {left} bytes left after destroy")
+        raise AssertionError(f"[{tag}] {left} bytes left after destroy")
     return {"launches": launches, "xent": [r["xent"] for r in rows],
             "grad_norm": [r["grad_norm"] for r in rows],
             "step_s": step_s, "tokens_per_s": tokens / step_s, "mfu": mfu,
-            "peak_gb": peak / 1e9}
+            "peak_gb": peak / 1e9, "busy_s": busy}
 
 
 def profile_step(fn):
@@ -2955,7 +3117,8 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     uninterrupted run's xent bit for bit.  Then float32 smoke train steps
     on the card must give the CPU's losses within 1e-5 relative (on the
     same weights, drawn on the CPU: a CUDA generator draws other
-    numbers)."""
+    numbers), for qwen3-4b and, through the SSD scan's backward kernel,
+    mamba2-2.7b and zamba2-2.7b."""
     import shutil
 
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -2965,6 +3128,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     from repro_torch.core.resharding import reshard_tree
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan.ops import ssd_bwd
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import init_train_state
     d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
@@ -3024,9 +3188,27 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     log(f"[13b] float32 smoke train steps: card xent {card_x}, CPU "
         f"{cpu_x}, worst rel {worst:.2e} (tol 1e-5); backward launches "
         f"{launches}")
+    ssm_rel = {}
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        f32 = smoke_config(get_arch(arch)).replace(dtype="float32")
+        reset_counters((ssd_bwd,))
+        card_x, _ = run(f32, dev, kill=False, cpu_weights=True)
+        n_bwd = ssd_bwd.launches
+        if n_bwd == 0:
+            raise AssertionError(f"[13b] {arch}: no SSD backward launch")
+        cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True)
+        ssm_rel[arch] = max(abs(a - b) / abs(b) for a, b in zip(card_x,
+                                                                 cpu_x))
+        if ssm_rel[arch] > 1e-5:
+            raise AssertionError(f"[13b] {arch} float32 card {card_x} vs "
+                                 f"CPU {cpu_x}: rel {ssm_rel[arch]}")
+        log(f"[13b] float32 smoke {arch} train steps: card xent {card_x}, "
+            f"CPU {cpu_x}, worst rel {ssm_rel[arch]:.2e} (tol 1e-5); SSD "
+            f"backward launches {n_bwd}")
     shutil.rmtree(d, ignore_errors=True)
-    return {"xent": got, "f32_rel": worst, "launches": {
-        "flash_attention_bwd_f32": launches["flash_attention_bwd"]}}
+    return {"xent": got, "f32_rel": worst, "ssm_f32_rel": ssm_rel,
+            "launches": {
+                "flash_attention_bwd_f32": launches["flash_attention_bwd"]}}
 
 
 KERNELS = {
@@ -3103,7 +3285,22 @@ KERNELS = {
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
         "path": "13b", "count": "flash_attention_bwd_f32"},
+    # the backward of the SSD scan (the TPU package has none: JAX trains
+    # through jax.grad of the plain ssd_chunked) at mamba2's training
+    # microbatch (phase 14) and zamba2's (phase 14b)
+    "ssd_scan_bwd": {
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
+        "path": 14, "count": "ssd_bwd"},
+    "ssd_scan_bwd_zamba2": {
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
+        "path": "14b", "count": "ssd_bwd"},
 }
+
+# steps of phase 14b (zamba2-2.7b): fewer than phase 13's and 14's, to keep
+# the run's wall time
+TRAIN_STEPS_14B = 4
 
 
 def main() -> int:
@@ -3153,6 +3350,13 @@ def main() -> int:
         runs[13] = phase_train(dev, name_limit)
     with timed("13b"):
         runs["13b"] = phase_train_recovery(dev, name_limit)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed(14):
+        runs[14] = phase_train(dev, name_limit, "mamba2-2.7b", "14")
+    with timed("14b"):
+        runs["14b"] = phase_train(dev, name_limit, "zamba2-2.7b", "14b",
+                                  TRAIN_STEPS_14B)
     rows = []
     for name, rep in kernels.items():
         launches = runs[rep["path"]]["launches"][rep.get("count", name)]

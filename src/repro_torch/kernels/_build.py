@@ -42,12 +42,13 @@ SOURCES = (
     KERNELS / "decode_attention" / "csrc" / "decode_attention.cu",
     KERNELS / "moe_gmm" / "csrc" / "moe_gmm.cu",
     KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    KERNELS / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
 )
 HEADERS = (KERNELS / "csrc" / "tile_attention.cuh",
            KERNELS / "csrc" / "tensor_core.cuh")
 #: each source's once-per-process setup entry (``prepare_kernels``)
 PREPARE = ("rt_prepare_flash", "rt_prepare_flash_bwd", "rt_prepare_decode",
-           "rt_prepare_gmm", "rt_prepare_ssd")
+           "rt_prepare_gmm", "rt_prepare_ssd", "rt_prepare_ssd_bwd")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                  "-I", str(KERNELS / "csrc")]

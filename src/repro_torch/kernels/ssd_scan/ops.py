@@ -6,19 +6,25 @@ state -> output term, plus the state after every chunk on request
 (``checkpoints``), which the snapshot cache plane interns.  A CPU tensor
 takes the plain version ``ref.ssd_ref``; a CUDA tensor launches the
 hand-written scan in ``csrc/ssd_scan.cu``, one launch a call, or raises.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  ``ssd_bwd`` is its
+gradient: ``ref.ssd_bwd_ref`` on the CPU, the hand-written backward in
+``csrc/ssd_scan_bwd.cu`` on the card; a call of ``ssd`` that autograd
+would record goes through the autograd Function ``_SSD``, which joins
+the two.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_tiling_chunk
+from repro_torch.kernels.ssd_scan.ref import (
+    ssd_bwd_ref,
+    ssd_bwd_span,
+    ssd_ref,
+    ssd_tiling_chunk,
+)
 
 F32 = torch.float32
-#: why training an ssm or hybrid model on the card raises
-GRAD_ITEM = ("the SSD scan kernel has no backward yet: training an ssm or "
-             "hybrid model on the card comes with ROADMAP queue 2 item 8")
 
 
 def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
@@ -41,10 +47,16 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
     On the card x, B_in and C_in are read as stored when they share a
     float32 or bfloat16 dtype (else they are cast to float32 first), the
     mask and the strides as given; P and N must be multiples of 4, P and N
-    at most 256, else ``ValueError``.  The kernel has no backward: on the
-    card a call that autograd would record raises ``NotImplementedError``
-    (the CPU's plain version is differentiable).  ``ssd.launches`` counts
-    kernel launches."""
+    at most 256, else ``ValueError``.  ``ssd.launches`` counts kernel
+    launches.
+
+    Differentiable in x, dt, A_log, B_in, C_in and ``initial_state``
+    through y and the final state (the checkpoints are not): when grad is
+    enabled and one of them requires it, the call goes through ``_SSD``,
+    whose forward also keeps the state entering every sub-chunk of
+    ``ssd_bwd_span(S, chunk)`` steps (on the card from the same single
+    launch, as its checkpoints) for :func:`ssd_bwd`.  Under ``no_grad`` or
+    ``inference_mode`` it is the serving call, nothing kept."""
     Bb, S, H, P = x.shape
     if ckpt_out is not None:
         want = (Bb, S // ssd_tiling_chunk(S, chunk), H, P, B_in.shape[3])
@@ -55,16 +67,29 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
                              f"tensor on {x.device} (with checkpoints), got "
                              f"{ckpt_out.dtype} {tuple(ckpt_out.shape)} on "
                              f"{ckpt_out.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A_log, B_in, C_in, initial_state)):
+        out = _SSD.apply(x, dt, A_log, B_in, C_in, initial_state, mask,
+                         chunk, checkpoints)
+        if ckpt_out is not None:
+            return out[0], out[1], ckpt_out.copy_(out[2])
+        return out
+    return _ssd_forward(x, dt, A_log, B_in, C_in, chunk, initial_state, mask,
+                        checkpoints, ckpt_out)
+
+
+def _ssd_forward(x, dt, A_log, B_in, C_in, chunk, initial_state, mask,
+                 checkpoints, ckpt_out):
+    """``ssd`` without autograd: the plain version on the CPU, one launch
+    of the scan on the card."""
+    Bb, S, H, P = x.shape
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A_log, B_in, C_in, chunk=chunk,
                        initial_state=initial_state, mask=mask,
                        checkpoints=checkpoints, ckpt_out=ckpt_out)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, dt, A_log, B_in, C_in, initial_state)):
-        raise NotImplementedError(GRAD_ITEM)
     G, N = B_in.shape[2], B_in.shape[3]
     if (dt.shape != (Bb, S, H) or A_log.shape != (H,)
             or B_in.shape != (Bb, S, G, N) or C_in.shape != B_in.shape
@@ -119,3 +144,156 @@ def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
 
 ssd.launches = 0
 _build.count_launches(ssd, "launches")
+
+
+class _SSD(torch.autograd.Function):
+    """``ssd`` with its hand-written backward.  On the card the forward is
+    one launch of the scan with a checkpoint at every sub-chunk of K =
+    ``ssd_bwd_span(S, chunk)`` steps: those states (B, S / K, H, P, N)
+    float32 are kept for the backward (336 MB at mamba2-2.7b's training
+    microbatch B 4, S 512), and the caller's checkpoints, when asked for,
+    are every (Q / K)-th of them.  On the CPU the forward is ``ssd_ref``
+    and the backward ``ssd_bwd_ref``, which walks the states again."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B_in, C_in, initial_state, mask, chunk,
+                checkpoints):
+        S = x.shape[1]
+        states = None
+        if x.device.type == "cpu":
+            out = ssd_ref(x, dt, A_log, B_in, C_in, chunk=chunk,
+                          initial_state=initial_state, mask=mask,
+                          checkpoints=checkpoints)
+        else:
+            K = ssd_bwd_span(S, chunk)
+            y, final, states = _ssd_forward(x, dt, A_log, B_in, C_in, K,
+                                            initial_state, mask, True, None)
+            out = (y, final)
+            if checkpoints:
+                every = ssd_tiling_chunk(S, chunk) // K
+                out += (states[:, every - 1::every].contiguous(),)
+        if checkpoints:
+            ctx.mark_non_differentiable(out[2])
+        ctx.save_for_backward(x, dt, A_log, B_in, C_in, initial_state, mask,
+                              states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, d_final, *_):
+        x, dt, A_log, B_in, C_in, init, mask, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=F32, device=x.device)
+        dx, ddt, dA, dB, dC, d_init = ssd_bwd(
+            x, dt, A_log, B_in, C_in, dy, d_final, chunk=ctx.chunk,
+            initial_state=init, mask=mask, states=states)
+        return (dx, ddt, dA, dB, dC,
+                d_init if ctx.needs_input_grad[5] else None, None, None, None)
+
+
+def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
+            initial_state=None, mask=None, states=None):
+    """The gradient of :func:`ssd`: (dx, ddt, dA_log, dB_in, dC_in, d
+    initial_state) in the dtypes of x, dt, A_log, B_in, C_in and
+    ``initial_state`` (float32 without one), from the cotangents ``dy``
+    (B, S, H, P) of y and ``d_final`` (B, H, P, N, or None for zero) of
+    the final state, under the forward's ``chunk``, ``initial_state`` and
+    ``mask``.  A CPU tensor takes ``ref.ssd_bwd_ref``; a CUDA tensor
+    launches ``rt_ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``: the reverse
+    walk, then the sums over heads, P tiles and rows in a fixed order, so
+    two calls are bitwise equal), float32 products on CUDA cores.
+    ``states``, on the card: the forward's state after every sub-chunk of
+    ``ssd_bwd_span(S, chunk)`` steps, (B, S / K, H, P, N) contiguous
+    float32 (``_SSD`` keeps them); without them one launch of the scan
+    computes them first.  The card takes what the forward takes (P and N
+    multiples of 4 up to 256), else ``ValueError``.
+    ``ssd_bwd.launches`` counts its calls on the card."""
+    Bb, S, H, P = x.shape
+    if x.device.type == "cpu":
+        out = ssd_bwd_ref(x, dt, A_log, B_in, C_in, dy, d_final, chunk=chunk,
+                          initial_state=initial_state, mask=mask)
+        return _grad_dtypes(out, (x, dt, A_log, B_in, C_in, initial_state))
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD backward for device {x.device}")
+    G, N = B_in.shape[2], B_in.shape[3]
+    if (dt.shape != (Bb, S, H) or A_log.shape != (H,)
+            or B_in.shape != (Bb, S, G, N) or C_in.shape != B_in.shape
+            or dy.shape != x.shape or H % G
+            or (d_final is not None and d_final.shape != (Bb, H, P, N))):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                         f"A_log {tuple(A_log.shape)} B {tuple(B_in.shape)} "
+                         f"C {tuple(C_in.shape)} dy {tuple(dy.shape)}")
+    if P % 4 or N % 4 or P > 256 or N > 256:
+        raise ValueError(f"the SSD backward takes P and N that are multiples "
+                         f"of 4 and at most 256, got P {P} N {N}")
+    if mask is not None and mask.shape != (Bb, S):
+        raise ValueError(f"mask {tuple(mask.shape)} is not (B, S)")
+    if initial_state is not None and initial_state.shape != (Bb, H, P, N):
+        raise ValueError(f"initial_state {tuple(initial_state.shape)} is not "
+                         f"(B, H, P, N)")
+    for t in (dt, A_log, B_in, C_in, dy, d_final, mask, initial_state,
+              states):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, x on {x.device}")
+    K = ssd_bwd_span(S, chunk)
+    if states is None:
+        states = _ssd_forward(x, dt, A_log, B_in, C_in, K, initial_state,
+                              mask, True, None)[2]
+    if (states.shape != (Bb, S // K, H, P, N) or states.dtype != F32
+            or not states.is_contiguous()):
+        raise ValueError(f"states must be contiguous float32 "
+                         f"{(Bb, S // K, H, P, N)}, got {states.dtype} "
+                         f"{tuple(states.shape)}")
+    like = (x, dt, A_log, B_in, C_in, initial_state)
+    if (x.dtype not in (F32, torch.bfloat16) or B_in.dtype != x.dtype
+            or C_in.dtype != x.dtype):
+        x, B_in, C_in = x.to(F32), B_in.to(F32), C_in.to(F32)
+    dt, A_log, dy = dt.to(F32), A_log.to(F32).contiguous(), dy.to(F32)
+    if mask is not None:
+        mask = mask.to(torch.bool)
+    if initial_state is not None:
+        initial_state = initial_state.to(F32)
+    if d_final is not None:
+        d_final = d_final.to(F32)
+    dev = x.device
+    npt = -(-P // 64)                    # P tiles of the kernel's blocks
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=F32, device=dev)
+
+    dx, d_init = empty(Bb, S, H, P), empty(Bb, H, P, N)
+    ddt, dA, dB, dC = empty(Bb, S, H), empty(H), empty(Bb, S, G, N), \
+        empty(Bb, S, G, N)
+    # per (head, P tile) partials, summed by the second kernel
+    dtp, dbp, dcp, dap = empty(Bb, S, H, npt), empty(Bb, S, H, npt, N), \
+        empty(Bb, S, H, npt, N), empty(Bb, H, npt)
+    fn = _build.kernel("rt_ssd_scan_bwd", "PLLLLI PLLLP PLLLL PLLLL PLL "
+                                          "PLLLL PLLLL PLLLL P PPPPPP PPPP "
+                                          "IIIIIII P")
+    strides = lambda t, n: t.stride() if t is not None else (0,) * n  # noqa: E731
+    rc = fn(x.data_ptr(), *x.stride(), _build.DTYPE_CODE[x.dtype],
+            dt.data_ptr(), *dt.stride(), A_log.data_ptr(),
+            B_in.data_ptr(), *B_in.stride(), C_in.data_ptr(), *C_in.stride(),
+            _build.ptr(mask), *strides(mask, 2),
+            _build.ptr(initial_state), *strides(initial_state, 4),
+            dy.data_ptr(), *dy.stride(),
+            _build.ptr(d_final), *strides(d_final, 4),
+            states.data_ptr(), dx.data_ptr(), dtp.data_ptr(), dbp.data_ptr(),
+            dcp.data_ptr(), dap.data_ptr(), d_init.data_ptr(),
+            ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+            Bb, S, H, G, P, N, K, _build.stream_ptr(dev))
+    ssd_bwd.launches += 1
+    _build.check(rc, "ssd_bwd")
+    return _grad_dtypes((dx, ddt, dA, dB, dC, d_init), like)
+
+
+ssd_bwd.launches = 0
+_build.count_launches(ssd_bwd, "launches")
+
+
+def _grad_dtypes(grads, like):
+    """The float32 gradients cast to the dtypes of their inputs ``like``
+    (float32 for an absent initial state)."""
+    return tuple(g if t is None else g.to(t.dtype)
+                 for g, t in zip(grads, like))

@@ -5,7 +5,10 @@ is held against on the card: the per-chunk ``ssd_chunk_ref`` (the oracle
 of the TPU kernel ``_ssd_chunk_kernel``), the inter-chunk recurrence and
 the state -> output term, as ``repro.kernels.ssd_scan.ops.ssd`` wraps the
 Pallas kernel.  ``ssd_scan_ref`` follows the CUDA scan's own order of
-work (sub-chunks of 16 steps, the running state carried between them).
+work (sub-chunks of 16 steps, the running state carried between them),
+and ``ssd_bwd_ref``, the gradient, that of the CUDA backward
+(``csrc/ssd_scan_bwd.cu``): sub-chunks walked from the last to the first
+with the adjoint state carried between them.
 """
 from __future__ import annotations
 
@@ -158,3 +161,131 @@ def ssd_scan_ref(x, dt, A_log, B_in, C_in, *, chunk: int = 256,
     if checkpoints:
         return y, h, torch.stack(ck, dim=1)
     return y, h
+
+
+def ssd_bwd_span(S: int, chunk: int) -> int:
+    """Steps of one sub-chunk of the backward: ``gcd(Q, SUB)`` for the
+    forward's chunk ``Q = ssd_tiling_chunk(S, chunk)``, so that it divides
+    S and, when Q is a multiple of ``SUB``, the forward's sub-chunks are
+    the backward's.  The backward reads the state entering each one."""
+    return math.gcd(ssd_tiling_chunk(S, chunk), SUB)
+
+
+def ssd_bwd_ref(x, dt, A_log, B_in, C_in, dy, d_final=None, *,
+                chunk: int = 256, initial_state=None, mask=None):
+    """The gradient of ``ssd``'s (y, final state) in plain PyTorch, with
+    no autograd, in the CUDA backward's order of work: the states entering
+    each sub-chunk of K = ``ssd_bwd_span(S, chunk)`` steps from a forward
+    walk, then the sub-chunks from the last to the first, carrying the
+    adjoint state H (dL/d the state at the sub-chunk's end; at the start
+    ``d_final``, or zero).  Per sub-chunk, with h0 the state entering it,
+    g = dy, x' = x dt', cs the cumsum of a = dt' A, L_ij = exp(cs_i - cs_j)
+    for j <= i and T its last step:
+
+    * dx'_j = sum_{i >= j} (C_i . B_j) L_ij g_i + exp(cs_T - cs_j) H B_j;
+    * dB_j = sum_{i >= j} (g_i . x'_j) L_ij C_i + exp(cs_T - cs_j) H^T x'_j;
+    * dC_i = sum_{j <= i} (g_i . x'_j) L_ij B_j + exp(cs_i) h0^T g_i;
+    * da_k, the gradient of a_k through every product whose decay spans
+      step k: the outputs i >= k against h0 (exp(cs_i) g_i . h0 C_i), the
+      state against h0 (exp(cs_T) <H, h0>) and the inputs j < k
+      (exp(cs_T - cs_j) x'_j . H B_j), and the pairs i >= k > j ((C_i .
+      B_j)(g_i . x'_j) L_ij), each a sum of what the recurrence carries
+      across k (the derivative of cs summed backwards would cancel terms
+      a pair adds to one step and takes from another);
+    * then H = exp(cs_T) H + sum_i exp(cs_i) g_i C_i^T.
+
+    dx = dx' dt', ddt = mask (dx' . x + A da), dA_log = A sum dt' da, and
+    dB, dC summed over each group's heads.  Returns (dx (B, S, H, P), ddt
+    (B, S, H), dA_log (H,), dB, dC (B, S, G, N), d initial_state (B, H, P,
+    N)), all float32; where dt' is zero, dx, ddt and dB are exactly 0."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    HG = H // G
+    K = ssd_bwd_span(S, chunk)
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, torch.zeros_like(dt))
+    dtm = dt.to(F32)
+    A = -torch.exp(A_log.to(F32))
+    xr = x.to(F32)
+    xw = xr * dtm[..., None]                                   # (B,S,H,P)
+    a = dtm * A                                                # (B,S,H)
+    Bh = B_in.to(F32).repeat_interleave(HG, dim=2)             # (B,S,H,N)
+    Ch = C_in.to(F32).repeat_interleave(HG, dim=2)
+    g = dy.to(F32)
+    tril = torch.tril(torch.ones((K, K), dtype=torch.bool,
+                                 device=x.device))[None, :, :, None]
+    # spans[k, i, j]: the pair (i, j) crosses step k (i >= k > j)
+    steps = torch.arange(K, device=x.device)
+    spans = ((steps[None, :, None] >= steps[:, None, None])
+             & (steps[None, None, :] < steps[:, None, None])).to(F32)
+
+    def decays(s0):
+        cs = torch.cumsum(a[:, s0:s0 + K], dim=1)              # (B,T,H)
+        return cs, torch.exp(cs[:, -1:] - cs), torch.exp(cs[:, -1])
+
+    h = (torch.zeros((Bb, H, P, N), dtype=F32, device=x.device)
+         if initial_state is None else initial_state.to(F32))
+    h_in = []
+    for s0 in range(0, S, K):
+        h_in.append(h)
+        _, wt, dec = decays(s0)
+        h = (h * dec[..., None, None] + torch.einsum(
+            "bjhp,bjhn,bjh->bhpn", xw[:, s0:s0 + K], Bh[:, s0:s0 + K], wt))
+
+    hb = (torch.zeros((Bb, H, P, N), dtype=F32, device=x.device)
+          if d_final is None else d_final.to(F32).clone())
+    dxw = torch.empty_like(xw)
+    dBh = torch.empty_like(Bh)
+    dCh = torch.empty_like(Ch)
+    da = torch.empty_like(a)
+    for c in reversed(range(S // K)):
+        s0, s1 = c * K, (c + 1) * K
+        cs, wt, dec = decays(s0)
+        ec = torch.exp(cs)
+        L = torch.where(tril, torch.exp(cs[:, :, None] - cs[:, None]), 0.0)
+        Cs, Bs, xs, gs, h0 = Ch[:, s0:s1], Bh[:, s0:s1], xw[:, s0:s1], \
+            g[:, s0:s1], h_in[c]
+        cb = torch.einsum("bihn,bjhn->bijh", Cs, Bs)
+        gx = torch.einsum("bihp,bjhp->bijh", gs, xs)
+        sc, ml = cb * L, gx * L                                # (B,Ti,Tj,H)
+        z = torch.einsum("bhpn,bihp->bihn", h0, gs)            # h0^T g_i
+        w = torch.einsum("bhpn,bjhp->bjhn", hb, xs)            # H^T x'_j
+        v = torch.einsum("bhpn,bjhn->bjhp", hb, Bs)            # H B_j
+        dxw[:, s0:s1] = (torch.einsum("bijh,bihp->bjhp", sc, gs)
+                         + wt[..., None] * v)
+        dBh[:, s0:s1] = (torch.einsum("bijh,bihn->bjhn", ml, Cs)
+                         + wt[..., None] * w)
+        dCh[:, s0:s1] = (torch.einsum("bijh,bjhn->bihn", ml, Bs)
+                         + ec[..., None] * z)
+        yo = ec * (Cs * z).sum(-1)                             # (B,T,H)
+        u = wt * (Bs * w).sum(-1)
+        da[:, s0:s1] = (
+            (dec * (hb * h0).sum((-2, -1)))[:, None]
+            + torch.cumsum(u, 1) - u
+            + torch.flip(torch.cumsum(torch.flip(yo, (1,)), 1), (1,))
+            + torch.einsum("bijh,kij->bkh", sc * gx, spans))
+        hb = (hb * dec[..., None, None]
+              + torch.einsum("bih,bihp,bihn->bhpn", ec, gs, Cs))
+    ddt = (dxw * xr).sum(-1) + A * da
+    if mask is not None:
+        ddt = torch.where(mask[..., None], ddt, torch.zeros_like(ddt))
+    dA_log = A * (dtm * da).sum((0, 1))
+    return (dxw * dtm[..., None], ddt, dA_log,
+            dBh.view(Bb, S, G, HG, N).sum(3), dCh.view(Bb, S, G, HG, N).sum(3),
+            hb)
+
+
+def ssd_dA_log_scale(x, dt, mask, dx, ddt):
+    """The scale of dA_log = A sum_{b, s} dt' da, a sum whose terms cancel:
+    |A| sum |dt' da| by head (H,), from the gradients ``dx`` = dx' dt' and
+    ``ddt`` = dx' . x + A da of the same call (steps with dt' = 0 add
+    nothing).  A float32 evaluation of dA_log carries errors of about
+    float32's epsilon times this, whatever its order of work, so gradients
+    are held against each other relative to it."""
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, torch.zeros_like(dt))
+    dt = dt.to(torch.float64)
+    live = dt != 0
+    dxp = dx.to(torch.float64) / torch.where(live, dt, 1.0)[..., None]
+    a_da = ddt.to(torch.float64) - (dxp * x.to(torch.float64)).sum(-1)
+    return torch.where(live, dt * a_da, 0.0).abs().sum((0, 1))

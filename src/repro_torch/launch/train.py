@@ -13,9 +13,11 @@ pipeline (step-deterministic, so a restart does not skew batches).  The
 cell checkpoints every ``--ckpt-every`` steps (``save(blocking=False)``)
 and ``--resume`` continues from the latest checkpoint.  The last line
 prints the final xent beside the chain's entropy, the loss floor.  On the
-card dense models train through the flash kernel and its backward; the
-moe, ssm and hybrid families need backward kernels the port does not have
-yet (ROADMAP queue 2 items 7 and 8) and raise there.
+card dense models train through the flash kernel and its backward, ssm
+(``--arch mamba2-2.7b``) and hybrid (``--arch zamba2-2.7b``) models
+through the SSD scan and its backward (and zamba2's shared attention
+through flash); the moe family needs a backward of the grouped GEMM the
+port does not have yet (ROADMAP queue 2 item 7) and raises there.
 """
 from __future__ import annotations
 

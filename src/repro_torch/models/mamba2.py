@@ -4,9 +4,10 @@ The scan runs in the chunked matmul form of the SSD paper
 [arXiv:2405.21060]: intra-chunk products plus a cheap inter-chunk
 recurrence over per-chunk states.  ``mamba_block`` calls
 ``kernels.ssd_scan.ops.ssd`` (one launch of the hand-written scan on the
-card, its plain version on the CPU); ``ssd_chunked`` is the plain oracle of the
-whole scan, kept for the tests, as the JAX package's ``mamba_block`` runs
-it.  Group dims (ngroups) are kept un-broadcast, so B/C are never
+card, its plain version on the CPU; in training its gradient is the
+hand-written backward ``ops.ssd_bwd``, one call a layer); ``ssd_chunked``
+is the plain oracle of the whole scan, kept for the tests, as the JAX
+package's ``mamba_block`` runs it (JAX trains through its ``jax.grad``).  Group dims (ngroups) are kept un-broadcast, so B/C are never
 materialised per head.
 
 Bucket-padded (chunked) prefill is exact: a (B, S_pad) validity mask makes

@@ -18,6 +18,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.ssd_scan.ref import ssd_bwd_span
 from repro_torch.models.model import Model
 from repro_torch.models.param import DTYPES, jax_leaves, tree_map
 from repro_torch.train import grad_compress
@@ -168,7 +169,8 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
     * ``flops``: 6 N T for the N parameters over the T tokens (forward and
       backward), plus the attention products: causal self-attention 6 B
       S^2 Hq Dh a layer (half of 12), bidirectional encoder attention and
-      cross-attention 12 B Sq Skv Hq Dh a layer.
+      cross-attention 12 B Sq Skv Hq Dh a layer; and the SSD scan's
+      (``ssd_step_flops``).
     * ``bytes``: the step's state traffic: each microbatch reads the
       params three times (forward, remat recompute, backward) and writes
       its gradients, the float32 accumulation (more than one microbatch)
@@ -185,7 +187,7 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
     flops = 6.0 * N * B * S
     n_self = (0 if cfg.family == "ssm" else model._n_groups
               if cfg.family == "hybrid" else cfg.num_layers)
-    flops += 6.0 * n_self * B * S * S * Hq * Dh
+    flops += 6.0 * n_self * B * S * S * Hq * Dh + ssd_step_flops(cfg, B, S)
     if cfg.family == "encdec":
         s_src = batch["src"].shape[1]
         flops += 12.0 * B * Hq * Dh * (cfg.encoder_layers * s_src * s_src
@@ -205,3 +207,31 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
     arg = (P + M + V + (P if compress else 0)
            + sum(t.numel() * t.element_size() for t in leaves) + 4)
     return {"flops": flops, "bytes": float(nbytes), "arg_bytes": int(arg)}
+
+
+def ssd_step_flops(cfg, B: int, S: int) -> float:
+    """The SSD scan's products in one train step over B rows of S tokens
+    (ssm and hybrid; 0 for the other families): each Mamba layer runs the
+    forward twice (the remat recompute) and the backward, in sub-chunks
+    of T = ``ssd_bwd_span(S, chunk)`` steps, with H heads of P, G groups
+    and state N:
+
+    * forward, B S (H (4 P N + (T + 1) P) + G (T + 1) N): the state update
+      and the state -> output term, and the step pairs at or below each
+      sub-chunk's diagonal (C B^T once a group, its product with x' a
+      head);
+    * backward, B S (H (8 P N + 2 (T + 1) (P + N)) + G (T + 1) N): h0^T g,
+      H^T x', H B^T and the adjoint update, the pairs g . x' and their
+      products with g, C and B, and C B^T once a group.
+
+    They run in float32 on CUDA cores (67 TFLOP/s on an H100, not the
+    989 of the bf16 products)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0.0
+    s = cfg.ssm
+    H, P, G, N = s.expand * cfg.d_model // s.head_dim, s.head_dim, \
+        s.ngroups, s.d_state
+    T = ssd_bwd_span(S, s.chunk)
+    fwd = H * (4 * P * N + (T + 1) * P) + G * (T + 1) * N
+    bwd = H * (8 * P * N + 2 * (T + 1) * (P + N)) + G * (T + 1) * N
+    return float(cfg.num_layers * B * S * (2 * fwd + bwd))

@@ -301,6 +301,27 @@ def test_split_microbatches_and_step_cost():
     assert c2["arg_bytes"] == c1["arg_bytes"]
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_step_cost_counts_the_ssd_scan(arch):
+    """An ssm or hybrid step's FLOPs add the SSD scan's products, reckoned
+    from the shapes: per Mamba layer the forward twice (remat) and the
+    backward, in sub-chunks of T = 16 steps (S 64, chunk 32)."""
+    cfg = t_smoke_config(t_get_arch(arch))
+    model = Model(cfg)
+    B, S = 2, 64
+    tok = torch.zeros((B, S), dtype=torch.int32)
+    c = step_cost(model, OptConfig(), {"tokens": tok, "labels": tok})
+    H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    P, G, N, T = cfg.ssm.head_dim, cfg.ssm.ngroups, cfg.ssm.d_state, 16
+    fwd = H * (4 * P * N + (T + 1) * P) + G * (T + 1) * N
+    bwd = H * (8 * P * N + 2 * (T + 1) * (P + N)) + G * (T + 1) * N
+    ssd = cfg.num_layers * B * S * (2 * fwd + bwd)
+    attn = (6.0 * model._n_groups * B * S * S * cfg.num_heads
+            * cfg.resolved_head_dim if cfg.family == "hybrid" else 0.0)
+    assert ssd > 0
+    assert c["flops"] == 6.0 * model.n_params() * B * S + attn + ssd
+
+
 # ---------------------------------------------------------------------------
 # per-family parity: loss, gradients, params after 3 steps
 # ---------------------------------------------------------------------------

@@ -17,7 +17,10 @@ dims 32 to 256.  Tolerances: rel < 1e-4 in float32 (sums over up to G x
 Sq terms in another order), 2e-2 in bf16 (the kernels round P, dS and
 their outputs to bf16; the plain version stays float32).
 The forward's LSE is held to the plain version's at 1e-5 (float32) and
-1e-3 (bf16, tensor-core products) absolute.
+1e-3 (bf16, tensor-core products) absolute.  Float32 smoke train steps of
+qwen3-4b, mamba2-2.7b and zamba2-2.7b (the last two through the SSD
+scan's backward kernel) give the CPU's loss, xent and grad norm within
+1e-5 relative; a moe model still raises (ROADMAP queue 2 item 7).
 """
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from repro_torch.configs.base import smoke_config  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
     flash_attention_bwd_ref,
@@ -190,9 +194,7 @@ def test_no_grad_forward_writes_no_lse(dev, monkeypatch):
     assert fops.paged_extend_attention.launches_tc == n_tc + 1
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-moe-16b", "item 7"),
-                                       ("mamba2-2.7b", "item 8"),
-                                       ("zamba2-2.7b", "item 8")])
+@pytest.mark.parametrize("arch,item", [("deepseek-moe-16b", "item 7")])
 def test_training_without_a_backward_kernel_raises(dev, arch, item):
     cfg = smoke_config(get_arch(arch))
     model = Model(cfg)
@@ -206,8 +208,8 @@ def test_training_without_a_backward_kernel_raises(dev, arch, item):
         step(state, {"tokens": tok, "labels": tok})
 
 
-def _smoke_run(device, steps=2):
-    cfg = smoke_config(get_arch("qwen3-4b")).replace(dtype="float32")
+def _smoke_run(device, steps=2, arch="qwen3-4b"):
+    cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
     model = Model(cfg)
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, device="cpu")
@@ -240,6 +242,21 @@ def test_float32_train_steps_match_the_cpu(dev):
     assert fops.flash_attention_bwd.launches > f0
     assert fops.flash_attention_bwd.launches_tc == tc0   # CUDA cores only
     cpu, _ = _smoke_run("cpu")
+    for c, h in zip(card, cpu):
+        for k in ("loss", "xent", "grad_norm"):
+            assert abs(c[k] - h[k]) <= 1e-5 * abs(h[k]), (k, c[k], h[k])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_float32_ssm_train_steps_match_the_cpu(dev, arch):
+    """mamba2 (ssm) and zamba2 (hybrid) train on the card through the SSD
+    scan's backward kernel (zamba2's shared attention through the float32
+    flash backward): loss, xent and grad norm equal to the CPU's plain
+    versions within 1e-5 relative, float32 both sides."""
+    b0 = sops.ssd_bwd.launches
+    card, _ = _smoke_run(dev, arch=arch)
+    assert sops.ssd_bwd.launches > b0
+    cpu, _ = _smoke_run("cpu", arch=arch)
     for c, h in zip(card, cpu):
         for k in ("loss", "xent", "grad_norm"):
             assert abs(c[k] - h[k]) <= 1e-5 * abs(h[k]), (k, c[k], h[k])
