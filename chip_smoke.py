@@ -115,17 +115,20 @@ on the card must give the CPU's losses within 1e-5, their backward
 launches all on the CUDA-core route; so must float32 smoke
 train steps of mamba2-2.7b and zamba2-2.7b through the SSD scan's backward.
 
-Phase 3 also holds the SSD scan's backward kernel
+Phase 3 also holds the SSD scan's backward kernels
 (``csrc/ssd_scan_bwd.cu``) against ``ssd_bwd_ref`` at mamba2's and
 zamba2's training microbatch (B 4, S 512, H 80, P 64, state 128 and 64,
-bf16 x, B and C) and at smoke shapes (two groups, two P tiles, masks, an
-initial state), checks two calls bitwise equal and times both training
-shapes (rows ``ssd_scan_bwd`` and ``ssd_scan_bwd_zamba2``).  Phases 14
-and 14b train full-width mamba2-2.7b (64 layers, 6 steps) and
+bf16 x, B and C: the tensor-core route) and at smoke shapes (two groups,
+two P tiles, masks, an initial state, the bf16 route's span boundaries;
+bf16 and float32), checks two calls bitwise equal and times both training
+shapes (rows ``ssd_scan_bwd`` and ``ssd_scan_bwd_zamba2``) and the
+float32 CUDA-core route at mamba2's (row ``ssd_scan_bwd_f32``).  Phases
+14 and 14b train full-width mamba2-2.7b (64 layers, 6 steps) and
 zamba2-2.7b (54 layers and the shared block, 4 steps) as phase 13 trains
 qwen3-4b: every Mamba layer launches the scan twice a microbatch (forward
 and remat recompute) and its backward once, zamba2's shared block the
-flash kernel twice and its backward once, on the tensor cores.
+flash kernel twice and its backward once, on the tensor cores; each
+reports the SSD backward's share of a profiled step.
 
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -150,7 +153,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 # the main path: qwen3-4b attention shapes and the serving configuration
 HQ, HKV, DH, PAGE = 32, 8, 128, 16
@@ -915,23 +918,32 @@ def check_ssd_bwd(dev, gen, hold):
     dy float32, as training hands them over; rows ``ssd_scan_bwd`` and
     ``ssd_scan_bwd_zamba2``) and at smoke shapes with two groups, a head
     dim of 80 (two P tiles), ragged masks and a fully masked row, an
-    initial state and the final state's cotangent, in float32.  Float32
-    gradients within 1e-4 relative, bf16 ones (dx, dB, dC of bf16 inputs)
-    1e-2, dA_log 1e-5 of its summands' scale (``ssd_dA_log_scale``: its
-    terms cancel); two calls at the training shape bitwise equal."""
+    initial state and the final state's cotangent: in bf16 (the
+    tensor-core route, across its span boundaries) and in float32 (the
+    CUDA-core route, row ``ssd_scan_bwd_f32``).  Float32 gradients within
+    1e-4 relative, bf16 ones (dx, dB, dC of bf16 inputs) 1e-2, dA_log 1e-5
+    of its summands' scale (``ssd_dA_log_scale``: its terms cancel); two
+    calls at the training shape bitwise equal."""
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
     from repro_torch.kernels.ssd_scan.ref import (
         ssd_bwd_ref,
         ssd_dA_log_scale,
     )
     names = ("dx", "ddt", "dA_log", "dB", "dC", "d_init")
-    cases = [(name, (TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, n, torch.bfloat16),
-              {}) for name, n in SSD_TRAIN] + [
-        ("ssd_scan_bwd", (2, 64, 4, 64, 2, SSD_N, torch.float32),
+    bf16 = torch.bfloat16
+    cases = [(name, (TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, n, bf16), {})
+             for name, n in SSD_TRAIN] + [
+        ("ssd_scan_bwd", (2, 144, 4, 80, 2, SSD_N, bf16),
+         dict(lens=(144, 61), init=True, dfin=True)),
+        ("ssd_scan_bwd_zamba2", (2, 80, 8, SSD_P, 1, ZAMBA_N, bf16),
+         dict(lens=(80, 0), init=True, dfin=True)),
+        ("ssd_scan_bwd_f32", (TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, SSD_N,
+                              torch.float32), {}),
+        ("ssd_scan_bwd_f32", (2, 64, 4, 64, 2, SSD_N, torch.float32),
          dict(lens=(64, 0), init=True, dfin=True)),
-        ("ssd_scan_bwd", (2, 96, 4, 80, 2, ZAMBA_N, torch.float32),
+        ("ssd_scan_bwd_f32", (2, 96, 4, 80, 2, ZAMBA_N, torch.float32),
          dict(lens=(96, 41), dfin=True)),
-        ("ssd_scan_bwd_zamba2", (1, 128, 8, SSD_P, 1, ZAMBA_N, torch.float32),
+        ("ssd_scan_bwd_f32", (1, 128, 8, SSD_P, 1, ZAMBA_N, torch.float32),
          dict(init=True, dfin=True))]
     for name, (Bb, S, H, P, G, N, dt), kw in cases:
         args, call = ssd_bwd_case(gen, dev, Bb, S, H, P, G, N, dt, **kw)
@@ -959,56 +971,76 @@ def check_ssd_bwd(dev, gen, hold):
         log(f"  {name:24s} max abs err " + ", ".join(
             f"{part} {float((g.float() - w.float()).abs().max()):.3e}"
             for part, g, w in zip(names, got, want)))
-        if (Bb, S) == (TRAIN_B, TRAIN_S):
+        if (Bb, S) == (TRAIN_B, TRAIN_S) and dt == bf16:
             again = ssd_bwd(*args, states=states, **call)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: two calls differ")
             log(f"  {name:24s} two calls bitwise equal: ok")
 
 
-def ssd_bwd_work(Bb, S, H, P, G, N, K, *, esize=2):
-    """(bytes, float32 operations) of one ``ssd_bwd`` call: x, B, C read at
+def ssd_bwd_work(Bb, S, H, P, G, N, K, *, esize=2, tc=True):
+    """(bytes, operations) of one ``ssd_bwd`` call: x, B, C read at
     ``esize`` bytes an element, dt, dy and the forward's S / K states read
-    once in float32; dx, dB and dC written at ``esize``, ddt in float32;
-    the products of ``train_step.ssd_step_flops``'s backward (T = K)."""
+    once in float32; dx, dB and dC written at ``esize``, ddt in float32.
+    Operations: the products of ``train_step.ssd_step_flops``'s backward
+    (T = K) in float32 (``tc=False``: the CUDA-core route), or each counted
+    as many times as the tensor-core route's TF32 passes take it (``tc``:
+    3 for Z = h0^T g and dx' from g and the pairs, whose operands are both
+    float32; 2 for W, V, U, g x'^T, dB and dC, one float32 operand and a
+    bf16 one; 1 for C B^T)."""
     n_bytes = (esize * (2 * Bb * S * H * P + 4 * Bb * S * G * N) + 8 * H
                + 4 * (2 * Bb * S * H + Bb * S * H * P
                       + Bb * (S // K) * H * P * N))
-    n_ops = Bb * S * (H * (8 * P * N + 2 * (K + 1) * (P + N))
-                      + G * (K + 1) * N)
+    if tc:
+        n_ops = Bb * S * (H * (18 * P * N + (K + 1) * (5 * P + 4 * N))
+                          + G * (K + 1) * N)
+    else:
+        n_ops = Bb * S * (H * (8 * P * N + 2 * (K + 1) * (P + N))
+                          + G * (K + 1) * N)
     return n_bytes, n_ops
 
 
 def time_ssd_bwd(dev, gen, flush, kernels) -> None:
     """Rows 6d and 6e: the backward at mamba2's and zamba2's training
     microbatch (B 4, S 512, H 80, P 64, N 128 and 64, bf16 x, B and C,
-    float32 dy, no mask: what phases 14 and 14b launch), from the states of
-    the forward's training launch, beside its plain version.  No single
-    PyTorch call computes it (library: none).  The bound counts operations
-    at the float32 CUDA-core peak.  Also the forward as training runs it
-    (a checkpoint every 16 steps, the states the backward reads)."""
+    float32 dy, no mask: what phases 14 and 14b launch, the tensor-core
+    route), from the states of the forward's training launch, beside its
+    plain version; row 6f: the float32 route at mamba2's shape (what phase
+    13b's float32 steps take).  No single PyTorch call computes it
+    (library: none).  The bound counts the tensor-core route's TF32 passes
+    at 495 TFLOP/s (the float32 route: its products at the float32
+    CUDA-core peak; logged beside rows 6d and 6e too).  Also the forward
+    as training runs it (a checkpoint every 16 steps, the states the
+    backward reads)."""
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
-    for name, N in SSD_TRAIN:
+    rows = SSD_TRAIN + [("ssd_scan_bwd_f32", SSD_N)]
+    for name, N in rows:
+        tc = name != "ssd_scan_bwd_f32"
+        dt = torch.bfloat16 if tc else torch.float32
         args, call = ssd_bwd_case(gen, dev, TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1,
-                                  N, torch.bfloat16)
+                                  N, dt)
         with torch.no_grad():
             states = ssd(*args[:5], chunk=16, checkpoints=True)[2]
+        work = ssd_bwd_work(TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, N, 16,
+                            esize=2 if tc else 4, tc=tc)
         rep = dict(shape=f"B{TRAIN_B} S{TRAIN_S} H{SSD_H} P{SSD_P} G1 N{N} "
-                         "bf16 x/B/C, f32 dy, K16",
+                         f"{'bf16' if tc else 'f32'} x/B/C, f32 dy, K16",
                    ms=time_ms(lambda: ssd_bwd(*args, states=states, **call),
                               flush=flush),
                    plain_ms=time_ms(lambda: ssd_bwd_ref(*args, **call),
                                     flush=flush),
                    library_ms=None,
-                   **bound(*ssd_bwd_work(TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1,
-                                         N, 16), torch.float32))
+                   **bound(*work, "tf32" if tc else torch.float32))
+        cuda_core = bound(*ssd_bwd_work(TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, N,
+                                        16, tc=False), torch.float32)
         fwd = time_ms(lambda: ssd(*args[:5], chunk=16, checkpoints=True),
                       flush=flush)
         log(f"  {name} {rep['shape']}: kernel {rep['ms']:.4f} ms, plain "
             f"{rep['plain_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
             f"({rep['bound_by']}; {rep['bytes'] / 1e9:.3f} GB, "
-            f"{rep['operations'] / 1e9:.2f} GFLOP), "
+            f"{rep['operations'] / 1e9:.2f} G{'TF32 ' if tc else ''}FLOP; "
+            f"at the float32 CUDA-core peak {cuda_core['bound_ms']:.4f} ms), "
             f"{rep['bound_ms'] / rep['ms']:.3f} of the bound; the training "
             f"forward with its states {fwd:.4f} ms")
         kernels[name].update(rep)
@@ -2960,9 +2992,9 @@ def train_launches(cfg, steps: int) -> dict:
     ``cfg`` (each of its ``microbatch`` microbatches runs every layer under
     remat): an attention layer launches the flash kernel twice (forward
     and recompute) and its backward once, all on the tensor cores; a
-    Mamba layer the SSD scan twice and its backward once; zamba2's shared
-    block (every ``hybrid_attn_every`` Mamba layers) counts as an
-    attention layer."""
+    Mamba layer the SSD scan twice and its backward once, on the tensor
+    cores (bf16); zamba2's shared block (every ``hybrid_attn_every`` Mamba
+    layers) counts as an attention layer."""
     micro = steps * cfg.microbatch
     n_ssd = micro * cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     n_attn = (0 if cfg.family == "ssm"
@@ -2970,7 +3002,8 @@ def train_launches(cfg, steps: int) -> dict:
               if cfg.family == "hybrid" else micro * cfg.num_layers)
     return {"flash_attention": 2 * n_attn, "flash_attention_tc": 2 * n_attn,
             "flash_attention_bwd": n_attn, "flash_attention_bwd_tc": n_attn,
-            "gmm": 0, "ssd": 2 * n_ssd, "ssd_bwd": n_ssd}
+            "gmm": 0, "ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
+            "ssd_bwd_tc": n_ssd}
 
 
 def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
@@ -2985,9 +3018,10 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
     (``train_launches``); the launch counts must be exactly those.
     Prints each step's xent and grad norm, the step wall p50 over steps
     2 on, tokens/s, MFU at 6 N T against 989 TFLOP/s, the step's reckoned
-    bound (the SSD scan's float32 products at 67 TFLOP/s, the rest at
-    989) and the peak memory, then one profiled step's largest kernels
-    and the port's kernels' shares."""
+    bound (the SSD forward's float32 products at 67 TFLOP/s, its
+    backward's TF32 passes at 495, the rest at 989) and the peak memory,
+    then one profiled step's largest kernels, the port's kernels' shares
+    and the SSD backward's."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import (
@@ -3004,6 +3038,7 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
     from repro_torch.kernels.moe_gmm.ops import gmm
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
     from repro_torch.train.optimizer import OptConfig
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_span
     from repro_torch.train.train_step import ssd_step_flops
     cfg = get_arch(arch)
     torch.cuda.reset_peak_memory_stats()
@@ -3051,17 +3086,29 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
     busy, shares = profile_step(lambda: cell.train_steps(
         lambda _: batches[0], 1))
     prog = cell.accounting.programs["train_step"]
-    f32_flops = ssd_step_flops(cfg, TRAIN_BATCH, TRAIN_S)
-    yard = max((prog.flops_per_device - f32_flops)
+    ssd_flops = ssd_step_flops(cfg, TRAIN_BATCH, TRAIN_S)
+    # the SSD backward's products, in float32 and as its tensor-core
+    # route's TF32 passes; the forward's stay float32 on CUDA cores
+    bwd_f32 = bwd_tf32 = 0
+    if ssd_flops:
+        sc = cfg.ssm
+        dims = (sc.expand * cfg.d_model // sc.head_dim, sc.head_dim,
+                sc.ngroups, sc.d_state, ssd_bwd_span(TRAIN_S, sc.chunk))
+        bwd_f32, bwd_tf32 = (cfg.num_layers * ssd_bwd_work(
+            TRAIN_BATCH, TRAIN_S, *dims, tc=tc)[1] for tc in (False, True))
+    yard = max((prog.flops_per_device - ssd_flops)
                / PEAK_FLOPS[torch.bfloat16]
-               + f32_flops / PEAK_FLOPS[torch.float32],
+               + (ssd_flops - bwd_f32) / PEAK_FLOPS[torch.float32]
+               + bwd_tf32 / PEAK_FLOPS["tf32"],
                prog.bytes_per_device / HBM_BYTES_PER_S)
     mfu = 6 * n * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
     log(f"[{tag}] step wall p50 (steps 2-{steps}) {step_s * 1e3:.1f} ms; "
         f"{tokens / step_s:,.0f} tokens/s; MFU {mfu:.4f} at 6 N T against "
         f"989 TFLOP/s; reckoned step {prog.flops_per_device / 1e12:.1f} "
-        f"TFLOP ({f32_flops / 1e12:.2f} of them the SSD scan's float32 "
-        f"products) and {prog.bytes_per_device / 1e9:.1f} GB of state "
+        f"TFLOP ({ssd_flops / 1e12:.2f} of them the SSD scan's, the "
+        f"forward's {(ssd_flops - bwd_f32) / 1e12:.2f} in float32, the "
+        f"backward's {bwd_tf32 / 1e12:.2f} as TF32 passes) and "
+        f"{prog.bytes_per_device / 1e9:.1f} GB of state "
         f"traffic: bound {yard * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB "
         f"allocated; launches {launches} ({name_limit})")
     log(f"[{tag}] one more step under torch.profiler: device busy "
@@ -3070,7 +3117,13 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
             for name, t, n in shares[:8]))
     log(f"[{tag}] the port's kernels in that step: " + "; ".join(
         f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
-        for name, t, n in shares if name.startswith("void rt::")))
+        for name, t, n in shares if name.startswith(("void rt::", "rt::"))))
+    ssd_bwd_s = sum(t for name, t, _ in shares
+                    if "rt::ssd_bwd_" in name or "rt::ssd_scan_bwd_" in name)
+    if ssd_bwd_s:
+        log(f"[{tag}] the SSD backward's kernels (adjoint, spans, sums) in "
+            f"that step: {ssd_bwd_s * 1e3:.1f} ms, {ssd_bwd_s / busy:.3f} "
+            f"of busy")
     sup.destroy_cell("train")
     del cell, batches, pipe
     gc.collect()
@@ -3188,7 +3241,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     log(f"[13b] float32 smoke train steps: card xent {card_x}, CPU "
         f"{cpu_x}, worst rel {worst:.2e} (tol 1e-5); backward launches "
         f"{launches}")
-    ssm_rel = {}
+    ssm_rel, ssd_f32 = {}, 0
     for arch in ("mamba2-2.7b", "zamba2-2.7b"):
         f32 = smoke_config(get_arch(arch)).replace(dtype="float32")
         reset_counters((ssd_bwd,))
@@ -3196,6 +3249,9 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
         n_bwd = ssd_bwd.launches
         if n_bwd == 0:
             raise AssertionError(f"[13b] {arch}: no SSD backward launch")
+        expect(f"[13b] {arch} float32 SSD backward launches on the tensor "
+               "cores", ssd_bwd.launches_tc, 0)
+        ssd_f32 += n_bwd
         cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True)
         ssm_rel[arch] = max(abs(a - b) / abs(b) for a, b in zip(card_x,
                                                                  cpu_x))
@@ -3208,7 +3264,8 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     return {"xent": got, "f32_rel": worst, "ssm_f32_rel": ssm_rel,
             "launches": {
-                "flash_attention_bwd_f32": launches["flash_attention_bwd"]}}
+                "flash_attention_bwd_f32": launches["flash_attention_bwd"],
+                "ssd_scan_bwd_f32": ssd_f32}}
 
 
 KERNELS = {
@@ -3286,16 +3343,21 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
         "path": "13b", "count": "flash_attention_bwd_f32"},
     # the backward of the SSD scan (the TPU package has none: JAX trains
-    # through jax.grad of the plain ssd_chunked) at mamba2's training
-    # microbatch (phase 14) and zamba2's (phase 14b)
+    # through jax.grad of the plain ssd_chunked): the bf16 tensor-core
+    # route at mamba2's training microbatch (phase 14) and zamba2's (phase
+    # 14b), the float32 CUDA-core route on phase 13b's float32 steps
     "ssd_scan_bwd": {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
-        "path": 14, "count": "ssd_bwd"},
+        "path": 14, "count": "ssd_bwd_tc"},
     "ssd_scan_bwd_zamba2": {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
-        "path": "14b", "count": "ssd_bwd"},
+        "path": "14b", "count": "ssd_bwd_tc"},
+    "ssd_scan_bwd_f32": {
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
+        "path": "13b", "count": "ssd_scan_bwd_f32"},
 }
 
 # steps of phase 14b (zamba2-2.7b): fewer than phase 13's and 14's, to keep

@@ -8,9 +8,9 @@ takes the plain version ``ref.ssd_ref``; a CUDA tensor launches the
 hand-written scan in ``csrc/ssd_scan.cu``, one launch a call, or raises.
 There is no fallback from one to the other.  ``ssd_bwd`` is its
 gradient: ``ref.ssd_bwd_ref`` on the CPU, the hand-written backward in
-``csrc/ssd_scan_bwd.cu`` on the card; a call of ``ssd`` that autograd
-would record goes through the autograd Function ``_SSD``, which joins
-the two.
+``csrc/ssd_scan_bwd.cu`` on the card (bf16 x, B and C on the tensor
+cores, float32 on CUDA cores); a call of ``ssd`` that autograd would
+record goes through the autograd Function ``_SSD``, which joins the two.
 """
 from __future__ import annotations
 
@@ -25,6 +25,9 @@ from repro_torch.kernels.ssd_scan.ref import (
 )
 
 F32 = torch.float32
+#: sub-chunks of one span of the bf16 backward: its first kernel keeps the
+#: adjoint state at every span's end, its second runs the spans in parallel
+BWD_SPAN = 8
 
 
 def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
@@ -200,9 +203,12 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
     (B, S, H, P) of y and ``d_final`` (B, H, P, N, or None for zero) of
     the final state, under the forward's ``chunk``, ``initial_state`` and
     ``mask``.  A CPU tensor takes ``ref.ssd_bwd_ref``; a CUDA tensor
-    launches ``rt_ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``: the reverse
-    walk, then the sums over heads, P tiles and rows in a fixed order, so
-    two calls are bitwise equal), float32 products on CUDA cores.
+    launches ``rt_ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``), then the sums
+    over heads, P tiles and blocks in a fixed order, so two calls are
+    bitwise equal.  Routes by dtype: bf16 x, B and C take the tensor cores
+    in split precision (the adjoint at every ``BWD_SPAN`` sub-chunks, then
+    the spans in parallel; ``ssd_bwd.launches_tc`` counts them), float32
+    the reverse walk with float32 products on CUDA cores.
     ``states``, on the card: the forward's state after every sub-chunk of
     ``ssd_bwd_span(S, chunk)`` steps, (B, S / K, H, P, N) contiguous
     float32 (``_SSD`` keeps them); without them one launch of the scan
@@ -258,19 +264,27 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
         d_final = d_final.to(F32)
     dev = x.device
     npt = -(-P // 64)                    # P tiles of the kernel's blocks
+    tc = x.dtype == torch.bfloat16
+    n_span = -(-(S // K) // BWD_SPAN) if tc else 1
+    if tc:      # the tensor-core route stages rows with 8- or 16-byte copies
+        x, B_in, C_in = (_rows(t, 8) for t in (x, B_in, C_in))
+        dy = _rows(dy, 16)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=F32, device=dev)
+    def empty(*shape, dtype=F32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    dx, d_init = empty(Bb, S, H, P), empty(Bb, H, P, N)
-    ddt, dA, dB, dC = empty(Bb, S, H), empty(H), empty(Bb, S, G, N), \
-        empty(Bb, S, G, N)
-    # per (head, P tile) partials, summed by the second kernel
+    # dx, dB and dC in x's dtype (the kernels round bf16 ones), the rest
+    # float32
+    dx, d_init = empty(Bb, S, H, P, dtype=x.dtype), empty(Bb, H, P, N)
+    ddt, dA = empty(Bb, S, H), empty(H)
+    dB, dC = empty(Bb, S, G, N, dtype=x.dtype), empty(Bb, S, G, N, dtype=x.dtype)
+    # per (head, P tile) and per block partials, summed by the last kernel
     dtp, dbp, dcp, dap = empty(Bb, S, H, npt), empty(Bb, S, H, npt, N), \
-        empty(Bb, S, H, npt, N), empty(Bb, H, npt)
+        empty(Bb, S, H, npt, N), empty(Bb, n_span, H, npt)
+    hs = empty(Bb, n_span, H, P, N) if tc else None
     fn = _build.kernel("rt_ssd_scan_bwd", "PLLLLI PLLLP PLLLL PLLLL PLL "
-                                          "PLLLL PLLLL PLLLL P PPPPPP PPPP "
-                                          "IIIIIII P")
+                                          "PLLLL PLLLL PLLLL PP PPPPPP PPPP "
+                                          "IIIIIIII P")
     strides = lambda t, n: t.stride() if t is not None else (0,) * n  # noqa: E731
     rc = fn(x.data_ptr(), *x.stride(), _build.DTYPE_CODE[x.dtype],
             dt.data_ptr(), *dt.stride(), A_log.data_ptr(),
@@ -279,17 +293,32 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
             _build.ptr(initial_state), *strides(initial_state, 4),
             dy.data_ptr(), *dy.stride(),
             _build.ptr(d_final), *strides(d_final, 4),
-            states.data_ptr(), dx.data_ptr(), dtp.data_ptr(), dbp.data_ptr(),
-            dcp.data_ptr(), dap.data_ptr(), d_init.data_ptr(),
+            states.data_ptr(), _build.ptr(hs), dx.data_ptr(), dtp.data_ptr(),
+            dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(), d_init.data_ptr(),
             ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-            Bb, S, H, G, P, N, K, _build.stream_ptr(dev))
+            Bb, S, H, G, P, N, K, BWD_SPAN, _build.stream_ptr(dev))
     ssd_bwd.launches += 1
+    ssd_bwd.launches_tc += tc
     _build.check(rc, "ssd_bwd")
     return _grad_dtypes((dx, ddt, dA, dB, dC, d_init), like)
 
 
 ssd_bwd.launches = 0
-_build.count_launches(ssd_bwd, "launches")
+ssd_bwd.launches_tc = 0
+_build.count_launches(ssd_bwd, "launches", "launches_tc")
+
+
+def _rows(t, align: int):
+    """``t`` with unit stride in its last dimension and its start and
+    every other stride on ``align`` bytes: itself, or a contiguous copy
+    (whose rows are on 16 bytes for float32 with P a multiple of 4, on 8
+    for bf16)."""
+    e = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % align == 0
+            and all(st * e % align == 0 for st, n in zip(t.stride()[:-1],
+                                                          t.shape[:-1]) if n > 1)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _grad_dtypes(grads, like):

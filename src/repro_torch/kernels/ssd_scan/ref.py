@@ -6,9 +6,9 @@ of the TPU kernel ``_ssd_chunk_kernel``), the inter-chunk recurrence and
 the state -> output term, as ``repro.kernels.ssd_scan.ops.ssd`` wraps the
 Pallas kernel.  ``ssd_scan_ref`` follows the CUDA scan's own order of
 work (sub-chunks of 16 steps, the running state carried between them),
-and ``ssd_bwd_ref``, the gradient, that of the CUDA backward
-(``csrc/ssd_scan_bwd.cu``): sub-chunks walked from the last to the first
-with the adjoint state carried between them.
+and ``ssd_bwd_ref``, the gradient, that of the CUDA backward's bf16 route
+(``csrc/ssd_scan_bwd.cu``): the adjoint state at every sub-chunk's end
+by a short scan backwards, then every sub-chunk's body in parallel.
 """
 from __future__ import annotations
 
@@ -174,25 +174,33 @@ def ssd_bwd_span(S: int, chunk: int) -> int:
 def ssd_bwd_ref(x, dt, A_log, B_in, C_in, dy, d_final=None, *,
                 chunk: int = 256, initial_state=None, mask=None):
     """The gradient of ``ssd``'s (y, final state) in plain PyTorch, with
-    no autograd, in the CUDA backward's order of work: the states entering
-    each sub-chunk of K = ``ssd_bwd_span(S, chunk)`` steps from a forward
-    walk, then the sub-chunks from the last to the first, carrying the
-    adjoint state H (dL/d the state at the sub-chunk's end; at the start
-    ``d_final``, or zero).  Per sub-chunk, with h0 the state entering it,
-    g = dy, x' = x dt', cs the cumsum of a = dt' A, L_ij = exp(cs_i - cs_j)
-    for j <= i and T its last step:
+    no autograd, in the order of work of the CUDA backward's bf16 route
+    (``csrc/ssd_scan_bwd.cu``), in sub-chunks of K = ``ssd_bwd_span(S,
+    chunk)`` steps.  Per sub-chunk c, with g = dy, x' = x dt', cs the
+    cumsum of a = dt' A over its steps, T its last step and L_ij =
+    exp(cs_i - cs_j) for j <= i:
 
-    * dx'_j = sum_{i >= j} (C_i . B_j) L_ij g_i + exp(cs_T - cs_j) H B_j;
-    * dB_j = sum_{i >= j} (g_i . x'_j) L_ij C_i + exp(cs_T - cs_j) H^T x'_j;
-    * dC_i = sum_{j <= i} (g_i . x'_j) L_ij B_j + exp(cs_i) h0^T g_i;
-    * da_k, the gradient of a_k through every product whose decay spans
-      step k: the outputs i >= k against h0 (exp(cs_i) g_i . h0 C_i), the
-      state against h0 (exp(cs_T) <H, h0>) and the inputs j < k
-      (exp(cs_T - cs_j) x'_j . H B_j), and the pairs i >= k > j ((C_i .
-      B_j)(g_i . x'_j) L_ij), each a sum of what the recurrence carries
-      across k (the derivative of cs summed backwards would cancel terms
-      a pair adds to one step and takes from another);
-    * then H = exp(cs_T) H + sum_i exp(cs_i) g_i C_i^T.
+    1. the states h0 entering each sub-chunk, from a forward walk (the
+       states the forward keeps on the card);
+    2. per sub-chunk, in parallel: U_c = sum_i exp(cs_i) g_i C_i^T and the
+       decay exp(cs_T);
+    3. the adjoint H_c (dL/d the state at sub-chunk c's end) by a short
+       scan backwards over the sub-chunks, H_{c-1} = exp(cs_T) H_c + U_c
+       from ``d_final`` (or zero); d initial_state is H before the first;
+    4. per sub-chunk, in parallel, from its h0 and H:
+
+       * dx'_j = sum_{i >= j} (C_i . B_j) L_ij g_i + exp(cs_T - cs_j) H B_j;
+       * dB_j = sum_{i >= j} (g_i . x'_j) L_ij C_i + exp(cs_T - cs_j)
+         H^T x'_j;
+       * dC_i = sum_{j <= i} (g_i . x'_j) L_ij B_j + exp(cs_i) h0^T g_i;
+       * da_k, the gradient of a_k through every product whose decay
+         spans step k: the outputs i >= k against h0 (exp(cs_i) g_i . h0
+         C_i), the state against h0 and the inputs j < k (exp(cs_T) <H,
+         h0>, exp(cs_T - cs_j) x'_j . H B_j), and the pairs i >= k > j
+         ((C_i . B_j)(g_i . x'_j) L_ij), each a sum of what the
+         recurrence carries across k (the derivative of cs summed
+         backwards would cancel terms a pair adds to one step and takes
+         from another).
 
     dx = dx' dt', ddt = mask (dx' . x + A da), dA_log = A sum dt' da, and
     dB, dC summed over each group's heads.  Returns (dx (B, S, H, P), ddt
@@ -202,70 +210,71 @@ def ssd_bwd_ref(x, dt, A_log, B_in, C_in, dy, d_final=None, *,
     G, N = B_in.shape[2], B_in.shape[3]
     HG = H // G
     K = ssd_bwd_span(S, chunk)
+    nc = S // K
     if mask is not None:
         dt = torch.where(mask[..., None], dt, torch.zeros_like(dt))
     dtm = dt.to(F32)
     A = -torch.exp(A_log.to(F32))
     xr = x.to(F32)
     xw = xr * dtm[..., None]                                   # (B,S,H,P)
-    a = dtm * A                                                # (B,S,H)
     Bh = B_in.to(F32).repeat_interleave(HG, dim=2)             # (B,S,H,N)
     Ch = C_in.to(F32).repeat_interleave(HG, dim=2)
-    g = dy.to(F32)
-    tril = torch.tril(torch.ones((K, K), dtype=torch.bool,
-                                 device=x.device))[None, :, :, None]
-    # spans[k, i, j]: the pair (i, j) crosses step k (i >= k > j)
-    steps = torch.arange(K, device=x.device)
-    spans = ((steps[None, :, None] >= steps[:, None, None])
-             & (steps[None, None, :] < steps[:, None, None])).to(F32)
 
-    def decays(s0):
-        cs = torch.cumsum(a[:, s0:s0 + K], dim=1)              # (B,T,H)
-        return cs, torch.exp(cs[:, -1:] - cs), torch.exp(cs[:, -1])
+    def chunks(t):                                   # (B,S,...) -> (B,nc,K,...)
+        return t.reshape(Bb, nc, K, *t.shape[2:])
+    xs, gs, Bs, Cs = (chunks(t) for t in (xw, dy.to(F32), Bh, Ch))
+    cs = torch.cumsum(chunks(dtm * A), dim=2)                  # (B,nc,K,H)
+    ec = torch.exp(cs)
+    dec = torch.exp(cs[:, :, -1])                              # (B,nc,H)
+    wt = torch.exp(cs[:, :, -1:] - cs)
 
+    # 1. the states entering each sub-chunk
+    st = torch.einsum("bckhp,bckhn,bckh->bchpn", xs, Bs, wt)
     h = (torch.zeros((Bb, H, P, N), dtype=F32, device=x.device)
          if initial_state is None else initial_state.to(F32))
     h_in = []
-    for s0 in range(0, S, K):
+    for c in range(nc):
         h_in.append(h)
-        _, wt, dec = decays(s0)
-        h = (h * dec[..., None, None] + torch.einsum(
-            "bjhp,bjhn,bjh->bhpn", xw[:, s0:s0 + K], Bh[:, s0:s0 + K], wt))
+        h = h * dec[:, c, :, None, None] + st[:, c]
+    h_in = torch.stack(h_in, 1)                                # (B,nc,H,P,N)
 
+    # 2. U_c; 3. the adjoint at every sub-chunk's end, scanned backwards
+    u_c = torch.einsum("bckh,bckhp,bckhn->bchpn", ec, gs, Cs)
     hb = (torch.zeros((Bb, H, P, N), dtype=F32, device=x.device)
-          if d_final is None else d_final.to(F32).clone())
-    dxw = torch.empty_like(xw)
-    dBh = torch.empty_like(Bh)
-    dCh = torch.empty_like(Ch)
-    da = torch.empty_like(a)
-    for c in reversed(range(S // K)):
-        s0, s1 = c * K, (c + 1) * K
-        cs, wt, dec = decays(s0)
-        ec = torch.exp(cs)
-        L = torch.where(tril, torch.exp(cs[:, :, None] - cs[:, None]), 0.0)
-        Cs, Bs, xs, gs, h0 = Ch[:, s0:s1], Bh[:, s0:s1], xw[:, s0:s1], \
-            g[:, s0:s1], h_in[c]
-        cb = torch.einsum("bihn,bjhn->bijh", Cs, Bs)
-        gx = torch.einsum("bihp,bjhp->bijh", gs, xs)
-        sc, ml = cb * L, gx * L                                # (B,Ti,Tj,H)
-        z = torch.einsum("bhpn,bihp->bihn", h0, gs)            # h0^T g_i
-        w = torch.einsum("bhpn,bjhp->bjhn", hb, xs)            # H^T x'_j
-        v = torch.einsum("bhpn,bjhn->bjhp", hb, Bs)            # H B_j
-        dxw[:, s0:s1] = (torch.einsum("bijh,bihp->bjhp", sc, gs)
-                         + wt[..., None] * v)
-        dBh[:, s0:s1] = (torch.einsum("bijh,bihn->bjhn", ml, Cs)
-                         + wt[..., None] * w)
-        dCh[:, s0:s1] = (torch.einsum("bijh,bjhn->bihn", ml, Bs)
-                         + ec[..., None] * z)
-        yo = ec * (Cs * z).sum(-1)                             # (B,T,H)
-        u = wt * (Bs * w).sum(-1)
-        da[:, s0:s1] = (
-            (dec * (hb * h0).sum((-2, -1)))[:, None]
-            + torch.cumsum(u, 1) - u
-            + torch.flip(torch.cumsum(torch.flip(yo, (1,)), 1), (1,))
-            + torch.einsum("bijh,kij->bkh", sc * gx, spans))
-        hb = (hb * dec[..., None, None]
-              + torch.einsum("bih,bihp,bihn->bhpn", ec, gs, Cs))
+          if d_final is None else d_final.to(F32))
+    h_end = [None] * nc
+    for c in reversed(range(nc)):
+        h_end[c] = hb
+        hb = hb * dec[:, c, :, None, None] + u_c[:, c]
+    h_end = torch.stack(h_end, 1)                              # (B,nc,H,P,N)
+
+    # 4. the sub-chunks' bodies
+    tril = torch.tril(torch.ones((K, K), dtype=torch.bool,
+                                 device=x.device))[:, :, None]
+    L = torch.where(tril, torch.exp(cs[:, :, :, None] - cs[:, :, None]),
+                    0.0)                                       # (B,nc,Ki,Kj,H)
+    cb = torch.einsum("bcihn,bcjhn->bcijh", Cs, Bs)
+    gx = torch.einsum("bcihp,bcjhp->bcijh", gs, xs)
+    sc, ml = cb * L, gx * L
+    z = torch.einsum("bchpn,bcihp->bcihn", h_in, gs)           # h0^T g_i
+    w = torch.einsum("bchpn,bcjhp->bcjhn", h_end, xs)          # H^T x'_j
+    v = torch.einsum("bchpn,bcjhn->bcjhp", h_end, Bs)          # H B_j
+    dxw = torch.einsum("bcijh,bcihp->bcjhp", sc, gs) + wt[..., None] * v
+    dBh = torch.einsum("bcijh,bcihn->bcjhn", ml, Cs) + wt[..., None] * w
+    dCh = torch.einsum("bcijh,bcjhn->bcihn", ml, Bs) + ec[..., None] * z
+    yo = ec * (Cs * z).sum(-1)                                 # (B,nc,K,H)
+    u = wt * (Bs * w).sum(-1)
+    steps = torch.arange(K, device=x.device)
+    # spans[k, i, j]: the pair (i, j) crosses step k (i >= k > j)
+    spans = ((steps[None, :, None] >= steps[:, None, None])
+             & (steps[None, None, :] < steps[:, None, None])).to(F32)
+    da = ((dec * (h_end * h_in).sum((-2, -1)))[:, :, None]
+          + torch.cumsum(u, 2) - u
+          + torch.flip(torch.cumsum(torch.flip(yo, (2,)), 2), (2,))
+          + torch.einsum("bcijh,kij->bckh", sc * gx, spans))
+
+    dxw, dBh, dCh = (t.reshape(Bb, S, H, -1) for t in (dxw, dBh, dCh))
+    da = da.reshape(Bb, S, H)
     ddt = (dxw * xr).sum(-1) + A * da
     if mask is not None:
         ddt = torch.where(mask[..., None], ddt, torch.zeros_like(ddt))

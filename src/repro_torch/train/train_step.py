@@ -224,8 +224,10 @@ def ssd_step_flops(cfg, B: int, S: int) -> float:
       H^T x', H B^T and the adjoint update, the pairs g . x' and their
       products with g, C and B, and C B^T once a group.
 
-    They run in float32 on CUDA cores (67 TFLOP/s on an H100, not the
-    989 of the bf16 products)."""
+    The forward runs in float32 on CUDA cores (67 TFLOP/s on an H100, not
+    the 989 of the bf16 products); the backward, for bf16 x, B and C, on
+    the tensor cores in split TF32 passes, and in float32 on CUDA cores
+    otherwise."""
     if cfg.family not in ("ssm", "hybrid"):
         return 0.0
     s = cfg.ssm

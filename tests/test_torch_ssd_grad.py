@@ -2,15 +2,17 @@
 against ``jax.vjp`` of the JAX oracle.
 
 ``ssd_bwd_ref`` (dx, ddt, dA_log, dB, dC and the initial state's
-gradient, written out as a reverse walk over the CUDA backward's
-sub-chunks) is held against ``jax.vjp`` of ``repro.models.mamba2.
-ssd_chunked`` on the same numpy inputs at 1e-5 relative (max abs error over
-the largest entry; for dA_log over its summands' scale, below): chunk
-lengths 16, 32 and 64 and an S the chunk does not
-tile, one and two groups, no mask, a ragged masked tail and a fully masked
-row, with and without an initial state (without one JAX is given zeros, so
-the initial state's gradient is compared too), with and without the final
-state's cotangent, and bf16 x, B and C (JAX takes their float32 values).
+gradient, written out in the CUDA backward's three parts: U per sub-chunk,
+the adjoint scanned backwards, every sub-chunk's body from it) is held
+against ``jax.vjp`` of ``repro.models.mamba2.ssd_chunked`` on the same
+numpy inputs at 1e-5 relative (max abs error over the largest entry; for
+dA_log over its summands' scale, below): chunk lengths 16, 32 and 64 and
+an S the chunk does not tile (with and without a mask), one and two
+groups, no mask, a ragged masked tail, rows masked from a sub-chunk's
+first step and a fully masked row, with and without an initial state
+(without one JAX is given zeros, so the initial state's gradient is
+compared too), with and without the final state's cotangent, and bf16 x,
+B and C (JAX takes their float32 values) over two and five sub-chunks.
 Where dt' is zero the port's dx, ddt and dB are exactly 0.
 
 dA_log = A sum_{b, s} dt' da is a sum whose terms cancel: at these inputs
@@ -62,6 +64,18 @@ CASES = {
     "no_final_cotangent": (2, 64, 2, 16, 1, 32, 16, (64, 50), True, False,
                            "float32"),
     "bf16": (2, 64, 4, 8, 2, 16, 16, (64, 21), True, True, "bfloat16"),
+    # where the sub-chunk boundaries matter: an S the chunk does not tile
+    # (8-step sub-chunks) under a mask, rows masked from a sub-chunk's first
+    # step, an initial state with the final state's cotangent in two
+    # groups, and five sub-chunks in bf16
+    "degraded_span": (2, 56, 4, 8, 1, 16, 16, (56, 23), True, True,
+                      "float32"),
+    "masked_from_chunk_start": (3, 64, 4, 8, 1, 16, 16, (64, 32, 16), True,
+                                True, "float32"),
+    "init_final_g2": (2, 64, 4, 8, 2, 16, 16, (64, 40), True, True,
+                      "float32"),
+    "bf16_five_chunks": (2, 80, 4, 8, 2, 16, 16, (80, 49), True, True,
+                         "bfloat16"),
 }
 
 
@@ -142,7 +156,8 @@ def test_ssd_bwd_ref_matches_jax_vjp(case):
         assert err < TOL, (case, name, err)
 
 
-@pytest.mark.parametrize("case", ["ragged_tail", "masked_row", "bf16"])
+@pytest.mark.parametrize("case", ["ragged_tail", "masked_row", "bf16",
+                                  "degraded_span", "masked_from_chunk_start"])
 def test_gradients_are_exactly_zero_where_dt_is_masked(case):
     (dx, ddt, _, dB, _, _), mask = _port(case)
     pad = torch.from_numpy(~mask)

@@ -5,14 +5,17 @@ every test here skips.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_ssd_grad_cuda.py
 
-``ops.ssd_bwd`` (``csrc/ssd_scan_bwd.cu``, the reverse walk and the fixed
-order sums) is held against ``ref.ssd_bwd_ref`` run on the card on the
-same inputs and the same cotangents: mamba2's state 128 and zamba2's 64
-with 64-row heads, a head dim of 80 (two P tiles, the second one ragged),
-state 256 (the most shared memory), two groups, a chunk that degrades to
-8-step sub-chunks, ragged masks and a fully masked row, with and without
-an initial state and the final state's cotangent, float32 and bf16 x, B
-and C.  Tolerances: float32 outputs rel < 1e-4 (max abs error over the
+``ops.ssd_bwd`` (``csrc/ssd_scan_bwd.cu``: bf16 x, B and C on the tensor
+cores in spans of ``ops.BWD_SPAN`` sub-chunks, float32 on CUDA cores; the
+fixed order sums) is held against ``ref.ssd_bwd_ref`` run on the card on
+the same inputs and the same cotangents: mamba2's state 128 and zamba2's
+64 with 64-row heads, a head dim of 80 (two P tiles, the second one
+ragged), states 16 to 256 (256: the most shared memory), two groups, a
+chunk that degrades to 8-step sub-chunks, rows that cross the bf16
+route's span boundaries (a last span of one sub-chunk), ragged masks and
+a fully masked row, with and without an initial state and the final
+state's cotangent, float32 and bf16 x, B and C.  Each call counts one
+launch, and a bf16 one a tensor-core launch.  Tolerances: float32 outputs rel < 1e-4 (max abs error over the
 largest entry; the kernel sums in another order than the plain version,
 dB and dC over the group's heads too); bf16 outputs (dx, dB, dC of bf16
 inputs) rel < 1e-2, bf16 output rounding; dA_log, a sum whose terms cancel,
@@ -52,6 +55,22 @@ CASES = {
                  torch.float32),
     "g2_bf16": (2, 64, 4, 64, 2, 32, 64, (64, 30), True, True,
                 torch.bfloat16),
+    # the bf16 route across its span boundaries (``ops.BWD_SPAN`` sub-chunks
+    # of 16 steps): N 128 with a ragged mask and an initial state over two
+    # spans, P 80 in two tiles, S = 2 spans + 16 (a last span of one
+    # sub-chunk), and its other state widths (256; 16 with 8-step
+    # sub-chunks)
+    "n128_bf16_ragged_init": (2, 192, 4, 64, 1, 128, 256, (192, 70), True,
+                              True, torch.bfloat16),
+    "p80_two_tiles_bf16": (1, 96, 4, 80, 2, 128, 32, None, True, True,
+                           torch.bfloat16),
+    "two_spans_and_16_bf16": (2, 16 * (2 * sops.BWD_SPAN + 1), 4, 64, 1, 64,
+                              16, (16 * (2 * sops.BWD_SPAN + 1), 100), True,
+                              True, torch.bfloat16),
+    "n256_bf16": (1, 64, 2, 64, 1, 256, 16, (50,), True, True,
+                  torch.bfloat16),
+    "sub8_n16_bf16": (2, 40, 4, 16, 1, 16, 16, (40, 13), False, True,
+                      torch.bfloat16),
 }
 
 
@@ -103,10 +122,14 @@ def _hold(got, want, args, kw):
 def test_ssd_bwd_kernel_matches_its_plain_version(dev, case):
     args, kw = _inputs(dev, case)
     n0, f0 = sops.ssd_bwd.launches, sops.ssd.launches
+    tc0 = sops.ssd_bwd.launches_tc
     got = sops.ssd_bwd(*args, **kw)
     want = ssd_bwd_ref(*args, **kw)
     torch.cuda.synchronize()
     assert sops.ssd_bwd.launches == n0 + 1
+    # bf16 x, B and C take the tensor cores, float32 the CUDA cores
+    assert sops.ssd_bwd.launches_tc == tc0 + (args[0].dtype
+                                              == torch.bfloat16)
     assert sops.ssd.launches == f0 + 1      # the states, computed first
     for g, t in zip(got, (args[0], args[1], args[2], args[3], args[4],
                           kw["initial_state"])):
