@@ -130,6 +130,24 @@ and remat recompute) and its backward once, zamba2's shared block the
 flash kernel twice and its backward once, on the tensor cores; each
 reports the SSD backward's share of a profiled step.
 
+Phase 3 also holds the grouped GEMM's backward (``ops.gmm_bwd``: dX and
+dW in ``csrc/moe_gmm.cu``) against ``gmm_bwd_ref`` at deepseek-moe-16b's
+training shapes (E 64, C 240, counts from a top-6 routing of 2048 tokens;
+gate and up D 2048 F 1408, down with D and F swapped) and at smoke shapes
+(counts of 0, C and between, dimensions off every tile), bf16 and
+float32, checks the zeros past counts and two calls bitwise equal, and
+times dX and dW at the training shape (rows ``gmm_bwd_dx``,
+``gmm_bwd_dw``; the float32 route ``gmm_bwd_f32``) beside ``torch.bmm``.
+Phase 15 trains deepseek-moe-16b at its published widths with its depth
+cut to 6 of 28 layers (1 dense + 5 MoE; all 28 would need about 262 GB
+of training state) for 4 steps as phase 13 trains qwen3-4b: every MoE
+layer launches the grouped GEMM six times a microbatch (gate, up, down;
+forward and remat recompute) and its backward three times (dX and dW
+each), on the tensor cores; it reports MFU at the parameters a token
+meets and the shares of the grouped GEMM's forward, dX, dW and the
+dispatch ``cumsum`` in a profiled step.  Phase 13b also holds float32
+smoke deepseek-moe-16b train steps to the CPU's.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -160,8 +178,11 @@ HQ, HKV, DH, PAGE = 32, 8, 128, 16
 LAYERS, LAYER = 36, 17
 SLOTS, MAX_LEN, CHUNK, MAX_NEW = 8, 512, 32, 16
 SHARED, TAIL_LO, TAIL_HI = 64, 8, 64
-# deepseek-moe-16b's routed experts: count, d_model, expert width
+# deepseek-moe-16b's routed experts: count, d_model, expert width; in
+# training (phase 15) a microbatch of 4 x 512 tokens routed top-6 at
+# capacity factor 1.25: C = ceil(6 * 2048 * 1.25 / 64)
 MOE_E, MOE_D, MOE_F = 64, 2048, 1408
+MOE_TRAIN_T, MOE_TRAIN_C = 2048, 240
 # mamba2-2.7b's SSD: heads, head dim, state (zamba2-2.7b: state 64), and
 # zamba2-2.7b's shared attention: heads (q = kv), head dim
 SSD_H, SSD_P, SSD_N, ZAMBA_N = 80, 64, 128, 64
@@ -579,6 +600,7 @@ def check_kernels(dev, kernels: dict):
                  f"{dt} E{e_} C{c_} D{d_} F{f_} "
                  f"counts {'given' if counts else 'routed'}")
 
+    check_gmm_bwd(dev, hold)
     check_ssd(dev, gen, hold)
     check_ssd_bwd(dev, gen, hold)
     check_head_dim_80(dev, gen, hold)
@@ -719,6 +741,7 @@ def check_kernels(dev, kernels: dict):
                 f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
                 f"library {rep['library_ms']:.4f} ms, bound "
                 f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+    time_gmm_bwd(dev, flush, kernels)
     time_ssd(dev, gen, flush, kernels)
     time_ssd_bwd(dev, gen, flush, kernels)
     time_head_dim_80(dev, gen, flush)
@@ -1044,6 +1067,154 @@ def time_ssd_bwd(dev, gen, flush, kernels) -> None:
             f"{rep['bound_ms'] / rep['ms']:.3f} of the bound; the training "
             f"forward with its states {fwd:.4f} ms")
         kernels[name].update(rep)
+
+
+#: seed of the grouped GEMM backward's phase-3 inputs
+GMM_BWD_SEED = 5
+
+
+def gmm_bwd_case(gen, dev, E, C, D, F, counts, dtype):
+    """Inputs of one ``gmm_bwd`` call, (x, w, counts, dy): x and dy
+    standard normal, w scaled by 0.05 as the forward's checks draw it;
+    ``counts`` a list, or None for a routed draw of 2048 tokens (the
+    training microbatch) at capacity C."""
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+    cnt = (torch.tensor(counts, dtype=torch.int32, device=dev)
+           if counts is not None else routed_counts(dev, C, MOE_TRAIN_T))
+    return (r(E, C, D).to(dtype), (r(E, D, F) * 0.05).to(dtype), cnt,
+            r(E, C, F).to(dtype))
+
+
+def check_gmm_bwd(dev, hold):
+    """The grouped GEMM's backward (``ops.gmm_bwd``: ``rt_gmm_bwd`` in
+    ``csrc/moe_gmm.cu``) against ``gmm_bwd_ref`` on the card, on the same
+    inputs and cotangent: deepseek-moe-16b's training shapes (E 64, C 240,
+    counts from a top-6 routing of 2048 tokens; gate and up D 2048 F 1408,
+    down D 1408 F 2048), then smoke shapes with counts at 0, 1, a tile's
+    edges and C, all-empty and all-full experts, C, D and F off every tile
+    and D or F not a multiple of 8 (the element-wise loads), each tile by
+    C (16, 64 and 128 rows).  bf16 (the tensor-core route, rows
+    ``gmm_bwd_dx`` and ``gmm_bwd_dw``) within 2e-2, bf16 output rounding;
+    float32 (the CUDA-core route, row ``gmm_bwd_f32``) within 1e-4.  Rows
+    of dx past counts and the dw of an expert with no token must be exact
+    zeros; two calls at the training shape bitwise equal.  Inputs come
+    from a generator of its own, so that the checks after it draw what
+    they drew before it was added."""
+    from repro_torch.kernels.moe_gmm.ops import gmm_bwd
+    from repro_torch.kernels.moe_gmm.ref import gmm_bwd_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(GMM_BWD_SEED)
+    train = [(MOE_E, MOE_TRAIN_C, MOE_D, MOE_F, None),
+             (MOE_E, MOE_TRAIN_C, MOE_F, MOE_D, None)]
+    smoke = [(8, 256, 128, 256, [0, 5, 128, 256, 129, 200, 1, 64]),
+             (8, 64, 128, 136, [0] * 8), (8, 96, 128, 256, [96] * 8),
+             (4, 40, 100, 44, [40, 0, 33, 1]),
+             (8, 300, 256, 264, [0, 1, 127, 128, 129, 300, 255, 256]),
+             (5, 16, 512, 384, [0, 1, 15, 16, 9]),
+             (3, 72, 136, 60, [72, 17, 64])]
+    for dt, tol, why in [(bf16, 2e-2, "bf16 output rounding"),
+                         (f32, 1e-4, "f32; sums in another order")]:
+        for i, (E, C, D, F, counts) in enumerate(train + smoke):
+            x, w, cnt, dy = gmm_bwd_case(gen, dev, E, C, D, F, counts, dt)
+            got = gmm_bwd(x, w, cnt, dy)
+            want = gmm_bwd_ref(x, w, cnt, dy)
+            torch.cuda.synchronize()
+            pad = torch.arange(C, device=dev)[None] >= cnt[:, None]
+            if got[0][pad].any():
+                raise AssertionError("gmm_bwd: a dx row past counts is not 0")
+            if got[1][cnt == 0].any():
+                raise AssertionError("gmm_bwd: dw of an empty expert is not 0")
+            what = (f"E{E} C{C} D{D} F{F} counts "
+                    f"{'given' if counts else 'routed'}")
+            for part, g, r in zip(("dx", "dw"), got, want):
+                name = "gmm_bwd_f32" if dt == f32 else f"gmm_bwd_{part}"
+                hold(name, g, r, tol, why, f"{part} {str(dt)[6:]} {what}")
+            if i < len(train):
+                again = gmm_bwd(x, w, cnt, dy)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"gmm_bwd {what}: two calls differ")
+                log(f"  gmm_bwd {str(dt)[6:]} {what}: two calls bitwise "
+                    "equal: ok")
+
+
+def gmm_bwd_work(cnt, C: int, D: int, F: int, *, dx: bool, dw: bool,
+                 esize: int = 2):
+    """(bytes, operations) of one ``gmm_bwd`` call over counts ``cnt``:
+    dX reads the busy experts' weights and the live rows of dy and writes
+    all of dx; dW reads the live rows of x and dy and writes all of dw;
+    2 D F operations a live row for each part."""
+    busy, rows = int((cnt > 0).sum()), int(cnt.sum())
+    E = cnt.numel()
+    n_bytes = 4 * E
+    if dx:
+        n_bytes += esize * (busy * D * F + rows * F + E * C * D)
+    if dw:
+        n_bytes += esize * (rows * (D + F) + E * D * F)
+    if dx and dw:
+        n_bytes -= esize * rows * F          # dy read once
+    return n_bytes, 2 * rows * D * F * (int(dx) + int(dw))
+
+
+def time_gmm_bwd(dev, flush, kernels) -> None:
+    """Rows 5d-5f: the backward at deepseek-moe-16b's training shape (E 64,
+    C 240, gate and up D 2048 F 1408, counts from a top-6 routing of 2048
+    tokens), bf16 dX alone (row ``gmm_bwd_dx``) and dW alone (row
+    ``gmm_bwd_dw``), beside their plain versions and one ``torch.bmm``
+    (dy w^T, and x^T dy with dy's padding rows zeroed beforehand); float32
+    with both parts as phase 13b's steps launch it (row ``gmm_bwd_f32``;
+    library: the two ``torch.bmm`` calls).  The down projection's (D and
+    F swapped) are logged beside them.  Inputs from a generator of its
+    own, as ``check_gmm_bwd``'s."""
+    from repro_torch.kernels.moe_gmm.ops import gmm_bwd
+    from repro_torch.kernels.moe_gmm.ref import gmm_bwd_ref
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(GMM_BWD_SEED + 1)
+    for D, F, tag in ((MOE_D, MOE_F, "gate/up"), (MOE_F, MOE_D, "down")):
+        x, w, cnt, dy = gmm_bwd_case(gen, dev, MOE_E, MOE_TRAIN_C, D, F,
+                                     None, bf16)
+        pad = torch.arange(MOE_TRAIN_C, device=dev)[None] >= cnt[:, None]
+        dym = dy.masked_fill(pad[..., None], 0)
+        wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+        shape = (f"E{MOE_E} C{MOE_TRAIN_C} D{D} F{F} bf16, "
+                 f"{int((cnt > 0).sum())} experts busy, {int(cnt.sum())} "
+                 "rows")
+        reps = {}
+        for part, lib in (("dx", lambda: torch.bmm(dy, wt)),
+                          ("dw", lambda: torch.bmm(xt, dym))):
+            kw = dict(dx=part == "dx", dw=part == "dw")
+            reps[part] = dict(
+                shape=f"{shape}, {part} alone",
+                ms=time_ms(lambda: gmm_bwd(x, w, cnt, dy, **kw), flush=flush),
+                plain_ms=time_ms(lambda: gmm_bwd_ref(x, w, cnt, dy, **kw),
+                                 flush=flush),
+                library_ms=time_ms(lib, flush=flush),
+                **bound(*gmm_bwd_work(cnt, MOE_TRAIN_C, D, F, **kw), bf16))
+        for part, rep in reps.items():
+            log(f"  gmm_bwd {part} {tag} {rep['shape']}: kernel "
+                f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
+                f"torch.bmm {rep['library_ms']:.4f} ms, bound "
+                f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}; "
+                f"{rep['bytes'] / 1e9:.3f} GB, {rep['operations'] / 1e9:.1f} "
+                f"GFLOP), {rep['bound_ms'] / rep['ms']:.3f} of the bound")
+            if tag == "gate/up":
+                kernels[f"gmm_bwd_{part}"].update(rep)
+    x, w, cnt, dy = gmm_bwd_case(gen, dev, MOE_E, MOE_TRAIN_C, MOE_D, MOE_F,
+                                 None, torch.float32)
+    pad = torch.arange(MOE_TRAIN_C, device=dev)[None] >= cnt[:, None]
+    dym = dy.masked_fill(pad[..., None], 0)
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    rep = dict(
+        shape=f"E{MOE_E} C{MOE_TRAIN_C} D{MOE_D} F{MOE_F} f32, dx and dw",
+        ms=time_ms(lambda: gmm_bwd(x, w, cnt, dy), flush=flush),
+        plain_ms=time_ms(lambda: gmm_bwd_ref(x, w, cnt, dy), flush=flush),
+        library_ms=time_ms(lambda: (torch.bmm(dy, wt), torch.bmm(xt, dym)),
+                           flush=flush),
+        **bound(*gmm_bwd_work(cnt, MOE_TRAIN_C, MOE_D, MOE_F, dx=True,
+                              dw=True, esize=4), torch.float32))
+    log(f"  gmm_bwd_f32 {rep['shape']}: kernel {rep['ms']:.4f} ms, plain "
+        f"{rep['plain_ms']:.4f} ms, two torch.bmm {rep['library_ms']:.4f} "
+        f"ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+    kernels["gmm_bwd_f32"].update(rep)
 
 
 def check_head_dim_80(dev, gen, hold):
@@ -1422,15 +1593,17 @@ def time_long_decode(dev, gen, flush):
         f" ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
 
 
-def routed_counts(dev, capacity: int):
+def routed_counts(dev, capacity: int, tokens: int = 0):
     """Per-expert token counts of a top-6 routing over the 64 experts of
     deepseek-moe-16b: ``capacity`` tokens at decode (8: dropless), else the
-    tokens behind that capacity (C = 6 * 2 * T / 64: 1024 tokens at the
-    cold prefill's C 192, 512 at the warm extend's C 96).  Drawn from a
-    generator of their own, seeded by the capacity, so that the counts at
-    a shape do not depend on what the checks before them drew."""
+    tokens behind that capacity at inference (C = 6 * 2 * T / 64: 1024
+    tokens at the cold prefill's C 192, 512 at the warm extend's C 96), or
+    ``tokens`` (training: 2048 a microbatch at C 240, capacity factor
+    1.25).  Drawn from a generator of their own, seeded by the capacity,
+    so that the counts at a shape do not depend on what the checks before
+    them drew."""
     gen = torch.Generator(device=dev).manual_seed(capacity)
-    tokens = capacity if capacity <= 64 else capacity * 16 // 3
+    tokens = tokens or (capacity if capacity <= 64 else capacity * 16 // 3)
     scores = torch.rand((tokens, MOE_E), generator=gen, device=dev)
     topi = scores.topk(6, dim=-1).indices.reshape(-1)
     return torch.bincount(topi, minlength=MOE_E).clamp(max=capacity).to(
@@ -1759,12 +1932,18 @@ def full_width(dev, arch: str, tag: str):
     return model, params
 
 
+#: the int counters a wrapper may have beside ``launches``: on the tensor
+#: cores, and the grouped GEMM backward's parts
+SUB_COUNTS = ("launches_tc", "launches_dx", "launches_dw")
+
+
 def reset_counters(counters):
     """Set every launch counter of ``counters`` to 0."""
     for fn in counters:
         fn.launches = 0
-        if hasattr(fn, "launches_tc"):
-            fn.launches_tc = 0
+        for sub in SUB_COUNTS:
+            if hasattr(fn, sub):
+                setattr(fn, sub, 0)
         for by in ("launches_by_capacity", "launches_kv_len"):
             if hasattr(fn, by):
                 getattr(fn, by).clear()
@@ -1772,12 +1951,15 @@ def reset_counters(counters):
 
 def read_counters(counters) -> dict:
     """{name: launches} of ``counters`` (and ``name_tc``: those on the
-    tensor cores)."""
+    tensor cores; ``name_dx``, ``name_dw``: the grouped GEMM backward's
+    parts)."""
     launches = {}
     for fn in counters:
         launches[fn.__name__] = fn.launches
-        if hasattr(fn, "launches_tc"):
-            launches[fn.__name__ + "_tc"] = fn.launches_tc
+        for sub in SUB_COUNTS:
+            if hasattr(fn, sub):
+                launches[fn.__name__ + sub[len("launches"):]] = getattr(fn,
+                                                                         sub)
     return launches
 
 
@@ -2994,34 +3176,45 @@ def train_launches(cfg, steps: int) -> dict:
     and recompute) and its backward once, all on the tensor cores; a
     Mamba layer the SSD scan twice and its backward once, on the tensor
     cores (bf16); zamba2's shared block (every ``hybrid_attn_every`` Mamba
-    layers) counts as an attention layer."""
+    layers) counts as an attention layer; a MoE layer launches the grouped
+    GEMM six times (gate, up and down, forward and recompute) and its
+    backward three times, each with dX and dW, on the tensor cores."""
     micro = steps * cfg.microbatch
     n_ssd = micro * cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     n_attn = (0 if cfg.family == "ssm"
               else micro * cfg.num_layers // cfg.hybrid_attn_every
               if cfg.family == "hybrid" else micro * cfg.num_layers)
+    n_moe = (micro * (cfg.num_layers - cfg.moe.first_dense_layers)
+             if cfg.family == "moe" else 0)
     return {"flash_attention": 2 * n_attn, "flash_attention_tc": 2 * n_attn,
             "flash_attention_bwd": n_attn, "flash_attention_bwd_tc": n_attn,
-            "gmm": 0, "ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
+            "gmm": 6 * n_moe, "gmm_tc": 6 * n_moe, "gmm_bwd": 3 * n_moe,
+            "gmm_bwd_tc": 3 * n_moe, "gmm_bwd_dx": 3 * n_moe,
+            "gmm_bwd_dw": 3 * n_moe, "ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
             "ssd_bwd_tc": n_ssd}
 
 
 def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
-                tag: str = "13", steps: int = TRAIN_STEPS) -> dict:
-    """``arch`` at full width and full depth trained for ``steps`` steps
-    through the control plane: ``Supervisor.apply`` of a train cell,
-    ``init_train`` from a seeded generator on the card, ``train_steps``
+                tag: str = "13", steps: int = TRAIN_STEPS,
+                layers: int = 0) -> dict:
+    """``arch`` at full width and full depth (``layers``: cut to that many
+    layers) trained for ``steps`` steps through the control plane:
+    ``Supervisor.apply`` of a train cell, ``init_train`` from a seeded
+    generator on the card, ``train_steps``
     on the bigram pipeline, global batch 8 at seq 512 in the config's 2
     microbatches, bf16 params with float32 AdamW moments and float32
     gradient accumulators.  Every layer runs its forward kernels twice
     (the remat recompute) and its backward kernel once
     (``train_launches``); the launch counts must be exactly those.
     Prints each step's xent and grad norm, the step wall p50 over steps
-    2 on, tokens/s, MFU at 6 N T against 989 TFLOP/s, the step's reckoned
+    2 on, tokens/s, MFU at 6 N T against 989 TFLOP/s (N the parameters a
+    token meets, ``train_step.active_params``), the step's reckoned
     bound (the SSD forward's float32 products at 67 TFLOP/s, its
     backward's TF32 passes at 495, the rest at 989) and the peak memory,
-    then one profiled step's largest kernels, the port's kernels' shares
-    and the SSD backward's."""
+    which must stay under 76 GB, then one profiled step's largest
+    kernels, the port's kernels' shares, the SSD backward's and, for a
+    moe model, the grouped GEMM's forward, dX and dW and the dispatch
+    ``cumsum``'s."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import (
@@ -3035,12 +3228,14 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
         flash_attention,
         flash_attention_bwd,
     )
-    from repro_torch.kernels.moe_gmm.ops import gmm
+    from repro_torch.kernels.moe_gmm.ops import gmm, gmm_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_span
-    from repro_torch.train.train_step import ssd_step_flops
+    from repro_torch.train.train_step import active_params, ssd_step_flops
     cfg = get_arch(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     sup = Supervisor(single_device_grid(dev))
@@ -3061,7 +3256,8 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
                              ShapeConfig("train", "train", TRAIN_S,
                                          TRAIN_BATCH), device=dev)
     batches = [pipe.get_batch(i) for i in range(steps)]
-    counters = (flash_attention, flash_attention_bwd, gmm, ssd, ssd_bwd)
+    counters = (flash_attention, flash_attention_bwd, gmm, gmm_bwd, ssd,
+                ssd_bwd)
     reset_counters(counters)
     rows, walls = [], []
     for i in range(steps):
@@ -3081,6 +3277,8 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
                              f" -> {rows[-1]['xent']}")
     for key, want in train_launches(cfg, steps).items():
         expect(f"[{tag}] {key} launches", launches[key], want)
+    if peak > 76e9:
+        raise AssertionError(f"[{tag}] peak {peak / 1e9:.2f} GB over 76 GB")
     step_s = float(np.median(walls[1:]))
     tokens = TRAIN_BATCH * TRAIN_S
     busy, shares = profile_step(lambda: cell.train_steps(
@@ -3101,9 +3299,11 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
                + (ssd_flops - bwd_f32) / PEAK_FLOPS[torch.float32]
                + bwd_tf32 / PEAK_FLOPS["tf32"],
                prog.bytes_per_device / HBM_BYTES_PER_S)
-    mfu = 6 * n * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
+    n_act = active_params(cell.model)
+    mfu = 6 * n_act * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
     log(f"[{tag}] step wall p50 (steps 2-{steps}) {step_s * 1e3:.1f} ms; "
-        f"{tokens / step_s:,.0f} tokens/s; MFU {mfu:.4f} at 6 N T against "
+        f"{tokens / step_s:,.0f} tokens/s; MFU {mfu:.4f} at 6 N T (N "
+        f"{n_act / 1e9:.4f} B a token meets) against "
         f"989 TFLOP/s; reckoned step {prog.flops_per_device / 1e12:.1f} "
         f"TFLOP ({ssd_flops / 1e12:.2f} of them the SSD scan's, the "
         f"forward's {(ssd_flops - bwd_f32) / 1e12:.2f} in float32, the "
@@ -3124,6 +3324,20 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
         log(f"[{tag}] the SSD backward's kernels (adjoint, spans, sums) in "
             f"that step: {ssd_bwd_s * 1e3:.1f} ms, {ssd_bwd_s / busy:.3f} "
             f"of busy")
+    if cfg.family == "moe":
+        parts = {"the grouped GEMM's forward": "rt::gmm_tc_kernel",
+                 "its backward's dX": "rt::gmm_dx_tc_kernel",
+                 "its backward's dW": "rt::gmm_dw_tc_kernel",
+                 "the dispatch cumsum (scan kernels)": "scan"}
+        msg = []
+        for what, key in parts.items():
+            hit = [(t, c) for name, t, c in shares
+                   if key in name.lower() and (key != "scan"
+                                               or "rt::" not in name)]
+            t = sum(t for t, _ in hit)
+            msg.append(f"{what} {t / busy:.3f} ({t * 1e3:.1f} ms, "
+                       f"{sum(c for _, c in hit)} kernels)")
+        log(f"[{tag}] shares of busy in that step: " + "; ".join(msg))
     sup.destroy_cell("train")
     del cell, batches, pipe
     gc.collect()
@@ -3170,8 +3384,10 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     uninterrupted run's xent bit for bit.  Then float32 smoke train steps
     on the card must give the CPU's losses within 1e-5 relative (on the
     same weights, drawn on the CPU: a CUDA generator draws other
-    numbers), for qwen3-4b and, through the SSD scan's backward kernel,
-    mamba2-2.7b and zamba2-2.7b."""
+    numbers), for qwen3-4b, through the SSD scan's backward kernel
+    mamba2-2.7b and zamba2-2.7b, and through the grouped GEMM's backward
+    deepseek-moe-16b, all their backward launches on the CUDA-core
+    route."""
     import shutil
 
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -3181,6 +3397,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     from repro_torch.core.resharding import reshard_tree
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.moe_gmm.ops import gmm_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd_bwd
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import init_train_state
@@ -3261,11 +3478,30 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
         log(f"[13b] float32 smoke {arch} train steps: card xent {card_x}, "
             f"CPU {cpu_x}, worst rel {ssm_rel[arch]:.2e} (tol 1e-5); SSD "
             f"backward launches {n_bwd}")
+    f32 = smoke_config(get_arch("deepseek-moe-16b")).replace(dtype="float32")
+    reset_counters((gmm_bwd,))
+    card_x, _ = run(f32, dev, kill=False, cpu_weights=True)
+    gmm_f32 = read_counters((gmm_bwd,))
+    if gmm_f32["gmm_bwd"] == 0 or gmm_f32["gmm_bwd_dw"] == 0:
+        raise AssertionError("[13b] deepseek-moe-16b: no grouped GEMM "
+                             "backward launch")
+    expect("[13b] deepseek-moe-16b float32 grouped GEMM backward launches "
+           "on the tensor cores", gmm_f32["gmm_bwd_tc"], 0)
+    cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True)
+    moe_rel = max(abs(a - b) / abs(b) for a, b in zip(card_x, cpu_x))
+    if moe_rel > 1e-5:
+        raise AssertionError(f"[13b] deepseek-moe-16b float32 card {card_x} "
+                             f"vs CPU {cpu_x}: rel {moe_rel}")
+    log(f"[13b] float32 smoke deepseek-moe-16b train steps: card xent "
+        f"{card_x}, CPU {cpu_x}, worst rel {moe_rel:.2e} (tol 1e-5); "
+        f"grouped GEMM backward launches {gmm_f32}")
     shutil.rmtree(d, ignore_errors=True)
     return {"xent": got, "f32_rel": worst, "ssm_f32_rel": ssm_rel,
+            "moe_f32_rel": moe_rel,
             "launches": {
                 "flash_attention_bwd_f32": launches["flash_attention_bwd"],
-                "ssd_scan_bwd_f32": ssd_f32}}
+                "ssd_scan_bwd_f32": ssd_f32,
+                "gmm_bwd_f32": gmm_f32["gmm_bwd"]}}
 
 
 KERNELS = {
@@ -3358,11 +3594,31 @@ KERNELS = {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
         "path": "13b", "count": "ssd_scan_bwd_f32"},
+    # the backward of the grouped GEMM (the TPU package has none: JAX
+    # trains the MoE block through einsums and XLA's gradients): dX and dW
+    # of the bf16 tensor-core route at deepseek-moe-16b's training shape
+    # (phase 15; launches: each part's), the float32 CUDA-core route on
+    # phase 13b's float32 steps (launches: calls, each with both parts)
+    "gmm_bwd_dx": {
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
+        "path": 15, "count": "gmm_bwd_dx"},
+    "gmm_bwd_dw": {
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
+        "path": 15, "count": "gmm_bwd_dw"},
+    "gmm_bwd_f32": {
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:25",
+        "path": "13b", "count": "gmm_bwd_f32"},
 }
 
-# steps of phase 14b (zamba2-2.7b): fewer than phase 13's and 14's, to keep
-# the run's wall time
+# steps of phases 14b (zamba2-2.7b) and 15 (deepseek-moe-16b): fewer than
+# phase 13's and 14's, to keep the run's wall time
 TRAIN_STEPS_14B = 4
+# phase 15's depth: deepseek-moe-16b's first 6 of 28 layers (1 dense + 5
+# MoE, 3.443 B parameters), as much training state as one card holds
+MOE_TRAIN_LAYERS = 6
 
 
 def main() -> int:
@@ -3419,6 +3675,11 @@ def main() -> int:
     with timed("14b"):
         runs["14b"] = phase_train(dev, name_limit, "zamba2-2.7b", "14b",
                                   TRAIN_STEPS_14B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed(15):
+        runs[15] = phase_train(dev, name_limit, "deepseek-moe-16b", "15",
+                               TRAIN_STEPS_14B, layers=MOE_TRAIN_LAYERS)
     rows = []
     for name, rep in kernels.items():
         launches = runs[rep["path"]]["launches"][rep.get("count", name)]

@@ -16,8 +16,8 @@ prints the final xent beside the chain's entropy, the loss floor.  On the
 card dense models train through the flash kernel and its backward, ssm
 (``--arch mamba2-2.7b``) and hybrid (``--arch zamba2-2.7b``) models
 through the SSD scan and its backward (and zamba2's shared attention
-through flash); the moe family needs a backward of the grouped GEMM the
-port does not have yet (ROADMAP queue 2 item 7) and raises there.
+through flash), and moe models (``--arch deepseek-moe-16b``) through the
+grouped GEMM and its backward (dX and dW) in every MoE layer.
 """
 from __future__ import annotations
 

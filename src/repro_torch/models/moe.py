@@ -9,9 +9,9 @@ ones JAX drops).  The expert SwiGLU runs the grouped GEMM
 (``kernels/moe_gmm``) three times over the (E, C, D) capacity layout,
 where JAX wrote einsums; ``counts[e] = min(tokens routed to e, C)`` stays
 on the device, so routing reads nothing back to the host.  In training the
-block is differentiable on the CPU (the plain grouped GEMM); on the card
-the grouped GEMM kernel has no backward yet and raises (ROADMAP queue 2
-item 7).
+block is differentiable on both devices: the grouped GEMM's gradient is
+the plain ``gmm_bwd_ref`` on the CPU and the hand-written backward kernels
+(dX and dW, ``kernels/moe_gmm/ops.py::gmm_bwd``) on the card.
 """
 from __future__ import annotations
 

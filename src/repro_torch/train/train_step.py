@@ -166,8 +166,10 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
     """What one train step over ``batch`` costs, reckoned from the config
     and the batch shape (the cell's ``register_program`` figures):
 
-    * ``flops``: 6 N T for the N parameters over the T tokens (forward and
-      backward), plus the attention products: causal self-attention 6 B
+    * ``flops``: 6 N T for the N parameters a token meets
+      (:func:`active_params`: a MoE layer's routed experts count top_k of
+      num_experts) over the T tokens (forward and backward), plus the
+      attention products: causal self-attention 6 B
       S^2 Hq Dh a layer (half of 12), bidirectional encoder attention and
       cross-attention 12 B Sq Skv Hq Dh a layer; and the SSD scan's
       (``ssd_step_flops``).
@@ -184,7 +186,7 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
     B, S = batch["tokens"].shape
     N = model.n_params()
     Hq, Dh = cfg.num_heads, cfg.resolved_head_dim
-    flops = 6.0 * N * B * S
+    flops = 6.0 * active_params(model) * B * S
     n_self = (0 if cfg.family == "ssm" else model._n_groups
               if cfg.family == "hybrid" else cfg.num_layers)
     flops += 6.0 * n_self * B * S * S * Hq * Dh + ssd_step_flops(cfg, B, S)
@@ -207,6 +209,22 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
     arg = (P + M + V + (P if compress else 0)
            + sum(t.numel() * t.element_size() for t in leaves) + 4)
     return {"flops": flops, "bytes": float(nbytes), "arg_bytes": int(arg)}
+
+
+def active_params(model: Model) -> float:
+    """The parameters one token meets: all of them, but of a MoE layer's
+    routed experts only top_k of num_experts, N - R + R k / E with R =
+    n_moe_layers 3 d_model d_expert E (the reckoning of JAX's
+    ``benchmarks/roofline.py::model_flops``).  The state traffic still
+    counts every parameter: at a training batch every expert is busy."""
+    cfg = model.cfg
+    n = float(model.n_params())
+    m = cfg.moe
+    if m is None:
+        return n
+    routed = ((cfg.num_layers - m.first_dense_layers) * 3 * cfg.d_model
+              * m.d_expert * m.num_experts)
+    return n - routed + routed * m.top_k / m.num_experts
 
 
 def ssd_step_flops(cfg, B: int, S: int) -> float:

@@ -19,8 +19,9 @@ their outputs to bf16; the plain version stays float32).
 The forward's LSE is held to the plain version's at 1e-5 (float32) and
 1e-3 (bf16, tensor-core products) absolute.  Float32 smoke train steps of
 qwen3-4b, mamba2-2.7b and zamba2-2.7b (the last two through the SSD
-scan's backward kernel) give the CPU's loss, xent and grad norm within
-1e-5 relative; a moe model still raises (ROADMAP queue 2 item 7).
+scan's backward kernel) and deepseek-moe-16b (through the grouped GEMM's
+backward kernels, on CUDA cores) give the CPU's loss, xent and grad norm
+within 1e-5 relative.
 """
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from repro_torch.configs.base import smoke_config  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
@@ -194,20 +196,6 @@ def test_no_grad_forward_writes_no_lse(dev, monkeypatch):
     assert fops.paged_extend_attention.launches_tc == n_tc + 1
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-moe-16b", "item 7")])
-def test_training_without_a_backward_kernel_raises(dev, arch, item):
-    cfg = smoke_config(get_arch(arch))
-    model = Model(cfg)
-    state = TrainState(params=model.init(
-        torch.Generator(device=dev).manual_seed(0), device=dev),
-        opt=None)
-    state = state._replace(opt=init_adam_state(state.params, OptConfig()))
-    tok = torch.randint(0, cfg.vocab, (2, 32), device=dev)
-    step = build_train_step(model, OptConfig())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 2 {item}"):
-        step(state, {"tokens": tok, "labels": tok})
-
-
 def _smoke_run(device, steps=2, arch="qwen3-4b"):
     cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
     model = Model(cfg)
@@ -257,6 +245,23 @@ def test_float32_ssm_train_steps_match_the_cpu(dev, arch):
     card, _ = _smoke_run(dev, arch=arch)
     assert sops.ssd_bwd.launches > b0
     cpu, _ = _smoke_run("cpu", arch=arch)
+    for c, h in zip(card, cpu):
+        for k in ("loss", "xent", "grad_norm"):
+            assert abs(c[k] - h[k]) <= 1e-5 * abs(h[k]), (k, c[k], h[k])
+
+
+def test_float32_moe_train_steps_match_the_cpu(dev):
+    """deepseek-moe-16b (a dense layer, then MoE layers) trains on the card
+    through the grouped GEMM's backward kernels, every launch on the
+    CUDA-core route in float32: loss, xent and grad norm equal to the
+    CPU's plain versions within 1e-5 relative."""
+    b0, tc0 = gops.gmm_bwd.launches, gops.gmm_bwd.launches_tc
+    dx0, dw0 = gops.gmm_bwd.launches_dx, gops.gmm_bwd.launches_dw
+    card, _ = _smoke_run(dev, arch="deepseek-moe-16b")
+    assert gops.gmm_bwd.launches > b0
+    assert gops.gmm_bwd.launches_tc == tc0             # CUDA cores only
+    assert gops.gmm_bwd.launches_dx > dx0 and gops.gmm_bwd.launches_dw > dw0
+    cpu, _ = _smoke_run("cpu", arch="deepseek-moe-16b")
     for c, h in zip(card, cpu):
         for k in ("loss", "xent", "grad_norm"):
             assert abs(c[k] - h[k]) <= 1e-5 * abs(h[k]), (k, c[k], h[k])
