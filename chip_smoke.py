@@ -135,9 +135,12 @@ dW in ``csrc/moe_gmm.cu``) against ``gmm_bwd_ref`` at deepseek-moe-16b's
 training shapes (E 64, C 240, counts from a top-6 routing of 2048 tokens;
 gate and up D 2048 F 1408, down with D and F swapped) and at smoke shapes
 (counts of 0, C and between, dimensions off every tile), bf16 and
-float32, checks the zeros past counts and two calls bitwise equal, and
-times dX and dW at the training shape (rows ``gmm_bwd_dx``,
-``gmm_bwd_dw``; the float32 route ``gmm_bwd_f32``) beside ``torch.bmm``.
+float32, then the bf16 wgmma route's edges (counts at its m64 and slice
+edges, F 1400, operands offset by one element on the element route),
+checks the zeros past counts, the route and two calls bitwise equal, and
+times dX and dW at both training shapes (rows ``gmm_bwd_dx``,
+``gmm_bwd_dw`` at gate/up; the float32 route ``gmm_bwd_f32``) beside
+``torch.bmm``.
 Phase 15 trains deepseek-moe-16b at its published widths with its depth
 cut to 6 of 28 layers (1 dense + 5 MoE; all 28 would need about 262 GB
 of training state) for 4 steps as phase 13 trains qwen3-4b: every MoE
@@ -1093,14 +1096,18 @@ def check_gmm_bwd(dev, hold):
     down D 1408 F 2048), then smoke shapes with counts at 0, 1, a tile's
     edges and C, all-empty and all-full experts, C, D and F off every tile
     and D or F not a multiple of 8 (the element-wise loads), each tile by
-    C (16, 64 and 128 rows).  bf16 (the tensor-core route, rows
-    ``gmm_bwd_dx`` and ``gmm_bwd_dw``) within 2e-2, bf16 output rounding;
-    float32 (the CUDA-core route, row ``gmm_bwd_f32``) within 1e-4.  Rows
-    of dx past counts and the dw of an expert with no token must be exact
-    zeros; two calls at the training shape bitwise equal.  Inputs come
-    from a generator of its own, so that the checks after it draw what
-    they drew before it was added."""
-    from repro_torch.kernels.moe_gmm.ops import gmm_bwd
+    C (16, 64 and 128 rows).  bf16 (rows ``gmm_bwd_dx`` and
+    ``gmm_bwd_dw``) within 2e-2, bf16 output rounding; float32 (the
+    CUDA-core route, row ``gmm_bwd_f32``) within 1e-4.  Rows of dx past
+    counts and the dw of an expert with no token must be exact zeros; two
+    calls at the training shape bitwise equal, and bf16 there on the
+    wgmma route.  Then, from a generator of their own, the wgmma route's
+    edges in bf16: counts at its m64 and 64-slot slice edges at C 240, F
+    1400 (a ragged K for dX and N for dW), and an x, w or dy offset by one
+    element, which must take the element route and still match.  Inputs
+    come from generators of their own, so that the checks after them draw
+    what they drew before these were added."""
+    from repro_torch.kernels.moe_gmm.ops import gmm_bwd, takes_wgmma
     from repro_torch.kernels.moe_gmm.ref import gmm_bwd_ref
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(GMM_BWD_SEED)
@@ -1112,29 +1119,65 @@ def check_gmm_bwd(dev, hold):
              (8, 300, 256, 264, [0, 1, 127, 128, 129, 300, 255, 256]),
              (5, 16, 512, 384, [0, 1, 15, 16, 9]),
              (3, 72, 136, 60, [72, 17, 64])]
+
+    def one(x, w, cnt, dy, tol, why, what, names, wgmma=None):
+        """Hold one call against the plain version (``names``: the rows
+        of dx and dw); ``wgmma``: the route it must take."""
+        n0 = gmm_bwd.launches_wgmma
+        got = gmm_bwd(x, w, cnt, dy)
+        want = gmm_bwd_ref(x, w, cnt, dy)
+        torch.cuda.synchronize()
+        if wgmma is not None and gmm_bwd.launches_wgmma - n0 != wgmma:
+            raise AssertionError(f"gmm_bwd {what}: wgmma route {not wgmma}")
+        pad = torch.arange(x.shape[1], device=dev)[None] >= cnt[:, None]
+        if got[0][pad].any():
+            raise AssertionError("gmm_bwd: a dx row past counts is not 0")
+        if got[1][cnt == 0].any():
+            raise AssertionError("gmm_bwd: dw of an empty expert is not 0")
+        for part, name, g, r in zip(("dx", "dw"), names, got, want):
+            hold(name, g, r, tol, why, f"{part} {str(x.dtype)[6:]} {what}")
+        return got
+
     for dt, tol, why in [(bf16, 2e-2, "bf16 output rounding"),
                          (f32, 1e-4, "f32; sums in another order")]:
+        names = (("gmm_bwd_f32",) * 2 if dt == f32
+                 else ("gmm_bwd_dx", "gmm_bwd_dw"))
         for i, (E, C, D, F, counts) in enumerate(train + smoke):
             x, w, cnt, dy = gmm_bwd_case(gen, dev, E, C, D, F, counts, dt)
-            got = gmm_bwd(x, w, cnt, dy)
-            want = gmm_bwd_ref(x, w, cnt, dy)
-            torch.cuda.synchronize()
-            pad = torch.arange(C, device=dev)[None] >= cnt[:, None]
-            if got[0][pad].any():
-                raise AssertionError("gmm_bwd: a dx row past counts is not 0")
-            if got[1][cnt == 0].any():
-                raise AssertionError("gmm_bwd: dw of an empty expert is not 0")
             what = (f"E{E} C{C} D{D} F{F} counts "
                     f"{'given' if counts else 'routed'}")
-            for part, g, r in zip(("dx", "dw"), got, want):
-                name = "gmm_bwd_f32" if dt == f32 else f"gmm_bwd_{part}"
-                hold(name, g, r, tol, why, f"{part} {str(dt)[6:]} {what}")
+            got = one(x, w, cnt, dy, tol, why, what, names,
+                      (dt == bf16) if i < len(train) else None)
             if i < len(train):
                 again = gmm_bwd(x, w, cnt, dy)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError(f"gmm_bwd {what}: two calls differ")
                 log(f"  gmm_bwd {str(dt)[6:]} {what}: two calls bitwise "
-                    "equal: ok")
+                    f"equal{', on wgmma' if dt == bf16 else ''}: ok")
+    gen = torch.Generator(device=dev).manual_seed(GMM_BWD_SEED + 2)
+    edges = [(10, 240, 256, 320, [63, 64, 65, 127, 128, 129, 191, 192, 239,
+                                  240]),
+             (4, 240, 256, 1400, [240, 100, 0, 177])]
+    for E, C, D, F, counts in edges:
+        x, w, cnt, dy = gmm_bwd_case(gen, dev, E, C, D, F, counts, bf16)
+        one(x, w, cnt, dy, 2e-2, "bf16 output rounding",
+            f"E{E} C{C} D{D} F{F} counts {counts}",
+            ("gmm_bwd_dx", "gmm_bwd_dw"), True)
+    x, w, cnt, dy = gmm_bwd_case(gen, dev, 4, 240, 1408, 2048,
+                                 [192, 240, 0, 131], bf16)
+    for which in ("x", "w", "dy"):
+        args = {"x": x, "w": w, "dy": dy}
+        t = args[which]
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        args[which] = buf[1:].view(t.shape).copy_(t)
+        if takes_wgmma(args["x"], args["w"], args["dy"]):
+            raise AssertionError(f"gmm_bwd: {which} offset by one element "
+                                 "predicted on the wgmma route")
+        one(args["x"], args["w"], cnt, args["dy"], 2e-2,
+            "bf16 output rounding", f"E4 C240 D1408 F2048, {which} offset "
+            "by one element", ("gmm_bwd_dx", "gmm_bwd_dw"), False)
+    log("  gmm_bwd wgmma edges (counts 63-240 at C 240, F 1400) on wgmma, "
+        "offset x, w and dy on the element route: ok")
 
 
 def gmm_bwd_work(cnt, C: int, D: int, F: int, *, dx: bool, dw: bool,
@@ -1159,12 +1202,13 @@ def time_gmm_bwd(dev, flush, kernels) -> None:
     """Rows 5d-5f: the backward at deepseek-moe-16b's training shape (E 64,
     C 240, gate and up D 2048 F 1408, counts from a top-6 routing of 2048
     tokens), bf16 dX alone (row ``gmm_bwd_dx``) and dW alone (row
-    ``gmm_bwd_dw``), beside their plain versions and one ``torch.bmm``
-    (dy w^T, and x^T dy with dy's padding rows zeroed beforehand); float32
-    with both parts as phase 13b's steps launch it (row ``gmm_bwd_f32``;
-    library: the two ``torch.bmm`` calls).  The down projection's (D and
-    F swapped) are logged beside them.  Inputs from a generator of its
-    own, as ``check_gmm_bwd``'s."""
+    ``gmm_bwd_dw``; both on the wgmma route), beside their plain versions
+    and one ``torch.bmm`` (dy w^T, and x^T dy with dy's padding rows
+    zeroed beforehand), with each one's share of its bound and its factor
+    to ``torch.bmm``; float32 with both parts as phase 13b's steps launch
+    it (row ``gmm_bwd_f32``; library: the two ``torch.bmm`` calls).  The
+    down projection's (D and F swapped) are logged beside them the same
+    way.  Inputs from a generator of its own, as ``check_gmm_bwd``'s."""
     from repro_torch.kernels.moe_gmm.ops import gmm_bwd
     from repro_torch.kernels.moe_gmm.ref import gmm_bwd_ref
     bf16 = torch.bfloat16
@@ -1195,7 +1239,8 @@ def time_gmm_bwd(dev, flush, kernels) -> None:
                 f"torch.bmm {rep['library_ms']:.4f} ms, bound "
                 f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}; "
                 f"{rep['bytes'] / 1e9:.3f} GB, {rep['operations'] / 1e9:.1f} "
-                f"GFLOP), {rep['bound_ms'] / rep['ms']:.3f} of the bound")
+                f"GFLOP), {rep['bound_ms'] / rep['ms']:.3f} of the bound, "
+                f"{rep['ms'] / rep['library_ms']:.3f}x torch.bmm")
             if tag == "gate/up":
                 kernels[f"gmm_bwd_{part}"].update(rep)
     x, w, cnt, dy = gmm_bwd_case(gen, dev, MOE_E, MOE_TRAIN_C, MOE_D, MOE_F,
@@ -1934,7 +1979,8 @@ def full_width(dev, arch: str, tag: str):
 
 #: the int counters a wrapper may have beside ``launches``: on the tensor
 #: cores, and the grouped GEMM backward's parts
-SUB_COUNTS = ("launches_tc", "launches_dx", "launches_dw")
+SUB_COUNTS = ("launches_tc", "launches_wgmma", "launches_dx",
+              "launches_dw")
 
 
 def reset_counters(counters):
@@ -1951,8 +1997,8 @@ def reset_counters(counters):
 
 def read_counters(counters) -> dict:
     """{name: launches} of ``counters`` (and ``name_tc``: those on the
-    tensor cores; ``name_dx``, ``name_dw``: the grouped GEMM backward's
-    parts)."""
+    tensor cores; ``name_wgmma``: the grouped GEMM backward's calls on its
+    wgmma route; ``name_dx``, ``name_dw``: its parts)."""
     launches = {}
     for fn in counters:
         launches[fn.__name__] = fn.launches
@@ -3178,7 +3224,7 @@ def train_launches(cfg, steps: int) -> dict:
     cores (bf16); zamba2's shared block (every ``hybrid_attn_every`` Mamba
     layers) counts as an attention layer; a MoE layer launches the grouped
     GEMM six times (gate, up and down, forward and recompute) and its
-    backward three times, each with dX and dW, on the tensor cores."""
+    backward three times, each with dX and dW, on its wgmma route."""
     micro = steps * cfg.microbatch
     n_ssd = micro * cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     n_attn = (0 if cfg.family == "ssm"
@@ -3189,7 +3235,8 @@ def train_launches(cfg, steps: int) -> dict:
     return {"flash_attention": 2 * n_attn, "flash_attention_tc": 2 * n_attn,
             "flash_attention_bwd": n_attn, "flash_attention_bwd_tc": n_attn,
             "gmm": 6 * n_moe, "gmm_tc": 6 * n_moe, "gmm_bwd": 3 * n_moe,
-            "gmm_bwd_tc": 3 * n_moe, "gmm_bwd_dx": 3 * n_moe,
+            "gmm_bwd_tc": 3 * n_moe, "gmm_bwd_wgmma": 3 * n_moe,
+            "gmm_bwd_dx": 3 * n_moe,
             "gmm_bwd_dw": 3 * n_moe, "ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
             "ssd_bwd_tc": n_ssd}
 
@@ -3326,8 +3373,8 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
             f"of busy")
     if cfg.family == "moe":
         parts = {"the grouped GEMM's forward": "rt::gmm_tc_kernel",
-                 "its backward's dX": "rt::gmm_dx_tc_kernel",
-                 "its backward's dW": "rt::gmm_dw_tc_kernel",
+                 "its backward's dX": "rt::gmm_dx_wgmma_kernel",
+                 "its backward's dW": "rt::gmm_dw_wgmma_kernel",
                  "the dispatch cumsum (scan kernels)": "scan"}
         msg = []
         for what, key in parts.items():
@@ -3487,6 +3534,8 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
                              "backward launch")
     expect("[13b] deepseek-moe-16b float32 grouped GEMM backward launches "
            "on the tensor cores", gmm_f32["gmm_bwd_tc"], 0)
+    expect("[13b] deepseek-moe-16b float32 grouped GEMM backward launches "
+           "on wgmma", gmm_f32["gmm_bwd_wgmma"], 0)
     cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True)
     moe_rel = max(abs(a - b) / abs(b) for a, b in zip(card_x, cpu_x))
     if moe_rel > 1e-5:
@@ -3596,8 +3645,8 @@ KERNELS = {
         "path": "13b", "count": "ssd_scan_bwd_f32"},
     # the backward of the grouped GEMM (the TPU package has none: JAX
     # trains the MoE block through einsums and XLA's gradients): dX and dW
-    # of the bf16 tensor-core route at deepseek-moe-16b's training shape
-    # (phase 15; launches: each part's), the float32 CUDA-core route on
+    # of the bf16 wgmma route at deepseek-moe-16b's training shape (phase
+    # 15; launches: each part's), the float32 CUDA-core route on
     # phase 13b's float32 steps (launches: calls, each with both parts)
     "gmm_bwd_dx": {
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

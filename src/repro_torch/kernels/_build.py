@@ -45,7 +45,8 @@ SOURCES = (
     KERNELS / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
 )
 HEADERS = (KERNELS / "csrc" / "tile_attention.cuh",
-           KERNELS / "csrc" / "tensor_core.cuh")
+           KERNELS / "csrc" / "tensor_core.cuh",
+           KERNELS / "csrc" / "hopper.cuh")
 #: each source's once-per-process setup entry (``prepare_kernels``)
 PREPARE = ("rt_prepare_flash", "rt_prepare_flash_bwd", "rt_prepare_decode",
            "rt_prepare_gmm", "rt_prepare_ssd", "rt_prepare_ssd_bwd")

@@ -54,23 +54,50 @@
 // shared memory with 16-byte weight loads issued a slice ahead, and the
 // register budget is held to 4 blocks per SM.
 //
-// The backward (rt_gmm_bwd; the TPU package has none: JAX trains the MoE
-// block through einsums and XLA's gradients).  With the output's cotangent
-// dy (E, C, F): dX (E, C, D) = dy[e, c] @ w[e]^T for c < counts[e], 0 past
-// it, and dW (E, D, F) = x[e, :counts[e]]^T @ dy[e, :counts[e]], zeros for
-// an expert with no token.  dX is the forward's tile with w read as it lies
-// (the B slices stored [n][k] and fed through ldmatrix without .trans, so
-// no transposed copy of the 369 MB weights is made): gmm_dx_tc_kernel,
-// the same tiles by C, the same early return before any weight load.  dW
-// is a grouped product whose reduction runs over each expert's own count:
-// gmm_dw_tc_kernel, 128 x 128 tiles of (D, F) over a grid of (D tile, F
-// tile, expert), A = x^T from row-major x slices through ldmatrix.trans,
-// B = dy as the forward loads w, the same three-stage cp.async ring over
-// 64-slot slices of the count's rows; rows at or past counts[e] are never
-// read.  Each output element is summed by one thread in one fixed order
-// (no atomics, no split of the reduction), so two calls are bitwise
-// equal.  float32: gmm_kernel's other two passes (kDx, kDw), exact float32
-// products on CUDA cores.
+// The backward (rt_gmm_bwd) replaces no TPU kernel: the TPU package has
+// none, JAX trains the MoE block through einsums and XLA's gradients.
+// With the output's cotangent dy (E, C, F): dX (E, C, D) = dy[e, c] @
+// w[e]^T for c < counts[e], exact zeros past it, and dW (E, D, F) = x[e,
+// :counts[e]]^T @ dy[e, :counts[e]], zeros for an expert with no token.
+// What bounds it on the H100: bytes.  At deepseek-moe-16b's training shape
+// (E 64, C 240, D 2048, F 1408, about 192 live rows an expert) dX moves
+// the 369 MB of weights, dy's live rows and all of dx (0.467 GB, 0.139 ms
+// at 3.35 TB/s) for 70.9 GFLOP (0.072 ms at 989 TFLOP/s); dW reads the
+// live rows of x and dy and writes the 369 MB of dW (0.454 GB).  So each
+// weight byte should leave device memory once, dW's writes should run
+// under its loads and products, and the products, half the bytes' time,
+// have to overlap the copies.
+//
+// bf16 with D and F multiples of 8 and 16-byte aligned bases (every
+// training shape): wgmma fed by TMA, warp-specialised (gmm_dx_wgmma_kernel,
+// gmm_dw_wgmma_kernel; the building blocks in hopper.cuh).  One producer
+// thread keeps a ring of 64-deep slices in flight; two consumer
+// warpgroups multiply the slices that have landed.  The tensor maps see x,
+// dy and dx as 3D (E, C, *) and w and dw as (E, D, F), so a box past C
+// or past D or F is zero-filled by the hardware, never another expert's
+// rows.  dX: a persistent grid walks (expert, D tile of 128) tiles that
+// each hold all of the expert's live rows (up to 4 m64 sub-tiles; C
+// above 256 takes more C tiles), so w[e] is read once, as it lies
+// (K-major B, no transposed copy), and the next tile loads while the last
+// one is stored.  Sub-tiles that start at or past counts[e] load nothing
+// and issue no wgmma, and an expert with no token loads no weight; rows
+// of a live sub-tile past counts[e] do load, but reach only their own
+// output rows, which are written as exact zeros.  dW: a block per (D
+// tile of 128, expert) keeps x's slots resident and walks the F tiles,
+// each output tile leaving through a TMA store while the next one's
+// products run; A and B are x's and dy's slots as they lie (MN-major,
+// the transpose bits).  Slots from counts[e] to the last k16 step are
+// zeroed in shared memory before it; later slots are not multiplied.
+// The ring depths and tiles were chosen on the H100 (PERF.md, section 6).
+// Other bf16 shapes take element loads into mma.sync tiles: dX the
+// forward's tile over w read as it lies (gmm_dx_tc_kernel, tiles by C),
+// dW gmm_dw_tc_kernel (128 x 128 tiles of (D, F), A through
+// ldmatrix.trans); there rows at or past counts[e] are never read.  Each
+// output element is summed by one thread (or one warpgroup) in one fixed
+// order, with no atomics and no split of the reduction, so two calls are
+// bitwise equal.  float32: gmm_kernel's other two passes (kDx, kDw), exact
+// float32 products on CUDA cores.
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 #include "tile_attention.cuh"  // dtype codes, prepare_kernels
 
@@ -284,12 +311,14 @@ using TcNarrow = TcTile<1, 4, 1, 4, 4>;  // 16 x 128, 4 warps of 16 x 32 (C <= 3
 
 // One (C tile, F tile, expert) block of out = x @ w[e] (kWT false, w (E, D,
 // F)) or out = x @ w[e]^T (kWT true, w (E, F, D) as it lies: the
-// backward's dX, with the cotangent as x).  D is the reduction.
+// backward's dX on unaligned shapes, with the cotangent as x, element
+// loads only).  D is the reduction.
 template <typename Tile, bool kVec, bool kWT>
 __device__ __forceinline__ void gmm_tc_tile(const bf16* __restrict__ x,
                                             const bf16* __restrict__ w,
                                             const int* __restrict__ counts,
                                             bf16* __restrict__ out, int C, int D, int F) {
+  static_assert(!(kVec && kWT), "aligned dX shapes take gmm_dx_wgmma_kernel");
   constexpr int kBM = Tile::kBM, kBN = Tile::kBN, kLdB = Tile::kLdB, kThr = Tile::kThreads;
   constexpr int kWN = Tile::kWN, kMT = Tile::kMT, kNT = Tile::kNT;
   constexpr int kStageB = Tile::template kStageB<kWT>;
@@ -324,18 +353,10 @@ __device__ __forceinline__ void gmm_tc_tile(const bf16* __restrict__ x,
         const bool ok = r < rows && k0 + kk < D;
         cp_async16(ad + r * kTcLdA + kk, ok ? xe + (int64_t)r * D + k0 + kk : xe, ok);
       }
-      if constexpr (kWT) {
-        for (int c = tid; c < kBN * (kTcBK / 8); c += kThr) {
-          const int n = c / (kTcBK / 8), kk = (c % (kTcBK / 8)) * 8;
-          const bool ok = f0 + n < F && k0 + kk < D;
-          cp_async16(bd + n * kTcLdA + kk, ok ? we + (int64_t)n * D + k0 + kk : we, ok);
-        }
-      } else {
-        for (int c = tid; c < kTcBK * (kBN / 8); c += kThr) {
-          const int r = c / (kBN / 8), n = (c % (kBN / 8)) * 8;
-          const bool ok = k0 + r < D && f0 + n < F;
-          cp_async16(bd + r * kLdB + n, ok ? we + (int64_t)(k0 + r) * F + n : we, ok);
-        }
+      for (int c = tid; c < kTcBK * (kBN / 8); c += kThr) {
+        const int r = c / (kBN / 8), n = (c % (kBN / 8)) * 8;
+        const bool ok = k0 + r < D && f0 + n < F;
+        cp_async16(bd + r * kLdB + n, ok ? we + (int64_t)(k0 + r) * F + n : we, ok);
       }
     } else {  // element loads, stored before the barrier that publishes them
       const bf16 zero = __float2bfloat16(0.f);
@@ -445,13 +466,13 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks) gmm_tc_kerne
   gmm_tc_tile<Tile, kVec, false>(x, w, counts, out, C, D, F);
 }
 
-// dX (E, C, D) = dy (E, C, F) @ w[e]^T: in the tile's names x is dy, its D
-// the model's F and its F the model's D
-template <typename Tile, bool kVec>
+// dX (E, C, D) = dy (E, C, F) @ w[e]^T on shapes TMA cannot describe: in
+// the tile's names x is dy, its D the model's F and its F the model's D
+template <typename Tile>
 __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks) gmm_dx_tc_kernel(
     const bf16* __restrict__ dy, const bf16* __restrict__ w, const int* __restrict__ counts,
     bf16* __restrict__ dx, int C, int F, int D) {
-  gmm_tc_tile<Tile, kVec, true>(dy, w, counts, dx, C, F, D);
+  gmm_tc_tile<Tile, false, true>(dy, w, counts, dx, C, F, D);
 }
 
 template <typename Tile, bool kWT>
@@ -462,7 +483,7 @@ cudaError_t launch_gmm_tc(const void* x, const void* w, const int* counts, void*
   const bool vec = D % 8 == 0 && F % 8 == 0 &&
                    (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  auto kernel = kWT ? (vec ? gmm_dx_tc_kernel<Tile, true> : gmm_dx_tc_kernel<Tile, false>)
+  auto kernel = kWT ? gmm_dx_tc_kernel<Tile>
                     : (vec ? gmm_tc_kernel<Tile, true> : gmm_tc_kernel<Tile, false>);
   kernel<<<grid, Tile::kThreads, Tile::template kSmem<kWT>, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), counts,
@@ -479,14 +500,13 @@ cudaError_t launch_gmm_tc_by_c(const void* x, const void* w, const int* counts, 
   return launch_gmm_tc<TcWide, kWT>(x, w, counts, out, E, C, D, F, stream);
 }
 
-// ---- bf16 dW: x^T dy over each expert's count -----------------------------
+// ---- bf16 dW on unaligned shapes: x^T dy over each expert's count ----------
 constexpr int kDwLdA = TcWide::kBM + 8;  // A slices stored [k][m], x's rows as they lie
 constexpr size_t kDwSmem = sizeof(bf16) * kTcStages * kTcBK * (kDwLdA + TcWide::kLdB);
 
 // One (D tile, F tile, expert) block of dW[e] = x[e, :count]^T @ dy[e,
 // :count]: TcWide's 128 x 128 tile and 8 warps of 64 x 32, the reduction
-// over the count's slots in 64-slot slices.
-template <bool kVec>
+// over the count's slots in 64-slot slices of element loads.
 __global__ void __launch_bounds__(TcWide::kThreads, TcWide::kMinBlocks) gmm_dw_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ dy, const int* __restrict__ counts,
     bf16* __restrict__ dw, int C, int D, int F) {
@@ -500,8 +520,8 @@ __global__ void __launch_bounds__(TcWide::kThreads, TcWide::kMinBlocks) gmm_dw_t
   const int tid = threadIdx.x;
   const int count = min(max(counts[e], 0), C);
   bf16* o = dw + (int64_t)e * D * F;
+  const bf16 zero = __float2bfloat16(0.f);
   if (count == 0) {  // an expert with no token: zeros, and nothing is loaded
-    const bf16 zero = __float2bfloat16(0.f);
     for (int i = tid; i < kBM * kBN; i += kThr) {
       const int r = m0 + i / kBN, f = f0 + i % kBN;
       if (r < D && f < F) o[(int64_t)r * F + f] = zero;
@@ -512,32 +532,19 @@ __global__ void __launch_bounds__(TcWide::kThreads, TcWide::kMinBlocks) gmm_dw_t
   const bf16* ge = dy + (int64_t)e * C * F + f0;
 
   // slots [k0, k0 + 64) of x's columns m0.. and of dy's columns f0..
-  // (slots at or past count, columns past D or F zero) into stage `stage`
+  // (slots at or past count, columns past D or F zero) into stage
+  // `stage`, stored before the barrier that publishes them
   auto load = [&](int kt, int stage) {
     const int k0 = kt * kTcBK;
     bf16* ad = as + stage * kTcBK * kDwLdA;
     bf16* bd = bs + stage * kTcBK * kLdB;
-    if constexpr (kVec) {
-      for (int c = tid; c < kTcBK * (kBM / 8); c += kThr) {
-        const int r = c / (kBM / 8), m = (c % (kBM / 8)) * 8;
-        const bool ok = k0 + r < count && m0 + m < D;
-        cp_async16(ad + r * kDwLdA + m, ok ? xe + (int64_t)(k0 + r) * D + m : xe, ok);
-      }
-      for (int c = tid; c < kTcBK * (kBN / 8); c += kThr) {
-        const int r = c / (kBN / 8), n = (c % (kBN / 8)) * 8;
-        const bool ok = k0 + r < count && f0 + n < F;
-        cp_async16(bd + r * kLdB + n, ok ? ge + (int64_t)(k0 + r) * F + n : ge, ok);
-      }
-    } else {  // element loads, stored before the barrier that publishes them
-      const bf16 zero = __float2bfloat16(0.f);
-      for (int i = tid; i < kTcBK * kBM; i += kThr) {
-        const int r = i / kBM, m = i % kBM;
-        ad[r * kDwLdA + m] = k0 + r < count && m0 + m < D ? xe[(int64_t)(k0 + r) * D + m] : zero;
-      }
-      for (int i = tid; i < kTcBK * kBN; i += kThr) {
-        const int r = i / kBN, n = i % kBN;
-        bd[r * kLdB + n] = k0 + r < count && f0 + n < F ? ge[(int64_t)(k0 + r) * F + n] : zero;
-      }
+    for (int i = tid; i < kTcBK * kBM; i += kThr) {
+      const int r = i / kBM, m = i % kBM;
+      ad[r * kDwLdA + m] = k0 + r < count && m0 + m < D ? xe[(int64_t)(k0 + r) * D + m] : zero;
+    }
+    for (int i = tid; i < kTcBK * kBN; i += kThr) {
+      const int r = i / kBN, n = i % kBN;
+      bd[r * kLdB + n] = k0 + r < count && f0 + n < F ? ge[(int64_t)(k0 + r) * F + n] : zero;
     }
   };
 
@@ -551,16 +558,12 @@ __global__ void __launch_bounds__(TcWide::kThreads, TcWide::kMinBlocks) gmm_dw_t
 
   const int n_k = (count + kTcBK - 1) / kTcBK;
 #pragma unroll
-  for (int st = 0; st < kTcStages - 1; ++st) {
+  for (int st = 0; st < kTcStages - 1; ++st)
     if (st < n_k) load(st, st);
-    cp_async_commit();
-  }
   for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<kTcStages - 2>();  // slice kt landed
-    __syncthreads();                 // ... for every thread; slice kt-1 is consumed
+    __syncthreads();  // slice kt is stored; slice kt-1 is consumed
     const int nxt = kt + kTcStages - 1;
     if (nxt < n_k) load(nxt, nxt % kTcStages);
-    cp_async_commit();
     // A = x^T from [k][m] slices through ldmatrix.trans: lanes 8-15 and
     // 24-31 at m + 8, lanes 16-31 at k + 8; B as the forward reads w
     const bf16* at = as + (kt % kTcStages) * kTcBK * kDwLdA +
@@ -588,7 +591,6 @@ __global__ void __launch_bounds__(TcWide::kThreads, TcWide::kMinBlocks) gmm_dw_t
         for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
     }
   }
-  cp_async_wait<0>();
 
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -601,13 +603,8 @@ __global__ void __launch_bounds__(TcWide::kThreads, TcWide::kMinBlocks) gmm_dw_t
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int f = f0 + wn * kNT * 8 + j * 8 + 2 * t4;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if constexpr (kVec) {  // F % 8 == 0: f < F implies f + 1 < F
-          if (f < F) *reinterpret_cast<uint32_t*>(orow + f) = pack_bf16(v0, v1);
-        } else {
-          if (f < F) orow[f] = __float2bfloat16(v0);
-          if (f + 1 < F) orow[f + 1] = __float2bfloat16(v1);
-        }
+        if (f < F) orow[f] = __float2bfloat16(acc[i][j][2 * h]);
+        if (f + 1 < F) orow[f + 1] = __float2bfloat16(acc[i][j][2 * h + 1]);
       }
     }
   }
@@ -616,14 +613,348 @@ __global__ void __launch_bounds__(TcWide::kThreads, TcWide::kMinBlocks) gmm_dw_t
 cudaError_t launch_gmm_dw_tc(const void* x, const void* dy, const int* counts, void* dw, int E,
                              int C, int D, int F, cudaStream_t stream) {
   const dim3 grid((D + TcWide::kBM - 1) / TcWide::kBM, (F + TcWide::kBN - 1) / TcWide::kBN, E);
-  const bool vec = D % 8 == 0 && F % 8 == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
-                    reinterpret_cast<uintptr_t>(dw)) % 16 == 0;
-  auto kernel = vec ? gmm_dw_tc_kernel<true> : gmm_dw_tc_kernel<false>;
-  kernel<<<grid, TcWide::kThreads, kDwSmem, stream>>>(static_cast<const bf16*>(x),
-                                                      static_cast<const bf16*>(dy), counts,
-                                                      static_cast<bf16*>(dw), C, D, F);
+  gmm_dw_tc_kernel<<<grid, TcWide::kThreads, kDwSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), counts,
+      static_cast<bf16*>(dw), C, D, F);
   return cudaGetLastError();
+}
+
+// ---- bf16 dX and dW on wgmma fed by TMA -----------------------------------
+// Three warpgroups a block: two consumers that issue wgmma and write the
+// output, and a producer whose one thread keeps a ring of TMA loads in
+// flight.  A stage lands on its `full` barrier (the producer's
+// arrive_expect_tx and the loads' bytes); each consumer warp arrives on
+// its `empty` barrier once its products from the stage are done.  Every
+// tile is 64 bf16 wide (128 bytes, swizzled), so one box is 64 x 64 = 8 KB.
+constexpr int kWgThreads = 384;
+constexpr int kBox = 64 * 64 * 2;
+
+// the dynamic shared memory's first 1024-aligned byte (128-byte swizzle)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// this thread's float32 pairs of one m64 x n128 accumulator, as bf16,
+// into two swizzled 64 x 64 boxes at `out` (columns 0-63, 64-127); rows
+// whose `live` is false are written as zeros
+__device__ __forceinline__ void stage_tile(unsigned char* out, const float (&acc)[64],
+                                           bool live0, bool live1) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + g + 8 * h;
+    const bool live = h ? live1 : live0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float v0 = live ? acc[4 * j + 2 * h] : 0.f, v1 = live ? acc[4 * j + 2 * h + 1] : 0.f;
+      *reinterpret_cast<uint32_t*>(out + (j / 8) * kBox + sw128(r, j % 8) + 4 * t4) =
+          pack_bf16(v0, v1);
+    }
+  }
+}
+
+// dX: a persistent grid, one block an SM, walks the (expert, C tile of
+// 256, D tile of 128) tiles, D fastest, so the blocks running together
+// share an expert's dy rows in L2.  A tile holds every live row of its
+// four m64 sub-tiles (C <= 256: all the expert's), so each weight byte
+// leaves device memory once.  K = F in 64-wide slices: A the live
+// sub-tiles of dy (E, C, F) as they lie, B w[e]'s 128 rows of (D, F) as
+// they lie; both K-major.  Consumer warpgroup g owns sub-tiles 2g and 2g
+// + 1 (2 x m64n128 accumulators); a sub-tile that starts at or past
+// counts[e] is neither loaded nor multiplied.  The ring runs on across
+// tiles: the next tile's slices load while the consumers store the last
+// one, a sub-tile at a time, through TMA from staging boxes of their own.
+constexpr int kDxBN = 128, kDxBM = 256, kDxStages = 4;
+constexpr int kDxStage = 4 * kBox + kDxBN * 128;  // 32 KB of dy rows, 16 KB of w
+constexpr size_t kDxSmem =
+    1024 + kDxStages * kDxStage + 4 * kBox + 2 * kDxStages * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kWgThreads, 1) gmm_dx_wgmma_kernel(
+    const __grid_constant__ CUtensorMap dy_map,  // (F, C, E), boxes 64 x 64
+    const __grid_constant__ CUtensorMap w_map,   // (F, D, E), boxes 64 x 128
+    const __grid_constant__ CUtensorMap dx_map,  // (D, C, E), boxes 64 x 64
+    const int* __restrict__ counts, int E, int C, int D, int F) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* staging = smem + kDxStages * kDxStage;  // 2 boxes a consumer
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 4 * kBox);
+  uint64_t* empty = full + kDxStages;
+  const int n_d = (D + kDxBN - 1) / kDxBN, n_c = (C + kDxBM - 1) / kDxBM;
+  const int n_tiles = E * n_c * n_d, n_k = (F + 63) / 64;
+  const int tid = threadIdx.x, wg = warp_uniform(tid >> 7);
+  if (tid == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile t: its expert, first row and first column, the expert's count
+  // (made warp-uniform where a whole warp asks: the consumers) and its
+  // sub-tiles with a live row
+  struct Tile {
+    int e, c0, d0, count, live;
+  };
+  auto tile = [&](int t, bool whole_warp) {
+    Tile u;
+    u.d0 = t % n_d * kDxBN;
+    u.c0 = t / n_d % n_c * kDxBM;
+    u.e = t / (n_d * n_c);
+    const int count = min(max(counts[u.e], 0), C);
+    u.count = whole_warp ? warp_uniform(count) : count;
+    u.live = min(max((u.count - u.c0 + 63) / 64, 0), 4);
+    return u;
+  };
+
+  if (wg == 2) {  // the producer
+    if (tid == 256) {
+      int it = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const Tile u = tile(t, false);
+        for (int kt = 0; u.live && kt < n_k; ++kt, ++it) {
+          const int s = it % kDxStages;
+          mbar_wait(&empty[s], ((it / kDxStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], u.live * kBox + kDxBN * 128);
+          unsigned char* st = smem + s * kDxStage;
+          for (int i = 0; i < u.live; ++i)
+            tma_load_3d(st + i * kBox, &dy_map, &full[s], kt * 64, u.c0 + 64 * i, u.e);
+          tma_load_3d(st + 4 * kBox, &w_map, &full[s], kt * 64, u.d0, u.e);
+        }
+      }
+    }
+    return;
+  }
+
+  unsigned char* out = staging + wg * 2 * kBox;
+  const bool lead = (tid & 127) == 0;
+  // one finished m64 sub-tile of rows r.. (this thread's rows r0 and r0 +
+  // 8) out through the staging boxes, once the last store has read them
+  auto store = [&](const float (&acc)[64], const Tile& u, int r, int r0) {
+    if (lead) tma_store_wait_read<0>();
+    bar_sync(2 + wg, 128);
+    stage_tile(out, acc, r0 < u.count, r0 + 8 < u.count);
+    fence_proxy_async();
+    bar_sync(2 + wg, 128);
+    if (lead) {
+      for (int h = 0; h < 2; ++h)
+        if (r < C && u.d0 + 64 * h < D)
+          tma_store_3d(&dx_map, out + h * kBox, u.d0 + 64 * h, r, u.e);
+      tma_store_commit();
+    }
+  };
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const Tile u = tile(t, true);
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    const bool on0 = 2 * wg < u.live, on1 = 2 * wg + 1 < u.live;
+    for (int kt = 0; u.live && kt < n_k; ++kt, ++it) {
+      const int s = it % kDxStages;
+      mbar_wait(&full[s], (it / kDxStages) & 1);
+      const unsigned char* st = smem + s * kDxStage;
+      wgmma_fence_acc(acc0);
+      wgmma_fence_acc(acc1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // k16 steps: 32 bytes along the swizzled rows
+        const uint64_t db = wgmma_desc(st + 4 * kBox + 32 * kk, 16, 1024);
+        if (on0)
+          wgmma_m64n128k16<0, 0>(acc0, wgmma_desc(st + 2 * wg * kBox + 32 * kk, 16, 1024), db);
+        if (on1)
+          wgmma_m64n128k16<0, 0>(acc1, wgmma_desc(st + (2 * wg + 1) * kBox + 32 * kk, 16, 1024),
+                                 db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // slice kt-1's products are done: release its stage
+      wgmma_fence_acc(acc0);
+      wgmma_fence_acc(acc1);
+      if (kt > 0 && (tid & 31) == 0) mbar_arrive(&empty[(it - 1) % kDxStages]);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc0);
+    wgmma_fence_acc(acc1);
+    if (u.live && (tid & 31) == 0) mbar_arrive(&empty[(it - 1) % kDxStages]);
+
+    // rows at or past counts[e] are written as exact zeros; rows past C
+    // are clipped by the store
+    const int r = u.c0 + 128 * wg, r0 = r + 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2);
+    store(acc0, u, r, r0);
+    store(acc1, u, r + 64, r0 + 64);
+  }
+  if (lead) tma_store_wait<0>();
+}
+
+// dW: one block per (D tile of 128, expert) walks the F tiles of 128, so
+// its output tile leaves through a TMA store while the next tile's
+// products run.  K = the expert's count in 64-slot slices: A x[e]'s
+// slots of (C, D) as they lie, B dy[e]'s of (C, F), both MN-major (the
+// transpose bits).  x's first four slices (C <= 256: all of them) load
+// with the first F tile and stay resident, so x leaves L2 once a block
+// rather than once an F tile; later slices ride each stage beside dy's.
+// Consumer warpgroup g owns the tile's D rows 64 g.. (one m64n128
+// accumulator).  The hardware zero-fills only past C, so slots from
+// counts[e] up to the last k16 step (at most 15) are zeroed in shared
+// memory before that step, in A and B: NaNs there would reach every
+// output element.  Slots past that step are never multiplied.
+constexpr int kDwBM = 128, kDwBN = 128, kDwStages = 4, kDwResident = 4;
+constexpr int kDwStage = 4 * kBox;  // 2 boxes of dy slots, 2 of x slots past the resident ones
+constexpr size_t kDwWgSmem = 1024 + kDwResident * 2 * kBox + kDwStages * kDwStage + 4 * kBox +
+                             2 * kDwStages * sizeof(uint64_t);
+
+// rows [r0, r1) of a 64-row swizzled box, zeroed by the warpgroup's 128 threads
+__device__ __forceinline__ void zero_rows(unsigned char* box, int r0, int r1) {
+  for (int i = threadIdx.x & 127; i < (r1 - r0) * 8; i += 128)
+    *reinterpret_cast<uint4*>(box + (r0 + i / 8) * 128 + (i % 8) * 16) = make_uint4(0, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1) gmm_dw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap x_map,   // (D, C, E), boxes 64 x 64
+    const __grid_constant__ CUtensorMap dy_map,  // (F, C, E), boxes 64 x 64
+    const __grid_constant__ CUtensorMap dw_map,  // (F, D, E), boxes 64 x 64
+    const int* __restrict__ counts, int C, int D, int F) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* resident = align1024(smem_raw);                 // x's first slices
+  unsigned char* ring = resident + kDwResident * 2 * kBox;
+  unsigned char* staging = ring + kDwStages * kDwStage;          // 2 boxes a consumer
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 4 * kBox);
+  uint64_t* empty = full + kDwStages;
+  const int m0 = blockIdx.x * kDwBM, e = blockIdx.y;
+  const int tid = threadIdx.x, wg = warp_uniform(tid >> 7);
+  const int count = warp_uniform(min(max(counts[e], 0), C));
+  const int n_k = (count + 63) / 64, n_f = (F + kDwBN - 1) / kDwBN;
+  if (tid == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // where slice kt of x lies, and whether the stage of F tile j loads it
+  auto x_slice = [&](int kt, unsigned char* st) {
+    return kt < kDwResident ? resident + kt * 2 * kBox : st + 2 * kBox;
+  };
+  auto loads_x = [&](int j, int kt) { return j == 0 || kt >= kDwResident; };
+
+  if (wg == 2) {  // the producer
+    if (tid == 256) {
+      int it = 0;
+      for (int j = 0; j < n_f; ++j)
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int s = it % kDwStages;
+          mbar_wait(&empty[s], ((it / kDwStages) & 1) ^ 1);
+          const bool lx = loads_x(j, kt);
+          mbar_arrive_expect_tx(&full[s], (lx ? 4 : 2) * kBox);
+          unsigned char* st = ring + s * kDwStage;
+          tma_load_3d(st, &dy_map, &full[s], j * kDwBN, 64 * kt, e);
+          tma_load_3d(st + kBox, &dy_map, &full[s], j * kDwBN + 64, 64 * kt, e);
+          if (lx) {
+            unsigned char* xs = x_slice(kt, st);
+            tma_load_3d(xs, &x_map, &full[s], m0, 64 * kt, e);
+            tma_load_3d(xs + kBox, &x_map, &full[s], m0 + 64, 64 * kt, e);
+          }
+        }
+    }
+    return;
+  }
+
+  unsigned char* out = staging + wg * 2 * kBox;
+  const bool lead = (tid & 127) == 0;
+  int it = 0;
+  for (int j = 0; j < n_f; ++j) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt, ++it) {
+      const int s = it % kDwStages;
+      mbar_wait(&full[s], (it / kDwStages) & 1);
+      unsigned char* st = ring + s * kDwStage;
+      unsigned char* xs = x_slice(kt, st);
+      const int rows = min(64, count - 64 * kt);  // live slots of the slice
+      const int n16 = (rows + 15) / 16;
+      if (rows % 16) {  // the last slice: zero its slots past counts[e]
+        if (loads_x(j, kt)) zero_rows(xs + wg * kBox, rows, 16 * n16);
+        zero_rows(st + wg * kBox, rows, 16 * n16);
+        fence_proxy_async();
+        bar_sync(1, 256);
+      }
+      wgmma_fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // k16 steps: 16 rows of 128 bytes
+        if (kk < n16)
+          wgmma_m64n128k16<1, 1>(acc, wgmma_desc(xs + wg * kBox + 2048 * kk, kBox, 1024),
+                                 wgmma_desc(st + 2048 * kk, kBox, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slice's products are done: release its stage
+      wgmma_fence_acc(acc);
+      if (kt > 0 && (tid & 31) == 0) mbar_arrive(&empty[(it - 1) % kDwStages]);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc);
+    if (n_k > 0 && (tid & 31) == 0) mbar_arrive(&empty[(it - 1) % kDwStages]);
+
+    // the previous tile's store has read the staging boxes before they
+    // are written again
+    if (lead) tma_store_wait_read<0>();
+    bar_sync(2 + wg, 128);
+    stage_tile(out, acc, true, true);
+    fence_proxy_async();
+    bar_sync(2 + wg, 128);
+    if (lead) {
+      for (int h = 0; h < 2; ++h)
+        if (m0 + 64 * wg < D && j * kDwBN + 64 * h < F)
+          tma_store_3d(&dw_map, out + h * kBox, j * kDwBN + 64 * h, m0 + 64 * wg, e);
+      tma_store_commit();
+    }
+  }
+  if (lead) tma_store_wait<0>();
+}
+
+// The tensor maps of one call and its two launches; a map that
+// cuTensorMapEncodeTiled refuses is an error, before anything launches.
+cudaError_t launch_gmm_bwd_wgmma(const void* x, const void* w, const int* counts,
+                                 const void* dy, void* dx, void* dw, int E, int C, int D,
+                                 int F, cudaStream_t stream) {
+  CUtensorMap dy_map, w_map, dx_map, x_map, dw_map;
+  cudaError_t err = bind_context();
+  if (err == cudaSuccess) err = tensor_map_3d(&dy_map, dy, F, C, E, 64, 64);
+  if (err == cudaSuccess && dx != nullptr) err = tensor_map_3d(&w_map, w, F, D, E, 64, 128);
+  if (err == cudaSuccess && dx != nullptr) err = tensor_map_3d(&dx_map, dx, D, C, E, 64, 64);
+  if (err == cudaSuccess && dw != nullptr) err = tensor_map_3d(&x_map, x, D, C, E, 64, 64);
+  if (err == cudaSuccess && dw != nullptr) err = tensor_map_3d(&dw_map, dw, F, D, E, 64, 64);
+  if (err != cudaSuccess) return err;
+  if (dx != nullptr) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const int n_tiles = E * ((C + kDxBM - 1) / kDxBM) * ((D + kDxBN - 1) / kDxBN);
+    gmm_dx_wgmma_kernel<<<min(n_tiles, sms), kWgThreads, kDxSmem, stream>>>(
+        dy_map, w_map, dx_map, counts, E, C, D, F);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess && dw != nullptr) {
+    const dim3 grid((D + kDwBM - 1) / kDwBM, E);
+    gmm_dw_wgmma_kernel<<<grid, kWgThreads, kDwWgSmem, stream>>>(x_map, dy_map, dw_map, counts,
+                                                                  C, D, F);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+// TMA describes a nonempty bf16 tensor whose rows are multiples of 16
+// bytes from a 16-byte aligned base
+bool gmm_bwd_takes_wgmma(const void* x, const void* w, const void* dy, const void* dx,
+                         const void* dw, int E, int C, int D, int F) {
+  return E > 0 && C > 0 && D > 0 && F > 0 && D % 8 == 0 && F % 8 == 0 &&
+         (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+          reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx) |
+          reinterpret_cast<uintptr_t>(dw)) % 16 == 0;
 }
 
 }  // namespace rt
@@ -638,12 +969,10 @@ extern "C" int rt_prepare_gmm() {
        (const void*)gmm_kernel<false, kDw>, (const void*)gmm_tc_kernel<TcNarrow, true>,
        (const void*)gmm_tc_kernel<TcNarrow, false>, (const void*)gmm_tc_kernel<TcMedium, true>,
        (const void*)gmm_tc_kernel<TcMedium, false>, (const void*)gmm_tc_kernel<TcWide, true>,
-       (const void*)gmm_tc_kernel<TcWide, false>, (const void*)gmm_dx_tc_kernel<TcNarrow, true>,
-       (const void*)gmm_dx_tc_kernel<TcNarrow, false>,
-       (const void*)gmm_dx_tc_kernel<TcMedium, true>,
-       (const void*)gmm_dx_tc_kernel<TcMedium, false>,
-       (const void*)gmm_dx_tc_kernel<TcWide, true>, (const void*)gmm_dx_tc_kernel<TcWide, false>,
-       (const void*)gmm_dw_tc_kernel<true>, (const void*)gmm_dw_tc_kernel<false>});
+       (const void*)gmm_tc_kernel<TcWide, false>, (const void*)gmm_dx_tc_kernel<TcNarrow>,
+       (const void*)gmm_dx_tc_kernel<TcMedium>, (const void*)gmm_dx_tc_kernel<TcWide>,
+       (const void*)gmm_dw_tc_kernel, (const void*)gmm_dx_wgmma_kernel,
+       (const void*)gmm_dw_wgmma_kernel});
 }
 
 // Plain C entry point bound with ctypes.  x (E, C, D), w (E, D, F) and out
@@ -669,10 +998,12 @@ extern "C" int rt_gmm(const void* x, const void* w, const void* counts, void* ou
 
 // The backward of rt_gmm, from the cotangent dy (E, C, F) of its output:
 // dx (E, C, D), rows at or past counts[e] exact zeros, and dw (E, D, F),
-// each contiguous in x's dtype; a null dx or dw skips that part.  dX takes
-// rt_gmm's kernel and tile for the dtype, over w read as (E, F, D); dW the
-// CUDA-core kDw pass (float32) or gmm_dw_tc_kernel (bf16).  Returns the
-// first launch error.
+// each contiguous in x's dtype; a null dx or dw skips that part.  bf16
+// with D and F multiples of 8 and 16-byte aligned bases takes
+// gmm_dx_wgmma_kernel and gmm_dw_wgmma_kernel; other bf16 shapes
+// rt_gmm's element-load tile by C over w read as (E, F, D) and
+// gmm_dw_tc_kernel; float32 the CUDA-core kDx and kDw passes.  Returns
+// the first tensor-map or launch error.
 extern "C" int rt_gmm_bwd(const void* x, const void* w, const void* counts, const void* dy,
                           void* dx, void* dw, int E, int C, int D, int F, int dtype,
                           void* stream) {
@@ -680,6 +1011,8 @@ extern "C" int rt_gmm_bwd(const void* x, const void* w, const void* counts, cons
   const int* cnt = static_cast<const int*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != F32 && dtype != BF16) return cudaErrorInvalidValue;
+  if (dtype == BF16 && gmm_bwd_takes_wgmma(x, w, dy, dx, dw, E, C, D, F))
+    return launch_gmm_bwd_wgmma(x, w, cnt, dy, dx, dw, E, C, D, F, s);
   cudaError_t err = cudaSuccess;
   if (dx != nullptr && E > 0 && C > 0 && D > 0)
     err = dtype == F32 ? launch_gmm_f32<kDx>(dy, w, cnt, dx, E, C, F, D, s)

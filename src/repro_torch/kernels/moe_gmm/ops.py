@@ -100,15 +100,25 @@ def gmm_bwd(x, w, counts, dy, *, dx: bool = True, dw: bool = True):
     its output: (dx (E, C, D), dw (E, D, F)) in x's dtype, each None when
     not asked for.  ``dx[e, c] = dy[e, c] @ w[e]^T`` for c < counts[e] and
     exact zeros past it; ``dw[e] = x[e, :counts[e]]^T @ dy[e, :counts[e]]``,
-    zeros for an expert with no token; slots at or past counts[e] are never
-    read.  A CPU tensor takes ``ref.gmm_bwd_ref``; a CUDA tensor launches
-    ``rt_gmm_bwd`` (``csrc/moe_gmm.cu``): bf16 on the tensor cores (dX the
-    forward's tile over w as it lies, dW a grouped product over each
-    expert's count), float32 on CUDA cores with exact float32 products;
-    float32 accumulation, one fixed order, so two calls are bitwise equal.
-    ``gmm_bwd.launches`` counts calls that launched, ``launches_tc`` those
-    on the tensor cores, ``launches_dx`` and ``launches_dw`` each part's
-    launches."""
+    zeros for an expert with no token; nothing in the slots at or past
+    counts[e] reaches an output.  A CPU tensor takes ``ref.gmm_bwd_ref``; a
+    CUDA tensor launches ``rt_gmm_bwd`` (``csrc/moe_gmm.cu``).  No TPU
+    kernel is replaced (JAX trains through einsums); the call is bound by
+    bytes (the weights for dX, the written dW).  Routes, by shape alone
+    (:func:`takes_wgmma`): bf16 with D and F multiples of 8 and 16-byte
+    aligned x, w and dy (every training shape) takes ``wgmma`` fed by TMA
+    with a producer warp ahead of two consumer warpgroups: dX a persistent
+    grid over (expert, D tile) tiles that each hold all of the expert's
+    live rows, so each weight byte is read once; dW a block per (D tile,
+    expert) keeping x resident and walking the F tiles, each tile's store
+    under the next one's products, the slots past counts[e] zeroed in
+    shared memory before the last k16 step.  Other bf16 shapes take
+    element loads into ``mma.sync`` tiles, float32 the CUDA cores with
+    exact float32 products.  float32 accumulation in one fixed order, so
+    two calls are bitwise equal.  ``gmm_bwd.launches`` counts calls that
+    launched, ``launches_tc`` those on the tensor cores, ``launches_wgmma``
+    those on the ``wgmma`` route, ``launches_dx`` and ``launches_dw`` each
+    part's launches."""
     if x.device.type == "cpu":
         return gmm_bwd_ref(x, w, counts, dy, dx=dx, dw=dw)
     (E, C, D, F), cnt = _check(x, w, counts, "gmm_bwd")
@@ -129,15 +139,29 @@ def gmm_bwd(x, w, counts, dy, *, dx: bool = True, dw: bool = True):
             _build.DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
     gmm_bwd.launches += 1
     gmm_bwd.launches_tc += x.dtype == torch.bfloat16
+    gmm_bwd.launches_wgmma += takes_wgmma(x, w, dy)
     gmm_bwd.launches_dx += dx
     gmm_bwd.launches_dw += dw
     _build.check(rc, "gmm_bwd")
     return gx, gw
 
 
+def takes_wgmma(x, w, dy) -> bool:
+    """Whether ``rt_gmm_bwd`` takes its ``wgmma`` + TMA kernels for these
+    (contiguous) operands, as its ``gmm_bwd_takes_wgmma`` decides: bf16,
+    no extent 0, D and F multiples of 8 (rows of 16 bytes) and 16-byte
+    aligned bases (the outputs, fresh allocations, always are)."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    return (x.dtype == torch.bfloat16 and min(E, C, D, F) > 0
+            and D % 8 == 0 and F % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w, dy)))
+
+
 gmm_bwd.launches = 0
 gmm_bwd.launches_tc = 0
+gmm_bwd.launches_wgmma = 0
 gmm_bwd.launches_dx = 0
 gmm_bwd.launches_dw = 0
-_build.count_launches(gmm_bwd, "launches", "launches_tc", "launches_dx",
-                      "launches_dw")
+_build.count_launches(gmm_bwd, "launches", "launches_tc", "launches_wgmma",
+                      "launches_dx", "launches_dw")

@@ -19,6 +19,10 @@ against ``gmm_bwd_ref`` by ``tests/test_torch_gmm_grad_cuda.py``.
 
 ``train_step.step_cost`` counts a MoE model's FLOPs at its active
 parameters, ``N - R + R top_k / E`` with R the routed experts' weights.
+
+``ops.takes_wgmma``, the predicate behind ``gmm_bwd.launches_wgmma``,
+names the card's route by shape: bf16, no extent 0, D and F multiples
+of 8 and 16-byte aligned bases (TMA's terms).
 """
 import numpy as np
 import pytest
@@ -207,3 +211,29 @@ def test_active_params_of_the_depth_cut_deepseek():
     model = Model(get_arch("deepseek-moe-16b").replace(num_layers=6))
     assert model.n_params() == 3_442_763_776
     assert round(active_params(model) / 1e6, 1) == 934.0
+
+
+@pytest.mark.parametrize("case,want", [
+    ("deepseek_widths", True), ("float32", False), ("d_not_8", False),
+    ("f_not_8", False), ("no_slots", False), ("x_offset", False),
+    ("w_offset", False), ("dy_offset", False)])
+def test_wgmma_route_is_chosen_by_shape(case, want):
+    """``takes_wgmma`` mirrors ``rt_gmm_bwd``'s ``gmm_bwd_takes_wgmma``:
+    the aligned bf16 training widths take the wgmma route; float32, a D or
+    F not a multiple of 8, an empty capacity, or an x, w or dy whose base
+    sits one element (2 bytes) into its storage take another."""
+    E, C, D, F = 2, 0 if case == "no_slots" else 8, 24, 40
+    D += 4 * (case == "d_not_8")
+    F += 4 * (case == "f_not_8")
+    dt = torch.float32 if case == "float32" else torch.bfloat16
+
+    def make(*shape, off=False):
+        n = int(np.prod(shape))
+        buf = torch.zeros(n + 16, dtype=dt)
+        base = (16 - buf.data_ptr() % 16) % 16 // buf.element_size()
+        return buf[base + off:base + off + n].view(shape)
+
+    x = make(E, C, D, off=case == "x_offset")
+    w = make(E, D, F, off=case == "w_offset")
+    dy = make(E, C, F, off=case == "dy_offset")
+    assert gops.takes_wgmma(x, w, dy) is want

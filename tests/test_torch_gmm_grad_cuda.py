@@ -6,20 +6,25 @@ every test here skips.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_gmm_grad_cuda.py
 
-``ops.gmm_bwd`` (``rt_gmm_bwd`` in ``csrc/moe_gmm.cu``: dX the forward's
-tile over w as it lies, dW a grouped product over each expert's count;
-bf16 on the tensor cores, float32 on CUDA cores) is held against
-``ref.gmm_bwd_ref`` run on the card on the same inputs and cotangent:
-each of the bf16 kernel's tiles by C (16, 64 and 128 rows), counts of 0,
-1, a tile's edges and C, all-empty and all-full experts, C, D and F off
-every tile and D or F not a multiple of 8 (the element-wise loads), and a
-training shape of deepseek-moe-16b's widths.  Tolerances: bf16 rel < 2e-2
-(max abs error over the largest entry; output rounding), float32 rel <
-1e-4 (sums in another order).  Rows of dx past counts and the dw of an
-expert with no token are exact zeros, each part is computed only when
-asked for, two calls are bitwise equal, NaNs in the slots past counts
-reach nothing, and ``ops.gmm`` under autograd launches the forward once
-and the backward once with the parts autograd asks for.
+``ops.gmm_bwd`` (``rt_gmm_bwd`` in ``csrc/moe_gmm.cu``: bf16 with D and
+F multiples of 8 and aligned bases on ``wgmma`` fed by TMA, other bf16
+shapes element loads into ``mma.sync`` tiles, float32 on CUDA cores) is
+held against ``ref.gmm_bwd_ref`` run on the card on the same inputs and
+cotangent: each of the element route's tiles by C (16, 64 and 128 rows),
+counts of 0, 1, a tile's edges and C, all-empty and all-full experts, C,
+D and F off every tile and D or F not a multiple of 8 (the element-wise
+loads), and a training shape of deepseek-moe-16b's widths; for the
+``wgmma`` route, counts at its m64 and 64-slot slice edges at C 240, F
+1400 (a ragged K for dX, a ragged N for dW), and x, w or dy views offset
+by one element, which take the element route.  Tolerances: bf16 rel <
+2e-2 (max abs error over the largest entry; output rounding), float32
+rel < 1e-4 (sums in another order).  Rows of dx past counts and the dw
+of an expert with no token are exact zeros, each part is computed only
+when asked for, two calls are bitwise equal, NaNs in the slots past
+counts reach nothing (also at C 240 at deepseek's widths, where dW's last
+slice is partial), the route is chosen by shape, and ``ops.gmm`` under
+autograd launches the forward once and the backward once with the parts
+autograd asks for.
 """
 import pytest
 
@@ -41,6 +46,10 @@ CASES = {
     "ragged_f_tiles": (8, 300, 256, 264, [0, 1, 127, 128, 129, 300, 255, 256]),
     "d_tile_ragged": (3, 72, 136, 60, [72, 17, 64]),
     "deepseek_down": (4, 240, 1408, 2048, [192, 240, 0, 131]),
+    # the wgmma route: counts at the m64 sub-tile and 64-slot slice edges
+    "wgmma_edges": (10, 240, 256, 320,
+                    [63, 64, 65, 127, 128, 129, 191, 192, 239, 240]),
+    "f_1400": (4, 240, 256, 1400, [240, 100, 0, 177]),
 }
 
 
@@ -70,15 +79,19 @@ def _inputs(dev, case, dtype, seed=0):
 def test_gmm_bwd_kernel_matches_its_plain_version(dev, case, dtype):
     x, w, cnt, dy = _inputs(dev, case, dtype)
     n0 = (gops.gmm_bwd.launches, gops.gmm_bwd.launches_tc,
-          gops.gmm_bwd.launches_dx, gops.gmm_bwd.launches_dw)
+          gops.gmm_bwd.launches_wgmma, gops.gmm_bwd.launches_dx,
+          gops.gmm_bwd.launches_dw)
     dx, dw = gops.gmm_bwd(x, w, cnt, dy)
     want = gmm_bwd_ref(x, w, cnt, dy)
     torch.cuda.synchronize()
+    E, C, D, F, _ = CASES[case]
+    wgmma = dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
     assert (gops.gmm_bwd.launches, gops.gmm_bwd.launches_tc,
-            gops.gmm_bwd.launches_dx, gops.gmm_bwd.launches_dw) == (
-        n0[0] + 1, n0[1] + (dtype == torch.bfloat16), n0[2] + 1, n0[3] + 1)
+            gops.gmm_bwd.launches_wgmma, gops.gmm_bwd.launches_dx,
+            gops.gmm_bwd.launches_dw) == (
+        n0[0] + 1, n0[1] + (dtype == torch.bfloat16), n0[2] + wgmma,
+        n0[3] + 1, n0[4] + 1)
     assert dx.dtype == dw.dtype == dtype
-    C = x.shape[1]
     pad = torch.arange(C, device=dev)[None] >= cnt[:, None]
     assert not dx[pad].any()
     assert not dw[cnt == 0].any()
@@ -106,14 +119,59 @@ def test_each_part_alone_and_bitwise_repeatable(dev, dtype):
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
-def test_slots_past_counts_are_never_read(dev):
-    x, w, cnt, dy = _inputs(dev, "ragged_f_tiles", torch.bfloat16, seed=2)
+@pytest.mark.parametrize("case", ["ragged_f_tiles", "deepseek_partial"])
+def test_slots_past_counts_are_never_read(dev, case):
+    """NaNs in the slots past counts reach no output: the element route
+    never reads them; the wgmma route's dX loads some, whose rows are
+    written as zeros, and its dW zeroes them before the last k16 step
+    (``deepseek_partial``: C 240 at deepseek's widths, last slices of 1,
+    49 and 13 slots)."""
+    cases = {**CASES, "deepseek_partial": (4, 240, 2048, 1408,
+                                           [193, 240, 0, 77])}
+    E, C, D, F, counts = cases[case]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(E, D, F, generator=gen, device=dev) * 0.05).bfloat16()
+    dy = torch.randn(E, C, F, generator=gen, device=dev).bfloat16()
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
     want = gops.gmm_bwd(x, w, cnt, dy)
     pad = torch.arange(x.shape[1], device=dev)[None] >= cnt[:, None]
     got = gops.gmm_bwd(x.masked_fill(pad[..., None], float("nan")), w, cnt,
                        dy.masked_fill(pad[..., None], float("nan")))
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _offset(t, off):
+    """A contiguous copy of ``t`` whose base lies ``off`` elements into
+    its storage."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("which", ["none", "x", "w", "dy"])
+def test_route_by_shape(dev, which):
+    """The training shape's aligned operands take the wgmma route; an x, w
+    or dy offset by one element (2 bytes: no TMA) takes the element route
+    and still matches the plain version."""
+    x, w, cnt, dy = _inputs(dev, "deepseek_down", torch.bfloat16, seed=4)
+    args = {"x": x, "w": w, "dy": dy}
+    if which != "none":
+        args[which] = _offset(args[which], 1)
+    assert gops.takes_wgmma(args["x"], args["w"], args["dy"]) == (
+        which == "none")
+    n0 = (gops.gmm_bwd.launches_tc, gops.gmm_bwd.launches_wgmma)
+    dx, dw = gops.gmm_bwd(args["x"], args["w"], cnt, args["dy"])
+    want = gmm_bwd_ref(x, w, cnt, dy)
+    torch.cuda.synchronize()
+    assert (gops.gmm_bwd.launches_tc, gops.gmm_bwd.launches_wgmma) == (
+        n0[0] + 1, n0[1] + (which == "none"))
+    pad = torch.arange(x.shape[1], device=dev)[None] >= cnt[:, None]
+    assert not dx[pad].any() and not dw[cnt == 0].any()
+    for got, ref in zip((dx, dw), want):
+        assert _rel(got, ref) < TOL[torch.bfloat16], _rel(got, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
