@@ -151,6 +151,27 @@ meets and the shares of the grouped GEMM's forward, dX, dW and the
 dispatch ``cumsum`` in a profiled step.  Phase 13b also holds float32
 smoke deepseek-moe-16b train steps to the CPU's.
 
+Phase 16 serves full-width qwen3-4b from a serve cell over a zone of two
+mesh positions of the card (``Supervisor.apply`` -> ``Cell`` ->
+``make_batcher``; ``DeviceGrid.from_flat([dev, dev], 1, 1, 2)`` states
+two positions, each ``cuda:0``): phase 5's weights (laid out by the
+port's sharding rules: heads, ffn and vocab over ``model``; each
+position's arena holds its 4 of the 8 kv heads) and phase 5's two rounds.
+The first cold prefill's last-position logits must be within 2e-2 of the
+one-position model's; it prints tokens/s, TTFT p50 by wave, the decode
+step p50, the peak memory, the graph counters (one CUDA graph a key over
+both positions), the collective bytes of each step key, and how many
+greedy tokens agree with phase 5's; its launches add to the main path's
+rows.  Phase 4 also serves float32 smoke qwen3-4b and deepseek-moe-16b
+(experts over ``model``) from a two-position cell on the card: the
+tokens must equal a one-position cell's.
+
+Phase 16 also decodes at the model level over a dense cache split on
+its sequence dim between the two positions (``Model.cache_pspecs``),
+with ``sharded_decode`` on (the LSE combine) and off (the cache
+all-gathered, then the dense decode kernel per position): every step's
+logits within 2e-2 of the one-position model's.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -1924,6 +1945,74 @@ def disagg_parity_run(dev, arch, replicas, weight_seed, prompt_seed, waves):
     return toks, graphs
 
 
+# float32 smoke serve cells over two mesh positions of the card: (name,
+# arch, weight seed, prompt seed, waves of tail lengths)
+SHARDED_PARITY = [
+    ("qwen3-4b over 2 positions, paged", "qwen3-4b", 0, 4,
+     ([3, 9, 5], [6, 2])),
+    ("deepseek-moe-16b over 2 positions, experts over model",
+     "deepseek-moe-16b", 1, 4, ([3, 9, 5], [6, 2])),
+]
+
+
+def sharded_parity_run(dev, arch, weight_seed, prompt_seed, waves):
+    """The same float32 smoke weights and requests through a serve cell of
+    one position and a cell over two positions of the card (``Supervisor``
+    -> ``Cell`` -> ``make_batcher``), two waves behind a 20-token shared
+    prefix, then the same again (its prefills replay).  Returns ({cell:
+    {rid: tokens}}, the two-position batcher's graph counters, the
+    collective bytes of its step keys)."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (
+        CellSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+    )
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import params_from_numpy, tree_map
+    from repro_torch.serve.batcher import Request
+
+    cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
+    model = Model(cfg)
+    host = tree_map(lambda t: t.numpy(), model.init(
+        torch.Generator().manual_seed(weight_seed), device="cpu"))
+    rng = np.random.default_rng(prompt_seed)
+    shared = rng.integers(1, cfg.vocab, size=20).astype(np.int32)
+    prompts = [[np.concatenate([shared, rng.integers(
+        1, cfg.vocab, size=n).astype(np.int32)]) for n in lens]
+        for lens in waves]
+    toks, graphs, colls = {}, None, None
+    for name, grid in (
+            ("one", DeviceGrid.from_flat([dev], 1, 1, 2, allow_reuse=True)),
+            ("two", DeviceGrid.from_flat([dev, dev], 1, 1, 2))):
+        sup = Supervisor(grid)
+        sup.apply(ClusterSpec(cells=(CellSpec("c", cfg, "serve", ncols=2),)))
+        cell = sup.cells["c"]
+        if cell.mesh.size != (2 if name == "two" else 1):
+            raise AssertionError(f"{name}: mesh {cell.mesh}")
+        cell.init_serve(params=params_from_numpy(
+            host, dtype=torch.float32, device=dev, specs=model.param_specs()))
+        bat = cell.make_batcher(batch_slots=2, max_len=64, page_size=8,
+                                prefill_chunk=8)
+        rid = 0
+        for _ in range(2):
+            for wave in prompts:
+                for p in wave:
+                    bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+                    rid += 1
+                bat.run_until_drained()
+        toks[name] = {r.rid: r.output for r in bat.done}
+        if name == "two":
+            graphs = expect_graphed(4, bat)
+            colls = {k: dict(v.collective_per_device)
+                     for k, v in cell.accounting.programs.items()}
+        bat.close()
+        sup.destroy_cell("c")
+    return toks, graphs, colls
+
+
 def phase_parity(dev):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import gmm
@@ -1951,6 +2040,17 @@ def phase_parity(dev):
             raise AssertionError(f"{name}: tokens differ: {toks}")
         log(f"[4] {name}: identical on {dev}, on cpu and in a colocated "
             f"batcher on cpu; the card's step graphs {graphs[str(dev)]}")
+    for name, arch, wseed, pseed, waves in SHARDED_PARITY:
+        toks, graphs, colls = sharded_parity_run(dev, arch, wseed, pseed,
+                                                 waves)
+        log(f"[4] {name}: {toks['two']}")
+        if toks["one"] != toks["two"]:
+            raise AssertionError(f"{name}: a two-position cell's tokens "
+                                 f"differ from one position's: {toks}")
+        if not colls or not all(c.get("all-reduce") for c in colls.values()):
+            raise AssertionError(f"{name}: no collective recorded: {colls}")
+        log(f"[4] {name}: identical to a one-position cell on {dev}; "
+            f"collective bytes per step key {colls}")
     if (flash_attention.launches_tc, gmm.launches_tc,
             paged_extend_attention.launches_tc) != tc0:
         raise AssertionError("a float32 run launched a tensor-core kernel")
@@ -3209,6 +3309,203 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
     return e2e
 
 
+#: phase 16's model-level decode over a cache split on its sequence dim:
+#: rows, prompt tokens, then decode steps
+SEQ_ROWS, SEQ_PROMPT, SEQ_STEPS = 4, 192, 4
+
+
+def seq_sharded_decode(dev, model1, params1, ctx, params) -> dict:
+    """The model-level sequence-sharded decode: ``model1``'s config built
+    over ``ctx`` (``params``: laid out by its ``params_pspecs``) with a
+    dense cache laid out by ``Model.cache_pspecs`` (its sequence dim over
+    ``model``), prefilled with SEQ_PROMPT tokens, then SEQ_STEPS decode
+    steps with ``sharded_decode`` on (the LSE combine: each position
+    attends over its own slots) and off (the owning position writes the
+    token, the cache is all-gathered, the dense decode kernel runs per
+    position).  Every step's logits must be within 2e-2 of the
+    one-position model's on the same tokens; the gather path must launch
+    the dense decode kernel once a layer a position a step, the LSE path
+    never, and the prefill flash once a layer a position; the LSE path
+    must move fewer collective bytes a step.  Returns each path's error,
+    launches and collective bytes a step."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.collectives import recording
+
+    cfg = model1.cfg
+    B, S = SEQ_ROWS, SEQ_PROMPT + SEQ_STEPS
+    toks = torch.from_numpy(np.random.default_rng(16).integers(
+        1, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+
+    def run(model, params, cache):
+        steps = []
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": toks[:, :SEQ_PROMPT]},
+                                     cache)
+            for p in range(SEQ_PROMPT, S):
+                with recording() as coll:
+                    logits, cache = model.decode(params, cache, {
+                        "tokens": toks[:, p:p + 1],
+                        "pos": torch.full((B,), p, dtype=torch.int32,
+                                          device=dev)})
+                steps.append((logits[:, :cfg.vocab], dict(coll)))
+        return steps
+
+    ref = run(model1, params1, model1.init_cache(B, S, device=dev))
+    counters = (decode_attention, flash_attention)
+    out = {}
+    for sd, name in ((False, "gathered"), (True, "lse")):
+        model = build_model(cfg.replace(sharded_decode=sd), ctx)
+        cache = model.init_cache(B, S, device=dev,
+                                 pspecs=model.cache_pspecs(B, S))
+        if "model" not in cache["layers"].k.spec.axes_of(2):
+            raise AssertionError(f"[16] the cache's layout "
+                                 f"{cache['layers'].k.spec} does not split "
+                                 "its sequence dim over model")
+        reset_counters(counters)
+        got = run(model, params, cache)
+        out[name] = {"logits_rel": max(rel(a, b) for (a, _), (b, _)
+                                       in zip(got, ref)),
+                     "launches": read_counters(counters),
+                     "collective_bytes": got[-1][1]}
+        log(f"[16] decode over a cache split on its sequence dim, "
+            f"{name}: B {B}, {SEQ_PROMPT} prompt tokens, {SEQ_STEPS} steps; "
+            f"logits rel {out[name]['logits_rel']:.3e} against one "
+            f"position (tol 2e-2); launches {out[name]['launches']}; "
+            f"collective bytes a step per position "
+            f"{out[name]['collective_bytes']}")
+    L, m = cfg.num_layers, ctx.mesh.size
+    for name, want in (("gathered", SEQ_STEPS * L * m), ("lse", 0)):
+        got = out[name]
+        if not got["logits_rel"] < 2e-2:
+            raise AssertionError(f"[16] {name}: logits rel "
+                                 f"{got['logits_rel']} >= 2e-2")
+        expect(f"{name} dense decode", got["launches"]["decode_attention"],
+               want)
+        expect(f"{name} prefill flash", got["launches"]["flash_attention"],
+               L * m)
+    moved = {k: sum(v["collective_bytes"].values()) for k, v in out.items()}
+    if not moved["lse"] < moved["gathered"]:
+        raise AssertionError(f"[16] the LSE combine moves {moved['lse']} "
+                             f"bytes a step, the gather {moved['gathered']}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 16: qwen3-4b served from a cell over two mesh positions
+# --------------------------------------------------------------------------
+def phase_sharded(dev, name_limit: str, ref: dict) -> dict:
+    """Full-width qwen3-4b from a serve cell over a zone of two mesh
+    positions of the card (heads, ffn and vocab over ``model``), phase
+    5's weights and two rounds.  Returns the launches, the end-to-end
+    numbers, the logits' error against the one-position model, the
+    greedy tokens' agreement with phase 5, the graph counters and the
+    collective bytes of each step key."""
+    from repro_torch.core import (
+        CellSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+    )
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.serve.serve_step import bucket_len, prefill_inputs
+    from repro_torch.sharding.collectives import recording
+
+    model1, params1 = full_width(dev, "qwen3-4b", 16)   # phase 5's weights
+    cfg = model1.cfg
+    sup = Supervisor(DeviceGrid.from_flat([dev, dev], 1, 1, 2))
+    sup.apply(ClusterSpec(cells=(CellSpec(cfg.name, cfg, "serve",
+                                          ncols=2),)))
+    cell = sup.cells[cfg.name]
+    if cell.mesh.shape != {"data": 1, "model": 2} or not cell.model.sharded:
+        raise AssertionError(f"[16] the cell's mesh is {cell.mesh}")
+    cell.init_serve(params=params1)
+    # the first cold prefill's logits against the one-position model's
+    wave = main_path_rounds()[0]
+    b0 = bucket_len(len(wave[0]), CHUNK, MAX_LEN)
+    group = [p for p in wave if bucket_len(len(p), CHUNK, MAX_LEN) == b0]
+    key, host = prefill_inputs(group, [None] * len(group), chunk=CHUNK,
+                               max_len=MAX_LEN, model=model1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    with torch.no_grad():
+        l1, _ = model1.prefill_ranged(params1, batch, model1.init_cache(
+            key[1], MAX_LEN, device=dev), in_place=True)
+        with recording() as pre_log:
+            l2, _ = cell.model.prefill_ranged(
+                cell.serve_params, batch, cell.model.init_cache(
+                    key[1], MAX_LEN, device=dev), in_place=True)
+    n, V = len(group), cfg.vocab
+    err = rel(l2[:n, :V], l1[:n, :V])
+    log(f"[16] first cold prefill ({n} prompts, key {key}): last-position "
+        f"logits rel {err:.3e} against the one-position model (tol 2e-2); "
+        f"collectives {dict(pre_log)}")
+    if not err < 2e-2:
+        raise AssertionError(f"[16] logits rel {err} >= 2e-2")
+    del l1, l2, batch
+    seq = seq_sharded_decode(dev, model1, params1, cell.model.ctx,
+                             cell.serve_params)
+    del model1, params1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def batcher():
+        return cell.make_batcher(batch_slots=SLOTS, max_len=MAX_LEN,
+                                 page_size=PAGE, prefill_chunk=CHUNK)
+
+    warm_up(batcher, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    bat = batcher()
+    if not bat.step_graph.capture:
+        raise AssertionError("[16] both positions sit on one card, yet "
+                             "the steps do not capture")
+    counters = (flash_attention, paged_extend_attention,
+                paged_decode_attention)
+    hits = []
+    reqs, launches, wall, step_s, marks = serve(bat, main_path_rounds(),
+                                                counters, hits=hits)
+    L, m = cfg.num_layers, cell.mesh.size
+    expect("paged decode", launches["paged_decode_attention"],
+           m * L * bat.decode_invocations)
+    expect_tc(launches, "flash_attention", "paged_extend_attention")
+    check_drained(bat.pool, SLOTS * SHARED)
+    e2e = report(16, name_limit, bat, reqs, wall, step_s, launches,
+                 cfg.vocab)
+    e2e["logits_rel"] = err
+    e2e["seq_decode"] = seq
+    want = [t for rnd in ref["tokens_by_round"] for r in rnd for t in r]
+    got = [t for r in reqs for t in r.output]
+    same = sum(a == b for a, b in zip(got, want))
+    e2e["token_agreement"] = [same, len(want)]
+    first = sum(a[0] == b[0] for a, b in zip(
+        [r.output for r in reqs], [r for rnd in ref["tokens_by_round"]
+                                   for r in rnd]))
+    log(f"[16] greedy tokens equal to phase 5's: {same} of {len(want)}; "
+        f"first tokens {first} of {len(reqs)} (bf16 row-parallel sums "
+        "round differently from one device's)")
+    e2e["graphs"] = expect_graphed(16, bat)
+    e2e["round2"] = expect_round2_replayed(16, bat, marks[2])
+    log("[16] steps captured as one CUDA graph a key over both positions "
+        "(one card)")
+    e2e["memory"] = memory_report(16, bat)
+    log(f"[16] peak {e2e['memory']['peak_gb']:.2f} GB over both positions "
+        f"of the card ({name_limit})")
+    e2e["collective_bytes"] = {
+        k: dict(v.collective_per_device)
+        for k, v in cell.accounting.programs.items()}
+    for k, v in sorted(e2e["collective_bytes"].items()):
+        log(f"[16] collective bytes per position, step key {k}: {v} "
+            f"({name_limit})")
+    e2e["step_ab"] = time_decode_step(16, bat, ("paged", 8), name_limit)
+    bat.close()
+    sup.destroy_cell(cfg.name)
+    return e2e
+
+
 # --------------------------------------------------------------------------
 # phase 13: qwen3-4b trained at full width; 13b: checkpoint and recovery
 # --------------------------------------------------------------------------
@@ -3729,12 +4026,18 @@ def main() -> int:
     with timed(15):
         runs[15] = phase_train(dev, name_limit, "deepseek-moe-16b", "15",
                                TRAIN_STEPS_14B, layers=MOE_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed(16):
+        runs[16] = phase_sharded(dev, name_limit, runs[5])
     rows = []
     for name, rep in kernels.items():
         launches = runs[rep["path"]]["launches"][rep.get("count", name)]
-        if rep["path"] == 5:        # phases 11 and 12 run the main path's
-            launches += (runs[11]["launches"][name]     # kernels
-                         + runs[12]["launches"][name])
+        if rep["path"] == 5:        # phases 11, 12 and 16 run the main
+            launches += (runs[11]["launches"][name]     # path's kernels
+                         + runs[12]["launches"][name]
+                         + runs[16]["launches"][name])
         if launches == 0:
             raise AssertionError(f"{name}: no launch on phase {rep['path']}")
         rows.append({"name": name, "route": "cuda", "source": rep["source"],

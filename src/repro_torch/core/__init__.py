@@ -1,8 +1,9 @@
 """IFTS core: supervisor + cells (subOSes) + declarative specs + channels.
 
-The names of the JAX package's ``repro.core``, less those that wait:
-``collective_bytes`` (an HLO-text parser) comes with sharding, ROADMAP
-queue 1 item 13.
+The names of the JAX package's ``repro.core``, less one: its
+``collective_bytes`` parses HLO text, which the port has not; the port's
+collectives record their bytes themselves
+(``repro_torch.sharding.collectives.recording``).
 """
 from repro_torch.core.partition import (  # noqa: F401
     DeviceGrid,

@@ -8,10 +8,13 @@ which belong to that cell alone because nothing is shared.
 
 Where the JAX package reads a program's costs out of the compiled XLA
 executable, :meth:`CellAccounting.register_program` takes them as
-arguments.  No serving path registers a program; a train cell registers
-its train step with the FLOPs and state bytes reckoned from its config
-and batch shape (``train.train_step.step_cost``).  The HLO-text parser of
-collective bytes comes with sharding (ROADMAP queue 1 item 13).
+arguments.  A train cell registers its train step with the FLOPs and
+state bytes reckoned from its config and batch shape
+(``train.train_step.step_cost``).  The HLO-text parser of collective
+bytes has no counterpart: the port's collectives record their
+per-position bytes as they run (``sharding/collectives.py``), and a
+batcher over a mesh registers each step key as a program whose
+``collective_per_device`` holds them.
 """
 from __future__ import annotations
 

@@ -23,11 +23,18 @@ Paper §4.3 properties implemented here:
   4. fork-like spawn          -> Supervisor.spawn_child (sub-zone carved
                                  from the parent; lineage() walks it)
 
-A cell runs on one device: its zone's columns may all name one card
-(``DeviceGrid.from_flat(..., allow_reuse=True)``), but a zone over more
-than one distinct device raises :class:`CellError` until sharding lands
-(ROADMAP queue 1 item 13).  A cell's programs are the step graphs of the
-batchers it made and of a disaggregated prefill worker on it
+A cell runs over its zone's mesh (``DeviceGrid.zone_mesh``).  A mesh of
+one position is the one-device cell (a zone whose columns all name one
+card of a cycled grid, ``DeviceGrid.from_flat(..., allow_reuse=True)``).
+Over several positions a serve cell of the dense, vlm or moe family
+binds ``make_ctx(mesh)`` (the JAX cell's rules, FSDP on) and builds its
+model over it: weights laid out by the rules, layers tensor- and
+expert-parallel, batchers over the sharded model.  A train cell over
+several positions raises :class:`CellError` (ROADMAP queue 1 item 13c),
+as do the ssm, hybrid and encdec families over several positions and a
+zone of more than one row (its data axis: item 13b).  A cell's programs
+are the step graphs of the batchers it made and of a disaggregated
+prefill worker on it
 (``serve/step_graph.py``), bound to the zone epoch they were captured
 at: a resize drops them, and each key captures again at its next visit.
 The cell holds them weakly: one its caller drops goes with its memory.
@@ -51,6 +58,7 @@ from repro_torch.core.partition import DeviceGrid, Zone
 from repro_torch.core.resharding import reshard_tree
 from repro_torch.models.model import build_model
 from repro_torch.models.param import tree_leaves
+from repro_torch.sharding.rules import make_ctx
 from repro_torch.serve.step_graph import PATHS
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import (
@@ -103,16 +111,27 @@ class Cell:
     # zone binding / resize
     # ------------------------------------------------------------------
     def _bind_zone(self, zone: Zone, epoch: int):
-        devices = self.grid.distinct_devices(zone)
-        if len(devices) != 1:
-            raise CellError(
-                f"cell {self.name!r}: zone {zone.name!r} spans "
-                f"{len(devices)} distinct devices; a cell over more than "
-                "one device comes with sharding (ROADMAP queue 1 item 13)")
+        mesh = self.grid.zone_mesh(zone)
+        ctx = None
+        if mesh.size > 1:
+            where = (f"cell {self.name!r}: zone {zone.name!r} is a mesh of "
+                     f"{mesh.size} positions ({mesh.shape})")
+            if self.role == "train":
+                raise CellError(f"{where}; a train cell over a mesh is "
+                                "ROADMAP queue 1 item 13c")
+            if self.arch.family not in ("dense", "vlm", "moe"):
+                raise CellError(f"{where}; family {self.arch.family!r} over "
+                                "a mesh is ROADMAP queue 1 item 13b")
+            if mesh.size != mesh.shape["model"]:
+                raise CellError(f"{where}; serving over the data axis is "
+                                "ROADMAP queue 1 item 13b")
+            ctx = make_ctx(mesh)
         self.zone = zone
-        self.devices = devices
-        self.device = devices[0]
-        self.model = build_model(self.arch)
+        self.mesh = mesh
+        self.ctx = ctx
+        self.devices = mesh.distinct_devices()
+        self.device = mesh.positions[0]
+        self.model = build_model(self.arch, ctx)
         self.bound_epoch = epoch      # epoch programs are captured under
         self.zone_epoch = epoch       # epoch of the last zone change
         self._train_step = None       # (step fn, epoch it was built at)
@@ -137,6 +156,13 @@ class Cell:
     @property
     def n_devices(self) -> int:
         return len(self.devices)
+
+    def _relay(self, tree):
+        """``tree`` onto the cell's zone: its mesh by the model's rules,
+        or its one device."""
+        if self.ctx is None:
+            return reshard_tree(tree, self.device)
+        return reshard_tree(tree, self.ctx, self.model.params_pspecs())
 
     def heartbeat(self):
         self.last_heartbeat = time.monotonic()
@@ -194,10 +220,11 @@ class Cell:
     # ------------------------------------------------------------------
     def init_serve(self, params=None,
                    generator: Optional[torch.Generator] = None):
-        """Place serving weights on the cell's device: ``params`` as
-        given (moved there), else ``model.init``'s seeded weights from
-        ``generator`` (default: seed 0 on the device), the weights a
-        directly built batcher gets from the same generator."""
+        """Place serving weights on the cell's zone: ``params`` as given
+        (moved there; over a mesh, laid out by the model's rules), else
+        ``model.init``'s seeded weights from ``generator`` (default: seed
+        0 on the device of the first position), the weights a directly
+        built batcher gets from the same generator."""
         if self.role != "serve":
             raise CellError(f"cell {self.name!r} has role {self.role!r}")
         if params is None:
@@ -205,7 +232,7 @@ class Cell:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             params = self.model.init(generator, device=self.device)
         else:
-            params, _ = reshard_tree(params, self.device)
+            params, _ = self._relay(params)
         self.serve_params = params
         self.status = "running"
         return self.serve_params
@@ -267,18 +294,23 @@ class Cell:
         """Bind the new zone (dropping every graph of the cell's
         batchers, and its train step: the next visit of a key captures,
         and the next ``train_steps`` builds, under ``epoch``) and move the
-        serve weights or the train state onto its device (no copy on the
-        same device).  The batchers keep serving."""
-        old = self.zone
+        serve weights or the train state onto it (no copy on the same
+        device; from one mesh to another each leaf is re-laid and its
+        old shards freed).  The batchers keep serving, rebound to the new
+        model and weights when the mesh changed."""
+        old, old_size = self.zone, self.mesh.size
         state = self.state if self.role == "train" else self.serve_params
         self._bind_zone(zone, epoch)
         stats = {"bytes": 0, "seconds": 0.0}
         if state is not None:
-            new_state, stats = reshard_tree(state, self.device)
+            new_state, stats = self._relay(state)
             if self.role == "train":
                 self.state = new_state
             else:
                 self.serve_params = new_state
+        if old_size > 1 or self.mesh.size > 1:
+            for bat in self.batchers:
+                bat.rebind(self.model, self.serve_params)
         stats.update(old=f"{old.ncols}cols", new=f"{zone.ncols}cols")
         return stats
 

@@ -17,11 +17,20 @@ subOS" analogue).  Column 0 of pod 0 is reserved for the supervisor, like
 the paper's firstly-booted instance.
 
 The port's grid holds ``torch.device``s where the JAX package's holds JAX
-devices, and a zone maps to the devices of its columns where the JAX
-package builds a ``Mesh`` over them.  Several columns may name one device
-(``DeviceGrid.from_flat(..., allow_reuse=True)``): the logical zones of a
-one-card machine.  A cell then runs on that one device; a zone over more
-than one distinct device waits for sharding (ROADMAP queue 1 item 13).
+devices, and ``DeviceGrid.zone_mesh`` builds the port's own ``Mesh``
+over a zone, as JAX's builds a ``jax.sharding.Mesh``: (R, ncols) ->
+(``data``, ``model``), and with pods (``pod``, ``data``, ``model``).  How
+many positions that mesh has is the grid's to say:
+
+* a grid whose entries were stated one by one (``from_flat`` given at
+  least as many devices as entries, repeats allowed: ``["cpu"] * 8``)
+  gets one mesh position per entry;
+* a grid cycled from fewer devices (``from_flat(..., allow_reuse=True)``
+  given fewer devices than entries) holds the logical columns of a
+  machine's cards: a zone whose entries all name one card is one
+  position, the one-device cell it always was (several columns, one
+  card), and a zone over more than one distinct device gets one
+  position per entry.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ from typing import Dict, FrozenSet, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.rules import Mesh
 
 
 class PartitionError(Exception):
@@ -227,12 +238,14 @@ def _canonical(device) -> torch.device:
 
 class DeviceGrid:
     """Physical device array (pods, R, C) of ``torch.device``s -> the
-    devices of zones."""
+    devices and meshes of zones.  ``explicit``: every entry is a mesh
+    position (see the module doc)."""
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, explicit: bool = True):
         if devices.ndim != 3:
             raise PartitionError("expect a (pods, R, C) device array")
         self.devices = devices
+        self.explicit = explicit
 
     @property
     def shape(self) -> Tuple[int, int, int]:
@@ -243,22 +256,33 @@ class DeviceGrid:
                   allow_reuse: bool = False) -> "DeviceGrid":
         need = pods * rows * cols
         devs = [_canonical(d) for d in devices]
-        if len(devs) < need:
+        explicit = len(devs) >= need
+        if not explicit:
             if not allow_reuse:
                 raise PartitionError(f"need {need} devices, have {len(devs)}")
             devs = list(itertools.islice(itertools.cycle(devs), need))
         arr = np.empty(need, dtype=object)
         arr[:] = devs[:need]
-        return cls(arr.reshape(pods, rows, cols))
+        return cls(arr.reshape(pods, rows, cols), explicit)
 
     def zone_devices(self, zone: Zone) -> np.ndarray:
         sub = self.devices[list(zone.pods), :, zone.c0:zone.c1]
         return sub  # (npods, R, ncols)
 
     def distinct_devices(self, zone: Zone) -> List[torch.device]:
-        """The zone's distinct devices, in grid order (the JAX package's
-        ``zone_mesh`` has no counterpart here: a cell runs on one)."""
+        """The zone's distinct devices, in grid order."""
         return list(dict.fromkeys(self.zone_devices(zone).flat))
+
+    def zone_mesh(self, zone: Zone) -> Mesh:
+        """The zone's mesh: (``data``, ``model``) over (R, ncols), or
+        (``pod``, ``data``, ``model``) over several pods; one position
+        for a cycled grid's zone on one device."""
+        sub = self.zone_devices(zone)
+        if not self.explicit and len(set(sub.flat)) == 1:
+            return Mesh(sub.reshape(-1)[:1].reshape(1, 1), ("data", "model"))
+        if sub.shape[0] == 1:
+            return Mesh(sub[0], ("data", "model"))
+        return Mesh(sub, ("pod", "data", "model"))
 
 
 def single_device_grid(device) -> DeviceGrid:

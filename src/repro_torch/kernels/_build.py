@@ -10,7 +10,8 @@ module is imported, and a build or load failure raises.  Binding the
 library sets up every kernel instantiation once for the process (each
 source's ``rt_prepare_*`` entry: its module loaded, its shared-memory
 limit raised to the device's opt-in maximum), so no launch, and no CUDA
-graph capture, meets a first-use setup.
+graph capture, meets a first-use setup; a second card is set up at its
+first launch (mesh positions on distinct cards run eagerly).
 
 Each wrapper counts its launches in attributes of its own (``launches``,
 and on some ``launches_tc`` or ``launches_by_capacity``, a dict by
@@ -61,6 +62,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
 _CTYPE = {"P": ctypes.c_void_p, "L": ctypes.c_int64, "I": ctypes.c_int}
 
 _lib: Optional[ctypes.CDLL] = None   # the process's loaded library
+_prepared: set = set()               # device indices the library set up
 _bound: Dict[str, object] = {}
 build_seconds: Optional[float] = None  # wall time of this process's build
 
@@ -130,12 +132,19 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name in PREPARE:
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            check(fn(), name)
+        _prepare(lib)
         _lib = lib
     return _lib
+
+
+def _prepare(lib: ctypes.CDLL):
+    """Run every source's setup entry on the current device (its modules
+    and shared-memory limits are the device's own)."""
+    for name in PREPARE:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        check(fn(), name)
+    _prepared.add(torch.cuda.current_device())
 
 
 def kernel(name: str, signature: str):
@@ -162,6 +171,19 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device``, which must be the current device
+    (a launch goes to the current device's context); the library is set
+    up on it at its first launch there.  While one card has had launches,
+    nothing is checked (the one-card path pays nothing)."""
+    if len(_prepared) > 1 or device.index not in _prepared:
+        index = torch.cuda.current_device() if device.index is None \
+            else device.index
+        if index != torch.cuda.current_device():
+            raise RuntimeError(f"a kernel for cuda:{index} launched while "
+                               f"cuda:{torch.cuda.current_device()} is "
+                               "current")
+        if index not in _prepared:
+            _prepare(library())
     return torch.cuda.current_stream(device).cuda_stream
 
 

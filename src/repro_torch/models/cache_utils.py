@@ -94,9 +94,12 @@ def strip_kv_nodes(cache: Any) -> Any:
 
 def init_resident(model, batch: int, max_len: int, device) -> Any:
     """The resident part of a ``batch``-row cache at its init values,
-    without allocating the KV nodes."""
-    return init_params(strip_kv_nodes(model.cache_specs(batch, max_len)),
-                       None, model.cfg.dtype, device)
+    without allocating the KV nodes (a sharded model's, per position)."""
+    specs = strip_kv_nodes(model.cache_specs(batch, max_len))
+    if getattr(model, "sharded", False):
+        return model.position_tree(
+            lambda m, d, b: init_resident(m, b, max_len, d), specs, batch)
+    return init_params(specs, None, model.cfg.dtype, device)
 
 
 def install_cross_memory(cache: Any, mem, slots: Sequence[int]) -> Any:
@@ -199,7 +202,13 @@ def _from_canonical(x: torch.Tensor, axis: int) -> torch.Tensor:
 def page_arena(model, num_pages: int, page_size: int, device) -> list:
     """Physical page arena: one contiguous canonical ``(num_pages,
     page_size, *rest)`` KVSlice per KV node, k/v zeroed and slot_pos -1
-    (every page empty)."""
+    (every page empty).  A sharded model's arena is one per position, its
+    kv heads split as each position's attention reads them."""
+    if getattr(model, "sharded", False):
+        return model.position_tree(
+            lambda m, d, _: page_arena(m, num_pages, page_size, d),
+            page_arena(type(model)(model.cfg), num_pages, page_size,
+                       torch.device("meta")))
     nodes = init_params(
         kv_cache_nodes(model.cache_specs(num_pages, page_size)), None,
         model.cfg.dtype, device)

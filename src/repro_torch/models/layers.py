@@ -9,7 +9,18 @@ paged and dense decode); on a CPU tensor it runs the plain versions:
 with the written-out backward), and ``chunked_attention``,
 ``decode_attention_ref`` and ``extend_attention_ref`` below, the same math
 the JAX package runs on its CPU path.  ``softmax_xent`` is the training
-loss.  Sharding constraints of the JAX layers are left out.
+loss.
+
+Given a sharded ``ctx`` (a mesh of more than one position), attention and
+the MLP run tensor-parallel over :class:`~repro_torch.sharding.sharded.
+Sharded` weights: q/k/v column-parallel by heads, ``wo`` and ``w_down``
+row-parallel, each followed by a ``psum`` over ``model``; the body is the
+one-device code run per position (the kernels through ``per_position``).
+When the head or kv-head count does not divide the model axis, attention
+runs replicated on every position where JAX uses context parallelism (the
+same math).  A dense cache sharded on its sequence dim decodes through
+``sharded_decode`` (``cfg.sharded_decode``, under JAX's condition) or by
+all-gathering the cache, what GSPMD does.
 """
 from __future__ import annotations
 
@@ -21,16 +32,20 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import ref as decode_ref
-from repro_torch.kernels.decode_attention.ops import (
-    decode_attention,
-    paged_decode_attention,
-)
-from repro_torch.kernels.flash_attention.ops import (
-    flash_attention,
-    paged_extend_attention,
-)
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import gather_pages_ref
 from repro_torch.models.param import PSpec
+from repro_torch.sharding.collectives import all_gather, psum, relayout
+from repro_torch.sharding.rules import P
+from repro_torch.sharding.sharded import empty_like_global, per_position
+from repro_torch.sharding.sharded import split as split_input
+
+# the kernels' wrappers, run once per position on Sharded arguments
+decode_attention = per_position(decode_ops.decode_attention)
+paged_decode_attention = per_position(decode_ops.paged_decode_attention)
+flash_attention = per_position(flash_ops.flash_attention)
+paged_extend_attention = per_position(flash_ops.paged_extend_attention)
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -419,8 +434,8 @@ def _prefill_into(cache: KVSlice, k, v):
 
 
 def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
-                    pos=None, causal: bool = True,
-                    kv_len=None) -> Tuple[torch.Tensor, object]:
+                    pos=None, causal: bool = True, kv_len=None,
+                    ctx=None) -> Tuple[torch.Tensor, object]:
     """Full attention sublayer.  Returns (out (B,S,D), updated cache).
 
     ``train`` (training, and an encoder's self-attention) attends
@@ -430,7 +445,10 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
     into a dense KVSlice (which fixes the cache length; nothing in it is
     read) in place; ``extend`` and ``decode`` take a
     :class:`PagedKVCache` or a dense KVSlice and update the cache in
-    place."""
+    place.  A sharded ``ctx`` runs :func:`attention_sharded`."""
+    if ctx is not None and ctx.sharded:
+        return attention_sharded(p, x, cfg, ctx, mode=mode, cache=cache,
+                                 pos=pos, causal=causal, kv_len=kv_len)
     B, S, _ = x.shape
     window = cfg.sliding_window
     on_card = x.is_cuda
@@ -529,8 +547,153 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
     return y, new_cache
 
 
+# --------------------------------------------------------------------------
+# tensor-parallel attention over a mesh
+# --------------------------------------------------------------------------
+def attn_tp(cfg: ArchConfig, ctx) -> bool:
+    """Are heads and kv heads split over the model axis?  Else attention
+    runs replicated on every position."""
+    m = ctx.model_size()
+    return (m > 1 and cfg.num_heads % m == 0
+            and cfg.num_kv_heads % m == 0)
+
+
+def local_attn_cfg(cfg: ArchConfig, ctx) -> ArchConfig:
+    """The config one position's attention sees: Hq / m and Hkv / m heads
+    under TP, else the full config."""
+    if not attn_tp(cfg, ctx):
+        return cfg
+    m = ctx.model_size()
+    return cfg.replace(num_heads=cfg.num_heads // m,
+                       num_kv_heads=cfg.num_kv_heads // m)
+
+
+def _attn_want(name: str, ndim: int, tp: bool, model_axis) -> P:
+    """The compute layout of attention weight ``name``: heads over the
+    model axis under TP, every other dim whole."""
+    m = model_axis if tp else None
+    if name in ("wq", "wk", "wv"):
+        return P(None, m, None)
+    if name in ("wo", "bq", "bk", "bv"):
+        return P(*((m,) + (None,) * (ndim - 1)))
+    return P(*((None,) * ndim))
+
+
+def batch_split(ctx, t):
+    """A per-row input (B, ...) split over the batch axes as the rules
+    split the batch."""
+    return split_input(t, ctx.pspec(("batch",) + (None,) * (t.dim() - 1),
+                                    t.shape), ctx.mesh)
+
+
+def _seq_split(cache) -> bool:
+    return (isinstance(cache, KVSlice) and cache.k.spec is not None
+            and cache.k.spec.axes_of(1) != ())
+
+
+def attention_sharded(p, x, cfg: ArchConfig, ctx, *, mode: str, cache=None,
+                      pos=None, causal: bool = True, kv_len=None):
+    """:func:`attention_block` over a mesh.  ``x`` (B_l, S, D) is
+    replicated over ``model`` (batch-split over the data axes); ``pos``
+    the global (B,) positions.  Paged caches and dense caches laid out by
+    heads run the one-device code per position with the local heads; a
+    dense cache split on its sequence dim takes the sequence paths."""
+    tp = attn_tp(cfg, ctx)
+    pl = {k: relayout(v, _attn_want(k, v.dim(), tp, ctx.model_axis))
+          for k, v in p.items()}
+    lcfg = local_attn_cfg(cfg, ctx)
+    if pos is not None and cache is not None and not isinstance(
+            cache, PagedKVCache):
+        pos = batch_split(ctx, pos)
+    if _seq_split(cache):
+        out = _attend_seq_split(pl, x, cfg, lcfg, ctx, tp, mode=mode,
+                                cache=cache, pos=pos)
+        y = torch.einsum("bshk,hkd->bsd", out, pl["wo"])
+    else:
+        y, cache = attention_block(pl, x, lcfg, mode=mode, cache=cache,
+                                   pos=pos, causal=causal, kv_len=kv_len)
+    if tp:
+        y = psum(y, ctx.model_axis)
+    return y, cache
+
+
+def _all_heads(t, ctx, tp: bool):
+    """(B, S, H_local, Dh) -> every head on every position."""
+    return all_gather(t, ctx.model_axis, dim=2) if tp else t
+
+
+def _local_heads(t, ctx, tp: bool):
+    """(B, S, H, Dh) replicated -> this position's heads."""
+    if not tp:
+        return t
+    return relayout(t, P(None, None, ctx.model_axis, None),
+                    have=P(None, None, None, None))
+
+
+def _attend_seq_split(pl, x, cfg, lcfg, ctx, tp, *, mode, cache, pos):
+    """Attention over a dense cache split on its sequence dim: prefill
+    (every slot written, each position its own), or decode through the
+    LSE combine of ``sharded_decode`` or the all-gathered cache.  Returns
+    the attention output with this position's heads."""
+    from repro_torch.models.sharded_decode import (
+        seq_axes,
+        sharded_decode_attention,
+    )
+    B, S, _ = x.shape
+    window = cfg.sliding_window
+    full = P(*((cache.k.spec[0], None) + (None,) * (cache.k.dim() - 2)))
+    if mode == "prefill":
+        positions = torch.arange(S, device=x.device)[None, :]
+        q, k, v = qkv_project(pl, x, lcfg, positions)
+        if x.is_cuda:
+            out = flash_attention(q, k, v, causal=True, window=window)
+        else:
+            out = chunked_attention(q, k, v, causal=True, window=window,
+                                    q_chunk=cfg.attn_q_chunk,
+                                    kv_chunk=cfg.attn_kv_chunk)
+        whole = KVSlice(*(empty_like_global(a, P(full[0], None))
+                          for a in cache))
+        _prefill_into(whole, _all_heads(k, ctx, tp), _all_heads(v, ctx, tp))
+        for dst, src in zip(cache, whole):
+            dst.copy_(relayout(src, dst.spec, have=src.spec))
+        return out
+    if mode != "decode":
+        raise ValueError(f"mode {mode!r} over a cache split on its sequence "
+                         "dim (extend runs on caches laid out by heads)")
+    q, k, v = qkv_project(pl, x, lcfg, pos[:, None])
+    use_sharded = (cfg.sharded_decode and cfg.decode_kv_shard_seq
+                   and cache.k.global_shape[0] % max(ctx.dp_size(), 1) == 0
+                   and seq_axes(ctx, cache) != ())
+    if use_sharded:
+        out, _ = sharded_decode_attention(
+            ctx, _all_heads(q, ctx, tp), cache, _all_heads(k, ctx, tp),
+            _all_heads(v, ctx, tp), pos, window=window)
+        return _local_heads(out, ctx, tp)
+    return _decode_seq_gathered(q, cache, _all_heads(k, ctx, tp),
+                                _all_heads(v, ctx, tp), pos, ctx, tp,
+                                window, full)
+
+
+def _decode_seq_gathered(q, cache, k_all, v_all, pos, ctx, tp, window, full):
+    """GSPMD's decode over a sequence-split cache: the owning shard writes
+    the new token, then every position all-gathers the layer's cache and
+    attends with its own heads."""
+    from repro_torch.models.sharded_decode import owner_write
+    owner_write(ctx, cache, k_all, v_all, pos, window=window)
+    rolling = window is not None and cache.k.global_shape[1] <= window
+    k_f = _local_heads(relayout(cache.k, full), ctx, tp)
+    v_f = _local_heads(relayout(cache.v, full), ctx, tp)
+    sp_f = relayout(cache.slot_pos, P(full[0], None))
+    return decode_attention(q, k_f, v_f, pos + 1,
+                            slot_pos=sp_f if rolling else None,
+                            window=window)
+
+
 def kv_slice_specs(cfg: ArchConfig, batch: int, max_len: int) -> KVSlice:
-    """PSpec tree for one layer's dense KV cache."""
+    """PSpec tree for one layer's dense KV cache: its sequence dim carries
+    the ``kv_seq`` logical axis (sharded over data and model by the
+    rules: distributed decode), or ``kv_heads`` its head dim when
+    ``cfg.decode_kv_shard_seq`` is off."""
     S_c = (max_len if cfg.sliding_window is None
            else min(max_len, cfg.sliding_window))
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -576,7 +739,17 @@ def _act(name: str):
     raise ValueError(name)
 
 
-def mlp_block(p, x, cfg: ArchConfig):
+def mlp_block(p, x, cfg: ArchConfig, ctx=None):
+    """The (gated) MLP; over a mesh (sharded ``ctx``) its ffn dim is split
+    over ``model`` when it divides: w_gate / w_up column-parallel, w_down
+    row-parallel, then a ``psum``."""
+    if ctx is not None and ctx.sharded:
+        f = p["w_up"].global_shape[1]
+        m = ctx.model_axis if f % ctx.model_size() == 0 else None
+        pl = {k: relayout(v, P(m, None) if k == "w_down" else P(None, m))
+              for k, v in p.items()}
+        y = mlp_block(pl, x, cfg)
+        return psum(y, ctx.model_axis) if m else y
     act = _act(cfg.act)
     if cfg.gated_mlp:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])

@@ -20,6 +20,21 @@ state checkpoints into a given tree (``ckpt_out``).  The encdec decoder's
 cross memory is written in place too, by ``encode_cross_into`` alone:
 inside a prefill, a suffix extend given the rows' sources, and the
 token-at-a-time admission (into the slot's rows).
+
+Built with a sharded ``ctx`` (a mesh of more than one position,
+``build_model(cfg, ctx)``), the dense, vlm and moe families run over the
+mesh: parameters and caches are trees of
+:class:`~repro_torch.sharding.sharded.Sharded` leaves (``shard_tree``
+lays out a full tree by :meth:`Model.params_pspecs`), each layer runs
+tensor- and expert-parallel (``layers.attention_sharded``,
+``moe.moe_block_sharded``), the embedding and the logits are
+vocab-parallel, and the logits come back gathered, one tensor.  The batch
+splits over the data axes as the rules split it.  A serving cache
+(:meth:`init_cache` without ``pspecs``: the batcher's scratch caches and
+the pool's arena) is laid out by heads, as each position's attention
+reads it; a cache laid out by :meth:`cache_pspecs` (its sequence dim over
+``model``) decodes through the sequence-sharded paths.  Without a ctx, or
+over one position, the model is the one-device model it always was.
 """
 from __future__ import annotations
 
@@ -35,12 +50,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import zamba2 as zmb
-from repro_torch.models.cache_utils import init_resident, mask_pad_slots_
+from repro_torch.models.cache_utils import (
+    init_resident,
+    kv_cache_nodes,
+    mask_pad_slots_,
+)
 from repro_torch.models.layers import (
+    NEG_INF,
     KVSlice,
     PagedKVCache,
+    batch_split,
     embed_spec,
     kv_slice_specs,
+    local_attn_cfg,
     logits_fn,
     norm_spec,
     out_spec,
@@ -56,10 +78,19 @@ from repro_torch.models.param import (
     count_params,
     init_params,
     resolve_dtype,
+    shard_tree,
     tree_leaves,
     tree_map,
     tree_map_pspec,
 )
+from repro_torch.sharding.collectives import (
+    all_gather,
+    axis_index,
+    psum,
+    relayout,
+)
+from repro_torch.sharding.rules import P, single_device_ctx
+from repro_torch.sharding.sharded import first, zip_positions
 
 F32 = torch.float32
 
@@ -78,10 +109,21 @@ class Model:
     """The training and serving surface of one architecture of any
     registered family."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, ctx=None):
         self.cfg = cfg
+        self.ctx = ctx
+        self.sharded = ctx is not None and ctx.sharded
         self.vocab_padded = pad_vocab(cfg.vocab, cfg.vocab_pad_multiple)
         self.dtype = DTYPES[cfg.dtype]
+        if self.sharded:
+            # each position's shapes: its heads under TP
+            self.local = Model(local_attn_cfg(cfg, ctx))
+
+    def _check_mesh_family(self):
+        if self.cfg.family not in ("dense", "vlm", "moe"):
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} over a mesh is ROADMAP queue 1 "
+                "item 13b")
 
     # -- parameters ------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -119,7 +161,7 @@ class Model:
         if fd:
             specs["dense_layers"] = stack_specs(
                 tfm.dense_layer_specs(cfg, d_ff=cfg.moe.dense_d_ff), fd)
-        specs["moe_layers"] = stack_specs(tfm.moe_layer_specs(cfg),
+        specs["moe_layers"] = stack_specs(tfm.moe_layer_specs(cfg, self.ctx),
                                           cfg.num_layers - fd)
         return specs
 
@@ -140,9 +182,40 @@ class Model:
 
     def init(self, generator: torch.Generator, device="cuda"):
         """Random parameters on ``device`` drawn from ``generator`` (a
-        generator on the same device)."""
-        return init_params(self.param_specs(), generator, self.cfg.dtype,
-                           resolve_device(device))
+        generator on the same device).  A sharded model draws the same
+        full tree on ``device`` and lays it out over its mesh."""
+        params = init_params(self.param_specs(), generator, self.cfg.dtype,
+                             resolve_device(device))
+        if self.sharded:
+            params = shard_tree(params, self.params_pspecs(), self.ctx)
+        return params
+
+    def _ctx(self):
+        return self.ctx if self.ctx is not None else single_device_ctx()
+
+    def params_pspecs(self):
+        """The rules' PartitionSpec of every parameter (JAX's
+        ``Model.params_pspecs``)."""
+        return self._ctx().params_pspecs(self.param_specs())
+
+    def cache_pspecs(self, batch: int, max_len: int):
+        """The rules' PartitionSpec of every cache leaf: the sequence dim
+        over ``kv_seq`` (JAX's ``Model.cache_pspecs``)."""
+        return self._ctx().params_pspecs(self.cache_specs(batch, max_len))
+
+    def position_tree(self, build, global_tree, batch: int = 1):
+        """A tree of Sharded leaves, position ``r``'s tree ``build(
+        local_model, device_r, local_batch)``; ``global_tree`` (PSpecs or
+        tensors) names the logical shapes.  A dim a position holds less of
+        is split over ``model``, a ``batch`` dim over the data axes as the
+        rules split ``batch`` rows: the serving layout by heads."""
+        self._check_mesh_family()
+        b_axes = self.ctx.pspec(("batch",), (batch,)).axes_of(0)
+        n = batch
+        for a in b_axes:
+            n //= self.ctx.axis_sizes[a]
+        trees = [build(self.local, d, n) for d in self.ctx.mesh.positions]
+        return zip_positions(trees, self.ctx.mesh, global_tree, b_axes)
 
     def abstract_params(self):
         return abstract_params(self.param_specs(), self.cfg.dtype)
@@ -200,9 +273,21 @@ class Model:
         return stack_specs(stack_specs(per, self.cfg.hybrid_attn_every),
                            self._n_groups)
 
-    def init_cache(self, batch: int, max_len: int, device="cuda"):
-        return init_params(self.cache_specs(batch, max_len), None,
-                           self.cfg.dtype, resolve_device(device))
+    def init_cache(self, batch: int, max_len: int, device="cuda",
+                   pspecs=None):
+        """A cache at its init values on ``device``.  A sharded model's is
+        laid out by ``pspecs`` (e.g. :meth:`cache_pspecs`), or by heads,
+        as attention reads it, without them."""
+        if not self.sharded:
+            return init_params(self.cache_specs(batch, max_len), None,
+                               self.cfg.dtype, resolve_device(device))
+        if pspecs is not None:
+            full = init_params(self.cache_specs(batch, max_len), None,
+                               self.cfg.dtype, resolve_device(device))
+            return shard_tree(full, pspecs, self.ctx)
+        return self.position_tree(
+            lambda m, d, b: m.init_cache(b, max_len, device=d),
+            self.cache_specs(batch, max_len), batch)
 
     def source_len(self, seq_len: int) -> int:
         """Encoder source length for encdec shapes (audio capped at 4k
@@ -244,11 +329,62 @@ class Model:
 
     # -- forward ---------------------------------------------------------
     def _embed_tokens(self, params, tokens):
+        if self.sharded:
+            return self._embed_sharded(params["embed"], tokens)
         return F.embedding(tokens.long(), params["embed"]).to(self.dtype)
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, rows: int = 0):
+        """Logits of x (B, S, D); a sharded model's x is batch-local and
+        ``rows`` is the global batch B."""
+        if self.sharded:
+            return self._logits_sharded(params, x, rows)
         w = params["embed"].T if self.cfg.tie_embeddings else params["out"]
         return logits_fn(x, w, self.cfg.vocab)
+
+    # -- the vocab-parallel ends of a sharded model ------------------------
+    def _vocab_axis(self):
+        m = self.ctx.model_axis
+        return m if m and self.vocab_padded % self.ctx.model_size() == 0 \
+            else None
+
+    def _embed_sharded(self, embed, tokens):
+        """Vocab-parallel lookup: each position reads the rows of its
+        vocab block (zeros for the others), then a ``psum`` over
+        ``model``; the batch split as the rules split it."""
+        self._check_mesh_family()
+        tok = batch_split(self.ctx, tokens).long()
+        v_ax = self._vocab_axis()
+        emb = relayout(embed, P(v_ax, None))
+        if v_ax is None:
+            return F.embedding(tok, emb).to(self.dtype)
+        n = emb.shape[0]
+        local = tok.sub(axis_index(self.ctx.mesh, v_ax), alpha=n)
+        ok = (local >= 0) & (local < n)
+        x = F.embedding(local.clamp(0, n - 1), emb) * ok[..., None].to(
+            emb.dtype)
+        return psum(x, v_ax).to(self.dtype)
+
+    def _logits_sharded(self, params, x, rows: int):
+        """Vocab-parallel logits, all-gathered over ``model`` and over the
+        batch axes: one (B, S, V) float32 tensor, the padded tail
+        masked."""
+        v_ax = self._vocab_axis()
+        if self.cfg.tie_embeddings:
+            w = relayout(params["embed"], P(v_ax, None)).T
+        else:
+            w = relayout(params["out"], P(None, v_ax))
+        logits = torch.einsum("bsd,dv->bsv", x, w)
+        if v_ax is not None:
+            logits = all_gather(logits, v_ax, dim=2)
+        b_axes = self.ctx.pspec(("batch",), (rows,)).axes_of(0)
+        if b_axes:
+            logits = all_gather(logits, b_axes, dim=0)
+        logits = first(logits).to(F32)
+        V = logits.shape[-1]
+        if V != self.cfg.vocab:
+            mask = torch.arange(V, device=logits.device) < self.cfg.vocab
+            logits = torch.where(mask, logits, NEG_INF)
+        return logits
 
     def _backbone(self, params, x, *, mode: str, cache=None, pos=None,
                   x0=None, mask=None, ckpt_every=None, ckpt_out=None):
@@ -278,6 +414,7 @@ class Model:
                                          ckpt_every=ckpt_every,
                                          ckpt_out=ckpt_out)
         new_cache = {}
+        kw = {"ctx": self.ctx} if self.sharded else {}
         for key, layer_fn, n in self._stacks():
             stacked = params[key]
             node = None if cache is None else cache[key]
@@ -292,7 +429,8 @@ class Model:
                     csl = node._replace(layer=i)
                 else:
                     csl = KVSlice(*(a[i] for a in node))
-                x, ncsl = layer_fn(lp, x, cfg, mode=mode, cache=csl, pos=pos)
+                x, ncsl = layer_fn(lp, x, cfg, mode=mode, cache=csl, pos=pos,
+                                   **kw)
                 if not in_place and ncsl is not None:
                     new_slices.append(ncsl)
             if node is None:
@@ -414,9 +552,11 @@ class Model:
 
     def _last_logits(self, params, x, length):
         last = (length.long() - 1).clamp(0, x.shape[1] - 1)
+        if self.sharded:
+            last = batch_split(self.ctx, last)
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
         x_last = rms_norm(x_last, params["final_norm"], self.cfg.rms_eps)
-        return self._logits(params, x_last)[:, 0]
+        return self._logits(params, x_last, length.shape[0])[:, 0]
 
     # -- training ---------------------------------------------------------
     def loss(self, params, batch):
@@ -428,7 +568,8 @@ class Model:
         with its shared block) is recomputed in the backward, the
         counterpart of JAX's ``jax.checkpoint`` with ``nothing_saveable``.
         JAX's ``_chunked_xent`` serves only its ZeRO-3 layout, which one
-        device never has (ROADMAP queue 1 item 13)."""
+        device never has (training under a mesh: ROADMAP queue 1 item
+        13c)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=F32, device=batch["tokens"].device)
         x = self._embed_tokens(params, batch["tokens"])
@@ -484,7 +625,8 @@ class Model:
             x, new_cache = self._backbone(params, x, mode="prefill",
                                           cache=cache, x0=x)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
-        return self._logits(params, x)[:, 0], new_cache
+        return (self._logits(params, x, batch["tokens"].shape[0])[:, 0],
+                new_cache)
 
     def prefill_ranged(self, params, batch, cache, *, checkpoint_every=None,
                        in_place=False, ckpt_out=None):
@@ -541,9 +683,19 @@ class Model:
                 ckpt_every=checkpoint_every, ckpt_out=ckpt_out)
         logits = self._last_logits(params, x, length)
         if checkpoint_every is None:
-            return logits, mask_pad_slots_(new_cache, length)
+            return logits, self._mask_pad(new_cache, length)
         new_cache, ckpts = self._split_checkpoints(new_cache)
         return logits, mask_pad_slots_(new_cache, length), ckpts
+
+    def _mask_pad(self, cache, length):
+        """``mask_pad_slots_``; over a mesh, by each slot's position (a
+        cache split on its sequence dim holds a block of slots)."""
+        if not self.sharded:
+            return mask_pad_slots_(cache, length)
+        n = batch_split(self.ctx, length)
+        for node in kv_cache_nodes(cache):
+            node.slot_pos.masked_fill_(node.slot_pos >= n[:, None], -1)
+        return cache
 
     def prefill_extend(self, params, batch, cache):
         """Suffix-only prefill behind a resident prefix (prefix sharing).
@@ -591,7 +743,8 @@ class Model:
                                           cache=cache, pos=batch["pos"],
                                           x0=x)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
-        return self._logits(params, x)[:, 0], new_cache
+        return (self._logits(params, x, batch["tokens"].shape[0])[:, 0],
+                new_cache)
 
     # -- the batch helpers of the serving layer (family knowledge here) ----
     def ranged_batch_extras(self, srcs, max_len: int) -> dict:
@@ -680,5 +833,7 @@ def _remat(fn, *args, **kw):
                                              **kw)
 
 
-def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ArchConfig, ctx=None) -> Model:
+    """The model of ``cfg``; over ``ctx``'s mesh when it holds more than
+    one position."""
+    return Model(cfg, ctx)

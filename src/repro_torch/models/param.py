@@ -6,7 +6,9 @@ initialised parameters, shape-only stand-ins on the ``meta`` device, and
 the parameter count.  ``params_from_numpy`` is the weight bridge: it turns
 a parameter tree of numpy arrays (for example a JAX ``Model.init`` tree
 converted by the caller) into the port's tensors with the same keys,
-shapes and layer-stacked ``(L, ...)`` leaves.
+shapes and layer-stacked ``(L, ...)`` leaves; ``shard_tree`` lays such a
+tree out over a mesh (one :class:`~repro_torch.sharding.sharded.Sharded`
+leaf per tensor) and ``gather_tree`` inverts it exactly.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.sharded import Sharded, gather_leaf, relay_leaf
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int32": torch.int32}
@@ -66,8 +70,15 @@ def tree_map(fn, tree, *rest, is_leaf=None):
 
 
 def tree_leaves(tree, is_leaf=None) -> list:
+    """The leaves in flatten order; a Sharded leaf gives its shards."""
     out = []
-    tree_map(out.append, tree, is_leaf=is_leaf)
+
+    def add(x):
+        if isinstance(x, Sharded):
+            out.extend(x.shards)
+        else:
+            out.append(x)
+    tree_map(add, tree, is_leaf=is_leaf)
     return out
 
 
@@ -189,3 +200,22 @@ def params_from_numpy(tree, *, dtype: torch.dtype, device, specs=None):
     if specs is None:
         return tree_map(leaf, tree)
     return tree_map(leaf, tree, specs)
+
+
+def shard_tree(tree, pspecs, ctx):
+    """Lay a tree of full tensors out over ``ctx.mesh``: each leaf becomes
+    a Sharded whose position ``r`` holds its slice under the leaf's
+    PartitionSpec in ``pspecs`` (a tree of the same structure, as
+    ``ShardCtx.params_pspecs`` gives it), a new tensor on position r's
+    device.  A leaf that is Sharded already is gathered first, and
+    donated (:func:`~repro_torch.sharding.sharded.relay_leaf`)."""
+    return tree_map(lambda t, spec: relay_leaf(t, ctx.mesh, spec), tree,
+                    pspecs)
+
+
+def gather_tree(tree, device=None):
+    """The full tensors of a sharded tree (Sharded leaves gathered onto
+    ``device``, default each leaf's position 0's); plain leaves as they
+    are.  ``gather_tree(shard_tree(t, ...))`` is ``t`` bit for bit."""
+    return tree_map(lambda t: gather_leaf(t, device)
+                    if isinstance(t, Sharded) else t, tree)

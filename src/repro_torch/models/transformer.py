@@ -24,37 +24,40 @@ def dense_layer_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
     }
 
 
-def moe_layer_specs(cfg: ArchConfig) -> dict:
+def moe_layer_specs(cfg: ArchConfig, ctx=None) -> dict:
     return {
         "attn_norm": norm_spec(cfg.d_model),
         "attn": attn_specs(cfg),
         "mlp_norm": norm_spec(cfg.d_model),
-        "moe": moe_mod.moe_specs(cfg),
+        "moe": moe_mod.moe_specs(cfg, ctx),
     }
 
 
-def dense_layer(lp, x, cfg: ArchConfig, *, mode: str, cache=None, pos=None):
+def dense_layer(lp, x, cfg: ArchConfig, *, mode: str, cache=None, pos=None,
+                ctx=None):
     """Pre-norm attention + MLP with residuals.  Returns (x, new_cache);
-    ``mode="train"`` writes no cache and returns (x, None)."""
+    ``mode="train"`` writes no cache and returns (x, None).  A sharded
+    ``ctx`` runs both sublayers tensor-parallel."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     a, new_cache = attention_block(lp["attn"], h, cfg, mode=mode,
-                                   cache=cache, pos=pos)
+                                   cache=cache, pos=pos, ctx=ctx)
     x = x + a
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    x = x + mlp_block(lp["mlp"], h, cfg)
+    x = x + mlp_block(lp["mlp"], h, cfg, ctx)
     return x, new_cache
 
 
-def moe_layer(lp, x, cfg: ArchConfig, *, mode: str, cache=None, pos=None):
+def moe_layer(lp, x, cfg: ArchConfig, *, mode: str, cache=None, pos=None,
+              ctx=None):
     """Pre-norm attention + MoE FFN with residuals.  Returns (x,
     new_cache); the serving modes drop the load-balance loss, and
     ``mode="train"`` (which writes no cache) returns (x, the Switch
     load-balance loss) with the training capacity."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     a, new_cache = attention_block(lp["attn"], h, cfg, mode=mode,
-                                   cache=cache, pos=pos)
+                                   cache=cache, pos=pos, ctx=ctx)
     x = x + a
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
     train = mode == "train"
-    y, aux = moe_mod.moe_block(lp["moe"], h, cfg, train=train)
+    y, aux = moe_mod.moe_block(lp["moe"], h, cfg, ctx, train=train)
     return x + y, aux if train else new_cache

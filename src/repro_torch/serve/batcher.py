@@ -47,6 +47,18 @@ another cell, :meth:`~ContinuousBatcher.export_slot` and
 replicas, and :meth:`~ContinuousBatcher.drop_slot` evicts one unfinished.
 Each writes in place (``index_copy_``, ``copy_``) into the tensors the
 step graphs captured: the arena, the resident rows, the dense cache.
+
+Over a sharded model (a cell over several mesh positions) the batcher is
+the same object: its host state (slots, block tables, the prefix tree)
+is one, its device state (weights, the pool's arena, the scratch caches)
+is Sharded, one shard per position, and each step runs every position's
+part and the collectives between them.  Positions on one card share its
+stream and each step is captured as one CUDA graph; positions over
+distinct cards run eagerly (``StepGraph(capture=False)``).  The
+collective bytes of each step key are registered with the batcher's
+accounting as that key's program cost (``collective_per_device``), from
+its eager run or its capture.  :meth:`ContinuousBatcher.rebind` moves a
+live batcher onto a resized cell's new model and weights.
 """
 from __future__ import annotations
 
@@ -74,10 +86,13 @@ from repro_torch.models.cache_utils import (
     init_resident,
     load_pages_into_row,
     merge_cache_slots,
+    page_arena,
     slice_cache_slots,
     strip_kv_nodes,
 )
-from repro_torch.models.param import is_pspec, tree_leaves
+from repro_torch.models.param import is_pspec, tree_leaves, tree_map
+from repro_torch.sharding.collectives import recording
+from repro_torch.sharding.sharded import relay_leaf
 from repro_torch.serve.kvpool import (
     KVPool,
     PoolExhausted,
@@ -231,7 +246,19 @@ class StepRunner:
     def _run(self, key, fn, state, host):
         """``fn(state, inputs) -> (tokens, state)`` on the host inputs
         ``host``: on the card through ``key``'s CUDA graph, on the CPU
-        eagerly."""
+        eagerly.  Over a mesh, the collective bytes of a run that executes
+        the step's Python (eager, or the capture) become the key's program
+        cost."""
+        if not getattr(self.model, "sharded", False):
+            return self._call(key, fn, state, host)
+        with recording() as log:
+            out = self._call(key, fn, state, host)
+        if log and self.accounting is not None:
+            self.accounting.register_program(
+                "/".join(map(str, key)), collective=dict(log))
+        return out
+
+    def _call(self, key, fn, state, host):
         if self.step_graph is None:
             return fn(state, to_device(host, self.device))
         return self.step_graph(key, fn, state, host)
@@ -351,10 +378,12 @@ class ContinuousBatcher(StepRunner):
         self.prompt_cursor = np.zeros(batch_slots, np.int64)
         # sampling draws (temperature > 0) from a seeded generator
         self.generator = torch.Generator(device=self.device).manual_seed(0)
-        # the steps' CUDA graphs (None on the CPU: eager steps)
+        # the steps' CUDA graphs (None on the CPU: eager steps; eager and
+        # counted over positions on distinct cards)
         self.step_graph = (
             StepGraph(self.device,
-                      generator=self.generator if temperature > 0 else None)
+                      generator=self.generator if temperature > 0 else None,
+                      capture=_one_card(model))
             if self.device.type == "cuda" else None)
         self._has_resident = self._has_resident_rows()
         self._run_step = self._stepper(self._step)
@@ -904,6 +933,50 @@ class ContinuousBatcher(StepRunner):
                     self.resident)
         return self.params, self.cache
 
+    def rebind(self, model, params):
+        """Serve ``model`` over ``params`` after the cell's mesh changed:
+        the pool's arena, the resident rows and the dense cache are
+        re-laid onto the new model's layout (contents kept, old shards
+        freed), the steps are rebuilt over the new model, the scratch
+        caches and the slot reset come anew when next needed, and every
+        step graph is dropped."""
+        if self.pool is not None and self.pool.kv_scales is not None:
+            raise NotImplementedError("int8 pages over a mesh")
+        self.model, self.params = model, params
+        T = self.temperature
+
+        def _relay_into(old, new):   # old's values in new's layout
+            return tree_map(lambda dst, src: relay_leaf(src, into=dst),
+                            new, old)
+        if self._paged:
+            self.pool.model = model
+            self.pool.arena = _relay_into(self.pool.arena, page_arena(
+                model, self.pool.num_pages, self.pool.page_size,
+                self.device))
+            self.resident = _relay_into(self.resident, init_resident(
+                model, self.B, self.max_len, self.device))
+            self._step = build_paged_serve_step(model, T,
+                                                template=self.pool.template)
+            self._extend = build_paged_extend_step(
+                model, T, template=self.pool.template)
+        else:
+            self.cache = _relay_into(self.cache, model.init_cache(
+                self.B, self.max_len, device=self.device))
+            self._step = build_serve_step(model, T)
+            self._extend = build_extend_step(model, T)
+        if self._prefill is not None:
+            self._prefill = build_prefill_step(
+                model, T, checkpoint_every=(self.pool.page_size
+                                            if self._snapshot else None))
+        self._run_step = self._stepper(self._step)
+        self._run_extend = self._stepper(self._extend)
+        self._scratch_caches = {}
+        self._slot_init_cache = None
+        if self.step_graph is not None:
+            for path in ("decode", "prefill", "extend", "restore"):
+                self.step_graph.drop(path)
+            self.step_graph.capture = _one_card(model)
+
     def state_tensors(self) -> list:
         """Every tensor the batcher's steps read or update in place (and
         so every tensor its graphs capture, beside their static inputs):
@@ -930,3 +1003,12 @@ class ContinuousBatcher(StepRunner):
             self.step()
             steps += 1
         return self.done
+
+
+def _one_card(model) -> bool:
+    """Do the model's positions all sit on one device (so a step over
+    them is one CUDA graph)?"""
+    return (not getattr(model, "sharded", False)
+            or len(model.ctx.mesh.distinct_devices()) == 1)
+
+

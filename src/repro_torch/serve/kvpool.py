@@ -288,6 +288,10 @@ class KVPool:
         if max_len % page_size:
             raise ValueError(f"max_len={max_len} not a multiple of "
                              f"page_size={page_size}")
+        if kv_dtype is not None and getattr(model, "sharded", False):
+            raise NotImplementedError(
+                "int8 pages over a mesh: a page's scale would span every "
+                "position's heads")
         self.device = resolve_device(device)
         self.model = model
         self.max_len = max_len

@@ -27,7 +27,10 @@ encdec step's source features in the model dtype), one buffer per dtype;
 every call copies the host's inputs into them through one pinned staging
 buffer per dtype.
 
-The policy, one for every path:
+The policy, one for every path (a StepGraph built with ``capture=False``,
+for a step over mesh positions on distinct cards, runs every call eagerly
+and counts it as an eager call; a step over positions on one card is
+captured as one graph like any other):
 
 * the first call of a path (decode, prefill, extend, restore) in the
   process runs its step eagerly, and is the real step: it warms PyTorch's
@@ -200,9 +203,14 @@ class StepGraph:
     replays`` is the number of calls) and the graphs dropped
     (:meth:`drop`)."""
 
-    def __init__(self, device, generator: Optional[torch.Generator] = None):
+    def __init__(self, device, generator: Optional[torch.Generator] = None,
+                 capture: bool = True):
         self.device = torch.device(device)
         self.generator = generator
+        # False: every call runs eagerly and counts as an eager call (a
+        # step over mesh positions on distinct cards: one graph cannot
+        # span them)
+        self.capture = capture
         self.epoch = 0          # recorded by each capture (see above)
         self.pool = torch.cuda.graph_pool_handle()
         self._entries: Dict[Key, _Entry] = {}
@@ -214,6 +222,9 @@ class StepGraph:
         path = PATH_OF[key[0]]
         counts = self._counts[path]
         self._met[path].add(key)
+        if not self.capture:
+            counts["eager_calls"] += 1
+            return fn(state, to_device(host, self.device))
         entry = self._entries.get(key)
         if entry is None:
             entry = self._entries[key] = _Entry(host, self.device)

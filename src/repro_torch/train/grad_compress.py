@@ -7,8 +7,8 @@ compressing before a linear all-reduce gives.  Each leaf is quantized to
 int8 with one per-tensor scale; the dequantization error is carried to
 the next step in an error-feedback buffer, so the sum over steps stays
 unbiased.  JAX's ``compressed_psum`` (the collective form, int8 on the
-wire inside ``shard_map``) needs a process group and comes with sharding
-(ROADMAP queue 1 item 13).
+wire inside ``shard_map``) comes with training under a mesh (ROADMAP
+queue 1 item 13c).
 """
 from __future__ import annotations
 

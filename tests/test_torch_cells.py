@@ -215,19 +215,24 @@ def test_supervisor_lifecycle_matches_jax():
 
 
 def test_a_zone_over_two_devices_is_refused():
-    """A cell runs on one device: a zone whose columns name two raises
-    CellError (sharding is ROADMAP queue 1 item 13) and leaves the table
-    as it was; one device repeated is one device."""
+    """A train cell over a zone of two mesh positions raises CellError
+    (training under a mesh is ROADMAP queue 1 item 13c) and leaves the
+    table as it was, and so does a resize of a one-position train cell
+    onto two; a serve cell binds the two-position mesh (on ``meta`` it
+    computes nothing)."""
     cfg = t_smoke_config(t_get_arch("qwen3-4b"))
     sup = Supervisor(DeviceGrid.from_flat(["cpu", "meta"], 1, 1, 2))
     with pytest.raises(CellError, match="item 13"):
-        sup.create_cell("a", cfg, "serve", ncols=2)
+        sup.create_cell("a", cfg, "train", ncols=2)
     assert sup.table.epoch == 0 and not sup.cells and not sup.table.zones
-    cell = sup.create_cell("a", cfg, "serve", ncols=1)
+    cell = sup.create_cell("a", cfg, "train", ncols=1)
     assert cell.device == torch.device("cpu") and cell.n_devices == 1
     with pytest.raises(CellError, match="item 13"):
         sup.resize_cell("a", 2)
     assert sup.cells["a"].zone.ncols == 1 and sup.table.epoch == 1
+    sup.destroy_cell("a")
+    cell = sup.create_cell("s", cfg, "serve", ncols=2)
+    assert cell.mesh.size == 2 and cell.n_devices == 2 and cell.model.sharded
     # the train role is a train cell's: a serve cell refuses it, and a
     # restore from a directory that holds no checkpoint is logged
     with pytest.raises(CellError, match="role 'serve'"):

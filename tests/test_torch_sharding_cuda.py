@@ -1,0 +1,169 @@
+"""Serve cells over several mesh positions on the card (marked ``cuda``;
+skipped without a GPU).
+
+* A float32 smoke serve cell over two positions of one card (qwen3-4b;
+  deepseek-moe-16b with its experts over ``model``) gives a one-position
+  cell's greedy tokens; its steps are captured as CUDA graphs over both
+  positions and replayed, and the guard passes.
+* The collectives over positions of one card: every position of a
+  ``psum`` holds the same bits, the float32 sum in position order.
+* The model-level decode over a dense cache split on its sequence dim
+  between two positions of one card, ``sharded_decode`` on and off,
+  gives the one-position model's logits (float32).
+* With two (four) cards or more, a cell over positions on two (four)
+  distinct cards gives the same tokens, its steps eager (one graph
+  cannot span cards).
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sharding_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import smoke_config  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CellSpec,
+    ClusterSpec,
+    DeviceGrid,
+    Supervisor,
+)
+from repro_torch.launch.mesh import make_mesh_for_devices  # noqa: E402
+from repro_torch.models.model import Model, build_model  # noqa: E402
+from repro_torch.models.param import (  # noqa: E402
+    params_from_numpy,
+    shard_tree,
+    tree_map,
+)
+from repro_torch.serve.batcher import Request  # noqa: E402
+from repro_torch.sharding.collectives import psum  # noqa: E402
+from repro_torch.sharding.rules import make_ctx  # noqa: E402
+from repro_torch.sharding.sharded import Sharded  # noqa: E402
+
+KW = {"batch_slots": 2, "max_len": 64, "page_size": 8, "prefill_chunk": 8}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _serve(arch, grid, ncols, seed=0):
+    """Two waves behind a shared prefix through a serve cell: ({rid:
+    tokens}, the cell, its batcher)."""
+    cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
+    model = Model(cfg)
+    host = tree_map(lambda t: t.numpy(), model.init(
+        torch.Generator().manual_seed(seed), device="cpu"))
+    sup = Supervisor(grid)
+    sup.apply(ClusterSpec(cells=(CellSpec("c", cfg, "serve",
+                                          ncols=ncols),)))
+    cell = sup.cells["c"]
+    cell.init_serve(params=params_from_numpy(
+        host, dtype=torch.float32, device=grid.devices.flat[0],
+        specs=model.param_specs()))
+    bat = cell.make_batcher(**KW)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(1, cfg.vocab, size=20).astype(np.int32)
+    rid = 0
+    for _ in range(2):
+        for lens in ([3, 9, 5], [6, 2]):
+            for n in lens:
+                bat.submit(Request(rid=rid, prompt=np.concatenate(
+                    [shared, rng.integers(1, cfg.vocab, size=n).astype(
+                        np.int32)]), max_new_tokens=6))
+                rid += 1
+            bat.run_until_drained()
+    return {r.rid: r.output for r in bat.done}, sup, bat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+def test_two_positions_of_one_card_give_one_position_tokens(dev, arch):
+    one, _, b1 = _serve(arch, DeviceGrid.from_flat([dev], 1, 1, 2,
+                                                   allow_reuse=True), 2)
+    two, sup, bat = _serve(arch, DeviceGrid.from_flat([dev, dev], 1, 1, 2),
+                           2)
+    assert sup.cells["c"].mesh.size == 2 and b1.model.ctx is None
+    assert two == one
+    g = bat.step_graph.stats()
+    assert bat.step_graph.capture and g["decode"]["replays"] > 0
+    assert sup.validate_cell_programs("c") >= 2
+    b1.close()
+    bat.close()
+
+
+@pytest.mark.cuda
+def test_psum_over_positions_of_one_card(dev):
+    mesh = make_mesh_for_devices(1, 4, devices=[dev])
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = Sharded([torch.randn(64, 128, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4)], mesh)
+    y = psum(x, "model")
+    want = x.shards[0].float()
+    for s in x.shards[1:]:
+        want = want + s.float()
+    for s in y.shards:
+        assert torch.equal(s, want.to(torch.bfloat16))
+    assert len({s.data_ptr() for s in y.shards}) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("n_cards", [2, 4])
+def test_positions_on_distinct_cards_run_eagerly(dev, arch, n_cards):
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} cards")
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    one, _, b1 = _serve(arch, DeviceGrid.from_flat(
+        cards[:1], 1, 1, n_cards, allow_reuse=True), n_cards)
+    many, sup, bat = _serve(arch, DeviceGrid.from_flat(
+        cards, 1, 1, n_cards), n_cards)
+    assert sup.cells["c"].mesh.size == n_cards
+    assert many == one
+    assert not bat.step_graph.capture
+    assert all(v["captures"] == 0 for v in bat.step_graph.stats().values())
+    assert {t.device for t in bat.state_tensors()} == set(cards)
+    b1.close()
+    bat.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded_decode", [False, True],
+                         ids=["gathered", "lse"])
+def test_decode_over_a_sequence_split_cache(dev, sharded_decode):
+    """float32 smoke qwen3-4b at (data 1, model 2) on one card, its dense
+    cache split on its sequence dim: the prefill and four decode steps
+    give the one-position model's logits within 1e-5; the gather path
+    launches the dense decode kernel per position, the LSE path never."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    cfg = smoke_config(get_arch("qwen3-4b")).replace(
+        num_layers=2, dtype="float32", sharded_decode=sharded_decode)
+    one = Model(cfg)
+    p1 = one.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    ctx = make_ctx(make_mesh_for_devices(1, 2, devices=[dev]))
+    two = build_model(cfg, ctx)
+    p2 = shard_tree(p1, two.params_pspecs(), ctx)
+    B, S, n = 4, 64, 4
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    c1 = one.init_cache(B, S, device=dev)
+    c2 = two.init_cache(B, S, device=dev, pspecs=two.cache_pspecs(B, S))
+    assert "model" in c2["layers"].k.spec.axes_of(2)
+    with torch.no_grad():
+        _, c1 = one.prefill(p1, {"tokens": toks[:, :S - n]}, c1)
+        _, c2 = two.prefill(p2, {"tokens": toks[:, :S - n]}, c2)
+        decode_attention.launches = 0
+        for p in range(S - n, S):
+            batch = {"tokens": toks[:, p:p + 1], "pos": torch.full(
+                (B,), p, dtype=torch.int32, device=dev)}
+            l1, c1 = one.decode(p1, c1, batch)
+            before = decode_attention.launches
+            l2, c2 = two.decode(p2, c2, batch)
+            want = 0 if sharded_decode else 2 * cfg.num_layers
+            assert decode_attention.launches - before == want
+            err = (l2 - l1).abs().max() / l1.abs().max()
+            assert float(err) < 1e-5
