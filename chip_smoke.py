@@ -162,9 +162,26 @@ one-position model's; it prints tokens/s, TTFT p50 by wave, the decode
 step p50, the peak memory, the graph counters (one CUDA graph a key over
 both positions), the collective bytes of each step key, and how many
 greedy tokens agree with phase 5's; its launches add to the main path's
-rows.  Phase 4 also serves float32 smoke qwen3-4b and deepseek-moe-16b
-(experts over ``model``) from a two-position cell on the card: the
-tokens must equal a one-position cell's.
+rows.  Phase 4 also serves float32 smoke qwen3-4b, deepseek-moe-16b
+(experts over ``model``), mamba2-2.7b, zamba2-2.7b and
+seamless-m4t-large-v2 (ragged sources) from a two-position cell on the
+card: the tokens must equal a one-position cell's.
+
+Phases 16b, 16c and 16d serve full-width mamba2-2.7b, zamba2-2.7b and
+seamless-m4t-large-v2 the same way, with phases 8, 9 and 10's weights,
+rounds and sources: each Mamba layer over 40 of its 80 SSD heads a
+position, its gated norm's sum of squares and its ``out_proj`` each a
+``psum``, zamba2's shared block and seamless's encoder, self- and
+cross-attention over heads.  Each checks the first cold prefill's logits
+against one position's: bf16 within 2e-2 or, where larger, the
+one-position bf16 model's own distance from its float32 copy (two bf16
+runs of one function agree no better than each agrees with float32), the
+two-position bf16 model within 1.25x of that distance from float32, and
+float32 copies of both within 1e-4; then that every kernel launched
+exactly twice as often as in its one-position phase, equal snapshot counters (16b, 16c),
+one CUDA graph a key and round 2 all replays, and prints the same
+end-to-end numbers, the greedy tokens' agreement, the peak memory and the
+collective bytes a step key; its launches add to its path's rows.
 
 Phase 16 also decodes at the model level over a dense cache split on
 its sequence dim between the two positions (``Model.cache_pspecs``),
@@ -1952,14 +1969,21 @@ SHARDED_PARITY = [
      ([3, 9, 5], [6, 2])),
     ("deepseek-moe-16b over 2 positions, experts over model",
      "deepseek-moe-16b", 1, 4, ([3, 9, 5], [6, 2])),
+    ("mamba2-2.7b over 2 positions, SSD heads over model, snapshot plane",
+     "mamba2-2.7b", 2, 4, ([3, 9, 5], [6, 2])),
+    ("zamba2-2.7b over 2 positions, snapshot plane", "zamba2-2.7b", 3, 4,
+     ([3, 9, 5], [6, 2])),
+    ("seamless-m4t-large-v2 over 2 positions, ragged sources",
+     "seamless-m4t-large-v2", 4, 4, ([3, 9, 5], [6, 2])),
 ]
 
 
 def sharded_parity_run(dev, arch, weight_seed, prompt_seed, waves):
-    """The same float32 smoke weights and requests through a serve cell of
-    one position and a cell over two positions of the card (``Supervisor``
-    -> ``Cell`` -> ``make_batcher``), two waves behind a 20-token shared
-    prefix, then the same again (its prefills replay).  Returns ({cell:
+    """The same float32 smoke weights and requests (encdec: and sources)
+    through a serve cell of one position and a cell over two positions of
+    the card (``Supervisor`` -> ``Cell`` -> ``make_batcher``), two waves
+    behind a 20-token shared prefix, then the same again (its prefills
+    replay).  Returns ({cell:
     {rid: tokens}}, the two-position batcher's graph counters, the
     collective bytes of its step keys)."""
     from repro_torch.configs.base import smoke_config
@@ -1983,6 +2007,10 @@ def sharded_parity_run(dev, arch, weight_seed, prompt_seed, waves):
     prompts = [[np.concatenate([shared, rng.integers(
         1, cfg.vocab, size=n).astype(np.int32)]) for n in lens]
         for lens in waves]
+    # encdec: ragged sources, the requests of even tails without one
+    srcs = [[rng.standard_normal((4 * n, cfg.d_model)).astype(np.float32)
+             if cfg.family == "encdec" and n % 2 else None for n in lens]
+            for lens in waves]
     toks, graphs, colls = {}, None, None
     for name, grid in (
             ("one", DeviceGrid.from_flat([dev], 1, 1, 2, allow_reuse=True)),
@@ -1998,9 +2026,10 @@ def sharded_parity_run(dev, arch, weight_seed, prompt_seed, waves):
                                 prefill_chunk=8)
         rid = 0
         for _ in range(2):
-            for wave in prompts:
-                for p in wave:
-                    bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+            for wave, wsrc in zip(prompts, srcs):
+                for p, src in zip(wave, wsrc):
+                    bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6,
+                                       src=src))
                     rid += 1
                 bat.run_until_drained()
         toks[name] = {r.rid: r.output for r in bat.done}
@@ -2549,6 +2578,7 @@ def phase_recurrent(dev, name_limit: str, arch: str, tag: int) -> dict:
     e2e["snapshot"] = {k: st[k] for k in ("snapshots_interned",
                                           "snapshot_hit_tokens",
                                           "snapshot_bytes_saved")}
+    e2e["outputs"] = [r.output for r in reqs]    # what 16b / 16c compare
     e2e["peak_gb"] = peak / 1e9
     e2e["graphs"] = expect_graphed(tag, bat)
     e2e["round2"] = expect_round2_replayed(tag, bat, marks[2])
@@ -2625,6 +2655,55 @@ def phase_moe(dev, name_limit: str) -> dict:
     return e2e
 
 
+def encdec_launches(tag, bat, launches: dict, s_src: int, m: int = 1):
+    """Check and complete the launches of the encdec path on ``bat`` (its
+    layers over ``m`` mesh positions, each launching its own): the flash
+    launches under a key-length mask split by (Sq, Skv) into the
+    encoder's (Sq = Skv = the source length) and cross-attention's (the
+    prompt's bucket against it), shapes phase 3 held, and the dense
+    decode over cross memory, added to ``launches`` as rows
+    ``flash_attention_encoder``, ``flash_attention_cross`` and
+    ``decode_attention_cross``."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = bat.step_graph.stats()
+    cold = g["prefill"]["eager_calls"] + g["prefill"]["replays"]
+    warm = g["extend"]["eager_calls"] + g["extend"]["replays"]
+    L, E = bat.model.cfg.num_layers, bat.model.cfg.encoder_layers
+    by_shape = dict(flash_attention.launches_kv_len)
+    unheld = set(by_shape) - {(sq, s_src) for sq in (s_src, *CROSS_SQ)}
+    if unheld:
+        raise AssertionError(f"flash under kv_len at shapes phase 3 did "
+                             f"not hold: {sorted(unheld)}")
+    launches["flash_attention_encoder"] = by_shape.get((s_src, s_src), 0)
+    launches["flash_attention_cross"] = sum(
+        n for (sq, skv), n in by_shape.items() if (sq, skv) != (s_src, s_src))
+    launches["decode_attention_cross"] = launches["decode_attention"]
+    log(f"[{tag}] {cold} cold prefills, {warm} extends, "
+        f"{bat.decode_invocations} decode steps; flash launches under a "
+        f"key-length mask by (Sq, Skv) {by_shape}")
+    expect("cold prefills + extends", cold + warm, bat.prefill_invocations)
+    # a cold prefill: 24 encoder, 24 causal self and 24 cross flash
+    # launches a position; an extend: 24 encoder and 24 cross flash, 24
+    # paged extend
+    expect("flash (72 a cold prefill, 48 an extend, a position)",
+           launches["flash_attention"],
+           m * ((E + 2 * L) * cold + (E + L) * warm))
+    expect("flash under kv_len, the encoder (24 a prefill or extend)",
+           launches["flash_attention_encoder"], m * E * (cold + warm))
+    expect("flash under kv_len, cross-attention (24 a prefill or extend)",
+           launches["flash_attention_cross"], m * L * (cold + warm))
+    expect("paged extend (24 an extend)", launches["paged_extend_attention"],
+           m * L * warm)
+    # a decode step: 24 paged decode (self) and 24 dense decode (cross)
+    expect("paged decode (24 a step)", launches["paged_decode_attention"],
+           m * L * bat.decode_invocations)
+    expect("dense decode over cross memory (24 a step)",
+           launches["decode_attention"], m * L * bat.decode_invocations)
+    expect_tc(launches, "flash_attention", "paged_extend_attention")
+    if min(cold, warm) <= 0:
+        raise AssertionError(f"no cold prefill or no extend: {cold}, {warm}")
+
+
 def phase_encdec(dev, name_limit: str) -> dict:
     """Full-width seamless-m4t-large-v2 behind the batcher on the paged
     pool, the two rounds of phase 5 with sources (``encdec_sources``):
@@ -2664,47 +2743,11 @@ def phase_encdec(dev, name_limit: str) -> dict:
     reqs, launches, wall, step_s, marks = serve(
         bat, main_path_rounds(0, cfg.vocab), counters,
         srcs=encdec_sources())
-    g = bat.step_graph.stats()
-    cold = g["prefill"]["eager_calls"] + g["prefill"]["replays"]
-    warm = g["extend"]["eager_calls"] + g["extend"]["replays"]
-    # flash launches under a key-length mask, by (Sq, Skv): the encoder's
-    # run at Sq = Skv = the source length, cross-attention's at the
-    # prompt's bucket against it; phase 3 held each of these shapes
-    by_shape = dict(flash_attention.launches_kv_len)
-    s_src = model.source_len(MAX_LEN)
-    unheld = set(by_shape) - {(sq, s_src) for sq in (s_src, *CROSS_SQ)}
-    if unheld:
-        raise AssertionError(f"flash under kv_len at shapes phase 3 did "
-                             f"not hold: {sorted(unheld)}")
-    launches["flash_attention_encoder"] = by_shape.get((s_src, s_src), 0)
-    launches["flash_attention_cross"] = sum(
-        n for (sq, skv), n in by_shape.items() if (sq, skv) != (s_src, s_src))
-    launches["decode_attention_cross"] = launches["decode_attention"]
-    log(f"[10] {cold} cold prefills, {warm} extends, "
-        f"{bat.decode_invocations} decode steps; flash launches under a "
-        f"key-length mask by (Sq, Skv) {by_shape}")
-    expect("cold prefills + extends", cold + warm, bat.prefill_invocations)
-    # a cold prefill: 24 encoder, 24 causal self and 24 cross flash
-    # launches; an extend: 24 encoder and 24 cross flash, 24 paged extend
-    expect("flash (72 a cold prefill, 48 an extend)",
-           launches["flash_attention"], (E + 2 * L) * cold + (E + L) * warm)
-    expect("flash under kv_len, the encoder (24 a prefill or extend)",
-           launches["flash_attention_encoder"], E * (cold + warm))
-    expect("flash under kv_len, cross-attention (24 a prefill or extend)",
-           launches["flash_attention_cross"], L * (cold + warm))
-    expect("paged extend (24 an extend)", launches["paged_extend_attention"],
-           L * warm)
-    # a decode step: 24 paged decode (self) and 24 dense decode (cross)
-    expect("paged decode (24 a step)", launches["paged_decode_attention"],
-           L * bat.decode_invocations)
-    expect("dense decode over cross memory (24 a step)",
-           launches["decode_attention"], L * bat.decode_invocations)
-    expect_tc(launches, "flash_attention", "paged_extend_attention")
-    if min(cold, warm) <= 0:
-        raise AssertionError(f"no cold prefill or no extend: {cold}, {warm}")
+    encdec_launches(10, bat, launches, model.source_len(MAX_LEN))
     check_drained(bat.pool, SLOTS * SHARED)
     e2e = report(10, name_limit, bat, reqs, wall, step_s, launches,
                  cfg.vocab)
+    e2e["outputs"] = [r.output for r in reqs]    # what 16d compares
     e2e["graphs"] = expect_graphed(10, bat)
     e2e["round2"] = expect_round2_replayed(10, bat, marks[2])
     e2e["memory"] = memory_report(10, bat)
@@ -3507,6 +3550,212 @@ def phase_sharded(dev, name_limit: str, ref: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phases 16b-16d: mamba2, zamba2 and seamless served over two positions
+# --------------------------------------------------------------------------
+#: (tag, arch, the one-position phase whose weights and traffic it runs)
+SHARDED_FAMILIES = (("16b", "mamba2-2.7b", 8), ("16c", "zamba2-2.7b", 9),
+                    ("16d", "seamless-m4t-large-v2", 10))
+
+
+def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
+                         ref: dict) -> dict:
+    """Full-width ``arch`` from a serve cell over a zone of two mesh
+    positions of the card, with the one-position phase's (``ref``)
+    weights, two rounds and, for seamless, sources: mamba2-2.7b and
+    zamba2-2.7b on the snapshot pool, each Mamba layer over 40 of its 80
+    SSD heads a position (the gated norm's sum of squares and
+    ``out_proj`` each a ``psum``), zamba2's shared attention (16 of 32
+    heads of 80) and MLP tensor-parallel; seamless's encoder, decoder
+    self- and cross-attention over 8 of 16 heads a position, its cross
+    memory laid out by heads.  Returns the launches (each kernel twice
+    the one-position phase's, one launch a position), the end-to-end
+    numbers, the first cold prefill's logits error against the
+    one-position model (bf16, and float32 copies of both), the greedy
+    tokens' agreement with the one-position phase, the snapshot counters, the graph counters, the
+    peak memory and the collective bytes of each step key."""
+    from repro_torch.core import (
+        CellSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+    )
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.models.param import shard_tree, tree_map
+    from repro_torch.serve.serve_step import bucket_len, prefill_inputs
+    from repro_torch.serve.step_graph import DENSE_KEY
+    from repro_torch.sharding.collectives import recording
+
+    model1, params1 = full_width(dev, arch, tag)    # the phase's weights
+    cfg = model1.cfg
+    recurrent = cfg.family in ("ssm", "hybrid")
+    sup = Supervisor(DeviceGrid.from_flat([dev, dev], 1, 1, 2))
+    sup.apply(ClusterSpec(cells=(CellSpec(cfg.name, cfg, "serve",
+                                          ncols=2),)))
+    cell = sup.cells[cfg.name]
+    if cell.mesh.shape != {"data": 1, "model": 2} or not cell.model.sharded:
+        raise AssertionError(f"[{tag}] the cell's mesh is {cell.mesh}")
+    cell.init_serve(params=params1)
+    rounds = main_path_rounds(0, cfg.vocab)
+    srcs = encdec_sources() if cfg.family == "encdec" else None
+    # the first cold prefill's logits against the one-position model's,
+    # in bf16 and through float32 copies of both
+    wave = rounds[0]
+    b0 = bucket_len(len(wave[0]), CHUNK, MAX_LEN)
+    idx = [i for i, p in enumerate(wave)
+           if bucket_len(len(p), CHUNK, MAX_LEN) == b0]
+    key, host = prefill_inputs(
+        [wave[i] for i in idx], [srcs[0][i] if srcs else None for i in idx],
+        chunk=CHUNK, max_len=MAX_LEN, model=model1)
+    batch = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
+                 else v).to(dev) for k, v in host.items()}
+    n, V = len(idx), cfg.vocab
+
+    def last_logits(model, params):
+        with torch.no_grad():
+            out, _ = model.prefill_ranged(params, batch, model.init_cache(
+                key[1], MAX_LEN, device=dev), in_place=True)
+        return out[:n, :V].float()
+
+    with recording() as pre_log:
+        l2 = last_logits(cell.model, cell.serve_params)
+    l1 = last_logits(model1, params1)
+    f32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params1)
+    del model1, params1
+    l1_32 = last_logits(Model(f32), p32)
+    two32 = build_model(f32, cell.model.ctx)
+    l2_32 = last_logits(two32, shard_tree(p32, two32.params_pspecs(),
+                                          two32.ctx))
+    err, err32 = rel(l2, l1), rel(l2_32, l1_32)
+    acc = [rel(l1, l1_32), rel(l2, l1_32)]
+    # two bf16 runs of one function agree no better than each agrees with
+    # float32: the limit is 2e-2 or, where larger, the one-position bf16
+    # model's own distance from its float32 copy; the two-position model
+    # must be as accurate (within 1.25x of that distance)
+    limit = max(2e-2, acc[0])
+    log(f"[{tag}] first cold prefill ({n} prompts, key {key}): last-position "
+        f"logits rel {err:.3e} against the one-position model (tol "
+        f"{limit:.3e}: 2e-2, or the one-position bf16 model's distance "
+        f"from float32 where larger); float32 copies of both {err32:.3e} "
+        f"(tol 1e-4); bf16 against the float32 one-position model: one "
+        f"position {acc[0]:.3e}, two {acc[1]:.3e}; collectives "
+        f"{dict(pre_log)}")
+    if not err < limit:
+        raise AssertionError(f"[{tag}] logits rel {err} >= {limit}")
+    if not acc[1] <= 1.25 * acc[0]:
+        raise AssertionError(f"[{tag}] the two-position bf16 model is "
+                             f"{acc[1]} from float32, one position {acc[0]}")
+    if not err32 < 1e-4:
+        raise AssertionError(f"[{tag}] float32 logits rel {err32} >= 1e-4")
+    del l1, l2, l1_32, l2_32, batch, p32, two32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def batcher():
+        kw = {"pool_pages": SNAP_PAGES} if recurrent else {}
+        return cell.make_batcher(batch_slots=SLOTS, max_len=MAX_LEN,
+                                 page_size=PAGE, prefill_chunk=CHUNK, **kw)
+
+    warm_up(batcher, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    bat = batcher()
+    if not bat.step_graph.capture:
+        raise AssertionError(f"[{tag}] both positions sit on one card, yet "
+                             "the steps do not capture")
+    counters = (ssd, flash_attention, paged_extend_attention,
+                decode_attention, paged_decode_attention)
+    reqs, launches, wall, step_s, marks = serve(bat, rounds, counters,
+                                                srcs=srcs)
+    m = cell.mesh.size
+    if cfg.family == "encdec":
+        encdec_launches(tag, bat, launches, cell.model.source_len(MAX_LEN),
+                        m)
+    else:
+        n_attn = (cfg.num_layers // cfg.hybrid_attn_every
+                  if cfg.family == "hybrid" else 0)
+        expect("SSD scan (one a Mamba layer a position a prefill or extend)",
+               launches["ssd"], m * cfg.num_layers * bat.prefill_invocations)
+        expect("prefill + dense extend attention",
+               launches["flash_attention"]
+               + launches["paged_extend_attention"],
+               m * n_attn * bat.prefill_invocations)
+        expect("dense decode", launches["decode_attention"],
+               m * n_attn * bat.decode_invocations)
+        expect("paged decode on the snapshot plane",
+               launches["paged_decode_attention"], 0)
+        expect_tc(launches, "flash_attention", "paged_extend_attention")
+    # the one-position phase ran the same traffic in as many invocations:
+    # every kernel launched twice as often, once a position
+    same = (bat.prefill_invocations == ref["prefill_invocations"]
+            and bat.decode_invocations == ref["decode_steps"])
+    if not same:
+        raise AssertionError(f"[{tag}] {bat.prefill_invocations} prefill and "
+                             f"{bat.decode_invocations} decode invocations, "
+                             f"the one-position phase "
+                             f"{ref['prefill_invocations']} and "
+                             f"{ref['decode_steps']}")
+    for name, want in ref["launches"].items():
+        expect(f"{name}: {m} x the one-position phase's", launches[name],
+               m * want)
+    check_drained(bat.pool, SLOTS * SHARED)
+    e2e = report(tag, name_limit, bat, reqs, wall, step_s, launches,
+                 cfg.vocab)
+    e2e["logits_rel"] = err
+    e2e["logits_rel_f32"] = err32
+    e2e["bf16_vs_f32"] = acc
+    if recurrent:
+        st = bat.pool.stats()
+        e2e["snapshot"] = {k: st[k] for k in ref["snapshot"]}
+        if e2e["snapshot"] != ref["snapshot"]:
+            raise AssertionError(f"[{tag}] snapshot counters {e2e['snapshot']}"
+                                 f", the one-position phase's "
+                                 f"{ref['snapshot']}")
+        log(f"[{tag}] snapshot pool: {st['snapshots_interned']} payloads "
+            f"interned, {st['snapshot_hit_tokens']} snapshot-hit tokens, "
+            f"{st['snapshot_bytes_saved'] / 1e9:.2f} GB saved (logical "
+            f"bytes, as the one-position phase's); checkpoint workspace "
+            f"{bat._ckpts.capacity} (row, checkpoint) pairs a position, "
+            f"{bat._ckpts.regrowths} regrowths")
+    want = [t for r in ref["outputs"] for t in r]
+    got = [t for r in reqs for t in r.output]
+    e2e["token_agreement"] = [sum(a == b for a, b in zip(got, want)),
+                              len(want)]
+    first = sum(r.output[0] == w[0] for r, w in zip(reqs, ref["outputs"]))
+    log(f"[{tag}] greedy tokens equal to the one-position phase's: "
+        f"{e2e['token_agreement'][0]} of {len(want)}; first tokens {first} "
+        f"of {len(reqs)} (bf16 row-parallel sums round differently from "
+        "one device's)")
+    e2e["graphs"] = expect_graphed(tag, bat)
+    e2e["round2"] = expect_round2_replayed(tag, bat, marks[2])
+    log(f"[{tag}] steps captured as one CUDA graph a key over both "
+        "positions (one card)")
+    e2e["memory"] = memory_report(tag, bat)
+    log(f"[{tag}] peak {e2e['memory']['peak_gb']:.2f} GB over both "
+        f"positions of the card ({name_limit})")
+    e2e["collective_bytes"] = {
+        k: dict(v.collective_per_device)
+        for k, v in cell.accounting.programs.items()}
+    for k, v in sorted(e2e["collective_bytes"].items()):
+        log(f"[{tag}] collective bytes per position, step key {k}: {v} "
+            f"({name_limit})")
+    e2e["step_ab"] = time_decode_step(
+        tag, bat, DENSE_KEY if recurrent else ("paged", 8), name_limit)
+    bat.close()
+    sup.destroy_cell(cfg.name)
+    del bat, cell, sup
+    return e2e
+
+
+# --------------------------------------------------------------------------
 # phase 13: qwen3-4b trained at full width; 13b: checkpoint and recovery
 # --------------------------------------------------------------------------
 TRAIN_STEPS, TRAIN_BATCH = 6, 8
@@ -4031,13 +4280,22 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     with timed(16):
         runs[16] = phase_sharded(dev, name_limit, runs[5])
+    for tag, arch, ref in SHARDED_FAMILIES:
+        gc.collect()                # free the previous model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with timed(tag):
+            runs[tag] = phase_sharded_family(dev, name_limit, arch, tag,
+                                             runs[ref])
+    # the phases that run a path's kernels again: 11, 12 and 16 the main
+    # path's, 16b-16d those of paths 8-10 over two positions
+    again = {5: (11, 12, 16), 8: ("16b",), 9: ("16c",), 10: ("16d",)}
     rows = []
     for name, rep in kernels.items():
-        launches = runs[rep["path"]]["launches"][rep.get("count", name)]
-        if rep["path"] == 5:        # phases 11, 12 and 16 run the main
-            launches += (runs[11]["launches"][name]     # path's kernels
-                         + runs[12]["launches"][name]
-                         + runs[16]["launches"][name])
+        count = rep.get("count", name)
+        launches = runs[rep["path"]]["launches"][count]
+        launches += sum(runs[t]["launches"][count]
+                        for t in again.get(rep["path"], ()))
         if launches == 0:
             raise AssertionError(f"{name}: no launch on phase {rep['path']}")
         rows.append({"name": name, "route": "cuda", "source": rep["source"],

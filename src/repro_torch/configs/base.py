@@ -37,6 +37,13 @@ class SSMConfig:
     head_dim: int = 64
     ngroups: int = 1
     chunk: int = 256              # SSD chunk length (MXU-friendly)
+    # the inner width one mesh position holds (None: expand * d_model, the
+    # whole); a tensor-parallel Mamba layer's local config sets it.  Kept
+    # out of the repr, which stays JAX's SSMConfig's
+    inner: Optional[int] = dataclasses.field(default=None, repr=False)
+
+    def replace(self, **kw) -> "SSMConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

@@ -35,6 +35,8 @@ from repro_torch.models.param import (
     tree_map,
     tree_map_pspec,
 )
+from repro_torch.sharding.rules import P
+from repro_torch.sharding.sharded import Sharded
 
 
 def _is_kv(x) -> bool:
@@ -220,12 +222,21 @@ def page_arena(model, num_pages: int, page_size: int, device) -> list:
 def extract_row_pages(cache: dict, axes: list, row: int, start_page: int,
                       n_pages: int, page_size: int) -> list:
     """``n_pages`` canonical page stacks (one (n_pages, P, *rest) tensor
-    per k/v/slot_pos of each KV node) out of one row of a dense cache."""
+    per k/v/slot_pos of each KV node) out of one row of a dense cache.  A
+    Sharded leaf laid out with its batch and sequence dims whole (by
+    heads) gives stacks laid out as its other dims are."""
     lo, hi = start_page * page_size, (start_page + n_pages) * page_size
 
     def e(leaf, a):
         x = _to_canonical(leaf, a)[row, lo:hi]
-        return x.reshape((n_pages, page_size) + x.shape[1:])
+        x = x.reshape((n_pages, page_size) + x.shape[1:])
+        spec = getattr(leaf, "spec", None)
+        if isinstance(leaf, Sharded) and spec is not None and not (
+                spec.axes_of(a) or spec.axes_of(a + 1)):
+            x.spec = P(None, None, *(spec[d] if d < len(spec) else None
+                                     for d in range(leaf.dim())
+                                     if d not in (a, a + 1)))
+        return x
     return [KVSlice(*(e(x, a) for x in node))
             for node, a in zip(kv_cache_nodes(cache), axes)]
 

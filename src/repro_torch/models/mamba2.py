@@ -20,6 +20,18 @@ Layout (per block):
   causal conv (k taps) over [x, B, C] segments (separate weights per segment)
   SSD over heads (H = d_inner / head_dim)
   gated RMSNorm (norm(y * silu(z))), out projection d_inner -> D.
+
+Over a mesh (a sharded ``ctx``) the block runs tensor-parallel when the
+SSD heads divide the model axis and there is one group: position r holds
+its slice of ``inner`` (wz, wx, conv_x, gate_norm, out_proj) and of
+``ssm_heads`` (wdt, dt_bias, A_log, D_skip), wB, wC, conv_B and conv_C
+whole, and runs the one-device body on its H/m heads (its config's
+``ssm.inner``: :func:`local_ssm_cfg`).  Two steps look across positions:
+the gated RMSNorm's sum of squares over the whole ``d_inner`` (a ``psum``
+of float32 partial sums, what GSPMD inserts for JAX) and the row-parallel
+``out_proj`` (a ``psum``).  Its state is laid out by position: conv (B,
+K-1, d_inner/m + 2·G·N) = [x_r | B | C], ssm (B, H/m, P, N).  Otherwise
+the block runs replicated, every position the whole one-device block.
 """
 from __future__ import annotations
 
@@ -32,6 +44,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan.ops import ssd, ssd_tiling_chunk
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.param import PSpec
+from repro_torch.sharding.collectives import psum, relayout
+from repro_torch.sharding.rules import P
+from repro_torch.sharding.sharded import per_position
 
 F32 = torch.float32
 
@@ -39,10 +54,31 @@ F32 = torch.float32
 # specs
 # --------------------------------------------------------------------------
 def mamba_dims(cfg: ArchConfig):
+    """(d_inner, H, G, N, K): the inner width ``expand * d_model``, or the
+    local ``ssm.inner`` of one mesh position, and its SSD heads."""
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
+    d_inner = s.inner if s.inner is not None else s.expand * cfg.d_model
     H = d_inner // s.head_dim
     return d_inner, H, s.ngroups, s.d_state, s.d_conv
+
+
+def mamba_tp(cfg: ArchConfig, ctx) -> bool:
+    """Does a Mamba layer run tensor-parallel over ``ctx``'s model axis?
+    Its SSD heads must divide the axis (then so does ``inner``), and one
+    group of B and C must serve every head; else it runs replicated, as
+    attention does when its heads do not divide."""
+    m = ctx.model_size()
+    _, H, G, _, _ = mamba_dims(cfg)
+    return m > 1 and H % m == 0 and G == 1
+
+
+def local_ssm_cfg(cfg: ArchConfig, ctx) -> ArchConfig:
+    """The config one position's Mamba layers see: ``inner / m`` under
+    TP, else the config as it is."""
+    if cfg.ssm is None or not mamba_tp(cfg, ctx):
+        return cfg
+    d_inner = mamba_dims(cfg)[0]
+    return cfg.replace(ssm=cfg.ssm.replace(inner=d_inner // ctx.model_size()))
 
 
 def mamba_specs(cfg: ArchConfig) -> dict:
@@ -211,11 +247,16 @@ def _causal_conv(seq, w, conv_state=None, length=None, boundary_every=None):
     return y, new_state, bstates
 
 
+# the dim of each Mamba weight a tensor-parallel position holds a slice of
+_TP_DIM = {"wz": 1, "wx": 1, "conv_x": 1, "wdt": 1, "gate_norm": 0,
+           "out_proj": 0, "dt_bias": 0, "A_log": 0, "D_skip": 0}
+
+
 def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
                 state: Optional[MambaState] = None,
                 mask: Optional[torch.Tensor] = None,
                 ckpt_every: Optional[int] = None,
-                ckpt_out: Optional[MambaState] = None
+                ckpt_out: Optional[MambaState] = None, ctx=None
                 ) -> Tuple[torch.Tensor, object]:
     """x: (B, S, D).  Returns (y (B, S, D), new state or None).
 
@@ -231,7 +272,52 @@ def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
     ssm (B, nb, H, P, N) with nb = S // ckpt_every.  ``ckpt_out``, a
     MambaState of tensors of those shapes (contiguous, ssm float32): the
     checkpoints are written into it, the SSD scan's straight from the
-    kernel, and it is returned as the checkpoints."""
+    kernel, and it is returned as the checkpoints.  A sharded ``ctx`` runs
+    the block over its mesh (see the module doc)."""
+    kw = dict(mode=mode, state=state, mask=mask, ckpt_every=ckpt_every,
+              ckpt_out=ckpt_out)
+    if ctx is not None and ctx.sharded:
+        return _mamba_sharded(p, x, cfg, ctx, **kw)
+    y, new_state = mamba_mix(p, x, cfg, **kw)
+    y = rms_norm(y, p["gate_norm"], cfg.rms_eps)
+    return y @ p["out_proj"], new_state
+
+
+def _mamba_sharded(p, x, cfg: ArchConfig, ctx, **kw):
+    """:func:`mamba_block` over a mesh: the one-device mix per position
+    (its local heads under TP, every head replicated), then the gated
+    RMSNorm over the whole ``d_inner`` and ``out_proj``, each followed by
+    a ``psum`` under TP."""
+    tp = mamba_tp(cfg, ctx)
+    m = ctx.model_axis if tp else None
+
+    def want(name, t):
+        parts = [None] * t.dim()
+        if m and name in _TP_DIM:
+            parts[_TP_DIM[name]] = m
+        return P(*parts)
+    pl = {k: relayout(v, want(k, v)) for k, v in p.items()}
+    y, new_state = _mix_per_position(pl, x, local_ssm_cfg(cfg, ctx), **kw)
+    if not tp:
+        y = rms_norm(y, pl["gate_norm"], cfg.rms_eps)
+        return y @ pl["out_proj"], new_state
+    # the gated RMSNorm reduces over the whole d_inner: float32 partial
+    # sums of squares, one psum, then each position scales its slice
+    y32 = y.to(F32)
+    ss = psum((y32 * y32).sum(dim=-1, keepdim=True), ctx.model_axis)
+    y32 = y32 * torch.rsqrt(ss / mamba_dims(cfg)[0] + cfg.rms_eps)
+    y = (y32 * pl["gate_norm"].to(F32)).to(y.dtype)
+    return psum(y @ pl["out_proj"], ctx.model_axis), new_state
+
+
+def mamba_mix(p, x, cfg: ArchConfig, *, mode: str,
+              state: Optional[MambaState] = None,
+              mask: Optional[torch.Tensor] = None,
+              ckpt_every: Optional[int] = None,
+              ckpt_out: Optional[MambaState] = None):
+    """The block up to its gated RMSNorm: (``y * silu(z)`` (B, S,
+    d_inner) in x's dtype, new state); the arguments as
+    :func:`mamba_block`'s."""
     s = cfg.ssm
     d_inner, H, G, N, K = mamba_dims(cfg)
     P_ = s.head_dim
@@ -288,6 +374,9 @@ def mamba_block(p, x, cfg: ArchConfig, *, mode: str,
 
     y = y + xh.to(F32) * p["D_skip"][None, None, :, None].to(F32)
     y = y.reshape(Bb, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z.to(F32)).to(x.dtype), p["gate_norm"],
-                 cfg.rms_eps)
-    return y @ p["out_proj"], new_state
+    return y * F.silu(z.to(F32)).to(x.dtype), new_state
+
+
+# one position's mix on its own shards (over a mesh every op, the SSD
+# kernel's launch among them, is that position's one-device call)
+_mix_per_position = per_position(mamba_mix)

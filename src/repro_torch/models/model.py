@@ -22,19 +22,23 @@ inside a prefill, a suffix extend given the rows' sources, and the
 token-at-a-time admission (into the slot's rows).
 
 Built with a sharded ``ctx`` (a mesh of more than one position,
-``build_model(cfg, ctx)``), the dense, vlm and moe families run over the
-mesh: parameters and caches are trees of
-:class:`~repro_torch.sharding.sharded.Sharded` leaves (``shard_tree``
-lays out a full tree by :meth:`Model.params_pspecs`), each layer runs
-tensor- and expert-parallel (``layers.attention_sharded``,
-``moe.moe_block_sharded``), the embedding and the logits are
-vocab-parallel, and the logits come back gathered, one tensor.  The batch
-splits over the data axes as the rules split it.  A serving cache
-(:meth:`init_cache` without ``pspecs``: the batcher's scratch caches and
-the pool's arena) is laid out by heads, as each position's attention
-reads it; a cache laid out by :meth:`cache_pspecs` (its sequence dim over
-``model``) decodes through the sequence-sharded paths.  Without a ctx, or
-over one position, the model is the one-device model it always was.
+``build_model(cfg, ctx)``), every family runs over the mesh: parameters
+and caches are trees of :class:`~repro_torch.sharding.sharded.Sharded`
+leaves (``shard_tree`` lays out a full tree by
+:meth:`Model.params_pspecs`), each layer runs tensor- and
+expert-parallel (``layers.attention_sharded``, ``moe.moe_block_sharded``,
+``mamba2.mamba_block(ctx)``, the encdec layers' ``ctx``), the embedding
+and the logits are vocab-parallel, and the logits come back gathered,
+one tensor.  The batch splits over the data axes as the rules split it.
+A serving cache (:meth:`init_cache` without ``pspecs``: the batcher's
+scratch caches, the pool's arena, the resident rows) is laid out by
+position, as each position's layers read it: KV and cross memory by
+heads, the Mamba state as conv [x_r | B | C] and ssm by SSD heads
+(``sharded.zip_positions``), and so are the state checkpoints
+(:meth:`init_checkpoints`) and the snapshots sliced from them; a cache
+laid out by :meth:`cache_pspecs` (its sequence dim over ``model``)
+decodes through the sequence-sharded paths.  Without a ctx, or over one
+position, the model is the one-device model it always was.
 """
 from __future__ import annotations
 
@@ -70,7 +74,7 @@ from repro_torch.models.layers import (
     rms_norm,
     softmax_xent,
 )
-from repro_torch.models.mamba2 import MambaState, mamba_dims
+from repro_torch.models.mamba2 import MambaState, local_ssm_cfg, mamba_dims
 from repro_torch.models.param import (
     DTYPES,
     PSpec,
@@ -115,15 +119,12 @@ class Model:
         self.sharded = ctx is not None and ctx.sharded
         self.vocab_padded = pad_vocab(cfg.vocab, cfg.vocab_pad_multiple)
         self.dtype = DTYPES[cfg.dtype]
+        # the ctx the layers take: a sharded one, else None
+        self._lctx = ctx if self.sharded else None
         if self.sharded:
-            # each position's shapes: its heads under TP
-            self.local = Model(local_attn_cfg(cfg, ctx))
-
-    def _check_mesh_family(self):
-        if self.cfg.family not in ("dense", "vlm", "moe"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} over a mesh is ROADMAP queue 1 "
-                "item 13b")
+            # each position's shapes: its heads and its Mamba inner width
+            # under TP
+            self.local = Model(local_ssm_cfg(local_attn_cfg(cfg, ctx), ctx))
 
     # -- parameters ------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -208,13 +209,23 @@ class Model:
         local_model, device_r, local_batch)``; ``global_tree`` (PSpecs or
         tensors) names the logical shapes.  A dim a position holds less of
         is split over ``model``, a ``batch`` dim over the data axes as the
-        rules split ``batch`` rows: the serving layout by heads."""
-        self._check_mesh_family()
-        b_axes = self.ctx.pspec(("batch",), (batch,)).axes_of(0)
-        n = batch
-        for a in b_axes:
-            n //= self.ctx.axis_sizes[a]
+        rules split ``batch`` rows: the serving layout by position."""
+        n = self.local_batch(batch)
         trees = [build(self.local, d, n) for d in self.ctx.mesh.positions]
+        return self.zip_local(trees, global_tree, batch)
+
+    def local_batch(self, batch: int) -> int:
+        """The rows of a ``batch``-row tensor one position holds."""
+        n = batch
+        for a in self.ctx.pspec(("batch",), (batch,)).axes_of(0):
+            n //= self.ctx.axis_sizes[a]
+        return n
+
+    def zip_local(self, trees, global_tree, batch: int = 1):
+        """Per-position trees (position ``r``'s of ``self.local``'s
+        shapes) -> one tree of Sharded leaves laid out as
+        :meth:`position_tree` lays them out."""
+        b_axes = self.ctx.pspec(("batch",), (batch,)).axes_of(0)
         return zip_positions(trees, self.ctx.mesh, global_tree, b_axes)
 
     def abstract_params(self):
@@ -272,6 +283,21 @@ class Model:
             return stack_specs(per, self.cfg.num_layers)
         return stack_specs(stack_specs(per, self.cfg.hybrid_attn_every),
                            self._n_groups)
+
+    def init_checkpoints(self, batch: int, n_ckpt: int, device="cuda"):
+        """Uninitialised stacked state checkpoints of
+        :meth:`checkpoint_specs` on ``device``; a sharded model's laid out
+        by position, as its Mamba layers write them."""
+        def empty(model, dev, b):
+            return tree_map_pspec(
+                lambda sp: torch.empty(
+                    sp.shape, dtype=resolve_dtype(sp, self.cfg.dtype),
+                    device=dev),
+                model.checkpoint_specs(b, n_ckpt))
+        if not self.sharded:
+            return empty(self, resolve_device(device), batch)
+        return self.position_tree(empty, self.checkpoint_specs(batch, n_ckpt),
+                                  batch)
 
     def init_cache(self, batch: int, max_len: int, device="cuda",
                    pspecs=None):
@@ -351,7 +377,6 @@ class Model:
         """Vocab-parallel lookup: each position reads the rows of its
         vocab block (zeros for the others), then a ``psum`` over
         ``model``; the batch split as the rules split it."""
-        self._check_mesh_family()
         tok = batch_split(self.ctx, tokens).long()
         v_ax = self._vocab_axis()
         emb = relayout(embed, P(v_ax, None))
@@ -414,7 +439,6 @@ class Model:
                                          ckpt_every=ckpt_every,
                                          ckpt_out=ckpt_out)
         new_cache = {}
-        kw = {"ctx": self.ctx} if self.sharded else {}
         for key, layer_fn, n in self._stacks():
             stacked = params[key]
             node = None if cache is None else cache[key]
@@ -430,7 +454,7 @@ class Model:
                 else:
                     csl = KVSlice(*(a[i] for a in node))
                 x, ncsl = layer_fn(lp, x, cfg, mode=mode, cache=csl, pos=pos,
-                                   **kw)
+                                   ctx=self._lctx)
                 if not in_place and ncsl is not None:
                     new_slices.append(ncsl)
             if node is None:
@@ -461,7 +485,7 @@ class Model:
             x, new = zmb.mamba_layer(lp, x, cfg, mode=mode,
                                      state=None if mode == "prefill" else st,
                                      mask=mask, ckpt_every=ckpt_every,
-                                     ckpt_out=ck)
+                                     ckpt_out=ck, ctx=self._lctx)
             if ckpt_every is not None:
                 new = new[0]
             if st is not None:
@@ -488,7 +512,7 @@ class Model:
                                      ckpt_every=ckpt_every, ckpt_out=ck)
             kv = None if node is None else KVSlice(*(a[g] for a in node.shared))
             x, _ = zmb.shared_block(params["shared"], x, x0, cfg, mode=mode,
-                                    cache=kv, pos=pos)
+                                    cache=kv, pos=pos, ctx=self._lctx)
         if node is None:
             return x, {}
         if ckpt_every is not None:
@@ -498,13 +522,21 @@ class Model:
     def _encode(self, params, src, src_len=None, *, remat: bool = False):
         """src (B, S_src, d_model) -> encoder memory; ``src_len`` (B,)
         masks pad frames out of the bidirectional self-attention.
-        ``remat``: each layer recomputed in the backward (training)."""
+        ``remat``: each layer recomputed in the backward (training).  A
+        sharded model splits the rows as the rules split the batch and
+        reads ``src_proj`` whole on every position."""
         cfg = self.cfg
-        x = src.to(self.dtype) @ params["src_proj"]
+        w = params["src_proj"]
+        if self.sharded:
+            src = batch_split(self.ctx, src)
+            if src_len is not None:
+                src_len = batch_split(self.ctx, src_len)
+            w = relayout(w, P(None, None))
+        x = src.to(self.dtype) @ w
         for i in range(cfg.encoder_layers):
             lp = tree_map(lambda a: a[i], params["enc_layers"])
             x = (_remat(encdec_mod.enc_layer, lp, x, cfg, src_len) if remat
-                 else encdec_mod.enc_layer(lp, x, cfg, src_len))
+                 else encdec_mod.enc_layer(lp, x, cfg, src_len, self._lctx))
         return rms_norm(x, params["enc_norm"], cfg.rms_eps)
 
     def _decode_stack(self, params, x, *, mode, cache, pos=None):
@@ -521,7 +553,7 @@ class Model:
             csl = encdec_mod.DecCache(kv, node.cross_k[i], node.cross_v[i],
                                       node.src_len[i])
             x, _ = encdec_mod.dec_layer(lp, x, self.cfg, mode=mode,
-                                        cache=csl, pos=pos)
+                                        cache=csl, pos=pos, ctx=self._lctx)
         return x, cache
 
     def _encdec_prefill(self, params, batch, cache):
@@ -545,7 +577,7 @@ class Model:
         memory = self._encode(params, src, src_len)
         for i in range(self.cfg.num_layers):
             cp = tree_map(lambda a: a[i], params["dec_layers"]["cross"])
-            ck, cv = encdec_mod.cross_kv(cp, memory)
+            ck, cv = encdec_mod.cross_kv(cp, memory, self.cfg, self._lctx)
             node.cross_k[i].copy_(ck)
             node.cross_v[i].copy_(cv)
             node.src_len[i].copy_(src_len)
@@ -663,12 +695,9 @@ class Model:
                     f"S_pad={tokens.shape[1]} not a multiple of "
                     f"checkpoint_every={checkpoint_every}")
             if ckpt_out is None:
-                ckpt_out = tree_map_pspec(
-                    lambda sp: torch.empty(
-                        sp.shape, dtype=resolve_dtype(sp, self.cfg.dtype),
-                        device=tokens.device),
-                    self.checkpoint_specs(tokens.shape[0],
-                                          tokens.shape[1] // checkpoint_every))
+                ckpt_out = self.init_checkpoints(
+                    tokens.shape[0], tokens.shape[1] // checkpoint_every,
+                    tokens.device)
         elif ckpt_out is not None:
             raise ValueError("ckpt_out needs checkpoint_every")
         if not in_place:
@@ -685,7 +714,7 @@ class Model:
         if checkpoint_every is None:
             return logits, self._mask_pad(new_cache, length)
         new_cache, ckpts = self._split_checkpoints(new_cache)
-        return logits, mask_pad_slots_(new_cache, length), ckpts
+        return logits, self._mask_pad(new_cache, length), ckpts
 
     def _mask_pad(self, cache, length):
         """``mask_pad_slots_``; over a mesh, by each slot's position (a
@@ -809,19 +838,24 @@ class Model:
         state shaped like the recurrent part of a dense cache row: the
         snapshot payload :meth:`restore_state_row` writes back.  A copy: a
         view would keep the whole checkpoint tensor of its prefill
-        alive."""
+        alive.  Over a mesh each position copies its own part, and the
+        payload keeps the checkpoints' layout by position."""
         idx = ((slice(None),) * self._state_batch_axis
                + (slice(row, row + 1), chunk_idx))
         return MambaState(*(a[idx].clone() for a in ckpts))
 
+    def state_node(self, cache) -> MambaState:
+        """The stacked recurrent state of a cache (ssm / hybrid)."""
+        return (cache["mamba_layers"] if self.cfg.family == "ssm"
+                else cache["groups"].mamba)
+
     def restore_state_row(self, cache, state, row: int):
         """Write a 1-row snapshot ``state`` over slot ``row``'s recurrent
-        cache leaves, in place; KV leaves (hybrid shared attention) are the
-        caller's.  Returns ``cache``."""
+        cache leaves, in place (over a mesh, each position its part); KV
+        leaves (hybrid shared attention) are the caller's.  Returns
+        ``cache``."""
         idx = (slice(None),) * self._state_batch_axis + (slice(row, row + 1),)
-        node = (cache["mamba_layers"] if self.cfg.family == "ssm"
-                else cache["groups"].mamba)
-        for dst, src in zip(node, state):
+        for dst, src in zip(self.state_node(cache), state):
             dst[idx] = src.to(dst.dtype)
         return cache
 

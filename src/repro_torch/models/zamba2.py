@@ -24,6 +24,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mamba2 import MambaState, mamba_block, mamba_specs
 from repro_torch.models.param import PSpec
+from repro_torch.sharding.collectives import relayout
+from repro_torch.sharding.rules import P
 
 
 def shared_block_specs(cfg: ArchConfig) -> dict:
@@ -48,25 +50,28 @@ class ZambaGroupCache(NamedTuple):
 
 
 def shared_block(sp, x, x0, cfg: ArchConfig, *, mode: str,
-                 cache: Optional[KVSlice] = None, pos=None
+                 cache: Optional[KVSlice] = None, pos=None, ctx=None
                  ) -> Tuple[torch.Tensor, Optional[KVSlice]]:
+    if ctx is not None and ctx.sharded:
+        sp = {**sp, **{k: relayout(sp[k], P(None, None))
+                       for k in ("proj_in", "proj_out")}}
     h = torch.cat([x, x0], dim=-1) @ sp["proj_in"]
     h1 = rms_norm(h, sp["attn_norm"], cfg.rms_eps)
     a, new_cache = attention_block(sp["attn"], h1, cfg, mode=mode,
-                                   cache=cache, pos=pos)
+                                   cache=cache, pos=pos, ctx=ctx)
     h = h + a
     h2 = rms_norm(h, sp["mlp_norm"], cfg.rms_eps)
-    h = h + mlp_block(sp["mlp"], h2, cfg)
+    h = h + mlp_block(sp["mlp"], h2, cfg, ctx)
     return x + h @ sp["proj_out"], new_cache
 
 
 def mamba_layer(lp, x, cfg: ArchConfig, *, mode: str,
                 state: Optional[MambaState] = None, mask=None,
                 ckpt_every: Optional[int] = None,
-                ckpt_out: Optional[MambaState] = None):
+                ckpt_out: Optional[MambaState] = None, ctx=None):
     """Pre-norm residual Mamba layer: (x + mamba(norm(x)), new state)."""
     h = rms_norm(x, lp["norm"], cfg.rms_eps)
     y, new_state = mamba_block(lp["mamba"], h, cfg, mode=mode, state=state,
                                mask=mask, ckpt_every=ckpt_every,
-                               ckpt_out=ckpt_out)
+                               ckpt_out=ckpt_out, ctx=ctx)
     return x + y, new_state

@@ -935,11 +935,12 @@ class ContinuousBatcher(StepRunner):
 
     def rebind(self, model, params):
         """Serve ``model`` over ``params`` after the cell's mesh changed:
-        the pool's arena, the resident rows and the dense cache are
-        re-laid onto the new model's layout (contents kept, old shards
-        freed), the steps are rebuilt over the new model, the scratch
-        caches and the slot reset come anew when next needed, and every
-        step graph is dropped."""
+        the pool's arena, the resident rows, the dense cache and a
+        snapshot pool's interned payloads are re-laid onto the new model's
+        layout (contents kept, old shards freed), the checkpoint
+        workspace holds its capacity in the new layout, the steps are
+        rebuilt over the new model, the scratch caches and the slot reset
+        come anew when next needed, and every step graph is dropped."""
         if self.pool is not None and self.pool.kv_scales is not None:
             raise NotImplementedError("int8 pages over a mesh")
         self.model, self.params = model, params
@@ -948,8 +949,11 @@ class ContinuousBatcher(StepRunner):
         def _relay_into(old, new):   # old's values in new's layout
             return tree_map(lambda dst, src: relay_leaf(src, into=dst),
                             new, old)
+        if self.pool is not None:
+            self.pool.rebind(model)
+        if self._ckpts is not None:
+            self._ckpts.rebind(model)
         if self._paged:
-            self.pool.model = model
             self.pool.arena = _relay_into(self.pool.arena, page_arena(
                 model, self.pool.num_pages, self.pool.page_size,
                 self.device))

@@ -25,7 +25,12 @@ physical arena page (``"page"``, KV families) or an interned *snapshot*
 payload (``"snapshot"``, the ssm and hybrid families): the recurrent
 state after the chunk's last position plus, for hybrid, the chunk's
 shared-attention KV page.  Snapshot handles come from the same free list,
-quotas and LRU eviction as pages; evicting one drops its payload.
+quotas and LRU eviction as pages; evicting one drops its payload.  Over
+a sharded model a payload is Sharded, laid out as the model's state
+(each position its part: ``Model.slice_checkpoint``); its byte counters
+count logical bytes, those of a one-position pool, and
+:meth:`KVPool.rebind` re-lays every payload when the cell's mesh
+changes.
 
 Two deployments share the class: a *decode* pool (``slots`` > 0) backs a
 batcher's slots; a *prefill* pool (``slots`` 0) backs the disaggregated
@@ -62,9 +67,11 @@ from repro_torch.models.cache_utils import (
     write_arena_pages,
 )
 from repro_torch.models.layers import KVSlice
+from repro_torch.models.param import tree_map
 from repro_torch.serve.serve_step import bucket_len, sample_tokens
 from repro_torch.serve.step_graph import extend_key
 from repro_torch.serve.tenancy import COMMONS, DEFAULT_TENANT, PUBLIC
+from repro_torch.sharding.sharded import Sharded, relay_leaf
 
 
 class PoolExhausted(RuntimeError):
@@ -807,6 +814,28 @@ class KVPool:
                             zip(*(pc[i] for pc in per_chunk))))
                   for i in range(len(per_chunk[0]))]
         return payloads[-1]["state"], stacks
+
+    def rebind(self, model):
+        """Serve ``model``, a resized cell's, and re-lay every interned
+        snapshot payload onto its layout (its mesh by position, or its
+        one device): the contents bit for bit, each old payload's shards
+        freed as its new one fills (``relay_leaf``).  A page pool's arena
+        is its batcher's to re-lay."""
+        self.model = model
+        if not self._snaps:
+            return
+        like = model.init_cache(1, self.page_size, device=self.device)
+        state = model.state_node(like)
+        pages = (extract_row_pages(like, self.axes, 0, 0, 1, self.page_size)
+                 if self.axes else [])
+
+        def move(src, tmpl):
+            if isinstance(tmpl, Sharded):
+                return relay_leaf(src, tmpl.mesh, tmpl.spec)
+            return relay_leaf(src, tmpl.device)
+        for handle, p in self._snaps.items():
+            self._snaps[handle] = {"state": tree_map(move, p["state"], state),
+                                   "pages": tree_map(move, p["pages"], pages)}
 
     def release_slot(self, slot: int):
         """Free a slot: decref its shared prefix (it stays interned as

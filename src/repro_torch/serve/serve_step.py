@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.models.param import resolve_dtype
+from repro_torch.sharding.sharded import Sharded
 from repro_torch.serve.step_graph import prefill_key
 
 
@@ -177,12 +178,35 @@ class CheckpointWorkspace:
     shaped as the checkpoints of b rows of nb checkpoints, what
     ``Model.prefill_ranged(ckpt_out=...)`` writes into.  :meth:`reserve`
     regrows the buffers when a larger key comes (their contents and
-    addresses are dropped; ``regrowths`` counts it)."""
+    addresses are dropped; ``regrowths`` counts it).  Over a sharded model
+    each buffer is one per position at the local shapes (a Sharded of flat
+    tensors) and the views are laid out by position, as
+    ``Model.init_checkpoints`` lays out checkpoints."""
 
     def __init__(self, model: Model, device):
         self.model, self.device = model, device
         self.capacity = self.regrowths = 0
         self._flat = None
+
+    def _local_specs(self, b: int, nb: int):
+        """The checkpoint specs of b rows as one position holds them."""
+        m = self.model
+        if not m.sharded:
+            return m.checkpoint_specs(b, nb)
+        return m.local.checkpoint_specs(m.local_batch(b), nb)
+
+    def _alloc(self, cap: int):
+        specs = self._local_specs(1, cap)
+
+        def flat(dev):
+            return [torch.empty(int(np.prod(s.shape)), device=dev,
+                                dtype=resolve_dtype(s, self.model.cfg.dtype))
+                    for s in specs]
+        if not self.model.sharded:
+            return flat(self.device)
+        mesh = self.model.ctx.mesh
+        per = [flat(d) for d in mesh.positions]
+        return [Sharded(list(bufs), mesh) for bufs in zip(*per)]
 
     def reserve(self, pairs: int) -> bool:
         """Hold at least ``pairs`` (row, checkpoint) pairs; True when the
@@ -192,11 +216,18 @@ class CheckpointWorkspace:
             return False
         self.regrowths += self._flat is not None
         self._flat = None                   # free the old buffers first
-        self._flat = [torch.empty(int(np.prod(s.shape)), device=self.device,
-                                  dtype=resolve_dtype(s, self.model.cfg.dtype))
-                      for s in self.model.checkpoint_specs(1, cap)]
+        self._flat = self._alloc(cap)
         self.capacity = cap
         return True
+
+    def rebind(self, model: Model):
+        """Hold the same capacity in ``model``'s layout (after a resize
+        across meshes); the contents are scratch and go, the old buffers
+        first.  Not a regrowth."""
+        self.model = model
+        if self._flat is not None:
+            self._flat = None
+            self._flat = self._alloc(self.capacity)
 
     def views(self, b: int, nb: int):
         """The checkpoints of ``b`` rows of ``nb`` checkpoints, as views
@@ -204,6 +235,13 @@ class CheckpointWorkspace:
         if b * nb > self.capacity:
             raise ValueError(f"{b} x {nb} checkpoints exceed the workspace's "
                              f"{self.capacity}")
-        specs = self.model.checkpoint_specs(b, nb)
-        return type(specs)(*(f[:int(np.prod(s.shape))].view(s.shape)
-                             for f, s in zip(self._flat, specs)))
+        specs = self._local_specs(b, nb)
+        m = self.model
+        if not m.sharded:
+            return type(specs)(*(f[:int(np.prod(s.shape))].view(s.shape)
+                                 for f, s in zip(self._flat, specs)))
+        trees = [type(specs)(*(f.shards[r][:int(np.prod(s.shape))]
+                               .view(s.shape)
+                               for f, s in zip(self._flat, specs)))
+                 for r in range(m.ctx.mesh.size)]
+        return m.zip_local(trees, m.checkpoint_specs(b, nb), b)

@@ -25,7 +25,8 @@ position's shard (``sharding/sharded.py``) and the collectives
 (``sharding/collectives.py``) move data between them, the counterpart of
 JAX's ``shard_map`` with XLA's collectives.  :class:`P` is the port's
 PartitionSpec: a tuple with one entry per dim, each None, an axis name,
-or a tuple of axis names (major to minor).
+a tuple of axis names (major to minor), or :class:`Segments` for a dim
+whose consecutive parts are laid out each on its own.
 """
 from __future__ import annotations
 
@@ -38,8 +39,30 @@ import torch
 Axes = Tuple[str, ...]
 
 
+class Segments(tuple):
+    """A :class:`P` entry for a dim made of consecutive segments, each
+    laid out on its own: ``((size, axes), ...)``, each segment's global
+    size and the axes it is split over evenly (``()``: whole on every
+    position).  A position holds its part of every segment, in order: the
+    Mamba conv state's channels [x | B | C], laid out by position as
+    [x_r | B | C] (x over ``model``, B and C whole)."""
+
+    def __new__(cls, *segs):
+        return super().__new__(cls, tuple((int(n), tuple(a))
+                                          for n, a in segs))
+
+    @property
+    def axes(self) -> Axes:
+        """Every axis some segment is split over."""
+        return tuple(dict.fromkeys(a for _, axes in self for a in axes))
+
+    def __repr__(self) -> str:
+        return f"Segments{tuple.__repr__(self)}"
+
+
 class P(tuple):
-    """PartitionSpec: one entry per dim (None, an axis, or axes)."""
+    """PartitionSpec: one entry per dim (None, an axis, axes, or
+    :class:`Segments`)."""
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
@@ -48,10 +71,13 @@ class P(tuple):
         return f"P{tuple.__repr__(self)}"
 
     def axes_of(self, dim: int) -> Axes:
-        """The mesh axes dim ``dim`` is split over (major to minor)."""
+        """The mesh axes dim ``dim`` is split over (major to minor; for
+        :class:`Segments`, those of any segment)."""
         e = self[dim] if dim < len(self) else None
         if e is None:
             return ()
+        if isinstance(e, Segments):
+            return e.axes
         return e if isinstance(e, tuple) else (e,)
 
 

@@ -26,11 +26,12 @@ value replicated over every position is read from position 0
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from repro_torch.sharding.rules import P, Mesh
+from repro_torch.sharding.rules import P, Mesh, Segments
 
 #: functions whose result keeps the layout of their first Sharded operand
 _KEEPS_LAYOUT = {torch.empty_like, torch.zeros_like, torch.ones_like,
@@ -68,6 +69,10 @@ class Sharded:
         sizes = self.mesh.shape
         out = []
         for d, n in enumerate(self.shape):
+            e = self.spec[d] if d < len(self.spec) else None
+            if isinstance(e, Segments):
+                out.append(sum(size for size, _ in e))
+                continue
             k = 1
             for a in self.spec.axes_of(d):
                 k *= sizes[a]
@@ -122,19 +127,20 @@ class Sharded:
 
 
 def _index_spec(spec: P, index, ndim: int) -> Optional[P]:
-    """The layout of ``x[index]`` for indices of ints and full slices over
-    unsplit dims (the layer slices of a stacked leaf); None otherwise."""
+    """The layout of ``x[index]`` for indices of ints and slices: full
+    slices keep any dim's layout, ints and other slices need an unsplit
+    dim (the layer slices of a stacked leaf, the rows of a state); None
+    otherwise."""
     idx = index if isinstance(index, tuple) else (index,)
     parts = list(spec) + [None] * (ndim - len(spec))
     out = []
     for d, i in enumerate(idx):
-        if isinstance(i, int):
-            if parts[d] is not None:
-                return None
-        elif isinstance(i, slice) and i == slice(None):
+        if isinstance(i, slice) and i == slice(None):
             out.append(parts[d])
-        else:
+        elif not isinstance(i, (int, slice)) or parts[d] is not None:
             return None
+        elif isinstance(i, slice):
+            out.append(None)
     return P(*(out + parts[len(idx):]))
 
 
@@ -251,35 +257,79 @@ def per_position(fn: Callable) -> Callable:
 # --------------------------------------------------------------------------
 # layouts
 # --------------------------------------------------------------------------
-def local_slices(mesh: Mesh, spec: P, shape: Sequence[int], r: int) -> tuple:
-    """Position ``r``'s slice of a tensor of global ``shape`` under
-    ``spec``: the dims' even split, ranked major to minor over each dim's
-    axes."""
+def _segments(entry, n: int) -> tuple:
+    """A :class:`P` entry over a dim of global size ``n`` as segments
+    ``((size, axes), ...)``."""
+    if isinstance(entry, Segments):
+        if sum(size for size, _ in entry) != n:
+            raise ValueError(f"{entry} does not cover a dim of {n}")
+        return tuple(entry)
+    if entry is None:
+        return ((n, ()),)
+    return ((n, entry if isinstance(entry, tuple) else (entry,)),)
+
+
+def _dim_parts(mesh: Mesh, entry, n: int, r: int, what: str) -> list:
+    """Position ``r``'s parts of a dim of global size ``n``: (global
+    slice, local slice) per segment, each segment split evenly, ranked
+    major to minor over its axes."""
     sizes = mesh.shape
-    out = []
-    for d, n in enumerate(shape):
-        axes = spec.axes_of(d)
+    out, g0, l0 = [], 0, 0
+    for size, axes in _segments(entry, n):
         k = 1
         for a in axes:
             k *= sizes[a]
-        if n % k:
-            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
-                             f"over {axes} ({k})")
-        c = n // k
+        if size % k:
+            raise ValueError(f"{what} does not split over {axes} ({k})")
+        c = size // k
         i = mesh.rank(r, axes)
-        out.append(slice(i * c, (i + 1) * c))
-    return tuple(out)
+        out.append((slice(g0 + i * c, g0 + (i + 1) * c), slice(l0, l0 + c)))
+        g0, l0 = g0 + size, l0 + c
+    return out
+
+
+def _pieces(mesh: Mesh, spec: P, shape: Sequence[int], r: int) -> list:
+    """Position ``r``'s pieces of a tensor of global ``shape`` under
+    ``spec``: (global index, local index) pairs, one per combination of
+    its dims' segments (one piece unless a dim is :class:`Segments`)."""
+    per_dim = [_dim_parts(mesh, spec[d] if d < len(spec) else None, n, r,
+                          f"dim {d} of {tuple(shape)}")
+               for d, n in enumerate(shape)]
+    return [(tuple(g for g, _ in combo), tuple(lo for _, lo in combo))
+            for combo in itertools.product(*per_dim)]
+
+
+def local_shape(mesh: Mesh, spec: P, shape: Sequence[int]) -> tuple:
+    """Every position's shape of a tensor of global ``shape`` under
+    ``spec``."""
+    return tuple(sum(lo.stop - lo.start for _, lo in
+                     _dim_parts(mesh, spec[d] if d < len(spec) else None,
+                                n, 0, f"dim {d} of {tuple(shape)}"))
+                 for d, n in enumerate(shape))
+
+
+def local_slices(mesh: Mesh, spec: P, shape: Sequence[int], r: int) -> tuple:
+    """Position ``r``'s slice of a tensor of global ``shape`` under
+    ``spec`` (a layout without :class:`Segments`): the dims' even split,
+    ranked major to minor over each dim's axes."""
+    (g, _), = _pieces(mesh, spec, shape, r)
+    return g
+
+
+def _full_spec(spec, ndim: int) -> P:
+    return P(*(tuple(spec) + (None,) * (ndim - len(spec))))
 
 
 def shard_leaf(t: torch.Tensor, spec, mesh: Mesh) -> Sharded:
-    """``t`` laid out over ``mesh`` by ``spec``: each position's slice as
+    """``t`` laid out over ``mesh`` by ``spec``: each position's part as
     a new contiguous tensor on its device."""
-    spec = P(*(tuple(spec) + (None,) * (t.dim() - len(spec))))
+    spec = _full_spec(spec, t.dim())
     shards = []
     for r, dev in enumerate(mesh.positions):
-        part = t[local_slices(mesh, spec, t.shape, r)]
-        out = torch.empty(part.shape, dtype=t.dtype, device=dev)
-        out.copy_(part)
+        out = torch.empty(local_shape(mesh, spec, t.shape), dtype=t.dtype,
+                          device=dev)
+        for g, lo in _pieces(mesh, spec, t.shape, r):
+            out[lo].copy_(t[g])
         shards.append(out)
     return Sharded(shards, mesh, spec)
 
@@ -287,7 +337,7 @@ def shard_leaf(t: torch.Tensor, spec, mesh: Mesh) -> Sharded:
 def gather_leaf(s: Sharded, device=None) -> torch.Tensor:
     """The logical tensor of ``s`` (by its ``spec``) on ``device``
     (default position 0's), read from the first position holding each
-    slice."""
+    piece."""
     if s.spec is None:
         raise ValueError("a Sharded without a layout cannot be gathered")
     shape = s.global_shape
@@ -295,11 +345,11 @@ def gather_leaf(s: Sharded, device=None) -> torch.Tensor:
     out = torch.empty(shape, dtype=s.shards[0].dtype, device=dev)
     seen = set()
     for r in range(s.mesh.size):
-        sl = local_slices(s.mesh, s.spec, shape, r)
-        key = tuple((x.start, x.stop) for x in sl)
-        if key not in seen:
-            seen.add(key)
-            out[sl].copy_(s.shards[r])
+        for g, lo in _pieces(s.mesh, s.spec, shape, r):
+            key = tuple((x.start, x.stop) for x in g)
+            if key not in seen:
+                seen.add(key)
+                out[g].copy_(s.shards[r][lo])
     return out
 
 
@@ -328,16 +378,18 @@ def relay_leaf(t, target=None, spec=None, *, into=None):
                 else full.to(dev, non_blocking=True))
     if on_mesh:
         for r, shard in enumerate(into.shards):
-            shard.copy_(full[local_slices(target, spec, full.shape, r)])
+            for g, lo in _pieces(target, spec, full.shape, r):
+                shard[lo].copy_(full[g])
     else:
         into.copy_(full)
     return into
 
 
 def split(t: torch.Tensor, spec, mesh: Mesh) -> Sharded:
-    """A read-only input laid out by ``spec``: each position's slice of
-    ``t`` as a view (a copy on another device)."""
-    spec = P(*(tuple(spec) + (None,) * (t.dim() - len(spec))))
+    """A read-only input laid out by ``spec`` (without
+    :class:`Segments`): each position's slice of ``t`` as a view (a copy
+    on another device)."""
+    spec = _full_spec(spec, t.dim())
     out = []
     for r, d in enumerate(mesh.positions):
         part = t[local_slices(mesh, spec, t.shape, r)]
@@ -350,12 +402,10 @@ def empty_like_global(like: Sharded, spec, shape=None) -> Sharded:
     """Uninitialised shards of ``like``'s logical shape (or ``shape``)
     laid out by ``spec``, on ``like``'s positions."""
     shape = like.global_shape if shape is None else tuple(shape)
-    spec = P(*(tuple(spec) + (None,) * (len(shape) - len(spec))))
-    out = []
-    for r, s in enumerate(like.shards):
-        sl = local_slices(like.mesh, spec, shape, r)
-        out.append(torch.empty(tuple(x.stop - x.start for x in sl),
-                               dtype=s.dtype, device=s.device))
+    spec = _full_spec(spec, len(shape))
+    local = local_shape(like.mesh, spec, shape)
+    out = [torch.empty(local, dtype=s.dtype, device=s.device)
+           for s in like.shards]
     return Sharded(out, like.mesh, spec)
 
 
@@ -370,18 +420,36 @@ def zip_positions(trees: Sequence, mesh: Mesh, global_tree=None,
     leaves.  ``global_tree`` (the same structure; leaves with the logical
     ``shape``: tensors, or PSpecs naming their dims) gives each leaf's
     layout: a dim a position holds less of is split over ``batch_axes``
-    when its PSpec names it ``batch``, else over ``model``; without it the
-    leaves have no layout."""
+    when its PSpec names it ``batch``, else over ``model``; a dim it holds
+    more than 1/m of (m the model axis' size) is a prefix split over
+    ``model`` before a suffix every position holds whole
+    (:class:`Segments`: the Mamba conv state's [x_r | B | C]).  Without
+    ``global_tree`` the leaves have no layout."""
     from repro_torch.models.param import is_pspec, tree_leaves, tree_map
     if global_tree is None:
         return tree_map(lambda *xs: Sharded(list(xs), mesh), trees[0],
                         *trees[1:])
     b_ax = tuple(batch_axes)
     b_ax = b_ax[0] if len(b_ax) == 1 else (b_ax or None)
+    m = mesh.shape.get("model", 1)
+
+    def entry(n, g, name):
+        if n >= g:
+            return None
+        if name == "batch":
+            return b_ax
+        if n * m == g:
+            return "model"
+        # n = s / m + (g - s) for a split prefix of s
+        s, rem = divmod((g - n) * m, m - 1) if m > 1 else (0, 1)
+        if rem or not 0 < s <= g or s % m:
+            raise ValueError(f"a dim of {n} of {g} is no layout over "
+                             f"{m} positions")
+        return Segments((s, ("model",)), (g - s, ()))
 
     def spec(local, gl):
         names = gl.logical if is_pspec(gl) else (None,) * len(gl.shape)
-        return P(*((b_ax if name == "batch" else "model") if n < g else None
+        return P(*(entry(n, g, name)
                    for n, g, name in zip(local.shape, gl.shape, names)))
     specs = [spec(x, g) for x, g in
              zip(tree_leaves(trees[0]), tree_leaves(global_tree,

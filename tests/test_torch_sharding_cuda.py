@@ -2,9 +2,11 @@
 skipped without a GPU).
 
 * A float32 smoke serve cell over two positions of one card (qwen3-4b;
-  deepseek-moe-16b with its experts over ``model``) gives a one-position
-  cell's greedy tokens; its steps are captured as CUDA graphs over both
-  positions and replayed, and the guard passes.
+  deepseek-moe-16b with its experts over ``model``; mamba2-2.7b and
+  zamba2-2.7b on the snapshot pool, their Mamba layers over SSD heads;
+  seamless-m4t-large-v2 with ragged sources and requests without one)
+  gives a one-position cell's greedy tokens; its steps are captured as
+  CUDA graphs over both positions and replayed, and the guard passes.
 * The collectives over positions of one card: every position of a
   ``psum`` holds the same bits, the float32 sum in position order.
 * The model-level decode over a dense cache split on its sequence dim
@@ -42,6 +44,8 @@ from repro_torch.sharding.rules import make_ctx  # noqa: E402
 from repro_torch.sharding.sharded import Sharded  # noqa: E402
 
 KW = {"batch_slots": 2, "max_len": 64, "page_size": 8, "prefill_chunk": 8}
+ARCHS = ["qwen3-4b", "deepseek-moe-16b", "mamba2-2.7b", "zamba2-2.7b",
+         "seamless-m4t-large-v2"]
 
 
 @pytest.fixture
@@ -72,16 +76,19 @@ def _serve(arch, grid, ncols, seed=0):
     for _ in range(2):
         for lens in ([3, 9, 5], [6, 2]):
             for n in lens:
+                # encdec: ragged sources, every other request without one
+                src = (rng.standard_normal((4 * n, cfg.d_model)).astype(
+                    np.float32) if cfg.family == "encdec" and n % 2 else None)
                 bat.submit(Request(rid=rid, prompt=np.concatenate(
                     [shared, rng.integers(1, cfg.vocab, size=n).astype(
-                        np.int32)]), max_new_tokens=6))
+                        np.int32)]), max_new_tokens=6, src=src))
                 rid += 1
             bat.run_until_drained()
     return {r.rid: r.output for r in bat.done}, sup, bat
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_two_positions_of_one_card_give_one_position_tokens(dev, arch):
     one, _, b1 = _serve(arch, DeviceGrid.from_flat([dev], 1, 1, 2,
                                                    allow_reuse=True), 2)
@@ -112,7 +119,7 @@ def test_psum_over_positions_of_one_card(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("n_cards", [2, 4])
 def test_positions_on_distinct_cards_run_eagerly(dev, arch, n_cards):
     if torch.cuda.device_count() < n_cards:
