@@ -183,6 +183,27 @@ one CUDA graph a key and round 2 all replays, and prints the same
 end-to-end numbers, the greedy tokens' agreement, the peak memory and the
 collective bytes a step key; its launches add to its path's rows.
 
+Phases 17a-17e serve all five families at full width (qwen3-4b,
+deepseek-moe-16b, mamba2-2.7b, zamba2-2.7b, seamless-m4t-large-v2) from
+a cell over a zone of two rows of two positions of the card
+(``DeviceGrid.from_flat([dev] * 4, 1, 2, 2)``: (``data`` 2, ``model``
+2)), with phases 5, 7, 8, 9 and 10's weights, rounds and sources: the
+batch split over ``data`` (4 of the 8 slots a data row), the weights
+FSDP over ``data`` (gathered layer by layer in every step), the paged
+arena and the snapshot payloads whole on both data rows (the steps'
+paged writes all-gathered over ``data`` and mirrored), one host schedule
+(one slot table, one pool).  Each makes 16b-16d's checks at four
+positions: every kernel launched exactly four times as often as in its
+one-position phase, the logits rule (deepseek-moe-16b's float32 copies
+at its first 4 layers; its bf16 error over all 28 is printed), equal
+snapshot counters, one CUDA graph a key and round 2 all replays, and
+prints the same numbers; its launches add to its path's rows.  Phase 4
+also serves the five families in float32 from a (2, 2) cell on the card
+with four slots (a cold pair whose second row lands in a slot of the
+other data row, a warm pair extended across the data rows, a prompt
+alone run whole on both): the tokens must equal a one-position cell's on
+the CPU.
+
 Phase 16 also decodes at the model level over a dense cache split on
 its sequence dim between the two positions (``Model.cache_pspecs``),
 with ``sharded_decode`` on (the LSE combine) and off (the cache
@@ -2042,6 +2063,100 @@ def sharded_parity_run(dev, arch, weight_seed, prompt_seed, waves):
     return toks, graphs, colls
 
 
+#: (name, arch, weight seed, prompt seed) of phase 4's (2, 2) cases
+ROWS_PARITY = [
+    ("qwen3-4b over 2 rows of 2 positions, paged", "qwen3-4b", 0, 4),
+    ("deepseek-moe-16b over 2 rows of 2 positions", "deepseek-moe-16b", 0,
+     4),
+    ("mamba2-2.7b over 2 rows of 2 positions, snapshot plane",
+     "mamba2-2.7b", 0, 4),
+    ("zamba2-2.7b over 2 rows of 2 positions, snapshot plane",
+     "zamba2-2.7b", 0, 4),
+    ("seamless-m4t-large-v2 over 2 rows of 2 positions, with sources",
+     "seamless-m4t-large-v2", 0, 4),
+]
+
+
+def rows_parity_run(dev, arch, weight_seed, prompt_seed):
+    """The same float32 smoke weights and requests through a serve cell of
+    one position on the CPU and a cell over (``data`` 2, ``model`` 2) of
+    the card, four slots (two a data row), three ticks behind a 20-token
+    shared prefix S, twice (the second time warm, its prefills replays):
+    S + 3 and S + 2 (one cold pair, its second row landing in slot 1 of
+    data row 0), S + T1 + 5 and S + T2 + 5 (a warm pair, T2's page
+    computed on data row 1 for slot 1), S + T2 + 3 alone (it hits T2's
+    page; a group of one runs whole on both data rows).  encdec: the
+    first request carries a source.  Returns ({"cpu", "rows": {rid:
+    tokens}}, the card batcher's graph counters, the collective bytes of
+    its step keys)."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (
+        CellSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+    )
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import params_from_numpy, tree_map
+    from repro_torch.serve.batcher import Request
+
+    cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
+    model = Model(cfg)
+    host = tree_map(lambda t: t.numpy(), model.init(
+        torch.Generator().manual_seed(weight_seed), device="cpu"))
+    rng = np.random.default_rng(prompt_seed)
+
+    def tail(n):
+        return rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+    shared, t1, t2 = tail(20), tail(4), tail(4)
+    src = (rng.standard_normal((24, cfg.d_model)).astype(np.float32)
+           if cfg.family == "encdec" else None)
+    ticks = [[(np.concatenate([shared, tail(3)]), src),
+              (np.concatenate([shared, tail(2)]), None)],
+             [(np.concatenate([shared, t1, tail(5)]), None),
+              (np.concatenate([shared, t2, tail(5)]), None)],
+             [(np.concatenate([shared, t2, tail(3)]), None)]]
+    toks, graphs, colls = {}, None, None
+    for name, grid in (
+            ("cpu", DeviceGrid.from_flat(["cpu"], 1, 1, 2, allow_reuse=True)),
+            ("rows", DeviceGrid.from_flat([dev] * 4, 1, 2, 2))):
+        sup = Supervisor(grid)
+        sup.apply(ClusterSpec(cells=(CellSpec("c", cfg, "serve", ncols=2),)))
+        cell = sup.cells["c"]
+        if cell.mesh.size != (4 if name == "rows" else 1):
+            raise AssertionError(f"{name}: mesh {cell.mesh}")
+        cell.init_serve(params=params_from_numpy(
+            host, dtype=torch.float32, device=cell.device,
+            specs=model.param_specs()))
+        bat = cell.make_batcher(batch_slots=4, max_len=64, page_size=8,
+                                prefill_chunk=8)
+        rid = 0
+        for _ in range(2):
+            for tick in ticks:
+                for p, s in tick:
+                    bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6,
+                                       src=s))
+                    rid += 1
+                bat.run_until_drained()
+        toks[name] = {r.rid: r.output for r in bat.done}
+        if name == "rows":
+            graphs = expect_graphed(4, bat)
+            colls = {k: dict(v.collective_per_device)
+                     for k, v in cell.accounting.programs.items()}
+            for node in (bat.pool.arena if bat._paged else []):
+                for leaf in node:
+                    for g in cell.mesh.groups(("data",)):
+                        if not all(torch.equal(leaf.shards[g[0]],
+                                               leaf.shards[r])
+                                   for r in g[1:]):
+                            raise AssertionError(
+                                f"{arch}: the data rows' arenas differ")
+        bat.close()
+        sup.destroy_cell("c")
+    return toks, graphs, colls
+
+
 def phase_parity(dev):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import gmm
@@ -2080,6 +2195,19 @@ def phase_parity(dev):
             raise AssertionError(f"{name}: no collective recorded: {colls}")
         log(f"[4] {name}: identical to a one-position cell on {dev}; "
             f"collective bytes per step key {colls}")
+    for name, arch, wseed, pseed in ROWS_PARITY:
+        toks, graphs, colls = rows_parity_run(dev, arch, wseed, pseed)
+        log(f"[4] {name}: {toks['rows']}")
+        if toks["cpu"] != toks["rows"]:
+            raise AssertionError(f"{name}: the (2, 2) cell's tokens on the "
+                                 f"card differ from one position's on the "
+                                 f"cpu: {toks}")
+        if not all(c.get("all-gather") for c in colls.values()):
+            raise AssertionError(f"{name}: a step key gathered nothing over "
+                                 f"data: {colls}")
+        log(f"[4] {name}: identical to a one-position cell on the cpu; "
+            f"each data row's arena the same; collective bytes per step "
+            f"key {colls}")
     if (flash_attention.launches_tc, gmm.launches_tc,
             paged_extend_attention.launches_tc) != tc0:
         raise AssertionError("a float32 run launched a tensor-core kernel")
@@ -2437,6 +2565,7 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
     e2e["tokens_by_round"] = [[r.output for r in reqs[:2 * SLOTS]],
                               [r.output for r in reqs[2 * SLOTS:]]]
     e2e["hits_by_round"] = [hits[2] - hits[0], hits[4] - hits[2]]
+    e2e["outputs"] = [r.output for r in reqs]    # what 17a compares
     e2e["graphs"] = expect_graphed(5, bat)
     e2e["round2"] = expect_round2_replayed(5, bat, marks[2])
     e2e["memory"] = memory_report(5, bat)
@@ -2641,6 +2770,7 @@ def phase_moe(dev, name_limit: str) -> dict:
         raise AssertionError(f"a kernel was never launched: {launches}")
     check_drained(bat.pool, SLOTS * SHARED)
     e2e = report(7, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+    e2e["outputs"] = [r.output for r in reqs]    # what 17b compares
     log(f"[7] {bat.pool.prefix_hit_tokens} prefix-hit tokens, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
     e2e["graphs"] = expect_graphed(7, bat)
@@ -3550,29 +3680,44 @@ def phase_sharded(dev, name_limit: str, ref: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phases 16b-16d: mamba2, zamba2 and seamless served over two positions
+# phases 16b-16d: mamba2, zamba2 and seamless served over two positions;
+# 17a-17e: all five families over two rows of two positions
 # --------------------------------------------------------------------------
 #: (tag, arch, the one-position phase whose weights and traffic it runs)
 SHARDED_FAMILIES = (("16b", "mamba2-2.7b", 8), ("16c", "zamba2-2.7b", 9),
                     ("16d", "seamless-m4t-large-v2", 10))
+ROW_FAMILIES = (("17a", "qwen3-4b", 5), ("17b", "deepseek-moe-16b", 7),
+                ("17c", "mamba2-2.7b", 8), ("17d", "zamba2-2.7b", 9),
+                ("17e", "seamless-m4t-large-v2", 10))
+#: deepseek-moe-16b's depth for the float32 logits check over two rows
+#: (float32 copies of its 16.4 B parameters do not fit beside the bf16
+#: weights): its dense layer and the first 3 MoE layers
+MOE_F32_LAYERS = 4
 
 
 def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
-                         ref: dict) -> dict:
-    """Full-width ``arch`` from a serve cell over a zone of two mesh
-    positions of the card, with the one-position phase's (``ref``)
-    weights, two rounds and, for seamless, sources: mamba2-2.7b and
-    zamba2-2.7b on the snapshot pool, each Mamba layer over 40 of its 80
-    SSD heads a position (the gated norm's sum of squares and
-    ``out_proj`` each a ``psum``), zamba2's shared attention (16 of 32
-    heads of 80) and MLP tensor-parallel; seamless's encoder, decoder
-    self- and cross-attention over 8 of 16 heads a position, its cross
-    memory laid out by heads.  Returns the launches (each kernel twice
-    the one-position phase's, one launch a position), the end-to-end
-    numbers, the first cold prefill's logits error against the
-    one-position model (bf16, and float32 copies of both), the greedy
-    tokens' agreement with the one-position phase, the snapshot counters, the graph counters, the
-    peak memory and the collective bytes of each step key."""
+                         ref: dict, rows: int = 1) -> dict:
+    """Full-width ``arch`` from a serve cell over a zone of ``rows`` rows
+    of two mesh positions of the card ((``data`` 1, ``model`` 2), phases
+    16b-16d; (2, 2), phases 17a-17e: the batch split over ``data``, FSDP
+    weights gathered layer by layer, the paged arena and the snapshot
+    payloads whole on both data rows, the paged writes mirrored), with
+    the one-position phase's (``ref``) weights, two rounds and, for
+    seamless, sources: qwen3-4b's attention over 16 of 32 heads and its
+    MLP over 4864 of 9728 a position; deepseek-moe-16b's 64 experts, 32
+    a position; mamba2-2.7b and zamba2-2.7b on the snapshot pool, each
+    Mamba layer over 40 of its 80 SSD heads a position (the gated norm's
+    sum of squares and ``out_proj`` each a ``psum``), zamba2's shared
+    attention (16 of 32 heads of 80) and MLP tensor-parallel; seamless's
+    encoder, decoder self- and cross-attention over 8 of 16 heads a
+    position, its cross memory laid out by heads.  Returns the launches
+    (each kernel the one-position phase's times the positions, one
+    launch a position), the end-to-end numbers, the first cold prefill's
+    logits error against the one-position model (bf16, and float32
+    copies of both; deepseek-moe-16b's at ``MOE_F32_LAYERS`` layers), the
+    greedy tokens' agreement with the one-position phase, the snapshot
+    counters, the graph counters, the peak memory and the collective
+    bytes of each step key."""
     from repro_torch.core import (
         CellSpec,
         ClusterSpec,
@@ -3587,6 +3732,7 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
         flash_attention,
         paged_extend_attention,
     )
+    from repro_torch.kernels.moe_gmm.ops import gmm
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.models.model import Model, build_model
     from repro_torch.models.param import shard_tree, tree_map
@@ -3597,11 +3743,12 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
     model1, params1 = full_width(dev, arch, tag)    # the phase's weights
     cfg = model1.cfg
     recurrent = cfg.family in ("ssm", "hybrid")
-    sup = Supervisor(DeviceGrid.from_flat([dev, dev], 1, 1, 2))
+    sup = Supervisor(DeviceGrid.from_flat([dev] * (2 * rows), 1, rows, 2))
     sup.apply(ClusterSpec(cells=(CellSpec(cfg.name, cfg, "serve",
                                           ncols=2),)))
     cell = sup.cells[cfg.name]
-    if cell.mesh.shape != {"data": 1, "model": 2} or not cell.model.sharded:
+    if cell.mesh.shape != {"data": rows, "model": 2} or \
+            not cell.model.sharded:
         raise AssertionError(f"[{tag}] the cell's mesh is {cell.mesh}")
     cell.init_serve(params=params1)
     rounds = main_path_rounds(0, cfg.vocab)
@@ -3612,8 +3759,15 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
     b0 = bucket_len(len(wave[0]), CHUNK, MAX_LEN)
     idx = [i for i, p in enumerate(wave)
            if bucket_len(len(p), CHUNK, MAX_LEN) == b0]
+    prompts = [wave[i] for i in idx]
+    if cfg.family == "moe":
+        # a position's expert capacity comes from its own tokens (JAX's
+        # per-shard body): compare where both are dropless, 64 tokens on
+        # one position (its inference capacity is then its token count),
+        # 32 a data row
+        idx, prompts = [0, 1], [p[:CHUNK] for p in wave[:2]]
     key, host = prefill_inputs(
-        [wave[i] for i in idx], [srcs[0][i] if srcs else None for i in idx],
+        prompts, [srcs[0][i] if srcs else None for i in idx],
         chunk=CHUNK, max_len=MAX_LEN, model=model1)
     batch = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
                  else v).to(dev) for k, v in host.items()}
@@ -3628,7 +3782,25 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
     with recording() as pre_log:
         l2 = last_logits(cell.model, cell.serve_params)
     l1 = last_logits(model1, params1)
-    f32 = cfg.replace(dtype="float32")
+    err_full = rel(l2, l1)
+    where = "all layers"
+    if cfg.family == "moe":
+        # the float32 checks at MOE_F32_LAYERS layers, the same weights'
+        # first layers (copies: the full tree goes now)
+        cfg = cfg.replace(num_layers=MOE_F32_LAYERS)
+        k = MOE_F32_LAYERS - cfg.moe.first_dense_layers
+        params1 = {name: tree_map(
+            lambda t: (t[:k] if name == "moe_layers" else t).clone(), v)
+            for name, v in params1.items()}
+        model1 = Model(cfg)
+        cut = build_model(cfg, cell.model.ctx)
+        l2 = last_logits(cut, shard_tree(params1, cut.params_pspecs(),
+                                         cut.ctx))
+        l1 = last_logits(model1, params1)
+        where = f"{MOE_F32_LAYERS} of {cell.arch.num_layers} layers"
+        del cut
+        cfg = cell.arch
+    f32 = model1.cfg.replace(dtype="float32")
     p32 = tree_map(lambda t: t.float(), params1)
     del model1, params1
     l1_32 = last_logits(Model(f32), p32)
@@ -3639,20 +3811,21 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
     acc = [rel(l1, l1_32), rel(l2, l1_32)]
     # two bf16 runs of one function agree no better than each agrees with
     # float32: the limit is 2e-2 or, where larger, the one-position bf16
-    # model's own distance from its float32 copy; the two-position model
-    # must be as accurate (within 1.25x of that distance)
+    # model's own distance from its float32 copy; the mesh's model must
+    # be as accurate (within 1.25x of that distance)
     limit = max(2e-2, acc[0])
+    m = cell.mesh.size
     log(f"[{tag}] first cold prefill ({n} prompts, key {key}): last-position "
-        f"logits rel {err:.3e} against the one-position model (tol "
-        f"{limit:.3e}: 2e-2, or the one-position bf16 model's distance "
-        f"from float32 where larger); float32 copies of both {err32:.3e} "
-        f"(tol 1e-4); bf16 against the float32 one-position model: one "
-        f"position {acc[0]:.3e}, two {acc[1]:.3e}; collectives "
-        f"{dict(pre_log)}")
+        f"logits rel {err_full:.3e} against the one-position model, all "
+        f"layers; at {where}: {err:.3e} (tol {limit:.3e}: 2e-2, or the "
+        f"one-position bf16 model's distance from float32 where larger); "
+        f"float32 copies of both {err32:.3e} (tol 1e-4); bf16 against the "
+        f"float32 one-position model: one position {acc[0]:.3e}, {m} "
+        f"positions {acc[1]:.3e}; collectives {dict(pre_log)}")
     if not err < limit:
         raise AssertionError(f"[{tag}] logits rel {err} >= {limit}")
     if not acc[1] <= 1.25 * acc[0]:
-        raise AssertionError(f"[{tag}] the two-position bf16 model is "
+        raise AssertionError(f"[{tag}] the {m}-position bf16 model is "
                              f"{acc[1]} from float32, one position {acc[0]}")
     if not err32 < 1e-4:
         raise AssertionError(f"[{tag}] float32 logits rel {err32} >= 1e-4")
@@ -3672,13 +3845,36 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
         raise AssertionError(f"[{tag}] both positions sit on one card, yet "
                              "the steps do not capture")
     counters = (ssd, flash_attention, paged_extend_attention,
-                decode_attention, paged_decode_attention)
+                decode_attention, paged_decode_attention, gmm)
     reqs, launches, wall, step_s, marks = serve(bat, rounds, counters,
                                                 srcs=srcs)
-    m = cell.mesh.size
     if cfg.family == "encdec":
         encdec_launches(tag, bat, launches, cell.model.source_len(MAX_LEN),
                         m)
+    elif cfg.family in ("dense", "moe"):
+        expect("paged decode (one a layer a position a step)",
+               launches["paged_decode_attention"],
+               m * cfg.num_layers * bat.decode_invocations)
+        expect("prefill + paged extend (one a layer a position a call)",
+               launches["flash_attention"]
+               + launches["paged_extend_attention"],
+               m * cfg.num_layers * bat.prefill_invocations)
+        expect_tc(launches, "flash_attention", "paged_extend_attention")
+        if cfg.family == "moe":
+            # each position's decode capacity is its data row's slots
+            n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+            c_dec = SLOTS // rows
+            by_c = dict(sorted(gmm.launches_by_capacity.items()))
+            launches["gmm_prefill"] = sum(n for c, n in by_c.items()
+                                          if c != c_dec)
+            expect(f"grouped GEMM at decode (C {c_dec})", by_c.get(c_dec, 0),
+                   m * 3 * n_moe * bat.decode_invocations)
+            expect("grouped GEMM at the prefill shapes",
+                   launches["gmm_prefill"],
+                   m * 3 * n_moe * bat.prefill_invocations)
+            expect_tc(launches, "gmm")
+            log(f"[{tag}] grouped GEMM launches by capacity C (all "
+                f"positions): {by_c}")
     else:
         n_attn = (cfg.num_layers // cfg.hybrid_attn_every
                   if cfg.family == "hybrid" else 0)
@@ -3693,8 +3889,8 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
         expect("paged decode on the snapshot plane",
                launches["paged_decode_attention"], 0)
         expect_tc(launches, "flash_attention", "paged_extend_attention")
-    # the one-position phase ran the same traffic in as many invocations:
-    # every kernel launched twice as often, once a position
+    # the one-position phase ran the same traffic in as many invocations
+    # (one host schedule): every kernel launched once a position
     same = (bat.prefill_invocations == ref["prefill_invocations"]
             and bat.decode_invocations == ref["decode_steps"])
     if not same:
@@ -3710,6 +3906,7 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
     e2e = report(tag, name_limit, bat, reqs, wall, step_s, launches,
                  cfg.vocab)
     e2e["logits_rel"] = err
+    e2e["logits_rel_all_layers"] = err_full
     e2e["logits_rel_f32"] = err32
     e2e["bf16_vs_f32"] = acc
     if recurrent:
@@ -3736,10 +3933,10 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
         "one device's)")
     e2e["graphs"] = expect_graphed(tag, bat)
     e2e["round2"] = expect_round2_replayed(tag, bat, marks[2])
-    log(f"[{tag}] steps captured as one CUDA graph a key over both "
+    log(f"[{tag}] steps captured as one CUDA graph a key over all {m} "
         "positions (one card)")
     e2e["memory"] = memory_report(tag, bat)
-    log(f"[{tag}] peak {e2e['memory']['peak_gb']:.2f} GB over both "
+    log(f"[{tag}] peak {e2e['memory']['peak_gb']:.2f} GB over the {m} "
         f"positions of the card ({name_limit})")
     e2e["collective_bytes"] = {
         k: dict(v.collective_per_device)
@@ -4287,9 +4484,18 @@ def main() -> int:
         with timed(tag):
             runs[tag] = phase_sharded_family(dev, name_limit, arch, tag,
                                              runs[ref])
-    # the phases that run a path's kernels again: 11, 12 and 16 the main
-    # path's, 16b-16d those of paths 8-10 over two positions
-    again = {5: (11, 12, 16), 8: ("16b",), 9: ("16c",), 10: ("16d",)}
+    for tag, arch, ref in ROW_FAMILIES:
+        gc.collect()                # free the previous model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with timed(tag):
+            runs[tag] = phase_sharded_family(dev, name_limit, arch, tag,
+                                             runs[ref], rows=2)
+    # the phases that run a path's kernels again: 11, 12, 16 and 17a the
+    # main path's, 16b-16d those of paths 8-10 over two positions, 17b-17e
+    # those of paths 7-10 over two rows of two positions
+    again = {5: (11, 12, 16, "17a"), 7: ("17b",), 8: ("16b", "17c"),
+             9: ("16c", "17d"), 10: ("16d", "17e")}
     rows = []
     for name, rep in kernels.items():
         count = rep.get("count", name)

@@ -26,15 +26,18 @@ Paper §4.3 properties implemented here:
 A cell runs over its zone's mesh (``DeviceGrid.zone_mesh``).  A mesh of
 one position is the one-device cell (a zone whose columns all name one
 card of a cycled grid, ``DeviceGrid.from_flat(..., allow_reuse=True)``).
-Over the positions of one row a serve cell of any family binds
-``make_ctx(mesh)`` (the JAX cell's rules, FSDP on) and builds its model
-over it: weights laid out by the rules, layers tensor- and
-expert-parallel (Mamba layers over their SSD heads, the encoder-decoder's
-attention and cross-attention over heads), batchers over the sharded
-model, a snapshot pool's payloads laid out as the model's state.  A
-train cell over several positions raises :class:`CellError` (ROADMAP
-queue 1 item 13c), as does a zone of more than one row (serving over
-its data axis: item 13b).  A cell's programs
+Over any zone the partition table carves, the R rows of its columns on
+one pod, (``data`` R, ``model`` C), or on several pods, (``pod``,
+``data``, ``model``), a serve cell of any family binds ``make_ctx(mesh)``
+(the JAX cell's rules, FSDP on: a weight's ``embed`` dim split over the
+data axes and gathered layer by layer) and builds its model over it:
+weights laid out by the rules, layers tensor- and expert-parallel (Mamba
+layers over their SSD heads, the encoder-decoder's attention and
+cross-attention over heads), the batch split over the data axes,
+batchers over the sharded model with one host schedule (one slot table,
+one pool), the pool's arena and a snapshot pool's payloads whole on every
+data row.  A train cell over several positions raises
+:class:`CellError` (ROADMAP queue 1 item 13c).  A cell's programs
 are the step graphs of the batchers it made and of a disaggregated
 prefill worker on it
 (``serve/step_graph.py``), bound to the zone epoch they were captured
@@ -121,9 +124,6 @@ class Cell:
             if self.role == "train":
                 raise CellError(f"{where}; a train cell over a mesh is "
                                 "ROADMAP queue 1 item 13c")
-            if mesh.size != mesh.shape["model"]:
-                raise CellError(f"{where}; serving over the data axis is "
-                                "ROADMAP queue 1 item 13b")
             ctx = make_ctx(mesh)
         self.zone = zone
         self.mesh = mesh

@@ -13,6 +13,8 @@
         --extra-graphs 2
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         --arch seamless-m4t-large-v2 --prefill cold      # or extend
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
+        --mesh 2 2                       # a cell over (data 2, model 2)
 
 Builds ``--arch`` at full width (bf16, random weights from a seed,
 max_len 512; qwen3-4b by default) and admits one wave of ``--slots``
@@ -46,6 +48,12 @@ an encdec model each prefill also encodes the rows' sources; the encoder
 alone over the same sources is profiled too (eager calls, device busy),
 and its busy time a call set against the replayed call's: the encoder's
 share of the prefill.
+
+``--mesh ROWS COLS`` serves from a cell over a zone of ROWS x COLS
+positions of the card (``Supervisor`` -> ``Cell`` -> ``make_batcher``;
+(``data`` ROWS, ``model`` COLS), FSDP over ``data``) with the same
+seeded weights, and prints the collective bytes the profiled path's key
+recorded per position; every position's kernels run in the one graph.
 
 ``--extra-graphs N`` (decode) times the decode replay again with N more
 CUDA graphs of 2000 small kernels each alive beside the batcher's own,
@@ -194,16 +202,37 @@ def main(argv=None):
     p.add_argument("--extra-graphs", type=int, default=0,
                    help="time the decode replay again with this many more "
                         "graphs of 2000 kernels alive")
+    p.add_argument("--mesh", type=int, nargs=2, metavar=("ROWS", "COLS"),
+                   help="serve from a cell over ROWS x COLS positions of "
+                        "the card")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
     arch = get_arch(args.arch)
-    model = build_model(arch)
-    params = model.init(torch.Generator(device=device).manual_seed(0),
-                        device=device)
-    bat = ContinuousBatcher(model, params, batch_slots=args.slots,
-                            max_len=512, device=device,
-                            kv_pool=None if args.dense else "auto")
+    gen = torch.Generator(device=device).manual_seed(0)
+    kw = dict(batch_slots=args.slots, max_len=512,
+              kv_pool=None if args.dense else "auto")
+    cell = None
+    if args.mesh:
+        from repro_torch.core import (
+            CellSpec,
+            ClusterSpec,
+            DeviceGrid,
+            Supervisor,
+        )
+        rows, cols = args.mesh
+        sup = Supervisor(DeviceGrid.from_flat([device] * (rows * cols), 1,
+                                              rows, cols))
+        sup.apply(ClusterSpec(cells=(CellSpec(arch.name, arch, "serve",
+                                              ncols=cols),)))
+        cell = sup.cells[arch.name]
+        cell.init_serve(generator=gen)
+        model = cell.model
+        bat = cell.make_batcher(**kw)
+    else:
+        model = build_model(arch)
+        params = model.init(gen, device=device)
+        bat = ContinuousBatcher(model, params, device=device, **kw)
     rng = np.random.default_rng(0)
     srcs = sources(model, args.slots, rng)
     for rid in range(args.slots):
@@ -247,9 +276,14 @@ def main(argv=None):
                            f"(graph counters {warm} -> {g}): the window "
                            f"crossed a block-table width bucket")
     plane = bat.pool.payload_kind if bat.pool is not None else "dense"
-    print(f"[profile] {arch.name} ({plane} cache plane): {args.slots} "
-          f"slots, prompts {args.prompt_len} tokens, {args.steps} {what} "
-          f"on {torch.cuda.get_device_name(device)}")
+    where = "" if cell is None else f", a cell over {cell.mesh.shape}"
+    print(f"[profile] {arch.name} ({plane} cache plane{where}): "
+          f"{args.slots} slots, prompts {args.prompt_len} tokens, "
+          f"{args.steps} {what} on {torch.cuda.get_device_name(device)}")
+    if cell is not None:
+        for key, prog in sorted(cell.accounting.programs.items()):
+            print(f"[profile] collective bytes per position, step key "
+                  f"{key}: {dict(prog.collective_per_device)}")
     for name, ws in (("unprofiled", plain), ("profiled", walls)):
         print(f"[profile] {name} wall ms: "
               + " ".join(f"{w * 1e3:.2f}" for w in ws)

@@ -18,6 +18,13 @@ addresses the same positions in every leaf.  A block table maps
 unmapped sentinels: reads see them as empty (slot_pos -1) and writes to
 them drop.  Arena updates happen IN PLACE where the JAX package donated
 the arena buffers to a jitted update.
+
+Over a mesh the helpers that move a slot's rows take global slot and row
+numbers (``sharding/sharded.py``'s ``move_rows``, ``take_rows``,
+``row_owners``): a cache's batch dim may be split over the data axes, a
+row is read on the data row that holds it and written only on the data
+rows that hold its destination.  The page arena, the page stacks and the
+snapshot payloads have no batch dim and lie whole on every data row.
 """
 from __future__ import annotations
 
@@ -36,7 +43,14 @@ from repro_torch.models.param import (
     tree_map_pspec,
 )
 from repro_torch.sharding.rules import P
-from repro_torch.sharding.sharded import Sharded
+from repro_torch.sharding.sharded import (
+    Sharded,
+    move_rows,
+    row_axes,
+    row_owners,
+    shard_at,
+    take_rows,
+)
 
 
 def _is_kv(x) -> bool:
@@ -62,22 +76,19 @@ def cache_batch_axes(model, batch: int, max_len: int) -> Any:
 
 
 def slice_cache_slots(cache: Any, axes: Any, slots: Sequence[int]) -> Any:
-    """The given slot rows of every cache leaf (batch dim len(slots))."""
-    def take(c, a):
-        return c.index_select(a, torch.as_tensor(list(slots),
-                                                 device=c.device))
-    return tree_map(take, cache, axes)
+    """The given slot rows of every cache leaf (batch dim len(slots),
+    whole on every position of a mesh)."""
+    return tree_map(lambda c, a: take_rows(c, a, slots), cache, axes)
 
 
-def merge_cache_slots(dst: Any, src: Any, axes: Any,
-                      slots: Sequence[int]) -> Any:
-    """Write ``src`` rows (batch dim ``len(slots)``) into ``dst`` at
-    ``slots``, in place.  Returns ``dst``."""
-    def put(d, s, a):
-        d.index_copy_(a, torch.as_tensor(list(slots), device=d.device),
-                      s.to(d.dtype))
-        return d
-    return tree_map(put, dst, src, axes)
+def merge_cache_slots(dst: Any, src: Any, axes: Any, slots: Sequence[int],
+                      rows: Sequence[int] = None) -> Any:
+    """Write ``src``'s rows ``rows`` (default its first ``len(slots)``, in
+    order) into ``dst`` at ``slots``, in place; over a mesh each row is
+    read where it lies and written where its slot lies.  Returns
+    ``dst``."""
+    tree_map(lambda d, s, a: move_rows(d, a, slots, s, rows), dst, src, axes)
+    return dst
 
 
 def kv_cache_nodes(cache: Any) -> list:
@@ -112,11 +123,10 @@ def install_cross_memory(cache: Any, mem, slots: Sequence[int]) -> Any:
     token-at-a-time admission).  Returns ``cache``."""
     ck, cv, src_len = mem
     dec = cache["dec_layers"]
-    idx = torch.as_tensor(list(slots), device=dec.cross_k.device)
-    dec.cross_k.index_copy_(1, idx, ck.to(dec.cross_k.dtype))
-    dec.cross_v.index_copy_(1, idx, cv.to(dec.cross_v.dtype))
-    dec.src_len.index_copy_(1, idx, src_len.to(dec.src_len.dtype)[None]
-                            .expand(dec.src_len.shape[0], -1))
+    move_rows(dec.cross_k, 1, slots, ck)
+    move_rows(dec.cross_v, 1, slots, cv)
+    move_rows(dec.src_len, 1, slots,
+              src_len[None].expand(dec.src_len.shape[0], -1))
     return cache
 
 
@@ -174,7 +184,8 @@ def clear_kv_row(cache: Any, axes: list, row: int) -> Any:
     place, so a snapshot restore into a recycled slot leaves no stale
     attendable position behind the restored prefix.  Returns ``cache``."""
     for node, a in zip(kv_cache_nodes(cache), axes):
-        _to_canonical(node.slot_pos, a)[row] = -1
+        for _, sp, lo in row_owners(node.slot_pos, a, row):
+            _to_canonical(sp, a)[lo] = -1
     return cache
 
 
@@ -188,8 +199,10 @@ def load_pages_into_row(cache: Any, axes: list, row: int, stacks: list,
     for node, stack, a in zip(kv_cache_nodes(cache), stacks, axes):
         n = stack.k.shape[0] * page_size
         for leaf, s in zip(node, stack):
-            _to_canonical(leaf, a)[row, lo:lo + n] = (
-                s.reshape((n,) + s.shape[2:]).to(leaf.dtype))
+            for r, shard, i in row_owners(leaf, a, row):
+                v = shard_at(s, r)
+                _to_canonical(shard, a)[i, lo:lo + n] = v.reshape(
+                    (n,) + v.shape[2:]).to(shard.device, shard.dtype)
     return cache
 
 
@@ -223,12 +236,17 @@ def extract_row_pages(cache: dict, axes: list, row: int, start_page: int,
                       n_pages: int, page_size: int) -> list:
     """``n_pages`` canonical page stacks (one (n_pages, P, *rest) tensor
     per k/v/slot_pos of each KV node) out of one row of a dense cache.  A
-    Sharded leaf laid out with its batch and sequence dims whole (by
-    heads) gives stacks laid out as its other dims are."""
+    Sharded leaf laid out with its sequence dim whole (by heads) gives
+    stacks laid out as its other dims are, whole on every data row (a
+    row of a batch dim split over the data axes is gathered from the data
+    row that holds it)."""
     lo, hi = start_page * page_size, (start_page + n_pages) * page_size
 
     def e(leaf, a):
-        x = _to_canonical(leaf, a)[row, lo:hi]
+        i = row
+        if row_axes(leaf, a):
+            leaf, i = take_rows(leaf, a, [row]), 0
+        x = _to_canonical(leaf, a)[i, lo:hi]
         x = x.reshape((n_pages, page_size) + x.shape[1:])
         spec = getattr(leaf, "spec", None)
         if isinstance(leaf, Sharded) and spec is not None and not (

@@ -20,7 +20,11 @@ When the head or kv-head count does not divide the model axis, attention
 runs replicated on every position where JAX uses context parallelism (the
 same math).  A dense cache sharded on its sequence dim decodes through
 ``sharded_decode`` (``cfg.sharded_decode``, under JAX's condition) or by
-all-gathering the cache, what GSPMD does.
+all-gathering the cache, what GSPMD does.  With the batch split over the
+data axes a paged arena is whole on every data row: each row's new K/V
+are all-gathered over the batch axes and every data row writes them all
+at the global block table (the arena's copies stay equal), then attends
+its own rows through their block-table rows.
 """
 from __future__ import annotations
 
@@ -304,6 +308,45 @@ def _write_slots(cache: PagedKVCache, phys, off, k, v, positions):
                   vals.reshape((-1,) + arena.shape[3:]).to(arena.dtype))
 
 
+def _paged_positions(pos, S: int, mode: str):
+    """(B, S) absolute positions of S tokens per row from ``pos`` (B,):
+    a decode step's one, a view of ``pos``."""
+    if mode == "decode":
+        return pos[:, None]
+    return pos[:, None] + torch.arange(S, dtype=torch.int32,
+                                       device=pos.device)[None, :]
+
+
+def _paged_write(cache: PagedKVCache, k, v, pos, positions, mode: str):
+    """The K/V of an extend (S tokens a row at ``positions``) or a decode
+    step (one at ``pos``) into their pages, in place."""
+    if mode == "extend":
+        _paged_write_extend(cache, k, v, positions)
+    else:
+        _paged_write_decode(cache, k[:, 0], v[:, 0], pos)
+
+
+def _paged_attend(q, cache: PagedKVCache, pos, positions, mode: str,
+                  window):
+    """Attention of ``q`` over the pages of its rows' block-table rows:
+    the paged extend or decode kernel on the card, the plain versions on
+    the CPU."""
+    if q.is_cuda:
+        if mode == "extend":
+            return paged_extend_attention(
+                q, cache.k, cache.v, cache.slot_pos, cache.block_table, pos,
+                cache.layer, k_scale=cache.k_scale, v_scale=cache.v_scale)
+        return paged_decode_attention(
+            q, cache.k, cache.v, cache.slot_pos, cache.block_table, pos + 1,
+            cache.layer, k_scale=cache.k_scale, v_scale=cache.v_scale)
+    k_d, v_d, sp_d = paged_gather(cache)
+    if mode == "extend":
+        return extend_attention_ref(q, k_d, v_d, sp_d, positions,
+                                    window=window)
+    return decode_attention_ref(q, k_d, v_d, pos + 1, window=window,
+                                slot_pos=sp_d)
+
+
 def _paged_write_decode(cache: PagedKVCache, k, v, pos):
     """Write one token per row into its physical page, in place.
 
@@ -513,33 +556,10 @@ def attention_block(p, x, cfg: ArchConfig, *, mode: str, cache=None,
                                        positions, window=window)
         new_cache = cache
     elif mode in ("extend", "decode"):
-        if mode == "extend":
-            positions = pos[:, None] + torch.arange(
-                S, dtype=torch.int32, device=x.device)[None, :]
-            q, k, v = qkv_project(p, x, cfg, positions)
-            _paged_write_extend(cache, k, v, positions)
-            if on_card:
-                out = paged_extend_attention(
-                    q, cache.k, cache.v, cache.slot_pos, cache.block_table,
-                    pos, cache.layer, k_scale=cache.k_scale,
-                    v_scale=cache.v_scale)
-            else:
-                k_d, v_d, sp_d = paged_gather(cache)
-                out = extend_attention_ref(q, k_d, v_d, sp_d, positions,
-                                           window=window)
-        else:
-            positions = pos[:, None]                              # (B,1)
-            q, k, v = qkv_project(p, x, cfg, positions)           # S == 1
-            _paged_write_decode(cache, k[:, 0], v[:, 0], pos)
-            if on_card:
-                out = paged_decode_attention(
-                    q, cache.k, cache.v, cache.slot_pos, cache.block_table,
-                    pos + 1, cache.layer, k_scale=cache.k_scale,
-                    v_scale=cache.v_scale)
-            else:
-                k_d, v_d, sp_d = paged_gather(cache)
-                out = decode_attention_ref(q, k_d, v_d, pos + 1,
-                                           window=window, slot_pos=sp_d)
+        positions = _paged_positions(pos, S, mode)
+        q, k, v = qkv_project(p, x, cfg, positions)
+        _paged_write(cache, k, v, pos, positions, mode)
+        out = _paged_attend(q, cache, pos, positions, mode, window)
         new_cache = cache
     else:
         raise ValueError(mode)
@@ -586,6 +606,34 @@ def batch_split(ctx, t):
                                     t.shape), ctx.mesh)
 
 
+def batch_axes(ctx, n: int) -> tuple:
+    """The mesh axes of size above 1 the rules split a batch of ``n``
+    rows over (() when the batch runs whole on every data row)."""
+    sizes = ctx.axis_sizes
+    return tuple(a for a in ctx.pspec(("batch",), (n,)).axes_of(0)
+                 if sizes[a] > 1)
+
+
+def _paged_mirrored(p, x, cfg, ctx, b_ax, *, mode, cache, pos):
+    """Paged extend or decode with the batch split over ``b_ax``: ``x``
+    holds this data row's rows, ``pos`` (B,) and the block table are
+    global.  The new K/V are all-gathered over the batch axes and each
+    data row writes every row's into its own copy of the arena (the
+    copies stay equal, so a page a slot on one data row wrote is there
+    for a slot on another); attention reads this data row's block-table
+    rows.  Returns the output projection, before the model axis'
+    ``psum``."""
+    positions = _paged_positions(pos, x.shape[1], mode)
+    pos_l, positions_l = batch_split(ctx, pos), batch_split(ctx, positions)
+    q, k, v = qkv_project(p, x, cfg, positions_l)
+    k_all, v_all = (all_gather(t, b_ax, dim=0) for t in (k, v))
+    _paged_write(cache, k_all, v_all, pos, positions, mode)
+    rows = cache._replace(block_table=batch_split(ctx, cache.block_table))
+    out = _paged_attend(q, rows, pos_l, positions_l, mode,
+                        cfg.sliding_window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
 def _seq_split(cache) -> bool:
     return (isinstance(cache, KVSlice) and cache.k.spec is not None
             and cache.k.spec.axes_of(1) != ())
@@ -602,6 +650,11 @@ def attention_sharded(p, x, cfg: ArchConfig, ctx, *, mode: str, cache=None,
     pl = {k: relayout(v, _attn_want(k, v.dim(), tp, ctx.model_axis))
           for k, v in p.items()}
     lcfg = local_attn_cfg(cfg, ctx)
+    b_ax = () if pos is None else batch_axes(ctx, pos.shape[0])
+    if isinstance(cache, PagedKVCache) and b_ax:
+        y = _paged_mirrored(pl, x, lcfg, ctx, b_ax, mode=mode, cache=cache,
+                            pos=pos)
+        return (psum(y, ctx.model_axis) if tp else y), cache
     if pos is not None and cache is not None and not isinstance(
             cache, PagedKVCache):
         pos = batch_split(ctx, pos)

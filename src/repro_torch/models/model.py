@@ -29,13 +29,17 @@ leaves (``shard_tree`` lays out a full tree by
 expert-parallel (``layers.attention_sharded``, ``moe.moe_block_sharded``,
 ``mamba2.mamba_block(ctx)``, the encdec layers' ``ctx``), the embedding
 and the logits are vocab-parallel, and the logits come back gathered,
-one tensor.  The batch splits over the data axes as the rules split it.
+one tensor.  The batch splits over the data axes as the rules split it
+(a batch they do not divide runs whole on every data row).
 A serving cache (:meth:`init_cache` without ``pspecs``: the batcher's
 scratch caches, the pool's arena, the resident rows) is laid out by
 position, as each position's layers read it: KV and cross memory by
 heads, the Mamba state as conv [x_r | B | C] and ssm by SSD heads
 (``sharded.zip_positions``), and so are the state checkpoints
-(:meth:`init_checkpoints`) and the snapshots sliced from them; a cache
+(:meth:`init_checkpoints`), each split over the data axes by its batch
+dim; a snapshot sliced from them has one row, whole on every data row
+(:meth:`slice_checkpoint` gathers it from the data row that holds it,
+:meth:`restore_state_row` writes it where its slot lies); a cache
 laid out by :meth:`cache_pspecs` (its sequence dim over ``model``)
 decodes through the sequence-sharded paths.  Without a ctx, or over one
 position, the model is the one-device model it always was.
@@ -63,6 +67,7 @@ from repro_torch.models.layers import (
     NEG_INF,
     KVSlice,
     PagedKVCache,
+    batch_axes,
     batch_split,
     embed_spec,
     kv_slice_specs,
@@ -94,7 +99,12 @@ from repro_torch.sharding.collectives import (
     relayout,
 )
 from repro_torch.sharding.rules import P, single_device_ctx
-from repro_torch.sharding.sharded import first, zip_positions
+from repro_torch.sharding.sharded import (
+    first,
+    move_rows,
+    take_rows,
+    zip_positions,
+)
 
 F32 = torch.float32
 
@@ -575,12 +585,13 @@ class Model:
             src_len = torch.full((src.shape[0],), src.shape[1],
                                  dtype=torch.int32, device=src.device)
         memory = self._encode(params, src, src_len)
+        rows = self._split_rows(src_len)
         for i in range(self.cfg.num_layers):
             cp = tree_map(lambda a: a[i], params["dec_layers"]["cross"])
             ck, cv = encdec_mod.cross_kv(cp, memory, self.cfg, self._lctx)
             node.cross_k[i].copy_(ck)
             node.cross_v[i].copy_(cv)
-            node.src_len[i].copy_(src_len)
+            node.src_len[i].copy_(rows)
 
     def _last_logits(self, params, x, length):
         last = (length.long() - 1).clamp(0, x.shape[1] - 1)
@@ -708,7 +719,7 @@ class Model:
             x = self._embed_tokens(params, tokens)
             x, new_cache = self._backbone(
                 params, x, mode="prefill", cache=cache, x0=x,
-                mask=self._length_mask(tokens, length),
+                mask=self._split_rows(self._length_mask(tokens, length)),
                 ckpt_every=checkpoint_every, ckpt_out=ckpt_out)
         logits = self._last_logits(params, x, length)
         if checkpoint_every is None:
@@ -752,8 +763,16 @@ class Model:
         else:
             x, new_cache = self._backbone(
                 params, x, mode="extend", cache=cache, pos=pos, x0=x,
-                mask=self._length_mask(tokens, length))
+                mask=self._split_rows(self._length_mask(tokens, length)))
         return self._last_logits(params, x, length), new_cache
+
+    def _split_rows(self, t):
+        """A per-row input (B, ...) as the layers see it: split over the
+        batch axes when the rules split B over more than one data row,
+        else as it is."""
+        if self.sharded and batch_axes(self.ctx, t.shape[0]):
+            return batch_split(self.ctx, t)
+        return t
 
     @staticmethod
     def _length_mask(tokens, length):
@@ -839,10 +858,12 @@ class Model:
         snapshot payload :meth:`restore_state_row` writes back.  A copy: a
         view would keep the whole checkpoint tensor of its prefill
         alive.  Over a mesh each position copies its own part, and the
-        payload keeps the checkpoints' layout by position."""
-        idx = ((slice(None),) * self._state_batch_axis
-               + (slice(row, row + 1), chunk_idx))
-        return MambaState(*(a[idx].clone() for a in ckpts))
+        payload keeps the checkpoints' layout by position, its one row
+        whole on every data row (gathered from the data row that holds
+        ``row``)."""
+        ax = self._state_batch_axis
+        idx = (slice(None),) * (ax + 1) + (chunk_idx,)
+        return MambaState(*(take_rows(a[idx], ax, [row]) for a in ckpts))
 
     def state_node(self, cache) -> MambaState:
         """The stacked recurrent state of a cache (ssm / hybrid)."""
@@ -851,12 +872,11 @@ class Model:
 
     def restore_state_row(self, cache, state, row: int):
         """Write a 1-row snapshot ``state`` over slot ``row``'s recurrent
-        cache leaves, in place (over a mesh, each position its part); KV
-        leaves (hybrid shared attention) are the caller's.  Returns
-        ``cache``."""
-        idx = (slice(None),) * self._state_batch_axis + (slice(row, row + 1),)
+        cache leaves, in place (over a mesh, each position holding the
+        slot its part); KV leaves (hybrid shared attention) are the
+        caller's.  Returns ``cache``."""
         for dst, src in zip(self.state_node(cache), state):
-            dst[idx] = src.to(dst.dtype)
+            move_rows(dst, self._state_batch_axis, [row], src, [0])
         return cache
 
 

@@ -49,10 +49,21 @@ Each writes in place (``index_copy_``, ``copy_``) into the tensors the
 step graphs captured: the arena, the resident rows, the dense cache.
 
 Over a sharded model (a cell over several mesh positions) the batcher is
-the same object: its host state (slots, block tables, the prefix tree)
-is one, its device state (weights, the pool's arena, the scratch caches)
-is Sharded, one shard per position, and each step runs every position's
-part and the collectives between them.  Positions on one card share its
+the same object: its host state (one slot table, one pool with its free
+list, prefix tree and counters, one queue) is one, its device state
+(weights, the pool's arena, the scratch caches) is Sharded, one shard per
+position, and each step runs every position's part and the collectives
+between them.  Over several data rows the batch dim of the dense cache,
+the resident rows, the scratch caches and the checkpoint workspace is
+split as the rules split it: slot ``s`` of B lies on data row ``s // (B
+/ R)``; a prefill group whose padded batch R does not divide runs whole
+on every data row (a key of its own, since b_pad is in the key).  The
+pool's arena and its snapshot payloads are whole on every data row (the
+steps' paged writes are mirrored, ``layers.attention_sharded``), and
+every row the host moves (a prefill row into its slot, a slot's resident
+row, a restored snapshot) goes by global numbers through
+``cache_utils``' row helpers, gathered from the data row that holds it.
+Positions on one card share its
 stream and each step is captured as one CUDA graph; positions over
 distinct cards run eagerly (``StepGraph(capture=False)``).  The
 collective bytes of each step key are registered with the batcher's
@@ -196,14 +207,14 @@ class StepRunner:
         ckpts = None
         if self._ckpts is not None:
             n = s_pad // self.pool.page_size
-            self._reserve_checkpoints(b_pad * n)
+            self._reserve_checkpoints(self._ckpts.pairs(b_pad, n))
             ckpts = self._ckpts.views(b_pad, n)
         return self.params, self._scratch(b_pad), ckpts
 
     def _reserve_checkpoints(self, pairs: int):
         """Grow the checkpoint workspace to ``pairs`` (row, checkpoint)
-        pairs if it is smaller; the prefill graphs captured on the old
-        buffers go with them."""
+        pairs a position if it is smaller; the prefill graphs captured on
+        the old buffers go with them."""
         if self._ckpts.reserve(pairs) and self.step_graph is not None:
             self.step_graph.drop("prefill")
 
@@ -457,10 +468,8 @@ class ContinuousBatcher(StepRunner):
         if self._snapshot:
             self._intern_snapshot_chains(group, rows_cache, ckpts)
         if not self._paged:
-            if key[1] != B:
-                rows_cache = slice_cache_slots(rows_cache, self._cache_axes,
-                                               list(range(B)))
-            self._install_rows(slots, reqs, rows_cache, toks[:B])
+            self._install_rows(slots, reqs, rows_cache, toks[:B],
+                               rows=range(B))
             return
         self._install_pool_rows(group, rows_cache, toks[:B])
 
@@ -564,11 +573,13 @@ class ContinuousBatcher(StepRunner):
         self._merge_resident_rows(rows_cache, list(range(len(group))), slots)
         self._post_install(slots, [r for _, r, _ in group], first_tokens)
 
-    def _install_rows(self, slots, reqs, rows_cache, first_tokens):
-        """Write prefilled dense KV rows (batch dim ``len(slots)``) into
-        their slots with one scatter, then the per-request bookkeeping."""
+    def _install_rows(self, slots, reqs, rows_cache, first_tokens,
+                      rows=None):
+        """Write prefilled dense rows ``rows`` (default the first
+        ``len(slots)``) of ``rows_cache`` into their slots, then the
+        per-request bookkeeping."""
         self.cache = merge_cache_slots(self.cache, rows_cache,
-                                       self._cache_axes, slots)
+                                       self._cache_axes, slots, rows)
         self._post_install(slots, reqs, first_tokens)
 
     def _merge_resident_rows(self, rows_cache, rows, slots):
@@ -579,9 +590,8 @@ class ContinuousBatcher(StepRunner):
         res = strip_kv_nodes(rows_cache)
         if not tree_leaves(res):
             return
-        res = slice_cache_slots(res, self._resident_axes, rows)
         self.resident = merge_cache_slots(self.resident, res,
-                                          self._resident_axes, slots)
+                                          self._resident_axes, slots, rows)
 
     def _post_install(self, slots, reqs, first_tokens):
         """Per-request bookkeeping after the prompt's KV landed."""
@@ -769,8 +779,8 @@ class ContinuousBatcher(StepRunner):
         position; non-positional slot state (the ssm / hybrid recurrent
         state, encdec cross memory) goes back to its init values first,
         then the request's own side state (encdec: its source's cross
-        memory, encoded eagerly straight into the slot's rows) lands in
-        the slot, all in place."""
+        memory, encoded eagerly into a fresh row) lands in the slot, all
+        in place."""
         if not self.model.decode_state_positional:
             if self._paged:
                 self.resident = merge_cache_slots(
@@ -781,13 +791,13 @@ class ContinuousBatcher(StepRunner):
                                                self._cache_axes, [slot])
         if req.src is not None and self.model.cfg.family == "encdec":
             ex = self.model.ranged_batch_extras([req.src], self.max_len)
-            dec = (self.resident if self._paged else self.cache)["dec_layers"]
-            row = lambda a: a[:, slot:slot + 1]     # noqa: E731
+            row = init_resident(self.model, 1, self.max_len, self.device)
             self.model.encode_cross_into(
-                self.params, dec._replace(cross_k=row(dec.cross_k),
-                                          cross_v=row(dec.cross_v),
-                                          src_len=row(dec.src_len)),
-                ex["src"].to(self.device), ex["src_len"].to(self.device))
+                self.params, row["dec_layers"], ex["src"].to(self.device),
+                ex["src_len"].to(self.device))
+            merge_cache_slots(self.resident if self._paged
+                              else strip_kv_nodes(self.cache), row,
+                              self._resident_axes, [slot])
         self.slot_req[slot] = req
         self.pos[slot] = 0
         self.cur_tok[slot] = int(req.prompt[0]) if len(req.prompt) else 0
@@ -845,7 +855,8 @@ class ContinuousBatcher(StepRunner):
         if self._ckpts is not None and cold:
             # the workspace grows once a tick, to the tick's largest group
             self._reserve_checkpoints(max(
-                (1 << (len(g) - 1).bit_length()) * b // self.pool.page_size
+                self._ckpts.pairs(1 << (len(g) - 1).bit_length(),
+                                  b // self.pool.page_size)
                 for b, g in cold.items()))
         for _, group in sorted(cold.items()):
             self._prefill_group(group)

@@ -408,7 +408,8 @@ class PrefillWorker(StepRunner):
         if self._ckpts is not None and cold:
             # the workspace grows once a call, to its largest group
             self._reserve_checkpoints(max(
-                (1 << (len(g) - 1).bit_length()) * b // self.pool.page_size
+                self._ckpts.pairs(1 << (len(g) - 1).bit_length(),
+                                  b // self.pool.page_size)
                 for b, g in cold.items()))
         out: Dict[int, tuple] = {}
         self._views = {}
@@ -464,6 +465,17 @@ class _DecodeReplica:
         return need <= self.pool.available_pages(req.tenant)
 
 
+def _one_position(cell):
+    """``cell``, a cell of one mesh position: the weight fan-out and the
+    page handoffs move whole tensors to one device, so a cell over a mesh
+    (ROADMAP queue 1 item 13d) is refused."""
+    if cell.mesh.size > 1:
+        raise NotImplementedError(
+            f"cell {cell.name!r} is a mesh of {cell.mesh.size} positions: "
+            "disaggregated serving over a mesh is ROADMAP queue 1 item 13d")
+    return cell
+
+
 class DisaggServer:
     """Prefill cell -> KV channels -> decode replica(s), one submit() front.
 
@@ -489,7 +501,7 @@ class DisaggServer:
         if not decode_cells:
             raise ValueError("need at least one decode cell")
         self.sup = supervisor
-        self.prefill_cell = supervisor.cells[prefill_cell]
+        self.prefill_cell = _one_position(supervisor.cells[prefill_cell])
         self.max_len = max_len
         self.batch_slots = batch_slots
         self.chunk = chunk
@@ -597,7 +609,7 @@ class DisaggServer:
         """Bring a decode cell into the serving surface: weight fan-out (if
         it has none), KV channel, a fresh batcher.  None when no weight
         source exists yet (a later sync retries)."""
-        cell = self.sup.cells[name]
+        cell = _one_position(self.sup.cells[name])
         if cell.serve_params is None:
             src = self._weight_source()
             if src is None:

@@ -174,7 +174,8 @@ class CheckpointWorkspace:
     """Where the snapshot prefill writes its state checkpoints: one buffer
     per leaf of ``Model.checkpoint_specs``, each holding ``capacity``
     (row, checkpoint) pairs, the largest b_pad x checkpoints reserved so
-    far.  ``views(b, nb)`` are contiguous views of the buffers' fronts
+    far (:meth:`pairs`: over several data rows, the rows one position
+    holds of a b_pad the rules split).  ``views(b, nb)`` are contiguous views of the buffers' fronts
     shaped as the checkpoints of b rows of nb checkpoints, what
     ``Model.prefill_ranged(ckpt_out=...)`` writes into.  :meth:`reserve`
     regrows the buffers when a larger key comes (their contents and
@@ -208,6 +209,12 @@ class CheckpointWorkspace:
         per = [flat(d) for d in mesh.positions]
         return [Sharded(list(bufs), mesh) for bufs in zip(*per)]
 
+    def pairs(self, b: int, nb: int) -> int:
+        """The (row, checkpoint) pairs a position holds of ``b`` rows of
+        ``nb`` checkpoints."""
+        m = self.model
+        return (m.local_batch(b) if m.sharded else b) * nb
+
     def reserve(self, pairs: int) -> bool:
         """Hold at least ``pairs`` (row, checkpoint) pairs; True when the
         buffers were (re)allocated."""
@@ -231,8 +238,8 @@ class CheckpointWorkspace:
 
     def views(self, b: int, nb: int):
         """The checkpoints of ``b`` rows of ``nb`` checkpoints, as views
-        into the buffers (``reserve(b * nb)`` first)."""
-        if b * nb > self.capacity:
+        into the buffers (``reserve(pairs(b, nb))`` first)."""
+        if self.pairs(b, nb) > self.capacity:
             raise ValueError(f"{b} x {nb} checkpoints exceed the workspace's "
                              f"{self.capacity}")
         specs = self._local_specs(b, nb)

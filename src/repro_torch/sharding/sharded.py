@@ -22,6 +22,14 @@ The shards of a layout that does not split a dim hold the same values;
 they are still distinct tensors (a position writes only its own), and a
 value replicated over every position is read from position 0
 (:func:`first`).
+
+The host moves rows of a batch dim (a serving cache's slots, a prefill's
+rows) by their global numbers through :func:`move_rows`,
+:func:`take_rows` and :func:`row_owners`: a dim split over the batch
+axes holds row ``i`` of ``n`` on the positions of batch rank ``i // (n /
+R)`` at local row ``i % (n / R)`` (R the product of the axes' sizes), as
+:func:`split` lays it out; a row is read where it lies and written only
+where its destination lies.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import functools
 import itertools
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.sharding.rules import P, Mesh, Segments
@@ -457,3 +466,132 @@ def zip_positions(trees: Sequence, mesh: Mesh, global_tree=None,
     it = iter(specs)
     return tree_map(lambda *xs: Sharded(list(xs), mesh, next(it)),
                     trees[0], *trees[1:])
+
+
+# --------------------------------------------------------------------------
+# rows of a batch dim, moved by their global numbers
+# --------------------------------------------------------------------------
+def shard_at(x, r: int):
+    """Position ``r``'s part of ``x``: its shard, or a plain value
+    itself."""
+    return x.shards[r] if isinstance(x, Sharded) else x
+
+
+def row_axes(x, dim: int) -> tuple:
+    """The mesh axes of size above 1 that split dim ``dim`` of ``x`` (()
+    for a plain tensor, a whole dim or a Sharded without a layout)."""
+    if not isinstance(x, Sharded) or x.spec is None:
+        return ()
+    sizes = x.mesh.shape
+    return tuple(a for a in x.spec.axes_of(dim) if sizes[a] > 1)
+
+
+def row_home(mesh: Mesh, axes: Sequence[str], n: int, row: int) -> tuple:
+    """(rank along ``axes``, local row) of global row ``row`` of a dim of
+    ``n`` rows split evenly over ``axes``."""
+    k = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+    per = n // k
+    return row // per, row % per
+
+
+def _with_rank(mesh: Mesh, r: int, axes: Sequence[str], rank: int) -> int:
+    """The position that differs from ``r`` only along ``axes``, where
+    its rank is ``rank``."""
+    if not axes:
+        return r
+    coords, sizes = mesh.coords(r), mesh.shape
+    for a in reversed(axes):
+        coords[a] = rank % sizes[a]
+        rank //= sizes[a]
+    return int(np.ravel_multi_index([coords[a] for a in mesh.axis_names],
+                                    mesh.devices.shape))
+
+
+def _rows_of(x, dim: int) -> tuple:
+    """(split axes, global row count) of dim ``dim`` of ``x``."""
+    ax = row_axes(x, dim)
+    return ax, (x.global_shape[dim] if ax else x.shape[dim])
+
+
+def row_owners(x, dim: int, row: int) -> list:
+    """(position, shard, local row) of each position holding global row
+    ``row`` of dim ``dim`` of ``x``: every position when the dim is whole;
+    ``[(0, x, row)]`` for a plain tensor."""
+    if not isinstance(x, Sharded):
+        return [(0, x, row)]
+    ax, n = _rows_of(x, dim)
+    k, lo = row_home(x.mesh, ax, n, row)
+    return [(r, s, lo) for r, s in enumerate(x.shards)
+            if x.mesh.rank(r, ax) == k]
+
+
+def _idx(rows, device) -> torch.Tensor:
+    return torch.as_tensor(list(rows), dtype=torch.long, device=device)
+
+
+def _select(t: torch.Tensor, dim: int, rows: list) -> torch.Tensor:
+    """Rows ``rows`` of dim ``dim`` of ``t``: ``t`` itself when they are
+    all of its rows in order."""
+    if rows == list(range(t.shape[dim])):
+        return t
+    return t.index_select(dim, _idx(rows, t.device))
+
+
+def move_rows(dst, dim: int, dst_rows: Sequence[int], src,
+              src_rows: Optional[Sequence[int]] = None):
+    """Write ``src``'s rows ``src_rows`` (default ``0 .. len(dst_rows)``)
+    of dim ``dim`` into ``dst``'s rows ``dst_rows``, in place, by global
+    row numbers.  Over a mesh each destination row is written only on the
+    positions that hold it, and each source row is read from the position
+    that holds it among those that differ from the writer only along the
+    source's batch axes (the writer's own copy when the source's dim is
+    whole), so a row crosses data rows only when its two homes differ.
+    Returns ``dst``."""
+    dst_rows = list(dst_rows)
+    src_rows = (list(range(len(dst_rows))) if src_rows is None
+                else list(src_rows))
+    if not isinstance(dst, Sharded):
+        vals = _select(shard_at(src, 0), dim, src_rows)
+        dst.index_copy_(dim, _idx(dst_rows, dst.device),
+                        vals.to(dst.device, dst.dtype))
+        return dst
+    mesh = dst.mesh
+    d_ax, n_d = _rows_of(dst, dim)
+    s_ax, n_s = _rows_of(src, dim) if isinstance(src, Sharded) else ((), 0)
+    for r, shard in enumerate(dst.shards):
+        mine = mesh.rank(r, d_ax)
+        by_holder: dict = {}            # holder position -> (dst, src) rows
+        for d, s in zip(dst_rows, src_rows):
+            k, lo = row_home(mesh, d_ax, n_d, d)
+            if k != mine:
+                continue
+            sk, s_lo = row_home(mesh, s_ax, n_s, s) if s_ax else (0, s)
+            held = by_holder.setdefault(_with_rank(mesh, r, s_ax, sk),
+                                        ([], []))
+            held[0].append(lo)
+            held[1].append(s_lo)
+        for h, (d_lo, s_lo) in by_holder.items():
+            vals = _select(shard_at(src, h), dim, s_lo)
+            shard.index_copy_(dim, _idx(d_lo, shard.device),
+                              vals.to(shard.device, shard.dtype))
+    return dst
+
+
+def take_rows(src, dim: int, rows: Sequence[int]):
+    """``src``'s rows ``rows`` of dim ``dim`` as a new leaf (a copy) of
+    ``len(rows)`` rows, whole on every position: a dim split over the
+    batch axes gathers each row from where it lies
+    (:func:`move_rows`), a whole dim is read locally."""
+    rows = list(rows)
+    if not isinstance(src, Sharded):
+        return src.index_select(dim, _idx(rows, src.device))
+    if not row_axes(src, dim):
+        return Sharded([s.index_select(dim, _idx(rows, s.device))
+                        for s in src.shards], src.mesh, src.spec)
+    shape = list(src.shape)
+    shape[dim] = len(rows)
+    spec = _full_spec(src.spec, src.dim())
+    out = Sharded([torch.empty(shape, dtype=s.dtype, device=s.device)
+                   for s in src.shards], src.mesh,
+                  P(*(None if d == dim else e for d, e in enumerate(spec))))
+    return move_rows(out, dim, range(len(rows)), src, rows)

@@ -7,6 +7,11 @@ skipped without a GPU).
   seamless-m4t-large-v2 with ragged sources and requests without one)
   gives a one-position cell's greedy tokens; its steps are captured as
   CUDA graphs over both positions and replayed, and the guard passes.
+* The same over (data 2, model 2): two rows of two positions of one
+  card, four slots, the batch split over ``data`` and the paged arena
+  whole on both data rows (its writes mirrored): the one-position cell's
+  tokens, one graph a key over the four positions, and every data row's
+  copy of the arena bitwise the same after the drain.
 * The collectives over positions of one card: every position of a
   ``psum`` holds the same bits, the float32 sum in position order.
 * The model-level decode over a dense cache split on its sequence dim
@@ -55,9 +60,10 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _serve(arch, grid, ncols, seed=0):
-    """Two waves behind a shared prefix through a serve cell: ({rid:
-    tokens}, the cell, its batcher)."""
+def _serve(arch, grid, ncols, seed=0, **kw):
+    """Two waves behind a shared prefix through a serve cell (``kw``
+    over the batcher's ``KW``): ({rid: tokens}, the cell, its
+    batcher)."""
     cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
     model = Model(cfg)
     host = tree_map(lambda t: t.numpy(), model.init(
@@ -69,7 +75,7 @@ def _serve(arch, grid, ncols, seed=0):
     cell.init_serve(params=params_from_numpy(
         host, dtype=torch.float32, device=grid.devices.flat[0],
         specs=model.param_specs()))
-    bat = cell.make_batcher(**KW)
+    bat = cell.make_batcher(**{**KW, **kw})
     rng = np.random.default_rng(4)
     shared = rng.integers(1, cfg.vocab, size=20).astype(np.int32)
     rid = 0
@@ -99,6 +105,29 @@ def test_two_positions_of_one_card_give_one_position_tokens(dev, arch):
     g = bat.step_graph.stats()
     assert bat.step_graph.capture and g["decode"]["replays"] > 0
     assert sup.validate_cell_programs("c") >= 2
+    b1.close()
+    bat.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_two_rows_of_one_card_give_one_position_tokens(dev, arch):
+    one, _, b1 = _serve(arch, DeviceGrid.from_flat([dev], 1, 1, 2,
+                                                   allow_reuse=True), 2,
+                        batch_slots=4)
+    rows, sup, bat = _serve(arch, DeviceGrid.from_flat([dev] * 4, 1, 2, 2),
+                            2, batch_slots=4)
+    cell = sup.cells["c"]
+    assert cell.mesh.shape == {"data": 2, "model": 2}
+    assert rows == one
+    g = bat.step_graph.stats()
+    assert bat.step_graph.capture and g["decode"]["replays"] > 0
+    assert sup.validate_cell_programs("c") >= 2
+    for node in (bat.pool.arena if bat._paged else []):
+        for leaf in node:
+            for grp in cell.mesh.groups(("data",)):
+                assert all(torch.equal(leaf.shards[grp[0]], leaf.shards[r])
+                           for r in grp[1:])
     b1.close()
     bat.close()
 

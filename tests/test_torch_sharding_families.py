@@ -22,8 +22,9 @@ against JAX's one-device model and the port's one-position model
 * ``resize_to`` 1 -> 2 -> 4 -> 1 of a mamba2 and a zamba2 cell keeps the
   weights and the interned payloads bit for bit, frees the source
   shards, and the live batcher keeps serving the same tokens and hits.
-* The refusals that stay: a train cell over several positions (item
-  13c), a zone of several rows (item 13b).
+* The refusal that stays: a train cell over several positions (item
+  13c); a serve cell over a zone of several rows binds and serves the
+  one-position cell's tokens.
 """
 import gc
 import weakref
@@ -449,8 +450,17 @@ def test_cells_bind_and_the_refusals_that_stay(arch):
     with pytest.raises(CellError, match="item 13c"):
         sup.create_cell("t", cfg, "train", ncols=2)
     rows = Supervisor(DeviceGrid.from_flat(["cpu"] * 8, 1, 2, 4))
-    with pytest.raises(CellError, match="item 13b"):
-        rows.create_cell("s", cfg, "serve", ncols=1)
+    two_rows = rows.create_cell("s", cfg, "serve", ncols=1)
+    assert two_rows.mesh.shape == {"data": 2, "model": 1}
+    assert two_rows.model.sharded
+    two_rows.init_serve(generator=torch.Generator().manual_seed(0))
+    _, one = _cell(arch, 1, explicit=False)
+    prompts = _prompts(cfg.vocab)
+    srcs = (_sources(lens=(20, None, 9, None))
+            if arch == "seamless-m4t-large-v2" else None)
+    got = _serve(two_rows.make_batcher(**BATCHER), prompts, srcs=srcs)
+    assert got and got == _serve(one.make_batcher(**BATCHER), prompts,
+                                 srcs=srcs)
 
 
 def test_conv_state_layout_is_segments():
