@@ -210,6 +210,28 @@ with ``sharded_decode`` on (the LSE combine) and off (the cache
 all-gathered, then the dense decode kernel per position): every step's
 logits within 2e-2 of the one-position model's.
 
+Phases 18a-18d train from a train cell over a zone of positions of the
+card (``Supervisor.apply`` -> ``init_train`` -> ``train_steps``, as phases
+13-15): 18a qwen3-4b over (``data`` 1, ``model`` 2), 18b qwen3-4b over
+(2, 2), 18c mamba2-2.7b over (2, 2) (each position's SSD scan and its
+backward over 40 of the 80 heads), 18d deepseek-moe-16b over (2, 2)
+under EP (each position 32 of the 64 experts; phase 15's 6 of 28
+layers).  Each first holds a float32 cell of its family and mesh at 2
+layers and full width to a one-position cell on the card over 2 steps
+(losses and grad norms within 1e-5 relative, the params leaf by leaf
+within 1e-5 as ||a - b|| / ||b||; a MoE dropless), then trains at full
+width on the bigram pipeline at 8 x 512 in the config's 2 microbatches
+for 4 steps: the weights FSDP over ``data`` (gathered layer by layer
+and their gradients reduce-scattered), TP attention and MLP over
+``model``, the batch over ``data``, the vocab-parallel cross entropy,
+each gradient psummed over its copies; every kernel exactly P (the
+positions) times ``train_launches``; the first step's xent within
+``TRAIN_XENT_LIMIT`` and its grad norm within ``TRAIN_GRAD_NORM_LIMIT``
+of the one-position phase's (same weights and batch); each step's xent
+and grad norm, the step wall p50, tokens/s, MFU, the peak memory (under
+76 GB) and a profiled step's device busy (18d's also its collectives'
+share of busy).  Their launches add to phases 13-15's rows.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -3956,6 +3978,12 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
 # phase 13: qwen3-4b trained at full width; 13b: checkpoint and recovery
 # --------------------------------------------------------------------------
 TRAIN_STEPS, TRAIN_BATCH = 6, 8
+# steps of phases 14b (zamba2-2.7b) and 15 (deepseek-moe-16b): fewer than
+# phase 13's and 14's, to keep the run's wall time
+TRAIN_STEPS_14B = 4
+# phase 15's depth: deepseek-moe-16b's first 6 of 28 layers (1 dense + 5
+# MoE, 3.443 B parameters), as much training state as one card holds
+MOE_TRAIN_LAYERS = 6
 
 
 def train_launches(cfg, steps: int) -> dict:
@@ -3986,7 +4014,8 @@ def train_launches(cfg, steps: int) -> dict:
 
 def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
                 tag: str = "13", steps: int = TRAIN_STEPS,
-                layers: int = 0) -> dict:
+                layers: int = 0, mesh: tuple = (), ref: dict = None,
+                collectives: bool = False) -> dict:
     """``arch`` at full width and full depth (``layers``: cut to that many
     layers) trained for ``steps`` steps through the control plane:
     ``Supervisor.apply`` of a train cell, ``init_train`` from a seeded
@@ -4004,12 +4033,24 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
     which must stay under 76 GB, then one profiled step's largest
     kernels, the port's kernels' shares, the SSD backward's and, for a
     moe model, the grouped GEMM's forward, dX and dW and the dispatch
-    ``cumsum``'s."""
+    ``cumsum``'s.
+
+    ``mesh`` (rows, cols): the cell's zone is ``rows`` x ``cols`` positions
+    of the card, (``data`` rows, ``model`` cols); every count is then P =
+    rows x cols times ``train_launches``, the bound is the P positions'
+    (each runs its part), the profiled step also reports the collectives'
+    share of busy, and the first step's xent and grad norm must sit
+    within ``TRAIN_XENT_LIMIT`` and ``TRAIN_GRAD_NORM_LIMIT`` of ``ref``'s
+    (the one-position phase's, same weights and batches).  ``collectives``: the profiled step records the
+    CPU side too, each collective under its range (their share of busy);
+    a mesh step otherwise records the device's kernels alone (a trace of
+    every position's CPU ops costs tens of seconds)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import (
         CellSpec,
         ClusterSpec,
+        DeviceGrid,
         Supervisor,
         single_device_grid,
     )
@@ -4028,16 +4069,22 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
         cfg = cfg.replace(num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    sup = Supervisor(single_device_grid(dev))
+    n_rows, n_cols = mesh or (1, 1)
+    n_pos = n_rows * n_cols
+    sup = Supervisor(DeviceGrid.from_flat([dev] * n_pos, 1, n_rows, n_cols)
+                     if mesh else single_device_grid(dev))
     opt = OptConfig(lr=1e-4, warmup_steps=1, total_steps=100)
-    sup.apply(ClusterSpec(cells=(CellSpec("train", cfg, "train", ncols=1,
-                                          opt_cfg=opt),)))
+    sup.apply(ClusterSpec(cells=(CellSpec("train", cfg, "train",
+                                          ncols=n_cols, opt_cfg=opt),)))
     cell = sup.cells["train"]
     t0 = time.monotonic()
     cell.init_train(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n = cell.model.n_params()
-    log(f"[{tag}] {cfg.name} train cell: {n / 1e9:.3f} B params, "
+    if mesh and cell.mesh.shape != {"data": n_rows, "model": n_cols}:
+        raise AssertionError(f"[{tag}] cell mesh {cell.mesh.shape}")
+    log(f"[{tag}] {cfg.name} train cell over {cell.mesh.shape}: "
+        f"{n / 1e9:.3f} B params, "
         f"{cfg.num_layers} layers, microbatch {cfg.microbatch}, init "
         f"{time.monotonic() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated "
@@ -4066,13 +4113,37 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
         raise AssertionError(f"[{tag}] xent did not fall: {rows[0]['xent']}"
                              f" -> {rows[-1]['xent']}")
     for key, want in train_launches(cfg, steps).items():
-        expect(f"[{tag}] {key} launches", launches[key], want)
+        expect(f"[{tag}] {key} launches", launches[key], n_pos * want)
     if peak > 76e9:
         raise AssertionError(f"[{tag}] peak {peak / 1e9:.2f} GB over 76 GB")
+    xent_rel = gn_rel = None
+    if ref is not None:
+        xent_rel = abs(rows[0]["xent"] - ref["xent"][0]) / ref["xent"][0]
+        if xent_rel > TRAIN_XENT_LIMIT:
+            raise AssertionError(
+                f"[{tag}] first step's xent {rows[0]['xent']} against the "
+                f"one-position cell's {ref['xent'][0]}: rel {xent_rel:.3e} "
+                f"over {TRAIN_XENT_LIMIT}")
+        log(f"[{tag}] first step's xent {rows[0]['xent']:.6f} against the "
+            f"one-position cell's {ref['xent'][0]:.6f} (same weights and "
+            f"batch, bf16): rel {xent_rel:.3e} (limit {TRAIN_XENT_LIMIT})")
+        gn_rel = (abs(rows[0]["grad_norm"] - ref["grad_norm"][0])
+                  / ref["grad_norm"][0])
+        log(f"[{tag}] first step's grad norm {rows[0]['grad_norm']:.6f} "
+            f"against the one-position cell's {ref['grad_norm'][0]:.6f}: "
+            f"rel {gn_rel:.3e} (limit {TRAIN_GRAD_NORM_LIMIT})")
+        if gn_rel > TRAIN_GRAD_NORM_LIMIT:
+            raise AssertionError(
+                f"[{tag}] first step's grad norm rel {gn_rel:.3e} over "
+                f"{TRAIN_GRAD_NORM_LIMIT}")
     step_s = float(np.median(walls[1:]))
     tokens = TRAIN_BATCH * TRAIN_S
-    busy, shares = profile_step(lambda: cell.train_steps(
-        lambda _: batches[0], 1))
+    t0 = time.monotonic()
+    busy, shares, ranges = profile_step(
+        lambda: cell.train_steps(lambda _: batches[0], 1),
+        collectives=collectives, cpu=collectives or not mesh)
+    log(f"[{tag}] the profiled step took {time.monotonic() - t0:.1f} s "
+        "with the trace's processing")
     prog = cell.accounting.programs["train_step"]
     ssd_flops = ssd_step_flops(cfg, TRAIN_BATCH, TRAIN_S)
     # the SSD backward's products, in float32 and as its tensor-core
@@ -4084,27 +4155,38 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
                 sc.ngroups, sc.d_state, ssd_bwd_span(TRAIN_S, sc.chunk))
         bwd_f32, bwd_tf32 = (cfg.num_layers * ssd_bwd_work(
             TRAIN_BATCH, TRAIN_S, *dims, tc=tc)[1] for tc in (False, True))
-    yard = max((prog.flops_per_device - ssd_flops)
+    # the card runs every position's part: per-position figures x P
+    flops, nbytes = prog.flops_per_device * n_pos, prog.bytes_per_device * n_pos
+    yard = max((flops - ssd_flops)
                / PEAK_FLOPS[torch.bfloat16]
                + (ssd_flops - bwd_f32) / PEAK_FLOPS[torch.float32]
                + bwd_tf32 / PEAK_FLOPS["tf32"],
-               prog.bytes_per_device / HBM_BYTES_PER_S)
+               nbytes / HBM_BYTES_PER_S)
     n_act = active_params(cell.model)
     mfu = 6 * n_act * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
     log(f"[{tag}] step wall p50 (steps 2-{steps}) {step_s * 1e3:.1f} ms; "
         f"{tokens / step_s:,.0f} tokens/s; MFU {mfu:.4f} at 6 N T (N "
         f"{n_act / 1e9:.4f} B a token meets) against "
-        f"989 TFLOP/s; reckoned step {prog.flops_per_device / 1e12:.1f} "
+        f"989 TFLOP/s; reckoned step {flops / 1e12:.1f} "
         f"TFLOP ({ssd_flops / 1e12:.2f} of them the SSD scan's, the "
         f"forward's {(ssd_flops - bwd_f32) / 1e12:.2f} in float32, the "
         f"backward's {bwd_tf32 / 1e12:.2f} as TF32 passes) and "
-        f"{prog.bytes_per_device / 1e9:.1f} GB of state "
+        f"{nbytes / 1e9:.1f} GB of state "
         f"traffic: bound {yard * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB "
         f"allocated; launches {launches} ({name_limit})")
     log(f"[{tag}] one more step under torch.profiler: device busy "
-        f"{busy * 1e3:.1f} ms; largest kernel shares: " + "; ".join(
+        f"{busy * 1e3:.1f} ms of a {step_s * 1e3:.1f} ms wall p50; largest "
+        f"kernel shares: " + "; ".join(
             f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
             for name, t, n in shares[:8]))
+    coll_s = sum(ranges.values())
+    if collectives:
+        log(f"[{tag}] the collectives in that step (device time under "
+            f"their ranges, forward, recompute and backward): "
+            f"{coll_s * 1e3:.1f} ms, {coll_s / busy:.3f} of busy: " +
+            "; ".join(f"{k} {t * 1e3:.1f} ms" for k, t in ranges.items()) +
+            f"; bytes a position moved in the first step "
+            f"{dict(prog.collective_per_device)}")
     log(f"[{tag}] the port's kernels in that step: " + "; ".join(
         f"{name} {t / busy:.3f} ({n} x {t / n * 1e6:.1f} us)"
         for name, t, n in shares if name.startswith(("void rt::", "rt::"))))
@@ -4138,22 +4220,170 @@ def phase_train(dev, name_limit: str, arch: str = "qwen3-4b",
     return {"launches": launches, "xent": [r["xent"] for r in rows],
             "grad_norm": [r["grad_norm"] for r in rows],
             "step_s": step_s, "tokens_per_s": tokens / step_s, "mfu": mfu,
-            "peak_gb": peak / 1e9, "busy_s": busy}
+            "peak_gb": peak / 1e9, "busy_s": busy, "coll_s": coll_s,
+            "xent_rel": xent_rel, "grad_norm_rel": gn_rel}
 
 
-def profile_step(fn):
+# --------------------------------------------------------------------------
+# phases 18a-18d: train cells over a mesh of positions of the card
+# --------------------------------------------------------------------------
+#: (tag, arch, (data, model), the one-position phase it stands beside,
+#: layers (0: all), steps) of each train phase over a mesh
+MESH_TRAIN = (("18a", "qwen3-4b", (1, 2), 13, 0, 4),
+              ("18b", "qwen3-4b", (2, 2), 13, 0, 4),
+              ("18c", "mamba2-2.7b", (2, 2), 14, 0, 4),
+              ("18d", "deepseek-moe-16b", (2, 2), 15, MOE_TRAIN_LAYERS, 4))
+#: the one mesh phase whose profiled step records the collectives' share
+#: of busy: the CPU side of a step over four positions costs tens of
+#: seconds to trace (87 s for qwen3-4b's 36 layers), so the 6 layers of
+#: deepseek-moe-16b's (2, 2) step carry it
+MESH_PROFILED = "18d"
+#: the relative distance a mesh cell's first bf16 step's xent may sit from
+#: the one-position cell's on the same weights and batch: each position's
+#: partial products are rounded to bf16 before their float32 psum where
+#: the one-position matmul rounds the whole sum once, so every TP layer
+#: output differs by up to bf16's unit roundoff (3.9e-3) entry by entry;
+#: the xent is a mean of 4096 tokens' logsumexp less the label's logit,
+#: in which those independent roundings average out, and an error that
+#: does not average (a wrong block, a missed psum) moves it by far more
+TRAIN_XENT_LIMIT = 1e-3
+#: the relative distance a mesh cell's first bf16 step's grad norm may sit
+#: from the one-position cell's: it reads every backward kernel at the
+#: per-position shapes (flash's dq and dk/dv, the SSD backward, the
+#: grouped GEMM's dX and dW) and every cotangent collective.  Its
+#: gradients carry the same bf16 roundings as the xent's logits, summed
+#: over fewer terms and squared, so it moves more: 9e-5 (qwen3-4b over
+#: (2, 2)), 3.0e-4 (mamba2-2.7b) and 5.0e-4 (deepseek-moe-16b) on an
+#: H100 at 700 W; a backward that drops or doubles one position's part
+#: moves it by a share of the whole norm, tens of times the limit
+TRAIN_GRAD_NORM_LIMIT = 3e-3
+#: the float32 parity's cut: layers, steps, rows of its batch, tokens
+MESH_F32_LAYERS, MESH_F32_STEPS, MESH_F32_B, MESH_F32_S = 2, 2, 8, 128
+
+
+def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
+    """A float32 train cell over ``mesh`` (rows, cols) of the card against
+    a one-position cell on the card, both from ``init_train``'s seeded
+    weights on the card: ``MESH_F32_LAYERS`` layers at full width,
+    ``MESH_F32_STEPS`` steps of the bigram pipeline at ``MESH_F32_B`` x
+    ``MESH_F32_S`` in the config's microbatches (a MoE at capacity factor
+    E, dropless: a position's capacity comes from its own tokens).  The
+    losses and grad norms must agree within 1e-5 relative, and so must
+    the params after the steps, leaf by leaf as ||a - b|| / ||b|| (an
+    entry whose float32 gradient is rounding noise may move by the
+    learning rate either way, so the largest entry's error is printed,
+    not held).  Every backward runs on the CUDA-core route."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import DeviceGrid, Supervisor, single_device_grid
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.moe_gmm.ops import gmm_bwd
+    from repro_torch.kernels.ssd_scan.ops import ssd_bwd
+    from repro_torch.models.param import gather_tree, jax_leaves
+    from repro_torch.train.optimizer import OptConfig
+    cfg = get_arch(arch).replace(num_layers=MESH_F32_LAYERS, dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg, ShapeConfig(
+        "t", "train", MESH_F32_S, MESH_F32_B), device=dev)
+    batches = [pipe.get_batch(i) for i in range(MESH_F32_STEPS)]
+    rows, cols = mesh
+    out = {}
+    counters = (flash_attention_bwd, gmm_bwd, ssd_bwd)
+    for name, grid in (("one", single_device_grid(dev)),
+                       ("mesh", DeviceGrid.from_flat([dev] * rows * cols, 1,
+                                                     rows, cols))):
+        sup = Supervisor(grid)
+        cell = sup.create_cell("p", cfg, "train", ncols=cols if name ==
+                               "mesh" else 1, opt_cfg=OptConfig())
+        cell.init_train(torch.Generator(device=dev).manual_seed(0))
+        reset_counters(counters)
+        mets = [cell.train_steps(batches.__getitem__, 1)
+                for _ in range(MESH_F32_STEPS)]
+        launches = read_counters(counters)
+        tc = sum(launches.get(k, 0) for k in (
+            "flash_attention_bwd_tc", "gmm_bwd_tc", "ssd_bwd_tc"))
+        if tc or not any(launches.get(k, 0) for k in (
+                "flash_attention_bwd", "gmm_bwd", "ssd_bwd")):
+            raise AssertionError(f"[{tag}] float32 {name}: backward "
+                                 f"launches {launches}")
+        out[name] = ([(m["loss_step"], m["grad_norm"]) for m in mets],
+                     [t.float().cpu() for t in
+                      jax_leaves(gather_tree(cell.state.params))])
+        sup.destroy_cell("p")
+        del cell, sup
+        gc.collect()
+        torch.cuda.empty_cache()
+    (m1, p1), (m2, p2) = out["one"], out["mesh"]
+    metric_rel = max(abs(a - b) / abs(b) for x, y in zip(m2, m1)
+                     for a, b in zip(x, y))
+    norm_rel = max(float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b).clamp(min=1e-30))
+                   for a, b in zip(p2, p1))
+    entry_rel = max(float((a - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in zip(p2, p1))
+    log(f"[{tag}] float32 {arch} ({MESH_F32_LAYERS} layers, full width) "
+        f"over {rows} x {cols} positions against one position on the card, "
+        f"{MESH_F32_STEPS} steps at {MESH_F32_B} x {MESH_F32_S}: (loss, grad "
+        f"norm) {m2} vs {m1}, worst rel {metric_rel:.2e}; params after the "
+        f"steps worst ||a - b|| / ||b|| {norm_rel:.2e} (tol 1e-5), worst "
+        f"largest-entry error {entry_rel:.2e}")
+    if metric_rel > 1e-5 or norm_rel > 1e-5:
+        raise AssertionError(f"[{tag}] float32 parity: metrics rel "
+                             f"{metric_rel}, params rel {norm_rel}")
+    return {"f32_metric_rel": metric_rel, "f32_param_rel": norm_rel,
+            "f32_entry_rel": entry_rel}
+
+
+def phase_train_mesh(dev, name_limit: str, tag: str, arch: str, mesh: tuple,
+                     ref: dict, layers: int, steps: int) -> dict:
+    """Phases 18a-18d: the float32 parity (``mesh_train_parity``), then
+    ``arch`` trained at full width through a train cell over ``mesh``
+    (``phase_train``; its launches exactly P times ``train_launches``,
+    its first xent beside the one-position phase ``ref``'s)."""
+    t0 = time.monotonic()
+    parity = mesh_train_parity(dev, tag, arch, mesh)
+    log(f"[{tag}] the float32 parity took {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = phase_train(dev, name_limit, arch, tag, steps, layers=layers,
+                      mesh=mesh, ref=ref, collectives=tag == MESH_PROFILED)
+    run.update(parity)
+    return run
+
+
+def profile_step(fn, collectives: bool = False, cpu: bool = True):
     """(device busy seconds, [(kernel, seconds, calls)] of every kernel,
-    the largest device time first) of one call of ``fn`` under
-    torch.profiler; busy is the union of the kernels' intervals
-    (``launch.profile_decode`` reads it the same way)."""
+    the largest device time first, {collective op: device seconds}) of
+    one call of ``fn`` under torch.profiler; busy is the union of the
+    kernels' intervals (``launch.profile_decode`` reads it the same way).
+    ``collectives`` (with ``cpu``): each collective runs under a profiler
+    range (``collectives.ANNOTATE``) and the device time of the kernels
+    launched under each op's ranges is summed.  ``cpu`` False: the
+    device's activity alone is traced."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile_decode import _busy_us
+    from repro_torch.sharding import collectives as C
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    C.ANNOTATE = collectives
+    try:
+        with profile(activities=[ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if cpu else [])) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        C.ANNOTATE = False
+    ranges = {}
+    if collectives:
+        for a in prof.key_averages():
+            if a.key.startswith("collective::"):
+                ranges[a.key[12:]] = (ranges.get(a.key[12:], 0.0)
+                                      + a.device_time_total * 1e-6)
     events = prof.events()
     by_name = {}
     for e in events:
@@ -4163,7 +4393,7 @@ def profile_step(fn):
                                * 1e-6, n + 1)
     rows = sorted(((k[:60], t, n) for k, (t, n) in by_name.items()),
                   key=lambda r: -r[1])
-    return _busy_us(events) * 1e-6, rows
+    return _busy_us(events) * 1e-6, rows, ranges
 
 
 def phase_train_recovery(dev, name_limit: str) -> dict:
@@ -4405,13 +4635,6 @@ KERNELS = {
         "path": "13b", "count": "gmm_bwd_f32"},
 }
 
-# steps of phases 14b (zamba2-2.7b) and 15 (deepseek-moe-16b): fewer than
-# phase 13's and 14's, to keep the run's wall time
-TRAIN_STEPS_14B = 4
-# phase 15's depth: deepseek-moe-16b's first 6 of 28 layers (1 dense + 5
-# MoE, 3.443 B parameters), as much training state as one card holds
-MOE_TRAIN_LAYERS = 6
-
 
 def main() -> int:
     t_all = time.monotonic()
@@ -4472,6 +4695,12 @@ def main() -> int:
     with timed(15):
         runs[15] = phase_train(dev, name_limit, "deepseek-moe-16b", "15",
                                TRAIN_STEPS_14B, layers=MOE_TRAIN_LAYERS)
+    for tag, arch, mesh, ref, layers, steps in MESH_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed(tag):
+            runs[tag] = phase_train_mesh(dev, name_limit, tag, arch, mesh,
+                                         runs[ref], layers, steps)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4493,9 +4722,11 @@ def main() -> int:
                                              runs[ref], rows=2)
     # the phases that run a path's kernels again: 11, 12, 16 and 17a the
     # main path's, 16b-16d those of paths 8-10 over two positions, 17b-17e
-    # those of paths 7-10 over two rows of two positions
+    # those of paths 7-10 over two rows of two positions, 18a-18d those
+    # of the train paths 13-15 over a mesh
     again = {5: (11, 12, 16, "17a"), 7: ("17b",), 8: ("16b", "17c"),
-             9: ("16c", "17d"), 10: ("16d", "17e")}
+             9: ("16c", "17d"), 10: ("16d", "17e"), 13: ("18a", "18b"),
+             14: ("18c",), 15: ("18d",)}
     rows = []
     for name, rep in kernels.items():
         count = rep.get("count", name)

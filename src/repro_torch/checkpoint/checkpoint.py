@@ -8,9 +8,11 @@
 Leaves are numbered in JAX's flatten order (dict keys sorted, NamedTuple
 fields in order, ``None`` holding no leaf: ``models.param.jax_leaves``),
 so a checkpoint written by either package restores in the other.
-``restore`` places the leaves on the device asked for: a checkpoint
-written by a cell on one device restores onto another (the
-failure-recovery path).  Saves run on a thread pool (``blocking=False``)
+``restore`` places the leaves on the device asked for, or lays them out
+over a mesh leaf by leaf: a checkpoint written by a cell on one device
+or mesh restores onto another (the failure-recovery path).  A tree laid out over a mesh is saved as its
+logical tensors: each :class:`~repro_torch.sharding.sharded.Sharded` leaf
+is gathered to the host.  Saves run on a thread pool (``blocking=False``)
 and are atomic via a tmp-dir rename; ``latest_step`` sees completed
 checkpoints only.
 """
@@ -25,7 +27,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.param import jax_leaves, jax_unflatten
+from repro_torch.models.param import jax_leaves, jax_unflatten, tree_map
+from repro_torch.sharding.sharded import Sharded, gather_leaf, shard_leaf
 
 _POOL = ThreadPoolExecutor(max_workers=2)
 
@@ -36,11 +39,14 @@ _NAMES = {torch.float32: "float32", torch.float64: "float64",
           torch.int8: "int8", torch.uint8: "uint8", torch.bool: "bool"}
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
+def _host(t) -> np.ndarray:
     """A copy of a leaf on the host as it is stored: bfloat16 as its raw
     uint16 (a copy even on the CPU: the caller may update the leaf in
-    place while an async save writes)."""
-    t = t.detach().to("cpu", copy=True)
+    place while an async save writes); a Sharded leaf gathered whole."""
+    if isinstance(t, Sharded):
+        t = gather_leaf(t, torch.device("cpu"))
+    else:
+        t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -61,12 +67,12 @@ def save(ckpt_dir: str, step: int, tree: Any, *,
     under ``step_<step>`` by an atomic rename.  Returns the directory, or
     with ``blocking=False`` a Future of it."""
     leaves = jax_leaves(tree)
+    host = [_host(t) for t in leaves]
     meta = {
         "treedef": f"repro_torch tree of {len(leaves)} leaves",
-        "leaves": [{"shape": list(t.shape), "dtype": _NAMES[t.dtype]}
-                   for t in leaves],
+        "leaves": [{"shape": list(h.shape), "dtype": _NAMES[t.dtype]}
+                   for h, t in zip(host, leaves)],
     }
-    host = [_host(t) for t in leaves]
 
     def write():
         final = os.path.join(ckpt_dir, f"step_{step}")
@@ -97,10 +103,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target: Any, device="cpu") -> Any:
+def restore(ckpt_dir: str, step: int, target: Any, device="cpu",
+            pspecs: Any = None) -> Any:
     """Restore into the structure of ``target`` (a tree of tensors, real
     or on the ``meta`` device), each leaf in its target's dtype, on
-    ``device``.  Raises ``ValueError`` when the leaf counts differ."""
+    ``device``; or, given ``pspecs`` (the target's PartitionSpecs), laid
+    out over ``device``, a Mesh: each leaf is read to the host and split
+    over the positions as it is read, so the host holds one whole leaf
+    at a time and no position more than its shards.  Raises
+    ``ValueError`` when the leaf counts differ."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
@@ -109,9 +120,15 @@ def restore(ckpt_dir: str, step: int, target: Any, device="cpu") -> Any:
         raise ValueError(
             f"checkpoint has {len(meta['leaves'])} leaves, target has "
             f"{len(leaves)}")
-    out = []
-    for i, ref in enumerate(leaves):
+
+    def load(i, ref, on="cpu"):
         t = _tensor(np.load(os.path.join(d, f"leaf_{i}.npy")),
                     meta["leaves"][i]["dtype"])
-        out.append(t.to(device=device, dtype=ref.dtype))
-    return jax_unflatten(target, out)
+        return t.to(device=on, dtype=ref.dtype)
+    if pspecs is None:
+        return jax_unflatten(target, [load(i, ref, device)
+                                      for i, ref in enumerate(leaves)])
+    index = jax_unflatten(target, range(len(leaves)))
+    return tree_map(lambda i, ref, spec: shard_leaf(load(i, ref), spec,
+                                                    device),
+                    index, target, pspecs)

@@ -36,8 +36,12 @@ layers over their SSD heads, the encoder-decoder's attention and
 cross-attention over heads), the batch split over the data axes,
 batchers over the sharded model with one host schedule (one slot table,
 one pool), the pool's arena and a snapshot pool's payloads whole on every
-data row.  A train cell over several positions raises
-:class:`CellError` (ROADMAP queue 1 item 13c).  A cell's programs
+data row.  A train cell binds the same ctx: its state (params, AdamW
+moments, error-feedback buffers) is laid out by ``train_state_pspecs``,
+the batch splits over the data axes, each position runs the train step's
+forward and backward on its part, and the gradient of every copy of a
+leaf is reduced before AdamW updates it shard by shard
+(``train/train_step.py``).  A cell's programs
 are the step graphs of the batchers it made and of a disaggregated
 prefill worker on it
 (``serve/step_graph.py``), bound to the zone epoch they were captured
@@ -50,6 +54,7 @@ moves with a resize as serve weights do.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import weakref
 from typing import List, Optional, Tuple
@@ -63,6 +68,7 @@ from repro_torch.core.partition import DeviceGrid, Zone
 from repro_torch.core.resharding import reshard_tree
 from repro_torch.models.model import build_model
 from repro_torch.models.param import tree_leaves
+from repro_torch.sharding.collectives import recording
 from repro_torch.sharding.rules import make_ctx
 from repro_torch.serve.step_graph import PATHS
 from repro_torch.train.optimizer import OptConfig
@@ -71,6 +77,7 @@ from repro_torch.train.train_step import (
     build_train_step,
     init_train_state,
     step_cost,
+    train_state_pspecs,
 )
 
 
@@ -117,14 +124,7 @@ class Cell:
     # ------------------------------------------------------------------
     def _bind_zone(self, zone: Zone, epoch: int):
         mesh = self.grid.zone_mesh(zone)
-        ctx = None
-        if mesh.size > 1:
-            where = (f"cell {self.name!r}: zone {zone.name!r} is a mesh of "
-                     f"{mesh.size} positions ({mesh.shape})")
-            if self.role == "train":
-                raise CellError(f"{where}; a train cell over a mesh is "
-                                "ROADMAP queue 1 item 13c")
-            ctx = make_ctx(mesh)
+        ctx = make_ctx(mesh) if mesh.size > 1 else None
         self.zone = zone
         self.mesh = mesh
         self.ctx = ctx
@@ -157,11 +157,16 @@ class Cell:
         return len(self.devices)
 
     def _relay(self, tree):
-        """``tree`` onto the cell's zone: its mesh by the model's rules,
-        or its one device."""
+        """``tree`` onto the cell's zone: its mesh by the model's rules
+        (a TrainState by ``train_state_pspecs``), or its one device."""
         if self.ctx is None:
             return reshard_tree(tree, self.device)
-        return reshard_tree(tree, self.ctx, self.model.params_pspecs())
+        if isinstance(tree, TrainState):
+            pspecs = train_state_pspecs(self.model,
+                                        compress=tree.ef is not None)
+        else:
+            pspecs = self.model.params_pspecs()
+        return reshard_tree(tree, self.ctx, pspecs)
 
     def heartbeat(self):
         self.last_heartbeat = time.monotonic()
@@ -171,9 +176,11 @@ class Cell:
     # ------------------------------------------------------------------
     def init_train(self, generator: Optional[torch.Generator] = None, *,
                    compress: bool = False) -> TrainState:
-        """A fresh TrainState on the cell's device: ``model.init``'s seeded
-        weights from ``generator`` (default: seed 0 on the device), zero
-        AdamW moments and, with ``compress``, error-feedback buffers."""
+        """A fresh TrainState on the cell's zone: ``model.init``'s seeded
+        weights from ``generator`` (default: seed 0 on the device of the
+        first position), zero AdamW moments and, with ``compress``,
+        error-feedback buffers; over a mesh laid out by
+        ``train_state_pspecs`` (the weights drawn whole, then split)."""
         if self.role != "train":
             raise CellError(f"cell {self.name!r} has role {self.role!r}")
         if generator is None:
@@ -188,27 +195,34 @@ class Cell:
         """Run n steps; batches: callable step -> batch.
 
         The first call after a bind builds the step for this zone, runs
-        the BoundaryGuard over it (the state and the batch on the zone's
-        device, the step bound to the zone's epoch) and registers its cost
-        with the cell's accounting, reckoned from the config and the batch
-        shape (``step_cost``).  Returns the last step's metrics as floats.
+        the BoundaryGuard over it (the state, every position's shards of
+        it, and the batch on the zone's devices, the step bound to the
+        zone's epoch) and registers its cost with the cell's accounting:
+        per position, reckoned from the config and the batch shape
+        (``step_cost``), with the collective bytes its first run moved
+        (``collectives.recording``).  Returns the last step's metrics as
+        floats.
         """
         if self.state is None:
             self.init_train()
         metrics = {}
         for _ in range(n):
             batch = batches(self.step)
-            if self._train_step is None:
+            fresh = self._train_step is None
+            if fresh:
                 self._train_step = (build_train_step(
                     self.model, self.opt_cfg, compress=self._compress),
                     self.zone_epoch)
                 BoundaryGuard(lambda: None).validate(self, Program(
                     "train_step", tree_leaves(self.state) + tree_leaves(batch),
                     self.zone_epoch))
+            with (recording() if fresh else contextlib.nullcontext()) as moved:
+                self.state, metrics = self._train_step[0](self.state, batch)
+            if fresh:
                 self.accounting.register_program(
-                    "train_step", **step_cost(self.model, self.opt_cfg, batch,
-                                              compress=self._compress))
-            self.state, metrics = self._train_step[0](self.state, batch)
+                    "train_step", collective=dict(moved),
+                    **step_cost(self.model, self.opt_cfg, batch,
+                                compress=self._compress))
             self.step += 1
             self.heartbeat()
         self.accounting.record_invocation("train_step", n)

@@ -40,7 +40,7 @@ from repro_torch.core.partition import DeviceGrid, PartitionError, PartitionTabl
 from repro_torch.core.reconciler import Plan, Reconciler
 from repro_torch.core.spec import ClusterSpec, SpecError
 from repro_torch.train.optimizer import OptConfig, init_adam_state
-from repro_torch.train.train_step import TrainState
+from repro_torch.train.train_step import TrainState, train_state_pspecs
 
 
 class Supervisor:
@@ -274,7 +274,10 @@ class Supervisor:
         error-feedback buffers, as JAX's target has none); serve cells
         checkpoint bare params (``snapshot_state``), so restoring those
         as a TrainState would raise on the leaf-count mismatch.  The
-        leaves land on the cell's device.  Returns True when a checkpoint
+        leaves land on the cell's device; over a mesh each is read to the
+        host and laid out over it as it is read (a TrainState by
+        ``train_state_pspecs``, bare params by the model's rules), so no
+        position ever holds a whole state.  Returns True when a checkpoint
         was restored; when none exists the cell comes back empty and
         ``recover_no_ckpt`` is logged so a misconfigured ``ckpt_dir`` is
         visible, not silent."""
@@ -284,13 +287,20 @@ class Supervisor:
             self._log("recover_no_ckpt", cell=cell.name, ckpt_dir=ckpt_dir)
             return False
         params = cell.model.abstract_params()
-        if cell.role == "train":
-            target = TrainState(params=params,
-                                opt=init_adam_state(params, cell.opt_cfg))
-            cell.state = ckpt.restore(ckpt_dir, step, target, cell.device)
+        train = cell.role == "train"
+        target = (TrainState(params=params,
+                             opt=init_adam_state(params, cell.opt_cfg))
+                  if train else params)
+        if cell.ctx is None:
+            out = ckpt.restore(ckpt_dir, step, target, cell.device)
         else:
-            cell.serve_params = ckpt.restore(ckpt_dir, step, params,
-                                             cell.device)
+            pspecs = (train_state_pspecs(cell.model) if train
+                      else cell.model.params_pspecs())
+            out = ckpt.restore(ckpt_dir, step, target, cell.ctx.mesh, pspecs)
+        if train:
+            cell.state = out
+        else:
+            cell.serve_params = out
         cell.step = step
         cell.status = "running"
         self._log("restore_ckpt", cell=cell.name, ckpt_dir=ckpt_dir, step=step)

@@ -19,6 +19,10 @@ capacity) and registers them here with :func:`count_launches`.  A CUDA
 graph replay launches its kernels without running a wrapper, so a step's
 graph (``serve/step_graph.py``) reads the registry before and after its
 capture, puts the counts back, and adds the difference on each replay.
+
+A tensor on a device of :data:`PLAIN_DEVICES` takes each kernel's plain
+version: the CPU's, and ``meta``'s (a dry run traces shapes, and no
+kernel launches); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -54,6 +58,9 @@ PREPARE = ("rt_prepare_flash", "rt_prepare_flash_bwd", "rt_prepare_decode",
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                  "-I", str(KERNELS / "csrc")]
+
+#: the device types whose tensors take the kernels' plain versions
+PLAIN_DEVICES = ("cpu", "meta")
 
 #: dtype codes of the C entry points (``rt::DType`` in tile_attention.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}

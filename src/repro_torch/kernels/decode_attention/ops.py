@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import PLAIN_DEVICES
 from repro_torch.kernels._paged import arena_args
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
@@ -32,7 +33,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, slot_pos=None,
     ``split_range``) and merge on chip; a head dim above 256 raises
     ``ValueError``.  ``decode_attention.launches`` counts kernel
     launches."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_ref(q[:, 0], k_cache, v_cache, kv_len,
                                     slot_pos=slot_pos, window=window)[:, None]
     if q.device.type != "cuda":
@@ -138,7 +139,7 @@ def paged_decode_attention(q, k_arena, v_arena, slot_pos, block_table,
     dim above 256 raises ``ValueError``.
     ``paged_decode_attention.launches`` counts kernel launches."""
     layer = int(layer)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_decode_attention_ref(
             q[:, 0], k_arena, v_arena, slot_pos, block_table, kv_len, layer,
             k_scale=k_scale, v_scale=v_scale)[:, None]

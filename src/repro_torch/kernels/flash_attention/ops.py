@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import PLAIN_DEVICES
 from repro_torch.kernels._paged import arena_args
 from repro_torch.kernels.flash_attention.ref import (
     attention_ref,
@@ -72,7 +73,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def _flash_forward(q, k, v, causal, window, kv_len, with_lse: bool):
     """(out, the float32 (B, Hq, Sq) LSE when ``with_lse`` else None)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             kv_len=kv_len, return_lse=with_lse)
@@ -151,7 +152,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     ``ValueError``.  ``flash_attention_bwd.launches`` counts its calls on
     the card, ``flash_attention_bwd.launches_tc`` those on the tensor
     cores."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         g = flash_attention_bwd_ref(
             *(t.transpose(1, 2) for t in (q, k, v, out, dout)), lse,
             causal=causal, window=window, kv_len=kv_len)
@@ -229,7 +230,7 @@ def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,
     ``paged_extend_attention.launches_tc`` those of the tensor-core
     kernel."""
     layer = int(layer)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_extend_attention_ref(
             q.transpose(1, 2), k_arena, v_arena, slot_pos, block_table, pos,
             layer, k_scale=k_scale, v_scale=v_scale).transpose(1, 2)

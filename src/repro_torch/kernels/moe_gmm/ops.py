@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import PLAIN_DEVICES
 from repro_torch.kernels.moe_gmm.ref import gmm_bwd_ref, gmm_ref
 
 
@@ -53,7 +54,7 @@ def _check(x, w, counts, what: str):
 def _gmm(x, w, counts):
     """The forward without autograd: ``gmm_ref`` on the CPU, one launch of
     ``rt_gmm`` on the card."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return gmm_ref(x, w, counts)
     (E, C, D, F), cnt = _check(x, w, counts, "gmm")
     x, w = x.contiguous(), w.contiguous()
@@ -119,7 +120,7 @@ def gmm_bwd(x, w, counts, dy, *, dx: bool = True, dw: bool = True):
     launched, ``launches_tc`` those on the tensor cores, ``launches_wgmma``
     those on the ``wgmma`` route, ``launches_dx`` and ``launches_dw`` each
     part's launches."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return gmm_bwd_ref(x, w, counts, dy, dx=dx, dw=dw)
     (E, C, D, F), cnt = _check(x, w, counts, "gmm_bwd")
     if dy.shape != (E, C, F) or dy.device != x.device:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import PLAIN_DEVICES
 from repro_torch.kernels.ssd_scan.ref import (
     ssd_bwd_ref,
     ssd_bwd_span,
@@ -87,7 +88,7 @@ def _ssd_forward(x, dt, A_log, B_in, C_in, chunk, initial_state, mask,
     """``ssd`` without autograd: the plain version on the CPU, one launch
     of the scan on the card."""
     Bb, S, H, P = x.shape
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_ref(x, dt, A_log, B_in, C_in, chunk=chunk,
                        initial_state=initial_state, mask=mask,
                        checkpoints=checkpoints, ckpt_out=ckpt_out)
@@ -163,7 +164,7 @@ class _SSD(torch.autograd.Function):
                 checkpoints):
         S = x.shape[1]
         states = None
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             out = ssd_ref(x, dt, A_log, B_in, C_in, chunk=chunk,
                           initial_state=initial_state, mask=mask,
                           checkpoints=checkpoints)
@@ -216,7 +217,7 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
     multiples of 4 up to 256), else ``ValueError``.
     ``ssd_bwd.launches`` counts its calls on the card."""
     Bb, S, H, P = x.shape
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         out = ssd_bwd_ref(x, dt, A_log, B_in, C_in, dy, d_final, chunk=chunk,
                           initial_state=initial_state, mask=mask)
         return _grad_dtypes(out, (x, dt, A_log, B_in, C_in, initial_state))

@@ -154,10 +154,10 @@ def dec_layer(lp, x, cfg: ArchConfig, *, mode: str,
     Returns (x, cache).  ``mode="train"`` takes no cache: the layer
     projects its cross K/V from the encoder ``memory`` (B, S_src, D),
     ``src_len`` (B,) masking its pad frames (None: all valid), and returns
-    (x, None).  A sharded ``ctx`` runs the layer tensor-parallel (serving
-    modes)."""
+    (x, None).  A sharded ``ctx`` runs the layer tensor-parallel (in
+    every mode)."""
     if mode == "train":
-        ck, cv = cross_kv(lp["cross"], memory)
+        ck, cv = cross_kv(lp["cross"], memory, cfg, ctx)
         if src_len is None:
             src_len = torch.full((x.shape[0],), memory.shape[1],
                                  dtype=torch.int32, device=x.device)

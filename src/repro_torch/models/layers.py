@@ -8,8 +8,7 @@ paged and dense decode); on a CPU tensor it runs the plain versions:
 ``flash_attention``'s ``attention_ref`` in train mode (differentiable,
 with the written-out backward), and ``chunked_attention``,
 ``decode_attention_ref`` and ``extend_attention_ref`` below, the same math
-the JAX package runs on its CPU path.  ``softmax_xent`` is the training
-loss.
+the JAX package runs on its CPU path.
 
 Given a sharded ``ctx`` (a mesh of more than one position), attention and
 the MLP run tensor-parallel over :class:`~repro_torch.sharding.sharded.
@@ -834,16 +833,3 @@ def logits_fn(x, out_w, real_vocab: int):
         mask = torch.arange(V, device=x.device) < real_vocab
         logits = torch.where(mask, logits, NEG_INF)
     return logits
-
-
-def softmax_xent(logits, labels, z_loss: float = 0.0):
-    """float32 cross entropy: the mean over (B, S) of logsumexp(logits)
-    minus the label's logit, plus ``z_loss`` times the mean squared
-    logsumexp.  logits (B, S, V) float32; labels (B, S) int."""
-    logits = logits.to(F32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    loss = (lse - ll).mean()
-    if z_loss:
-        loss = loss + z_loss * torch.square(lse).mean()
-    return loss

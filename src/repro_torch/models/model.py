@@ -77,7 +77,6 @@ from repro_torch.models.layers import (
     out_spec,
     pad_vocab,
     rms_norm,
-    softmax_xent,
 )
 from repro_torch.models.mamba2 import MambaState, local_ssm_cfg, mamba_dims
 from repro_torch.models.param import (
@@ -95,11 +94,13 @@ from repro_torch.models.param import (
 from repro_torch.sharding.collectives import (
     all_gather,
     axis_index,
+    pmax,
     psum,
     relayout,
 )
-from repro_torch.sharding.rules import P, single_device_ctx
+from repro_torch.sharding.rules import P, ShardCtx, single_device_ctx
 from repro_torch.sharding.sharded import (
+    Sharded,
     first,
     move_rows,
     take_rows,
@@ -129,12 +130,19 @@ class Model:
         self.sharded = ctx is not None and ctx.sharded
         self.vocab_padded = pad_vocab(cfg.vocab, cfg.vocab_pad_multiple)
         self.dtype = DTYPES[cfg.dtype]
-        # the ctx the layers take: a sharded one, else None
+        # the ctx the layers take: a sharded one, else None; under ZeRO-3
+        # (``dp_over_model``) one whose batch axes hold the model axis and
+        # which splits no layer over it (every layer runs data-parallel)
         self._lctx = ctx if self.sharded else None
+        if self.sharded and ctx.dp_over_model:
+            self._lctx = ShardCtx(mesh=ctx.mesh,
+                                  batch_axes=tuple(ctx.rules()["batch"]),
+                                  model_axis=None, fsdp=ctx.fsdp)
         if self.sharded:
             # each position's shapes: its heads and its Mamba inner width
             # under TP
-            self.local = Model(local_ssm_cfg(local_attn_cfg(cfg, ctx), ctx))
+            lc = self._lctx
+            self.local = Model(local_ssm_cfg(local_attn_cfg(cfg, lc), lc))
 
     # -- parameters ------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -379,7 +387,13 @@ class Model:
 
     # -- the vocab-parallel ends of a sharded model ------------------------
     def _vocab_axis(self):
+        """The axis the vocab-parallel ends split the vocab over: the
+        model axis when it divides the padded vocab, else None (and
+        always None under ZeRO-3, where the model axis splits the
+        batch)."""
         m = self.ctx.model_axis
+        if self.ctx.dp_over_model:
+            return None
         return m if m and self.vocab_padded % self.ctx.model_size() == 0 \
             else None
 
@@ -399,16 +413,20 @@ class Model:
             emb.dtype)
         return psum(x, v_ax).to(self.dtype)
 
+    def _head_sharded(self, params):
+        """The output head (D, V) in its compute layout: the vocab over
+        :meth:`_vocab_axis`, the embed dim whole."""
+        v_ax = self._vocab_axis()
+        if self.cfg.tie_embeddings:
+            return relayout(params["embed"], P(v_ax, None)).T
+        return relayout(params["out"], P(None, v_ax))
+
     def _logits_sharded(self, params, x, rows: int):
         """Vocab-parallel logits, all-gathered over ``model`` and over the
         batch axes: one (B, S, V) float32 tensor, the padded tail
         masked."""
         v_ax = self._vocab_axis()
-        if self.cfg.tie_embeddings:
-            w = relayout(params["embed"], P(v_ax, None)).T
-        else:
-            w = relayout(params["out"], P(None, v_ax))
-        logits = torch.einsum("bsd,dv->bsv", x, w)
+        logits = torch.einsum("bsd,dv->bsv", x, self._head_sharded(params))
         if v_ax is not None:
             logits = all_gather(logits, v_ax, dim=2)
         b_axes = self.ctx.pspec(("batch",), (rows,)).axes_of(0)
@@ -545,7 +563,8 @@ class Model:
         x = src.to(self.dtype) @ w
         for i in range(cfg.encoder_layers):
             lp = tree_map(lambda a: a[i], params["enc_layers"])
-            x = (_remat(encdec_mod.enc_layer, lp, x, cfg, src_len) if remat
+            x = (_remat(encdec_mod.enc_layer, lp, x, cfg, src_len,
+                        self._lctx) if remat
                  else encdec_mod.enc_layer(lp, x, cfg, src_len, self._lctx))
         return rms_norm(x, params["enc_norm"], cfg.rms_eps)
 
@@ -610,15 +629,30 @@ class Model:
         ``Model.loss``.  Each layer (hybrid: each group of Mamba layers
         with its shared block) is recomputed in the backward, the
         counterpart of JAX's ``jax.checkpoint`` with ``nothing_saveable``.
-        JAX's ``_chunked_xent`` serves only its ZeRO-3 layout, which one
-        device never has (training under a mesh: ROADMAP queue 1 item
-        13c)."""
+        Under ZeRO-3 (``ctx.dp_over_model``) with 1024 tokens a row or
+        more the head runs over sequence chunks of 512, each recomputed
+        in the backward (:meth:`_chunked_xent`), as JAX's.
+
+        Over a mesh the batch splits over the data axes, the layers run
+        tensor- and expert-parallel, and the cross entropy is
+        vocab-parallel: each position reduces its own vocab block of the
+        float32 logits to a max, a sum of exponentials and the label's
+        logit, ``pmax`` / ``psum`` over ``model`` combine them, and the
+        token sums are ``psum``-ed over the batch axes (JAX's math; no
+        position holds the (B, S, V) logits).  The results are the same
+        on every position; a caller reads them at one."""
         cfg = self.cfg
-        aux = torch.zeros((), dtype=F32, device=batch["tokens"].device)
-        x = self._embed_tokens(params, batch["tokens"])
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = labels.shape
+        aux = torch.zeros((), dtype=F32, device=tokens.device)
+        x = self._embed_tokens(params, tokens)
+        if self.sharded:
+            labels = batch_split(self.ctx, labels)
         if cfg.family == "encdec":
             src_len = batch.get("src_len")
             memory = self._encode(params, batch["src"], src_len, remat=True)
+            if src_len is not None and self.sharded:
+                src_len = batch_split(self.ctx, src_len)
             x, aux = self._train_stack(
                 params["dec_layers"], x, aux, encdec_mod.dec_layer,
                 memory=memory, src_len=src_len)
@@ -634,16 +668,72 @@ class Model:
             for key, layer_fn, _ in self._stacks():
                 x, aux = self._train_stack(params[key], x, aux, layer_fn)
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-        xent = softmax_xent(self._logits(params, x), batch["labels"])
+        chunked = self._ctx().dp_over_model and S >= 1024
+        total = (self._chunked_xent(params, x, labels) if chunked
+                 else self._xent_sum(params, x, labels))
+        b_ax = batch_axes(self.ctx, B) if self.sharded else ()
+        if b_ax:
+            total = psum(total, b_ax)
+        xent = total / (B * S)
         loss = xent + 0.01 * aux
         return loss, {"loss": loss, "xent": xent, "aux": aux}
+
+    def _xent_sum(self, params, x, labels):
+        """The float32 sum over this position's tokens of logsumexp
+        minus the label's logit.  Over a mesh each position reduces its
+        vocab block (:meth:`_vocab_axis`): its max (``pmax``, no
+        gradient), its sum of exponentials and its label logit (each
+        ``psum``-ed over the vocab axis)."""
+        if not self.sharded:
+            logits = self._logits(params, x)
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+            return (lse - ll).sum()
+        v_ax = self._vocab_axis()
+        logits = torch.einsum("bsd,dv->bsv", x,
+                              self._head_sharded(params)).to(F32)
+        n = logits.shape[-1]
+        rank = axis_index(self.ctx.mesh, v_ax or ())
+        # each position's global vocab columns, on its own device
+        col = Sharded([torch.arange(k * n, (k + 1) * n, device=s.device)
+                       for s, k in zip(logits.shards, rank.shards)],
+                      self.ctx.mesh)
+        if v_ax is not None:
+            labels = labels.sub(rank, alpha=n)
+        if self.vocab_padded != self.cfg.vocab:
+            logits = torch.where(col < self.cfg.vocab, logits, NEG_INF)
+        m = logits.detach().amax(dim=-1)
+        if v_ax is not None:
+            m = pmax(m, v_ax)
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        ok = (labels >= 0) & (labels < n)
+        ll = logits.gather(-1, labels.clamp(0, n - 1).long()[..., None])
+        ll = ll[..., 0] * ok
+        if v_ax is not None:
+            se, ll = psum(se, v_ax), psum(ll, v_ax)
+        return (torch.log(se) + m - ll).sum()
+
+    def _chunked_xent(self, params, x, labels, chunk: int = 512):
+        """:meth:`_xent_sum` over sequence chunks of ``chunk`` tokens, each
+        chunk's head and loss recomputed in the backward, so no
+        full-sequence logits are kept (JAX's ``_chunked_xent``, reached
+        under ZeRO-3 only); the float32 chunk sums added in order."""
+        S = x.shape[1]
+        assert S % chunk == 0, (S, chunk)
+        total = None
+        for i in range(S // chunk):
+            sl = (slice(None), slice(i * chunk, (i + 1) * chunk))
+            part = _remat(self._xent_sum, params, x[sl], labels[sl])
+            total = part if total is None else total + part
+        return total
 
     def _train_stack(self, stacked, x, aux, layer_fn, **kw):
         """Run a layer stack in train mode, each layer under remat; a
         layer's second output, when not None, is its auxiliary loss."""
         for i in range(tree_leaves(stacked)[0].shape[0]):
             lp = tree_map(lambda a: a[i], stacked)
-            x, a = _remat(layer_fn, lp, x, self.cfg, mode="train", **kw)
+            x, a = _remat(layer_fn, lp, x, self.cfg, mode="train",
+                          ctx=self._lctx, **kw)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -653,8 +743,10 @@ class Model:
         block on ``concat(x, x0)``."""
         for i in range(self.cfg.hybrid_attn_every):
             lp = tree_map(lambda a: a[i], gp)
-            x, _ = zmb.mamba_layer(lp, x, self.cfg, mode="train")
-        x, _ = zmb.shared_block(shared, x, x0, self.cfg, mode="train")
+            x, _ = zmb.mamba_layer(lp, x, self.cfg, mode="train",
+                                   ctx=self._lctx)
+        x, _ = zmb.shared_block(shared, x, x0, self.cfg, mode="train",
+                                ctx=self._lctx)
         return x
 
     def prefill(self, params, batch, cache):

@@ -16,12 +16,25 @@ Each call records its per-position output bytes under XLA's op names
 ``reduce-scatter``), what JAX's ``collective_bytes`` reads off a
 compiled program's HLO, into every open :func:`recording`.  A
 collective over axes of size 1 is no collective and records nothing.
+
+Autograd goes through ``psum``, ``pmean``, ``all_gather`` and
+``psum_scatter`` as one node over every position (``_Collective``) whose
+backward is the dual collective under the same rule: ``psum``'s is a
+``psum`` of the cotangents (``pmean``'s their mean), ``all_gather``'s a
+``psum_scatter``, ``psum_scatter``'s an ``all_gather``, each recording
+its bytes under its own op name.  A cotangent read at one position (a
+loss replicated by a ``psum``, differentiated once) thereby reaches every
+position's operand once.  ``pmax`` passes no gradient (a softmax's
+shift, a quantiser's scale).  Without a shard that requires grad the
+collectives run on the tensors as they are.
 :func:`relayout` re-lays a value from one PartitionSpec to another:
 gathers over the axes it leaves, local slices for the axes it takes.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import math
 from collections import defaultdict
 from typing import Dict, List, Sequence, Union
 
@@ -35,6 +48,10 @@ OP_NAMES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 
 #: the logs of the open ``recording`` blocks
 _OPEN: List[Dict[str, int]] = []
+
+#: run each collective under a profiler range ``collective::<op>`` (a
+#: profiled step's collective time; off, no range is opened)
+ANNOTATE = False
 
 AxesArg = Union[str, Sequence[str]]
 
@@ -77,66 +94,189 @@ def _place(t: torch.Tensor, device, first: bool) -> torch.Tensor:
     return t if first else t.clone()
 
 
-def _group_results(x: Sharded, live: tuple, op: str):
-    """(group, its reduced value on its first position's device) per
-    group: float32 (for floating operands) in rank order, rounded once."""
-    out = []
-    for g in x.mesh.groups(live):
-        dev = x.shards[g[0]].device
-        parts = [x.shards[r].to(dev, non_blocking=True) for r in g]
-        dtype = parts[0].dtype
-        wide = torch.float32 if dtype.is_floating_point else dtype
-        acc = parts[0].to(wide)
-        for t in parts[1:]:
-            acc = (torch.maximum(acc, t.to(wide)) if op == "max"
-                   else acc + t.to(wide))
-        if op == "mean":
-            acc = acc / len(g)
-        out.append((g, acc.to(dtype)))
+def _sum(parts: list, op: str = "sum", n: int = 1) -> torch.Tensor:
+    """The parts' sum (max; mean over ``n``) in float32 for floating
+    operands, in order, rounded once to their dtype."""
+    dtype = parts[0].dtype
+    wide = torch.float32 if dtype.is_floating_point else dtype
+    acc = parts[0].to(wide)
+    for t in parts[1:]:
+        acc = (torch.maximum(acc, t.to(wide)) if op == "max"
+               else acc + t.to(wide))
+    if op == "mean":
+        acc = acc / n
+    return acc.to(dtype)
+
+
+def _gathered(shards: list, g: list, dev) -> list:
+    """The group ``g``'s shards on ``dev``, in rank order."""
+    return [shards[r].to(dev, non_blocking=True) for r in g]
+
+
+# --------------------------------------------------------------------------
+# the collectives on per-position lists of tensors (no autograd)
+# --------------------------------------------------------------------------
+def _annotated(op: str):
+    """A list collective run under the profiler range of ``op`` while
+    :data:`ANNOTATE` is on."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args):
+            if not ANNOTATE:
+                return fn(*args)
+            with torch.profiler.record_function(f"collective::{op}"):
+                return fn(*args)
+        return run
+    return wrap
+
+
+@_annotated("all-reduce")
+def _reduce_list(shards: list, mesh, live: tuple, op: str) -> list:
+    """Each group's reduction, on every position of the group."""
+    out = [None] * mesh.size
+    for g in mesh.groups(live):
+        res = _sum(_gathered(shards, g, shards[g[0]].device), op, len(g))
+        for i, r in enumerate(g):
+            out[r] = _place(res, shards[r].device, i == 0)
+    record("all-reduce", _nbytes(out[0]))
     return out
 
 
-def _reduce(x: Sharded, axes: AxesArg, op: str) -> Sharded:
+@_annotated("all-gather")
+def _gather_list(shards: list, mesh, live: tuple, dim: int,
+                 tiled: bool) -> list:
+    out = [None] * mesh.size
+    for g in mesh.groups(live):
+        parts = _gathered(shards, g, shards[g[0]].device)
+        res = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+        for i, r in enumerate(g):
+            out[r] = _place(res, shards[r].device, i == 0)
+    record("all-gather", _nbytes(out[0]))
+    return out
+
+
+@_annotated("reduce-scatter")
+def _scatter_list(shards: list, mesh, live: tuple, dim: int,
+                  tiled: bool) -> list:
+    out = [None] * mesh.size
+    for g in mesh.groups(live):
+        res = _sum(_gathered(shards, g, shards[g[0]].device))
+        if res.shape[dim] % len(g):
+            raise ValueError(f"dim {dim} of {tuple(res.shape)} does not split "
+                             f"over {len(g)} positions")
+        for r, b in zip(g, res.chunk(len(g), dim)):
+            b = b if tiled else b.squeeze(dim)
+            out[r] = b.to(shards[r].device, non_blocking=True,
+                          copy=True).contiguous()
+    record("reduce-scatter", _nbytes(out[0]))
+    return out
+
+
+def _out_shape(shape, kind: str, dim: int, tiled: bool, n: int) -> tuple:
+    """A position's result shape of collective ``kind`` over a group of
+    ``n`` on a shard of ``shape``."""
+    s = list(shape)
+    if kind == "gather":
+        if tiled:
+            s[dim] *= n
+        else:
+            s.insert(dim, n)
+    elif kind == "scatter":
+        if tiled:
+            s[dim] //= n
+        else:
+            del s[dim]
+    return tuple(s)
+
+
+class _Collective(torch.autograd.Function):
+    """A collective autograd records as one node over every position: its
+    backward is its dual under the same rule (float32 in position order,
+    rounded once), ``psum`` <-> ``psum`` (``pmean`` its mean),
+    ``all_gather`` <-> ``psum_scatter``, so a cotangent read at any
+    position reaches each position's operand once.  A position whose
+    result nothing read gives a zero cotangent.  The backward
+    collectives record their bytes as the forward ones do."""
+
+    @staticmethod
+    def forward(ctx, kind, mesh, live, dim, tiled, *shards):
+        ctx.set_materialize_grads(False)
+        ctx.meta = (kind, mesh, live, dim, tiled)
+        n = math.prod(mesh.shape[a] for a in live)
+        ctx.out_like = [(_out_shape(s.shape, kind, dim, tiled, n), s.dtype,
+                         s.device) for s in shards]
+        return tuple(_apply(kind, list(shards), mesh, live, dim, tiled))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kind, mesh, live, dim, tiled = ctx.meta
+        if all(g is None for g in grads):
+            return (None,) * (5 + mesh.size)
+        full = [torch.zeros(*w[:1], dtype=w[1], device=w[2]) if g is None
+                else g for g, w in zip(grads, ctx.out_like)]
+        return (None,) * 5 + tuple(_apply(_DUAL[kind], full, mesh, live,
+                                          dim, tiled))
+
+
+#: each collective's dual: the collective its backward runs
+_DUAL = {"sum": "sum", "mean": "mean", "gather": "scatter",
+         "scatter": "gather"}
+
+
+def _apply(kind: str, shards: list, mesh, live: tuple, dim: int,
+           tiled: bool) -> list:
+    """Collective ``kind`` (a reduction's op, "gather" or "scatter") on
+    per-position ``shards``."""
+    if kind == "gather":
+        return _gather_list(shards, mesh, live, dim, tiled)
+    if kind == "scatter":
+        return _scatter_list(shards, mesh, live, dim, tiled)
+    return _reduce_list(shards, mesh, live, kind)
+
+
+def _run(kind: str, x: Sharded, axes: AxesArg, dim: int = 0,
+         tiled: bool = True) -> Sharded:
+    """Collective ``kind`` on ``x``'s shards over ``axes`` (``x`` itself
+    over axes of size 1): through autograd when a shard requires it,
+    else on the tensors as they are.  A reduction keeps ``x``'s
+    layout."""
     live = _axes(x, axes)
     if not live:
         return x
-    out = [None] * x.mesh.size
-    for g, res in _group_results(x, live, op):
-        for i, r in enumerate(g):
-            out[r] = _place(res, x.shards[r].device, i == 0)
-    record("all-reduce", _nbytes(out[0]))
-    return Sharded(out, x.mesh, x.spec)
+    if torch.is_grad_enabled() and any(s.requires_grad for s in x.shards):
+        out = list(_Collective.apply(kind, x.mesh, live, dim, tiled,
+                                     *x.shards))
+    else:
+        out = _apply(kind, x.shards, x.mesh, live, dim, tiled)
+    return Sharded(out, x.mesh, x.spec if kind in ("sum", "mean") else None)
 
 
 def psum(x: Sharded, axes: AxesArg) -> Sharded:
-    return _reduce(x, axes, "sum")
+    return _run("sum", x, axes)
 
 
 def pmax(x: Sharded, axes: AxesArg) -> Sharded:
-    return _reduce(x, axes, "max")
+    """The group's max; no gradient flows through it (a softmax's shift,
+    a quantiser's scale)."""
+    live = _axes(x, axes)
+    if not live:
+        return x
+    with torch.no_grad():
+        out = _reduce_list(x.shards, x.mesh, live, "max")
+    return Sharded(out, x.mesh, x.spec)
 
 
 def pmean(x: Sharded, axes: AxesArg) -> Sharded:
-    return _reduce(x, axes, "mean")
+    return _run("mean", x, axes)
 
 
 def all_gather(x: Sharded, axes: AxesArg, dim: int = 0,
                tiled: bool = True) -> Sharded:
     """Each position gets its group's shards in rank order, concatenated
     along ``dim`` (``tiled``) or stacked on a new ``dim``."""
-    live = _axes(x, axes)
-    if not live:
-        return x if tiled else Sharded([s.unsqueeze(dim) for s in x.shards],
-                                       x.mesh)
-    out = [None] * x.mesh.size
-    for g in x.mesh.groups(live):
-        dev = x.shards[g[0]].device
-        parts = [x.shards[r].to(dev, non_blocking=True) for r in g]
-        res = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
-        for i, r in enumerate(g):
-            out[r] = _place(res, x.shards[r].device, i == 0)
-    record("all-gather", _nbytes(out[0]))
-    return Sharded(out, x.mesh)
+    if not tiled and not _axes(x, axes):
+        return Sharded([s.unsqueeze(dim) for s in x.shards], x.mesh)
+    return _run("gather", x, axes, dim, tiled)
 
 
 def psum_scatter(x: Sharded, axes: AxesArg, dim: int = 0,
@@ -144,21 +284,9 @@ def psum_scatter(x: Sharded, axes: AxesArg, dim: int = 0,
     """The group's sum, split along ``dim`` into one block per rank: rank
     ``i`` keeps block ``i`` (``tiled``; else the dim, of the group's size,
     is dropped)."""
-    live = _axes(x, axes)
-    if not live:
-        return x if tiled else Sharded([s.squeeze(dim) for s in x.shards],
-                                       x.mesh)
-    out = [None] * x.mesh.size
-    for g, res in _group_results(x, live, "sum"):
-        if res.shape[dim] % len(g):
-            raise ValueError(f"dim {dim} of {tuple(res.shape)} does not split "
-                             f"over {len(g)} positions")
-        for i, (r, b) in enumerate(zip(g, res.chunk(len(g), dim))):
-            b = b if tiled else b.squeeze(dim)
-            out[r] = b.to(x.shards[r].device, non_blocking=True,
-                          copy=True).contiguous()
-    record("reduce-scatter", _nbytes(out[0]))
-    return Sharded(out, x.mesh)
+    if not tiled and not _axes(x, axes):
+        return Sharded([s.squeeze(dim) for s in x.shards], x.mesh)
+    return _run("scatter", x, axes, dim, tiled)
 
 
 def axis_index(mesh, axes: AxesArg) -> Sharded:

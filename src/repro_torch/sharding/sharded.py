@@ -21,7 +21,10 @@ data pointers) run per position through :func:`per_position`.
 The shards of a layout that does not split a dim hold the same values;
 they are still distinct tensors (a position writes only its own), and a
 value replicated over every position is read from position 0
-(:func:`first`).
+(:func:`first`).  Each shard is an autograd leaf of its own when it
+requires grad, with its own ``.grad``: training differentiates a
+replicated loss at position 0, and the collectives' backwards carry the
+cotangent to every position (``train/train_step.py``).
 
 The host moves rows of a batch dim (a serving cache's slots, a prefill's
 rows) by their global numbers through :func:`move_rows`,
@@ -200,7 +203,10 @@ def _local(x, r: int, dev):
     if isinstance(x, Sharded):
         return x.shards[r]
     if isinstance(x, torch.Tensor):
-        if dev is not None and x.device != dev and x.dim() > 0:
+        # a 0-d tensor on the CPU mixes with any device's as a scalar;
+        # one on another card does not
+        if dev is not None and x.device != dev and (
+                x.dim() > 0 or x.device.type != "cpu"):
             return x.to(dev, non_blocking=True)
         return x
     if isinstance(x, tuple):

@@ -11,21 +11,46 @@ the parameters: a layer-stacked (L, ...) parameter is handed to
 of the buffer's layers, so no per-layer gradient is ever scattered into
 a zero tensor of the whole stack.  The parameters and optimizer state
 are updated in place (``adamw_update``).
+
+Over a mesh (a model built over a sharded ctx) the state is a tree of
+:class:`~repro_torch.sharding.sharded.Sharded` leaves laid out by
+:func:`train_state_pspecs`, and each shard is an autograd leaf of its
+own, with its own ``.grad`` (the layer views built per position).  The
+loss is the same on every position; it is read, and the backward run,
+at position 0 alone, and the collectives' backwards (their duals) carry
+its cotangent to every position's shards.  Each leaf's gradient is then
+the ``psum`` of its copies over the axes its layout does not split
+(float32 in position order, rounded once, so every copy holds the same
+bits), before the microbatches' float32 accumulation, as GSPMD reduces
+JAX's gradient inside each microbatch.  The batch splits into
+microbatches whose rows the data axes divide (``resolve_microbatch``
+with the ctx's ``dp_size``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.ssd_scan.ref import ssd_bwd_span
 from repro_torch.models.model import Model
-from repro_torch.models.param import DTYPES, jax_leaves, tree_map
+from repro_torch.models.param import (
+    DTYPES,
+    abstract_params,
+    is_pspec,
+    jax_leaves,
+    tree_map,
+)
+from repro_torch.sharding.collectives import psum
+from repro_torch.sharding.sharded import Sharded, first, local_shape
 from repro_torch.train import grad_compress
 from repro_torch.train.optimizer import (
     AdamState,
     OptConfig,
+    adam_state_pspecs,
     adamw_update,
+    copy_axes,
     init_adam_state,
 )
 
@@ -51,6 +76,32 @@ def init_train_state(model: Model, generator: torch.Generator,
         opt=init_adam_state(params, opt_cfg),
         ef=grad_compress.init_ef_state(params) if compress else None,
     )
+
+
+def train_state_pspecs(model: Model, *, compress: bool = False
+                       ) -> TrainState:
+    """The layout of a TrainState (JAX's ``train_state_pspecs``): params
+    by the model's rules, m and v as their parameters, ``step``
+    replicated, error-feedback buffers as the parameters."""
+    pp = model.params_pspecs()
+    return TrainState(params=pp, opt=adam_state_pspecs(pp),
+                      ef=pp if compress else None)
+
+
+def abstract_train_state(model: Model, opt_cfg: OptConfig, *,
+                         compress: bool = False) -> TrainState:
+    """A TrainState of ``meta`` tensors of the logical shapes and dtypes
+    (JAX's ``abstract_train_state``)."""
+    params = abstract_params(model.param_specs(), model.cfg.dtype)
+
+    def like(dtype):
+        return tree_map(lambda p: torch.empty_like(p, dtype=DTYPES[dtype]),
+                        params)
+    return TrainState(
+        params=params,
+        opt=AdamState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=like(opt_cfg.m_dtype), v=like(opt_cfg.v_dtype)),
+        ef=like("bfloat16") if compress else None)
 
 
 def _split_microbatches(batch, n: int) -> List[Any]:
@@ -87,11 +138,31 @@ class _Stacked:
 
 
 def _grad_leaf(param, grad, depth: int):
+    """``param`` as the autograd leaf (a Sharded: one leaf per position)
+    whose ``.grad`` is ``grad``; a ``_Stacked`` of them for ``depth``
+    leading layer dims."""
     if depth:
         return _Stacked(param, grad, depth)
+    if isinstance(param, Sharded):
+        return Sharded([_grad_leaf(p, g, 0) for p, g in
+                        zip(param.shards, grad.shards)], param.mesh,
+                       param.spec)
     leaf = param.detach().requires_grad_()
     leaf.grad = grad
     return leaf
+
+
+@torch.no_grad()
+def reduce_copies(grads):
+    """Each Sharded gradient leaf made the sum of its copies over the axes
+    its layout does not split, in place: every copy then holds the
+    gradient of the logical parameter, bit for bit the same."""
+    for g in jax_leaves(grads):
+        if isinstance(g, Sharded):
+            total = psum(g, copy_axes(g))
+            if total is not g:
+                for dst, src in zip(g.shards, total.shards):
+                    dst.copy_(src)
 
 
 def _layer_depth(spec) -> int:
@@ -112,24 +183,31 @@ def build_train_step(
     specs = model.param_specs()
 
     def accumulate(params, mb, gbuf):
-        """Add one microbatch's gradients into ``gbuf``; (loss, metrics)."""
+        """Add one microbatch's gradients into ``gbuf``; (loss, metrics),
+        read at position 0 over a mesh."""
         leaves = tree_map(lambda p, g, s: _grad_leaf(p, g, _layer_depth(s)),
                           params, gbuf, specs)
         loss, metrics = model.loss(leaves, mb)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        # over a mesh the backward runs on this thread: a layer's
+        # recompute spans every position, and positions on distinct
+        # cards would otherwise unpack its saved tensors from their
+        # cards' autograd threads at once
+        with torch.autograd.set_multithreading_enabled(not model.sharded):
+            first(loss).backward()
+        reduce_copies(gbuf)
+        return first(loss).detach(), {k: first(v).detach()
+                                      for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         params = state.params
         global_batch = jax_leaves(batch)[0].shape[0]
         n_micro = resolve_microbatch(max(model.cfg.microbatch, 1),
-                                     global_batch, 1)
+                                     global_batch, model._ctx().dp_size())
         grads = tree_map(torch.zeros_like, params)
         if n_micro == 1:
             loss, metrics = accumulate(params, batch, grads)
         else:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                                 device=p.device), params)
+            acc = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
             losses, metricses = [], []
             for i, mb in enumerate(_split_microbatches(batch, n_micro)):
                 if i:
@@ -180,11 +258,19 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
       back, error-feedback compression reads and writes its buffers and
       the gradients, and AdamW reads params, gradients, m and v and writes
       params, m and v.
-    * ``arg_bytes``: the train state and the batch."""
+    * ``arg_bytes``: the train state and the batch.
+
+    Over a mesh every figure is one position's, as JAX's
+    ``cost_analysis`` is per device: the FLOPs are the step's over the
+    positions (each runs the same program on its part), the state its
+    shards' (the parameters it holds, :func:`local_params`) and the batch
+    its rows'."""
     cfg = model.cfg
     leaves = jax_leaves(batch)
     B, S = batch["tokens"].shape
-    N = model.n_params()
+    N = local_params(model)
+    n_pos = model.ctx.mesh.size if model.sharded else 1
+    dp = model._ctx().dp_size()
     Hq, Dh = cfg.num_heads, cfg.resolved_head_dim
     flops = 6.0 * active_params(model) * B * S
     n_self = (0 if cfg.family == "ssm" else model._n_groups
@@ -198,7 +284,7 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
     P = N * width                                    # params, and grads
     M = N * torch.tensor([], dtype=DTYPES[opt_cfg.m_dtype]).element_size()
     V = N * torch.tensor([], dtype=DTYPES[opt_cfg.v_dtype]).element_size()
-    n_micro = resolve_microbatch(max(cfg.microbatch, 1), B, 1)
+    n_micro = resolve_microbatch(max(cfg.microbatch, 1), B, dp)
     nbytes = n_micro * 4 * P
     if n_micro > 1:
         A = 4 * N
@@ -207,8 +293,22 @@ def step_cost(model: Model, opt_cfg: OptConfig, batch, *,
         nbytes += 4 * P                              # ef (bf16) and grads
     nbytes += 2 * P + M + V + P + M + V
     arg = (P + M + V + (P if compress else 0)
-           + sum(t.numel() * t.element_size() for t in leaves) + 4)
-    return {"flops": flops, "bytes": float(nbytes), "arg_bytes": int(arg)}
+           + sum(t.numel() * t.element_size() for t in leaves) // dp + 4)
+    return {"flops": flops / n_pos, "bytes": float(nbytes),
+            "arg_bytes": int(arg)}
+
+
+def local_params(model: Model) -> int:
+    """The parameters one position holds: every one on one device; over
+    a mesh its shards' under the rules' layout (``params_pspecs``)."""
+    if not model.sharded:
+        return model.n_params()
+    mesh = model.ctx.mesh
+    counts = []
+    tree_map(lambda s, ps: counts.append(
+        math.prod(local_shape(mesh, ps, s.shape))), model.param_specs(),
+        model.params_pspecs(), is_leaf=is_pspec)
+    return sum(counts)
 
 
 def active_params(model: Model) -> float:

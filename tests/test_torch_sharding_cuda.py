@@ -20,6 +20,11 @@ skipped without a GPU).
 * With two (four) cards or more, a cell over positions on two (four)
   distinct cards gives the same tokens, its steps eager (one graph
   cannot span cards).
+* A float32 smoke train cell of each family over (data 2, model 2) of
+  one card, and with two (four) cards over (1, 2) ((2, 2)) of distinct
+  cards, gives a one-position cell's losses and grad norms (1e-5
+  relative) and its params after 2 steps (1e-5, leaf by leaf as
+  ||a - b|| / ||b||), every backward on the CUDA-core route.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sharding_cuda.py
 """
@@ -203,3 +208,74 @@ def test_decode_over_a_sequence_split_cache(dev, sharded_decode):
             assert decode_attention.launches - before == want
             err = (l2 - l1).abs().max() / l1.abs().max()
             assert float(err) < 1e-5
+
+
+def _train(arch, grid, ncols, steps=2):
+    """Float32 smoke train steps of ``arch`` (a MoE dropless) through a
+    train cell over ``grid``'s ``ncols`` columns, from the same weights
+    (drawn on the CPU) and batches: ([(loss, grad norm)], the params
+    after the steps on the CPU)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.resharding import reshard_tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.param import gather_tree, jax_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state
+    cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    sup = Supervisor(grid)
+    cell = sup.create_cell("t", cfg, "train", ncols=ncols,
+                           opt_cfg=OptConfig())
+    full = init_train_state(Model(cfg), torch.Generator().manual_seed(0),
+                            OptConfig())
+    cell.state, _ = (cell._relay(full) if cell.ctx is not None
+                     else reshard_tree(full, cell.device))
+    dev0 = grid.devices.flat[0]
+    pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg,
+                             ShapeConfig("t", "train", 32, 4), device=dev0)
+    mets = [cell.train_steps(pipe.get_batch, 1) for _ in range(steps)]
+    params = [t.float().cpu() for t in
+              jax_leaves(gather_tree(cell.state.params))]
+    return [(m["loss_step"], m["grad_norm"]) for m in mets], params
+
+
+def _close(got, want):
+    (m1, p1), (m2, p2) = got, want
+    for x, y in zip(m1, m2):
+        for a, b in zip(x, y):
+            assert abs(a - b) <= 1e-5 * abs(b), (m1, m2)
+    for a, b in zip(p1, p2):
+        assert float(torch.linalg.vector_norm(a - b)) <= \
+            1e-5 * float(torch.linalg.vector_norm(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_over_positions_of_one_card_gives_one_position_steps(dev,
+                                                                    arch):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    one = _train(arch, DeviceGrid.from_flat([dev], 1, 1, 1), 1)
+    before = flash_attention_bwd.launches_tc
+    four = _train(arch, DeviceGrid.from_flat([dev] * 4, 1, 2, 2), 2)
+    assert flash_attention_bwd.launches_tc == before
+    _close(four, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("n_cards", [2, 4])
+def test_train_on_distinct_cards_gives_one_position_steps(dev, arch,
+                                                          n_cards):
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} cards")
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    one = _train(arch, DeviceGrid.from_flat(cards[:1], 1, 1, 1), 1)
+    rows = 2 if n_cards == 4 else 1
+    many = _train(arch, DeviceGrid.from_flat(cards, 1, rows,
+                                             n_cards // rows), n_cards // rows)
+    _close(many, one)
+

@@ -22,9 +22,10 @@ against JAX's one-device model and the port's one-position model
 * ``resize_to`` 1 -> 2 -> 4 -> 1 of a mamba2 and a zamba2 cell keeps the
   weights and the interned payloads bit for bit, frees the source
   shards, and the live batcher keeps serving the same tokens and hits.
-* The refusal that stays: a train cell over several positions (item
-  13c); a serve cell over a zone of several rows binds and serves the
-  one-position cell's tokens.
+* Cells over a mesh bind in both roles: a train cell over two positions
+  trains (training under a mesh, item 13c, lifted the refusal that
+  stood here); a serve cell over a zone of several rows binds and serves
+  the one-position cell's tokens.
 """
 import gc
 import weakref
@@ -43,15 +44,15 @@ from repro.configs.registry import get_arch as j_get_arch  # noqa: E402
 from repro.models import cache_utils as jcu  # noqa: E402
 from repro.models.model import build_model as j_build_model  # noqa: E402
 from repro.sharding.rules import single_device_ctx as j_ctx1  # noqa: E402
-from repro_torch.configs.base import smoke_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, smoke_config  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    CellError,
     CellSpec,
     ClusterSpec,
     DeviceGrid,
     Supervisor,
 )
+from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_for_devices  # noqa: E402
 from repro_torch.models import cache_utils as tcu  # noqa: E402
 from repro_torch.models.mamba2 import mamba_tp  # noqa: E402
@@ -443,12 +444,19 @@ def _sharded_leaves(tree):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cells_bind_and_the_refusals_that_stay(arch):
+    """A serve and a train cell over two positions bind (the train cell
+    takes a step: no refusal stays since item 13c), and a serve cell over
+    a zone of two rows serves the one-position cell's tokens."""
     cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
     sup = Supervisor(DeviceGrid.from_flat(["cpu"] * 8, 1, 1, 8))
     cell = sup.create_cell("s", cfg, "serve", ncols=2)
     assert cell.model.sharded and cell.mesh.size == 2
-    with pytest.raises(CellError, match="item 13c"):
-        sup.create_cell("t", cfg, "train", ncols=2)
+    trainer = sup.create_cell("t", cfg, "train", ncols=2)
+    assert trainer.model.sharded and trainer.mesh.size == 2
+    pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg,
+                             ShapeConfig("t", "train", 16, 2), device="cpu")
+    m = trainer.train_steps(pipe.get_batch, 1)
+    assert np.isfinite(m["xent"]) and np.isfinite(m["grad_norm"])
     rows = Supervisor(DeviceGrid.from_flat(["cpu"] * 8, 1, 2, 4))
     two_rows = rows.create_cell("s", cfg, "serve", ncols=1)
     assert two_rows.mesh.shape == {"data": 2, "model": 1}
