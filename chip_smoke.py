@@ -232,6 +232,38 @@ and grad norm, the step wall p50, tokens/s, MFU, the peak memory (under
 76 GB) and a profiled step's device busy (18d's also its collectives'
 share of busy).  Their launches add to phases 13-15's rows.
 
+Phase 19a runs phase 12's scenario and rounds over a (1, 2, 3) grid of
+the card (``DeviceGrid.from_flat([dev] * 6, 1, 2, 3)``): the prefill
+cell and the two decode replicas each one column over two data rows,
+(``data`` 2, ``model`` 1), the weights FSDP over ``data`` and fanned out
+onto each replica's layout, every payload (KV rows, page stacks, the
+drained replica's pages and slots) crossing as its logical tensor into
+its destination's layout, the scale-down to one replica after wave 1's
+pump.  It first holds the prefill cell's first cold prefill logits to
+the one-position model's (2e-2, or the bf16 model's distance from
+float32 where larger), then checks 0 requeued, every slot handed off,
+every worker prefill and replica step a replay of one graph a key over
+its positions, and flash, paged extend and paged decode each exactly
+twice phase 12's launches; it prints the fan-out's transfers and logical
+bytes, the KV handoff bytes, pages migrated, TTFT p50 by wave, the
+decode step p50, tokens/s, the peak memory and the tokens equal to
+phase 12's.  Phase 19b serves full-width qwen3-4b on an int8 paged pool
+(one float32 scale a page and layer over every kv head), phase 5's
+rounds, at one position and then from a cell over (2, 2) of the card
+(phase 17a's layout; each page write's scale the ``pmax`` over
+``model``): the (2, 2) run's launches exactly 4x the one-position
+run's, every position's scale tables and every data row's int8 arena
+bitwise equal; it prints the tokens equal to phase 5's and between the
+runs, the logits distance and the peak memory beside phases 5 and 17a's.
+Phase 3 times the two paged kernels over an int8 arena at the main
+path's shapes (rows ``paged_extend_attention_int8``,
+``paged_decode_attention_int8``, their launches 19b's, the library
+yardstick SDPA over the pages dequantised to bf16 beforehand), and
+phase 4 adds two float32 cases on the card against the CPU: the smoke
+qwen3-4b (4 kv heads) disaggregated over a (1, 2, 4) grid, a prefill
+cell over (2, 2) feeding replicas over (2, 1) scaled from 2 to 1, and
+an int8 paged pool over (2, 2).
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -370,6 +402,22 @@ def pages_read(kv_need, n_log):
     return sum(min(-(-n // PAGE), n_log) for n in kv_need)
 
 
+def dequantised(arena) -> tuple:
+    """The arena's (k, v) in bf16: an int8 arena's codes times their
+    (page, layer) scales, a bf16 arena as it is."""
+    if arena["k_scale"] is None:
+        return arena["k"], arena["v"]
+    return tuple((arena[x].float() * arena[x + "_scale"][
+        :, None, :, None, None]).to(torch.bfloat16) for x in ("k", "v"))
+
+
+def scale_bytes(arena, n_slots: int) -> int:
+    """The bytes of the (page, layer) scales a paged call over ``n_slots``
+    positions of one layer reads: one float32 for k and one for v a page
+    (none for a bf16 arena)."""
+    return 0 if arena["k_scale"] is None else 2 * 4 * (n_slots // PAGE)
+
+
 def main_path_prompts(seed: int = 0, vocab: int = 151936):
     """The two waves of the main path: 8 prompts each, every prompt a
     64-token shared prefix plus its own tail of 8..64 tokens."""
@@ -489,7 +537,8 @@ def check_kernels(dev, kernels: dict):
         torch.cuda.synchronize()
         if not torch.isfinite(out[7].float()).all():
             raise AssertionError("paged decode: fully sentinel row not finite")
-        hold("paged_decode_attention", out[:7], ref[:7], tol, why,
+        hold("paged_decode_attention" + ("_int8" if adt == i8 else ""),
+             out[:7], ref[:7], tol, why,
              f"q {qdt} arena {adt} B8 n_log32 L36 layer17")
 
     # paged extend: per-row offsets off page boundaries, Sq = 40 not a
@@ -510,7 +559,8 @@ def check_kernels(dev, kernels: dict):
         if not torch.isfinite(out[7].float()).all():
             raise AssertionError("paged extend: fully sentinel row not finite")
         route = "tensor cores" if (qdt, adt) == (bf16, bf16) else "CUDA cores"
-        hold("paged_extend_attention", out[:7], ref[:7], tol, why,
+        hold("paged_extend_attention" + ("_int8" if adt == i8 else ""),
+             out[:7], ref[:7], tol, why,
              f"q {qdt} arena {adt} Sq40 n_log16 L36 layer17, {route}")
     q = torch.zeros((1, 8, HQ, 72), dtype=bf16, device=dev)
     a72 = torch.zeros((2, PAGE, 1, HKV, 80), dtype=bf16, device=dev)
@@ -714,61 +764,81 @@ def check_kernels(dev, kernels: dict):
             qt, ke, ve, is_causal=True), flush=flush),
         **bound(n_bytes, n_ops, bf16))
 
-    # paged extend: the warm wave's suffixes behind the 64-token prefix
+    # paged extend: the warm wave's suffixes behind the 64-token prefix,
+    # over a bf16 arena (the tensor-core kernel) and an int8 one (phase
+    # 19b's arena: paged_extend_kernel, dequantising in the kernel); the
+    # int8 row's library call is SDPA over the pages dequantised to bf16
+    # beforehand, a yardstick that reads bf16 where the kernel reads int8
     suffix = [len(p) - SHARED for p in waves[1]]
     S = -(-max(suffix) // CHUNK) * CHUNK
     n_log = min(pow2(-(-max(len(p) for p in waves[1]) // PAGE)),
                 MAX_LEN // PAGE)
     pos = [SHARED] * SLOTS
-    a = build_arena(gen, [SHARED + S] * SLOTS, n_log, bf16, dev)
     ps = torch.tensor(pos, dtype=torch.int32, device=dev)
     q = torch.randn((SLOTS, S, HQ, DH), generator=gen, device=dev).to(bf16)
-    args = (a["k"], a["v"], a["slot_pos"], a["block_table"], ps, LAYER)
-    kd, vd, spd = gather_pages_ref(a["k"], a["v"], a["slot_pos"],
-                                   a["block_table"], LAYER)
-    kd, vd = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
-              .contiguous() for x in (kd, vd))
     q_pos = ps[:, None] + torch.arange(S, device=dev)[None]
-    mask = ((spd[:, None, :] >= 0) & (spd[:, None, :] <= q_pos[:, :, None])
-            )[:, None]
     qt = q.transpose(1, 2).contiguous()
     n_slots = pages_read([SHARED + S] * SLOTS, n_log) * PAGE
-    n_bytes = 2 * q.numel() * elem + n_slots * (2 * HKV * DH * elem + 4)
     n_ops = 4 * DH * HQ * SLOTS * sum(SHARED + i + 1 for i in range(S))
-    kernels["paged_extend_attention"].update(
-        shape=f"B{SLOTS} S{S} pos{SHARED} n_log{n_log} P{PAGE} L{LAYERS} bf16",
-        ms=time_ms(lambda: paged_extend_attention(q, *args), flush=flush),
-        plain_ms=time_ms(lambda: paged_extend_attention_ref(qt, *args),
-                         flush=flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask), flush=flush),
-        **bound(n_bytes, n_ops, bf16))
+    for name, adt in (("paged_extend_attention", bf16),
+                      ("paged_extend_attention_int8", i8)):
+        a = build_arena(gen, [SHARED + S] * SLOTS, n_log, adt, dev)
+        args = (a["k"], a["v"], a["slot_pos"], a["block_table"], ps, LAYER)
+        sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
+        kd, vd, spd = gather_pages_ref(*dequantised(a), a["slot_pos"],
+                                       a["block_table"], LAYER)
+        kd, vd = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
+                  .contiguous() for x in (kd, vd))
+        mask = ((spd[:, None, :] >= 0)
+                & (spd[:, None, :] <= q_pos[:, :, None]))[:, None]
+        n_bytes = (2 * q.numel() * elem + n_slots * (
+            2 * HKV * DH * a["k"].element_size() + 4)
+            + scale_bytes(a, n_slots))
+        kernels[name].update(
+            shape=f"B{SLOTS} S{S} pos{SHARED} n_log{n_log} P{PAGE} "
+                  f"L{LAYERS} q bf16 arena {str(adt)[6:]}",
+            ms=time_ms(lambda: paged_extend_attention(q, *args, **sc),
+                       flush=flush),
+            plain_ms=time_ms(lambda: paged_extend_attention_ref(
+                qt, *args, **sc), flush=flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=mask), flush=flush),
+            **bound(n_bytes, n_ops, bf16))
 
-    # paged decode: the cold wave half-way through its 16 new tokens
+    # paged decode: the cold wave half-way through its 16 new tokens, over
+    # a bf16 arena and an int8 one (phase 19b's), the int8 row's library
+    # call SDPA over the pages dequantised to bf16 beforehand
     kv_lens = [n + MAX_NEW // 2 for n in lens]
     n_log = min(pow2(max(kv_lens) // PAGE + 1), MAX_LEN // PAGE)
-    a = build_arena(gen, kv_lens, n_log, bf16, dev)
     kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     q = torch.randn((SLOTS, 1, HQ, DH), generator=gen, device=dev).to(bf16)
-    args = (a["k"], a["v"], a["slot_pos"], a["block_table"], kl, LAYER)
-    kd, vd, spd = gather_pages_ref(a["k"], a["v"], a["slot_pos"],
-                                   a["block_table"], LAYER)
-    kd, vd = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
-              .contiguous() for x in (kd, vd))
-    mask = ((spd >= 0) & (spd < kl[:, None]))[:, None, None]
     qt = q.transpose(1, 2).contiguous()
     n_slots = pages_read(kv_lens, n_log) * PAGE
-    n_bytes = 2 * q.numel() * elem + n_slots * (2 * HKV * DH * elem + 4)
     n_ops = 4 * DH * HQ * sum(kv_lens)
-    kernels["paged_decode_attention"].update(
-        shape=f"B{SLOTS} kv_len{min(kv_lens)}..{max(kv_lens)} n_log{n_log} "
-              f"P{PAGE} L{LAYERS} bf16",
-        ms=time_ms(lambda: paged_decode_attention(q, *args), flush=flush),
-        plain_ms=time_ms(lambda: paged_decode_attention_ref(q[:, 0], *args),
-                         flush=flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask), flush=flush),
-        **bound(n_bytes, n_ops, bf16))
+    for name, adt in (("paged_decode_attention", bf16),
+                      ("paged_decode_attention_int8", i8)):
+        a = build_arena(gen, kv_lens, n_log, adt, dev)
+        args = (a["k"], a["v"], a["slot_pos"], a["block_table"], kl, LAYER)
+        sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
+        kd, vd, spd = gather_pages_ref(*dequantised(a), a["slot_pos"],
+                                       a["block_table"], LAYER)
+        kd, vd = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
+                  .contiguous() for x in (kd, vd))
+        mask = ((spd >= 0) & (spd < kl[:, None]))[:, None, None]
+        n_bytes = (2 * q.numel() * elem + n_slots * (
+            2 * HKV * DH * a["k"].element_size() + 4)
+            + scale_bytes(a, n_slots))
+        kernels[name].update(
+            shape=f"B{SLOTS} kv_len{min(kv_lens)}..{max(kv_lens)} "
+                  f"n_log{n_log} P{PAGE} L{LAYERS} q bf16 arena "
+                  f"{str(adt)[6:]}",
+            ms=time_ms(lambda: paged_decode_attention(q, *args, **sc),
+                       flush=flush),
+            plain_ms=time_ms(lambda: paged_decode_attention_ref(
+                q[:, 0], *args, **sc), flush=flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=mask), flush=flush),
+            **bound(n_bytes, n_ops, bf16))
     # dense decode: the main path's 8 rows over their 512-slot dense cache,
     # half-way through the cold wave's 16 new tokens (a non-rolling cache
     # passes no slot_pos: the splits share each row's slots below kv_len)
@@ -2005,6 +2075,99 @@ def disagg_parity_run(dev, arch, replicas, weight_seed, prompt_seed, waves):
     return toks, graphs
 
 
+def disagg_mesh_parity_run(dev):
+    """Float32 smoke qwen3-4b with four kv heads disaggregated over a
+    (1, 2, 4) grid of the card (``DeviceGrid.from_flat([dev] * 8, 1, 2,
+    4)``) and of ``cpu`` positions: the prefill cell over (2, 2) (its kv
+    heads split over ``model``), two decode replicas over (2, 1) each
+    (the heads whole), ``migrate=True``, the decode spec scaled to one
+    replica right after the first wave's pump (its pages migrate, its
+    slots are handed off or requeued); two waves behind a 20-token shared
+    prefix.  Returns ({"cpu", device, "colocated": {rid: tokens}}, the
+    card's server counters)."""
+    import dataclasses
+
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (
+        CellSpec,
+        ChannelSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+    )
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import params_from_numpy, tree_map
+    from repro_torch.serve.batcher import ContinuousBatcher, Request
+    from repro_torch.serve.disagg import DisaggServer
+
+    cfg = smoke_config(get_arch("qwen3-4b")).replace(dtype="float32",
+                                                     num_kv_heads=4)
+    model = Model(cfg)
+    host = tree_map(lambda t: t.numpy(), model.init(
+        torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(4)
+    shared = rng.integers(1, cfg.vocab, size=20).astype(np.int32)
+    waves = [[np.concatenate([shared, rng.integers(
+        1, cfg.vocab, size=n).astype(np.int32)]) for n in lens]
+        for lens in ([3, 9, 5, 12], [6, 2, 11])]
+    kw = dict(max_len=64, page_size=8)
+    toks, stats = {}, None
+    for device in ("cpu", dev):
+        sup = Supervisor(DeviceGrid.from_flat([device] * 8, 1, 2, 4))
+        spec = ClusterSpec(
+            cells=(CellSpec("prefill", cfg, "serve", ncols=2),
+                   CellSpec("decode", cfg, "serve", ncols=1, replicas=2,
+                            min_replicas=1, max_replicas=2)),
+            channels=(ChannelSpec("prefill", "decode", kind="kv"),))
+        sup.apply(spec)
+        sup.cells["decode/0"].init_serve(params=params_from_numpy(
+            host, dtype=torch.float32, device=str(device),
+            specs=model.param_specs()))
+        srv = DisaggServer(sup, "prefill", spec.cell("decode").instances(),
+                           batch_slots=2, chunk=8, migrate=True, **kw)
+        shapes = {n: c.mesh.shape for n, c in sup.cells.items()}
+        if shapes != {"prefill": {"data": 2, "model": 2},
+                      "decode/0": {"data": 2, "model": 1},
+                      "decode/1": {"data": 2, "model": 1}}:
+            raise AssertionError(f"disaggregated over a mesh: {shapes}")
+        rid = 0
+        for w, wave in enumerate(waves):
+            for p in wave:
+                srv.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+                rid += 1
+            if w == 0:
+                srv.pump()
+                sup.apply(sup.desired.with_cell(dataclasses.replace(
+                    sup.desired.cell("decode"), replicas=1)))
+                srv.sync(sup.desired)
+            srv.run_until_drained()
+        toks[str(device)] = {r.rid: r.output for r in srv.done}
+        st = srv.stats()
+        if len(toks[str(device)]) != rid or not st["pages_migrated"] \
+                or st["replicas"] != 1:
+            raise AssertionError(f"disaggregated over a mesh on {device}: "
+                                 f"{st}")
+        stats = {k: st[k] for k in ("kv_bytes", "kv_transfers",
+                                    "pages_migrated", "drain_handoffs",
+                                    "requeued", "prefix_hit_tokens")}
+        srv.close()
+        for name in list(sup.cells):
+            sup.destroy_cell(name)
+    params = params_from_numpy(host, dtype=torch.float32, device="cpu",
+                               specs=model.param_specs())
+    bat = ContinuousBatcher(model, params, batch_slots=2, prefill_chunk=8,
+                            device="cpu", **kw)
+    rid = 0
+    for wave in waves:
+        for p in wave:
+            bat.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+            rid += 1
+        bat.run_until_drained()
+    toks["colocated"] = {r.rid: r.output for r in bat.done}
+    return toks, stats
+
+
 # float32 smoke serve cells over two mesh positions of the card: (name,
 # arch, weight seed, prompt seed, waves of tail lengths)
 SHARDED_PARITY = [
@@ -2099,7 +2262,8 @@ ROWS_PARITY = [
 ]
 
 
-def rows_parity_run(dev, arch, weight_seed, prompt_seed):
+def rows_parity_run(dev, arch, weight_seed, prompt_seed, cfg_kw=None,
+                    bat_kw=None):
     """The same float32 smoke weights and requests through a serve cell of
     one position on the CPU and a cell over (``data`` 2, ``model`` 2) of
     the card, four slots (two a data row), three ticks behind a 20-token
@@ -2108,9 +2272,11 @@ def rows_parity_run(dev, arch, weight_seed, prompt_seed):
     data row 0), S + T1 + 5 and S + T2 + 5 (a warm pair, T2's page
     computed on data row 1 for slot 1), S + T2 + 3 alone (it hits T2's
     page; a group of one runs whole on both data rows).  encdec: the
-    first request carries a source.  Returns ({"cpu", "rows": {rid:
-    tokens}}, the card batcher's graph counters, the collective bytes of
-    its step keys)."""
+    first request carries a source.  ``cfg_kw`` replaces config fields,
+    ``bat_kw`` adds batcher options (an int8 pool: every position's
+    scale tables must then be bitwise equal).  Returns ({"cpu", "rows":
+    {rid: tokens}}, the card batcher's graph counters, the collective
+    bytes of its step keys)."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import (
@@ -2123,7 +2289,8 @@ def rows_parity_run(dev, arch, weight_seed, prompt_seed):
     from repro_torch.models.param import params_from_numpy, tree_map
     from repro_torch.serve.batcher import Request
 
-    cfg = smoke_config(get_arch(arch)).replace(dtype="float32")
+    cfg = smoke_config(get_arch(arch)).replace(dtype="float32",
+                                               **(cfg_kw or {}))
     model = Model(cfg)
     host = tree_map(lambda t: t.numpy(), model.init(
         torch.Generator().manual_seed(weight_seed), device="cpu"))
@@ -2152,7 +2319,7 @@ def rows_parity_run(dev, arch, weight_seed, prompt_seed):
             host, dtype=torch.float32, device=cell.device,
             specs=model.param_specs()))
         bat = cell.make_batcher(batch_slots=4, max_len=64, page_size=8,
-                                prefill_chunk=8)
+                                prefill_chunk=8, **(bat_kw or {}))
         rid = 0
         for _ in range(2):
             for tick in ticks:
@@ -2174,6 +2341,12 @@ def rows_parity_run(dev, arch, weight_seed, prompt_seed):
                                    for r in g[1:]):
                             raise AssertionError(
                                 f"{arch}: the data rows' arenas differ")
+            scales = [t for pair in (bat.pool.kv_scales or [])
+                      for t in pair]
+            if any(not torch.equal(t.shards[0], x) for t in scales
+                   for x in t.shards):
+                raise AssertionError(f"{arch}: the positions' int8 scale "
+                                     "tables differ")
         bat.close()
         sup.destroy_cell("c")
     return toks, graphs, colls
@@ -2230,6 +2403,25 @@ def phase_parity(dev):
         log(f"[4] {name}: identical to a one-position cell on the cpu; "
             f"each data row's arena the same; collective bytes per step "
             f"key {colls}")
+    name = "qwen3-4b, 4 kv heads, int8 paged pool over 2 rows of 2 positions"
+    toks, _, _ = rows_parity_run(dev, "qwen3-4b", 0, 4,
+                                 cfg_kw=dict(num_kv_heads=4),
+                                 bat_kw=dict(kv_dtype="int8"))
+    log(f"[4] {name}: {toks['rows']}")
+    if toks["cpu"] != toks["rows"]:
+        raise AssertionError(f"{name}: the (2, 2) cell's tokens on the card "
+                             f"differ from one position's on the cpu: {toks}")
+    log(f"[4] {name}: identical to a one-position int8 cell on the cpu; "
+        "each data row's int8 arena and every position's scale tables the "
+        "same")
+    name = ("qwen3-4b, 4 kv heads, disaggregated: prefill over (2, 2), "
+            "replicas over (2, 1), scaled 2 -> 1")
+    toks, stats = disagg_mesh_parity_run(dev)
+    log(f"[4] {name}: {dev} {toks[str(dev)]}")
+    if not toks["cpu"] == toks[str(dev)] == toks["colocated"]:
+        raise AssertionError(f"{name}: tokens differ: {toks}")
+    log(f"[4] {name}: identical on {dev}, on cpu positions and in a "
+        f"colocated batcher on cpu; the card's server {stats}")
     if (flash_attention.launches_tc, gmm.launches_tc,
             paged_extend_attention.launches_tc) != tc0:
         raise AssertionError("a float32 run launched a tensor-core kernel")
@@ -3285,7 +3477,8 @@ def drive_disagg(srv, waves, reqs, step_s, *, after_pump=None):
     torch.cuda.synchronize()
 
 
-def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
+def phase_disagg(dev, name_limit: str, ref: dict, tag=12,
+                 ref12=None) -> dict:
     """Full-width qwen3-4b disaggregated on this card (a 1x1x4 grid, the
     device repeated): a prefill cell and a decode spec of 2 replicas
     joined by a ``kv`` channel; ``decode/0`` takes phase 5's weight seed,
@@ -3297,7 +3490,17 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
     channel, and the sync detaches it.  Then round 1's wave 2 again and
     phase 5's round 2, on the survivor.  Tokens must be phase 5's, request
     by request (the replay wave's round 1's wave 2's), with no requeue;
-    every worker prefill and replica step a graph replay."""
+    every worker prefill and replica step a graph replay.
+
+    Phase 19a (``tag`` "19a", ``ref12`` phase 12's numbers) runs the same
+    over a (1, 2, 3) grid (``DeviceGrid.from_flat([dev] * 6, 1, 2, 3)``):
+    every cell one column over two data rows, (``data`` 2, ``model`` 1),
+    the weights FSDP over ``data`` and fanned out onto each cell's
+    layout, each payload crossing as its logical tensor into the
+    replica's layout.  The first cold prefill's logits are held to the
+    one-position model's first; every kernel must launch exactly twice
+    phase 12's count, and the tokens' agreement with phase 12's is
+    printed."""
     import dataclasses
 
     from repro_torch.configs.registry import get_arch
@@ -3321,17 +3524,26 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    sup = Supervisor(DeviceGrid.from_flat([dev], 1, 1, 4, allow_reuse=True))
+    mesh = ref12 is not None
+    sup = Supervisor(DeviceGrid.from_flat([dev] * 6, 1, 2, 3) if mesh else
+                     DeviceGrid.from_flat([dev], 1, 1, 4, allow_reuse=True))
     spec = ClusterSpec(
         cells=(CellSpec("prefill", cfg, "serve", ncols=1),
                CellSpec("decode", cfg, "serve", ncols=1, replicas=2,
                         min_replicas=1, max_replicas=2)),
         channels=(ChannelSpec("prefill", "decode", kind="kv"),))
     sup.apply(spec)
+    m = sup.cells["prefill"].mesh.size          # positions a cell
+    if {c.mesh.size for c in sup.cells.values()} != {m} or \
+            m != (2 if mesh else 1):
+        raise AssertionError(f"[{tag}] cells {[(n, c.mesh.shape) for n, c in sup.cells.items()]}")
     sup.cells["decode/0"].init_serve(
         generator=torch.Generator(device=dev).manual_seed(0))
     weights = tree_bytes(sup.cells["decode/0"].serve_params)
+    logits = (mesh_logits(tag, dev, sup.cells["prefill"].model)
+              if mesh else None)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     srv = DisaggServer(sup, "prefill", spec.cell("decode").instances(),
                        batch_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
@@ -3344,14 +3556,15 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
               "enqueue_s": sum(ch.seconds for ch in arrays),
               "server_build_wall_s": fanout_wall}
     if fanout["transfers"] != 2 or fanout["bytes"] != 2 * weights:
-        raise AssertionError(f"[12] weight fan-out {fanout}, weights "
+        raise AssertionError(f"[{tag}] weight fan-out {fanout}, weights "
                              f"{weights} bytes")
-    log(f"[12] cells {sorted(sup.cells)} on zones "
-        f"{[(z.name, z.c0, z.c1) for z in sup.table.zones]}; weight fan-out "
-        f"decode/0 -> prefill, decode/1: {fanout['transfers']} transfers, "
-        f"{fanout['bytes'] / 1e9:.2f} GB, {fanout['enqueue_s'] * 1e3:.2f} ms "
-        f"to enqueue, the server built in {fanout_wall:.2f} s with the "
-        f"copies landed")
+    log(f"[{tag}] cells {sorted(sup.cells)} on zones "
+        f"{[(z.name, z.c0, z.c1) for z in sup.table.zones]}, each over "
+        f"{sup.cells['prefill'].mesh.shape}; weight fan-out decode/0 -> "
+        f"prefill, decode/1: {fanout['transfers']} transfers, "
+        f"{fanout['bytes'] / 1e9:.2f} GB logical, "
+        f"{fanout['enqueue_s'] * 1e3:.2f} ms to enqueue, the server built "
+        f"in {fanout_wall:.2f} s with the copies landed")
     counters = (flash_attention, paged_extend_attention,
                 paged_decode_attention)
     rounds = main_path_rounds()
@@ -3385,23 +3598,32 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
     launches = read_counters(counters)
     st = srv.stats()
 
-    # the same tokens as phase 5, request by request
     out = [r.output for r in reqs]
-    want = ref["tokens_by_round"][0] + ref["tokens_by_round"][0][SLOTS:] \
-        + ref["tokens_by_round"][1]
-    bad = [r.rid for r, o, w in zip(reqs, out, want) if o != w]
-    if bad:
-        raise AssertionError(f"[12] requests {bad} differ from phase 5's "
-                             f"(the replay wave is rids {2 * SLOTS}.."
-                             f"{3 * SLOTS - 1})")
+    if mesh:
+        # bf16 over a mesh: the agreement with phase 12's tokens
+        want = ref12["outputs"]
+        same = [sum(a == b for a, b in zip(o, w)) for o, w in zip(out, want)]
+        agree = f"{sum(same)} of {sum(map(len, want))} tokens equal phase " \
+            f"12's ({sum(o == w for o, w in zip(out, want))} of " \
+            f"{len(want)} requests whole)"
+    else:
+        # the same tokens as phase 5, request by request
+        want = ref["tokens_by_round"][0] + \
+            ref["tokens_by_round"][0][SLOTS:] + ref["tokens_by_round"][1]
+        bad = [r.rid for r, o, w in zip(reqs, out, want) if o != w]
+        if bad:
+            raise AssertionError(f"[12] requests {bad} differ from phase "
+                                 f"5's (the replay wave is rids "
+                                 f"{2 * SLOTS}..{3 * SLOTS - 1})")
+        agree = ("tokens equal phase 5's request by request (the replay "
+                 "wave's its round 1 wave 2's)")
     if (scale["sync"]["detached"] != ["decode/1"] or st["requeued"]
             or not scale["held"] or scale["handoffs"] != scale["held"]
             or scale["pages_migrated"] <= 0 or len(srv.done) != len(reqs)
             or any(len(r.output) != MAX_NEW for r in reqs)):
-        raise AssertionError(f"[12] the scale-down did not hand off: "
+        raise AssertionError(f"[{tag}] the scale-down did not hand off: "
                              f"{scale}, {st['requeued']} requeued")
-    log(f"[12] {len(reqs)} requests' tokens equal phase 5's request by "
-        f"request (the replay wave's its round 1 wave 2's); scale-down "
+    log(f"[{tag}] {len(reqs)} requests: {agree}; scale-down "
         f"2 -> 1 replica after wave 1's pump: {scale['handoffs']} in-flight "
         f"slots of {scale['held']} handed off, {scale['pages_migrated']} "
         f"prefix pages migrated, over {scale['transfers']} pages transfers "
@@ -3416,25 +3638,34 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
     if (any(c["eager_calls"] or c["dropped"] for c in g.values())
             or calls != srv.worker.invocations or d["eager_calls"]
             or d["replays"] != survivor.decode_invocations):
-        raise AssertionError(f"[12] not every step replayed: worker {g} "
+        raise AssertionError(f"[{tag}] not every step replayed: worker {g} "
                              f"({srv.worker.invocations} invocations), "
                              f"survivor decode {d} "
                              f"({survivor.decode_invocations} steps)")
-    log(f"[12] worker: {srv.worker.invocations} prefill invocations, all "
-        f"replays ({ {p: c for p, c in g.items() if c['keys']} }); "
-        f"survivor: {survivor.decode_invocations} decode steps, all replays "
-        f"({d})")
+    if not (srv.worker.step_graph.capture and
+            survivor.step_graph.capture):
+        raise AssertionError(f"[{tag}] the positions sit on one card, yet "
+                             "the steps do not capture")
+    log(f"[{tag}] worker: {srv.worker.invocations} prefill invocations, all "
+        f"replays of one graph a key over its {m} positions "
+        f"({ {p: c for p, c in g.items() if c['keys']} }); survivor: "
+        f"{survivor.decode_invocations} decode steps, all replays ({d})")
 
     # the kernels of the path, every layer, on the tensor cores
     decodes = st["decode_invocations"]
     if min(launches.values()) <= 0:
-        raise AssertionError(f"[12] a kernel was never launched: {launches}")
-    expect("[12] paged decode", launches["paged_decode_attention"],
-           L * decodes)
-    expect("[12] flash and paged extend",
+        raise AssertionError(f"[{tag}] a kernel was never launched: "
+                             f"{launches}")
+    expect(f"[{tag}] paged decode", launches["paged_decode_attention"],
+           m * L * decodes)
+    expect(f"[{tag}] flash and paged extend",
            launches["flash_attention"] + launches["paged_extend_attention"],
-           L * srv.worker.invocations)
+           m * L * srv.worker.invocations)
     expect_tc(launches, "flash_attention", "paged_extend_attention")
+    if mesh:
+        for name, want in ref12["launches"].items():
+            expect(f"[{tag}] {name}: 2 x phase 12's", launches[name],
+                   2 * want)
 
     # end to end
     toks = sum(len(r.output) for r in reqs)
@@ -3463,14 +3694,15 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
                                             if k != "sync"},
            "peak_gb": peak / 1e9, "launches": launches,
            "worker_invocations": srv.worker.invocations,
-           "decode_invocations": decodes}
-    log(f"[12] {len(reqs)} requests x {MAX_NEW} tokens in {wall:.2f} s: "
+           "decode_invocations": decodes, "outputs": out,
+           "logits": logits}
+    log(f"[{tag}] {len(reqs)} requests x {MAX_NEW} tokens in {wall:.2f} s: "
         f"{toks / wall:.1f} tokens/s; TTFT p50 by wave "
         f"{' / '.join(f'{w * 1e3:.1f}' for w in ttft)} ms (wave 3 the "
         f"replay); decode step p50 by replica (recorder) "
         + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in replica_step.items())
         + f", a decode-only tick {e2e['decode_step_s'] * 1e3:.2f} ms")
-    log(f"[12] KV handoff: {handoff['transfers']} transfers, "
+    log(f"[{tag}] KV handoff: {handoff['transfers']} transfers, "
         f"{handoff['bytes'] / 1e6:.2f} MB, {handoff['enqueue_s'] * 1e3:.2f} "
         f"ms to enqueue; bytes a request "
         + ", ".join(f"{k} {v / 1e6:.3f} MB"
@@ -3478,7 +3710,7 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
         + f"; peak {peak / 1e9:.2f} GB allocated; launches {launches} "
         f"({name_limit})")
     e2e["verb_seconds"] = verb_seconds(sup.events)
-    log(f"[12] supervisor verbs (event log seconds, {name_limit}): " +
+    log(f"[{tag}] supervisor verbs (event log seconds, {name_limit}): " +
         ", ".join(f"{k} {v * 1e3:.3f} ms"
                   for k, v in e2e["verb_seconds"].items()))
 
@@ -3495,13 +3727,201 @@ def phase_disagg(dev, name_limit: str, ref: dict) -> dict:
     freed = held - torch.cuda.memory_allocated()
     left = torch.cuda.memory_allocated() - base
     if freed < 2 * weights or left > 1e9:
-        raise AssertionError(f"[12] destroying the cells freed {freed} "
+        raise AssertionError(f"[{tag}] destroying the cells freed {freed} "
                              f"bytes, {left} bytes are left above the "
                              "phase's start")
-    log(f"[12] destroy freed {freed / 1e9:.2f} GB; "
+    log(f"[{tag}] destroy freed {freed / 1e9:.2f} GB; "
         f"{left / 1e6:.1f} MB left above the phase's start")
     e2e["freed_gb"] = freed / 1e9
     return e2e
+
+
+def mesh_logits(tag, dev, model2, params2=None, model1=None,
+                params1=None) -> dict:
+    """The first cold prefill of phase 5's round 1 (its first bucket's
+    prompts) through ``model2``, a model over a mesh of the card, on
+    ``params2`` (default phase 5's weights laid out by its rules), against
+    the one-position model on phase 5's weights (``model1``, ``params1``,
+    drawn anew when not given): the last-position logits must lie within
+    phases 16-17's limit, 2e-2 or, where larger, the one-position bf16
+    model's distance from its float32 copy.  Returns the distances."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import shard_tree, tree_map
+    from repro_torch.serve.serve_step import bucket_len, prefill_inputs
+    if model1 is None:
+        model1, params1 = full_width(dev, "qwen3-4b", tag)
+    if params2 is None:
+        params2 = shard_tree(params1, model2.params_pspecs(), model2.ctx)
+    wave = main_path_rounds(0, model1.cfg.vocab)[0]
+    b0 = bucket_len(len(wave[0]), CHUNK, MAX_LEN)
+    prompts = [p for p in wave if bucket_len(len(p), CHUNK, MAX_LEN) == b0]
+    key, host = prefill_inputs(prompts, [None] * len(prompts), chunk=CHUNK,
+                               max_len=MAX_LEN, model=model1)
+    batch = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
+                 else v).to(dev) for k, v in host.items()}
+    n, V = len(prompts), model1.cfg.vocab
+
+    def last_logits(model, params):
+        with torch.no_grad():
+            out, _ = model.prefill_ranged(params, batch, model.init_cache(
+                key[1], MAX_LEN, device=dev), in_place=True)
+        return out[:n, :V].float()
+
+    l2 = last_logits(model2, params2)
+    l1 = last_logits(model1, params1)
+    del params2
+    p32 = tree_map(lambda t: t.float(), params1)
+    l1_32 = last_logits(Model(model1.cfg.replace(dtype="float32")), p32)
+    del p32
+    err, acc = rel(l2, l1), rel(l1, l1_32)
+    limit = max(2e-2, acc)
+    log(f"[{tag}] first cold prefill ({n} prompts, key {key}) over "
+        f"{model2.ctx.mesh.shape}: last-position logits rel {err:.3e} "
+        f"against the one-position model (tol {limit:.3e}: 2e-2, or the "
+        f"one-position bf16 model's distance from float32 where larger); "
+        f"the mesh's bf16 against the float32 one-position model "
+        f"{rel(l2, l1_32):.3e}, one position's {acc:.3e}")
+    if not err < limit:
+        raise AssertionError(f"[{tag}] logits rel {err} >= {limit}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logits_rel": err, "limit": limit, "bf16_vs_f32": acc,
+            "mesh_vs_f32": rel(l2, l1_32)}
+
+
+# --------------------------------------------------------------------------
+# phase 19b: qwen3-4b at full width on an int8 paged pool
+# --------------------------------------------------------------------------
+def phase_int8(dev, name_limit: str, ref5: dict, ref17a: dict) -> dict:
+    """Full-width qwen3-4b on an int8 paged pool (``kv_dtype="int8"``: one
+    float32 scale a page and layer over every kv head, the pages
+    quantised on write and dequantised in the paged kernels), phase 5's
+    weights and two rounds, first behind a batcher at one position, then
+    from a cell over (``data`` 2, ``model`` 2) of the card (phase 17a's
+    layout: each position's arena holds its 4 of the 8 kv heads, whole on
+    both data rows; each page write's scale the ``pmax`` over ``model`` of
+    the positions' maxima).  Checks every kernel launched exactly 4x the
+    one-position run's count (the paged extend over the int8 arena on the
+    CUDA-core kernel), every position's scale tables and every data row's
+    int8 arena bitwise equal, one CUDA graph a key; prints the tokens'
+    agreement with phase 5 (the bf16 arena) and between the two runs, the
+    first cold prefill's logits against the one-position model, the peak
+    memory beside phases 5 and 17a's.  Returns the launches of both runs
+    together (the kernels line's int8 rows) and each run's numbers."""
+    from repro_torch.core import (
+        CellSpec,
+        ClusterSpec,
+        DeviceGrid,
+        Supervisor,
+    )
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        paged_extend_attention,
+    )
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    counters = (flash_attention, paged_extend_attention,
+                paged_decode_attention)
+    rounds = main_path_rounds()
+    model1, params1 = full_width(dev, "qwen3-4b", "19b")
+    cfg = model1.cfg
+    L = cfg.num_layers
+    out = {}
+
+    def run(name, bat_fn, m):
+        tag = f"19b {name}"
+        warm_up(bat_fn, cfg.vocab)
+        torch.cuda.reset_peak_memory_stats()
+        bat = bat_fn()
+        if bat.pool.arena[0].k.dtype != torch.int8:
+            raise AssertionError(f"[{tag}] the arena is not int8")
+        reqs, launches, wall, step_s, marks = serve(bat, rounds, counters)
+        expect(f"[{tag}] paged decode over the int8 arena",
+               launches["paged_decode_attention"],
+               m * L * bat.decode_invocations)
+        expect(f"[{tag}] prefill + paged extend over the int8 arena",
+               launches["flash_attention"]
+               + launches["paged_extend_attention"],
+               m * L * bat.prefill_invocations)
+        expect_tc(launches, "flash_attention")
+        expect(f"[{tag}] paged extend over the int8 arena on the tensor "
+               "cores", launches["paged_extend_attention_tc"], 0)
+        check_drained(bat.pool, SLOTS * SHARED)
+        e2e = report(tag, name_limit, bat, reqs, wall, step_s, launches,
+                     cfg.vocab)
+        e2e["outputs"] = [r.output for r in reqs]
+        e2e["graphs"] = expect_graphed(tag, bat)
+        e2e["round2"] = expect_round2_replayed(tag, bat, marks[2])
+        e2e["memory"] = memory_report(tag, bat)
+        return bat, e2e
+
+    bat, out["one"] = run("one position", lambda: ContinuousBatcher(
+        model1, params1, batch_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        prefill_chunk=CHUNK, kv_dtype="int8", device=dev), 1)
+    bat.close()
+    del bat
+    gc.collect()
+    torch.cuda.empty_cache()
+    sup = Supervisor(DeviceGrid.from_flat([dev] * 4, 1, 2, 2))
+    sup.apply(ClusterSpec(cells=(CellSpec(cfg.name, cfg, "serve",
+                                          ncols=2),)))
+    cell = sup.cells[cfg.name]
+    if cell.mesh.shape != {"data": 2, "model": 2}:
+        raise AssertionError(f"[19b] the cell's mesh is {cell.mesh}")
+    cell.init_serve(params=params1)
+    out["logits"] = mesh_logits("19b", dev, cell.model, cell.serve_params,
+                                model1, params1)
+    del model1, params1
+    gc.collect()
+    torch.cuda.empty_cache()
+    bat, out["mesh"] = run("(2, 2)", lambda: cell.make_batcher(
+        batch_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        prefill_chunk=CHUNK, kv_dtype="int8"), 4)
+    one, mesh = out["one"], out["mesh"]
+    for name, want in one["launches"].items():
+        expect(f"[19b] {name}: 4 x the one-position int8 run's",
+               mesh["launches"][name], 4 * want)
+    groups = cell.mesh.groups(("data",))
+    for node, scales in zip(bat.pool.arena, bat.pool.kv_scales):
+        for table in scales:
+            if not all(torch.equal(table.shards[0], x)
+                       for x in table.shards):
+                raise AssertionError("[19b] the positions' scale tables "
+                                     "differ")
+        for leaf in node:
+            for g in groups:
+                if not all(torch.equal(leaf.shards[g[0]], leaf.shards[r])
+                           for r in g[1:]):
+                    raise AssertionError("[19b] the data rows' int8 arenas "
+                                         "differ")
+
+    def agree(a, b):
+        return [sum(x == y for o, w in zip(a, b) for x, y in zip(o, w)),
+                sum(map(len, b))]
+    out["agreement"] = {"one_int8_vs_phase5": agree(one["outputs"],
+                                                    ref5["outputs"]),
+                        "mesh_int8_vs_one_int8": agree(mesh["outputs"],
+                                                       one["outputs"]),
+                        "mesh_int8_vs_17a": agree(mesh["outputs"],
+                                                  ref17a["outputs"])}
+    a = out["agreement"]
+    log(f"[19b] greedy tokens equal: one-position int8 against phase 5 "
+        f"(bf16 arena) {a['one_int8_vs_phase5'][0]} of "
+        f"{a['one_int8_vs_phase5'][1]}; (2, 2) int8 against one-position "
+        f"int8 {a['mesh_int8_vs_one_int8'][0]} of "
+        f"{a['mesh_int8_vs_one_int8'][1]}; (2, 2) int8 against phase 17a "
+        f"(bf16) {a['mesh_int8_vs_17a'][0]} of {a['mesh_int8_vs_17a'][1]}")
+    log(f"[19b] every position's scale tables and every data row's int8 "
+        f"arena bitwise equal; peak {one['memory']['peak_gb']:.2f} GB at one "
+        f"position (phase 5, bf16 arena: {ref5['memory']['peak_gb']:.2f} "
+        f"GB), {mesh['memory']['peak_gb']:.2f} GB over (2, 2) (phase 17a: "
+        f"{ref17a['memory']['peak_gb']:.2f} GB) ({name_limit})")
+    out["launches"] = {k: one["launches"][k] + mesh["launches"][k]
+                       for k in one["launches"]}
+    bat.close()
+    sup.destroy_cell(cfg.name)
+    return out
 
 
 #: phase 16's model-level decode over a cache split on its sequence dim:
@@ -3946,6 +4366,7 @@ def phase_sharded_family(dev, name_limit: str, arch: str, tag: str,
             f"{bat._ckpts.regrowths} regrowths")
     want = [t for r in ref["outputs"] for t in r]
     got = [t for r in reqs for t in r.output]
+    e2e["outputs"] = [r.output for r in reqs]       # what 19b compares
     e2e["token_agreement"] = [sum(a == b for a, b in zip(got, want)),
                               len(want)]
     first = sum(r.output[0] == w[0] for r, w in zip(reqs, ref["outputs"]))
@@ -4542,6 +4963,19 @@ KERNELS = {
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:134",
         "path": 5},
+    # the paged kernels over an int8 arena (one float32 scale a page and
+    # layer, dequantised in the kernel): phase 19b's path, at one
+    # position and over (2, 2); launches those of both of its runs
+    "paged_extend_attention_int8": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:142",
+        "path": "19b", "count": "paged_extend_attention"},
+    "paged_decode_attention_int8": {
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:134",
+        "path": "19b", "count": "paged_decode_attention"},
     "decode_attention": {
         "source": "src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu",
@@ -4720,11 +5154,22 @@ def main() -> int:
         with timed(tag):
             runs[tag] = phase_sharded_family(dev, name_limit, arch, tag,
                                              runs[ref], rows=2)
-    # the phases that run a path's kernels again: 11, 12, 16 and 17a the
-    # main path's, 16b-16d those of paths 8-10 over two positions, 17b-17e
-    # those of paths 7-10 over two rows of two positions, 18a-18d those
-    # of the train paths 13-15 over a mesh
-    again = {5: (11, 12, 16, "17a"), 7: ("17b",), 8: ("16b", "17c"),
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed("19a"):
+        runs["19a"] = phase_disagg(dev, name_limit, runs[5], tag="19a",
+                                   ref12=runs[12])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed("19b"):
+        runs["19b"] = phase_int8(dev, name_limit, runs[5], runs["17a"])
+    # the phases that run a path's kernels again: 11, 12, 16, 17a and 19a
+    # the main path's, 16b-16d those of paths 8-10 over two positions,
+    # 17b-17e those of paths 7-10 over two rows of two positions, 18a-18d
+    # those of the train paths 13-15 over a mesh
+    again = {5: (11, 12, 16, "17a", "19a"), 7: ("17b",), 8: ("16b", "17c"),
              9: ("16c", "17d"), 10: ("16d", "17e"), 13: ("18a", "18b"),
              14: ("18c",), 15: ("18d",)}
     rows = []

@@ -7,14 +7,19 @@ RFcom's ``rf_open/rf_read/rf_write/rf_map`` surface.
 
 * Control plane (:class:`ControlPlane`): small messages over per-edge
   queues; on a real deployment this is the host network, here in-process.
-* Data plane (:class:`ArrayChannel`): tensor transfer between two cells'
-  devices via ``Tensor.to(device, non_blocking=True)`` (NVLink or PCIe
-  between cards, a device-to-device copy within one — the RFloop
-  analogue: packets between co-located cells never leave the machine).
-  A transfer records a CUDA event after its copies; the receiver's
-  stream waits on it at ``recv``, so the sender never blocks on the
-  copy.  ``map`` publishes tensors to the peer without copying when the
-  two zones share a device (shared-memory mapping analogue).
+* Data plane (:class:`ArrayChannel`): tensor transfer between two cells
+  via ``Tensor.to(device, non_blocking=True)`` (NVLink or PCIe between
+  cards, a device-to-device copy within one — the RFloop analogue:
+  packets between co-located cells never leave the machine).  The
+  target is a device, or a layout over the destination's mesh: its
+  ``Mesh`` and a PartitionSpec tree of the sent tree (JAX's
+  ``target_shardings``), each leaf gathered to its logical tensor and
+  laid out anew, the sender's tensors left intact.  A transfer records
+  a CUDA event on each destination card after its copies; the
+  receiver's streams wait on them at ``recv``, so the sender never
+  blocks on the copy.  ``map`` publishes tensors to the peer without
+  copying when the two zones share a device and a layout
+  (shared-memory mapping analogue).
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ import torch
 from repro_torch.core.resharding import tree_bytes
 from repro_torch.core.telemetry import recorder_of
 from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.sharding.rules import P
+from repro_torch.sharding.sharded import Sharded, relay_leaf, same_mesh
 
 
 class ChannelError(Exception):
@@ -107,8 +114,9 @@ class ArrayChannel:
     """RFcom-style typed tensor channel between two cells.
 
     ``send``/``recv`` move tensor trees onto the destination cell's
-    device; ``map`` hands over the tensors without a copy when the two
-    zones share a device (zero-copy shared mapping); ``send_kv``/
+    device or a layout over its mesh; ``map`` hands over the tensors
+    without a copy when the two zones share a device and a layout
+    (zero-copy shared mapping); ``send_kv``/
     ``recv_kv`` carry per-request KV-cache rows for a prefill-cell ->
     decode-cell handoff; ``send_pages``/``poll_pages`` carry page stacks
     between decode replicas (``kind="pages"``): the disaggregated server
@@ -123,7 +131,8 @@ class ArrayChannel:
         self.src = src_cell
         self.dst = dst_cell
         self.kind = kind
-        # (item, the CUDA event its copies end with, or None)
+        # (item, [(destination device, the CUDA event its copies end
+        # with)])
         self._inbox: deque = deque()
         self.bytes_sent = 0
         self.transfers = 0
@@ -135,28 +144,59 @@ class ArrayChannel:
             raise ChannelError("channel closed")
 
     def _shared_devices(self) -> bool:
+        """Do the two zones share a device and, over a mesh, a layout
+        (the same positions, so a tree laid out for one is laid out for
+        the other)?"""
+        src, dst = self.src.mesh, self.dst.mesh
+        if src.size > 1 or dst.size > 1:
+            return same_mesh(src, dst)
         return bool(set(self.src.devices) & set(self.dst.devices))
 
-    def _transfer(self, tree: Any, device=None):
-        """Enqueue the copies of ``tree`` onto ``device`` (default: the
-        destination cell's) and record the event they end with.
-        ``seconds`` is the host's time to enqueue them."""
-        device = torch.device(device) if device is not None else self.dst.device
-        t0 = time.monotonic()
+    def _place(self, tree: Any, target):
+        """Copies of ``tree``'s tensors on ``target``: a device (default:
+        the destination cell's), or ``(mesh, pspecs)``, a layout over a
+        mesh (a mesh of one position is its device).  Returns (the tree,
+        the destination devices)."""
+        if target is None:
+            dst_mesh = self.dst.mesh
+            target = (dst_mesh, None) if dst_mesh.size > 1 else self.dst.device
+        if isinstance(target, tuple):
+            mesh, pspecs = target
+            if mesh.size > 1:
+                if pspecs is None:      # replicated on every position
+                    out = tree_map(lambda t: relay_leaf(t, mesh, P(),
+                                                        donate=False), tree)
+                else:
+                    out = tree_map(lambda t, s: relay_leaf(
+                        t, mesh, s, donate=False), tree, pspecs)
+                return out, mesh.distinct_devices()
+            target = mesh.positions[0]
+        device = torch.device(target)
         # a copy even on the sender's own device: the sender may reuse
         # its buffers (a page freed and refilled) once the copy is done
-        out = tree_map(lambda t: t.to(device, non_blocking=True, copy=True)
-                       if isinstance(t, torch.Tensor) else t, tree)
-        event = None
-        if device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
-        else:
+        return tree_map(lambda t: relay_leaf(t, device, donate=False),
+                        tree), [device]
+
+    def _transfer(self, tree: Any, target=None):
+        """Enqueue the copies of ``tree`` onto ``target`` (see
+        :meth:`_place`) and record the events they end with.
+        ``seconds`` is the host's time to enqueue them; ``bytes`` the
+        tree's logical bytes."""
+        t0 = time.monotonic()
+        out, devices = self._place(tree, target)
+        events = []
+        for device in devices:
+            if device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
+                events.append((device, event))
+        if not events:
             src = [t.device for t in tree_leaves(tree)
                    if isinstance(t, torch.Tensor) and t.device.type == "cuda"]
             if src:         # a device-to-host copy: the host waits on it
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(src[0]))
+                events.append((torch.device("cpu"), event))
         dt = time.monotonic() - t0
         nb = tree_bytes(out)
         self.bytes_sent += nb
@@ -171,38 +211,40 @@ class ArrayChannel:
                              dst=getattr(self.dst, "name", "?"))
             rec.record(f"xfer_{self.kind}_s", dt)
             rec.record(f"xfer_{self.kind}_bytes", nb)
-        return out, event, {"bytes": nb, "seconds": dt,
-                            "gbps": nb / max(dt, 1e-9) / 1e9}
+        return out, events, {"bytes": nb, "seconds": dt,
+                             "gbps": nb / max(dt, 1e-9) / 1e9}
 
-    def send(self, tree: Any, device=None) -> dict:
-        """Transfer a tensor tree to the destination cell's device."""
+    def send(self, tree: Any, target=None) -> dict:
+        """Transfer a tensor tree to ``target``: a device, or ``(mesh,
+        pspecs)`` (default: the destination cell's device, or every
+        position of its mesh whole)."""
         self._check_open()
-        out, event, stats = self._transfer(tree, device)
-        self._inbox.append((out, event))
+        out, events, stats = self._transfer(tree, target)
+        self._inbox.append((out, events))
         return stats
 
-    def send_kv(self, slot_cache: Any, device=None,
+    def send_kv(self, slot_cache: Any, target=None,
                 *, meta: Optional[dict] = None) -> dict:
         """Stream one request's per-slot KV rows onto the decode cell's
-        device (the share-on-demand handoff).  ``slot_cache`` is a 1-row
+        layout (the share-on-demand handoff).  ``slot_cache`` is a 1-row
         cache (``slice_cache_slots``); ``meta`` carries the request
         bookkeeping (rid, first token, ...)."""
         self._check_open()
-        out, event, stats = self._transfer(slot_cache, device)
+        out, events, stats = self._transfer(slot_cache, target)
         self._inbox.append((KVEnvelope(meta=dict(meta or {}), cache=out),
-                            event))
+                            events))
         return stats
 
-    def send_pages(self, stacks: Any, device=None,
+    def send_pages(self, stacks: Any, target=None,
                    *, meta: Optional[dict] = None) -> dict:
         """Stream KV page stacks replica-to-replica (a canonical
         page-stack list as ``KVPool`` reads them out of its arena);
         ``meta`` carries the tree records / request bookkeeping needed to
         re-intern on the destination."""
         self._check_open()
-        out, event, stats = self._transfer(stacks, device)
+        out, events, stats = self._transfer(stacks, target)
         self._inbox.append((KVEnvelope(meta=dict(meta or {}), cache=out),
-                            event))
+                            events))
         return stats
 
     def poll_pages(self) -> Optional[KVEnvelope]:
@@ -211,14 +253,15 @@ class ArrayChannel:
 
     def map(self, tree: Any) -> dict:
         """Zero-copy publish (shared mapping analogue): the peer sees the
-        same tensors.  Only valid when both zones share a device."""
+        same tensors.  Only valid when both zones share a device and, over
+        a mesh, its positions."""
         self._check_open()
         if not self._shared_devices():
             raise ChannelError(
                 f"map on channel {self.cid}: zones share no devices "
                 "(zero-copy mapping needs co-located cells; use send())"
             )
-        self._inbox.append((tree, None))
+        self._inbox.append((tree, []))
         self.transfers += 1
         return {"bytes": 0, "seconds": 0.0, "zero_copy": True}
 
@@ -228,9 +271,8 @@ class ArrayChannel:
         self._check_open()
         if not self._inbox:
             raise ChannelError("empty channel")
-        out, event = self._inbox.popleft()
-        if event is not None:
-            device = self.dst.device
+        out, events = self._inbox.popleft()
+        for device, event in events:
             if device.type == "cuda":
                 torch.cuda.current_stream(device).wait_event(event)
             else:

@@ -9,24 +9,46 @@ resize between zones of one card moves nothing.  Onto a mesh (a sharded
 laid out anew, one leaf at a time.  A Sharded source leaf is *donated*:
 its shards are dropped once the leaf is re-laid, the counterpart of JAX's
 ``device_put(..., donate=True)``, so the old layout's memory returns as
-the new one fills.  No checkpoint round-trip is involved — mirroring the
-paper's observation that the *elastic resize* path must be shorter than
-the failure path.
+the new one fills.  Byte counts are logical, as JAX's are: each logical
+array once, however many positions hold it.  No checkpoint round-trip
+is involved — mirroring the paper's observation that the *elastic
+resize* path must be shorter than the failure path.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models.param import tree_leaves, tree_map
-from repro_torch.sharding.sharded import relay_leaf
+from repro_torch.sharding.sharded import Sharded, relay_leaf
+
+
+def _leaf_bytes(t) -> int:
+    """A leaf's logical bytes: a Sharded leaf's logical tensor (by its
+    layout; a Sharded without one, a replicated value, its shard), a
+    tensor's own, nothing for anything else."""
+    if isinstance(t, Sharded):
+        shard = t.shards[0]
+        n = (int(np.prod(t.global_shape)) if t.spec is not None
+             else shard.numel())
+        return n * shard.element_size()
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    return 0
 
 
 def tree_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
-               if isinstance(t, torch.Tensor))
+    """The logical bytes of a tree, as JAX counts them: each logical
+    array once, however many positions hold a copy or a part of it."""
+    out = [0]
+
+    def add(t):
+        out[0] += _leaf_bytes(t)
+    tree_map(add, tree)
+    return out[0]
 
 
 def _sync(device: torch.device):
@@ -38,7 +60,7 @@ def reshard_tree(tree: Any, target, pspecs=None) -> Tuple[Any, dict]:
     """Place every tensor leaf of ``tree`` on ``target``: a device, or a
     sharded ``ShardCtx`` with ``pspecs`` (the tree's PartitionSpecs, as
     ``Model.params_pspecs`` gives them).  Sharded source leaves are
-    donated.  Returns (tree, stats): the bytes of the tree, the seconds
+    donated.  Returns (tree, stats): the logical bytes of the tree, the seconds
     the move took (to the transfers' end) and the rate."""
     t0 = time.monotonic()
     nbytes = tree_bytes(tree)

@@ -46,6 +46,7 @@ from repro_torch.sharding.rules import P
 from repro_torch.sharding.sharded import (
     Sharded,
     move_rows,
+    position_pspecs,
     row_axes,
     row_owners,
     shard_at,
@@ -259,6 +260,60 @@ def extract_row_pages(cache: dict, axes: list, row: int, start_page: int,
             for node, a in zip(kv_cache_nodes(cache), axes)]
 
 
+class PayloadLayout:
+    """Where a model's serving payloads land on its cell: laid out as the
+    model's own caches are (over a mesh by position: each position's kv
+    heads, a Mamba state's parts; a row's batch dim whole on every data
+    row).  :meth:`target` is what ``ArrayChannel.send`` takes: the device
+    of a one-position model, else its mesh and the payload's
+    PartitionSpec tree.  The kinds:
+
+    * ``"row"``: a 1-row cache (a dense handoff);
+    * ``"paged"``: {"stacks": canonical page stacks, "resident": the
+      1-row resident remainder} (a paged handoff, a slot's migration);
+    * ``"snapshot"``: {"row": a 1-row cache, "chain": ``n`` snapshot
+      payloads or None} (a snapshot handoff);
+    * ``"stacks"``: canonical page stacks; ``"snapshots"``: ``n``
+      snapshot payloads (an interned subtree's migration)."""
+
+    def __init__(self, model, max_len: int, device):
+        self.device = device
+        self.mesh = (model.ctx.mesh if getattr(model, "sharded", False)
+                     else None)
+        if self.mesh is None:
+            return
+        b_axes = model.ctx.pspec(("batch",), (1,)).axes_of(0)
+        row = position_pspecs(model.local.cache_specs(model.local_batch(1),
+                                                          max_len),
+                              model.cache_specs(1, max_len), self.mesh,
+                              b_axes)
+        self.row = row
+        self.resident = strip_kv_nodes(row)
+        # a stack of a node's pages: its (batch, seq) dims become the
+        # (page, position) dims in front, every other dim as the cache's
+        self.stacks = [
+            KVSlice(*(P(None, None, *(e for d, e in enumerate(s)
+                                      if d not in (a, a + 1)))
+                      for s in node))
+            for node, a in zip(kv_cache_nodes(row),
+                               kv_node_axes(model, 1, max_len))]
+        self.snapshot = ({"state": model.state_node(row),
+                          "pages": self.stacks}
+                         if model.supports_snapshot_state else None)
+
+    def target(self, kind: str, n: int = 0):
+        if self.mesh is None:
+            return self.device
+        specs = {"row": lambda: self.row,
+                 "paged": lambda: {"stacks": self.stacks,
+                                   "resident": self.resident},
+                 "snapshot": lambda: {"row": self.row,
+                                      "chain": [self.snapshot] * n},
+                 "stacks": lambda: self.stacks,
+                 "snapshots": lambda: [self.snapshot] * n}[kind]()
+        return self.mesh, specs
+
+
 def _ids(page_ids, device) -> torch.Tensor:
     return torch.as_tensor(page_ids, dtype=torch.long, device=device)
 
@@ -274,12 +329,22 @@ def write_arena_pages(arena: list, page_ids, stacks: list) -> list:
     return arena
 
 
+def keep_layout(out, like):
+    """``out`` (a Sharded computed position by position from ``like``,
+    with the same dims split) laid out as ``like`` is; a plain tensor as
+    it is."""
+    if isinstance(out, Sharded):
+        out.spec = like.spec
+    return out
+
+
 def read_arena_pages(arena: list, page_ids) -> list:
-    """Canonical page stacks for ``page_ids`` (copies; inverse of write)."""
+    """Canonical page stacks for ``page_ids`` (copies; inverse of write),
+    laid out as the arena is."""
     out = []
     for a in arena:
         idx = _ids(page_ids, a.k.device)
-        out.append(KVSlice(k=a.k[idx], v=a.v[idx], slot_pos=a.slot_pos[idx]))
+        out.append(KVSlice(*(keep_layout(x[idx], x) for x in a)))
     return out
 
 
@@ -326,14 +391,19 @@ def _bshape(ndim: int, keep_axes, scale_shape) -> tuple:
     return tuple(shape)
 
 
-def quantize_page(x: torch.Tensor, *, keep_axes=(0,)):
+def quantize_page(x: torch.Tensor, *, keep_axes=(0,), amax=None):
     """Symmetric int8 quantization with one scale per kept-axes index
     (``(0, 2)`` on a canonical ``(n_pages, P, L, Hkv, Dh)`` stack gives
     one scale per (page, layer)).  Returns ``(q int8, scale float32)``;
-    all-zero groups get scale 0."""
+    all-zero groups get scale 0.  ``amax`` reduces each group's max
+    further (over a mesh, a ``pmax`` over the positions holding parts of
+    the group)."""
     x32 = x.to(torch.float32)
     red = tuple(a for a in range(x.ndim) if a not in keep_axes)
-    scale = x32.abs().amax(dim=red) / 127.0
+    top = x32.abs().amax(dim=red)
+    if amax is not None:
+        top = amax(top)
+    scale = top / 127.0
     b = scale.reshape(_bshape(x.ndim, keep_axes, scale.shape))
     q = torch.round(x32 / b.clamp(min=1e-8)).clamp(-127, 127)
     return q.to(torch.int8), scale

@@ -39,7 +39,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import gather_pages_ref
 from repro_torch.models.param import PSpec
-from repro_torch.sharding.collectives import all_gather, psum, relayout
+from repro_torch.sharding.collectives import all_gather, pmax, psum, relayout
 from repro_torch.sharding.rules import P
 from repro_torch.sharding.sharded import empty_like_global, per_position
 from repro_torch.sharding.sharded import split as split_input
@@ -316,13 +316,17 @@ def _paged_positions(pos, S: int, mode: str):
                                        device=pos.device)[None, :]
 
 
-def _paged_write(cache: PagedKVCache, k, v, pos, positions, mode: str):
+def _paged_write(cache: PagedKVCache, k, v, pos, positions, mode: str,
+                 amax=None):
     """The K/V of an extend (S tokens a row at ``positions``) or a decode
-    step (one at ``pos``) into their pages, in place."""
+    step (one at ``pos``) into their pages, in place.  ``amax`` (int8
+    pages over a mesh whose positions hold parts of the kv heads) turns
+    each position's max into the max over every head: a ``pmax`` over
+    ``model``."""
     if mode == "extend":
-        _paged_write_extend(cache, k, v, positions)
+        _paged_write_extend(cache, k, v, positions, amax)
     else:
-        _paged_write_decode(cache, k[:, 0], v[:, 0], pos)
+        _paged_write_decode(cache, k[:, 0], v[:, 0], pos, amax)
 
 
 def _paged_attend(q, cache: PagedKVCache, pos, positions, mode: str,
@@ -346,12 +350,13 @@ def _paged_attend(q, cache: PagedKVCache, pos, positions, mode: str,
                                 slot_pos=sp_d)
 
 
-def _paged_write_decode(cache: PagedKVCache, k, v, pos):
+def _paged_write_decode(cache: PagedKVCache, k, v, pos, amax=None):
     """Write one token per row into its physical page, in place.
 
     k/v: (B, Hkv, Dh) values for position ``pos`` (B,).  Unmapped target
     pages drop the write.  Int8 arenas lazily initialise the per-page
-    scale on first touch (scale 0 = untouched page)."""
+    scale on first touch (scale 0 = untouched page) from the max over
+    the row's kv heads (``amax`` reduces it over a mesh's positions)."""
     N, P = cache.k.shape[0], cache.k.shape[1]
     layer, bt = cache.layer, cache.block_table
     n_log = bt.shape[1]
@@ -365,6 +370,8 @@ def _paged_write_decode(cache: PagedKVCache, k, v, pos):
         physc = phys.clamp(0, N - 1)
         amax_k = k.to(F32).abs().amax(dim=(1, 2))                  # (B,)
         amax_v = v.to(F32).abs().amax(dim=(1, 2))
+        if amax is not None:
+            amax_k, amax_v = amax(amax_k), amax(amax_v)
         sck = torch.where(ks[physc, layer] > 0, ks[physc, layer],
                           amax_k / 127.0)
         scv = torch.where(vs[physc, layer] > 0, vs[physc, layer],
@@ -379,12 +386,14 @@ def _paged_write_decode(cache: PagedKVCache, k, v, pos):
     return cache
 
 
-def _paged_write_extend(cache: PagedKVCache, k, v, positions):
+def _paged_write_extend(cache: PagedKVCache, k, v, positions, amax=None):
     """Write S suffix tokens per row into their physical pages, in place.
 
     k/v: (B, S, Hkv, Dh); positions: (B, S) absolute.  Positions whose
     logical page is beyond the block-table width or unmapped drop the
-    write.  Int8 scales take a scatter-max per target (page, layer)."""
+    write.  Int8 scales take a scatter-max per target (page, layer) of
+    each token's max over the kv heads (``amax`` reduces it over a
+    mesh's positions)."""
     N, P = cache.k.shape[0], cache.k.shape[1]
     L = cache.k.shape[2]
     layer, bt = cache.layer, cache.block_table
@@ -398,11 +407,13 @@ def _paged_write_extend(cache: PagedKVCache, k, v, positions):
         keep = (phys >= 0) & (phys < N)
         flat = (physc * L + layer).reshape(-1)
         for sc, x in ((cache.k_scale, k), (cache.v_scale, v)):
-            amax = x.to(F32).abs().amax(dim=(2, 3))                # (B, S)
+            top = x.to(F32).abs().amax(dim=(2, 3))                 # (B, S)
+            if amax is not None:
+                top = amax(top)
             # a dropped entry maxes 0 into a clamped target: scales are
             # >= 0, so that is no change
             sc.view(-1).scatter_reduce_(
-                0, flat, torch.where(keep, amax / 127.0, 0.0).reshape(-1),
+                0, flat, torch.where(keep, top / 127.0, 0.0).reshape(-1),
                 reduce="amax", include_self=True)
         k = _quantize_to(cache.k.dtype, k, cache.k_scale[physc, layer])
         v = _quantize_to(cache.v.dtype, v, cache.v_scale[physc, layer])
@@ -613,20 +624,27 @@ def batch_axes(ctx, n: int) -> tuple:
                  if sizes[a] > 1)
 
 
-def _paged_mirrored(p, x, cfg, ctx, b_ax, *, mode, cache, pos):
-    """Paged extend or decode with the batch split over ``b_ax``: ``x``
-    holds this data row's rows, ``pos`` (B,) and the block table are
-    global.  The new K/V are all-gathered over the batch axes and each
-    data row writes every row's into its own copy of the arena (the
-    copies stay equal, so a page a slot on one data row wrote is there
-    for a slot on another); attention reads this data row's block-table
-    rows.  Returns the output projection, before the model axis'
-    ``psum``."""
+def _paged_mirrored(p, x, cfg, ctx, b_ax, *, mode, cache, pos, tp):
+    """Paged extend or decode with the batch split over ``b_ax`` (or
+    whole, ``b_ax`` empty): ``x`` holds this data row's rows, ``pos`` (B,)
+    and the block table are global.  The new K/V are all-gathered over
+    the batch axes and each data row writes every row's into its own copy
+    of the arena (the copies stay equal, so a page a slot on one data row
+    wrote is there for a slot on another); attention reads this data
+    row's block-table rows.  An int8 arena's page scale is the max over
+    every kv head, so under TP (``tp``) each position's max is a ``pmax``
+    over ``model``: every position and data row then writes the same
+    scale into its own copy of the scale tables.  Returns the output
+    projection, before the model axis' ``psum``."""
     positions = _paged_positions(pos, x.shape[1], mode)
     pos_l, positions_l = batch_split(ctx, pos), batch_split(ctx, positions)
     q, k, v = qkv_project(p, x, cfg, positions_l)
     k_all, v_all = (all_gather(t, b_ax, dim=0) for t in (k, v))
-    _paged_write(cache, k_all, v_all, pos, positions, mode)
+    amax = None
+    if tp and cache.k_scale is not None:
+        def amax(t):
+            return pmax(t, ctx.model_axis)
+    _paged_write(cache, k_all, v_all, pos, positions, mode, amax)
     rows = cache._replace(block_table=batch_split(ctx, cache.block_table))
     out = _paged_attend(q, rows, pos_l, positions_l, mode,
                         cfg.sliding_window)
@@ -650,9 +668,10 @@ def attention_sharded(p, x, cfg: ArchConfig, ctx, *, mode: str, cache=None,
           for k, v in p.items()}
     lcfg = local_attn_cfg(cfg, ctx)
     b_ax = () if pos is None else batch_axes(ctx, pos.shape[0])
-    if isinstance(cache, PagedKVCache) and b_ax:
+    if isinstance(cache, PagedKVCache) and (
+            b_ax or (tp and cache.k_scale is not None)):
         y = _paged_mirrored(pl, x, lcfg, ctx, b_ax, mode=mode, cache=cache,
-                            pos=pos)
+                            pos=pos, tp=tp)
         return (psum(y, ctx.model_axis) if tp else y), cache
     if pos is not None and cache is not None and not isinstance(
             cache, PagedKVCache):

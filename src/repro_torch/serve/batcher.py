@@ -47,6 +47,9 @@ another cell, :meth:`~ContinuousBatcher.export_slot` and
 replicas, and :meth:`~ContinuousBatcher.drop_slot` evicts one unfinished.
 Each writes in place (``index_copy_``, ``copy_``) into the tensors the
 step graphs captured: the arena, the resident rows, the dense cache.
+Over a mesh a 1-row cache or resident row arriving in the batcher's
+layout goes into its slot's data row by global row number, and pages go
+into every data row's copy of the arena.
 
 Over a sharded model (a cell over several mesh positions) the batcher is
 the same object: its host state (one slot table, one pool with its free
@@ -97,7 +100,6 @@ from repro_torch.models.cache_utils import (
     init_resident,
     load_pages_into_row,
     merge_cache_slots,
-    page_arena,
     slice_cache_slots,
     strip_kv_nodes,
 )
@@ -946,14 +948,13 @@ class ContinuousBatcher(StepRunner):
 
     def rebind(self, model, params):
         """Serve ``model`` over ``params`` after the cell's mesh changed:
-        the pool's arena, the resident rows, the dense cache and a
-        snapshot pool's interned payloads are re-laid onto the new model's
-        layout (contents kept, old shards freed), the checkpoint
-        workspace holds its capacity in the new layout, the steps are
-        rebuilt over the new model, the scratch caches and the slot reset
-        come anew when next needed, and every step graph is dropped."""
-        if self.pool is not None and self.pool.kv_scales is not None:
-            raise NotImplementedError("int8 pages over a mesh")
+        the pool's arena (int8 with its scale tables), the resident rows,
+        the dense cache and a snapshot pool's interned payloads are
+        re-laid onto the new model's layout (contents kept, old shards
+        freed), the checkpoint workspace holds its capacity in the new
+        layout, the steps are rebuilt over the new model, the scratch
+        caches and the slot reset come anew when next needed, and every
+        step graph is dropped."""
         self.model, self.params = model, params
         T = self.temperature
 
@@ -965,9 +966,6 @@ class ContinuousBatcher(StepRunner):
         if self._ckpts is not None:
             self._ckpts.rebind(model)
         if self._paged:
-            self.pool.arena = _relay_into(self.pool.arena, page_arena(
-                model, self.pool.num_pages, self.pool.page_size,
-                self.device))
             self.resident = _relay_into(self.resident, init_resident(
                 model, self.B, self.max_len, self.device))
             self._step = build_paged_serve_step(model, T,

@@ -30,6 +30,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.models.cache_utils import PayloadLayout
+
 
 def chunk_digests(prompt, ctx_key, page_size: int,
                   limit: Optional[int] = None) -> List[str]:
@@ -179,18 +181,24 @@ def migrate_prefixes(src_pool, dst_pool, channel, *,
                      max_pages: Optional[int] = None) -> int:
     """Move interned prefix subtrees replica-to-replica: export from
     ``src_pool``, stream the page data over a ``kind="pages"`` array
-    channel (copied onto the destination cell's device — the
-    on-demand inter-subOS path), re-intern into ``dst_pool`` best-effort.  The
+    channel (copied onto the destination pool's layout: its device, or
+    its mesh laid out as its arena or payloads — the on-demand
+    inter-subOS path), re-intern into ``dst_pool`` best-effort.  The
     source is untouched (refcounts and pages intact); the destination
     receives refs-0 reclaimable cache charged to each page's original
     owner.  Returns the number of pages newly interned."""
     imported = 0
     keys = list(src_pool.tree._roots) if ctx_keys is None else list(ctx_keys)
+    layout = PayloadLayout(dst_pool.model, dst_pool.max_len, dst_pool.device)
     for ck in keys:
         records, stacks = src_pool.export_subtree(ck, max_pages)
         if not records:
             continue
-        channel.send_pages(stacks, meta={"ctx_key": ck, "records": records})
+        target = (layout.target("stacks")
+                  if dst_pool.payload_kind == "page"
+                  else layout.target("snapshots", len(stacks)))
+        channel.send_pages(stacks, target,
+                           meta={"ctx_key": ck, "records": records})
         env = channel.poll_pages()
         imported += dst_pool.import_subtree(env.meta["ctx_key"],
                                             env.meta["records"], env.cache)

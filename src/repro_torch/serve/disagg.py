@@ -23,10 +23,20 @@ detaches replicas live as the decode spec's ``replicas`` changes (the
 and with ``migrate=True`` a replica that is going away hands its hot
 prefix pages and its in-flight slots to the survivors first.
 
+Every cell may lie over a mesh of several positions (rows and
+columns of its zone).  Weights go to the destination's layout (its
+``Mesh`` and ``Model.params_pspecs()``), KV and pages to the layout the
+destination's own caches have (``cache_utils.PayloadLayout``): each
+leaf crosses as its logical tensor, so a prefill cell with its kv heads
+split feeds a replica with them whole, and the sender keeps its
+tensors.
+
 Where the port differs from the JAX package:
 
-* weights and KV go to the destination cell's device (``Cell.device``),
-  not to a sharding: there is one device a cell until sharding lands;
+* a payload lands in the layout of the destination's own caches (by
+  kv heads, a row's batch dim whole), where JAX's dense handoff goes to
+  ``cache_pspecs`` (the sequence dim split) and its page handoffs to the
+  mesh's default sharding;
 * the worker's prefill, paged extend and snapshot restore run as the
   batcher's do (``serve/step_graph.py``): on the card a CUDA graph per
   key (``prefill_key``, ``extend_key``, ``restore_key`` with the worker's
@@ -61,14 +71,21 @@ from repro_torch.core.telemetry import (
     write_trace,
 )
 from repro_torch.models.cache_utils import (
+    PayloadLayout,
     cache_batch_axes,
     clear_kv_row,
     extract_row_pages,
+    keep_layout,
     load_pages_into_row,
     strip_kv_nodes,
 )
 from repro_torch.models.param import tree_leaves, tree_map
-from repro_torch.serve.batcher import ContinuousBatcher, Request, StepRunner
+from repro_torch.serve.batcher import (
+    ContinuousBatcher,
+    Request,
+    StepRunner,
+    _one_card,
+)
 from repro_torch.serve.cacheplane import CachePlane, migrate_prefixes
 from repro_torch.serve.kvpool import (
     KVPool,
@@ -93,18 +110,22 @@ from repro_torch.serve.tenancy import (
     TenantRegistry,
     TenantScheduler,
 )
+from repro_torch.sharding.sharded import Sharded, row_axes, take_rows
 
 
 def row_view(tree, axes, row: int):
-    """Row ``row`` of every leaf of a cache tree (batch dim 1), as views."""
-    return tree_map(lambda c, a: c.narrow(a, row, 1), tree, axes)
+    """Row ``row`` of every leaf of a cache tree (batch dim 1): views, or,
+    where a mesh's data axes split the batch dim, a copy gathered from
+    the data row that holds it (``take_rows``)."""
+    return tree_map(lambda c, a: take_rows(c, a, [row]) if row_axes(c, a)
+                    else keep_layout(c.narrow(a, row, 1), c), tree, axes)
 
 
 def _owned(tree):
     """``tree`` with every tensor copied (a payload out of a scratch that
     is about to be written again)."""
-    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
-                    else t, tree)
+    return tree_map(lambda t: t.clone()
+                    if isinstance(t, (torch.Tensor, Sharded)) else t, tree)
 
 
 class PrefillWorker(StepRunner):
@@ -120,7 +141,14 @@ class PrefillWorker(StepRunner):
     row and runs its suffix through one dense extend.  The skipped
     compute shows as ``prefix_hit_tokens`` on the prefill cell's
     accounting.  The cell holds the worker among its programs
-    (``Cell.track``), so a resize drops its graphs as a batcher's."""
+    (``Cell.track``), so a resize drops its graphs as a batcher's.
+
+    Over a mesh the worker is the batcher's prefill half: its pool's
+    arena holds each position's kv heads whole on every data row, its
+    scratch caches and checkpoint workspace are split over the data
+    axes, its steps are one CUDA graph a key over the positions of one
+    card (eager over distinct cards), and each key's collective bytes
+    are registered with the cell's accounting."""
 
     PROGRAM = "prefill_worker"
 
@@ -137,6 +165,7 @@ class PrefillWorker(StepRunner):
         self.cell = cell
         self.model = cell.model
         self.device = cell.device
+        self.accounting = cell.accounting
         self.max_len = max_len
         self.chunk = chunk
         self.temperature = temperature
@@ -155,25 +184,15 @@ class PrefillWorker(StepRunner):
         if self._snapshot:
             # checkpoints sit at page multiples: page-aligned buckets
             self.chunk = int(np.lcm(chunk, page_size))
-        # snapshot families prefill with a checkpoint at every page
-        # boundary: cold prompts feed the worker's prefix cache and the
-        # chain the decode pool interns
-        self._prefill = build_prefill_step(
-            self.model, temperature,
-            checkpoint_every=page_size if self._snapshot else None)
-        self._extend = (build_extend_step(self.model, temperature)
-                        if self._snapshot else
-                        build_paged_extend_step(self.model, temperature,
-                                                template=self.pool.template)
-                        if self._paged else None)
+        self.page_size = page_size
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self._build_steps()
         self.step_graph = (
             StepGraph(self.device,
-                      generator=self.generator if temperature > 0 else None)
+                      generator=self.generator if temperature > 0 else None,
+                      capture=_one_card(self.model))
             if self.device.type == "cuda" else None)
         self._has_resident = self._has_resident_rows()
-        self._run_extend = (self._stepper(self._extend)
-                            if self._extend is not None else None)
         self._ckpts = (CheckpointWorkspace(self.model, self.device)
                        if self._snapshot else None)
         self._scratch_caches: Dict[int, object] = {}
@@ -184,6 +203,39 @@ class PrefillWorker(StepRunner):
         self.invocations = 0
         self.rec = recorder_of(cell.accounting)
         cell.track(self)
+
+    def _build_steps(self):
+        """The prefill and (paged or dense) extend steps over the
+        worker's model.  Snapshot families prefill with a checkpoint at
+        every page boundary: cold prompts feed the worker's prefix cache
+        and the chain the decode pool interns."""
+        T = self.temperature
+        self._prefill = build_prefill_step(
+            self.model, T,
+            checkpoint_every=self.page_size if self._snapshot else None)
+        self._extend = (build_extend_step(self.model, T) if self._snapshot
+                        else build_paged_extend_step(
+                            self.model, T, template=self.pool.template)
+                        if self._paged else None)
+        self._run_extend = (self._stepper(self._extend)
+                            if self._extend is not None else None)
+
+    def rebind(self, model, params):
+        """Prefill for ``model`` after the cell's mesh changed (the
+        weights are the cell's): the pool's arena or payloads and the
+        checkpoint workspace re-laid onto its layout, the steps rebuilt,
+        the scratch caches anew, every step graph dropped."""
+        self.model = model
+        if self.pool is not None:
+            self.pool.rebind(model)
+        if self._ckpts is not None:
+            self._ckpts.rebind(model)
+        self._build_steps()
+        self._scratch_caches = {}
+        if self.step_graph is not None:
+            for path in ("prefill", "extend", "restore"):
+                self.step_graph.drop(path)
+            self.step_graph.capture = _one_card(model)
 
     @property
     def params(self):
@@ -431,13 +483,13 @@ class PrefillWorker(StepRunner):
 
 
 class _DecodeReplica:
-    """One decode cell's serving surface: batcher, KV channel, device."""
+    """One decode cell's serving surface: batcher, KV channel, and the
+    layout its payloads land in (:attr:`layout`)."""
 
-    def __init__(self, cell, channel, batcher, device):
+    def __init__(self, cell, channel, batcher):
         self.cell = cell
         self.channel = channel
         self.batcher = batcher
-        self.device = device
         self.inflight: Dict[int, Request] = {}   # rid -> sent, not installed
         # rid -> PrefixLease on this replica's pool, taken at routing: it
         # pins the shared pages until the install moves it to the slot
@@ -447,6 +499,14 @@ class _DecodeReplica:
     @property
     def pool(self):
         return self.batcher.pool
+
+    @property
+    def layout(self) -> PayloadLayout:
+        """Where KV and pages land on this replica: the cell's device, or
+        its mesh laid out as its batcher's caches (the JAX replica's
+        ``kv_shardings``); the batcher's model, so a resize moves it."""
+        return PayloadLayout(self.batcher.model, self.batcher.max_len,
+                             self.cell.device)
 
     def free_capacity(self) -> int:
         # queued, unslotted requests (token-at-a-time fallback) hold
@@ -463,17 +523,6 @@ class _DecodeReplica:
             len(req.prompt), req.max_new_tokens,
             lease.pages if lease is not None else 0)
         return need <= self.pool.available_pages(req.tenant)
-
-
-def _one_position(cell):
-    """``cell``, a cell of one mesh position: the weight fan-out and the
-    page handoffs move whole tensors to one device, so a cell over a mesh
-    (ROADMAP queue 1 item 13d) is refused."""
-    if cell.mesh.size > 1:
-        raise NotImplementedError(
-            f"cell {cell.name!r} is a mesh of {cell.mesh.size} positions: "
-            "disaggregated serving over a mesh is ROADMAP queue 1 item 13d")
-    return cell
 
 
 class DisaggServer:
@@ -501,7 +550,7 @@ class DisaggServer:
         if not decode_cells:
             raise ValueError("need at least one decode cell")
         self.sup = supervisor
-        self.prefill_cell = _one_position(supervisor.cells[prefill_cell])
+        self.prefill_cell = supervisor.cells[prefill_cell]
         self.max_len = max_len
         self.batch_slots = batch_slots
         self.chunk = chunk
@@ -581,7 +630,8 @@ class DisaggServer:
     # -- replica lifecycle -----------------------------------------------
     def _sync_weights(self, dst_name: str, src_name: str):
         """Weight fan-out: ``dst`` pulls the params of ``src`` over a
-        supervisor array channel, onto its own device."""
+        supervisor array channel, onto its own layout (its mesh by
+        ``params_pspecs``, or its device); ``src`` keeps its params."""
         dst = self.sup.cells[dst_name]
         src = self.sup.cells[src_name]
         if src.serve_params is None:
@@ -589,7 +639,7 @@ class DisaggServer:
                 f"weight source {src_name!r} holds no params to fan out")
         wch = (self.sup.find_channel(src_name, dst_name, "array")
                or self.sup.open_channel(src_name, dst_name, kind="array"))
-        wch.send(src.serve_params, dst.device)
+        wch.send(src.serve_params, (dst.mesh, dst.model.params_pspecs()))
         dst.serve_params = wch.recv()
         if dst.status == "created":     # params in hand: it is serving now
             dst.status = "running"
@@ -609,7 +659,7 @@ class DisaggServer:
         """Bring a decode cell into the serving surface: weight fan-out (if
         it has none), KV channel, a fresh batcher.  None when no weight
         source exists yet (a later sync retries)."""
-        cell = _one_position(self.sup.cells[name])
+        cell = self.sup.cells[name]
         if cell.serve_params is None:
             src = self._weight_source()
             if src is None:
@@ -627,7 +677,7 @@ class DisaggServer:
             # schedules its fallback queue, without the front door's buckets
             tenants=self.tenants.specs.values(), tenant_buckets=False,
         )
-        rep = _DecodeReplica(cell, ch, batcher, cell.device)
+        rep = _DecodeReplica(cell, ch, batcher)
         self.replicas.append(rep)
         return rep
 
@@ -763,7 +813,8 @@ class DisaggServer:
                     continue
                 ch = self._pages_channel(rep, r)
                 ch.send_pages({"stacks": snap["stacks"],
-                               "resident": snap["resident"]}, r.device,
+                               "resident": snap["resident"]},
+                              r.layout.target("paged"),
                               meta={"rid": req.rid, "pos": snap["pos"],
                                     "cur_tok": snap["cur_tok"]})
                 env = ch.poll_pages()
@@ -1006,10 +1057,14 @@ class DisaggServer:
         by ``lease`` until the install)."""
         meta = {"rid": req.rid, "first_token": tok,
                 "prompt_len": len(req.prompt)}
+        layout = rep.layout
         if rep.pool is None:
-            return rep.channel.send_kv(payload, rep.device, meta=meta)
+            return rep.channel.send_kv(payload, layout.target("row"),
+                                       meta=meta)
         if rep.pool.payload_kind == "snapshot":
-            st = rep.channel.send_kv(payload, rep.device, meta=meta)
+            st = rep.channel.send_kv(
+                payload, layout.target("snapshot", len(payload["chain"] or
+                                                       ())), meta=meta)
             if lease is not None:
                 rep.leases[req.rid] = lease
             return st
@@ -1017,8 +1072,8 @@ class DisaggServer:
         if lease.pages:
             stacks = [type(s)(*(a[lease.pages:] for a in s)) for s in stacks]
         st = rep.channel.send_kv(
-            {"stacks": stacks, "resident": payload["resident"]}, rep.device,
-            meta={**meta, "start_page": lease.pages})
+            {"stacks": stacks, "resident": payload["resident"]},
+            layout.target("paged"), meta={**meta, "start_page": lease.pages})
         rep.leases[req.rid] = lease
         return st
 

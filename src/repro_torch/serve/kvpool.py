@@ -57,6 +57,7 @@ from repro_torch.models.cache_utils import (
     dequantize_page,
     extract_paged,
     extract_row_pages,
+    keep_layout,
     kv_node_axes,
     kv_position_bytes,
     page_arena,
@@ -71,7 +72,9 @@ from repro_torch.models.param import tree_map
 from repro_torch.serve.serve_step import bucket_len, sample_tokens
 from repro_torch.serve.step_graph import extend_key
 from repro_torch.serve.tenancy import COMMONS, DEFAULT_TENANT, PUBLIC
-from repro_torch.sharding.sharded import Sharded, relay_leaf
+from repro_torch.sharding.collectives import pmax
+from repro_torch.sharding.rules import P
+from repro_torch.sharding.sharded import Sharded, relay_leaf, to_layout
 
 
 class PoolExhausted(RuntimeError):
@@ -295,10 +298,6 @@ class KVPool:
         if max_len % page_size:
             raise ValueError(f"max_len={max_len} not a multiple of "
                              f"page_size={page_size}")
-        if kv_dtype is not None and getattr(model, "sharded", False):
-            raise NotImplementedError(
-                "int8 pages over a mesh: a page's scale would span every "
-                "position's heads")
         self.device = resolve_device(device)
         self.model = model
         self.max_len = max_len
@@ -325,26 +324,11 @@ class KVPool:
                                  "kv_dtype applies to page arenas only")
             self.arena = []
             self.kv_scales = None
-        elif kv_dtype is None:
-            self.arena = page_arena(model, self.num_pages, page_size,
-                                    self.device)
-            self.kv_scales = None
-        elif kv_dtype == "int8":
-            # int8 pages with one float32 scale per (page, layer) per
-            # tensor: quantised on page write, dequantised in the kernels
-            self.arena = [KVSlice(k=torch.zeros_like(a.k, dtype=torch.int8),
-                                  v=torch.zeros_like(a.v, dtype=torch.int8),
-                                  slot_pos=a.slot_pos)
-                          for a in page_arena(model, self.num_pages,
-                                              page_size, self.device)]
-            self.kv_scales = [
-                tuple(torch.zeros((self.num_pages, a.k.shape[2]),
-                                  dtype=torch.float32, device=self.device)
-                      for _ in range(2))
-                for a in self.arena]
-        else:
+        elif kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
         self.kv_dtype = kv_dtype
+        if self.payload_kind == "page":
+            self.arena, self.kv_scales = self._new_arena(model)
         self.sentinel = self.num_pages          # unmapped block-table entry
         rows = max(slots, 1)
         self.block_table = np.full((rows, self.n_logical), self.sentinel,
@@ -382,6 +366,43 @@ class KVPool:
         self.snapshot_bytes_saved = 0
 
     # -- arena writes (in place) ----------------------------------------
+    def _new_arena(self, model) -> tuple:
+        """(arena, scales) of ``model``'s layout, every page empty: over a
+        mesh the arena holds each position's kv heads, whole on every
+        data row.  int8 pages keep one float32 scale per (page, layer)
+        per tensor over every kv head, quantised on page write and
+        dequantised in the kernels; over a mesh every position holds the
+        whole scale tables (its own copy, written with the same values),
+        so a first touch decides alike everywhere."""
+        arena = page_arena(model, self.num_pages, self.page_size,
+                           self.device)
+        if self.kv_dtype is None:
+            return arena, None
+        arena = [KVSlice(k=torch.zeros_like(a.k, dtype=torch.int8),
+                         v=torch.zeros_like(a.v, dtype=torch.int8),
+                         slot_pos=a.slot_pos) for a in arena]
+
+        def table(n_layers):
+            shape = (self.num_pages, n_layers)
+            if not getattr(model, "sharded", False):
+                return torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device)
+            mesh = model.ctx.mesh
+            return Sharded([torch.zeros(shape, dtype=torch.float32,
+                                        device=d) for d in mesh.positions],
+                           mesh, P(None, None))
+        return arena, [tuple(table(a.k.shape[2]) for _ in range(2))
+                       for a in arena]
+
+    def _amax(self):
+        """The reduction of a page write's per-position maxima over a
+        mesh: every position's (model positions hold parts of the kv
+        heads, data rows copies of them); None at one position."""
+        if not getattr(self.model, "sharded", False):
+            return None
+        axes = self.model.ctx.mesh.axis_names
+        return lambda t: pmax(t, axes)
+
     def _clean_pages(self, page_ids):
         """Mark pages empty; int8 arenas also zero their scales so the
         lazy decode scale init sees them untouched."""
@@ -394,15 +415,19 @@ class KVPool:
                 vs[idx] = 0.0
 
     def _write_pages(self, page_ids, stacks):
-        """Write FLOAT canonical page stacks; an int8 arena quantizes them
-        per (page, layer) and updates its scale tables."""
+        """Write FLOAT canonical page stacks (in any layout: they are laid
+        out as the arena first); an int8 arena quantizes them per (page,
+        layer) over every kv head and updates its scale tables."""
+        stacks = [KVSlice(*(to_layout(x, like) for x, like in zip(s, a)))
+                  for s, a in zip(stacks, self.arena)]
         if self.kv_scales is None:
             write_arena_pages(self.arena, page_ids, stacks)
             return
         idx = torch.as_tensor(page_ids, dtype=torch.long, device=self.device)
+        amax = self._amax()
         for a, (ks, vs), s in zip(self.arena, self.kv_scales, stacks):
-            kq, ksc = quantize_page(s.k, keep_axes=(0, 2))
-            vq, vsc = quantize_page(s.v, keep_axes=(0, 2))
+            kq, ksc = quantize_page(s.k, keep_axes=(0, 2), amax=amax)
+            vq, vsc = quantize_page(s.v, keep_axes=(0, 2), amax=amax)
             a.k[idx] = kq
             a.v[idx] = vq
             a.slot_pos[idx] = s.slot_pos
@@ -816,12 +841,21 @@ class KVPool:
         return payloads[-1]["state"], stacks
 
     def rebind(self, model):
-        """Serve ``model``, a resized cell's, and re-lay every interned
-        snapshot payload onto its layout (its mesh by position, or its
-        one device): the contents bit for bit, each old payload's shards
-        freed as its new one fills (``relay_leaf``).  A page pool's arena
-        is its batcher's to re-lay."""
+        """Serve ``model``, a resized cell's, and re-lay the arena (an
+        int8 arena with its scale tables) or every interned snapshot
+        payload onto its layout (its mesh by position, or its one
+        device): the contents bit for bit, each old leaf's shards freed
+        as its new one fills (``relay_leaf``)."""
         self.model = model
+        if self.payload_kind == "page":
+            arena, scales = self._new_arena(model)
+
+            def into(new, old):
+                return tree_map(lambda d, s: relay_leaf(s, into=d), new, old)
+            self.arena = into(arena, self.arena)
+            self.kv_scales = (None if scales is None
+                              else into(scales, self.kv_scales))
+            return
         if not self._snaps:
             return
         like = model.init_cache(1, self.page_size, device=self.device)
@@ -963,14 +997,18 @@ class KVPool:
             self._gauge()
 
     def read_pages(self, page_ids) -> list:
-        """Canonical page stacks of ``page_ids`` (copies); an int8 arena
-        dequantizes to float32."""
+        """Canonical page stacks of ``page_ids`` (copies) laid out as the
+        arena (over a mesh each position's kv heads, whole on every data
+        row); an int8 arena dequantizes to float32, each position its
+        heads by the shared scales."""
         stacks = read_arena_pages(self.arena, page_ids)
         if self.kv_scales is None:
             return stacks
         idx = torch.as_tensor(page_ids, dtype=torch.long, device=self.device)
-        return [KVSlice(k=dequantize_page(s.k, ks[idx], keep_axes=(0, 2)),
-                        v=dequantize_page(s.v, vs[idx], keep_axes=(0, 2)),
+        return [KVSlice(k=keep_layout(dequantize_page(
+                            s.k, ks[idx], keep_axes=(0, 2)), s.k),
+                        v=keep_layout(dequantize_page(
+                            s.v, vs[idx], keep_axes=(0, 2)), s.v),
                         slot_pos=s.slot_pos)
                 for s, (ks, vs) in zip(stacks, self.kv_scales)]
 

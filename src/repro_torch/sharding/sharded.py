@@ -368,13 +368,16 @@ def gather_leaf(s: Sharded, device=None) -> torch.Tensor:
     return out
 
 
-def relay_leaf(t, target=None, spec=None, *, into=None):
+def relay_leaf(t, target=None, spec=None, *, into=None, donate=True):
     """One leaf laid out anew: over ``target`` (a Mesh) by ``spec``, onto
     ``target`` (a device) whole, or copied into ``into`` (a leaf already
     in the new layout, which is returned).  A Sharded source is donated:
     its shards are dropped once it is gathered, so the old layout's
-    memory returns as the new one fills (JAX's ``donate=True``).
-    Anything but a tensor comes back as it is."""
+    memory returns as the new one fills (JAX's ``donate=True``).  With
+    ``donate=False`` the source is left intact and the result is always
+    a copy, also of a plain tensor already on ``target`` (a channel's
+    transfer: the sender keeps serving from its tensors).  Anything but
+    a tensor comes back as it is."""
     if into is not None:
         sharded = isinstance(into, Sharded)
         target = into.mesh if sharded else into.device
@@ -383,14 +386,17 @@ def relay_leaf(t, target=None, spec=None, *, into=None):
     dev = target.positions[0] if on_mesh else torch.device(target)
     if isinstance(t, Sharded):
         full = gather_leaf(t, dev)
-        t.shards.clear()
+        if donate:
+            t.shards.clear()
     elif isinstance(t, torch.Tensor):
         full = t
     else:
         return t
     if into is None:
-        return (shard_leaf(full, spec, target) if on_mesh
-                else full.to(dev, non_blocking=True))
+        if on_mesh:
+            return shard_leaf(full, spec, target)
+        return full.to(dev, non_blocking=True,
+                       copy=not donate and full is t)
     if on_mesh:
         for r, shard in enumerate(into.shards):
             for g, lo in _pieces(target, spec, full.shape, r):
@@ -398,6 +404,28 @@ def relay_leaf(t, target=None, spec=None, *, into=None):
     else:
         into.copy_(full)
     return into
+
+
+def same_mesh(a: Mesh, b: Mesh) -> bool:
+    """Do two meshes name the same positions in the same shape (so a
+    layout over one is a layout over the other)?"""
+    return a is b or (a.axis_names == b.axis_names
+                      and a.devices.shape == b.devices.shape
+                      and a.positions == b.positions)
+
+
+def to_layout(t, like):
+    """``t`` in ``like``'s layout (its mesh and spec, or its device):
+    ``t`` itself when it is in it already, else a copy (the source left
+    intact)."""
+    if isinstance(like, Sharded):
+        if (isinstance(t, Sharded) and same_mesh(t.mesh, like.mesh)
+                and t.spec == like.spec):
+            return t
+        return relay_leaf(t, like.mesh, like.spec, donate=False)
+    if isinstance(t, torch.Tensor) and t.device == like.device:
+        return t
+    return relay_leaf(t, like.device, donate=False)
 
 
 def split(t: torch.Tensor, spec, mesh: Mesh) -> Sharded:
@@ -434,16 +462,30 @@ def zip_positions(trees: Sequence, mesh: Mesh, global_tree=None,
     """Per-position trees of equal structure -> one tree of Sharded
     leaves.  ``global_tree`` (the same structure; leaves with the logical
     ``shape``: tensors, or PSpecs naming their dims) gives each leaf's
-    layout: a dim a position holds less of is split over ``batch_axes``
-    when its PSpec names it ``batch``, else over ``model``; a dim it holds
-    more than 1/m of (m the model axis' size) is a prefix split over
-    ``model`` before a suffix every position holds whole
-    (:class:`Segments`: the Mamba conv state's [x_r | B | C]).  Without
-    ``global_tree`` the leaves have no layout."""
-    from repro_torch.models.param import is_pspec, tree_leaves, tree_map
+    layout (:func:`position_pspecs`).  Without ``global_tree`` the leaves
+    have no layout."""
+    from repro_torch.models.param import tree_leaves, tree_map
     if global_tree is None:
         return tree_map(lambda *xs: Sharded(list(xs), mesh), trees[0],
                         *trees[1:])
+    it = iter(tree_leaves(position_pspecs(trees[0], global_tree, mesh,
+                                          batch_axes),
+                          is_leaf=lambda x: isinstance(x, P)))
+    return tree_map(lambda *xs: Sharded(list(xs), mesh, next(it)),
+                    trees[0], *trees[1:])
+
+
+def position_pspecs(local_tree, global_tree, mesh: Mesh, batch_axes=()):
+    """The layout by position of a tree whose leaves one position holds
+    with the shapes of ``local_tree`` (tensors or PSpecs) and whose
+    logical shapes are ``global_tree``'s (the same structure; tensors, or
+    PSpecs naming their dims): a tree of :class:`P`.  A dim a position
+    holds less of is split over ``batch_axes`` when its PSpec names it
+    ``batch``, else over ``model``; a dim it holds more than 1/m of (m
+    the model axis' size) is a prefix split over ``model`` before a
+    suffix every position holds whole (:class:`Segments`: the Mamba conv
+    state's [x_r | B | C])."""
+    from repro_torch.models.param import is_pspec, tree_map
     b_ax = tuple(batch_axes)
     b_ax = b_ax[0] if len(b_ax) == 1 else (b_ax or None)
     m = mesh.shape.get("model", 1)
@@ -466,12 +508,7 @@ def zip_positions(trees: Sequence, mesh: Mesh, global_tree=None,
         names = gl.logical if is_pspec(gl) else (None,) * len(gl.shape)
         return P(*(entry(n, g, name)
                    for n, g, name in zip(local.shape, gl.shape, names)))
-    specs = [spec(x, g) for x, g in
-             zip(tree_leaves(trees[0]), tree_leaves(global_tree,
-                                                    is_leaf=is_pspec))]
-    it = iter(specs)
-    return tree_map(lambda *xs: Sharded(list(xs), mesh, next(it)),
-                    trees[0], *trees[1:])
+    return tree_map(spec, local_tree, global_tree, is_leaf=is_pspec)
 
 
 # --------------------------------------------------------------------------

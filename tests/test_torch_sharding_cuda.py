@@ -19,7 +19,8 @@ skipped without a GPU).
   gives the one-position model's logits (float32).
 * With two (four) cards or more, a cell over positions on two (four)
   distinct cards gives the same tokens, its steps eager (one graph
-  cannot span cards).
+  cannot span cards); with two, disaggregated serving between two such
+  cells gives one card's tokens.
 * A float32 smoke train cell of each family over (data 2, model 2) of
   one card, and with two (four) cards over (1, 2) ((2, 2)) of distinct
   cards, gives a one-position cell's losses and grad norms (1e-5
@@ -170,6 +171,55 @@ def test_positions_on_distinct_cards_run_eagerly(dev, arch, n_cards):
     assert {t.device for t in bat.state_tensors()} == set(cards)
     b1.close()
     bat.close()
+
+
+@pytest.mark.cuda
+def test_disaggregated_serving_over_distinct_cards(dev):
+    """A prefill cell and a decode cell, each over two positions on two
+    distinct cards (smoke qwen3-4b with four kv heads, split over
+    ``model``): the weights fan out and the KV crosses into the
+    replica's layout card by card, and the tokens are those of
+    one-position cells on one card."""
+    from repro_torch.serve.disagg import DisaggServer
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards")
+    cfg = smoke_config(get_arch("qwen3-4b")).replace(dtype="float32",
+                                                     num_kv_heads=4)
+    model = Model(cfg)
+    host = tree_map(lambda t: t.numpy(), model.init(
+        torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(1)
+    shared = rng.integers(1, cfg.vocab, size=20).astype(np.int32)
+    waves = [[np.concatenate([shared, rng.integers(
+        1, cfg.vocab, size=n).astype(np.int32)]) for n in lens]
+        for lens in ([3, 9, 5], [6, 2])]
+    cards = [torch.device("cuda", i) for i in range(2)]
+
+    def run(grid, ncols):
+        sup = Supervisor(grid)
+        sup.create_cell("prefill", cfg, "serve", ncols=ncols)
+        dec = sup.create_cell("decode", cfg, "serve", ncols=ncols)
+        dec.init_serve(params=params_from_numpy(
+            host, dtype=torch.float32, device=str(dec.device),
+            specs=model.param_specs()))
+        srv = DisaggServer(sup, "prefill", "decode", batch_slots=2,
+                           max_len=64, page_size=8, chunk=8)
+        rid = 0
+        for wave in waves:
+            for p in wave:
+                srv.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+                rid += 1
+            srv.run_until_drained()
+        out = {r.rid: r.output for r in srv.done}
+        srv.close()
+        return out, sup
+
+    one, _ = run(DeviceGrid.from_flat(cards[:1], 1, 1, 4,
+                                      allow_reuse=True), 1)
+    many, sup = run(DeviceGrid.from_flat(cards * 2, 1, 1, 4), 2)
+    assert set(sup.cells["prefill"].mesh.positions) == set(cards)
+    assert set(sup.cells["decode"].mesh.positions) == set(cards)
+    assert many == one and len(many) == 5
 
 
 @pytest.mark.cuda

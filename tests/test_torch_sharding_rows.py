@@ -23,6 +23,9 @@ the data axes, one host schedule, the page arena whole on every data row
   1) -> (2, 2) -> (2, 1) with requests in flight, and ``transfer_columns``
   between two serve cells on a two-row grid, each keeping the
   one-position cell's tokens.
+* Disaggregated serving from a prefill cell over (rows, 2) to a decode
+  cell over (rows, 1), one and two rows: the tokens and the KV channel's
+  logical bytes of one-position cells.
 """
 import numpy as np
 import pytest
@@ -430,13 +433,31 @@ def test_a_mesh_of_two_data_rows_splits_the_prefill_pair():
 
 
 @pytest.mark.parametrize("rows", [1, 2])
-def test_disaggregated_serving_over_a_mesh_waits_for_item_13d(rows):
-    """A prefill or decode cell over a mesh is refused by name (ROADMAP
-    queue 1 item 13d); one-position cells serve as before."""
+def test_disaggregated_serving_over_a_mesh(rows):
+    """A prefill cell over (rows, 2) feeding a decode cell over (rows, 1)
+    serves the tokens of one-position cells on the same weights, its
+    KV channel counting the same logical bytes."""
     from repro_torch.serve.disagg import DisaggServer
-    cfg = smoke_config(get_arch("qwen3-4b")).replace(dtype="float32")
-    sup = Supervisor(DeviceGrid.from_flat(["cpu"] * 8, 1, rows, 8 // rows))
-    sup.create_cell("prefill", cfg, "serve", ncols=2)
-    sup.create_cell("decode", cfg, "serve", ncols=1)
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        DisaggServer(sup, "prefill", "decode", batch_slots=2, max_len=64)
+
+    def serve(grid, prefill_cols):
+        sup, _ = _cell("qwen3-4b", grid, ncols=1, name="decode")
+        sup.create_cell("prefill", sup.cells["decode"].arch, "serve",
+                        ncols=prefill_cols)
+        srv = DisaggServer(sup, "prefill", "decode", batch_slots=2,
+                           max_len=64, chunk=8, page_size=8)
+        for i, tick in enumerate(_ticks(512, "dense")):
+            for j, (prompt, _) in enumerate(tick):
+                srv.submit(Request(rid=10 * i + j, prompt=prompt,
+                                   max_new_tokens=5))
+        done = {r.rid: list(r.output) for r in srv.run_until_drained()}
+        st = srv.stats()
+        return done, (st["kv_bytes"], st["kv_transfers"],
+                      st["prefix_hit_tokens"]), sup
+
+    tok, counts, sup = serve(DeviceGrid.from_flat(["cpu"] * 8, 1, rows,
+                                                  8 // rows), 2)
+    assert sup.cells["prefill"].mesh.shape == {"data": rows, "model": 2}
+    assert sup.cells["decode"].mesh.shape == {"data": rows, "model": 1}
+    one_tok, one_counts, _ = serve(DeviceGrid.from_flat(
+        ["cpu"], 1, 1, 8, allow_reuse=True), 1)
+    assert len(tok) == 5 and tok == one_tok and counts == one_counts
