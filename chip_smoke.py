@@ -27,9 +27,9 @@ width, with random weights from a seed:
   flash under the same mask at prefill and the dense decode kernel over
   the resident cross memory at decode.
 
-bf16 prefill flash attention, bf16 paged extend over a bf16 arena and
-bf16 grouped GEMMs take the tensor-core kernels, float32 ones (and extend
-over an int8 arena) the CUDA-core kernels; each full-width path checks by
+bf16 prefill flash attention, bf16 paged extend (over a bf16 or an int8
+arena) and bf16 grouped GEMMs take the tensor-core kernels, float32 ones
+the CUDA-core kernels; each full-width path checks by
 the ``launches_tc`` counters that every launch of the three took the
 tensor cores, and phase 4 (float32) that none did (the SSD scan runs on
 CUDA cores in float32 in every dtype).  Paged and dense decode
@@ -558,7 +558,7 @@ def check_kernels(dev, kernels: dict):
         torch.cuda.synchronize()
         if not torch.isfinite(out[7].float()).all():
             raise AssertionError("paged extend: fully sentinel row not finite")
-        route = "tensor cores" if (qdt, adt) == (bf16, bf16) else "CUDA cores"
+        route = "tensor cores" if qdt == bf16 else "CUDA cores"
         hold("paged_extend_attention" + ("_int8" if adt == i8 else ""),
              out[:7], ref[:7], tol, why,
              f"q {qdt} arena {adt} Sq40 n_log16 L36 layer17, {route}")
@@ -765,10 +765,12 @@ def check_kernels(dev, kernels: dict):
         **bound(n_bytes, n_ops, bf16))
 
     # paged extend: the warm wave's suffixes behind the 64-token prefix,
-    # over a bf16 arena (the tensor-core kernel) and an int8 one (phase
-    # 19b's arena: paged_extend_kernel, dequantising in the kernel); the
-    # int8 row's library call is SDPA over the pages dequantised to bf16
-    # beforehand, a yardstick that reads bf16 where the kernel reads int8
+    # over a bf16 arena and an int8 one (phase 19b's arena), both on the
+    # tensor cores (paged_extend_tc_kernel<128, bf16> and <128, int8_t>,
+    # the int8 one turning codes into bf16 in shared memory and applying
+    # the scales in float32); the int8 row's library call is SDPA over the
+    # pages dequantised to bf16 beforehand, a yardstick that reads bf16
+    # where the kernel reads int8
     suffix = [len(p) - SHARED for p in waves[1]]
     S = -(-max(suffix) // CHUNK) * CHUNK
     n_log = min(pow2(-(-max(len(p) for p in waves[1]) // PAGE)),
@@ -3801,13 +3803,16 @@ def phase_int8(dev, name_limit: str, ref5: dict, ref17a: dict) -> dict:
     layout: each position's arena holds its 4 of the 8 kv heads, whole on
     both data rows; each page write's scale the ``pmax`` over ``model`` of
     the positions' maxima).  Checks every kernel launched exactly 4x the
-    one-position run's count (the paged extend over the int8 arena on the
-    CUDA-core kernel), every position's scale tables and every data row's
+    one-position run's count (prefill and the paged extend over the int8
+    arena all on the tensor cores), every position's scale tables and every
+    data row's
     int8 arena bitwise equal, one CUDA graph a key; prints the tokens'
     agreement with phase 5 (the bf16 arena) and between the two runs, the
     first cold prefill's logits against the one-position model, the peak
-    memory beside phases 5 and 17a's.  Returns the launches of both runs
-    together (the kernels line's int8 rows) and each run's numbers."""
+    memory beside phases 5 and 17a's, and times the one-position drained
+    batcher's extend call as phase 5 times its own.  Returns the launches
+    of both runs together (the kernels line's int8 rows) and each run's
+    numbers."""
     from repro_torch.core import (
         CellSpec,
         ClusterSpec,
@@ -3844,9 +3849,7 @@ def phase_int8(dev, name_limit: str, ref5: dict, ref17a: dict) -> dict:
                launches["flash_attention"]
                + launches["paged_extend_attention"],
                m * L * bat.prefill_invocations)
-        expect_tc(launches, "flash_attention")
-        expect(f"[{tag}] paged extend over the int8 arena on the tensor "
-               "cores", launches["paged_extend_attention_tc"], 0)
+        expect_tc(launches, "flash_attention", "paged_extend_attention")
         check_drained(bat.pool, SLOTS * SHARED)
         e2e = report(tag, name_limit, bat, reqs, wall, step_s, launches,
                      cfg.vocab)
@@ -3854,6 +3857,8 @@ def phase_int8(dev, name_limit: str, ref5: dict, ref17a: dict) -> dict:
         e2e["graphs"] = expect_graphed(tag, bat)
         e2e["round2"] = expect_round2_replayed(tag, bat, marks[2])
         e2e["memory"] = memory_report(tag, bat)
+        if m == 1:   # beside phase 5's extend call over the bf16 arena
+            e2e["extend_ab"] = time_prefill(tag, bat, "extend", name_limit)
         return bat, e2e
 
     bat, out["one"] = run("one position", lambda: ContinuousBatcher(

@@ -72,7 +72,7 @@
 // under 0.001 ms at the bf16 peak), and latency.  The route is by dtype,
 // as for prefill:
 //
-// * bf16 q with a bf16 arena: paged_extend_tc_kernel, which is
+// * bf16 q with a bf16 arena: paged_extend_tc_kernel<., bf16>, which is
 //   flash_tc_kernel's body (flash_tc_body) over a paged key source
 //   (PagedKeys): the same packed (q position, q head) rows, so one page
 //   read serves all G q heads of its kv group, the same bf16 tiles of 32
@@ -83,10 +83,28 @@
 //   positions land in shared memory beside K and V (4-byte cp.async), and
 //   the mask 0 <= slot_pos <= q_pos applies in every tile; rows of
 //   unmapped pages are zero-filled and masked.
-// * float32 (exact products, for the card-vs-CPU parity) and any int8
-//   arena: paged_extend_kernel on CUDA cores, one block per (row, q head,
-//   32 suffix positions) walking the pages with the tile of
-//   tile_attention.cuh.
+// * bf16 q with an int8 arena: paged_extend_tc_kernel<., int8_t>, the
+//   same body and rows over PagedKeys<int8_t>.  The codes stream through
+//   a two-stage cp.async ring of their own (16 codes a copy, half the
+//   bytes of a bf16 tile), with each key's k and v scale (4-byte cp.async:
+//   a 32-key tile spans 32 / P pages, so the scales are per key) beside
+//   the slot positions.  Once a stage has landed, its codes are turned
+//   into bf16 (exact: |code| <= 127) in one bf16 K/V tile, and after a
+//   barrier the unchanged ldmatrix / mma.sync products read it.  The
+//   scales apply in float32, as JAX dequantises: each score column is
+//   multiplied by its key's k scale, and P V takes p * v_scale of its key
+//   column as the bf16 A operand (the row sum keeps the unscaled p).  One
+//   bf16 tile in place of a second bf16 stage keeps the block at the bf16
+//   route's 52 KB at Dh 128, so four blocks still fit on an SM.
+// * float32 q (exact products, for the card-vs-CPU parity), over a
+//   float32 or an int8 arena: paged_extend_kernel on CUDA cores, one
+//   block per (row, q head, 32 suffix positions) walking the pages with
+//   the tile of tile_attention.cuh.
+//
+// Both tensor-core routes take Dh % 16 == 0 up to 256 and arena rows that
+// start on 16 bytes (the wrapper raises otherwise).
+#include <type_traits>
+
 #include "tensor_core.cuh"
 #include "tile_attention.cuh"
 
@@ -154,16 +172,41 @@ constexpr int kTcRows = 64;    // packed (q position, q head) rows per block, 16
 constexpr int kTcBN = 32;      // keys per kv tile
 constexpr int kTcStages = 2;   // kv tiles in the cp.async ring
 
+// The Q rows and n_tiles K and V tiles, bf16 with a row stride of Dh + 8.
+__host__ __device__ inline size_t tc_tile_bytes(int dh, int n_tiles) {
+  return sizeof(bf16) * (size_t)(dh + 8) * (kTcRows + 2 * n_tiles * kTcBN);
+}
+
 // Shared memory of flash_tc_kernel: the Q rows and a two-stage ring of K
-// and V tiles, bf16 with a row stride of Dh + 8.
+// and V tiles.
 __host__ __device__ inline size_t flash_tc_smem_bytes(int dh) {
-  return sizeof(bf16) * (size_t)(dh + 8) * (kTcRows + 2 * kTcStages * kTcBN);
+  return tc_tile_bytes(dh, kTcStages);
+}
+
+// Eight int8 codes as eight bf16 (the lower code in each word's low
+// half), exactly: code c, biased to c + 128 in the low byte of the float
+// 2^23 + (c + 128), less 2^23 + 128, is c as a float; with at most 8
+// significant bits its low 16 bits are 0, so its high half is c in bf16.
+__device__ __forceinline__ uint4 bf16x8_of_int8x8(uint2 w) {
+  uint32_t r[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t u = (h ? w.y : w.x) ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+    r[2 * h] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    r[2 * h + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
 // Key source of flash_tc_body for prefill: key row k of (b, hkv) at
 // kb + k * k_ss; causal and window masks by key index, applied only in
 // tiles that cross a limit or the ragged end.
 struct DenseKeys {
+  static constexpr bool kInt8 = false;
   const bf16* kb;
   const bf16* vb;
   int64_t k_ss, v_ss;
@@ -203,15 +246,28 @@ struct DenseKeys {
 // its K and V (4-byte cp.async), and a key counts iff 0 <= slot_pos <=
 // q_pos.  Keys of unmapped pages (id < 0 or >= N) or past n_log are never
 // read: their K/V rows are zero-filled and their slot_pos is -1.
+//
+// KT int8_t: the stage's codes land in a ring of their own ([kTcStages]
+// [K, V][kTcBN][Dh] codes) and each key's k and v scale of its (page,
+// layer) in scs ([kTcStages][k, v][kTcBN], 0 for unmapped pages);
+// convert() turns a stage's codes into the bf16 tile the products read.
+template <typename KT>
 struct PagedKeys {
-  const bf16* k;
-  const bf16* v;
+  static constexpr bool kInt8 = std::is_same_v<KT, int8_t>;
+  const KT* k;
+  const KT* v;
   int64_t a_sn, a_sp, lh;  // lh: the layer's and kv head's offset
   const int* sp;           // slot_pos + layer * sp_sl
   int64_t sp_sn, sp_sp;
   const int* bts;          // the row's block table, shared memory [n_log]
   int* sps;                // slot positions, shared memory [kTcStages][kTcBN]
   int n_log, N, P;
+  // int8 only
+  const float* ksc;        // k_scale + layer * sc_sl
+  const float* vsc;        // v_scale + layer * sc_sl
+  int64_t sc_sn;
+  float* scs;              // the keys' scales, shared memory
+  int8_t* codes;           // the ring of codes, shared memory
 
   __device__ int t_begin(int) const { return 0; }
   // the walk stops after the tile holding the newest row's position, as
@@ -225,15 +281,42 @@ struct PagedKeys {
     const int page = j < n_log ? bts[j] : -1;
     return page >= 0 && page < N ? page : -1;
   }
+  // tile t into stage `stage`: bf16 rows into kd / vd (row stride ld),
+  // int8 codes into the stage of the ring (kd / vd unused)
   __device__ void load(int t, int stage, bf16* kd, bf16* vd, int ld, int chunks) const {
     const int k0 = t * kTcBN;
-    for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
-      const int r = c / chunks, d = (c - r * chunks) * 8;
-      int slot;
-      const int page = page_of(k0 + r, slot);
-      const int64_t off = page >= 0 ? page * a_sn + slot * a_sp + lh : 0;
-      cp_async16(kd + r * ld + d, k + off + d, page >= 0);
-      cp_async16(vd + r * ld + d, v + off + d, page >= 0);
+    if constexpr (kInt8) {
+      const int dh = chunks * 8, n16 = chunks / 2;  // 16 codes a copy
+      int8_t* kc = codes + stage * 2 * kTcBN * dh;
+      int8_t* vc = kc + kTcBN * dh;
+      for (int c = threadIdx.x; c < kTcBN * n16; c += kThreads) {
+        const int r = c / n16, d = (c - r * n16) * 16;
+        int slot;
+        const int page = page_of(k0 + r, slot);
+        const int64_t off = page >= 0 ? page * a_sn + slot * a_sp + lh : 0;
+        cp_async16(kc + r * dh + d, k + off + d, page >= 0);
+        cp_async16(vc + r * dh + d, v + off + d, page >= 0);
+      }
+      // threads kTcBN .. 3 kTcBN - 1: key c % kTcBN's k (c < kTcBN) or v scale
+      const int c = threadIdx.x - kTcBN;
+      if (c >= 0 && c < 2 * kTcBN) {
+        int slot;
+        const int page = page_of(k0 + c % kTcBN, slot);
+        float* dst = scs + stage * 2 * kTcBN + c;
+        if (page >= 0)
+          cp_async_ca<4>(dst, (c < kTcBN ? ksc : vsc) + page * sc_sn);
+        else
+          *dst = 0.f;
+      }
+    } else {
+      for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
+        const int r = c / chunks, d = (c - r * chunks) * 8;
+        int slot;
+        const int page = page_of(k0 + r, slot);
+        const int64_t off = page >= 0 ? page * a_sn + slot * a_sp + lh : 0;
+        cp_async16(kd + r * ld + d, k + off + d, page >= 0);
+        cp_async16(vd + r * ld + d, v + off + d, page >= 0);
+      }
     }
     if (threadIdx.x < kTcBN) {
       int slot;
@@ -245,6 +328,26 @@ struct PagedKeys {
         *dst = -1;
     }
   }
+  // int8: a landed stage's codes as bf16 into the tile kd / vd
+  __device__ void convert(int stage, bf16* kd, bf16* vd, int ld, int chunks) const {
+    const int dh = chunks * 8;
+    const int8_t* kc = codes + stage * 2 * kTcBN * dh;
+    const int8_t* vc = kc + kTcBN * dh;
+    for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
+      const int r = c / chunks, d = (c - r * chunks) * 8;
+      *reinterpret_cast<uint4*>(kd + r * ld + d) =
+          bf16x8_of_int8x8(*reinterpret_cast<const uint2*>(kc + r * dh + d));
+      *reinterpret_cast<uint4*>(vd + r * ld + d) =
+          bf16x8_of_int8x8(*reinterpret_cast<const uint2*>(vc + r * dh + d));
+    }
+  }
+  // int8: the k or v scales of keys c and c + 1 of a stage (c even)
+  __device__ float2 k_scales(int stage, int c) const {
+    return *reinterpret_cast<const float2*>(scs + stage * 2 * kTcBN + c);
+  }
+  __device__ float2 v_scales(int stage, int c) const {
+    return *reinterpret_cast<const float2*>(scs + stage * 2 * kTcBN + kTcBN + c);
+  }
   __device__ bool masked(int, int, int) const { return true; }
   __device__ bool ok(int, int c, int stage, int qp) const {
     const int s = sps[stage * kTcBN + c];
@@ -254,15 +357,20 @@ struct PagedKeys {
 
 // The body shared by the prefill and paged extend tensor-core kernels:
 // packed rows p0 .. p0 + 63 of kv head hkv in row b; row p is q position
-// p / G (absolute position off + p / G) of q head hkv * G + p % G.
+// p / G (absolute position off + p / G) of q head hkv * G + p % G.  A key
+// source of int8 codes (Keys::kInt8) has one bf16 K/V tile, which each
+// landed stage is converted into, and scales applied to the scores and P.
 template <int kDhMax, class Keys>
 __device__ __forceinline__ void flash_tc_body(
     const bf16* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh, float* __restrict__ lse,
     int Sq, int G, int Dh, int off, float scale_log2, const Keys& keys, bf16* qs) {
   const int ld = Dh + 8;
-  bf16* ks = qs + kTcRows * ld;                   // [kTcStages][kTcBN][ld]
-  bf16* vs = ks + kTcStages * kTcBN * ld;         // [kTcStages][kTcBN][ld]
+  constexpr int kTiles = Keys::kInt8 ? 1 : kTcStages;  // bf16 K/V tiles
+  bf16* ks = qs + kTcRows * ld;                   // [kTiles][kTcBN][ld]
+  bf16* vs = ks + kTiles * kTcBN * ld;            // [kTiles][kTcBN][ld]
+  // offset of the tile a stage's keys are read from
+  auto tile = [&](int st) { return (Keys::kInt8 ? 0 : st) * kTcBN * ld; };
   const int p0 = blockIdx.x * kTcRows, hkv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -289,7 +397,7 @@ __device__ __forceinline__ void flash_tc_body(
 #pragma unroll
   for (int st = 0; st < kTcStages - 1; ++st) {
     if (t_begin + st < t_end)
-      keys.load(t_begin + st, st, ks + st * kTcBN * ld, vs + st * kTcBN * ld, ld, chunks);
+      keys.load(t_begin + st, st, ks + tile(st), vs + tile(st), ld, chunks);
     cp_async_commit();
   }
 
@@ -312,11 +420,15 @@ __device__ __forceinline__ void flash_tc_body(
     const int nxt = t + kTcStages - 1;
     if (nxt < t_end) {               // into t - 1's stage
       const int ns = (nxt - t_begin) % kTcStages;
-      keys.load(nxt, ns, ks + ns * kTcBN * ld, vs + ns * kTcBN * ld, ld, chunks);
+      keys.load(nxt, ns, ks + tile(ns), vs + tile(ns), ld, chunks);
     }
     cp_async_commit();
-    const bf16* kt = ks + stage * kTcBN * ld;
-    const bf16* vt = vs + stage * kTcBN * ld;
+    if constexpr (Keys::kInt8) {
+      keys.convert(stage, ks, vs, ld, chunks);
+      __syncthreads();  // the bf16 tile is whole for every warp
+    }
+    const bf16* kt = ks + tile(stage);
+    const bf16* vt = vs + tile(stage);
 
     // S = Q K^T, 16 rows x kTcBN keys per warp
     float s[kTcBN / 8][4];
@@ -338,14 +450,21 @@ __device__ __forceinline__ void flash_tc_body(
       }
     }
 
-    // scale into log2 units; mask where the key source asks for it
+    // scale into log2 units (int8: times the key's k scale, in float32 as
+    // JAX dequantises); mask where the key source asks for it
     const int k0 = t * kTcBN;
     const bool masked = keys.masked(k0, wq_lo, wq_hi);
 #pragma unroll
     for (int j = 0; j < kTcBN / 8; ++j) {
+      float f[2] = {scale_log2, scale_log2};  // this lane's key columns of s[j]
+      if constexpr (Keys::kInt8) {
+        const float2 sk = keys.k_scales(stage, j * 8 + 2 * t4);
+        f[0] *= sk.x;
+        f[1] *= sk.y;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
+        float x = s[j][e] * f[e & 1];
         if (masked && !keys.ok(k0, j * 8 + 2 * t4 + (e & 1), stage, qpos[e >> 1])) x = -INFINITY;
         s[j][e] = x;
       }
@@ -374,6 +493,19 @@ __device__ __forceinline__ void flash_tc_body(
       for (int j = 0; j < kDhMax / 8; ++j) {
         o[j][2 * h] *= corr;
         o[j][2 * h + 1] *= corr;
+      }
+    }
+
+    // int8: V = code * v_scale, each key column's scale taken into P
+    // (the sum l above keeps the unscaled p)
+    if constexpr (Keys::kInt8) {
+#pragma unroll
+      for (int j = 0; j < kTcBN / 8; ++j) {
+        const float2 sv = keys.v_scales(stage, j * 8 + 2 * t4);
+        s[j][0] *= sv.x;
+        s[j][1] *= sv.y;
+        s[j][2] *= sv.x;
+        s[j][3] *= sv.y;
       }
     }
 
@@ -441,31 +573,49 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
                         scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
 }
 
-// Shared memory of paged_extend_tc_kernel: flash_tc_kernel's, then the
-// tiles' slot positions and the row's block table.
+// Shared memory of paged_extend_tc_kernel: the tiles (bf16 arena:
+// flash_tc_kernel's; int8: the Q rows, one bf16 K/V tile, then the ring
+// of codes and the keys' scales), then the stages' slot positions and
+// the row's block table.  At Dh 128 about 52 KB either way, so four
+// blocks fit on an SM.
+template <typename KT>
+__host__ __device__ inline size_t paged_extend_tc_tiles_bytes(int dh) {
+  if constexpr (std::is_same_v<KT, int8_t>)
+    return tc_tile_bytes(dh, 1) + (size_t)kTcStages * 2 * kTcBN * (dh + sizeof(float));
+  else
+    return flash_tc_smem_bytes(dh);
+}
+template <typename KT>
 __host__ __device__ inline size_t paged_extend_tc_smem_bytes(int dh, int n_log) {
-  return flash_tc_smem_bytes(dh) + sizeof(int) * ((size_t)kTcStages * kTcBN + n_log);
+  return paged_extend_tc_tiles_bytes<KT>(dh) + sizeof(int) * ((size_t)kTcStages * kTcBN + n_log);
 }
 
-template <int kDhMax>
+template <int kDhMax, typename KT>
 __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) paged_extend_tc_kernel(
     const bf16* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const KT* __restrict__ k, const KT* __restrict__ v,
     int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
     const int* __restrict__ slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
     const int* __restrict__ block_table, int64_t bt_sb, int n_log,
     const int* __restrict__ pos, int layer,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    int64_t sc_sn, int64_t sc_sl,
     bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
     int Sq, int G, int Dh, int N, int P, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hkv = blockIdx.y, b = blockIdx.z;
-  int* sps = reinterpret_cast<int*>(smem_raw + flash_tc_smem_bytes(Dh));
+  // int8: [codes | scales] after the Q rows and the one K/V tile
+  int8_t* codes = reinterpret_cast<int8_t*>(smem_raw + tc_tile_bytes(Dh, 1));
+  float* scs = reinterpret_cast<float*>(codes + kTcStages * 2 * kTcBN * Dh);
+  int* sps = reinterpret_cast<int*>(smem_raw + paged_extend_tc_tiles_bytes<KT>(Dh));
   int* bts = sps + kTcStages * kTcBN;
   load_block_table(bts, block_table + b * bt_sb, n_log);
   const int off = pos[b];
   __syncthreads();
-  const PagedKeys keys{k, v, a_sn, a_sp, layer * a_sl + hkv * a_sh,
-                       slot_pos + layer * sp_sl, sp_sn, sp_sp, bts, sps, n_log, N, P};
+  const PagedKeys<KT> keys{k, v, a_sn, a_sp, layer * a_sl + hkv * a_sh,
+                           slot_pos + layer * sp_sl, sp_sn, sp_sp, bts, sps, n_log, N, P,
+                           k_scale + layer * sc_sl, v_scale + layer * sc_sl, sc_sn, scs,
+                           codes};
   flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, nullptr, Sq, G, Dh, off,
                         scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
 }
@@ -601,33 +751,38 @@ cudaError_t launch_paged_extend(
   return cudaGetLastError();
 }
 
-// The bf16 paged extend route: flash_tc_body over a paged key source.
-// Dh % 16 == 0 up to 256; 16-byte aligned q, out and arena rows (the
-// wrapper checks both and copies q if needed; an arena it cannot copy).
-inline cudaError_t launch_paged_extend_tc(
+// The bf16 q paged extend routes: flash_tc_body over a paged key source
+// of bf16 rows or int8 codes (KT).  Dh % 16 == 0 up to 256; 16-byte
+// aligned q, out and arena rows (the wrapper checks both and copies q if
+// needed; an arena it cannot copy).
+template <typename KT>
+cudaError_t launch_paged_extend_tc(
     const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh, const void* k, const void* v,
     int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
     const int* slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
     const int* block_table, int64_t bt_sb, int n_log, const int* pos, int layer,
+    const float* k_scale, const float* v_scale, int64_t sc_sn, int64_t sc_sl,
     void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
     int B, int Hq, int Hkv, int Sq, int Dh, int N, int P, cudaStream_t stream) {
   if (Dh % 16 || Dh > 256) return cudaErrorInvalidValue;
-  const int64_t strides = q_sb | q_ss | q_sh | a_sn | a_sp | a_sl | a_sh | o_sb | o_ss | o_sh;
+  constexpr int64_t kRow = 16 / sizeof(KT);  // arena elements in 16 bytes
+  const int64_t q_strides = q_sb | q_ss | q_sh | o_sb | o_ss | o_sh;
+  const int64_t a_strides = a_sn | a_sp | a_sl | a_sh;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  if (strides % 8 || bases % 16) return cudaErrorMisalignedAddress;
-  const size_t smem = paged_extend_tc_smem_bytes(Dh, n_log);
+  if (q_strides % 8 || a_strides % kRow || bases % 16) return cudaErrorMisalignedAddress;
+  const size_t smem = paged_extend_tc_smem_bytes<KT>(Dh, n_log);
   const int G = Hq / Hkv;
   const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, Hkv, B);
   const float scale_log2 = rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f;
-#define RT_EXTEND_TC(DH)                                                                    \
-  {                                                                                         \
-    paged_extend_tc_kernel<DH><<<grid, kThreads, smem, stream>>>(                           \
-        static_cast<const bf16*>(q), q_sb, q_ss, q_sh, static_cast<const bf16*>(k),         \
-        static_cast<const bf16*>(v), a_sn, a_sp, a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl, \
-        block_table, bt_sb, n_log, pos, layer, static_cast<bf16*>(out), o_sb, o_ss, o_sh,   \
-        Sq, G, Dh, N, P, scale_log2);                                                       \
-    return cudaGetLastError();                                                              \
+#define RT_EXTEND_TC(DH)                                                                   \
+  {                                                                                        \
+    paged_extend_tc_kernel<DH, KT><<<grid, kThreads, smem, stream>>>(                      \
+        static_cast<const bf16*>(q), q_sb, q_ss, q_sh, static_cast<const KT*>(k),          \
+        static_cast<const KT*>(v), a_sn, a_sp, a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl,  \
+        block_table, bt_sb, n_log, pos, layer, k_scale, v_scale, sc_sn, sc_sl,             \
+        static_cast<bf16*>(out), o_sb, o_ss, o_sh, Sq, G, Dh, N, P, scale_log2);           \
+    return cudaGetLastError();                                                             \
   }
   if (Dh <= 64) RT_EXTEND_TC(64);
   if (Dh <= 128) RT_EXTEND_TC(128);
@@ -645,10 +800,12 @@ extern "C" int rt_prepare_flash() {
                           (const void*)flash_tc_kernel<128>, (const void*)flash_tc_kernel<256>,
                           (const void*)paged_extend_kernel<float, float>,
                           (const void*)paged_extend_kernel<float, int8_t>,
-                          (const void*)paged_extend_kernel<bf16, int8_t>,
-                          (const void*)paged_extend_tc_kernel<64>,
-                          (const void*)paged_extend_tc_kernel<128>,
-                          (const void*)paged_extend_tc_kernel<256>});
+                          (const void*)paged_extend_tc_kernel<64, bf16>,
+                          (const void*)paged_extend_tc_kernel<128, bf16>,
+                          (const void*)paged_extend_tc_kernel<256, bf16>,
+                          (const void*)paged_extend_tc_kernel<64, int8_t>,
+                          (const void*)paged_extend_tc_kernel<128, int8_t>,
+                          (const void*)paged_extend_tc_kernel<256, int8_t>});
 }
 
 // Plain C entry points bound with ctypes.  Every tensor is given by its
@@ -707,20 +864,23 @@ extern "C" int rt_paged_extend_attention(
                                      sp, sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, ps,     \
                                      layer, ksc, vsc, sc_sn, sc_sl, out, o_sb, o_ss,    \
                                      o_sh, B, Hq, Hkv, Sq, Dh, N, P, s)
+#define RT_EXTEND_BF16(KT)                                                                 \
+  return launch_paged_extend_tc<KT>(q, q_sb, q_ss, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, sp, \
+                                    sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, ps, layer, ksc,   \
+                                    vsc, sc_sn, sc_sl, out, o_sb, o_ss, o_sh, B, Hq, Hkv,    \
+                                    Sq, Dh, N, P, s)
   const bool quant = kv_dtype == I8;
   if (!quant && kv_dtype != q_dtype) return cudaErrorInvalidValue;
   switch (q_dtype) {
     case F32:  // CUDA cores: exact float32 products
       if (quant) RT_EXTEND(float, int8_t);
       RT_EXTEND(float, float);
-    case BF16:  // an int8 arena: CUDA cores
-      if (quant) RT_EXTEND(__nv_bfloat16, int8_t);
-      // bf16 arena: tensor cores
-      return launch_paged_extend_tc(q, q_sb, q_ss, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, sp,
-                                    sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, ps, layer, out,
-                                    o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Dh, N, P, s);
+    case BF16:  // tensor cores, over a bf16 or an int8 arena
+      if (quant) RT_EXTEND_BF16(int8_t);
+      RT_EXTEND_BF16(bf16);
     default:
       return cudaErrorInvalidValue;
   }
+#undef RT_EXTEND_BF16
 #undef RT_EXTEND
 }

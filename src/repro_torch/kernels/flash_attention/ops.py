@@ -221,11 +221,12 @@ def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,
     """q: (B, S, Hq, Dh) suffix queries at absolute positions pos[b] + i
     vs a paged arena (see ``paged_decode_attention``) -> (B, S, Hq, Dh).
 
-    On the card the route is by dtype: bfloat16 q with a bfloat16 arena
-    launches the tensor-core kernel, which takes ``Dh % 16 == 0`` up to
-    256 and an arena whose rows start on 16 bytes (base and strides
-    multiples of 8 elements); either failing raises ``ValueError``.
-    float32, and any int8 arena, launch the CUDA-core kernel.
+    On the card the route is by the dtype of q: bfloat16 q, over a
+    bfloat16 or an int8 arena, launches the tensor-core kernel, which
+    takes ``Dh % 16 == 0`` up to 256 and an arena whose rows start on 16
+    bytes (a 16-byte aligned base and strides that are multiples of 16
+    bytes); either failing raises ``ValueError``.  float32 q, over a
+    float32 or an int8 arena, launches the CUDA-core kernel.
     ``paged_extend_attention.launches`` counts kernel launches,
     ``paged_extend_attention.launches_tc`` those of the tensor-core
     kernel."""
@@ -243,17 +244,19 @@ def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,
     if bt.shape[0] != B or pos.shape != (B,):
         raise ValueError("block_table and pos need one row per query row")
     ps = pos.to(device=q.device, dtype=torch.int32).contiguous()
-    tc = q.dtype == torch.bfloat16 and k_arena.dtype == torch.bfloat16
+    tc = q.dtype == torch.bfloat16
     if tc:
         if Dh % 16 or Dh > 256:
             raise ValueError(f"the bfloat16 paged extend kernel takes a head "
                              f"dim that is a multiple of 16 up to 256, not "
                              f"{Dh}")
-        if any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:4])
+        row = 16 // k_arena.element_size()   # elements in 16 bytes
+        if any(t.data_ptr() % 16 or any(s % row for s in t.stride()[:4])
                for t in (k_arena, v_arena)):
-            raise ValueError("the bfloat16 paged extend kernel needs arena "
-                             "rows that start on 16 bytes (a 16-byte aligned "
-                             "base and strides that are multiples of 8)")
+            raise ValueError(f"the bfloat16 paged extend kernel needs "
+                             f"{k_arena.dtype} arena rows that start on 16 "
+                             f"bytes (a 16-byte aligned base and strides "
+                             f"that are multiples of {row})")
         q = _rows16(q)
     out = torch.empty((B, S, Hq, Dh), dtype=q.dtype, device=q.device)
     fn = _build.kernel("rt_paged_extend_attention",

@@ -20,8 +20,10 @@ takes the tensor-core flash, paged extend and GEMM kernels: their cases
 cover every mask, head dims 16 to 256, GQA 4 and 5, page sizes 1 to 64,
 and counts on each side of the GEMM's 16- and 128-row tiles.  Paged
 decode and extend run every dtype pair (q float32 or bf16, arena the same
-or int8); decode at n_log 1 to 256, so that a row's pages split across 1
-to 8 blocks, with kv_len 0, 1 and n_log * P, rows whose every split is
+or int8; bf16 q over int8 takes the tensor-core extend, held also with
+per-page scales from 1e-3 to 1e2 under one 32-key tile and a page of
+codes +-127); decode at n_log 1 to 256, so that a row's pages split
+across 1 to 8 blocks, with kv_len 0, 1 and n_log * P, rows whose every split is
 empty, and G 12 at head dim 192; extend up to head dim 256.  Dense decode
 runs the same split kernel over a dense cache's live slots: windows,
 kv_len 0 and above S, G 12 at Dh 192.  Tolerances: rel < 2e-5 in float32
@@ -221,14 +223,14 @@ def test_flash_attention_bf16_strided_views(dev):
 
 
 def test_tensor_core_counters(dev):
-    """bf16 launches of flash attention, paged extend over a bf16 arena and
-    the grouped GEMM take the tensor-core kernels and count in
-    ``launches_tc``; float32 launches, and paged extend over an int8 arena,
-    take the CUDA-core kernels and do not."""
+    """bf16 launches of flash attention, paged extend (over a bf16 or an
+    int8 arena) and the grouped GEMM take the tensor-core kernels and
+    count in ``launches_tc``; float32 launches (paged extend over a
+    float32 or an int8 arena) take the CUDA-core kernels and do not."""
     g = torch.Generator(device=dev).manual_seed(4)
     ext = fops.paged_extend_attention
     for dt, quant, tc in ((torch.bfloat16, False, 1), (torch.float32, False, 0),
-                          (torch.bfloat16, True, 0), (torch.float32, True, 0)):
+                          (torch.bfloat16, True, 1), (torch.float32, True, 0)):
         k, v, sp, bt, sc = _arena(dev, 1, 2, 64, 1, 16, 2, (24,), quant,
                                   dtype=dt)
         q = torch.randn((1, 8, 4, 64), generator=g, device=dev).to(dt)
@@ -400,23 +402,59 @@ def test_paged_extend_fully_sentinel_row(dev, pair):
     assert _rel(out[[0, 2]], ref[[0, 2]]) < _tol(qdt, quant)
 
 
-def test_paged_extend_bf16_rejects(dev):
-    """The bf16 route raises on a head dim that is not a multiple of 16
-    and on an arena view whose rows do not start on 16 bytes; it launches
-    nothing."""
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_extend_bf16_rejects(dev, quant):
+    """The bf16 q route, over a bf16 or an int8 arena, raises on a head dim
+    that is not a multiple of 16 and on an arena view whose rows do not
+    start on 16 bytes; it launches nothing."""
     n0 = fops.paged_extend_attention.launches
-    k, v, sp, bt, _ = _arena(dev, 1, 2, 72, 1, 16, 2, (24,), False,
-                             dtype=torch.bfloat16)
+    k, v, sp, bt, sc = _arena(dev, 1, 2, 72, 1, 16, 2, (24,), quant,
+                              dtype=torch.bfloat16)
     q = torch.zeros((1, 8, 4, 72), dtype=torch.bfloat16, device=dev)
     ps = torch.tensor([16], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="multiple of 16"):
-        fops.paged_extend_attention(q, k, v, sp, bt, ps, 0)
-    # Dh 64 seen inside rows of 72: the view's base is off by 8 bytes
+        fops.paged_extend_attention(q, k, v, sp, bt, ps, 0, **sc)
+    # Dh 64 seen inside rows of 72: the view's base is off by 8 elements
     k, v = k[..., 4:68], v[..., 4:68]
     q = q[..., :64]
     with pytest.raises(ValueError, match="16 bytes"):
-        fops.paged_extend_attention(q, k, v, sp, bt, ps, 0)
+        fops.paged_extend_attention(q, k, v, sp, bt, ps, 0, **sc)
     assert fops.paged_extend_attention.launches == n0
+
+
+@pytest.mark.parametrize("P", [8, 16])
+def test_paged_extend_int8_scales_per_key(dev, P):
+    """bf16 q over an int8 arena whose pages under one 32-key tile have k
+    and v scales from 1e-3 to 1e2, one page holding codes of +-127 only:
+    the tensor-core kernel applies each key's scale, held against the
+    plain version at 2e-2 (bf16 output and P rounding)."""
+    B, Hq, Hkv, Dh, L, S, pos = 2, 8, 2, 64, 2, 24, (40, 17)
+    n_log = -(-(max(pos) + S) // P)
+    k, v, sp, bt, sc = _arena(dev, B, Hkv, Dh, L, P, n_log,
+                              tuple(p + S for p in pos), True)
+    rng = np.random.default_rng(P)
+    N = k.shape[0]
+    tile = bt[0, :32 // P].long()       # the pages under row 0's first tile
+    for name in ("k_scale", "v_scale"):
+        sc[name] = torch.from_numpy(10.0 ** rng.uniform(
+            -3, 2, (N, L)).astype(np.float32)).to(dev)
+        sc[name][tile, L - 1] = torch.tensor([1e-3, 1e2, 1e-1, 1e1],
+                                             device=dev)[:len(tile)]
+    page = int(bt[1, 1])
+    for t in (k, v):
+        t[page] = torch.from_numpy(rng.choice(
+            np.array([-127, 127], np.int8), t[page].shape)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, S, Hq, Dh)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    ps = torch.tensor(pos, dtype=torch.int32, device=dev)
+    f = fops.paged_extend_attention
+    n0 = (f.launches, f.launches_tc)
+    out = f(q, k, v, sp, bt, ps, L - 1, **sc)
+    ref = paged_extend_attention_ref(q.transpose(1, 2), k, v, sp, bt, ps,
+                                     L - 1, **sc).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_tc) == (n0[0] + 1, n0[1] + 1)
+    assert _rel(out, ref) < 2e-2
 
 
 # the dense decode cases of tests/test_kernels.py (B, Hq, Hkv, S, Dh,
