@@ -1359,10 +1359,12 @@ def time_gmm_bwd(dev, flush, kernels) -> None:
     and one ``torch.bmm`` (dy w^T, and x^T dy with dy's padding rows
     zeroed beforehand), with each one's share of its bound and its factor
     to ``torch.bmm``; float32 with both parts as phase 13b's steps launch
-    it (row ``gmm_bwd_f32``; library: the two ``torch.bmm`` calls).  The
-    down projection's (D and F swapped) are logged beside them the same
-    way.  Inputs from a generator of its own, as ``check_gmm_bwd``'s."""
-    from repro_torch.kernels.moe_gmm.ops import gmm_bwd
+    it (row ``gmm_bwd_f32``; library: the two ``torch.bmm`` calls), and
+    the float32 forward (the same CUDA-core body's kFwd pass) beside one
+    ``torch.bmm``, logged.  The down projection's (D and F swapped) are
+    logged beside them the same way.  Inputs from a generator of its own,
+    as ``check_gmm_bwd``'s."""
+    from repro_torch.kernels.moe_gmm.ops import gmm, gmm_bwd
     from repro_torch.kernels.moe_gmm.ref import gmm_bwd_ref
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(GMM_BWD_SEED + 1)
@@ -1411,8 +1413,24 @@ def time_gmm_bwd(dev, flush, kernels) -> None:
                               dw=True, esize=4), torch.float32))
     log(f"  gmm_bwd_f32 {rep['shape']}: kernel {rep['ms']:.4f} ms, plain "
         f"{rep['plain_ms']:.4f} ms, two torch.bmm {rep['library_ms']:.4f} "
-        f"ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+        f"ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
+        f"{rep['bound_ms'] / rep['ms']:.3f} of the bound, "
+        f"{rep['ms'] / rep['library_ms']:.3f}x torch.bmm")
     kernels["gmm_bwd_f32"].update(rep)
+    # the float32 forward (gmm_kernel's kFwd pass, the same body) at the
+    # same shape, beside one torch.bmm over every capacity slot
+    n_bytes = 4 * (int((cnt > 0).sum()) * MOE_D * MOE_F
+                   + int(cnt.sum()) * MOE_D + MOE_E * MOE_TRAIN_C * MOE_F
+                   + MOE_E)
+    fwd = dict(ms=time_ms(lambda: gmm(x, w, cnt), flush=flush),
+               library_ms=time_ms(lambda: torch.bmm(x, w), flush=flush),
+               **bound(n_bytes, 2 * int(cnt.sum()) * MOE_D * MOE_F,
+                       torch.float32))
+    log(f"  gmm f32 forward E{MOE_E} C{MOE_TRAIN_C} D{MOE_D} F{MOE_F}, "
+        f"{int(cnt.sum())} rows: kernel {fwd['ms']:.4f} ms, torch.bmm "
+        f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+        f"({fwd['bound_by']}), {fwd['bound_ms'] / fwd['ms']:.3f} of the "
+        f"bound, {fwd['ms'] / fwd['library_ms']:.3f}x torch.bmm")
 
 
 def check_head_dim_80(dev, gen, hold):
@@ -1591,8 +1609,16 @@ def time_flash_bwd(dev, gen, flush, kernels, hold):
                              flush=flush),
             library_ms=time_ms(sdpa_fwd_bwd, flush=flush) - fwd,
             **bound(n_bytes, n_ops, dt))
+        rep = kernels[name]
         log(f"  {name} library: SDPA forward {fwd:.4f} ms, forward + "
-            f"backward less forward {kernels[name]['library_ms']:.4f} ms")
+            f"backward less forward {rep['library_ms']:.4f} ms; kernel "
+            f"{rep['ms']:.4f} ms, {rep['bound_ms'] / rep['ms']:.3f} of the "
+            f"bound ({rep['bound_by']}), {rep['ms'] / rep['library_ms']:.3f}x "
+            "SDPA")
+        _, split = profile_step(
+            lambda: flash_attention_bwd(q, k, v, out, do, lse), cpu=False)[:2]
+        log(f"  {name} kernels of one call: " + ", ".join(
+            f"{k_[:40]} {t * 1e3:.4f} ms" for k_, t, _ in split))
         if dt != torch.bfloat16:
             continue
         want, want_lse = attention_ref(*plain[:3], return_lse=True)
@@ -4698,7 +4724,9 @@ def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
     the params after the steps, leaf by leaf as ||a - b|| / ||b|| (an
     entry whose float32 gradient is rounding noise may move by the
     learning rate either way, so the largest entry's error is printed,
-    not held).  Every backward runs on the CUDA-core route."""
+    not held).  Every backward runs on the CUDA-core route: each cell's
+    flash_attention_bwd, gmm_bwd and ssd_bwd launches are logged (the
+    mesh cell's returned), none on the tensor cores."""
     import dataclasses
 
     from repro_torch.configs.base import ShapeConfig
@@ -4737,6 +4765,12 @@ def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
                 "flash_attention_bwd", "gmm_bwd", "ssd_bwd")):
             raise AssertionError(f"[{tag}] float32 {name}: backward "
                                  f"launches {launches}")
+        bwd = {k: launches.get(k, 0) for k in (
+            "flash_attention_bwd", "gmm_bwd", "ssd_bwd")}
+        log(f"[{tag}] float32 {name}: backward launches {bwd}, none on "
+            "the tensor cores")
+        if name == "mesh":
+            out["f32_bwd_launches"] = bwd
         out[name] = ([(m["loss_step"], m["grad_norm"]) for m in mets],
                      [t.float().cpu() for t in
                       jax_leaves(gather_tree(cell.state.params))])
@@ -4744,6 +4778,7 @@ def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
         del cell, sup
         gc.collect()
         torch.cuda.empty_cache()
+    bwd_launches = out.pop("f32_bwd_launches")
     (m1, p1), (m2, p2) = out["one"], out["mesh"]
     metric_rel = max(abs(a - b) / abs(b) for x, y in zip(m2, m1)
                      for a, b in zip(x, y))
@@ -4761,7 +4796,8 @@ def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
     if metric_rel > 1e-5 or norm_rel > 1e-5:
         raise AssertionError(f"[{tag}] float32 parity: metrics rel "
                              f"{metric_rel}, params rel {norm_rel}")
-    return {"f32_metric_rel": metric_rel, "f32_param_rel": norm_rel,
+    return {"f32_bwd_launches": bwd_launches,
+            "f32_metric_rel": metric_rel, "f32_param_rel": norm_rel,
             "f32_entry_rel": entry_rel}
 
 

@@ -18,17 +18,47 @@
 // * bf16: bwd_dq_tc_kernel, which also writes D, then bwd_dkdv_tc_kernel:
 //   FlashAttention-2's backward on the tensor cores (mma.sync m16n8k16 bf16
 //   from ldmatrix fragments, float32 accumulators).
-// * float32: bwd_dot_kernel (D, one warp a row), then bwd_dkdv_kernel and
-//   bwd_dq_kernel, on CUDA cores, so that the products stay exact float32
-//   (the card's float32 train steps are held to the CPU's), as the forward
-//   keeps flash_kernel.
+// * float32: bwd_dot_kernel (D, one warp a row), then bwd_dkdv_kernel,
+//   which also stores dS^T, then bwd_dq_kernel, on CUDA cores, so that the
+//   products stay exact float32 (each a fmaf in a fixed order: the card's
+//   float32 train steps are held to the CPU's), as the forward keeps
+//   flash_kernel.
 //
 // Bound on the H100 at qwen3-4b's training shape (bf16, causal, B4 S512
 // Hq32 Hkv8 Dh128): 84.2 MB of q, k, v, out, dout and lse in and dq, dk,
 // dv out take 0.0251 ms at 3.35 TB/s; the five causal matrix products (S,
 // dP, dV, dK, dQ) are 21.5 GFLOP, 0.0217 ms at the bf16 tensor-core peak.
 // Bytes bound the call, but only just: near its bound a kernel has to run
-// its products near the tensor cores' peak as well.
+// its products near the tensor cores' peak as well.  In float32 the same
+// 21.5 GFLOP take 0.321 ms at the CUDA cores' 67 TFLOP/s, against 0.050 ms
+// for its 168 MB: operations bound it, and the route is built to keep the
+// FMA pipes busy.
+//
+// The float32 route:
+//
+// * bwd_dkdv_kernel: one block of 8 warps per (kv head, row b, 64 keys; 32
+//   past Dh 128), the earliest keys first, K and V resident in shared
+//   memory, walking packed (q position, q head) rows as the bf16 route
+//   does (one walk covers the G q heads), 32 rows of Q and dO a step
+//   through a two-stage cp.async ring.  The two groups of 4 warps split a
+//   step by product, so a thread's tiles are as large as its registers
+//   allow (4 x 4 of S^T or dP^T, 8 x 8 of dV or dK at Dh 128, every
+//   operand a float4 read from rows padded against bank conflicts): group
+//   0 forms P^T and sums dV, group 1 forms dS^T from P^T and dP^T and sums
+//   dK, and also stores dS^T to a float32 scratch (B, Hkv, Skv, G Sq
+//   rounded up to 64).  The mask is a branch-free test of each row's key
+//   window.  One block an SM (151 KB of shared memory at Dh 128).
+// * bwd_dq_kernel: dQ = dS K as a GEMM pass over that scratch, in place of
+//   recomputing S and dP (five products in all, not seven): a block per
+//   (kv head, row b, 64 packed rows), the last rows first, K and dS^T
+//   tiles of 32 keys through a two-stage ring, each group summing half of
+//   a tile's keys, the halves meeting in a fixed order.  The scratch costs
+//   134 MB written and read at the training shape, where recomputing S
+//   and dP would cost 8.6 GFLOP more (PERF.md, section 6).
+//
+// Any Dh % 4 == 0 up to 256 runs in three classes (64, 128, 256), a
+// smaller Dh with zero columns; rows start on 16 bytes (the wrapper copies
+// otherwise).
 //
 // The bf16 route:
 //
@@ -78,6 +108,8 @@
 // a deterministic cross-block sum), the products are warp-level mma.sync
 // rather than warpgroup wgmma, and the copies are cp.async by every thread
 // rather than TMA from one producer warp.
+#include <type_traits>
+
 #include "tensor_core.cuh"
 #include "tile_attention.cuh"
 
@@ -86,53 +118,8 @@ namespace rt {
 // ---------------------------------------------------------------------------
 // D (both routes) and the float32 route: CUDA cores
 // ---------------------------------------------------------------------------
-constexpr int kBQ = 32;  // q positions per tile
-constexpr int kBK = 32;  // keys per tile
-
 __device__ __forceinline__ int bwd_key_limit(const int* kv_len, int b, int Skv) {
   return kv_len != nullptr ? max(0, min(Skv, kv_len[b])) : Skv;
-}
-
-// out[r][c] for r < M, c < N (M % RM == 0, N % RN == 0): epi(r, c, sum_t
-// A(r, t) B(c, t)) with A(r, t) = a[r * ar + t * at], B(c, t) = b[c * br +
-// t * bt].  A thread owns rows r0 .. r0 + RM - 1 and columns cb, cb + tn,
-// ..., so the threads of a warp read neighbouring columns.
-template <int RM, int RN, class Epi>
-__device__ __forceinline__ void mm_tile(const float* __restrict__ a, int ar, int at,
-                                        const float* __restrict__ b, int br, int bt, int M,
-                                        int N, int K, Epi epi) {
-  const int tn = N / RN, tiles = (M / RM) * tn;
-  for (int tt = threadIdx.x; tt < tiles; tt += blockDim.x) {
-    const int r0 = (tt / tn) * RM, cb = tt - (tt / tn) * tn;
-    float acc[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-    for (int t = 0; t < K; ++t) {
-      float av[RM], bv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = a[(r0 + i) * ar + t * at];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) bv[j] = b[(cb + j * tn) * br + t * bt];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) epi(r0 + i, cb + j * tn, acc[i][j]);
-  }
-}
-
-// float32 shared memory of the two tile kernels: four (32, Dh + 1) input
-// tiles, one (32, Dh) or two accumulators, the P and dS tiles and the rows'
-// lse and D.
-__host__ __device__ inline size_t bwd_smem_bytes(int dh, int n_acc) {
-  const size_t ld = tile_ld(dh);
-  return sizeof(float) * (4 * kBK * ld + (size_t)n_acc * kBK * dh + 2 * kBQ * (kBK + 1) + 2 * kBQ);
 }
 
 __global__ void __launch_bounds__(kThreads) bwd_dot_kernel(
@@ -150,164 +137,404 @@ __global__ void __launch_bounds__(kThreads) bwd_dot_kernel(
   if (lane == 0) D[((int64_t)b * gridDim.y + h) * Sq + i] = acc;
 }
 
-// P[r][c] = exp(scale <q_r, k_c> - lse_r) where (r, c) is valid, else 0;
-// dS[r][c] = <dout_r, v_c> (turned into dS by bwd_ds).
-template <class Valid>
-__device__ __forceinline__ void bwd_p_dp(const float* qs, const float* dos, const float* ks,
-                                         const float* vs, const float* lse_s, float* ps,
-                                         float* dss, int ld, int Dh, float scale, Valid valid) {
-  constexpr int lp = kBK + 1;
-  mm_tile<2, 4>(qs, ld, 1, ks, ld, 1, kBQ, kBK, Dh, [&](int r, int c, float x) {
-    ps[r * lp + c] = valid(r, c) ? expf(x * scale - lse_s[r]) : 0.f;
-  });
-  mm_tile<2, 4>(dos, ld, 1, vs, ld, 1, kBQ, kBK, Dh,
-                [&](int r, int c, float x) { dss[r * lp + c] = x; });
+constexpr int kF32Threads = 256;  // two groups of 4 warps
+
+// Tiles of the float32 kernels in the head-dim class kDh (64, 128 or
+// 256; a smaller Dh runs in its class with zero columns): kNX resident
+// rows (keys of bwd_dkdv_kernel, packed rows of bwd_dq_kernel), kNA
+// streamed rows a step, rows of kDh + 4 floats (16-byte rows whose float4
+// reads by 8 consecutive rows hit distinct banks), and P and dS stored
+// [a][x] with rows of kNX + 4.  A thread's tiles: kSX x kSA of its
+// group's S or dP (4 x 4 at Dh <= 128), kAX x kAD of its group's sum (8 x
+// 8 at Dh 128).  bwd_dkdv_kernel's shared memory at Dh 128: 66 KB
+// resident, 66 KB for the two stages, 17 KB of P and dS: one block an SM.
+template <int kDh>
+struct F32Tile {
+  static constexpr int kNX = kDh > 128 ? 32 : 64;
+  static constexpr int kNA = 32;
+  static constexpr int kLd = kDh + 4;
+  static constexpr int kLdP = kNX + 4;
+  static constexpr int kSX = kNX / 16, kSA = kNA / 8;
+  static constexpr int kAX = kNX / 8, kAD = kDh / 16;
+  static constexpr size_t kDkdvSmem =
+      sizeof(float) * (2 * kNX * kLd + 4 * kNA * kLd + 2 * kNA * kLdP + 4 * kNA);
+  static constexpr size_t kDqSmem = sizeof(float) * 2 * kNA * (kLd + kLdP);
+};
+
+// The float32 kernels' arguments: the entry point's pointers and strides.
+struct BwdF32Params {
+  const float *q, *k, *v, *dout, *lse, *D;
+  float *dq, *dk, *dv;
+  int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh;
+  int64_t dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
+  const int* kv_len;
+  int Sq, Skv, G, Dh, causal, window;
+  float scale;
+  float* ds;      // dS^T (B, Hkv, Skv, ds_ld): row key, column packed row
+  int64_t ds_ld;  // G Sq rounded up to 64
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// dS = P (dP - D) scale, in place over dP.
-__device__ __forceinline__ void bwd_ds(const float* ps, float* dss, const float* D_s,
-                                       float scale) {
-  constexpr int lp = kBK + 1;
-  for (int i = threadIdx.x; i < kBQ * kBK; i += blockDim.x) {
-    const int r = i / kBK, c = i - r * kBK;
-    dss[r * lp + c] = ps[r * lp + c] * (dss[r * lp + c] - D_s[r]) * scale;
-  }
+// acc + a.x b.x + a.y b.y + a.z b.z + a.w b.w, one fmaf at a time, in order.
+__device__ __forceinline__ float fma4(const float4& a, const float4& b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
-// lse and D of q rows i0 .. i0 + nr - 1 of head h (0 past nr).
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* D_s, const float* lse,
-                                               const float* D, int64_t base, int nr) {
-  for (int r = threadIdx.x; r < kBQ; r += blockDim.x) {
-    lse_s[r] = r < nr ? lse[base + r] : 0.f;
-    D_s[r] = r < nr ? D[base + r] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(
-    const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    const float* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    const float* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    const float* __restrict__ dout, int64_t d_sb, int64_t d_ss, int64_t d_sh,
-    const float* __restrict__ lse, const float* __restrict__ D,
-    float* __restrict__ dk, int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
-    float* __restrict__ dv, int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
-    int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
-    float scale) {
-  extern __shared__ float smem[];
-  const int ld = tile_ld(Dh);
-  float* ks = smem;                 // [kBK][ld]
-  float* vs = ks + kBK * ld;        // [kBK][ld]
-  float* qs = vs + kBK * ld;        // [kBQ][ld]
-  float* dos = qs + kBQ * ld;       // [kBQ][ld]
-  float* dks = dos + kBQ * ld;      // [kBK][Dh]
-  float* dvs = dks + kBK * Dh;      // [kBK][Dh]
-  float* ps = dvs + kBK * Dh;       // [kBQ][kBK + 1]
-  float* dss = ps + kBQ * (kBK + 1);
-  float* lse_s = dss + kBQ * (kBK + 1);
-  float* D_s = lse_s + kBQ;
-
-  const int k0 = blockIdx.x * kBK, hkv = blockIdx.y, b = blockIdx.z;
-  const int Hq = gridDim.y * G, off = Skv - Sq;
-  const int nk = max(0, min(kBK, bwd_key_limit(kv_len, b, Skv) - k0));
-  load_rows(ks, k + b * k_sb + k0 * k_ss + hkv * k_sh, k_ss, 1.f, vs,
-            v + b * v_sb + k0 * v_ss + hkv * v_sh, v_ss, 1.f, ld, kBK, nk, Dh);
-  for (int i = threadIdx.x; i < 2 * kBK * Dh; i += blockDim.x) dks[i] = 0.f;
-
-  // the q positions that can see a key of [k0, k0 + nk): causal, i >= k0 -
-  // off; windowed, off + i < k0 + nk - 1 + window
-  int i_begin = causal ? max(0, k0 - off) : 0;
-  int i_end = window >= 0 ? min(Sq, k0 + nk - 1 + window - off) : Sq;
-  if (nk == 0) i_end = 0;
-  i_begin = (i_begin / kBQ) * kBQ;
-
-  for (int g = 0; g < G; ++g) {
-    const int hq = hkv * G + g;
-    for (int i0 = i_begin; i0 < i_end; i0 += kBQ) {
-      const int nr = min(kBQ, Sq - i0);
-      __syncthreads();  // the previous tile's reads are done
-      load_rows(qs, q + b * q_sb + i0 * q_ss + hq * q_sh, q_ss, 1.f, dos,
-                dout + b * d_sb + i0 * d_ss + hq * d_sh, d_ss, 1.f, ld, kBQ, nr, Dh);
-      load_row_stats(lse_s, D_s, lse, D, ((int64_t)b * Hq + hq) * Sq + i0, nr);
-      __syncthreads();
-      bwd_p_dp(qs, dos, ks, vs, lse_s, ps, dss, ld, Dh, scale, [&](int r, int c) {
-        const int qp = off + i0 + r, kp = k0 + c;
-        return r < nr && c < nk && (!causal || qp >= kp) && (window < 0 || kp > qp - window);
-      });
-      __syncthreads();
-      bwd_ds(ps, dss, D_s, scale);
-      __syncthreads();
-      // dV[c][d] += sum_r P[r][c] dout[r][d]; dK[c][d] += sum_r dS[r][c] q[r][d]
-      mm_tile<4, 4>(ps, 1, kBK + 1, dos, 1, ld, kBK, Dh, kBQ,
-                    [&](int c, int d, float x) { dvs[c * Dh + d] += x; });
-      mm_tile<4, 4>(dss, 1, kBK + 1, qs, 1, ld, kBK, Dh, kBQ,
-                    [&](int c, int d, float x) { dks[c * Dh + d] += x; });
+// acc[r][c] += sum over a in [a_lo, a_lo + n) of w[a][x_r] o[a][col_c], a
+// thread's rows x = ai * kAX .. + kAX - 1 and columns aj * 4 + 64 u .. +
+// 3, in order of a: the products that sum a step into the accumulators,
+// kUnroll values of a at a time.
+template <int kDh, int n, int kUnroll>
+__device__ __forceinline__ void sum_rows(float (&acc)[F32Tile<kDh>::kAX][F32Tile<kDh>::kAD],
+                                         const float* w, const float* o, int a_lo, int ai,
+                                         int aj) {
+  using T = F32Tile<kDh>;
+  constexpr int kAX = T::kAX, kAD = T::kAD;
+  for (int a0 = a_lo; a0 < a_lo + n; a0 += kUnroll) {
+#pragma unroll
+    for (int da = 0; da < kUnroll; ++da) {
+      const int a = a0 + da;
+      float wv[kAX];
+#pragma unroll
+      for (int q = 0; q < kAX / 4; ++q) {
+        const float4 t = lds4(w + a * T::kLdP + ai * kAX + 4 * q);
+        wv[4 * q] = t.x, wv[4 * q + 1] = t.y, wv[4 * q + 2] = t.z, wv[4 * q + 3] = t.w;
+      }
+      float4 ov[kAD / 4];
+#pragma unroll
+      for (int u = 0; u < kAD / 4; ++u) ov[u] = lds4(o + a * T::kLd + aj * 4 + 64 * u);
+#pragma unroll
+      for (int r = 0; r < kAX; ++r)
+#pragma unroll
+        for (int u = 0; u < kAD / 4; ++u) {
+          acc[r][4 * u] = fmaf(wv[r], ov[u].x, acc[r][4 * u]);
+          acc[r][4 * u + 1] = fmaf(wv[r], ov[u].y, acc[r][4 * u + 1]);
+          acc[r][4 * u + 2] = fmaf(wv[r], ov[u].z, acc[r][4 * u + 2]);
+          acc[r][4 * u + 3] = fmaf(wv[r], ov[u].w, acc[r][4 * u + 3]);
+        }
     }
   }
-  __syncthreads();
-  const int n_store = min(kBK, Skv - k0);  // keys past the limit store 0
-  for (int i = threadIdx.x; i < n_store * Dh; i += blockDim.x) {
-    const int c = i / Dh, d = i - c * Dh;
-    dk[b * dk_sb + (k0 + c) * dk_ss + hkv * dk_sh + d] = dks[i];
-    dv[b * dv_sb + (k0 + c) * dv_ss + hkv * dv_sh + d] = dvs[i];
+}
+
+// bwd_dkdv_kernel: one block of two groups of 4 warps per (kv head, row b,
+// kNX keys), the earliest keys (the longest causal walks) first in the
+// grid.  K and V of the block's keys stay in shared memory; the walk goes
+// over packed (q position, q head) rows as the bf16 route packs them, so
+// one walk covers the G q heads, from the first row the causal limit lets
+// see the keys to the last the window does, kNA rows of Q and dO (with
+// their lse and D) a step through a two-stage cp.async ring.  The groups
+// split each step by product, so that a thread's tiles are as large as
+// the registers allow: group 0 forms S^T = K Q^T, then P^T = exp(scale S^T
+// - lse), 0 where masked, and sums dV += P^T dO; group 1 forms dP^T = V
+// dO^T, then, once P^T is in shared memory, dS^T = P^T (dP^T - D), which
+// it also stores to the dS^T scratch for bwd_dq_kernel, and sums dK +=
+// dS^T Q.  dK and dV stay in registers for the whole walk.
+template <int kDh>
+__global__ void __launch_bounds__(kF32Threads, 1) bwd_dkdv_kernel(const BwdF32Params p) {
+  using T = F32Tile<kDh>;
+  constexpr int kNX = T::kNX, kNA = T::kNA, kLd = T::kLd, kLdP = T::kLdP;
+  constexpr int kSX = T::kSX, kSA = T::kSA, kAX = T::kAX, kAD = T::kAD;
+  constexpr int kChunks = kDh / 4;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) float smem_f32[];
+  float* ks = smem_f32;             // [kNX][kLd]
+  float* vs = ks + kNX * kLd;       // [kNX][kLd]
+  float* qs = vs + kNX * kLd;       // [2][kNA][kLd]
+  float* dos = qs + 2 * kNA * kLd;  // [2][kNA][kLd]
+  float* ps = dos + 2 * kNA * kLd;  // [kNA][kLdP]
+  float* dss = ps + kNA * kLdP;     // [kNA][kLdP]
+  float* lse_s = dss + kNA * kLdP;  // [2][kNA]
+  float* D_s = lse_s + 2 * kNA;     // [2][kNA]
+
+  const int hkv = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kNX;
+  const int G = p.G, Sq = p.Sq, Skv = p.Skv, nch = p.Dh / 4;
+  const int Hq = gridDim.x * G, off = Skv - Sq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp >> 2, gw = warp & 3;  // the warp's group and its place in it
+  const int n_keys = bwd_key_limit(p.kv_len, b, Skv);
+  const int64_t stat = ((int64_t)b * Hq + hkv * G) * Sq;  // (b, hkv * G + h, i) at + h Sq + i
+  const float* qb = p.q + b * p.q_sb + (int64_t)hkv * G * p.q_sh;
+  const float* db = p.dout + b * p.d_sb + (int64_t)hkv * G * p.d_sh;
+  float* dsb = p.ds + ((int64_t)b * gridDim.x + hkv) * Skv * p.ds_ld;
+
+  // the packed rows whose positions can see a key of [k0, k0 + nk):
+  // causal, off + i >= k0; windowed, off + i < k0 + nk - 1 + window
+  const int nk = max(0, min(kNX, n_keys - k0));
+  const int i_begin = p.causal ? max(0, k0 - off) : 0;
+  const int i_end = nk == 0           ? 0
+                    : p.window >= 0 ? max(0, min(Sq, k0 + nk - 1 + p.window - off))
+                                    : Sq;
+  const int a_begin = G * i_begin / kNA * kNA, a_end = G * i_end;
+  const int n_steps = a_end > a_begin ? (a_end - a_begin + kNA - 1) / kNA : 0;
+
+  // Rows [0, n) of two tiles: a thread copies chunk ch of rows r0, r0 +
+  // kRowStep, ...; rows(r, ok, src_a, src_b) gives row r's validity and
+  // sources (in bounds also when invalid: a copy that reads nothing still
+  // takes an address), once for both tiles.  Chunks past nch and invalid
+  // rows are zeros.
+  constexpr int kRowStep = kF32Threads / kChunks;
+  const int r0 = tid / kChunks, ch = tid % kChunks, cho = ch < nch ? 4 * ch : 0;
+  auto copy_rows = [&](float* dst_a, float* dst_b, auto n, auto rows) {
+#pragma unroll
+    for (int u = 0; u < decltype(n)::value / kRowStep; ++u) {
+      const int r = r0 + u * kRowStep;
+      bool ok;
+      const float *src_a, *src_b;
+      rows(r, ok, src_a, src_b);
+      cp_async16(dst_a + r * kLd + 4 * ch, src_a + cho, ok & (ch < nch));
+      cp_async16(dst_b + r * kLd + 4 * ch, src_b + cho, ok & (ch < nch));
+    }
+  };
+  const float* kb = p.k + b * p.k_sb + hkv * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + hkv * p.v_sh;
+  if (n_steps > 0)  // K and V of the block's keys; keys past the limit are zeros
+    copy_rows(ks, vs, std::integral_constant<int, kNX>{},
+              [&](int r, bool& ok, const float*& kr, const float*& vr) {
+                ok = k0 + r < n_keys;
+                const int64_t key = ok ? k0 + r : 0;
+                kr = kb + key * p.k_ss;
+                vr = vb + key * p.v_ss;
+              });
+  // step `step`'s Q and dO rows and their lse and D into ring stage
+  // `stage`; rows past Sq are zeros (their statistics left stale: masked)
+  auto fetch = [&](int step, int stage) {
+    const int a0 = a_begin + step * kNA;
+    copy_rows(qs + stage * kNA * kLd, dos + stage * kNA * kLd,
+              std::integral_constant<int, kNA>{},
+              [&](int r, bool& ok, const float*& qr, const float*& dr) {
+                const int i = (a0 + r) / G, h = a0 + r - i * G;
+                ok = i < Sq;
+                const int64_t ic = ok ? i : 0;
+                qr = qb + ic * p.q_ss + h * p.q_sh;
+                dr = db + ic * p.d_ss + h * p.d_sh;
+              });
+    if (tid < kNA) {
+      const int i = (a0 + tid) / G, h = a0 + tid - i * G;
+      if (i < Sq) {
+        cp_async_ca<4>(lse_s + stage * kNA + tid, p.lse + stat + (int64_t)h * Sq + i);
+        cp_async_ca<4>(D_s + stage * kNA + tid, p.D + stat + (int64_t)h * Sq + i);
+      }
+    }
+  };
+  if (n_steps > 0) fetch(0, 0);
+  cp_async_commit();  // K, V and the first step: one group
+
+  // S phase: keys si + 16 s, rows sj + 8 t (a warp 4 x 8 of them, so each
+  // float4 read is one wavefront); sum phase: keys ai * kAX .. + kAX - 1,
+  // columns aj * 4 + 64 u .. + 3
+  const int si = gw * 4 + (lane >> 3), sj = lane & 7;
+  const int ai = (gw >> 1) * 4 + (lane >> 3), aj = (gw & 1) * 8 + (lane & 7);
+  const float* xg = grp == 0 ? ks : vs;          // the group's product: S^T or dP^T
+  const float* ag = grp == 0 ? qs : dos;
+  const float* wg = grp == 0 ? ps : dss;         // the group's sum: P^T dO or dS^T Q
+  const float* og = grp == 0 ? dos : qs;
+  const float* stg = grp == 0 ? lse_s : D_s;     // its rows' statistic: lse or D
+
+  float acc[kAX][kAD];
+#pragma unroll
+  for (int r = 0; r < kAX; ++r)
+#pragma unroll
+    for (int c = 0; c < kAD; ++c) acc[r][c] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int stage = step & 1, a0 = a_begin + step * kNA;
+    cp_async_wait<0>();  // this step's rows (and K, V) landed
+    __syncthreads();     // ... for every thread; the last step is consumed
+    if (step + 1 < n_steps) fetch(step + 1, stage ^ 1);
+    cp_async_commit();
+    const float* at = ag + stage * kNA * kLd;
+
+    float sv[kSX][kSA];
+#pragma unroll
+    for (int i = 0; i < kSX; ++i)
+#pragma unroll
+      for (int j = 0; j < kSA; ++j) sv[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < kDh; d += 4) {
+      float4 xv[kSX], av[kSA];
+#pragma unroll
+      for (int i = 0; i < kSX; ++i) xv[i] = lds4(xg + (si + 16 * i) * kLd + d);
+#pragma unroll
+      for (int j = 0; j < kSA; ++j) av[j] = lds4(at + (sj + 8 * j) * kLd + d);
+#pragma unroll
+      for (int i = 0; i < kSX; ++i)
+#pragma unroll
+        for (int j = 0; j < kSA; ++j) sv[i][j] = fma4(xv[i], av[j], sv[i][j]);
+    }
+
+    // the keys [lo, hi] each of the thread's rows sees (none past Sq: hi
+    // -1) and its statistic; the mask, without a branch
+    int lo[kSA], hi[kSA];
+    float st[kSA];
+#pragma unroll
+    for (int j = 0; j < kSA; ++j) {
+      const int a = sj + 8 * j, i = (a0 + a) / G, qp = off + i;
+      hi[j] = i >= Sq ? -1 : p.causal ? min(qp, n_keys - 1) : n_keys - 1;
+      lo[j] = p.window >= 0 ? qp - p.window + 1 : 0;
+      st[j] = stg[stage * kNA + a];
+    }
+    auto valid = [&](int i, int j) {
+      const int key = k0 + si + 16 * i;
+      return (key >= lo[j]) & (key <= hi[j]);
+    };
+    if (grp == 0) {  // P^T, 0 where masked
+#pragma unroll
+      for (int i = 0; i < kSX; ++i)
+#pragma unroll
+        for (int j = 0; j < kSA; ++j)
+          ps[(sj + 8 * j) * kLdP + si + 16 * i] =
+              select(valid(i, j), expf(sv[i][j] * p.scale - st[j]), 0.f);
+    }
+    __syncthreads();
+    if (grp == 1) {  // dS^T = P^T (dP^T - D), 0 where masked, also to the scratch
+#pragma unroll
+      for (int i = 0; i < kSX; ++i)
+#pragma unroll
+        for (int j = 0; j < kSA; ++j) {
+          const int at_p = (sj + 8 * j) * kLdP + si + 16 * i;
+          const float ds = select(valid(i, j), ps[at_p] * (sv[i][j] - st[j]), 0.f);
+          dss[at_p] = ds;
+          const int key = k0 + si + 16 * i, pr = a0 + sj + 8 * j;
+          if (key < Skv && pr < p.ds_ld) dsb[(int64_t)key * p.ds_ld + pr] = ds;
+        }
+    }
+    __syncthreads();
+    sum_rows<kDh, kNA, 8>(acc, wg, og + stage * kNA * kLd, 0, ai, aj);
+  }
+  cp_async_wait<0>();
+
+  // dV (group 0) and dK = scale sum dS^T Q (group 1): keys past the limit
+  // store 0, keys past Skv nothing.  float4 stores of the thread's
+  // columns below Dh.
+  const float mul = grp == 0 ? 1.f : p.scale;
+#pragma unroll
+  for (int r = 0; r < kAX; ++r) {
+    const int key = k0 + ai * kAX + r;
+    if (key >= Skv) continue;
+    float* o = grp == 0 ? p.dv + b * p.dv_sb + key * p.dv_ss + hkv * p.dv_sh
+                        : p.dk + b * p.dk_sb + key * p.dk_ss + hkv * p.dk_sh;
+#pragma unroll
+    for (int u = 0; u < kAD / 4; ++u) {
+      const int col = aj * 4 + 64 * u;
+      if (col < p.Dh)
+        *reinterpret_cast<float4*>(o + col) =
+            make_float4(acc[r][4 * u] * mul, acc[r][4 * u + 1] * mul, acc[r][4 * u + 2] * mul,
+                        acc[r][4 * u + 3] * mul);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
-    const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    const float* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    const float* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    const float* __restrict__ dout, int64_t d_sb, int64_t d_ss, int64_t d_sh,
-    const float* __restrict__ lse, const float* __restrict__ D,
-    float* __restrict__ dq, int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
-    int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
-    float scale) {
-  extern __shared__ float smem[];
-  const int ld = tile_ld(Dh);
-  float* ks = smem;                 // [kBK][ld]
-  float* vs = ks + kBK * ld;        // [kBK][ld]
-  float* qs = vs + kBK * ld;        // [kBQ][ld]
-  float* dos = qs + kBQ * ld;       // [kBQ][ld]
-  float* dqs = dos + kBQ * ld;      // [kBQ][Dh]
-  float* ps = dqs + kBQ * Dh;       // [kBQ][kBK + 1]
-  float* dss = ps + kBQ * (kBK + 1);
-  float* lse_s = dss + kBQ * (kBK + 1);
-  float* D_s = lse_s + kBQ;
+// bwd_dq_kernel: dQ = scale dS K from the dS^T that bwd_dkdv_kernel stored,
+// a GEMM pass in place of recomputing S and dP (five products in all
+// instead of seven).  One block of two groups per (kv head, row b, kNX
+// packed rows), the last rows (the longest causal walks) first, walking
+// the key tiles its rows can see; K and dS^T tiles of kNA keys come
+// through a two-stage cp.async ring (keys past the limit as zeros).  In a
+// tile that crosses the causal limit or the window, the entries the dK/dV
+// walk did not visit are zeroed first.  Each group sums half of a tile's
+// keys, and the halves meet at the end in a fixed order.
+template <int kDh>
+__global__ void __launch_bounds__(kF32Threads, kDh > 128 ? 1 : 2) bwd_dq_kernel(const BwdF32Params p) {
+  using T = F32Tile<kDh>;
+  constexpr int kNX = T::kNX, kNA = T::kNA, kLd = T::kLd, kLdP = T::kLdP;
+  constexpr int kAX = T::kAX, kAD = T::kAD, kChunks = kDh / 4;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* ks = smem_f32;             // [2][kNA][kLd]
+  float* dss = ks + 2 * kNA * kLd;  // [2][kNA][kLdP]
+  const int hkv = blockIdx.x, b = blockIdx.y;
+  const int G = p.G, Sq = p.Sq, Skv = p.Skv, nch = p.Dh / 4, off = Skv - Sq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp >> 2, gw = warp & 3;
+  const int n_keys = bwd_key_limit(p.kv_len, b, Skv);
+  const int x0 = (gridDim.z - 1 - blockIdx.z) * kNX;
+  const int q_lo = off + x0 / G, q_hi = off + min(Sq - 1, (x0 + kNX - 1) / G);
+  const int n_tiles = (n_keys + kNA - 1) / kNA;
+  const int t_end = p.causal ? min(n_tiles, max(0, q_hi) / kNA + 1) : n_tiles;
+  const int t_begin = p.window >= 0 ? max(0, q_lo - p.window + 1) / kNA : 0;
+  const int n_steps = max(0, t_end - t_begin);
+  const float* kb = p.k + b * p.k_sb + hkv * p.k_sh;
+  const float* dsb = p.ds + ((int64_t)b * gridDim.x + hkv) * Skv * p.ds_ld + x0;
 
-  const int i0 = blockIdx.x * kBQ, hq = blockIdx.y, b = blockIdx.z;
-  const int hkv = hq / G, off = Skv - Sq;
-  const int nr = min(kBQ, Sq - i0);
-  const int n_keys = bwd_key_limit(kv_len, b, Skv);
-  load_rows(qs, q + b * q_sb + i0 * q_ss + hq * q_sh, q_ss, 1.f, dos,
-            dout + b * d_sb + i0 * d_ss + hq * d_sh, d_ss, 1.f, ld, kBQ, nr, Dh);
-  load_row_stats(lse_s, D_s, lse, D, ((int64_t)b * gridDim.y + hq) * Sq + i0, nr);
-  for (int i = threadIdx.x; i < kBQ * Dh; i += blockDim.x) dqs[i] = 0.f;
+  auto fetch = [&](int t, int stage) {
+    float* kd = ks + stage * kNA * kLd;
+    float* dd = dss + stage * kNA * kLdP;
+    // invalid rows and chunks read nothing, from an address in bounds
+    constexpr int kRowStep = kF32Threads / kChunks;
+    const int ch = tid % kChunks, cho = ch < nch ? 4 * ch : 0;
+#pragma unroll
+    for (int u = 0; u < kNA / kRowStep; ++u) {
+      const int r = tid / kChunks + u * kRowStep, key = t * kNA + r;
+      const bool ok = key < n_keys;
+      cp_async16(kd + r * kLd + 4 * ch, kb + (ok ? (int64_t)key * p.k_ss : 0) + cho,
+                 ok & (ch < nch));
+    }
+    constexpr int kXC = kNX / 4;  // 16-byte chunks of a dS^T row
+#pragma unroll
+    for (int u = 0; u < kNA * kXC / kF32Threads; ++u) {
+      const int c = tid + u * kF32Threads, r = c / kXC, xc = c % kXC, key = t * kNA + r;
+      const bool ok = key < n_keys;
+      cp_async16(dd + r * kLdP + 4 * xc, dsb + (ok ? (int64_t)key * p.ds_ld : 0) + 4 * xc, ok);
+    }
+  };
+  if (n_steps > 0) fetch(t_begin, 0);
+  cp_async_commit();
 
-  // the kv tiles the rows can see
-  const int q_lo = off + i0, q_hi = off + i0 + nr - 1;
-  const int n_tiles = (n_keys + kBK - 1) / kBK;
-  const int t_end = causal ? min(n_tiles, q_hi / kBK + 1) : n_tiles;
-  const int t_begin = window >= 0 ? max(0, q_lo - window + 1) / kBK : 0;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK, nk = min(kBK, n_keys - k0);
-    __syncthreads();  // the previous tile's reads are done
-    load_rows(ks, k + b * k_sb + k0 * k_ss + hkv * k_sh, k_ss, 1.f, vs,
-              v + b * v_sb + k0 * v_ss + hkv * v_sh, v_ss, 1.f, ld, kBK, nk, Dh);
-    __syncthreads();
-    bwd_p_dp(qs, dos, ks, vs, lse_s, ps, dss, ld, Dh, scale, [&](int r, int c) {
-      const int qp = q_lo + r, kp = k0 + c;
-      return r < nr && c < nk && (!causal || qp >= kp) && (window < 0 || kp > qp - window);
-    });
-    __syncthreads();
-    bwd_ds(ps, dss, D_s, scale);
-    __syncthreads();
-    // dQ[r][d] += sum_c dS[r][c] k[c][d]
-    mm_tile<4, 4>(dss, kBK + 1, 1, ks, 1, ld, kBQ, Dh, kBK,
-                  [&](int r, int d, float x) { dqs[r * Dh + d] += x; });
+  const int ai = (gw >> 1) * 4 + (lane >> 3), aj = (gw & 1) * 8 + (lane & 7);
+  float acc[kAX][kAD];
+#pragma unroll
+  for (int r = 0; r < kAX; ++r)
+#pragma unroll
+    for (int c = 0; c < kAD; ++c) acc[r][c] = 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    const int stage = step & 1, k0 = (t_begin + step) * kNA;
+    cp_async_wait<0>();  // this tile landed
+    __syncthreads();     // ... for every thread; the last tile is consumed
+    if (step + 1 < n_steps) fetch(t_begin + step + 1, stage ^ 1);
+    cp_async_commit();
+    float* dd = dss + stage * kNA * kLdP;
+    if ((p.causal && k0 + kNA - 1 > q_lo) || (p.window >= 0 && k0 <= q_hi - p.window)) {
+      for (int e = tid; e < kNA * kNX; e += kF32Threads) {
+        const int a = e / kNX, x = e % kNX, qp = off + (x0 + x) / G, key = k0 + a;
+        if ((p.causal & (key > qp)) | ((p.window >= 0) & (key <= qp - p.window)))
+          dd[a * kLdP + x] = 0.f;
+      }
+      __syncthreads();
+    }
+    sum_rows<kDh, kNA / 2, 4>(acc, dd, ks + stage * kNA * kLd, grp * (kNA / 2), ai, aj);
+  }
+  cp_async_wait<0>();
+
+  // dQ = scale (group 0's half + group 1's half), the halves meeting in
+  // the ring in a fixed order; rows past Sq dropped, float4 columns below
+  // Dh
+  float* red = ks;  // [kNX][kDh]
+  __syncthreads();  // the ring is free
+  if (grp == 1) {
+#pragma unroll
+    for (int r = 0; r < kAX; ++r)
+#pragma unroll
+      for (int u = 0; u < kAD / 4; ++u)
+        *reinterpret_cast<float4*>(red + (ai * kAX + r) * kDh + aj * 4 + 64 * u) =
+            make_float4(acc[r][4 * u], acc[r][4 * u + 1], acc[r][4 * u + 2], acc[r][4 * u + 3]);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nr * Dh; i += blockDim.x) {
-    const int r = i / Dh, d = i - r * Dh;
-    dq[b * dq_sb + (i0 + r) * dq_ss + hq * dq_sh + d] = dqs[i];
+  if (grp == 1) return;
+#pragma unroll
+  for (int r = 0; r < kAX; ++r) {
+    const int pr = x0 + ai * kAX + r, i = pr / G, h = pr - i * G;
+    if (i >= Sq) continue;
+    float* o = p.dq + b * p.dq_sb + i * p.dq_ss + (hkv * G + h) * p.dq_sh;
+#pragma unroll
+    for (int u = 0; u < kAD / 4; ++u) {
+      const int col = aj * 4 + 64 * u;
+      const float4 t = lds4(red + (ai * kAX + r) * kDh + col);
+      if (col < p.Dh)
+        *reinterpret_cast<float4*>(o + col) = make_float4(
+            (acc[r][4 * u] + t.x) * p.scale, (acc[r][4 * u + 1] + t.y) * p.scale,
+            (acc[r][4 * u + 2] + t.z) * p.scale, (acc[r][4 * u + 3] + t.w) * p.scale);
+    }
   }
 }
 
@@ -809,7 +1036,22 @@ struct BwdArgs {
   int B, Hq, Hkv, Sq, Skv;
   const int* kv_len;
   int Dh, causal, window;
+  float* ds_scratch;
 };
+
+// The dK/dV kernel (which stores dS^T), then the dQ pass, in the head
+// dim's class.
+template <int kDh>
+cudaError_t launch_bwd_f32_as(const BwdArgs& a, const BwdF32Params& p, cudaStream_t stream) {
+  using T = F32Tile<kDh>;
+  bwd_dkdv_kernel<kDh><<<dim3(a.Hkv, a.B, (a.Skv + T::kNX - 1) / T::kNX), kF32Threads,
+                         T::kDkdvSmem, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dq_kernel<kDh><<<dim3(a.Hkv, a.B, (p.G * a.Sq + T::kNX - 1) / T::kNX), kF32Threads,
+                       T::kDqSmem, stream>>>(p);
+  return cudaGetLastError();
+}
 
 cudaError_t launch_bwd_f32(const BwdArgs& a, float scale, cudaStream_t stream) {
   const int G = a.Hq / a.Hkv;
@@ -818,24 +1060,19 @@ cudaError_t launch_bwd_f32(const BwdArgs& a, float scale, cudaStream_t stream) {
       static_cast<const float*>(a.dout), a.ds[0], a.ds[1], a.ds[2], a.D, a.Sq, a.Dh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const float* qp = static_cast<const float*>(a.q);
-  const float* kp = static_cast<const float*>(a.k);
-  const float* vp = static_cast<const float*>(a.v);
-  const float* dp = static_cast<const float*>(a.dout);
-  bwd_dkdv_kernel<<<dim3((a.Skv + kBK - 1) / kBK, a.Hkv, a.B), kThreads, bwd_smem_bytes(a.Dh, 2),
-                    stream>>>(
-      qp, a.qs[0], a.qs[1], a.qs[2], kp, a.ks[0], a.ks[1], a.ks[2], vp, a.vs[0], a.vs[1],
-      a.vs[2], dp, a.ds[0], a.ds[1], a.ds[2], a.lse, a.D, static_cast<float*>(a.dk), a.dks[0],
-      a.dks[1], a.dks[2], static_cast<float*>(a.dv), a.dvs[0], a.dvs[1], a.dvs[2], a.Sq, a.Skv,
-      a.kv_len, G, a.Dh, a.causal, a.window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dq_kernel<<<dim3((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B), kThreads, bwd_smem_bytes(a.Dh, 1),
-                  stream>>>(
-      qp, a.qs[0], a.qs[1], a.qs[2], kp, a.ks[0], a.ks[1], a.ks[2], vp, a.vs[0], a.vs[1],
-      a.vs[2], dp, a.ds[0], a.ds[1], a.ds[2], a.lse, a.D, static_cast<float*>(a.dq), a.dqs[0],
-      a.dqs[1], a.dqs[2], a.Sq, a.Skv, a.kv_len, G, a.Dh, a.causal, a.window, scale);
-  return cudaGetLastError();
+  const BwdF32Params p{static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+                       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+                       a.lse, a.D, static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+                       static_cast<float*>(a.dv),
+                       a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2],
+                       a.vs[0], a.vs[1], a.vs[2], a.ds[0], a.ds[1], a.ds[2],
+                       a.dqs[0], a.dqs[1], a.dqs[2], a.dks[0], a.dks[1], a.dks[2],
+                       a.dvs[0], a.dvs[1], a.dvs[2],
+                       a.kv_len, a.Sq, a.Skv, G, a.Dh, a.causal, a.window, scale,
+                       a.ds_scratch, (G * a.Sq + 63) / 64 * 64};
+  return a.Dh <= 64    ? launch_bwd_f32_as<64>(a, p, stream)
+         : a.Dh <= 128 ? launch_bwd_f32_as<128>(a, p, stream)
+                       : launch_bwd_f32_as<256>(a, p, stream);
 }
 
 template <int kDhMax, bool kExact>
@@ -875,7 +1112,9 @@ cudaError_t launch_bwd_tc(const BwdArgs& a, float scale, cudaStream_t stream) {
 // Once per process, when the library is bound (prepare_kernels).
 extern "C" int rt_prepare_flash_bwd() {
   using namespace rt;
-  return prepare_kernels({(const void*)bwd_dkdv_kernel, (const void*)bwd_dq_kernel,
+  return prepare_kernels({(const void*)bwd_dkdv_kernel<64>, (const void*)bwd_dkdv_kernel<128>,
+                          (const void*)bwd_dkdv_kernel<256>, (const void*)bwd_dq_kernel<64>,
+                          (const void*)bwd_dq_kernel<128>, (const void*)bwd_dq_kernel<256>,
                           (const void*)bwd_dkdv_tc_kernel<64, true>,
                           (const void*)bwd_dkdv_tc_kernel<64, false>,
                           (const void*)bwd_dkdv_tc_kernel<128, true>,
@@ -893,8 +1132,8 @@ extern "C" int rt_prepare_flash_bwd() {
 
 // Plain C entry point bound with ctypes.  q, out, dout, dq: (B, Sq, Hq, Dh);
 // k, v, dk, dv: (B, Skv, Hkv, Dh), each given by its (b, s, h) strides in
-// elements with a contiguous last dim (bf16: every row on 16 bytes, and dq,
-// dk, dv contiguous); lse and D (scratch): float32 (B, Hq, Sq) contiguous;
+// elements with a contiguous last dim, every row on 16 bytes (dq, dk, dv
+// contiguous); lse and D (scratch): float32 (B, Hq, Sq) contiguous;
 // kv_len (B,) int32 or null; window < 0 = none.  Dh a multiple of 4 up to
 // 256 in float32, of 16 up to 256 in bf16 (the wrapper checks).  Returns
 // cudaGetLastError() of its launches.
@@ -904,7 +1143,7 @@ extern "C" int rt_flash_attention_bwd(
     const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     const void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
     const void* dout, int64_t d_sb, int64_t d_ss, int64_t d_sh,
-    const void* lse, void* D,
+    const void* lse, void* D, void* ds_scratch,
     void* dq, int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
     void* dk, int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
     void* dv, int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
@@ -921,10 +1160,10 @@ extern "C" int rt_flash_attention_bwd(
   const BwdArgs a{q, k, v, out, dout, qs, ks, vs, os, ds,
                   static_cast<const float*>(lse), static_cast<float*>(D), dq, dk, dv,
                   dqs, dks, dvs, B, Hq, Hkv, Sq, Skv, static_cast<const int*>(kv_len), Dh,
-                  causal, window};
+                  causal, window, static_cast<float*>(ds_scratch)};
   const float scale = rsqrtf(static_cast<float>(Dh));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!tc) return launch_bwd_f32(a, scale, s);
+  if (!tc) return ds_scratch != nullptr ? launch_bwd_f32(a, scale, s) : cudaErrorInvalidValue;
   return Dh <= 64 ? launch_bwd_tc<64>(a, scale, s)
          : Dh <= 128 ? launch_bwd_tc<128>(a, scale, s)
                      : launch_bwd_tc<256>(a, scale, s);

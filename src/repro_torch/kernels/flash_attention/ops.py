@@ -148,7 +148,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     deterministic (no atomics), routed by dtype alone as the forward is:
     bfloat16 takes the tensor-core kernels, which take ``Dh % 16 == 0`` up
     to 256; float32 the CUDA-core kernels (exact float32 products), which
-    take ``Dh % 4 == 0`` up to 256; any other head dim raises
+    take ``Dh % 4 == 0`` up to 256 and a float32 dS^T scratch of (B, Hkv,
+    Skv, G Sq rounded up to 64) for the dQ pass; any other head dim raises
     ``ValueError``.  ``flash_attention_bwd.launches`` counts its calls on
     the card, ``flash_attention_bwd.launches_tc`` those on the tensor
     cores."""
@@ -176,22 +177,25 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if Dh % step or Dh > 256:
         raise ValueError(f"the {q.dtype} flash backward takes a head dim "
                          f"that is a multiple of {step} up to 256, not {Dh}")
-    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+    q, k, v, out, dout = (_rows16(t if t.stride(-1) == 1 else t.contiguous())
                           for t in (q, k, v, out, dout))
-    if tc:
-        q, k, v, out, dout = (_rows16(t) for t in (q, k, v, out, dout))
     lse = lse.to(torch.float32).contiguous()
     kl = _kv_len_arg(kv_len, B, q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # float32: dS^T of each kv head's packed (q position, q head) rows,
+    # (B, Hkv, Skv, G Sq rounded up to 64), which the dQ pass reads
+    rows = (Hq // Hkv * Sq + 63) // 64 * 64
+    dsT = (None if tc else torch.empty((B, Hkv, Skv, rows),
+                                       dtype=torch.float32, device=q.device))
     fn = _build.kernel("rt_flash_attention_bwd",
-                       "PLLL PLLL PLLL PLLL PLLL PP PLLL PLLL PLLL "
+                       "PLLL PLLL PLLL PLLL PLLL PPP PLLL PLLL PLLL "
                        "IIIIIPIIII P")
     rc = fn(*(x for t in (q, k, v, out, dout)
               for x in (t.data_ptr(), *t.stride()[:3])),
-            lse.data_ptr(), D.data_ptr(),
+            lse.data_ptr(), D.data_ptr(), _build.ptr(dsT),
             *(x for t in (dq, dk, dv) for x in (t.data_ptr(), *t.stride()[:3])),
             B, Hq, Hkv, Sq, Skv, _build.ptr(kl), Dh, int(causal),
             -1 if window is None else int(window),
@@ -209,9 +213,10 @@ _build.count_launches(flash_attention_bwd, "launches", "launches_tc")
 
 def _rows16(t):
     """``t`` itself if every row starts on 16 bytes (a 16-byte aligned base
-    and strides that are multiples of 8 elements), as the tensor-core
-    kernel's copies need; else a contiguous copy."""
-    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1]):
+    and strides of whole 16-byte units), as the kernels' 16-byte copies
+    need; else a contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0
+                                      for s in t.stride()[:-1]):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 

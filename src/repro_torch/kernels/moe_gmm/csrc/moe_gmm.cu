@@ -49,10 +49,10 @@
 // all slower at the prefill shape (PERF.md, section 6).
 //
 // float32: gmm_kernel, plain FMAs on CUDA cores, so that products stay
-// exact float32.  Each thread keeps a 2 x 4 register tile of sums over
-// 32 x 64 output tiles, loops over D in 32-deep slices through float32
-// shared memory with 16-byte weight loads issued a slice ahead, and the
-// register budget is held to 4 blocks per SM.
+// exact float32 (each a fmaf in a fixed order).  One body serves the
+// forward and both parts of the backward (see below): 256 threads, each
+// with an 8 x 8 register tile, 16-deep slices double-buffered k-major in
+// shared memory, so that a thread reads two float4 of each operand a k.
 //
 // The backward (rt_gmm_bwd) replaces no TPU kernel: the TPU package has
 // none, JAX trains the MoE block through einsums and XLA's gradients.
@@ -96,7 +96,12 @@
 // output element is summed by one thread (or one warpgroup) in one fixed
 // order, with no atomics and no split of the reduction, so two calls are
 // bitwise equal.  float32: gmm_kernel's other two passes (kDx, kDw), exact
-// float32 products on CUDA cores.
+// float32 products on CUDA cores: 141.8 GFLOP at the training shape, 2.115
+// ms at the CUDA cores' 67 TFLOP/s, so operations, not bytes, bound it.
+// dX runs 64 x 256 tiles over the live rows (the expert slowest in the
+// grid, its 4 row tiles of one column tile next to each other, so w[e] is
+// read from device memory about once), dW 128 x 128 tiles of (D, F) over
+// the count's slots.
 #include "hopper.cuh"
 #include "tensor_core.cuh"
 #include "tile_attention.cuh"  // dtype codes, prepare_kernels
@@ -104,179 +109,295 @@
 namespace rt {
 
 // ---- float32: FMAs on CUDA cores ------------------------------------------
-// One body, three passes.  kFwd: out (E, C, F) = x @ w[e], the rows capacity
-// slots, the reduction over D.  kDx (the backward's dX): w read as it lies,
-// (E, F, D), out = x @ w[e]^T.  kDw (its dW): out (E, D, F) = x[e,
-// :count]^T @ w[e, :count] with the cotangent (E, C, F) in w's place, the
-// rows x's D columns, the reduction over the count's slots.
+// One body, three passes, each out (E, M, F) = A B over a reduction of
+// length K.  kFwd: A = x[e] (C, D), B = w[e] (D, F), the rows capacity
+// slots.  kDx (the backward's dX): A = the cotangent (E, C, D = the
+// model's F), B = w[e]^T with w read as it lies, (E, F, D).  kDw (its dW):
+// out (E, D, F) = x[e, :count]^T dy[e, :count], A = x^T, B = the cotangent
+// (E, C, F) in w's place, the reduction over the count's slots.
 enum Pass { kFwd, kDx, kDw };
 
 constexpr int kGmmThreads = 256;
-constexpr int kBC = 32;  // output rows per tile (capacity slots; kDw: columns of x)
-constexpr int kBF = 64;  // output columns per tile
-constexpr int kBK = 32;  // depth of one shared-memory slice
-constexpr int kXLoads = kBC * kBK / kGmmThreads;  // 4 x elements per thread
-constexpr int kWLoads = kBK * kBF / kGmmThreads;  // 8 w elements per thread
-// row stride of the w slice: kDx fills it down its columns, so its rows are
-// padded (by 4 floats, keeping the float4 reads aligned)
+constexpr int kGmmBK = 16;  // depth of one shared-memory slice
+
+// A block tile of kBM x kBN outputs, each thread 8 x 8 of them: rows ty *
+// 8 .. + 7 and columns tx * 4 .. + 3 and kBN / 2 + tx * 4 .. + 3, 128
+// registers, two blocks an SM.  dW: 128 x 128 tiles of (D, F), a warp 4
+// ty by 8 tx.  The passes whose rows are capacity slots: 64 rows (counts
+// run to about 192 of C 240 in training: three full tiles, where 128
+// would leave a quarter of the second one empty) by 256 columns, a warp
+// one ty by 32 tx, so that a warp whose 8 rows lie wholly past counts[e]
+// skips its products.  Slices are k-major in shared memory, [k][m] and
+// [k][n]; an operand that lies k-major in device memory (kDw's A, kFwd's
+// and kDw's B) arrives by cp.async, the others through registers, 4
+// threads a 64-byte run of a row (coalesced), and a transposing store.
+// On the H100 at the training shape, 8 x 16 thread tiles, 8-deep slices,
+// partial unrolling and one 16-byte piece a row per thread were all
+// slower (PERF.md, section 6).
 template <Pass kPass>
-constexpr int kLdW = kPass == kDx ? kBF + 4 : kBF;
-
-// One slice of a tile in flight: raw x and w values between their
-// device-memory loads and their shared-memory stores.  With kVec each
-// thread loads its 8 w values of one slice row as two 16-byte vectors (F a
-// multiple of 8, so a vector never straddles the ragged F edge); else
-// element by element.  Every pass reads along the dimension that lies
-// contiguous in memory.
-template <bool kVec, Pass kPass>
-struct Slice {
-  float x[kXLoads];
-  float4 wv[kWLoads / 4];
-  float w[kVec ? 1 : kWLoads];
-
-  // k0: the slice's first reduction index, K the reduction's length, rows
-  // the tile's valid output rows, ldx x's row stride
-  __device__ inline void load(const float* __restrict__ xe, const float* __restrict__ we,
-                              int k0, int rows, int K, int ldx, int F, int f0) {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int u = 0; u < kXLoads; ++u) {
-      const int i = tid + u * kGmmThreads;
-      if constexpr (kPass == kDw) {  // x^T: slot kk, column r
-        const int kk = i / kBC, r = i % kBC;
-        x[u] = r < rows && k0 + kk < K ? xe[(int64_t)(k0 + kk) * ldx + r] : 0.f;
-      } else {
-        const int r = i / kBK, kk = i % kBK;
-        x[u] = r < rows && k0 + kk < K ? xe[(int64_t)r * ldx + k0 + kk] : 0.f;
-      }
-    }
-    if constexpr (kPass == kDx) {  // w^T: element (kk, f) at we[f * K + kk]
-#pragma unroll
-      for (int u = 0; u < kWLoads; ++u) {
-        const int i = tid + u * kGmmThreads, kk = i % kBK, f = i / kBK;
-        w[u] = k0 + kk < K && f0 + f < F ? we[(int64_t)f * K + k0 + kk] : 0.f;
-      }
-    } else if constexpr (kVec) {
-      const int kk = tid / (kBF / kWLoads), f = (tid % (kBF / kWLoads)) * kWLoads;
-      const bool ok = k0 + kk < K && f0 + f < F;
-      const float* src = we + (int64_t)(k0 + kk) * F + f;
-#pragma unroll
-      for (int u = 0; u < kWLoads / 4; ++u)
-        wv[u] = ok ? reinterpret_cast<const float4*>(src)[u] : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-#pragma unroll
-      for (int u = 0; u < kWLoads; ++u) {
-        const int i = tid + u * kGmmThreads, kk = i / kBF, f = i % kBF;
-        w[u] = k0 + kk < K && f0 + f < F ? we[(int64_t)(k0 + kk) * F + f] : 0.f;
-      }
-    }
-  }
-
-  __device__ inline void store(float (*xs)[kBC + 1], float (*ws)[kLdW<kPass>]) const {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int u = 0; u < kXLoads; ++u) {
-      const int i = tid + u * kGmmThreads;
-      if constexpr (kPass == kDw)
-        xs[i / kBC][i % kBC] = x[u];
-      else
-        xs[i % kBK][i / kBK] = x[u];
-    }
-    if constexpr (kPass == kDx) {
-#pragma unroll
-      for (int u = 0; u < kWLoads; ++u) {
-        const int i = tid + u * kGmmThreads;
-        ws[i % kBK][i / kBK] = w[u];
-      }
-    } else if constexpr (kVec) {
-      const int kk = tid / (kBF / kWLoads), f = (tid % (kBF / kWLoads)) * kWLoads;
-#pragma unroll
-      for (int u = 0; u < kWLoads / 4; ++u)
-        *reinterpret_cast<float4*>(&ws[kk][f + 4 * u]) = wv[u];
-    } else {
-#pragma unroll
-      for (int u = 0; u < kWLoads; ++u) {
-        const int i = tid + u * kGmmThreads;
-        ws[i / kBF][i % kBF] = w[u];
-      }
-    }
-  }
+struct GmmTile {
+  static constexpr int kBM = kPass == kDw ? 128 : 64;
+  static constexpr int kBN = kPass == kDw ? 128 : 256;
+  static constexpr int kTX = kBN / 8;                 // threads across the columns
+  static constexpr int kWTX = kPass == kDw ? 8 : 32;  // a warp's threads across
+  static constexpr int kWTY = 32 / kWTX;              // ... and down
+  static constexpr int kWX = kTX / kWTX;              // warps across the columns
+  static constexpr bool kAsyncA = kPass == kDw;
+  static constexpr bool kAsyncB = kPass != kDx;
+  static constexpr int kAElems = kBM * kGmmBK / kGmmThreads;  // a thread's share of a slice
+  static constexpr int kBElems = kBN * kGmmBK / kGmmThreads;
 };
 
+// Element (kk, col) of a slice stored k-major with rows of ld floats: each
+// group of 4 rows starts 8 floats further on, so that a transposing store
+// by 8 consecutive columns x 4 row groups (a warp) hits 32 distinct banks,
+// while a read at one kk keeps its offset a compile-time constant.
+__host__ __device__ constexpr int slice_at(int kk, int col, int ld) {
+  return kk * ld + 8 * (kk >> 2) + col;
+}
+template <int ld>
+constexpr int kSliceSize = slice_at(kGmmBK, 0, ld);
+
+// kVec: D and F multiples of 4 and x, w and out on 16 bytes, so every
+// operand row and output row is a run of float4; else element loads and
+// stores.
 template <bool kVec, Pass kPass>
-__global__ void __launch_bounds__(kGmmThreads, 4) gmm_kernel(
+__global__ void __launch_bounds__(kGmmThreads, kVec ? 2 : 1) gmm_kernel(
     const float* __restrict__ x, const float* __restrict__ w, const int* __restrict__ counts,
     float* __restrict__ out, int C, int D, int F) {
-  __shared__ float xs[kBK][kBC + 1];                      // transposed x slice
-  __shared__ __align__(16) float ws[kBK][kLdW<kPass>];    // w slice
-  const int e = blockIdx.x, c0 = blockIdx.y * kBC, f0 = blockIdx.z * kBF;
-  const int tid = threadIdx.x;
+  using T = GmmTile<kPass>;
+  constexpr int kBM = T::kBM, kBN = T::kBN;
+  constexpr int kSA = kSliceSize<kBM>, kSB = kSliceSize<kBN>;
+  constexpr bool kAsyncA = kVec && T::kAsyncA, kAsyncB = kVec && T::kAsyncB;
+  __shared__ __align__(16) float a_sm[2 * kSA];  // two stages of [kGmmBK][kBM]
+  __shared__ __align__(16) float b_sm[2 * kSB];  // two stages of [kGmmBK][kBN]
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN, e = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int count = min(max(counts[e], 0), C);
-  const int M = kPass == kDw ? D : C;                     // output rows
+  const int M = kPass == kDw ? D : C;  // output rows
   float* o = out + (int64_t)e * M * F;
-  if (kPass == kDw ? count == 0 : c0 >= count) {  // an empty tile: zeros, and no weight is loaded
-    for (int i = tid; i < kBC * kBF; i += kGmmThreads) {
-      const int r = c0 + i / kBF, f = f0 + i % kBF;
+  if (kPass == kDw ? count == 0 : m0 >= count) {  // an empty tile: zeros, and no weight is loaded
+    for (int i = tid; i < kBM * kBN; i += kGmmThreads) {
+      const int r = m0 + i / kBN, f = n0 + i % kBN;
       if (r < M && f < F) o[(int64_t)r * F + f] = 0.f;
     }
     return;
   }
-  const int K = kPass == kDw ? count : D;                 // the reduction's length
-  const float* xe = kPass == kDw ? x + (int64_t)e * C * D + c0 : x + ((int64_t)e * C + c0) * D;
-  const float* we = kPass == kDx ? w + ((int64_t)e * F + f0) * D
-                                 : w + (int64_t)e * (kPass == kDw ? C : D) * F + f0;
-  const int rows = min(kBC, (kPass == kDw ? D : count) - c0);  // valid rows of this tile
-  const int tx = tid & 15, ty = tid >> 4;        // columns tx*4.., rows ty*2..
-  const bool busy = ty * 2 < rows;
-  float acc[2][4] = {};
+  const int K = kPass == kDw ? count : D;                      // the reduction's length
+  const int rows = min(kBM, (kPass == kDw ? D : count) - m0);  // rows of A to read
+  const int cols = min(kBN, F - n0);
+  // A(m, k) = xa[m * D + k] (kFwd, kDx) or xa[k * D + m] (kDw); B(k, n) =
+  // wb[k * F + n] (kFwd, kDw) or wb[n * D + k] (kDx)
+  const float* xa = kPass == kDw ? x + (int64_t)e * C * D + m0 : x + ((int64_t)e * C + m0) * D;
+  const float* wb = kPass == kDx ? w + ((int64_t)e * F + n0) * D
+                                 : w + (int64_t)e * (kPass == kDw ? C : D) * F + n0;
+  const int wy = warp / T::kWX;
+  const int ty = wy * T::kWTY + lane / T::kWTX, tx = (warp % T::kWX) * T::kWTX + lane % T::kWTX;
+  const bool busy = wy * T::kWTY * 8 < rows;  // warps wholly past counts[e] skip the products
 
-  Slice<kVec, kPass> slice;
-  slice.load(xe, we, 0, rows, K, D, F, f0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    slice.store(xs, ws);
-    __syncthreads();
-    // the next slice's loads are in flight while this one is multiplied
-    if (k0 + kBK < K) slice.load(xe, we, k0 + kBK, rows, K, D, F, f0);
-    if (busy) {
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float a0 = xs[kk][ty * 2], a1 = xs[kk][ty * 2 + 1];
-        const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-        acc[0][0] = fmaf(a0, b.x, acc[0][0]);
-        acc[0][1] = fmaf(a0, b.y, acc[0][1]);
-        acc[0][2] = fmaf(a0, b.z, acc[0][2]);
-        acc[0][3] = fmaf(a0, b.w, acc[0][3]);
-        acc[1][0] = fmaf(a1, b.x, acc[1][0]);
-        acc[1][1] = fmaf(a1, b.y, acc[1][1]);
-        acc[1][2] = fmaf(a1, b.z, acc[1][2]);
-        acc[1][3] = fmaf(a1, b.w, acc[1][3]);
+  // The next slice between its loads and its shared-memory stores: for an
+  // operand that lies k-contiguous, float4 runs along k, 4 threads a row
+  // (kVec), or elements, 16 threads a row; else elements along m or n.
+  constexpr int kQ = kGmmBK / 4;  // float4 runs of a row in a slice
+  constexpr int kAChunks = kBM * kQ, kBChunks = kBN * kQ;
+  constexpr int kACopies = (kAChunks + kGmmThreads - 1) / kGmmThreads;  // a thread's chunks
+  constexpr int kBCopies = (kBChunks + kGmmThreads - 1) / kGmmThreads;
+  constexpr int kAV = kVec && !T::kAsyncA ? kACopies : 1;
+  constexpr int kBV = kVec && !T::kAsyncB ? kBCopies : 1;
+  float4 av[kAV], bv[kBV];
+  float ae[kVec ? 1 : T::kAElems], be[kVec ? 1 : T::kBElems];
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  // element u of a thread's share: (row along m or n, kk)
+  auto elem = [&](int u, bool k_contiguous, int width, int& rc, int& kk) {
+    const int c = tid + u * kGmmThreads;
+    if (k_contiguous) {
+      rc = c / kGmmBK, kk = c % kGmmBK;
+    } else {
+      rc = c % width, kk = c / width;
+    }
+  };
+
+  // slice k0 into stage st: the cp.async parts now, the rest into registers
+  auto fetch = [&](int k0, int st) {
+    if constexpr (kAsyncA) {  // A^T rows: chunk (kk, mq)
+#pragma unroll
+      for (int u = 0; u < kACopies; ++u) {
+        const int c = tid + u * kGmmThreads, kk = c / (kBM / 4), mq = (c % (kBM / 4)) * 4;
+        const bool ok = c < kAChunks && k0 + kk < K && mq < rows;
+        if (c < kAChunks)  // nothing read from an invalid chunk's address
+          cp_async16(a_sm + st * kSA + slice_at(kk, mq, kBM),
+                     xa + (ok ? (int64_t)(k0 + kk) * D + mq : 0), ok);
+      }
+    } else if constexpr (kVec) {  // A rows along k: chunk (m, kq)
+#pragma unroll
+      for (int u = 0; u < kAV; ++u) {
+        const int c = tid + u * kGmmThreads, m = c / kQ, kq = (c % kQ) * 4;
+        av[u] = c < kAChunks && m < rows && k0 + kq < K
+                    ? *reinterpret_cast<const float4*>(xa + (int64_t)m * D + k0 + kq)
+                    : zero4;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < T::kAElems; ++u) {
+        int m, kk;
+        elem(u, kPass != kDw, kBM, m, kk);
+        const int64_t at = kPass == kDw ? (int64_t)(k0 + kk) * D + m : (int64_t)m * D + k0 + kk;
+        ae[u] = m < rows && k0 + kk < K ? xa[at] : 0.f;
       }
     }
-    __syncthreads();
+    if constexpr (kAsyncB) {  // B rows: chunk (kk, nq)
+#pragma unroll
+      for (int u = 0; u < kBCopies; ++u) {
+        const int c = tid + u * kGmmThreads, kk = c / (kBN / 4), nq = (c % (kBN / 4)) * 4;
+        const bool ok = c < kBChunks && k0 + kk < K && nq < cols;
+        if (c < kBChunks)
+          cp_async16(b_sm + st * kSB + slice_at(kk, nq, kBN),
+                     wb + (ok ? (int64_t)(k0 + kk) * F + nq : 0), ok);
+      }
+    } else if constexpr (kVec) {  // B^T rows along k: chunk (n, kq)
+#pragma unroll
+      for (int u = 0; u < kBV; ++u) {
+        const int c = tid + u * kGmmThreads, n = c / kQ, kq = (c % kQ) * 4;
+        bv[u] = c < kBChunks && n < cols && k0 + kq < K
+                    ? *reinterpret_cast<const float4*>(wb + (int64_t)n * D + k0 + kq)
+                    : zero4;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < T::kBElems; ++u) {
+        int n, kk;
+        elem(u, kPass == kDx, kBN, n, kk);
+        const int64_t at = kPass == kDx ? (int64_t)n * D + k0 + kk : (int64_t)(k0 + kk) * F + n;
+        be[u] = n < cols && k0 + kk < K ? wb[at] : 0.f;
+      }
+    }
+  };
+  // the register parts of the slice into stage st
+  auto store = [&](int st) {
+    if constexpr (!kAsyncA) {
+      float* as = a_sm + st * kSA;
+      if constexpr (kVec) {
+#pragma unroll
+        for (int u = 0; u < kAV; ++u) {
+          const int c = tid + u * kGmmThreads, m = c / kQ, kq = (c % kQ) * 4;
+          if (c >= kAChunks) break;
+          as[slice_at(kq, m, kBM)] = av[u].x;
+          as[slice_at(kq + 1, m, kBM)] = av[u].y;
+          as[slice_at(kq + 2, m, kBM)] = av[u].z;
+          as[slice_at(kq + 3, m, kBM)] = av[u].w;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < T::kAElems; ++u) {
+          int m, kk;
+          elem(u, kPass != kDw, kBM, m, kk);
+          as[slice_at(kk, m, kBM)] = ae[u];
+        }
+      }
+    }
+    if constexpr (!kAsyncB) {
+      float* bs = b_sm + st * kSB;
+      if constexpr (kVec) {
+#pragma unroll
+        for (int u = 0; u < kBV; ++u) {
+          const int c = tid + u * kGmmThreads, n = c / kQ, kq = (c % kQ) * 4;
+          if (c >= kBChunks) break;
+          bs[slice_at(kq, n, kBN)] = bv[u].x;
+          bs[slice_at(kq + 1, n, kBN)] = bv[u].y;
+          bs[slice_at(kq + 2, n, kBN)] = bv[u].z;
+          bs[slice_at(kq + 3, n, kBN)] = bv[u].w;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < T::kBElems; ++u) {
+          int n, kk;
+          elem(u, kPass == kDx, kBN, n, kk);
+          bs[slice_at(kk, n, kBN)] = be[u];
+        }
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int n_k = (K + kGmmBK - 1) / kGmmBK;
+  if (n_k > 0) {
+    fetch(0, 0);
+    store(0);
   }
+  cp_async_commit();
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait<0>();  // slice kt landed
+    __syncthreads();     // ... for every thread; slice kt - 1 is consumed
+    const bool more = kt + 1 < n_k;
+    if (more) fetch((kt + 1) * kGmmBK, st ^ 1);
+    cp_async_commit();
+    if (busy) {
+      const float* at = a_sm + st * kSA + ty * 8;
+      const float* bt = b_sm + st * kSB + tx * 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = c0 + ty * 2 + i;
+      for (int kk = 0; kk < kGmmBK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(at + slice_at(kk, 0, kBM));
+        const float4 a1 = *reinterpret_cast<const float4*>(at + slice_at(kk, 4, kBM));
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float4 b0 = *reinterpret_cast<const float4*>(bt + slice_at(kk, 0, kBN));
+        const float4 b1 = *reinterpret_cast<const float4*>(bt + slice_at(kk, kBN / 2, kBN));
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    if (more) store(st ^ 1);  // after the products: the loads had them to land
+  }
+  cp_async_wait<0>();
+
+  // rows past counts[e] (kFwd, kDx) are written as exact zeros
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + ty * 8 + i;
     if (r >= M) continue;
+    const bool live = kPass == kDw || r < count;
+    float* orow = o + (int64_t)r * F + n0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = f0 + tx * 4 + j;
-      if (f < F) o[(int64_t)r * F + f] = kPass == kDw || r < count ? acc[i][j] : 0.f;
+    for (int g = 0; g < 2; ++g) {
+      const int c = tx * 4 + g * (kBN / 2);
+      const float4 v = live ? make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                                          acc[i][4 * g + 3])
+                            : zero4;
+      if constexpr (kVec) {
+        if (c < cols) *reinterpret_cast<float4*>(orow + c) = v;
+      } else {
+        if (c < cols) orow[c] = v.x;
+        if (c + 1 < cols) orow[c + 1] = v.y;
+        if (c + 2 < cols) orow[c + 2] = v.z;
+        if (c + 3 < cols) orow[c + 3] = v.w;
+      }
     }
   }
 }
 
 // out (E, M, F) with M = D for kDw, else C; for kDx the arguments are the
-// kernel's own: x the cotangent (E, C, D = the model's F), w (E, F, D)
+// kernel's own: x the cotangent (E, C, D = the model's F), w (E, F, D).
+// The grid walks an expert's tiles together, the expert slowest and the
+// row tiles fastest: an expert's w (kFwd, kDx) or its x and cotangent
+// slots (kDw) stay in L2 while its other tiles read them.
 template <Pass kPass>
 cudaError_t launch_gmm_f32(const void* x, const void* w, const int* counts, void* out, int E,
                            int C, int D, int F, cudaStream_t stream) {
+  using T = GmmTile<kPass>;
   const int M = kPass == kDw ? D : C;
-  const dim3 grid(E, (M + kBC - 1) / kBC, (F + kBF - 1) / kBF);
-  auto kernel = gmm_kernel<false, kPass>;
-  // 16-byte row vectors need F % 8 == 0 and a 16-byte aligned base
-  if constexpr (kPass != kDx)
-    if (F % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) kernel = gmm_kernel<true, kPass>;
+  const dim3 grid((M + T::kBM - 1) / T::kBM, (F + T::kBN - 1) / T::kBN, E);
+  const bool vec = D % 4 == 0 && F % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  auto kernel = vec ? gmm_kernel<true, kPass> : gmm_kernel<false, kPass>;
   kernel<<<grid, kGmmThreads, 0, stream>>>(static_cast<const float*>(x),
                                            static_cast<const float*>(w), counts,
                                            static_cast<float*>(out), C, D, F);
@@ -965,7 +1086,8 @@ extern "C" int rt_prepare_gmm() {
   using namespace rt;
   return prepare_kernels(
       {(const void*)gmm_kernel<true, kFwd>, (const void*)gmm_kernel<false, kFwd>,
-       (const void*)gmm_kernel<false, kDx>, (const void*)gmm_kernel<true, kDw>,
+       (const void*)gmm_kernel<true, kDx>, (const void*)gmm_kernel<false, kDx>,
+       (const void*)gmm_kernel<true, kDw>,
        (const void*)gmm_kernel<false, kDw>, (const void*)gmm_tc_kernel<TcNarrow, true>,
        (const void*)gmm_tc_kernel<TcNarrow, false>, (const void*)gmm_tc_kernel<TcMedium, true>,
        (const void*)gmm_tc_kernel<TcMedium, false>, (const void*)gmm_tc_kernel<TcWide, true>,

@@ -16,7 +16,9 @@ D and F off every tile and D or F not a multiple of 8 (the element-wise
 loads), and a training shape of deepseek-moe-16b's widths; for the
 ``wgmma`` route, counts at its m64 and 64-slot slice edges at C 240, F
 1400 (a ragged K for dX, a ragged N for dW), and x, w or dy views offset
-by one element, which take the element route.  Tolerances: bf16 rel <
+by one element, which take the element route; for the float32 route,
+counts at its 64-row tile's edges, D and F off its tiles and not
+multiples of 4 or 8, and operands offset by one element.  Tolerances: bf16 rel <
 2e-2 (max abs error over the largest entry; output rounding), float32
 rel < 1e-4 (sums in another order).  Rows of dx past counts and the dw
 of an expert with no token are exact zeros, each part is computed only
@@ -50,6 +52,14 @@ CASES = {
     "wgmma_edges": (10, 240, 256, 320,
                     [63, 64, 65, 127, 128, 129, 191, 192, 239, 240]),
     "f_1400": (4, 240, 256, 1400, [240, 100, 0, 177]),
+    # the float32 route's tiles: counts at its 64-row dX tile's edges, D
+    # and F off its 128 (dW) and 256 (dX) tiles, D or F not a multiple of
+    # 4 or 8 (element loads below 4)
+    "f32_count_edges": (8, 240, 256, 320,
+                        [63, 64, 65, 127, 128, 129, 239, 240]),
+    "f32_off_tiles": (4, 200, 264, 200, [1, 199, 200, 0]),
+    "f32_not_mult_4": (3, 70, 102, 66, [70, 5, 64]),
+    "f32_f_not_mult_8": (3, 96, 132, 60, [96, 33, 0]),
 }
 
 
@@ -172,6 +182,23 @@ def test_route_by_shape(dev, which):
     assert not dx[pad].any() and not dw[cnt == 0].any()
     for got, ref in zip((dx, dw), want):
         assert _rel(got, ref) < TOL[torch.bfloat16], _rel(got, ref)
+
+
+@pytest.mark.parametrize("which", ["x", "w", "dy"])
+def test_float32_unaligned_operands(dev, which):
+    """float32 with an x, w or dy offset by one element (4 bytes: no
+    16-byte rows) takes the kernel's element loads and still matches the
+    plain version, its padding rows and empty experts exact zeros."""
+    x, w, cnt, dy = _inputs(dev, "deepseek_down", torch.float32, seed=5)
+    args = {"x": x, "w": w, "dy": dy}
+    args[which] = _offset(args[which], 1)
+    dx, dw = gops.gmm_bwd(args["x"], args["w"], cnt, args["dy"])
+    want = gmm_bwd_ref(x, w, cnt, dy)
+    torch.cuda.synchronize()
+    pad = torch.arange(x.shape[1], device=dev)[None] >= cnt[:, None]
+    assert not dx[pad].any() and not dw[cnt == 0].any()
+    for got, ref in zip((dx, dw), want):
+        assert _rel(got, ref) < TOL[torch.float32], _rel(got, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -569,6 +569,10 @@ GMM = [
     # ... and of its 16-row tile at C <= 16
     (5, 16, 512, 384, [0, 1, 15, 16, 9]),
     (4, 300, 100, 44, [0, 127, 129, 300]),  # element-wise loads, 128-row tile
+    # the float32 kernel's 64-row tiles at C 240 and deepseek's widths, and
+    # D, F not multiples of 4 (its element loads)
+    (4, 240, 2048, 1408, [63, 64, 65, 240]),
+    (3, 70, 102, 66, [70, 5, 64]),
 ]
 
 

@@ -13,7 +13,8 @@ float32: the CUDA-core kernels), under every mask the forward takes:
 causal (also at an Sq and Skv that no tile size divides), a sliding
 window (also one that crosses several q tiles), bidirectional with a
 key-length mask, cross-attention (Sq below and above Skv), GQA 4, head
-dims 32 to 256.  Tolerances: rel < 1e-4 in float32 (sums over up to G x
+dims 32 to 256; float32 also at its tiles' edges (lengths 63, 64, 65 and
+129, head dims 36, 72, 80 and 192, G 12), two calls bitwise equal.  Tolerances: rel < 1e-4 in float32 (sums over up to G x
 Sq terms in another order), 2e-2 in bf16 (the kernels round P, dS and
 their outputs to bf16; the plain version stays float32).
 The forward's LSE is held to the plain version's at 1e-5 (float32) and
@@ -60,6 +61,26 @@ CASES = {
     "window_wide": (1, 300, 300, 4, 2, 128, True, 100, None),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# float32 cases at the CUDA-core kernels' tile edges: 64 resident keys a
+# dK/dV block (32 past Dh 128), 32 packed rows a step, 64 packed rows a dQ
+# block; head dims below their class's largest (36, 72, 80 of 128; 192 of
+# 256, whose blocks hold 32 keys); G 12
+F32_EDGES = {
+    "s63": (1, 63, 63, 8, 2, 128, True, None, None),
+    "s64": (1, 64, 64, 8, 2, 128, True, None, None),
+    "s65": (2, 65, 65, 8, 2, 128, True, None, None),
+    "s129": (1, 129, 129, 4, 1, 128, True, None, None),
+    "sq65_skv129": (1, 65, 129, 8, 2, 64, True, None, None),
+    "sq129_skv63_kv_len": (2, 129, 63, 4, 2, 64, False, None, (63, 40)),
+    "window_s129": (1, 129, 129, 4, 2, 128, True, 65, None),
+    "dh36": (2, 65, 65, 4, 2, 36, True, None, None),
+    "dh72": (1, 129, 129, 4, 1, 72, True, None, None),
+    "dh80_kv_len": (2, 64, 64, 4, 4, 80, False, None, (64, 63)),
+    "dh192": (1, 65, 65, 4, 2, 192, True, None, None),
+    "dh192_s129": (1, 129, 129, 2, 1, 192, True, None, None),
+    "g12": (1, 64, 64, 12, 1, 64, True, None, None),
+    "g12_dh128_s129": (1, 129, 129, 24, 2, 128, True, None, None),
+}
 
 
 @pytest.fixture
@@ -74,8 +95,8 @@ def _rel(a, b):
                  / (b.float().abs().max() + 1e-9))
 
 
-def _inputs(dev, case, dtype, seed=0):
-    B, Sq, Skv, Hq, Hkv, Dh, causal, window, kv_len = CASES[case]
+def _inputs(dev, case, dtype, seed=0, cases=CASES):
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window, kv_len = cases[case]
     rng = np.random.default_rng(seed)
 
     def t(*shape):
@@ -115,6 +136,28 @@ def test_backward_kernel_matches_plain(dev, case, dtype):
         assert g.shape == x.shape and g.dtype == x.dtype
         err = _rel(g, w.transpose(1, 2))
         assert err < TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("case", sorted(F32_EDGES))
+def test_float32_backward_at_tile_edges(dev, case):
+    """The float32 route (``bwd_dkdv_kernel``, then ``bwd_dq_kernel`` over
+    the dS^T it stored) at its tiles' edges: lengths one below, at and one
+    above 64, 129, Sq != Skv both ways, a window, head dims 36 to 192 and
+    G 12.  Within 1e-4 of the plain version, two calls bitwise equal, no
+    launch on the tensor cores."""
+    q, k, v, dout, mask = _inputs(dev, case, torch.float32, cases=F32_EDGES)
+    out, lse = fops._flash_forward(q, k, v, mask["causal"], mask["window"],
+                                   mask["kv_len"], True)
+    tc0 = fops.flash_attention_bwd.launches_tc
+    got = fops.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    again = fops.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    torch.cuda.synchronize()
+    assert fops.flash_attention_bwd.launches_tc == tc0
+    want = flash_attention_bwd_ref(*_bhsd(q, k, v, out, dout), lse, **mask)
+    for name, g, w, a in zip("qkv", got, want, again):
+        assert torch.equal(g, a), name
+        err = _rel(g, w.transpose(1, 2))
+        assert err < TOL[torch.float32], (name, err)
 
 
 def test_backward_kernel_is_deterministic(dev):
