@@ -118,11 +118,13 @@ train steps of mamba2-2.7b and zamba2-2.7b through the SSD scan's backward.
 Phase 3 also holds the SSD scan's backward kernels
 (``csrc/ssd_scan_bwd.cu``) against ``ssd_bwd_ref`` at mamba2's and
 zamba2's training microbatch (B 4, S 512, H 80, P 64, state 128 and 64,
-bf16 x, B and C: the tensor-core route) and at smoke shapes (two groups,
-two P tiles, masks, an initial state, the bf16 route's span boundaries;
-bf16 and float32), checks two calls bitwise equal and times both training
-shapes (rows ``ssd_scan_bwd`` and ``ssd_scan_bwd_zamba2``) and the
-float32 CUDA-core route at mamba2's (row ``ssd_scan_bwd_f32``).  Phases
+bf16 x, B and C: the tensor-core route; float32: the CUDA-core route)
+and at smoke shapes (two groups, two P tiles, masks, an initial state,
+both routes' span boundaries; bf16 and float32), checks two calls bitwise
+equal in both dtypes and times both training shapes (rows
+``ssd_scan_bwd`` and ``ssd_scan_bwd_zamba2``) and the float32 CUDA-core
+route at both (rows ``ssd_scan_bwd_f32`` and ``ssd_scan_bwd_f32_zamba2``,
+each with the kernels of one profiled call).  Phases
 14 and 14b train full-width mamba2-2.7b (64 layers, 6 steps) and
 zamba2-2.7b (54 layers and the shared block, 4 steps) as phase 13 trains
 qwen3-4b: every Mamba layer launches the scan twice a microbatch (forward
@@ -1072,6 +1074,9 @@ def check_ssd(dev, gen, hold):
 # the training microbatch of mamba2-2.7b and zamba2-2.7b: one of the global
 # batch 8 at seq 512 under the configs' microbatch 2
 SSD_TRAIN = [("ssd_scan_bwd", SSD_N), ("ssd_scan_bwd_zamba2", ZAMBA_N)]
+#: rows 6f and 6f': the float32 route at the same shapes
+SSD_TRAIN_F32 = [("ssd_scan_bwd_f32", SSD_N),
+                 ("ssd_scan_bwd_f32_zamba2", ZAMBA_N)]
 
 
 def ssd_bwd_case(gen, dev, Bb, S, H, P, G, N, dtype, *, lens=None,
@@ -1099,10 +1104,12 @@ def check_ssd_bwd(dev, gen, hold):
     dim of 80 (two P tiles), ragged masks and a fully masked row, an
     initial state and the final state's cotangent: in bf16 (the
     tensor-core route, across its span boundaries) and in float32 (the
-    CUDA-core route, row ``ssd_scan_bwd_f32``).  Float32 gradients within
-    1e-4 relative, bf16 ones (dx, dB, dC of bf16 inputs) 1e-2, dA_log 1e-5
-    of its summands' scale (``ssd_dA_log_scale``: its terms cancel); two
-    calls at the training shape bitwise equal."""
+    CUDA-core route, row ``ssd_scan_bwd_f32``, across its span boundaries
+    too: S 144 is two spans of ``BWD_SPAN_F32`` sub-chunks and one of a
+    single sub-chunk).  Float32 gradients within 1e-4 relative, bf16 ones
+    (dx, dB, dC of bf16 inputs) 1e-2, dA_log 1e-5 of its summands' scale
+    (``ssd_dA_log_scale``: its terms cancel); two calls at the training
+    shape bitwise equal, in bf16 and in float32."""
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
     from repro_torch.kernels.ssd_scan.ref import (
         ssd_bwd_ref,
@@ -1115,15 +1122,19 @@ def check_ssd_bwd(dev, gen, hold):
         ("ssd_scan_bwd", (2, 144, 4, 80, 2, SSD_N, bf16),
          dict(lens=(144, 61), init=True, dfin=True)),
         ("ssd_scan_bwd_zamba2", (2, 80, 8, SSD_P, 1, ZAMBA_N, bf16),
-         dict(lens=(80, 0), init=True, dfin=True)),
-        ("ssd_scan_bwd_f32", (TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, SSD_N,
-                              torch.float32), {}),
+         dict(lens=(80, 0), init=True, dfin=True))] + [
+        (name, (TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1, n, torch.float32), {})
+        for name, n in SSD_TRAIN_F32] + [
         ("ssd_scan_bwd_f32", (2, 64, 4, 64, 2, SSD_N, torch.float32),
          dict(lens=(64, 0), init=True, dfin=True)),
-        ("ssd_scan_bwd_f32", (2, 96, 4, 80, 2, ZAMBA_N, torch.float32),
+        ("ssd_scan_bwd_f32_zamba2", (2, 96, 4, 80, 2, ZAMBA_N,
+                                     torch.float32),
          dict(lens=(96, 41), dfin=True)),
-        ("ssd_scan_bwd_f32", (1, 128, 8, SSD_P, 1, ZAMBA_N, torch.float32),
-         dict(init=True, dfin=True))]
+        ("ssd_scan_bwd_f32_zamba2", (1, 128, 8, SSD_P, 1, ZAMBA_N,
+                                     torch.float32),
+         dict(init=True, dfin=True)),
+        ("ssd_scan_bwd_f32", (2, 144, 4, 80, 2, SSD_N, torch.float32),
+         dict(lens=(144, 61), init=True, dfin=True))]
     for name, (Bb, S, H, P, G, N, dt), kw in cases:
         args, call = ssd_bwd_case(gen, dev, Bb, S, H, P, G, N, dt, **kw)
         with torch.no_grad():
@@ -1150,11 +1161,11 @@ def check_ssd_bwd(dev, gen, hold):
         log(f"  {name:24s} max abs err " + ", ".join(
             f"{part} {float((g.float() - w.float()).abs().max()):.3e}"
             for part, g, w in zip(names, got, want)))
-        if (Bb, S) == (TRAIN_B, TRAIN_S) and dt == bf16:
+        if (Bb, S) == (TRAIN_B, TRAIN_S):
             again = ssd_bwd(*args, states=states, **call)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: two calls differ")
-            log(f"  {name:24s} two calls bitwise equal: ok")
+            log(f"  {name:24s} {str(dt)[6:]} two calls bitwise equal: ok")
 
 
 def ssd_bwd_work(Bb, S, H, P, G, N, K, *, esize=2, tc=True):
@@ -1184,18 +1195,19 @@ def time_ssd_bwd(dev, gen, flush, kernels) -> None:
     microbatch (B 4, S 512, H 80, P 64, N 128 and 64, bf16 x, B and C,
     float32 dy, no mask: what phases 14 and 14b launch, the tensor-core
     route), from the states of the forward's training launch, beside its
-    plain version; row 6f: the float32 route at mamba2's shape (what phase
-    13b's float32 steps take).  No single PyTorch call computes it
-    (library: none).  The bound counts the tensor-core route's TF32 passes
-    at 495 TFLOP/s (the float32 route: its products at the float32
-    CUDA-core peak; logged beside rows 6d and 6e too).  Also the forward
-    as training runs it (a checkpoint every 16 steps, the states the
-    backward reads)."""
+    plain version; rows 6f and 6f': the float32 route at mamba2's and
+    zamba2's shapes (what phase 13b's float32 steps take), each with its
+    share of the bound and the kernels of one profiled call (adjoint,
+    span, sums).  No single PyTorch call computes it (library: none).  The
+    bound counts the tensor-core route's TF32 passes at 495 TFLOP/s (the
+    float32 route: its products at the float32 CUDA-core peak; logged
+    beside rows 6d and 6e too).  Also the forward as training runs it (a
+    checkpoint every 16 steps, the states the backward reads)."""
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
-    rows = SSD_TRAIN + [("ssd_scan_bwd_f32", SSD_N)]
+    rows = SSD_TRAIN + SSD_TRAIN_F32
     for name, N in rows:
-        tc = name != "ssd_scan_bwd_f32"
+        tc = (name, N) not in SSD_TRAIN_F32
         dt = torch.bfloat16 if tc else torch.float32
         args, call = ssd_bwd_case(gen, dev, TRAIN_B, TRAIN_S, SSD_H, SSD_P, 1,
                                   N, dt)
@@ -1223,6 +1235,11 @@ def time_ssd_bwd(dev, gen, flush, kernels) -> None:
             f"{rep['bound_ms'] / rep['ms']:.3f} of the bound; the training "
             f"forward with its states {fwd:.4f} ms")
         kernels[name].update(rep)
+        if not tc:
+            _, split = profile_step(
+                lambda: ssd_bwd(*args, states=states, **call), cpu=False)[:2]
+            log(f"  {name} kernels of one call: " + ", ".join(
+                f"{k_[:40]} {t * 1e3:.4f} ms" for k_, t, _ in split))
 
 
 #: seed of the grouped GEMM backward's phase-3 inputs
@@ -4940,7 +4957,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     log(f"[13b] float32 smoke train steps: card xent {card_x}, CPU "
         f"{cpu_x}, worst rel {worst:.2e} (tol 1e-5); backward launches "
         f"{launches}")
-    ssm_rel, ssd_f32 = {}, 0
+    ssm_rel, ssd_f32 = {}, {}
     for arch in ("mamba2-2.7b", "zamba2-2.7b"):
         f32 = smoke_config(get_arch(arch)).replace(dtype="float32")
         reset_counters((ssd_bwd,))
@@ -4950,7 +4967,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
             raise AssertionError(f"[13b] {arch}: no SSD backward launch")
         expect(f"[13b] {arch} float32 SSD backward launches on the tensor "
                "cores", ssd_bwd.launches_tc, 0)
-        ssd_f32 += n_bwd
+        ssd_f32[arch] = n_bwd
         cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True)
         ssm_rel[arch] = max(abs(a - b) / abs(b) for a, b in zip(card_x,
                                                                  cpu_x))
@@ -4984,7 +5001,8 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
             "moe_f32_rel": moe_rel,
             "launches": {
                 "flash_attention_bwd_f32": launches["flash_attention_bwd"],
-                "ssd_scan_bwd_f32": ssd_f32,
+                "ssd_scan_bwd_f32": ssd_f32["mamba2-2.7b"],
+                "ssd_scan_bwd_f32_zamba2": ssd_f32["zamba2-2.7b"],
                 "gmm_bwd_f32": gmm_f32["gmm_bwd"]}}
 
 
@@ -5079,6 +5097,7 @@ KERNELS = {
     # through jax.grad of the plain ssd_chunked): the bf16 tensor-core
     # route at mamba2's training microbatch (phase 14) and zamba2's (phase
     # 14b), the float32 CUDA-core route on phase 13b's float32 steps
+    # (mamba2's at N 128, zamba2's at N 64)
     "ssd_scan_bwd": {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
@@ -5091,6 +5110,10 @@ KERNELS = {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
         "path": "13b", "count": "ssd_scan_bwd_f32"},
+    "ssd_scan_bwd_f32_zamba2": {
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
+        "path": "13b", "count": "ssd_scan_bwd_f32_zamba2"},
     # the backward of the grouped GEMM (the TPU package has none: JAX
     # trains the MoE block through einsums and XLA's gradients): dX and dW
     # of the bf16 wgmma route at deepseek-moe-16b's training shape (phase

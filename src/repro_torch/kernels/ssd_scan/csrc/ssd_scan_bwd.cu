@@ -46,6 +46,15 @@
 // and the blocks in a fixed order.  No atomics: two calls are bitwise
 // equal.  A step with dt' = 0 gives dx, ddt and dB exactly 0.
 //
+// Both routes are chunk-parallel, in three launches.  Only H carries from
+// one sub-chunk to the one before it, and H_{c-1} = exp(cs_T) H_c + U_c
+// needs no other output of sub-chunk c, so the serial part is small: an
+// adjoint kernel walks each row from the last step with H in registers
+// and writes H at the end of every span of R sub-chunks (and the initial
+// state's gradient); a span kernel, one block per (span, P tile, head,
+// row), walks its span's sub-chunks from the last, from that H; then
+// ssd_scan_bwd_sum_kernel, the fixed-order sums.
+//
 // What bounds it on the H100.  At that microbatch (x, B and C in bf16)
 // the call must read x, dt, B, C, dy and the states (0.40 GB) and write
 // dx, ddt, dB and dC (0.02 GB): 0.126 ms at 3.35 TB/s.  Its products are
@@ -53,19 +62,17 @@
 // GFLOP: 0.176 ms at the float32 CUDA-core peak of 67 TFLOP/s, or, counted
 // in the TF32 passes of the bf16 route below (3 for a product of two
 // float32 operands, 2 for a float32 one with a bf16 one), 26.5 GFLOP: 0.054
-// ms at 495 TFLOP/s.  So on the tensor cores the bytes bound it.
+// ms at 495 TFLOP/s.  So on the tensor cores the bytes bound it, on CUDA
+// cores the operations.
 //
-// The bf16 route (x, B and C in bf16): chunk-parallel, on the tensor
-// cores, in three launches.  Only H carries from one sub-chunk to the
-// one before it, and H_{c-1} = exp(cs_T) H_c + U_c needs no other output
-// of sub-chunk c, so the serial part is small:
+// The bf16 route (x, B and C in bf16), on the tensor cores, spans of R =
+// ops.BWD_SPAN (8) sub-chunks:
 //   - kernel A (ssd_bwd_adjoint_kernel), one block of 8 warps per (P tile
 //     of 64, N tile of up to 64, head, row), walks the row from the last
 //     step in pieces of 64 steps with H in mma.sync accumulator registers
 //     (16 rows of P and half the tile's columns a warp), adds U of the
 //     whole piece as one product (k = 64) on the tensor cores, and writes H
-//     at the end of every span of R sub-chunks (ops.BWD_SPAN, 8: 128 steps)
-//     and the initial state's gradient;
+//     at the end of every span;
 //   - kernel B (ssd_bwd_span_kernel), one block of 8 warps per (span, P
 //     tile, head, row): from that H it walks the span's sub-chunks from
 //     the last, with H and h0 in shared memory and h0 of the next
@@ -73,8 +80,7 @@
 //     for N <= 64, three blocks an SM, its x, dy, B and C too), every
 //     product above in m16n8k8 TF32 (Z, W, V, the step pairs, then dB, dC
 //     and dx' from the pairs, and U for the next H), the pairs' part of
-//     da_k by all threads and the rest on warp 0;
-//   - ssd_scan_bwd_sum_kernel, the fixed-order sums.
+//     da_k by all threads and the rest on warp 0.
 // Split precision: a float32 operand (dy, h0, H, the pairs under L, the
 // rows scaled by exp(cs)) is split into hi + lo, both TF32, and the
 // product is hi hi + hi lo + lo hi (lo lo is below float32's rounding);
@@ -83,13 +89,25 @@
 // read at offsets fixed at compile time from a per-lane base, and with
 // one or two tiles the passes go to separate accumulators.
 //
-// The float32 route is the first design's kernel (ssd_scan_bwd_kernel<float>):
-// one block of 256 threads per (P tile of 64, head, row) walks the row's
-// sub-chunks from the last, every product on CUDA cores in float32 (exact
-// float32 products: the float32 card-vs-CPU training parity rests on
-// them), with H and h0 in shared memory (122 KB at N 128, 221 KB at N
-// 256).  P and N must be multiples of 4, N at most 256 (the wrapper
-// checks).
+// The float32 route (x, B and C in float32) has the same shape on CUDA
+// cores, every product an fmaf in a fixed order (exact float32 products:
+// the float32 card-vs-CPU training parity rests on them), in spans of R =
+// ops.BWD_SPAN_F32 (4) sub-chunks, short enough to spread a row of 8:
+//   - ssd_bwd_adjoint_f32_kernel, one block of 256 threads per (P tile of
+//     64, N tile of up to 128, head, row), H in registers (4 rows by up to
+//     8 columns a thread), dy and C of the piece before staged with
+//     cp.async behind each piece of up to 64 steps;
+//   - ssd_bwd_span_f32_kernel, one block of 256 threads per (span, P tile,
+//     head, row), two blocks an SM up to N 128, H and h0 in shared memory
+//     (rows of N + 4 floats), the next sub-chunk's h0 fetched with cp.async
+//     behind the current one's work and, where two stages fit (N <= 64),
+//     its x, dy, B and C too.  Every product is a register tile read as
+//     float4 from shared rows, the warps split by role: Z, W', then dC and
+//     dB on warps 0-3; V, C B^T, g x^T, the pairs, then dx' on warps 4-7;
+//     U on all; the pairs' part of da_k on every thread, the rest on warp 0.
+// Rows 6f and 6f' of PERF.md (chip_smoke.py phase 3) time the float32
+// route at mamba2's and zamba2's training microbatch.
+// P and N must be multiples of 4, N at most 256 (the wrapper checks).
 #include <algorithm>
 
 #include "tensor_core.cuh"
@@ -101,17 +119,8 @@ constexpr int kBwdPT = 64;          // rows of P a block owns
 constexpr int kBwdThreads = 256;    // 8 warps
 constexpr int kBwdSub = 16;         // steps of a sub-chunk, at most
 constexpr int kBwdMaxN = 256;       // state columns
-constexpr int kLdp = kBwdPT + 4;    // row stride of the (step, P) tiles
-constexpr int kLdt = kBwdSub + 1;   // row stride of the (step, step) tiles
-
-// row stride of the (step, N) and (P, N) tiles
-__host__ __device__ constexpr int bwd_ldn(int n_pad) { return n_pad + 4; }
-
-// floats of shared memory of a block with n_pad state columns
-__host__ __device__ constexpr size_t bwd_smem_floats(int n_pad) {
-  return 4 * kBwdSub * kLdp + (size_t)(4 * kBwdSub + 2 * kBwdPT) * bwd_ldn(n_pad) +
-         3 * kBwdSub * kLdt + 9 * kBwdSub + 16;
-}
+constexpr int kLdp = kBwdPT + 4;    // float32 route: row stride of the (step, P) tiles
+constexpr int kLdt = kBwdSub + 1;   // float32 route: row stride of the (step, step) tiles
 
 // kW consecutive floats of shared memory (kW 1, 2 or 4) into v[0 .. kW)
 template <int kW>
@@ -127,11 +136,20 @@ __device__ __forceinline__ void bwd_load(const float* p, float* v) {
   }
 }
 
-__device__ __forceinline__ void fma4(float4& acc, const float4& u, float s) {
-  acc.x = fmaf(u.x, s, acc.x);
-  acc.y = fmaf(u.y, s, acc.y);
-  acc.z = fmaf(u.z, s, acc.z);
-  acc.w = fmaf(u.w, s, acc.w);
+// v[0 .. kW) to kW consecutive floats at p (kW 1, 2 or 4)
+template <int kW>
+__device__ __forceinline__ void bwd_store(float* p, const float* v) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float dot4(const float4& u, const float4& w, float acc) {
@@ -167,350 +185,10 @@ struct BwdArgs {
   float* dap;           // (B, n_span, H, npt): dA_log by block
   float* dinit;         // (B, H, P, N) contiguous
   int S, H, G, P, N, K;
-  float* hs;            // bf16: (B, n_span, H, P, N), H at every span's end
-  int R, n_span;        // bf16: sub-chunks a span, spans a row (float32: 1)
+  float* hs;            // (B, n_span, H, P, N): H at every span's end
+  int R, n_span;        // sub-chunks a span, spans a row
   __nv_bfloat16* dx16;  // bf16: dx (B, S, H, P) in bf16, in place of dx
 };
-
-// The float32 route: the reverse walk on CUDA cores.
-// Block (P tile blockIdx.x, head blockIdx.y, row blockIdx.z).  kNR: state
-// columns a thread of the (row group, lane) layout holds (N <= 16 kNR).
-template <typename T, int kNR>
-__global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(BwdArgs a) {
-  constexpr int kNPad = 16 * kNR;
-  constexpr int kLdn = bwd_ldn(kNPad);
-  constexpr int kG4 = kNPad / 4;                             // groups of 4 columns
-  constexpr int kRowStep = kBwdThreads / kG4;                // Z / W: rows apart
-  constexpr int kZR = (kBwdSub + kRowStep - 1) / kRowStep;   // Z / W: rows a thread
-  constexpr int kW = kNR < 4 ? kNR : 4;                      // columns of one chunk
-  constexpr int kQ = kNR / kW;                               // chunks, 16 kW apart
-  extern __shared__ __align__(16) float sm[];
-  float* xs = sm;                        // [16][kLdp] x' = x dt'
-  float* xr = xs + kBwdSub * kLdp;       // [16][kLdp] x
-  float* gs = xr + kBwdSub * kLdp;       // [16][kLdp] g = dy
-  float* vs = gs + kBwdSub * kLdp;       // [16][kLdp] V = H B^T, by step
-  float* bs = vs + kBwdSub * kLdp;       // [16][kLdn] B
-  float* cs = bs + kBwdSub * kLdn;       // [16][kLdn] C
-  float* zs = cs + kBwdSub * kLdn;       // [16][kLdn] Z = h0^T g, by step
-  float* ws = zs + kBwdSub * kLdn;       // [16][kLdn] W = H^T x', by step
-  float* hin = ws + kBwdSub * kLdn;      // [64][kLdn] h0
-  float* hb = hin + kBwdPT * kLdn;       // [64][kLdn] H
-  float* sc = hb + kBwdPT * kLdn;        // [16][kLdt] (C_i . B_j) L_ij
-  float* ml = sc + kBwdSub * kLdt;       // [16][kLdt] (g_i . x'_j) L_ij
-  float* tt = ml + kBwdSub * kLdt;       // [16][kLdt] (C_i . B_j)(g_i . x'_j) L_ij
-  float* cum = tt + kBwdSub * kLdt;      // [16] cs
-  float* ec = cum + kBwdSub;             // [16] exp(cs_i)
-  float* wt = ec + kBwdSub;              // [16] exp(cs_T - cs_j)
-  float* dtm = wt + kBwdSub;             // [16] dt'
-  float* mk = dtm + kBwdSub;             // [16] the mask, 1 or 0
-  float* yo = mk + kBwdSub;              // [16] exp(cs_i) C_i . Z_i
-  float* uu = yo + kBwdSub;              // [16] exp(cs_T - cs_j) B_j . W_j
-  float* dxd = uu + kBwdSub;             // [16][2] dx' . x, by half of the tile
-  float* red = dxd + 2 * kBwdSub;        // [8] <H, h0>, by warp
-  float* dec = red + 8;                  // exp(cs_T)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int l16 = tid & 15, pr = tid >> 4;
-  const int pti = blockIdx.x, npt = gridDim.x;
-  const int p0 = pti * kBwdPT, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (a.H / a.G);
-  const int pt = min(kBwdPT, a.P - p0);  // rows of this P tile
-  const int K = a.K, n_sub = a.S / K, N = a.N;
-  const float A = -expf(a.A_log[h]);
-  const T* xg = static_cast<const T*>(a.x) + b * a.x_sb + h * a.x_sh + p0 * a.x_sp;
-  const T* bg = static_cast<const T*>(a.B) + b * a.b_sb + g * a.b_sg;
-  const T* cg = static_cast<const T*>(a.C) + b * a.c_sb + g * a.c_sg;
-  const float* dtg = a.dt + b * a.dt_sb + h * a.dt_sh;
-  const float* gg = a.dy + b * a.g_sb + h * a.g_sh + p0 * a.g_sp;
-  const unsigned char* mg = a.mask != nullptr ? a.mask + b * a.m_sb : nullptr;
-  const int64_t PN = (int64_t)a.P * N;
-  // column of chunk element c of this thread in the (row group, lane)
-  // layout: rows 4 pr .. + 3, columns (c / kW) 16 kW + l16 kW + c % kW
-  auto col_of = [&](int c) { return (c / kW) * 16 * kW + l16 * kW + c % kW; };
-
-  // H = dL/d the final state (rows of this tile; 0 past the tile and N)
-  for (int i = tid; i < kBwdPT * kNPad; i += kBwdThreads) {
-    const int p = i / kNPad, n = i - p * kNPad;
-    hb[p * kLdn + n] =
-        a.dfinal != nullptr && p < pt && n < N
-            ? a.dfinal[b * a.f_sb + h * a.f_sh + (p0 + p) * a.f_sp + n * a.f_sn]
-            : 0.f;
-  }
-  float dA_acc = 0.f;  // warp 0: sum of dt' da over the row's steps
-  for (int c = n_sub - 1; c >= 0; --c) {
-    const int s0 = c * K;
-    if (tid < kBwdSub) {
-      const float m = tid < K && (mg == nullptr || mg[(s0 + tid) * a.m_ss]) ? 1.f : 0.f;
-      mk[tid] = m;
-      dtm[tid] = m != 0.f ? dtg[(s0 + tid) * a.dt_ss] : 0.f;
-    }
-    __syncthreads();  // dt' is ready; the last sub-chunk's readers are done
-
-    // float32 tiles: x, x' = x dt', g (rows past K and past the tile 0);
-    // B, C (columns past N 0); h0, the forward's state after sub-chunk
-    // c - 1, the initial state or 0
-    for (int i = tid; i < kBwdSub * kBwdPT; i += kBwdThreads) {
-      const int j = i / kBwdPT, p = i - j * kBwdPT;
-      float xv = 0.f, gv = 0.f;
-      if (j < K && p < pt) {
-        xv = to_f(xg[(s0 + j) * a.x_ss + p * a.x_sp]);
-        gv = gg[(s0 + j) * a.g_ss + p * a.g_sp];
-      }
-      xr[j * kLdp + p] = xv;
-      xs[j * kLdp + p] = xv * dtm[j];
-      gs[j * kLdp + p] = gv;
-    }
-    for (int i = tid; i < kBwdSub * kNPad; i += kBwdThreads) {
-      const int j = i / kNPad, n = i - j * kNPad;
-      const bool in = j < K && n < N;
-      bs[j * kLdn + n] = in ? to_f(bg[(s0 + j) * a.b_ss + n * a.b_sn]) : 0.f;
-      cs[j * kLdn + n] = in ? to_f(cg[(s0 + j) * a.c_ss + n * a.c_sn]) : 0.f;
-    }
-    if (c > 0) {
-      const float* src =
-          a.states + (((int64_t)b * n_sub + c - 1) * a.H + h) * PN + (int64_t)p0 * N;
-      for (int i = tid; i < kBwdPT * kG4; i += kBwdThreads) {
-        const int p = i / kG4, n = (i - p * kG4) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (p < pt && n < N) v = *reinterpret_cast<const float4*>(src + (int64_t)p * N + n);
-        *reinterpret_cast<float4*>(hin + p * kLdn + n) = v;
-      }
-    } else {
-      for (int i = tid; i < kBwdPT * kNPad; i += kBwdThreads) {
-        const int p = i / kNPad, n = i - p * kNPad;
-        hin[p * kLdn + n] =
-            a.init != nullptr && p < pt && n < N
-                ? a.init[b * a.i_sb + h * a.i_sh + (p0 + p) * a.i_sp + n * a.i_sn]
-                : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // warp 0: a = dt' A and its inclusive scan over the K steps
-    if (warp == 0) {
-      float v = lane < K ? dtm[lane] * A : 0.f;
-#pragma unroll
-      for (int o = 1; o < kBwdSub; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += u;
-      }
-      const float last = __shfl_sync(0xffffffffu, v, K - 1);
-      if (lane < kBwdSub) {  // past K: cs = cs_T (those rows are 0)
-        cum[lane] = v;
-        ec[lane] = expf(v);
-        wt[lane] = expf(last - v);
-      }
-      if (lane == 0) *dec = expf(last);
-    }
-    // the step pairs C_i . B_j and g_i . x'_j, one (i, j) a thread
-    const int pi = tid >> 4, pj = tid & 15;
-    float dot_cb = 0.f, dot_gx = 0.f;
-    if (pj <= pi && pi < K) {
-      const float4* ci = reinterpret_cast<const float4*>(cs + pi * kLdn);
-      const float4* bj = reinterpret_cast<const float4*>(bs + pj * kLdn);
-#pragma unroll 4
-      for (int n = 0; n < kNPad / 4; ++n) dot_cb = dot4(ci[n], bj[n], dot_cb);
-      const float4* gi = reinterpret_cast<const float4*>(gs + pi * kLdp);
-      const float4* xj = reinterpret_cast<const float4*>(xs + pj * kLdp);
-#pragma unroll 4
-      for (int p = 0; p < kBwdPT / 4; ++p) dot_gx = dot4(gi[p], xj[p], dot_gx);
-    }
-    // Z = h0^T g and W = H^T x' by step: columns 4 n4 .. + 3 of rows r0,
-    // r0 + kRowStep, ...
-    {
-      const int n4 = tid % kG4, r0 = tid / kG4;
-      float4 zacc[kZR], wacc[kZR];
-#pragma unroll
-      for (int k = 0; k < kZR; ++k) {
-        zacc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-        wacc[k] = zacc[k];
-      }
-      if (r0 < kBwdSub) {
-        for (int p = 0; p < pt; ++p) {
-          const float4 hv = *reinterpret_cast<const float4*>(hin + p * kLdn + 4 * n4);
-          const float4 bv = *reinterpret_cast<const float4*>(hb + p * kLdn + 4 * n4);
-#pragma unroll
-          for (int k = 0; k < kZR; ++k) {
-            const int r = r0 + k * kRowStep;
-            if (r < K) {
-              fma4(zacc[k], hv, gs[r * kLdp + p]);
-              fma4(wacc[k], bv, xs[r * kLdp + p]);
-            }
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kZR; ++k) {
-          const int r = r0 + k * kRowStep;
-          *reinterpret_cast<float4*>(zs + r * kLdn + 4 * n4) = zacc[k];
-          *reinterpret_cast<float4*>(ws + r * kLdn + 4 * n4) = wacc[k];
-        }
-      }
-    }
-    // V = H B^T by step and <H, h0>: B's rows 4 at a time, every lane's
-    // part for its 4 rows of H, then the 16 lanes' parts summed: lane l16
-    // keeps step 4 r + l16 / 4, row 4 pr + l16 % 4
-    {
-      float hv[4][kNR];
-      float hd = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) {
-          float hi[kW];
-          bwd_load<kW>(hb + (4 * pr + i) * kLdn + col_of(q * kW), hv[i] + q * kW);
-          bwd_load<kW>(hin + (4 * pr + i) * kLdn + col_of(q * kW), hi);
-#pragma unroll
-          for (int e = 0; e < kW; ++e) hd = fmaf(hv[i][q * kW + e], hi[e], hd);
-        }
-#pragma unroll
-      for (int r = 0; r < kBwdSub / 4; ++r) {
-        if (4 * r >= K) continue;  // block-uniform
-        float part[16];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          float bv[kNR];
-#pragma unroll
-          for (int q = 0; q < kQ; ++q)
-            bwd_load<kW>(bs + (4 * r + ii) * kLdn + col_of(q * kW), bv + q * kW);
-#pragma unroll
-          for (int pp = 0; pp < 4; ++pp) {
-            float acc = 0.f;
-#pragma unroll
-            for (int e = 0; e < kNR; ++e) acc = fmaf(bv[e], hv[pp][e], acc);
-            part[ii * 4 + pp] = acc;
-          }
-        }
-        halve_sum<16, 16, 8>(part, lane);
-        vs[(4 * r + (l16 >> 2)) * kLdp + 4 * pr + (l16 & 3)] = part[0];
-      }
-      hd = warp_sum(hd);
-      if (lane == 0) red[warp] = hd;
-    }
-    __syncthreads();  // cs, Z, W, V and <H, h0> are ready
-
-    // the pairs under L, 0 above the diagonal and past K
-    {
-      float s = 0.f, m = 0.f, t = 0.f;
-      if (pj <= pi && pi < K) {
-        const float L = expf(cum[pi] - cum[pj]);
-        s = dot_cb * L;
-        m = dot_gx * L;
-        t = s * dot_gx;
-      }
-      sc[pi * kLdt + pj] = s;
-      ml[pi * kLdt + pj] = m;
-      tt[pi * kLdt + pj] = t;
-    }
-    __syncthreads();
-
-    // dx' = sum_{i >= j} S_ij g_i + exp(cs_T - cs_j) V_j: P row tid % 64,
-    // steps tid / 64 + 4 k (one step a warp); dx = dx' dt' out, dx' . x
-    // summed over the warp's 32 rows
-    {
-      const int p = tid & (kBwdPT - 1);
-#pragma unroll
-      for (int k = 0; k < kBwdSub / 4; ++k) {
-        const int j = (tid >> 6) + 4 * k;
-        if (j >= K) continue;  // warp-uniform
-        float acc = wt[j] * vs[j * kLdp + p];
-        for (int i = j; i < K; ++i) acc = fmaf(sc[i * kLdt + j], gs[i * kLdp + p], acc);
-        if (p < pt) a.dx[(((int64_t)b * a.S + s0 + j) * a.H + h) * a.P + p0 + p] = acc * dtm[j];
-        const float d = warp_sum(acc * xr[j * kLdp + p]);
-        if (lane == 0) dxd[2 * j + (p >> 5)] = d;
-      }
-    }
-    // dB_j = sum_{i >= j} ML_ij C_i + exp(cs_T - cs_j) W_j and dC_j =
-    // sum_{i <= j} ML_ji B_i + exp(cs_j) Z_j: this head's and tile's parts
-    for (int u = tid; u < kBwdSub * kNPad; u += kBwdThreads) {
-      const int j = u / kNPad, n = u - j * kNPad;
-      if (j >= K || n >= N) continue;
-      float db = wt[j] * ws[j * kLdn + n], dc = ec[j] * zs[j * kLdn + n];
-      for (int i = j; i < K; ++i) db = fmaf(ml[i * kLdt + j], cs[i * kLdn + n], db);
-      for (int i = 0; i <= j; ++i) dc = fmaf(ml[j * kLdt + i], bs[i * kLdn + n], dc);
-      const int64_t o = ((((int64_t)b * a.S + s0 + j) * a.H + h) * npt + pti) * N + n;
-      a.dbp[o] = db;
-      a.dcp[o] = dc;
-    }
-    // exp(cs_i) C_i . Z_i and exp(cs_T - cs_j) B_j . W_j: warp w rows 2 w,
-    // 2 w + 1 (0 past K: those rows of Z and W are 0)
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = 2 * warp + rr;
-      float s1 = 0.f, s2 = 0.f;
-      for (int n = lane; n < kNPad; n += 32) {
-        s1 = fmaf(cs[r * kLdn + n], zs[r * kLdn + n], s1);
-        s2 = fmaf(bs[r * kLdn + n], ws[r * kLdn + n], s2);
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) {
-        yo[r] = ec[r] * s1;
-        uu[r] = wt[r] * s2;
-      }
-    }
-    // H = exp(cs_T) H + sum_i exp(cs_i) g_i C_i^T, rows 4 pr .. + 3 (no
-    // reader of H is left in this sub-chunk)
-    {
-      const float d = *dec;
-      float hv[4][kNR];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) {
-          bwd_load<kW>(hb + (4 * pr + i) * kLdn + col_of(q * kW), hv[i] + q * kW);
-#pragma unroll
-          for (int e = 0; e < kW; ++e) hv[i][q * kW + e] *= d;
-        }
-      for (int i = 0; i < K; ++i) {
-        const float4 gv = *reinterpret_cast<const float4*>(gs + i * kLdp + 4 * pr);
-        const float e = ec[i];
-        const float gw[4] = {gv.x * e, gv.y * e, gv.z * e, gv.w * e};
-        float cv[kNR];
-#pragma unroll
-        for (int q = 0; q < kQ; ++q)
-          bwd_load<kW>(cs + i * kLdn + col_of(q * kW), cv + q * kW);
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-          for (int e2 = 0; e2 < kNR; ++e2) hv[ii][e2] = fmaf(gw[ii], cv[e2], hv[ii][e2]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < kNR; ++e) hb[(4 * pr + i) * kLdn + col_of(e)] = hv[i][e];
-    }
-    __syncthreads();  // dx' . x, the output and state terms are ready
-
-    // warp 0: da_k, step k = lane; ddt and the dA_log sum
-    if (warp == 0) {
-      float da = 0.f;
-      if (lane < K) {
-        float hdot = 0.f;
-        for (int w = 0; w < kBwdThreads / 32; ++w) hdot += red[w];
-        da = *dec * hdot;
-        for (int j = 0; j < lane; ++j) da += uu[j];
-        for (int i = lane; i < K; ++i) {
-          da += yo[i];
-          for (int j = 0; j < lane; ++j) da += tt[i * kLdt + j];
-        }
-      }
-      if (lane < K) {
-        const float ddt = mk[lane] != 0.f ? dxd[2 * lane] + dxd[2 * lane + 1] + A * da : 0.f;
-        a.dtp[(((int64_t)b * a.S + s0 + lane) * a.H + h) * npt + pti] = ddt;
-      }
-      dA_acc += warp_sum(lane < K ? dtm[lane] * da : 0.f);
-    }
-    __syncthreads();  // H is updated
-  }
-  // d initial state = H; this block's part of dA_log
-  for (int i = tid; i < kBwdPT * kNPad; i += kBwdThreads) {
-    const int p = i / kNPad, n = i - p * kNPad;
-    if (p < pt && n < N)
-      a.dinit[((int64_t)b * a.H + h) * PN + (int64_t)(p0 + p) * N + n] = hb[p * kLdn + n];
-  }
-  if (tid == 0) a.dap[((int64_t)b * a.H + h) * npt + pti] = A * dA_acc;
-}
-
 
 // ---------------------------------------------------------------------------
 // The bf16 route: kernels A and B
@@ -1269,6 +947,616 @@ __global__ void __launch_bounds__(kSpanThreads, kNR <= 4 ? 3 : kNR <= 8 ? 2 : 1)
   if (tid == 0) a.dap[(((int64_t)b * a.n_span + span) * a.H + h) * npt + pti] = A * dA_acc;
 }
 
+// ---------------------------------------------------------------------------
+// The float32 route: the adjoint and span kernels on CUDA cores
+// ---------------------------------------------------------------------------
+constexpr int kAdjPiece = 64;  // float32 adjoint: steps of a piece, at most
+
+// The float32 adjoint kernel's dynamic shared memory, bytes: two buffers
+// of a piece's dy ([64][kLdp]) and C ([64][n_cols + 4]), and the decays
+__host__ __device__ constexpr size_t adjoint_f32_smem_bytes(int n_cols) {
+  return sizeof(float) * (2 * kAdjPiece * (kLdp + n_cols + 4) + kAdjPiece + 4);
+}
+
+// Block (P tile and N tile blockIdx.x, head blockIdx.y, row blockIdx.z),
+// 256 threads; thread (pg, ng) of 16 x 16 holds rows 4 pg .. + 3 of the P
+// tile and kC = kCols / 16 columns of the N tile of H in registers, vector
+// q at columns q 16 kV + kV ng .. (a warp 4 row groups by 8 column groups:
+// its dy and C reads are 64- and 128-byte runs).  Walks the row in pieces of pc
+// sub-chunks (pc = min(R, 64 / K): a span, or R K / 64 pieces of it) from
+// the last: at a span's end H goes to hs, then H = exp(cs_T) H + sum_i
+// exp(cs_i) g_i C_i^T over the piece's steps (cs the cumsum over the
+// piece), one fmaf an element a step.  The piece before is staged with
+// cp.async into the other of two buffers behind the products.
+template <int kCols>
+__global__ void __launch_bounds__(kBwdThreads, 2) ssd_bwd_adjoint_f32_kernel(BwdArgs a) {
+  constexpr int kC = kCols / 16;            // columns a thread: 1 .. 8
+  constexpr int kV = kC < 4 ? kC : 4, kQ = kC / kV;  // kQ vectors of kV
+  constexpr int kLdc = kCols + 4;           // C rows
+  constexpr int kStage = kAdjPiece * (kLdp + kLdc);  // floats a buffer
+  extern __shared__ __align__(16) float sm[];
+  float* ecs = sm + 2 * kStage;             // [64] exp(cs_i)
+  float* decs = ecs + kAdjPiece;            // exp(cs_T)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pg = 4 * (warp & 3) + (lane & 3), ng = 8 * (warp >> 2) + (lane >> 2);
+  const int n_nt = (a.N + kCols - 1) / kCols;
+  const int nti = blockIdx.x % n_nt, pti = blockIdx.x / n_nt;
+  const int n0 = nti * kCols, p0 = pti * kBwdPT, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int pt = min(kBwdPT, a.P - p0), nc = min(kCols, a.N - n0);
+  const int pc = min(a.R, kAdjPiece / a.K), L = pc * a.K, n_piece = (a.S / a.K + pc - 1) / pc;
+  const float A = -expf(a.A_log[h]);
+  const float* gg = a.dy + b * a.g_sb + h * a.g_sh + p0;
+  const float* cg = static_cast<const float*>(a.C) + b * a.c_sb + g * a.c_sg + n0;
+  const float* dtg = a.dt + b * a.dt_sb + h * a.dt_sh;
+  const unsigned char* mg = a.mask != nullptr ? a.mask + b * a.m_sb : nullptr;
+  const int64_t PN = (int64_t)a.P * a.N;
+  const int r0 = 4 * pg;  // this thread's first row
+  auto col = [&](int e) { return (e / kV) * 16 * kV + kV * ng + e % kV; };
+
+  // H = dL/d the final state (0 past the tile and N)
+  float acc[4][kC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < kC; ++e)
+      acc[r][e] = a.dfinal != nullptr && r0 + r < pt && col(e) < nc
+                      ? a.dfinal[b * a.f_sb + h * a.f_sh + (p0 + r0 + r) * a.f_sp +
+                                 (n0 + col(e)) * a.f_sn]
+                      : 0.f;
+  // H to dst (rows of this tile of a (P, N) state)
+  auto put = [&](float* dst) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        if (r0 + r < pt && col(q * kV) < nc)
+          bwd_store<kV>(dst + (int64_t)(p0 + r0 + r) * a.N + n0 + col(q * kV), acc[r] + q * kV);
+  };
+
+  // piece s's dy and C into buffer s % 2; warp 0: its dt and mask (steps
+  // lane, lane + 32) into registers
+  float dt0 = 0.f, dt1 = 0.f, mk0 = 0.f, mk1 = 0.f;
+  auto stage = [&](int s) {
+    float* gsm = sm + (s & 1) * kStage;
+    float* csm = gsm + kAdjPiece * kLdp;
+    const int t0 = s * L, rows = min(L, a.S - t0);
+    stage_tile<float, kAdjPiece, kBwdPT / 4, 16>(gsm, kLdp, gg + t0 * a.g_ss, a.g_ss, rows,
+                                                  pt / 4, tid, kBwdThreads);
+    stage_tile<float, kAdjPiece, kCols / 4, 16>(csm, kLdc, cg + t0 * a.c_ss, a.c_ss, rows,
+                                                 nc / 4, tid, kBwdThreads);
+    cp_async_commit();
+    if (warp == 0) {  // independent loads: used at the next piece
+      auto live = [&](int i) {
+        return i < rows && (mg == nullptr || mg[(t0 + i) * a.m_ss]) ? 1.f : 0.f;
+      };
+      mk0 = live(lane);
+      mk1 = live(lane + 32);
+      dt0 = lane < rows ? dtg[(t0 + lane) * a.dt_ss] : 0.f;
+      dt1 = lane + 32 < rows ? dtg[(t0 + lane + 32) * a.dt_ss] : 0.f;
+    }
+  };
+  stage(n_piece - 1);
+  for (int s = n_piece - 1; s >= 0; --s) {
+    if (s == 0) grid_dep_launch();  // the span kernel may start its prologue
+    if (warp == 0) {  // cs over the piece's steps
+      const float v0 = scan32(mk0 != 0.f ? dt0 * A : 0.f, lane);
+      const float v1 =
+          scan32(mk1 != 0.f ? dt1 * A : 0.f, lane) + __shfl_sync(0xffffffffu, v0, 31);
+      ecs[lane] = expf(v0);
+      ecs[lane + 32] = expf(v1);
+      const float last = __shfl_sync(0xffffffffu, v1, 31);
+      if (lane == 0) *decs = expf(last);
+    }
+    if (s > 0) {
+      stage(s - 1);  // the buffer's last readers finished at the barrier below
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // piece s's tiles and decays are ready
+    if (((s + 1) * pc) % a.R == 0 || s == n_piece - 1)  // H at the end of a span
+      put(a.hs + (((int64_t)b * a.n_span + s * pc / a.R) * a.H + h) * PN);
+    const float* gp = sm + (s & 1) * kStage + r0;
+    const float* cp = sm + (s & 1) * kStage + kAdjPiece * kLdp + kV * ng;
+    const float d = *decs;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int e = 0; e < kC; ++e) acc[r][e] *= d;
+#pragma unroll 4
+    for (int i = 0; i < L; ++i) {
+      const float4 gv = ld4(gp + i * kLdp);
+      const float e = ecs[i];
+      const float gw[4] = {gv.x * e, gv.y * e, gv.z * e, gv.w * e};
+      float cv[kC];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) bwd_load<kV>(cp + i * kLdc + q * 16 * kV, cv + q * kV);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < kC; ++q) acc[r][q] = fmaf(gw[r], cv[q], acc[r][q]);
+    }
+    __syncthreads();  // the buffer and the decays are read
+  }
+  put(a.dinit + (int64_t)b * a.H * PN + (int64_t)h * PN);  // d initial state
+}
+
+// kRows x (4 kCh floats) of a row-major float32 tile from src (row stride
+// rs, unit element stride, rows on 16 bytes) into dst (row stride ld) with
+// 16-byte cp.async by the block's 256 threads, rows >= nrows and chunks >=
+// nq zero-filled.  The loop is not unrolled: the copies' addresses are
+// formed at each call, where unrolled ones were hoisted out of the span
+// kernel's walk and held in registers across it.
+template <int kRows, int kCh>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src, int64_t rs,
+                                           int nrows, int nq, int tid) {
+#pragma unroll 1
+  for (int i = tid; i < kRows * kCh; i += kBwdThreads) {
+    const int r = i / kCh, q = i - r * kCh;
+    const bool ok = r < nrows && q < nq;
+    cp_async16(dst + r * ld + 4 * q, ok ? src + r * rs + 4 * q : src, ok);
+  }
+}
+
+// The float32 span kernel's stages of a sub-chunk's x, dy, B and C: two
+// (the next one staged behind the current one) where they fit beside two
+// blocks' state (N <= 64), else one, so that N 128 keeps two blocks an SM
+// (one block an SM, with two stages or with the registers of one, was
+// slower in development builds)
+__host__ __device__ constexpr int span_f32_stages(int n_pad) { return n_pad <= 64 ? 2 : 1; }
+
+// floats of one stage: x and dy ([16][kLdp]), B and C ([16][n_pad + 4])
+__host__ __device__ constexpr int span_f32_stage_floats(int n_pad) {
+  return 2 * kBwdSub * kLdp + 2 * kBwdSub * (n_pad + 4);
+}
+
+// The float32 span kernel's shared memory, bytes: h0 and H ([64][n_pad +
+// 4]), the stages, three (step, step) tiles, the decays and the warps'
+// parts.
+__host__ __device__ constexpr size_t span_f32_smem_bytes(int n_pad) {
+  return sizeof(float) * (2 * (size_t)kBwdPT * (n_pad + 4) +
+                          span_f32_stages(n_pad) * (size_t)span_f32_stage_floats(n_pad) +
+                          3 * kBwdSub * kLdt + 6 * kBwdSub + 3 * 2 * kBwdSub + 8);
+}
+
+// Block (span and P tile blockIdx.x, head blockIdx.y, row blockIdx.z), 256
+// threads.  Walks sub-chunks c_hi - 1 .. c_lo of span blockIdx.x / npt from
+// the adjoint kernel's H at the span's end (its states and first tiles
+// are staged before it waits for that kernel).  What bounds it is shared
+// memory's bandwidth: a warp's 16-byte read takes four of its cycles, so
+// every product is a register tile whose operands each serve 2-4 products,
+// and the warps split the products by role.  Per sub-chunk:
+//   phase 1: warps 0-1 Z = g h0, warps 2-3 W' = x H (W = dt' W'), thread
+//     (ztg, zng) steps ztg + 4 i by kZC columns (4 x 8 at N 128), then the
+//     row dots C_t . Z_t and B_t . W'_t; warps 4-7 rows vr + 16 k of V = H
+//     B^T and C_vr . B_j at steps j = vt, vt + 8 in one walk over N, g_vr .
+//     x_j, <H, h0>, then the pairs (vr, j) under L;
+//   then the next sub-chunk's h0 is staged with cp.async (h0 is read);
+//   phase 2: from the registers of phase 1, dC = exp(cs) Z + ML B (warps
+//     0-1), dB = exp(cs_T - cs) dt' W' + (ML)^T C (warps 2-3) and dx' =
+//     exp(cs_T - cs) V + S^T g, dx and dx' . x (warps 4-7); the pairs' part
+//     of da_k; then H = exp(cs_T) H + U for the sub-chunk before, thread
+//     (upg, ung) rows 4 upg .. + 3 by kUC columns;
+//   then (one stage) the next sub-chunk's x, dy, B and C are staged (its dt
+//     and mask went to registers at the sub-chunk's start);
+//   phase 3 (warp 0): da_k, ddt and the block's dA_log part.
+template <int kNR>
+__global__ void __launch_bounds__(kBwdThreads, kNR <= 8 ? 2 : 1)
+    ssd_bwd_span_f32_kernel(BwdArgs a) {
+  constexpr int kNPad = 16 * kNR, kLdh = kNPad + 4;
+  constexpr int kStages = span_f32_stages(kNPad);
+  constexpr int kStage = span_f32_stage_floats(kNPad);
+  // Z / W': 16 column groups of kZC columns, kZQ vectors of kZV
+  constexpr int kZC = kNPad / 16, kZV = kZC < 4 ? kZC : 4, kZQ = kZC / kZV;
+  // U: 16 column groups of kUC columns, kUQ vectors of kUV, kUP a pass
+  constexpr int kUC = kNPad / 16, kUV = kUC < 4 ? kUC : 4, kUQ = kUC / kUV;
+  constexpr int kUP = kUQ < 2 ? kUQ : 2;
+  extern __shared__ __align__(16) float sm[];
+  float* hin = sm;                          // [64][kLdh] h0
+  float* hb = hin + kBwdPT * kLdh;          // [64][kLdh] H
+  float* st = hb + kBwdPT * kLdh;           // kStages x {x, g: [16][kLdp]; B, C: [16][kLdh]}
+  float* sc = st + kStages * kStage;        // [16][kLdt] C_i . B_j, then S = (C_i . B_j) L_ij
+  float* ml = sc + kBwdSub * kLdt;          // [16][kLdt] g_i . x_j, then ML = (g_i . x'_j) L_ij
+  float* tt = ml + kBwdSub * kLdt;          // [16][kLdt] S_ij (g_i . x'_j)
+  float* cum = tt + kBwdSub * kLdt;         // [16] cs
+  float* ec = cum + kBwdSub;                // [16] exp(cs_i)
+  float* wt = ec + kBwdSub;                 // [16] exp(cs_T - cs_j)
+  float* dtm = wt + kBwdSub;                // [16] dt'
+  float* mk = dtm + kBwdSub;                // [16] the mask, 1 or 0
+  float* pr = mk + kBwdSub;                 // [16] sum_{i >= k > j} TT_ij
+  float* yop = pr + kBwdSub;                // [2][16] C_t . Z_t by warp of Z
+  float* uup = yop + 2 * kBwdSub;           // [2][16] B_t . W'_t by warp of W'
+  float* dxp = uup + 2 * kBwdSub;           // [2][16] dx' . x by warp of V
+  float* red = dxp + 2 * kBwdSub;           // [4] <H, h0> by warp of V
+  float* dec = red + 4;                     // exp(cs_T)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int npt = (a.P + kBwdPT - 1) / kBwdPT;
+  const int pti = blockIdx.x % npt, span = blockIdx.x / npt;
+  const int p0 = pti * kBwdPT, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int pt = min(kBwdPT, a.P - p0);
+  const int K = a.K, N = a.N, n_sub = a.S / K;
+  const int c_lo = span * a.R, c_hi = min(c_lo + a.R, n_sub);
+  const float A = -expf(a.A_log[h]);
+  const int64_t PN = (int64_t)a.P * N;
+  // warps 0-3, Z (zh 0) or W' (zh 1): step group ztg, column group zng (a
+  // warp 4 step groups by 8 column groups)
+  const int zh = warp >> 1, ztg = lane & 3, zng = 8 * (warp & 1) + (lane >> 2);
+  // warps 4-7: V rows vr + 16 k and C row vr against B rows vt and vt + 8
+  // (a warp 8 rows by 4 steps)
+  const int vu = warp & 3, vr = 8 * (vu & 1) + (lane & 7), vt = 4 * (vu >> 1) + (lane >> 3);
+  // U: rows 4 upg .. + 3, column group ung (a warp 4 row groups by 8)
+  const int upg = 4 * (warp & 3) + (lane & 3), ung = 8 * (warp >> 2) + (lane >> 2);
+
+  // warp 0: sub-chunk c's dt and mask into registers (two independent
+  // loads: used at the next sub-chunk's start).  The row's pointers are
+  // formed where they are used, so that they hold no register between.
+  float dtv = 0.f, mkv = 0.f;
+  auto load_dt = [&](int c) {
+    if (warp == 0) {
+      const int s = c * K + lane;
+      mkv = lane < K && (a.mask == nullptr || a.mask[b * a.m_sb + s * a.m_ss]) ? 1.f : 0.f;
+      dtv = lane < K ? a.dt[b * a.dt_sb + s * a.dt_ss + h * a.dt_sh] : 0.f;
+    }
+  };
+  // sub-chunk c's x, dy, B and C into its stage (0 past K, the tile and N)
+  auto stage_steps = [&](int c) {
+    const int s0 = c * K;
+    const float* xg = static_cast<const float*>(a.x) + b * a.x_sb + h * a.x_sh + p0;
+    const float* gg = a.dy + b * a.g_sb + h * a.g_sh + p0;
+    const float* bg = static_cast<const float*>(a.B) + b * a.b_sb + g * a.b_sg;
+    const float* cg = static_cast<const float*>(a.C) + b * a.c_sb + g * a.c_sg;
+    float* xs = st + (c & (kStages - 1)) * kStage;
+    float* gs = xs + kBwdSub * kLdp;
+    float* bs = gs + kBwdSub * kLdp;
+    float* cs = bs + kBwdSub * kLdh;
+    stage_rows<kBwdSub, kBwdPT / 4>(xs, kLdp, xg + s0 * a.x_ss, a.x_ss, K, pt / 4, tid);
+    stage_rows<kBwdSub, kBwdPT / 4>(gs, kLdp, gg + s0 * a.g_ss, a.g_ss, K, pt / 4, tid);
+    stage_rows<kBwdSub, kNPad / 4>(bs, kLdh, bg + s0 * a.b_ss, a.b_ss, K, N / 4, tid);
+    stage_rows<kBwdSub, kNPad / 4>(cs, kLdh, cg + s0 * a.c_ss, a.c_ss, K, N / 4, tid);
+    cp_async_commit();
+  };
+  // rows of this P tile of a (P, N) float32 state into a [64][kLdh] tile
+  auto stage_state = [&](float* dst, const float* src) {
+    stage_rows<kBwdPT, kNPad / 4>(dst, kLdh, src + (int64_t)p0 * N, N, pt, N / 4, tid);
+  };
+  // h0 of sub-chunk c: the forward's state after sub-chunk c - 1, else the
+  // initial state or 0
+  auto stage_h0 = [&](int c) {
+    if (c > 0) {
+      stage_state(hin, a.states + (((int64_t)b * n_sub + c - 1) * a.H + h) * PN);
+    } else {
+      for (int i = tid; i < kBwdPT * kNPad; i += kBwdThreads) {
+        const int p = i / kNPad, n = i - p * kNPad;
+        hin[p * kLdh + n] =
+            a.init != nullptr && p < pt && n < N
+                ? a.init[b * a.i_sb + h * a.i_sh + (p0 + p) * a.i_sp + n * a.i_sn]
+                : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+  load_dt(c_hi - 1);
+  stage_h0(c_hi - 1);
+  stage_steps(c_hi - 1);
+  grid_dep_wait();  // the adjoint kernel's H (what comes before needs nothing of it)
+  stage_state(hb, a.hs + (((int64_t)b * a.n_span + span) * a.H + h) * PN);
+  cp_async_commit();
+
+  float dA_acc = 0.f;  // warp 0: sum of dt' da over the span's steps
+  for (int c = c_hi - 1; c >= c_lo; --c) {
+    const int s0 = c * K;
+    const float* xs = st + (c & (kStages - 1)) * kStage;
+    const float* gs = xs + kBwdSub * kLdp;
+    const float* bs = gs + kBwdSub * kLdp;
+    const float* cs = bs + kBwdSub * kLdh;
+    if (warp == 0) {  // dt', the mask and the decays
+      const float dv = mkv != 0.f ? dtv : 0.f;
+      const float v = scan16(dv * A, lane);
+      const float last = __shfl_sync(0xffffffffu, v, kBwdSub - 1);
+      if (lane < kBwdSub) {
+        mk[lane] = mkv;
+        dtm[lane] = dv;
+        cum[lane] = v;
+        ec[lane] = expf(v);
+        wt[lane] = expf(last - v);
+      }
+      if (lane == 0) *dec = expf(last);
+    }
+    if (c > c_lo) load_dt(c - 1);
+    if (kStages == 2 && c > c_lo) {
+      stage_steps(c - 1);  // behind this sub-chunk (its stage's readers are done)
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tiles, h0, H and the decays are ready
+
+    // phase 1, warps 0-3: Z = g h0 (warps 0-1) or W' = x H (warps 2-3),
+    // steps ztg + 4 i by the kZC columns of vectors q at q 16 kZV + zng
+    // kZV, then this warp's part of the row dots C_t . Z_t or B_t . W'_t.
+    // Warps 4-7: rows vr + 16 k of V = H B^T and C_vr . B_j at steps j = vt
+    // and vt + 8, g_vr . x_j, <H, h0>, the pairs (vr, j) under L, then dx'.
+    float zw[4][kZC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < kZC; ++e) zw[i][e] = 0.f;
+    float vacc[4][2], cb[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) vacc[k][0] = vacc[k][1] = 0.f;
+    if (warp < 4) {
+      const float* ap = (zh ? xs : gs) + ztg * kLdp;
+      const float* bp = (zh ? hb : hin) + zng * kZV;
+#pragma unroll 1
+      for (int p = 0; p < pt; p += 4) {
+        float av[4][4];  // av[i][k]: step ztg + 4 i, row p + k
+#pragma unroll
+        for (int i = 0; i < 4; ++i) bwd_load<4>(ap + 4 * i * kLdp + p, av[i]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float bv[kZC];
+#pragma unroll
+          for (int q = 0; q < kZQ; ++q)
+            bwd_load<kZV>(bp + (p + k) * kLdh + q * 16 * kZV, bv + q * kZV);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < kZC; ++e) zw[i][e] = fmaf(av[i][k], bv[e], zw[i][e]);
+        }
+      }
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* rp = (zh ? bs : cs) + ztg * kLdh + zng * kZV;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < kZQ; ++q) {
+          float v[kZV];
+          bwd_load<kZV>(rp + 4 * i * kLdh + q * 16 * kZV, v);
+#pragma unroll
+          for (int e = 0; e < kZV; ++e) part[i] = fmaf(zw[i][q * kZV + e], v[e], part[i]);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) part[i] += __shfl_xor_sync(0xffffffffu, part[i], o);
+      if (lane < 4) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) (zh ? uup : yop)[(warp & 1) * kBwdSub + lane + 4 * i] = part[i];
+      }
+    } else {
+      {
+        const float* hr = hb + vr * kLdh;
+        const float* cr = cs + vr * kLdh;
+        const float* br = bs + vt * kLdh;
+        auto quad = [&](int n) {
+          const float4 b0 = ld4(br + n), b1 = ld4(br + 8 * kLdh + n);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float4 hv = ld4(hr + 16 * k * kLdh + n);
+            vacc[k][0] = dot4(hv, b0, vacc[k][0]);
+            vacc[k][1] = dot4(hv, b1, vacc[k][1]);
+          }
+          const float4 cv = ld4(cr + n);
+          cb[0] = dot4(cv, b0, cb[0]);
+          cb[1] = dot4(cv, b1, cb[1]);
+        };
+        if constexpr (kNR >= 8) {  // two quads in flight where registers allow
+#pragma unroll 2
+          for (int n = 0; n < N; n += 4) quad(n);
+        } else {
+#pragma unroll 1
+          for (int n = 0; n < N; n += 4) quad(n);
+        }
+      }
+      float gx[2] = {0.f, 0.f};  // g_vr . x_vt, g_vr . x_vt+8 (x', not x, below)
+      {
+        const float* gi = gs + vr * kLdp;
+        const float* xj = xs + vt * kLdp;
+#pragma unroll 2
+        for (int p = 0; p < pt; p += 4) {
+          const float4 gv = ld4(gi + p);
+          gx[0] = dot4(gv, ld4(xj + p), gx[0]);
+          gx[1] = dot4(gv, ld4(xj + 8 * kLdp + p), gx[1]);
+        }
+      }
+      float hd = 0.f;
+      for (int i = tid - 128; i < kBwdPT * kNPad / 4; i += 128) {
+        const int o = (i / (kNPad / 4)) * kLdh + (i % (kNPad / 4)) * 4;
+        hd = dot4(ld4(hb + o), ld4(hin + o), hd);
+      }
+      hd = warp_sum(hd);
+      if (lane == 0) red[vu] = hd;
+      // the pairs under L (0 above the diagonal and past K): S = (C_i . B_j)
+      // L_ij, ML = (g_i . x'_j) L_ij, TT = S_ij (g_i . x'_j)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int i = vr, j = vt + 8 * m;
+        float s = 0.f, ml_ = 0.f, t = 0.f;
+        if (j <= i && i < K) {
+          const float L = expf(cum[i] - cum[j]);
+          const float gxv = gx[m] * dtm[j];
+          s = cb[m] * L;
+          ml_ = gxv * L;
+          t = s * gxv;
+        }
+        sc[i * kLdt + j] = s;
+        ml[i * kLdt + j] = ml_;
+        tt[i * kLdt + j] = t;
+      }
+    }
+    __syncthreads();  // h0 is read; S, ML, TT and the row dots are ready
+    if (c > c_lo) stage_h0(c - 1);  // behind this sub-chunk's work
+
+    // phase 2, warps 0-3: dC = exp(cs) Z + ML B (warps 0-1) and dB =
+    // exp(cs_T - cs) dt' W' + (ML)^T C (warps 2-3), this head's and tile's
+    // parts
+    if (warp < 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = ztg + 4 * i;
+        const float f = zh ? wt[t] * dtm[t] : ec[t];
+#pragma unroll
+        for (int e = 0; e < kZC; ++e) zw[i][e] *= f;
+      }
+      const float* rp = (zh ? cs : bs) + zng * kZV;
+#pragma unroll 2
+      for (int j = 0; j < K; ++j) {
+        float mv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mv[i] = zh ? ml[j * kLdt + ztg + 4 * i] : ml[(ztg + 4 * i) * kLdt + j];
+        float v[kZC];
+#pragma unroll
+        for (int q = 0; q < kZQ; ++q) bwd_load<kZV>(rp + j * kLdh + q * 16 * kZV, v + q * kZV);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < kZC; ++e) zw[i][e] = fmaf(mv[i], v[e], zw[i][e]);
+      }
+      float* out = zh ? a.dbp : a.dcp;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = ztg + 4 * i;
+        if (t >= K) continue;
+        float* row = out + ((((int64_t)b * a.S + s0 + t) * a.H + h) * npt + pti) * N;
+#pragma unroll
+        for (int q = 0; q < kZQ; ++q) {
+          const int n = q * 16 * kZV + zng * kZV;
+          if (n < N) bwd_store<kZV>(row + n, zw[i] + q * kZV);
+        }
+      }
+    } else {
+      // dx' = exp(cs_T - cs_j) V + sum_i S_ij g_i at rows vr + 16 k, steps
+      // vt and vt + 8, once warps 4-7 have S; dx = dx' dt' out, and dx' . x
+      // summed over the warp's 8 rows vr
+      float dxa[4][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float w = wt[vt + 8 * m];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dxa[k][m] = w * vacc[k][m];
+      }
+#pragma unroll 2
+      for (int i = 0; i < K; ++i) {
+        const float s0_ = sc[i * kLdt + vt], s1_ = sc[i * kLdt + vt + 8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float gv = gs[i * kLdp + vr + 16 * k];
+          dxa[k][0] = fmaf(s0_, gv, dxa[k][0]);
+          dxa[k][1] = fmaf(s1_, gv, dxa[k][1]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int t = vt + 8 * m;
+        const float dv = dtm[t];
+        float* row = a.dx + (((int64_t)b * a.S + s0 + t) * a.H + h) * a.P + p0;
+        float d = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int p = vr + 16 * k;
+          d = fmaf(dxa[k][m], xs[t * kLdp + p], d);
+          if (t < K && p < pt) row[p] = dxa[k][m] * dv;
+        }
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        if ((lane & 7) == 0) dxp[(vu & 1) * kBwdSub + t] = d;
+      }
+    }
+    // the pairs' part of da_k, sum_{i >= k > j} TT_ij: thread (k, j), the
+    // 16 lanes of a half warp summed
+    {
+      const int k = tid >> 4, j = tid & 15;
+      float v = 0.f;
+#pragma unroll
+      for (int i = 1; i < kBwdSub; ++i)
+        if (j < k && i >= k) v += tt[i * kLdt + j];
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (j == 0) pr[k] = v;
+    }
+    // H = exp(cs_T) H + sum_i exp(cs_i) g_i C_i^T, the adjoint at the end
+    // of sub-chunk c - 1 (no reader of H is left in this sub-chunk), kUP
+    // vectors a pass
+    if (c > c_lo) {
+      const float d = *dec;
+#pragma unroll
+      for (int q0 = 0; q0 < kUQ; q0 += kUP) {
+        float acc[4][kUP * kUV];
+        float* hp = hb + 4 * upg * kLdh + (q0 * 16 + ung) * kUV;
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int qq = 0; qq < kUP; ++qq) {
+            bwd_load<kUV>(hp + r * kLdh + qq * 16 * kUV, acc[r] + qq * kUV);
+#pragma unroll
+            for (int e = 0; e < kUV; ++e) acc[r][qq * kUV + e] *= d;
+          }
+        const float* cp = cs + (q0 * 16 + ung) * kUV;
+#pragma unroll 2
+        for (int i = 0; i < K; ++i) {
+          const float4 gv = ld4(gs + i * kLdp + 4 * upg);
+          const float e = ec[i];
+          const float gw[4] = {gv.x * e, gv.y * e, gv.z * e, gv.w * e};
+          float cv[kUP * kUV];
+#pragma unroll
+          for (int qq = 0; qq < kUP; ++qq)
+            bwd_load<kUV>(cp + i * kLdh + qq * 16 * kUV, cv + qq * kUV);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e2 = 0; e2 < kUP * kUV; ++e2) acc[r][e2] = fmaf(gw[r], cv[e2], acc[r][e2]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int qq = 0; qq < kUP; ++qq)
+            bwd_store<kUV>(hp + r * kLdh + qq * 16 * kUV, acc[r] + qq * kUV);
+      }
+    }
+    __syncthreads();  // the parts are ready; the tiles are read
+    if (kStages == 1 && c > c_lo) stage_steps(c - 1);  // behind phase 3
+
+    // phase 3 (warp 0): da_k, step k = lane: the state against h0, the
+    // inputs j < k (a prefix), the outputs i >= k (a suffix) and the pairs;
+    // ddt and the dA_log sum
+    if (warp == 0) {
+      float y = 0.f, u = 0.f, hdot = 0.f;
+      if (lane < kBwdSub) {
+        y = yop[lane] + yop[kBwdSub + lane];
+        u = uup[lane] + uup[kBwdSub + lane];
+        y *= ec[lane];
+        u *= wt[lane] * dtm[lane];
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) hdot += red[w];
+      float pre = u, suf = y;
+#pragma unroll
+      for (int o = 1; o < kBwdSub; o <<= 1) {
+        const float up = __shfl_up_sync(0xffffffffu, pre, o);
+        const float dn = __shfl_down_sync(0xffffffffu, suf, o);
+        if (lane >= o) pre += up;
+        if (lane + o < kBwdSub) suf += dn;
+      }
+      float da = 0.f;
+      if (lane < K) {
+        da = *dec * hdot + (pre - u) + suf + pr[lane];
+        const float dxd = dxp[lane] + dxp[kBwdSub + lane];
+        a.dtp[(((int64_t)b * a.S + s0 + lane) * a.H + h) * npt + pti] =
+            mk[lane] != 0.f ? dxd + A * da : 0.f;
+      }
+      dA_acc += warp_sum(lane < K ? dtm[lane] * da : 0.f);
+    }
+  }
+  grid_dep_launch();  // the sums may start (they wait for this grid)
+  if (tid == 0) a.dap[(((int64_t)b * a.n_span + span) * a.H + h) * npt + pti] = A * dA_acc;
+}
+
+
 struct BwdSumArgs {
   const float* dbp;
   const float* dcp;
@@ -1340,21 +1628,35 @@ cudaError_t launch_after(void (*kernel)(Args), dim3 grid, int threads, size_t sm
   return cudaLaunchKernelEx(&cfg, kernel, args);
 }
 
-// The float32 route: N padded to the next of 16, 32, 64, 128, 256
-template <int kNR>
-cudaError_t launch_bwd_f32(const BwdArgs& a, int Bb, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * bwd_smem_floats(16 * kNR);
-  const dim3 grid((a.P + kBwdPT - 1) / kBwdPT, a.H, Bb);
-  ssd_scan_bwd_kernel<float, kNR><<<grid, kBwdThreads, smem, stream>>>(a);
+// The float32 route: the adjoint kernel (N tiles of 16, 32, 64 or 128
+// columns), then the span kernel (N padded to the next of 16, 32, 64, 128,
+// 256)
+template <int kCols>
+cudaError_t launch_adjoint_f32(const BwdArgs& a, int Bb, cudaStream_t stream) {
+  const int npt = (a.P + kBwdPT - 1) / kBwdPT, n_nt = (a.N + kCols - 1) / kCols;
+  ssd_bwd_adjoint_f32_kernel<kCols><<<dim3(npt * n_nt, a.H, Bb), kBwdThreads,
+                                       adjoint_f32_smem_bytes(kCols), stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_f32_n(const BwdArgs& a, int Bb, cudaStream_t stream) {
-  if (a.N <= 16) return launch_bwd_f32<1>(a, Bb, stream);
-  if (a.N <= 32) return launch_bwd_f32<2>(a, Bb, stream);
-  if (a.N <= 64) return launch_bwd_f32<4>(a, Bb, stream);
-  if (a.N <= 128) return launch_bwd_f32<8>(a, Bb, stream);
-  return launch_bwd_f32<16>(a, Bb, stream);
+template <int kNR>
+cudaError_t launch_span_f32(const BwdArgs& a, int Bb, cudaStream_t stream) {
+  const int npt = (a.P + kBwdPT - 1) / kBwdPT;
+  return launch_after(ssd_bwd_span_f32_kernel<kNR>, dim3(npt * a.n_span, a.H, Bb), kBwdThreads,
+                      span_f32_smem_bytes(16 * kNR), stream, a);
+}
+
+cudaError_t launch_bwd_f32(const BwdArgs& a, int Bb, cudaStream_t stream) {
+  cudaError_t err = a.N <= 16   ? launch_adjoint_f32<16>(a, Bb, stream)
+                    : a.N <= 32 ? launch_adjoint_f32<32>(a, Bb, stream)
+                    : a.N <= 64 ? launch_adjoint_f32<64>(a, Bb, stream)
+                                : launch_adjoint_f32<128>(a, Bb, stream);
+  if (err != cudaSuccess) return err;
+  if (a.N <= 16) return launch_span_f32<1>(a, Bb, stream);
+  if (a.N <= 32) return launch_span_f32<2>(a, Bb, stream);
+  if (a.N <= 64) return launch_span_f32<4>(a, Bb, stream);
+  if (a.N <= 128) return launch_span_f32<8>(a, Bb, stream);
+  return launch_span_f32<16>(a, Bb, stream);
 }
 
 // The bf16 route: kernel A (N tiles of 16, 32 or 64 columns), then kernel
@@ -1393,13 +1695,16 @@ cudaError_t launch_bwd_bf16(const BwdArgs& a, int Bb, cudaStream_t stream) {
 extern "C" int rt_prepare_ssd_bwd() {
   using namespace rt;
   return prepare_kernels(
-      {(const void*)ssd_scan_bwd_kernel<float, 1>, (const void*)ssd_scan_bwd_kernel<float, 2>,
-       (const void*)ssd_scan_bwd_kernel<float, 4>, (const void*)ssd_scan_bwd_kernel<float, 8>,
-       (const void*)ssd_scan_bwd_kernel<float, 16>, (const void*)ssd_bwd_adjoint_kernel<2>,
-       (const void*)ssd_bwd_adjoint_kernel<4>, (const void*)ssd_bwd_adjoint_kernel<8>,
-       (const void*)ssd_bwd_span_kernel<1>, (const void*)ssd_bwd_span_kernel<2>,
-       (const void*)ssd_bwd_span_kernel<4>, (const void*)ssd_bwd_span_kernel<8>,
-       (const void*)ssd_bwd_span_kernel<16>, (const void*)ssd_scan_bwd_sum_kernel});
+      {(const void*)ssd_bwd_adjoint_f32_kernel<16>, (const void*)ssd_bwd_adjoint_f32_kernel<32>,
+       (const void*)ssd_bwd_adjoint_f32_kernel<64>, (const void*)ssd_bwd_adjoint_f32_kernel<128>,
+       (const void*)ssd_bwd_span_f32_kernel<1>,
+       (const void*)ssd_bwd_span_f32_kernel<2>, (const void*)ssd_bwd_span_f32_kernel<4>,
+       (const void*)ssd_bwd_span_f32_kernel<8>, (const void*)ssd_bwd_span_f32_kernel<16>,
+       (const void*)ssd_bwd_adjoint_kernel<2>, (const void*)ssd_bwd_adjoint_kernel<4>,
+       (const void*)ssd_bwd_adjoint_kernel<8>, (const void*)ssd_bwd_span_kernel<1>,
+       (const void*)ssd_bwd_span_kernel<2>, (const void*)ssd_bwd_span_kernel<4>,
+       (const void*)ssd_bwd_span_kernel<8>, (const void*)ssd_bwd_span_kernel<16>,
+       (const void*)ssd_scan_bwd_sum_kernel});
 }
 
 // Plain C entry point bound with ctypes.  x (Bb, S, H, P), B and C (Bb, S,
@@ -1408,15 +1713,15 @@ extern "C" int rt_prepare_ssd_bwd() {
 // bool or null; init and dfinal (Bb, H, P, N) float32 or null; states (Bb,
 // S / K, H, P, N) contiguous float32, the forward's state after every K
 // steps.  Scratch: hs (Bb, n_span, H, P, N), the adjoint at every span's
-// end (bf16 only; n_span = ceil(S / K / R)); dtp (Bb, S, H, npt), dbp and
-// dcp (Bb, S, H, npt, N), dap (Bb, n_span, H, npt) (n_span 1 for float32),
-// npt = ceil(P / 64).  Out, contiguous: dx (Bb, S, H, P), dB and dC (Bb,
-// S, G, N) in the dtype of x (float32 or bf16), dinit (Bb, H, P, N), ddt
-// (Bb, S, H) and dA (H,) float32.  K divides S, at most 16; R >= 1
-// sub-chunks a span, R K <= 64 for bf16; P and N are multiples of 4, N <=
-// 256; bf16 x, B and C have unit last strides and rows on 8 bytes, dy on
-// 16.  float32 runs ssd_scan_bwd_kernel, bf16 kernels A and B; then the
-// sums.  Returns cudaGetLastError() after the launches.
+// end (n_span = ceil(S / K / R)); dtp (Bb, S, H, npt), dbp and dcp (Bb, S,
+// H, npt, N), dap (Bb, n_span, H, npt), npt = ceil(P / 64).  Out,
+// contiguous: dx (Bb, S, H, P), dB and dC (Bb, S, G, N) in the dtype of x
+// (float32 or bf16), dinit (Bb, H, P, N), ddt (Bb, S, H) and dA (H,)
+// float32.  K divides S, at most 16; R >= 1 sub-chunks a span, a multiple
+// of 64 / K when R K > 64; P and N are multiples of 4, N <= 256; x, B, C
+// and dy have unit last strides and rows on 16 bytes (bf16 x, B and C on
+// 8).  float32 runs the float32 adjoint and span kernels, bf16 kernels A
+// and B; then the sums.  Returns cudaGetLastError() after the launches.
 extern "C" int rt_ssd_scan_bwd(
     const void* x, int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t x_sp, int dtype,
     const void* dt, int64_t dt_sb, int64_t dt_ss, int64_t dt_sh, const void* A_log,
@@ -1436,8 +1741,8 @@ extern "C" int rt_ssd_scan_bwd(
     return cudaErrorInvalidValue;
   }
   if (dtype != F32 && dtype != BF16) return cudaErrorInvalidValue;
-  if (dtype == BF16 && (hs == nullptr || R % std::min(R, 64 / K))) return cudaErrorInvalidValue;
-  const int n_span = dtype == BF16 ? (S / K + R - 1) / R : 1;
+  if (hs == nullptr || R % std::min(R, 64 / K)) return cudaErrorInvalidValue;
+  const int n_span = (S / K + R - 1) / R;
   BwdArgs a = {x, x_sb, x_ss, x_sh, x_sp, static_cast<const float*>(dt), dt_sb, dt_ss,
                dt_sh, static_cast<const float*>(A_log), B, b_sb, b_ss, b_sg, b_sn, C,
                c_sb, c_ss, c_sg, c_sn, static_cast<const unsigned char*>(mask), m_sb,
@@ -1449,7 +1754,7 @@ extern "C" int rt_ssd_scan_bwd(
                static_cast<float*>(dap), static_cast<float*>(dinit), S, H, G, P, N, K,
                static_cast<float*>(hs), R, n_span, static_cast<__nv_bfloat16*>(dx)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == F32 ? launch_bwd_f32_n(a, Bb, s) : launch_bwd_bf16(a, Bb, s);
+  cudaError_t err = dtype == F32 ? launch_bwd_f32(a, Bb, s) : launch_bwd_bf16(a, Bb, s);
   if (err != cudaSuccess) return err;
   const int npt = (P + kBwdPT - 1) / kBwdPT;
   BwdSumArgs r = {static_cast<const float*>(dbp), static_cast<const float*>(dcp),

@@ -8,9 +8,10 @@ takes the plain version ``ref.ssd_ref``; a CUDA tensor launches the
 hand-written scan in ``csrc/ssd_scan.cu``, one launch a call, or raises.
 There is no fallback from one to the other.  ``ssd_bwd`` is its
 gradient: ``ref.ssd_bwd_ref`` on the CPU, the hand-written backward in
-``csrc/ssd_scan_bwd.cu`` on the card (bf16 x, B and C on the tensor
-cores, float32 on CUDA cores); a call of ``ssd`` that autograd would
-record goes through the autograd Function ``_SSD``, which joins the two.
+``csrc/ssd_scan_bwd.cu`` on the card (chunk-parallel: bf16 x, B and C
+on the tensor cores, float32 on CUDA cores); a call of ``ssd`` that
+autograd would record goes through the autograd Function ``_SSD``, which
+joins the two.
 """
 from __future__ import annotations
 
@@ -26,9 +27,12 @@ from repro_torch.kernels.ssd_scan.ref import (
 )
 
 F32 = torch.float32
-#: sub-chunks of one span of the bf16 backward: its first kernel keeps the
-#: adjoint state at every span's end, its second runs the spans in parallel
+#: sub-chunks of one span of the backward, bf16 and float32 routes: its
+#: first kernel keeps the adjoint state at every span's end, its second
+#: runs the spans in parallel (float32: 4, so that a row of 8 sub-chunks,
+#: S 128, still makes two spans)
 BWD_SPAN = 8
+BWD_SPAN_F32 = 4
 
 
 def ssd(x, dt, A_log, B_in, C_in, *, chunk: int = 256, initial_state=None,
@@ -206,10 +210,11 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
     ``mask``.  A CPU tensor takes ``ref.ssd_bwd_ref``; a CUDA tensor
     launches ``rt_ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``), then the sums
     over heads, P tiles and blocks in a fixed order, so two calls are
-    bitwise equal.  Routes by dtype: bf16 x, B and C take the tensor cores
-    in split precision (the adjoint at every ``BWD_SPAN`` sub-chunks, then
-    the spans in parallel; ``ssd_bwd.launches_tc`` counts them), float32
-    the reverse walk with float32 products on CUDA cores.
+    bitwise equal.  Both routes keep the adjoint at every span's end, then
+    run the spans in parallel.  Routes by dtype: bf16 x, B and C take the
+    tensor cores in split precision, spans of ``BWD_SPAN`` sub-chunks
+    (``ssd_bwd.launches_tc`` counts them); float32 takes CUDA cores, every
+    product an exact float32 ``fmaf``, spans of ``BWD_SPAN_F32``.
     ``states``, on the card: the forward's state after every sub-chunk of
     ``ssd_bwd_span(S, chunk)`` steps, (B, S / K, H, P, N) contiguous
     float32 (``_SSD`` keeps them); without them one launch of the scan
@@ -266,10 +271,11 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
     dev = x.device
     npt = -(-P // 64)                    # P tiles of the kernel's blocks
     tc = x.dtype == torch.bfloat16
-    n_span = -(-(S // K) // BWD_SPAN) if tc else 1
-    if tc:      # the tensor-core route stages rows with 8- or 16-byte copies
-        x, B_in, C_in = (_rows(t, 8) for t in (x, B_in, C_in))
-        dy = _rows(dy, 16)
+    span = BWD_SPAN if tc else BWD_SPAN_F32
+    n_span = -(-(S // K) // span)
+    # the kernels stage rows with 16-byte copies (bf16 x, B and C 8-byte)
+    x, B_in, C_in = (_rows(t, 8 if tc else 16) for t in (x, B_in, C_in))
+    dy = _rows(dy, 16)
 
     def empty(*shape, dtype=F32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -282,7 +288,7 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
     # per (head, P tile) and per block partials, summed by the last kernel
     dtp, dbp, dcp, dap = empty(Bb, S, H, npt), empty(Bb, S, H, npt, N), \
         empty(Bb, S, H, npt, N), empty(Bb, n_span, H, npt)
-    hs = empty(Bb, n_span, H, P, N) if tc else None
+    hs = empty(Bb, n_span, H, P, N)
     fn = _build.kernel("rt_ssd_scan_bwd", "PLLLLI PLLLP PLLLL PLLLL PLL "
                                           "PLLLL PLLLL PLLLL PP PPPPPP PPPP "
                                           "IIIIIIII P")
@@ -294,10 +300,10 @@ def ssd_bwd(x, dt, A_log, B_in, C_in, dy, d_final=None, *, chunk: int = 256,
             _build.ptr(initial_state), *strides(initial_state, 4),
             dy.data_ptr(), *dy.stride(),
             _build.ptr(d_final), *strides(d_final, 4),
-            states.data_ptr(), _build.ptr(hs), dx.data_ptr(), dtp.data_ptr(),
+            states.data_ptr(), hs.data_ptr(), dx.data_ptr(), dtp.data_ptr(),
             dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(), d_init.data_ptr(),
             ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-            Bb, S, H, G, P, N, K, BWD_SPAN, _build.stream_ptr(dev))
+            Bb, S, H, G, P, N, K, span, _build.stream_ptr(dev))
     ssd_bwd.launches += 1
     ssd_bwd.launches_tc += tc
     _build.check(rc, "ssd_bwd")

@@ -6,23 +6,25 @@ every test here skips.  On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_ssd_grad_cuda.py
 
 ``ops.ssd_bwd`` (``csrc/ssd_scan_bwd.cu``: bf16 x, B and C on the tensor
-cores in spans of ``ops.BWD_SPAN`` sub-chunks, float32 on CUDA cores; the
-fixed order sums) is held against ``ref.ssd_bwd_ref`` run on the card on
-the same inputs and the same cotangents: mamba2's state 128 and zamba2's
-64 with 64-row heads, a head dim of 80 (two P tiles, the second one
-ragged), states 16 to 256 (256: the most shared memory), two groups, a
-chunk that degrades to 8-step sub-chunks, rows that cross the bf16
-route's span boundaries (a last span of one sub-chunk), ragged masks and
-a fully masked row, with and without an initial state and the final
-state's cotangent, float32 and bf16 x, B and C.  Each call counts one
-launch, and a bf16 one a tensor-core launch.  Tolerances: float32 outputs rel < 1e-4 (max abs error over the
-largest entry; the kernel sums in another order than the plain version,
-dB and dC over the group's heads too); bf16 outputs (dx, dB, dC of bf16
-inputs) rel < 1e-2, bf16 output rounding; dA_log, a sum whose terms cancel,
-1e-5 of its summands' scale (``ref.ssd_dA_log_scale``).  Two calls are
-bitwise equal, shapes the kernel does not take raise ``ValueError`` before
-any launch, and ``ops.ssd`` under autograd launches the forward once and
-the backward once, from the states the forward kept.
+cores in spans of ``ops.BWD_SPAN`` sub-chunks, float32 on CUDA cores in
+spans of ``ops.BWD_SPAN_F32``; the fixed order sums) is held against
+``ref.ssd_bwd_ref`` run on the card on the same inputs and the same
+cotangents: mamba2's state 128 and zamba2's 64 with 64-row heads, a head
+dim of 80 (two P tiles, the second one ragged), states 16 to 256 (256:
+the most shared memory), two groups, a chunk that degrades to 8-step
+sub-chunks, rows that cross either route's span boundaries (a last span
+of one sub-chunk), ragged masks and a fully masked row, with and without
+an initial state and the final state's cotangent, float32 and bf16 x, B
+and C. Each call counts one launch, and a bf16 one a tensor-core launch.
+Tolerances: float32 outputs rel < 1e-4 (max abs error over the largest
+entry; the kernel sums in another order than the plain version, dB and
+dC over the group's heads too); bf16 outputs (dx, dB, dC of bf16 inputs)
+rel < 1e-2, bf16 output rounding; dA_log, a sum whose terms cancel, 1e-5
+of its summands' scale (``ref.ssd_dA_log_scale``). Two calls are bitwise
+equal (bf16 and float32), shapes the kernel does not take raise
+``ValueError`` before any launch, and ``ops.ssd`` under autograd
+launches the forward once and the backward once, from the states the
+forward kept.
 """
 import numpy as np
 import pytest
@@ -71,6 +73,23 @@ CASES = {
                   torch.bfloat16),
     "sub8_n16_bf16": (2, 40, 4, 16, 1, 16, 16, (40, 13), False, True,
                       torch.bfloat16),
+    # the float32 route across its span boundaries (``ops.BWD_SPAN_F32``
+    # sub-chunks): the bf16 cases above in float32, with a fully masked
+    # row beside the ragged one, and states 256 and 16 (8-step
+    # sub-chunks) over three spans
+    "n128_f32_ragged_init": (3, 192, 4, 64, 1, 128, 256, (192, 70, 0), True,
+                             True, torch.float32),
+    "p80_two_tiles_f32_spans": (2, 144, 4, 80, 2, 128, 48, (144, 0), True,
+                                True, torch.float32),
+    "two_spans_and_16_f32": (3, 16 * (2 * sops.BWD_SPAN_F32 + 1), 4, 64, 1,
+                             64, 16, (16 * (2 * sops.BWD_SPAN_F32 + 1), 100,
+                                      0), True, True, torch.float32),
+    "n256_f32_spans": (1, 160, 2, 64, 1, 256, 16, (150,), True, True,
+                       torch.float32),
+    "sub8_n16_f32_spans": (2, 72, 4, 16, 1, 16, 8, (72, 29), True, True,
+                           torch.float32),
+    "mamba2_n128_f32": (2, 128, 8, 64, 1, 128, 256, None, False, False,
+                        torch.float32),
 }
 
 
@@ -141,8 +160,9 @@ def test_ssd_bwd_kernel_matches_its_plain_version(dev, case):
         assert torch.all(got[3][pad] == 0)
 
 
-def test_two_calls_are_bitwise_equal(dev):
-    args, kw = _inputs(dev, "mamba2_n128_bf16")
+@pytest.mark.parametrize("case", ["mamba2_n128_bf16", "mamba2_n128_f32"])
+def test_two_calls_are_bitwise_equal(dev, case):
+    args, kw = _inputs(dev, case)
     K = ssd_bwd_span(args[0].shape[1], kw["chunk"])
     with torch.no_grad():
         states = sops.ssd(*args[:5], chunk=K, initial_state=kw["initial_state"],
