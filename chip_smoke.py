@@ -266,6 +266,29 @@ qwen3-4b (4 kv heads) disaggregated over a (1, 2, 4) grid, a prefill
 cell over (2, 2) feeding replicas over (2, 1) scaled from 2 to 1, and
 an int8 paged pool over (2, 2).
 
+Phases 20a-20d serve the four registry archs no other phase runs at
+full width in bf16 on phase 5's path and traffic (the paged pool, two
+rounds of two waves, ``main_path_rounds`` drawn below each arch's
+vocab): chameleon-34b (the vlm family: qk-norm, 64 q heads over 8),
+deepseek-coder-33b (56 over 8) and qwen2.5-32b (40 over 8, qkv bias) at
+full depth, nemotron-4-340b (96 q heads of 192 over 8, a squared-ReLU
+MLP) at 4 of its 96 layers (``ARCH_PHASES``).  Each makes phase 5's
+checks (paged decode exactly L a decode step, flash and extend on the
+tensor cores, the pool drained with every prefix hit, round 2 all
+replays), requires the step graphs' counters to equal phase 5's, then
+holds one paged decode after a prefill of all but the last token to the
+teacher-forced prefill of the whole prompt on 32 prompts (logits within
+5e-2, argmax on more than 0.9 of them, ``tests/test_models.py``'s bf16
+limits), and prints tokens/s, TTFT by wave, the decode step beside its
+byte yardstick (the weights but the embedding table over 3.35 TB/s),
+the peak and graph-pool GB and the init seconds.  Phase 3 holds and
+times the three attention kernels at each arch's heads at the main
+path's shapes (rows ``<kernel>_hq<Hq>_hkv<Hkv>_dh<Dh>``, launched by
+that arch's phase), phase 4 serves each arch at its own group and head
+dim over one kv head in float32 on the card and the CPU, and phase 13b
+trains nemotron-4-340b so (G 12 at head dim 192) with its bf16 first
+moment, within 1e-5 of the CPU.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -274,6 +297,7 @@ non-zero; without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -315,6 +339,14 @@ FRAMES_LO, FRAMES_HI = 96, 384
 # the query lengths cross-attention meets on phase 10: the prompt buckets
 # of its cold prefills (72..128 tokens) and extends (8..64)
 CROSS_SQ = (128, 96, 64, 32)
+# phases 20a-20d: the registry archs no other phase runs, served at full
+# width in bf16, at full depth but nemotron-4-340b (682 GB), cut to the
+# 4 of its 96 layers that fit beside its 18.9 GB embedding and head:
+# (tag, arch, layers or None for all)
+ARCH_PHASES = (("20a", "chameleon-34b", None),
+               ("20b", "deepseek-coder-33b", None),
+               ("20c", "qwen2.5-32b", None),
+               ("20d", "nemotron-4-340b", 4))
 
 
 def log(msg: str):
@@ -368,14 +400,14 @@ def time_ms(fn, reps: int = 25, flush=None) -> float:
 # phase 3 inputs: layout-consistent paged arenas
 # --------------------------------------------------------------------------
 def build_arena(gen, kv_lens, n_log, dtype, dev, *, n_layers=LAYERS,
-                sentinel_rows=()):
+                sentinel_rows=(), hkv=HKV, dh=DH):
     """Arena (N, P, L, Hkv, Dh) in which logical page j of row b holds
     positions [j*P, min((j+1)*P, kv_len)) at every layer; unused pages and
     the clamp target page N-1 stay clean (slot_pos -1).  Rows listed in
     ``sentinel_rows`` map no page at all."""
     B = len(kv_lens)
     N = B * n_log + 2
-    shape = (N, PAGE, n_layers, HKV, DH)
+    shape = (N, PAGE, n_layers, hkv, dh)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
     sp = torch.full((N, PAGE, n_layers), -1, dtype=torch.int32)
@@ -471,6 +503,29 @@ def encdec_sources(seed: int = 0) -> list:
     return waves
 
 
+def arch_heads(arch: str) -> tuple:
+    """(q heads, kv heads, head dim) of a registry arch."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
+def heads_row(kernel: str, arch: str) -> str:
+    """The kernels line's row of ``kernel`` at ``arch``'s heads."""
+    hq, hkv, dh = arch_heads(arch)
+    return f"{kernel}_hq{hq}_hkv{hkv}_dh{dh}"
+
+
+def real_heads(arch: str):
+    """``smoke_config`` of ``arch`` with the arch's own attention group and
+    head dim over one kv head (G q heads of the full width's head dim)."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.registry import get_arch
+    hq, hkv, dh = arch_heads(arch)
+    return smoke_config(get_arch(arch)).replace(
+        num_heads=hq // hkv, num_kv_heads=1, head_dim=dh)
+
+
 def pow2(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
@@ -481,6 +536,7 @@ def check_kernels(dev, kernels: dict):
     PyTorch library call computing the same function."""
     import torch.nn.functional as F
 
+    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention,
         paged_decode_attention,
@@ -495,7 +551,6 @@ def check_kernels(dev, kernels: dict):
     )
     from repro_torch.kernels.flash_attention.ref import (
         attention_ref,
-        gather_pages_ref,
         paged_extend_attention_ref,
     )
     from repro_torch.kernels.moe_gmm.ops import gmm
@@ -744,108 +799,19 @@ def check_kernels(dev, kernels: dict):
 
     # ---- timing at the main path's shapes (bf16) ----------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    waves = main_path_prompts()
-    lens = [len(p) for p in waves[0]]
     elem = 2
 
-    # prefill: the cold wave's longest bucket, all 8 rows
-    S = -(-max(lens) // CHUNK) * CHUNK
-    q = torch.randn((SLOTS, S, HQ, DH), generator=gen, device=dev).to(bf16)
-    k = torch.randn((SLOTS, S, HKV, DH), generator=gen, device=dev).to(bf16)
-    v = torch.randn((SLOTS, S, HKV, DH), generator=gen, device=dev).to(bf16)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ke, ve = (x.repeat_interleave(HQ // HKV, dim=1) for x in (kt, vt))
-    kern = lambda: flash_attention(q, k, v)  # noqa: E731
-    n_bytes = (q.numel() * 2 + k.numel() * 2) * elem
-    n_ops = 4 * DH * HQ * SLOTS * S * (S + 1) // 2
-    kernels["flash_attention"].update(
-        shape=f"B{SLOTS} S{S} Hq{HQ} Hkv{HKV} Dh{DH} bf16 causal",
-        ms=time_ms(kern, flush=flush),
-        plain_ms=time_ms(lambda: attention_ref(qt, kt, vt), flush=flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, ke, ve, is_causal=True), flush=flush),
-        **bound(n_bytes, n_ops, bf16))
-
-    # paged extend: the warm wave's suffixes behind the 64-token prefix,
-    # over a bf16 arena and an int8 one (phase 19b's arena), both on the
-    # tensor cores (paged_extend_tc_kernel<128, bf16> and <128, int8_t>,
-    # the int8 one turning codes into bf16 in shared memory and applying
-    # the scales in float32); the int8 row's library call is SDPA over the
-    # pages dequantised to bf16 beforehand, a yardstick that reads bf16
-    # where the kernel reads int8
-    suffix = [len(p) - SHARED for p in waves[1]]
-    S = -(-max(suffix) // CHUNK) * CHUNK
-    n_log = min(pow2(-(-max(len(p) for p in waves[1]) // PAGE)),
-                MAX_LEN // PAGE)
-    pos = [SHARED] * SLOTS
-    ps = torch.tensor(pos, dtype=torch.int32, device=dev)
-    q = torch.randn((SLOTS, S, HQ, DH), generator=gen, device=dev).to(bf16)
-    q_pos = ps[:, None] + torch.arange(S, device=dev)[None]
-    qt = q.transpose(1, 2).contiguous()
-    n_slots = pages_read([SHARED + S] * SLOTS, n_log) * PAGE
-    n_ops = 4 * DH * HQ * SLOTS * sum(SHARED + i + 1 for i in range(S))
-    for name, adt in (("paged_extend_attention", bf16),
-                      ("paged_extend_attention_int8", i8)):
-        a = build_arena(gen, [SHARED + S] * SLOTS, n_log, adt, dev)
-        args = (a["k"], a["v"], a["slot_pos"], a["block_table"], ps, LAYER)
-        sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
-        kd, vd, spd = gather_pages_ref(*dequantised(a), a["slot_pos"],
-                                       a["block_table"], LAYER)
-        kd, vd = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
-                  .contiguous() for x in (kd, vd))
-        mask = ((spd[:, None, :] >= 0)
-                & (spd[:, None, :] <= q_pos[:, :, None]))[:, None]
-        n_bytes = (2 * q.numel() * elem + n_slots * (
-            2 * HKV * DH * a["k"].element_size() + 4)
-            + scale_bytes(a, n_slots))
-        kernels[name].update(
-            shape=f"B{SLOTS} S{S} pos{SHARED} n_log{n_log} P{PAGE} "
-                  f"L{LAYERS} q bf16 arena {str(adt)[6:]}",
-            ms=time_ms(lambda: paged_extend_attention(q, *args, **sc),
-                       flush=flush),
-            plain_ms=time_ms(lambda: paged_extend_attention_ref(
-                qt, *args, **sc), flush=flush),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kd, vd, attn_mask=mask), flush=flush),
-            **bound(n_bytes, n_ops, bf16))
-
-    # paged decode: the cold wave half-way through its 16 new tokens, over
-    # a bf16 arena and an int8 one (phase 19b's), the int8 row's library
-    # call SDPA over the pages dequantised to bf16 beforehand
-    kv_lens = [n + MAX_NEW // 2 for n in lens]
-    n_log = min(pow2(max(kv_lens) // PAGE + 1), MAX_LEN // PAGE)
-    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-    q = torch.randn((SLOTS, 1, HQ, DH), generator=gen, device=dev).to(bf16)
-    qt = q.transpose(1, 2).contiguous()
-    n_slots = pages_read(kv_lens, n_log) * PAGE
-    n_ops = 4 * DH * HQ * sum(kv_lens)
-    for name, adt in (("paged_decode_attention", bf16),
-                      ("paged_decode_attention_int8", i8)):
-        a = build_arena(gen, kv_lens, n_log, adt, dev)
-        args = (a["k"], a["v"], a["slot_pos"], a["block_table"], kl, LAYER)
-        sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
-        kd, vd, spd = gather_pages_ref(*dequantised(a), a["slot_pos"],
-                                       a["block_table"], LAYER)
-        kd, vd = (x.transpose(1, 2).repeat_interleave(HQ // HKV, dim=1)
-                  .contiguous() for x in (kd, vd))
-        mask = ((spd >= 0) & (spd < kl[:, None]))[:, None, None]
-        n_bytes = (2 * q.numel() * elem + n_slots * (
-            2 * HKV * DH * a["k"].element_size() + 4)
-            + scale_bytes(a, n_slots))
-        kernels[name].update(
-            shape=f"B{SLOTS} kv_len{min(kv_lens)}..{max(kv_lens)} "
-                  f"n_log{n_log} P{PAGE} L{LAYERS} q bf16 arena "
-                  f"{str(adt)[6:]}",
-            ms=time_ms(lambda: paged_decode_attention(q, *args, **sc),
-                       flush=flush),
-            plain_ms=time_ms(lambda: paged_decode_attention_ref(
-                q[:, 0], *args, **sc), flush=flush),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kd, vd, attn_mask=mask), flush=flush),
-            **bound(n_bytes, n_ops, bf16))
+    # the three attention kernels of the main path at its shapes (rows 1,
+    # 2 and 4), the paged ones over a bf16 and an int8 arena (phase 19b's)
+    time_attention(dev, gen, flush, kernels, hold, HQ, HKV, DH, {
+        "flash": "flash_attention", "extend": "paged_extend_attention",
+        "extend_int8": "paged_extend_attention_int8",
+        "decode": "paged_decode_attention",
+        "decode_int8": "paged_decode_attention_int8"})
     # dense decode: the main path's 8 rows over their 512-slot dense cache,
     # half-way through the cold wave's 16 new tokens (a non-rolling cache
     # passes no slot_pos: the splits share each row's slots below kv_len)
+    kv_lens = main_path_shapes()["kv_lens"]
     k = torch.randn((SLOTS, MAX_LEN, HKV, DH), generator=gen,
                     device=dev).to(bf16)
     v = torch.randn((SLOTS, MAX_LEN, HKV, DH), generator=gen,
@@ -902,7 +868,20 @@ def check_kernels(dev, kernels: dict):
     time_gmm_bwd(dev, flush, kernels)
     time_ssd(dev, gen, flush, kernels)
     time_ssd_bwd(dev, gen, flush, kernels)
-    time_head_dim_80(dev, gen, flush)
+    # zamba2-2.7b's shared attention over its dense cache (rows 1b-3b),
+    # logged; the four registry archs of phases 20a-20d at their heads
+    time_attention(dev, gen, flush, kernels, hold, ZAMBA_H, ZAMBA_H,
+                   ZAMBA_DH, {"flash": "flash_attention",
+                              "extend": "paged_extend_attention",
+                              "decode": "decode_attention"},
+                   dense=True, store=False)
+    for tag, arch, layers in ARCH_PHASES:
+        time_attention(dev, gen, flush, kernels, hold, *arch_heads(arch), {
+            kind: heads_row(base, arch) for kind, base in (
+                ("flash", "flash_attention"),
+                ("extend", "paged_extend_attention"),
+                ("decode", "paged_decode_attention"))},
+            n_layers=layers or get_arch(arch).num_layers)
     time_long_decode(dev, gen, flush)
     time_flash_bwd(dev, gen, flush, kernels, hold)
     errs["gmm_prefill"] = errs["gmm"]     # one kernel, held at both shapes
@@ -1197,8 +1176,8 @@ def time_ssd_bwd(dev, gen, flush, kernels) -> None:
     route), from the states of the forward's training launch, beside its
     plain version; rows 6f and 6f': the float32 route at mamba2's and
     zamba2's shapes (what phase 13b's float32 steps take), each with its
-    share of the bound and the kernels of one profiled call (adjoint,
-    span, sums).  No single PyTorch call computes it (library: none).  The
+    share of the bound and the kernels of a call (adjoint, span, sums;
+    the mean of three traced calls).  No single PyTorch call computes it (library: none).  The
     bound counts the tensor-core route's TF32 passes at 495 TFLOP/s (the
     float32 route: its products at the float32 CUDA-core peak; logged
     beside rows 6d and 6e too).  Also the forward as training runs it (a
@@ -1236,10 +1215,14 @@ def time_ssd_bwd(dev, gen, flush, kernels) -> None:
             f"forward with its states {fwd:.4f} ms")
         kernels[name].update(rep)
         if not tc:
-            _, split = profile_step(
-                lambda: ssd_bwd(*args, states=states, **call), cpu=False)[:2]
-            log(f"  {name} kernels of one call: " + ", ".join(
-                f"{k_[:40]} {t * 1e3:.4f} ms" for k_, t, _ in split))
+            # three calls traced, each kernel's mean: a trace of a single
+            # call has come back without one of its kernels
+            _, split = profile_step(lambda: [ssd_bwd(
+                *args, states=states, **call) for _ in range(3)],
+                cpu=False)[:2]
+            log(f"  {name} kernels of one call (mean of 3 traced): "
+                + ", ".join(f"{k_[:40]} {t / n * 1e3:.4f} ms x {n}"
+                            for k_, t, n in split))
 
 
 #: seed of the grouped GEMM backward's phase-3 inputs
@@ -1708,83 +1691,207 @@ def time_ssd(dev, gen, flush, kernels) -> None:
             kernels["ssd"].update(rep)
 
 
-def time_head_dim_80(dev, gen, flush):
-    """The three attention kernels at zamba2-2.7b's shapes (32 heads of 80,
-    bf16): the cold prefill (8 rows of 128), the warm suffix extend over the
-    dense cache (8 rows of 64 behind a 64-token prefix), a decode step
-    (kv_len 87..129 of 512).  Logged beside their plain versions, one
-    ``scaled_dot_product_attention`` call each (with a boolean mask over
-    the dense cache where one is needed) and their bounds."""
+def main_path_shapes() -> dict:
+    """The main path's attention shapes (rows 1, 2 and 4 of ``PERF.md``):
+    the cold wave's prefill bucket ``S``; the warm wave's suffix bucket
+    ``S_ext`` behind the shared prefix over ``n_log_ext`` pages; the decode
+    step half-way through the cold wave's new tokens, ``kv_lens`` over
+    ``n_log_dec`` pages."""
+    waves = main_path_prompts()
+    lens = [len(p) for p in waves[0]]
+    kv_lens = [n + MAX_NEW // 2 for n in lens]
+    return {"S": -(-max(lens) // CHUNK) * CHUNK,
+            "S_ext": -(-max(len(p) - SHARED for p in waves[1]) // CHUNK)
+            * CHUNK,
+            "n_log_ext": min(pow2(-(-max(len(p) for p in waves[1]) // PAGE)),
+                             MAX_LEN // PAGE),
+            "kv_lens": kv_lens,
+            "n_log_dec": min(pow2(max(kv_lens) // PAGE + 1), MAX_LEN // PAGE)}
+
+
+def time_attention(dev, gen, flush, kernels, hold, hq, hkv, dh, names, *,
+                   dense=False, store=True, n_layers=LAYERS):
+    """The three attention kernels of a serving path at the main path's
+    shapes (``main_path_shapes``), bf16, at ``hq`` q heads over ``hkv`` kv
+    heads of ``dh``: the cold prefill (flash, causal), the warm suffix
+    extend behind the 64-token prefix and a decode step, each held against
+    its plain version (bf16 tolerance) and timed beside it, one
+    ``scaled_dot_product_attention`` call (over the kv heads repeated to
+    the q heads, with a boolean mask where one is needed) and its bound.
+
+    ``names`` maps each call ("flash", "extend", "decode", and
+    "extend_int8" / "decode_int8" for the same calls over an int8 arena)
+    to its row.  Paged (the default): the extend and the decode read a
+    paged arena of ``n_layers`` layers at its middle layer.  ``dense``
+    (zamba2-2.7b's snapshot path): the extend reads the dense per-slot
+    cache as an arena, the decode is the dense kernel over 512 slots at
+    kv_len 87..129.  ``store``: write each row into ``kernels``, else log
+    it (its error still held, under the row's kernel).  An int8 row's
+    library call is SDPA over the pages dequantised to bf16 beforehand, a
+    yardstick that reads bf16 where the kernel reads int8."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref,
+        paged_decode_attention_ref,
+    )
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention,
         paged_extend_attention,
     )
     from repro_torch.kernels.flash_attention.ref import (
         attention_ref,
+        gather_pages_ref,
         paged_extend_attention_ref,
     )
     from repro_torch.models.layers import KVSlice, dense_kv_arena
-    bf16, H, Dh, e = torch.bfloat16, ZAMBA_H, ZAMBA_DH, 2
-    r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(bf16)  # noqa: E731
-    rows = []
-    S = 128
-    q, k, v = r(SLOTS, S, H, Dh), r(SLOTS, S, H, Dh), r(SLOTS, S, H, Dh)
+    bf16, e, g = torch.bfloat16, 2, hq // hkv
+    sh = main_path_shapes()
+    heads = f"Hq{hq} Hkv{hkv} Dh{dh}"
+    why = "bf16 output and P rounding"
+    r = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                   device=dev).to(bf16)
+
+    def expand(x):      # (B, S, Hkv, Dh) -> (B, Hq, S, Dh)
+        return x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+
+    def row(kind, shape, kern, plain, out, ref, lib, bd):
+        name = names[kind]
+        hold(name, out, ref, 2e-2, why, shape)
+        rep = dict(shape=shape, ms=time_ms(kern, flush=flush),
+                   plain_ms=time_ms(plain, flush=flush),
+                   library_ms=time_ms(lib, flush=flush), **bd)
+        if store:
+            kernels[name].update(rep)
+        else:
+            log(f"  {name} {shape}: kernel {rep['ms']:.4f} ms, plain "
+                f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']:.4f}"
+                f" ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+
+    # the cold prefill: 8 rows of the cold wave's bucket, causal
+    S = sh["S"]
+    q, k, v = r(SLOTS, S, hq, dh), r(SLOTS, S, hkv, dh), r(SLOTS, S, hkv, dh)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    rows.append(("flash_attention", f"B{SLOTS} S{S} causal",
-                 lambda: flash_attention(q, k, v),
-                 lambda: attention_ref(qt, kt, vt),
-                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                        is_causal=True),
-                 bound(3 * q.numel() * e + q.numel() * e,
-                       4 * Dh * H * SLOTS * S * (S + 1) // 2, bf16)))
-    S, pos0 = 64, 64
+    ke, ve = expand(k), expand(v)
+    row("flash", f"B{SLOTS} S{S} {heads} bf16 causal",
+        lambda: flash_attention(q, k, v), lambda: attention_ref(qt, kt, vt),
+        flash_attention(q, k, v), attention_ref(qt, kt, vt).transpose(1, 2),
+        lambda: F.scaled_dot_product_attention(qt, ke, ve, is_causal=True),
+        bound((2 * q.numel() + 2 * k.numel()) * e,
+              4 * dh * hq * SLOTS * S * (S + 1) // 2, bf16))
+    del q, k, v, qt, kt, vt, ke, ve
+
+    # the warm extend: 8 suffixes of the warm wave's bucket behind the
+    # 64-token shared prefix
+    S, pos0 = sh["S_ext"], SHARED
     pos = torch.full((SLOTS,), pos0, dtype=torch.int32, device=dev)
-    slots = torch.arange(MAX_LEN, dtype=torch.int32, device=dev)
-    sp = torch.where(slots[None] < pos[:, None] + S, slots[None], -1)
-    cache = KVSlice(r(SLOTS, MAX_LEN, H, Dh), r(SLOTS, MAX_LEN, H, Dh),
-                    sp.contiguous())
-    qe = r(SLOTS, S, H, Dh)
-    arena = dense_kv_arena(cache)
-    qet = qe.transpose(1, 2).contiguous()
-    kc, vc = (x.transpose(1, 2).contiguous() for x in (cache.k, cache.v))
     q_pos = pos[:, None] + torch.arange(S, device=dev)[None]
-    emask = ((sp[:, None, :] >= 0) & (sp[:, None, :] <= q_pos[:, :, None])
-             )[:, None]
-    n_slots = SLOTS * (pos0 + S)
-    rows.append(("paged_extend_attention",
-                 f"dense S{MAX_LEN} as arena, B{SLOTS} Sq{S} pos{pos0}",
-                 lambda: paged_extend_attention(qe, *arena, pos, 0),
-                 lambda: paged_extend_attention_ref(qet, *arena, pos, 0),
-                 lambda: F.scaled_dot_product_attention(qet, kc, vc,
-                                                        attn_mask=emask),
-                 bound(2 * qe.numel() * e + n_slots * (2 * H * Dh * e + 4),
-                       4 * Dh * H * SLOTS * sum(pos0 + i + 1
-                                                for i in range(S)), bf16)))
-    kv_lens = [87, 95, 103, 111, 113, 121, 127, 129]
+    q = r(SLOTS, S, hq, dh)
+    qt = q.transpose(1, 2).contiguous()
+    n_ops = 4 * dh * hq * SLOTS * sum(pos0 + i + 1 for i in range(S))
+    if dense:
+        slots = torch.arange(MAX_LEN, dtype=torch.int32, device=dev)
+        sp = torch.where(slots[None] < pos[:, None] + S, slots[None], -1)
+        cache = KVSlice(r(SLOTS, MAX_LEN, hkv, dh), r(SLOTS, MAX_LEN, hkv, dh),
+                        sp.contiguous())
+        arena = dense_kv_arena(cache)
+        kd, vd = expand(cache.k), expand(cache.v)
+        mask = ((sp[:, None, :] >= 0) & (sp[:, None, :] <= q_pos[:, :, None])
+                )[:, None]
+        n_slots = SLOTS * (pos0 + S)
+        row("extend", f"dense S{MAX_LEN} as arena, B{SLOTS} Sq{S} "
+            f"pos{pos0} {heads} bf16",
+            lambda: paged_extend_attention(q, *arena, pos, 0),
+            lambda: paged_extend_attention_ref(qt, *arena, pos, 0),
+            paged_extend_attention(q, *arena, pos, 0),
+            paged_extend_attention_ref(qt, *arena, pos, 0).transpose(1, 2),
+            lambda: F.scaled_dot_product_attention(qt, kd, vd,
+                                                   attn_mask=mask),
+            bound(2 * q.numel() * e + n_slots * (2 * hkv * dh * e + 4),
+                  n_ops, bf16))
+        del cache, arena, kd, vd
+    for kind, adt in (("extend", bf16), ("extend_int8", torch.int8)):
+        if dense or kind not in names:
+            continue
+        n_log = sh["n_log_ext"]
+        a = build_arena(gen, [pos0 + S] * SLOTS, n_log, adt, dev,
+                        n_layers=n_layers, hkv=hkv, dh=dh)
+        args = (a["k"], a["v"], a["slot_pos"], a["block_table"], pos,
+                n_layers // 2)
+        sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
+        kd, vd, spd = gather_pages_ref(*dequantised(a), a["slot_pos"],
+                                       a["block_table"], n_layers // 2)
+        kd, vd = expand(kd), expand(vd)
+        mask = ((spd[:, None, :] >= 0)
+                & (spd[:, None, :] <= q_pos[:, :, None]))[:, None]
+        n_slots = pages_read([pos0 + S] * SLOTS, n_log) * PAGE
+        row(kind, f"B{SLOTS} S{S} pos{pos0} n_log{n_log} P{PAGE} "
+            f"L{n_layers} {heads} q bf16 arena {str(adt)[6:]}",
+            lambda: paged_extend_attention(q, *args, **sc),
+            lambda: paged_extend_attention_ref(qt, *args, **sc),
+            paged_extend_attention(q, *args, **sc),
+            paged_extend_attention_ref(qt, *args, **sc).transpose(1, 2),
+            lambda: F.scaled_dot_product_attention(qt, kd, vd,
+                                                   attn_mask=mask),
+            bound(2 * q.numel() * e + n_slots * (
+                2 * hkv * dh * a["k"].element_size() + 4)
+                + scale_bytes(a, n_slots), n_ops, bf16))
+        del a, args, kd, vd
+    del q, qt
+
+    # a decode step half-way through the cold wave's new tokens
+    q = r(SLOTS, 1, hq, dh)
+    qt = q.transpose(1, 2).contiguous()
+    if dense:
+        kv_lens = [87, 95, 103, 111, 113, 121, 127, 129]
+        kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        k, v = r(SLOTS, MAX_LEN, hkv, dh), r(SLOTS, MAX_LEN, hkv, dh)
+        kd, vd = expand(k), expand(v)
+        mask = (torch.arange(MAX_LEN, device=dev)[None] < kl[:, None]
+                )[:, None, None]
+        row("decode", f"B{SLOTS} S{MAX_LEN} kv_len{kv_lens[0]}.."
+            f"{kv_lens[-1]} {heads} bf16",
+            lambda: decode_attention(q, k, v, kl),
+            lambda: decode_attention_ref(q[:, 0], k, v, kl),
+            decode_attention(q, k, v, kl),
+            decode_attention_ref(q[:, 0], k, v, kl)[:, None],
+            lambda: F.scaled_dot_product_attention(qt, kd, vd,
+                                                   attn_mask=mask),
+            bound(2 * q.numel() * e + 4 * SLOTS
+                  + sum(kv_lens) * 2 * hkv * dh * e,
+                  4 * dh * hq * sum(kv_lens), bf16))
+        return
+    kv_lens, n_log = sh["kv_lens"], sh["n_log_dec"]
     kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-    qd, kd, vd = r(SLOTS, 1, H, Dh), r(SLOTS, MAX_LEN, H, Dh), r(
-        SLOTS, MAX_LEN, H, Dh)
-    qdt, kdt, vdt = (x.transpose(1, 2).contiguous() for x in (qd, kd, vd))
-    dmask = (torch.arange(MAX_LEN, device=dev)[None] < kl[:, None]
-             )[:, None, None]
-    rows.append(("decode_attention",
-                 f"B{SLOTS} S{MAX_LEN} kv_len{kv_lens[0]}..{kv_lens[-1]}",
-                 lambda: decode_attention(qd, kd, vd, kl),
-                 lambda: decode_attention_ref(qd[:, 0], kd, vd, kl),
-                 lambda: F.scaled_dot_product_attention(qdt, kdt, vdt,
-                                                        attn_mask=dmask),
-                 bound(2 * qd.numel() * e + 4 * SLOTS
-                       + sum(kv_lens) * 2 * H * Dh * e,
-                       4 * Dh * H * sum(kv_lens), bf16)))
-    for name, shape, kern, plain, lib, bd in rows:
-        log(f"  {name} at head dim 80 ({shape} Hq{H} Hkv{H} Dh{Dh} bf16): "
-            f"kernel {time_ms(kern, flush=flush):.4f} ms, plain "
-            f"{time_ms(plain, flush=flush):.4f} ms, library "
-            f"{time_ms(lib, flush=flush):.4f} ms, bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    for kind, adt in (("decode", bf16), ("decode_int8", torch.int8)):
+        if kind not in names:
+            continue
+        a = build_arena(gen, kv_lens, n_log, adt, dev, n_layers=n_layers,
+                        hkv=hkv, dh=dh)
+        args = (a["k"], a["v"], a["slot_pos"], a["block_table"], kl,
+                n_layers // 2)
+        sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
+        kd, vd, spd = gather_pages_ref(*dequantised(a), a["slot_pos"],
+                                       a["block_table"], n_layers // 2)
+        kd, vd = expand(kd), expand(vd)
+        mask = ((spd >= 0) & (spd < kl[:, None]))[:, None, None]
+        n_slots = pages_read(kv_lens, n_log) * PAGE
+        row(kind, f"B{SLOTS} kv_len{min(kv_lens)}..{max(kv_lens)} "
+            f"n_log{n_log} P{PAGE} L{n_layers} {heads} q bf16 arena "
+            f"{str(adt)[6:]}",
+            lambda: paged_decode_attention(q, *args, **sc),
+            lambda: paged_decode_attention_ref(q[:, 0], *args, **sc),
+            paged_decode_attention(q, *args, **sc),
+            paged_decode_attention_ref(q[:, 0], *args, **sc)[:, None],
+            lambda: F.scaled_dot_product_attention(qt, kd, vd,
+                                                   attn_mask=mask),
+            bound(2 * q.numel() * e + n_slots * (
+                2 * hkv * dh * a["k"].element_size() + 4)
+                + scale_bytes(a, n_slots), 4 * dh * hq * sum(kv_lens), bf16))
+        del a, args, kd, vd
 
 
 def time_long_decode(dev, gen, flush):
@@ -1955,7 +2062,13 @@ PARITY = [
      "seamless-m4t-large-v2",
      dict(max_len=64, prefill_chunk=None, kv_pool=None), 0, 5,
      ([3, 9, 5], [6, 2])),
-]
+] + [
+    # the four archs of phases 20a-20d at their own attention group and
+    # head dim over one kv head (``real_heads``: G 8, 7, 5 at 128 and G 12
+    # at 192), the float32 CUDA-core kernels behind the batcher
+    (f"{arch} at its own heads, paged, cold and warm", arch,
+     dict(max_len=64, prefill_chunk=8, real_heads=True), 0, 4,
+     ([3, 9, 5], [6, 2])) for _, arch, _ in ARCH_PHASES]
 
 
 def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
@@ -1974,7 +2087,10 @@ def parity_run(dev, arch, opts, weight_seed, prompt_seed, waves):
     from repro_torch.models.param import params_from_numpy, tree_map
     from repro_torch.serve.batcher import ContinuousBatcher, Request
 
-    model = Model(smoke_config(get_arch(arch)).replace(dtype="float32"))
+    opts = dict(opts)
+    cfg = (real_heads(arch) if opts.pop("real_heads", False)
+           else smoke_config(get_arch(arch)))
+    model = Model(cfg.replace(dtype="float32"))
     ref_params = model.init(torch.Generator().manual_seed(weight_seed),
                             device="cpu")
     host = tree_map(lambda t: t.numpy(), ref_params)
@@ -2475,12 +2591,15 @@ def phase_parity(dev):
 # --------------------------------------------------------------------------
 # phases 5-7: the main paths at full width
 # --------------------------------------------------------------------------
-def full_width(dev, arch: str, tag: str):
+def full_width(dev, arch: str, tag: str, layers=None):
     """(model, params) of ``arch`` at full width in bf16, random weights
-    drawn from a seeded generator on the card."""
+    drawn from a seeded generator on the card; ``layers``: the depth, when
+    cut."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
     cfg = get_arch(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     model = Model(cfg)
     t0 = time.monotonic()
     params = model.init(torch.Generator(device=dev).manual_seed(0),
@@ -2784,11 +2903,14 @@ def warm_up(bat_fn, vocab: int):
     torch.cuda.synchronize()
 
 
-def phase_main_path(dev, name_limit: str, model, params) -> dict:
-    """Full-width qwen3-4b behind the batcher on the paged pool: two waves
-    of 8 requests, the second sharing a 64-token prefix with the first
+def phase_main_path(dev, name_limit: str, model, params, tag=5,
+                    timings: bool = True) -> dict:
+    """Full-width qwen3-4b (or ``model``'s arch: phases 20a-20d) behind
+    the batcher on the paged pool: two rounds of two waves of 8 requests,
+    each round's second wave sharing a 64-token prefix with its first
     (paged extend).  Returns the launches of each kernel in this run and
-    the end-to-end numbers."""
+    the end-to-end numbers; ``timings``: also one decode step and one cold
+    and one extend prefill of the drained batcher, eager and replayed."""
     from repro_torch.kernels.decode_attention.ops import paged_decode_attention
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention,
@@ -2809,8 +2931,8 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
     counters = (flash_attention, paged_extend_attention,
                 paged_decode_attention)
     hits = []
-    reqs, launches, wall, step_s, marks = serve(bat, main_path_rounds(),
-                                                counters, hits=hits)
+    reqs, launches, wall, step_s, marks = serve(
+        bat, main_path_rounds(0, cfg.vocab), counters, hits=hits)
     # the main path went through all three kernels, every layer
     L = cfg.num_layers
     if min(launches.values()) <= 0:
@@ -2819,20 +2941,123 @@ def phase_main_path(dev, name_limit: str, model, params) -> dict:
            L * bat.decode_invocations)
     expect_tc(launches, "flash_attention", "paged_extend_attention")
     check_drained(bat.pool, SLOTS * SHARED)
-    e2e = report(5, name_limit, bat, reqs, wall, step_s, launches, cfg.vocab)
+    e2e = report(tag, name_limit, bat, reqs, wall, step_s, launches,
+                 cfg.vocab)
     # what phase 11's cell a must reproduce, round by round
     e2e["tokens_by_round"] = [[r.output for r in reqs[:2 * SLOTS]],
                               [r.output for r in reqs[2 * SLOTS:]]]
     e2e["hits_by_round"] = [hits[2] - hits[0], hits[4] - hits[2]]
     e2e["outputs"] = [r.output for r in reqs]    # what 17a compares
-    e2e["graphs"] = expect_graphed(5, bat)
-    e2e["round2"] = expect_round2_replayed(5, bat, marks[2])
-    e2e["memory"] = memory_report(5, bat)
-    log(f"[5] {bat.pool.prefix_hit_tokens} prefix-hit tokens")
-    e2e["step_ab"] = time_decode_step(5, bat, ("paged", 8), name_limit)
-    e2e["prefill_ab"] = {p: time_prefill(5, bat, p, name_limit)
-                         for p in ("cold", "extend")}
+    e2e["graphs"] = expect_graphed(tag, bat)
+    e2e["round2"] = expect_round2_replayed(tag, bat, marks[2])
+    e2e["memory"] = memory_report(tag, bat)
+    log(f"[{tag}] {bat.pool.prefix_hit_tokens} prefix-hit tokens")
+    if timings:
+        e2e["step_ab"] = time_decode_step(tag, bat, ("paged", 8), name_limit)
+        e2e["prefill_ab"] = {p: time_prefill(tag, bat, p, name_limit)
+                             for p in ("cold", "extend")}
     bat.close()
+    return e2e
+
+
+def teacher_forcing(tag, dev, model, params) -> dict:
+    """The twin of ``tests/test_models.py``'s teacher-forcing test at full
+    width in bf16: every prompt of the main path's two rounds (32 rows of
+    72..128 tokens) prefilled cold but for its last token
+    (``prefill_ranged``), the cache laid out as a paged arena (pages of
+    16), then that token decoded through one paged decode; against the
+    teacher-forced prefill of the whole prompt.  The logits must agree
+    within that test's bf16 limits: max |a - b| / max |b| < 5e-2 and the
+    argmax on more than 0.9 of the rows."""
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.models.layers import PagedKVCache
+    prompts = [p for wave in main_path_rounds(0, model.cfg.vocab)
+               for p in wave]
+    B, V = len(prompts), model.cfg.vocab
+    S = -(-max(len(p) for p in prompts) // CHUNK) * CHUNK
+    tok = np.zeros((B, S), np.int32)
+    for b, p in enumerate(prompts):
+        tok[b, :len(p)] = p
+    tok = torch.from_numpy(tok).to(dev)
+    n = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                     device=dev)
+    with torch.no_grad():
+        full, _ = model.prefill_ranged(
+            params, {"tokens": tok, "length": n},
+            model.init_cache(B, S, device=dev), in_place=True)
+        _, cache = model.prefill_ranged(
+            params, {"tokens": tok, "length": n - 1},
+            model.init_cache(B, S, device=dev), in_place=True)
+        node = cache.pop("layers")
+        L, n_log = node.k.shape[0], S // PAGE
+
+        def arena(x):   # (L, B, S, ...) -> (B * n_log + 1 pages, P, L, ...)
+            pages = x.reshape((L, B * n_log, PAGE) + x.shape[3:]).movedim(
+                0, 2)
+            return torch.cat([pages, torch.full_like(pages[:1], -1 if
+                              x.dtype == torch.int32 else 0)])
+        bt = torch.arange(B * n_log, dtype=torch.int32, device=dev).view(
+            B, n_log)
+        paged = {"layers": PagedKVCache(arena(node.k), arena(node.v),
+                                        arena(node.slot_pos), bt, 0)}
+        del node, cache
+        launches = paged_decode_attention.launches
+        last = tok.gather(1, (n - 1).long()[:, None])
+        dec, _ = model.decode(params, paged, {"tokens": last, "pos": n - 1})
+        expect(f"[{tag}] teacher forcing: paged decode",
+               paged_decode_attention.launches - launches, L)
+    a, b = dec[:, :V].float(), full[:, :V].float()
+    out = {"rel": rel(a, b), "argmax_agree": float(
+        (a.argmax(-1) == b.argmax(-1)).float().mean()), "rows": B}
+    log(f"[{tag}] teacher forcing at full width, bf16: {B} prompts "
+        f"prefilled but their last token, which one paged decode then "
+        f"reads, against the whole prompt prefilled: logits rel "
+        f"{out['rel']:.3e} (tol 5e-2), argmax agreement "
+        f"{out['argmax_agree']:.3f} (> 0.9)")
+    if not (out["rel"] < 5e-2 and out["argmax_agree"] > 0.9):
+        raise AssertionError(f"[{tag}] teacher forcing: {out}")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_arch(dev, name_limit: str, tag: str, arch: str, layers,
+               ref5: dict) -> dict:
+    """Phases 20a-20d: ``arch`` at full width in bf16 (``layers`` of its
+    depth) on phase 5's path and traffic: its checks (paged decode L a
+    step, flash and extend on the tensor cores, the pool drained with
+    every prefix hit, round 2 all replays), the step graphs' counters
+    equal to phase 5's (the same prompt lengths meet the same keys), then
+    the full-width teacher-forcing check.  Prints the end-to-end numbers,
+    the init seconds, the peak and graph-pool GB and the decode step
+    beside its byte yardstick: the weights a step reads but the embedding
+    table (a gather of 8 rows) over 3.35 TB/s."""
+    from repro_torch.models.param import tree_leaves
+    t0 = time.monotonic()
+    model, params = full_width(dev, arch, tag, layers)
+    init_s = time.monotonic() - t0
+    e2e = phase_main_path(dev, name_limit, model, params, tag=tag,
+                          timings=False)
+    if e2e["graphs"] != ref5["graphs"]:
+        raise AssertionError(f"[{tag}] step graphs {e2e['graphs']} differ "
+                             f"from phase 5's {ref5['graphs']}")
+    e2e["teacher_forcing"] = teacher_forcing(tag, dev, model, params)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    if not model.cfg.tie_embeddings:        # else the head reads it
+        weight_bytes -= params["embed"].numel() * params["embed"].element_size()
+    e2e["yardstick_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
+    e2e["init_s"] = init_s
+    log(f"[{tag}] {arch}, {model.cfg.num_layers} layers: init {init_s:.1f} "
+        f"s; decode step p50 {e2e['decode_step_s'] * 1e3:.2f} ms against "
+        f"its yardstick {e2e['yardstick_ms']:.2f} ms ("
+        f"{weight_bytes / 1e9:.2f} GB of weights but the embedding): "
+        f"{e2e['decode_step_s'] * 1e3 / e2e['yardstick_ms']:.2f}x; "
+        f"{e2e['tokens_per_s']:.1f} tokens/s; peak "
+        f"{e2e['memory']['peak_gb']:.2f} GB, graph pool "
+        f"{e2e['memory']['graph_pool_gb']:.3f} GB ({name_limit})")
+    del model, params
     return e2e
 
 
@@ -4129,8 +4354,8 @@ def phase_sharded(dev, name_limit: str, ref: dict) -> dict:
     counters = (flash_attention, paged_extend_attention,
                 paged_decode_attention)
     hits = []
-    reqs, launches, wall, step_s, marks = serve(bat, main_path_rounds(),
-                                                counters, hits=hits)
+    reqs, launches, wall, step_s, marks = serve(
+        bat, main_path_rounds(0, cfg.vocab), counters, hits=hits)
     L, m = cfg.num_layers, cell.mesh.size
     expect("paged decode", launches["paged_decode_attention"],
            m * L * bat.decode_invocations)
@@ -4884,9 +5109,10 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     on the card must give the CPU's losses within 1e-5 relative (on the
     same weights, drawn on the CPU: a CUDA generator draws other
     numbers), for qwen3-4b, through the SSD scan's backward kernel
-    mamba2-2.7b and zamba2-2.7b, and through the grouped GEMM's backward
-    deepseek-moe-16b, all their backward launches on the CUDA-core
-    route."""
+    mamba2-2.7b and zamba2-2.7b, through the grouped GEMM's backward
+    deepseek-moe-16b, and nemotron-4-340b at its own heads (G 12 at head
+    dim 192) with its bf16 first moment, all their backward launches on
+    the CUDA-core route."""
     import shutil
 
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -4898,20 +5124,22 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
     from repro_torch.kernels.moe_gmm.ops import gmm_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd_bwd
+    from repro_torch.models.param import DTYPES, jax_leaves
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import init_train_state
     d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(d, ignore_errors=True)
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=100)
 
-    def run(cfg, device, kill: bool, cpu_weights: bool = False):
+    def run(cfg, device, kill: bool, cpu_weights: bool = False,
+            opt_cfg=opt):
         sup = Supervisor(DeviceGrid.from_flat([torch.device(device)], 1, 1,
                                               2, allow_reuse=True))
-        cell = sup.create_cell("t", cfg, "train", ncols=1, opt_cfg=opt)
+        cell = sup.create_cell("t", cfg, "train", ncols=1, opt_cfg=opt_cfg)
         cell.init_train(torch.Generator(device=device).manual_seed(0))
         if cpu_weights:
             cell.state, _ = reshard_tree(init_train_state(
-                cell.model, torch.Generator().manual_seed(0), opt),
+                cell.model, torch.Generator().manual_seed(0), opt_cfg),
                 cell.device)
         pipe = SyntheticPipeline(DataConfig(kind="bigram"), cfg,
                                  ShapeConfig("t", "train", 64, 8),
@@ -4930,6 +5158,10 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
             xent.append(m["xent"])
             if kill and i == 1:
                 fut = ckpt.save(d, cell.step, cell.state, blocking=False)
+        m_dtypes = {m.dtype for m in jax_leaves(cell.state.opt.m)}
+        if m_dtypes != {DTYPES[opt_cfg.m_dtype]}:
+            raise AssertionError(f"[13b] first moments {m_dtypes}, not "
+                                 f"{opt_cfg.m_dtype}")
         return xent, [e["op"] for e in sup.events]
 
     cfg = smoke_config(get_arch("qwen3-4b"))
@@ -4996,9 +5228,28 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     log(f"[13b] float32 smoke deepseek-moe-16b train steps: card xent "
         f"{card_x}, CPU {cpu_x}, worst rel {moe_rel:.2e} (tol 1e-5); "
         f"grouped GEMM backward launches {gmm_f32}")
+    # nemotron-4-340b at its own heads (G 12 at head dim 192) with its bf16
+    # first moment: the float32 flash backward at head dim 192
+    f32 = real_heads("nemotron-4-340b").replace(dtype="float32")
+    opt_m = dataclasses.replace(opt, m_dtype=f32.optimizer_m_dtype)
+    reset_counters((flash_attention_bwd,))
+    card_x, _ = run(f32, dev, kill=False, cpu_weights=True, opt_cfg=opt_m)
+    nem = read_counters((flash_attention_bwd,))
+    if nem["flash_attention_bwd"] == 0:
+        raise AssertionError("[13b] nemotron-4-340b: no backward launch")
+    expect("[13b] nemotron-4-340b float32 backward launches on the tensor "
+           "cores", nem["flash_attention_bwd_tc"], 0)
+    cpu_x, _ = run(f32, "cpu", kill=False, cpu_weights=True, opt_cfg=opt_m)
+    nem_rel = max(abs(a - b) / abs(b) for a, b in zip(card_x, cpu_x))
+    if nem_rel > 1e-5:
+        raise AssertionError(f"[13b] nemotron-4-340b float32 card {card_x} "
+                             f"vs CPU {cpu_x}: rel {nem_rel}")
+    log(f"[13b] float32 nemotron-4-340b train steps at G 12, head dim 192, "
+        f"first moment {opt_m.m_dtype}: card xent {card_x}, CPU {cpu_x}, "
+        f"worst rel {nem_rel:.2e} (tol 1e-5); backward launches {nem}")
     shutil.rmtree(d, ignore_errors=True)
     return {"xent": got, "f32_rel": worst, "ssm_f32_rel": ssm_rel,
-            "moe_f32_rel": moe_rel,
+            "moe_f32_rel": moe_rel, "nemotron_f32_rel": nem_rel,
             "launches": {
                 "flash_attention_bwd_f32": launches["flash_attention_bwd"],
                 "ssd_scan_bwd_f32": ssd_f32["mamba2-2.7b"],
@@ -5134,13 +5385,25 @@ KERNELS = {
 }
 
 
+def arch_kernels() -> dict:
+    """The kernels line's rows of phases 20a-20d: the three attention
+    kernels of the main path at each arch's heads (``heads_row``), timed
+    in phase 3, their launches those of the arch's phase."""
+    return {heads_row(base, arch): {**KERNELS[base], "path": tag,
+                                     "count": base}
+            for tag, arch, _ in ARCH_PHASES
+            for base in ("flash_attention", "paged_extend_attention",
+                         "paged_decode_attention")}
+
+
 def main() -> int:
     t_all = time.monotonic()
     name_limit = phase_env()
     dev = torch.device("cuda")
     with timed(2):
         phase_build()
-    kernels = {name: dict(meta) for name, meta in KERNELS.items()}
+    kernels = {name: dict(meta)
+               for name, meta in {**KERNELS, **arch_kernels()}.items()}
     log("[3] kernels against their plain versions on the card")
     with timed(3):
         check_kernels(dev, kernels)
@@ -5229,6 +5492,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     with timed("19b"):
         runs["19b"] = phase_int8(dev, name_limit, runs[5], runs["17a"])
+    for tag, arch, layers in ARCH_PHASES:
+        gc.collect()                # free the previous model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[{tag}] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            "allocated before the phase")
+        with timed(tag):
+            runs[tag] = phase_arch(dev, name_limit, tag, arch, layers,
+                                   runs[5])
     # the phases that run a path's kernels again: 11, 12, 16, 17a and 19a
     # the main path's, 16b-16d those of paths 8-10 over two positions,
     # 17b-17e those of paths 7-10 over two rows of two positions, 18a-18d
