@@ -124,7 +124,7 @@ both routes' span boundaries; bf16 and float32), checks two calls bitwise
 equal in both dtypes and times both training shapes (rows
 ``ssd_scan_bwd`` and ``ssd_scan_bwd_zamba2``) and the float32 CUDA-core
 route at both (rows ``ssd_scan_bwd_f32`` and ``ssd_scan_bwd_f32_zamba2``,
-each with the kernels of one profiled call).  Phases
+each with the kernels of a call, three traced).  Phases
 14 and 14b train full-width mamba2-2.7b (64 layers, 6 steps) and
 zamba2-2.7b (54 layers and the shared block, 4 steps) as phase 13 trains
 qwen3-4b: every Mamba layer launches the scan twice a microbatch (forward
@@ -289,6 +289,18 @@ dim over one kv head in float32 on the card and the CPU, and phase 13b
 trains nemotron-4-340b so (G 12 at head dim 192) with its bf16 first
 moment, within 1e-5 of the CPU.
 
+The float32 routes of prefill flash and paged extend (CUDA cores, exact
+float32 products) are rows of their own: phase 3 holds them to their
+plain versions under every mask, with the LSE (1e-5), at page sizes 1 to
+64 with a fully sentinel row and over arena views whose rows do not
+start on 16 bytes, requires two calls to be bitwise equal, and times
+flash with its LSE at the training shape (row ``flash_attention_f32_train``,
+its launches phase 13b's float32 steps) and the extend at row 2's shape
+over a float32 and an int8 arena (rows ``paged_extend_attention_f32``
+and ``paged_extend_attention_f32_int8``, their launches phase 4's), each
+beside one float32 SDPA call; phases 4, 13b and 18a-18d log their
+float32 forward launches, none on the tensor cores.
+
 Prints each phase's wall time, one JSON line of kernel measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Any failed phase raises and the script exits
@@ -400,25 +412,25 @@ def time_ms(fn, reps: int = 25, flush=None) -> float:
 # phase 3 inputs: layout-consistent paged arenas
 # --------------------------------------------------------------------------
 def build_arena(gen, kv_lens, n_log, dtype, dev, *, n_layers=LAYERS,
-                sentinel_rows=(), hkv=HKV, dh=DH):
-    """Arena (N, P, L, Hkv, Dh) in which logical page j of row b holds
-    positions [j*P, min((j+1)*P, kv_len)) at every layer; unused pages and
-    the clamp target page N-1 stay clean (slot_pos -1).  Rows listed in
-    ``sentinel_rows`` map no page at all."""
+                sentinel_rows=(), hkv=HKV, dh=DH, page=PAGE):
+    """Arena (N, P, L, Hkv, Dh) of P = ``page`` in which logical page j of
+    row b holds positions [j*P, min((j+1)*P, kv_len)) at every layer;
+    unused pages and the clamp target page N-1 stay clean (slot_pos -1).
+    Rows listed in ``sentinel_rows`` map no page at all."""
     B = len(kv_lens)
     N = B * n_log + 2
-    shape = (N, PAGE, n_layers, hkv, dh)
+    shape = (N, page, n_layers, hkv, dh)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
-    sp = torch.full((N, PAGE, n_layers), -1, dtype=torch.int32)
+    sp = torch.full((N, page, n_layers), -1, dtype=torch.int32)
     bt = torch.full((B, n_log), N, dtype=torch.int32)
     nxt = 0
     for b, kl in enumerate(kv_lens):
         if b in sentinel_rows:
             continue
-        for j in range(-(-kl // PAGE)):
-            fill = min(PAGE, kl - j * PAGE)
-            sp[nxt, :fill, :] = (j * PAGE + torch.arange(fill))[:, None]
+        for j in range(-(-kl // page)):
+            fill = min(page, kl - j * page)
+            sp[nxt, :fill, :] = (j * page + torch.arange(fill))[:, None]
             bt[b, j] = nxt
             nxt += 1
     arena = {"slot_pos": sp.to(dev), "block_table": bt.to(dev),
@@ -546,6 +558,7 @@ def check_kernels(dev, kernels: dict):
         paged_decode_attention_ref,
     )
     from repro_torch.kernels.flash_attention.ops import (
+        _flash_forward,
         flash_attention,
         paged_extend_attention,
     )
@@ -619,6 +632,34 @@ def check_kernels(dev, kernels: dict):
         hold("paged_extend_attention" + ("_int8" if adt == i8 else ""),
              out[:7], ref[:7], tol, why,
              f"q {qdt} arena {adt} Sq40 n_log16 L36 layer17, {route}")
+    # the float32 route at page sizes 1 to 64 (a 32-key tile spans 32
+    # pages, or half of one), row 7 fully sentinel, and over arena views
+    # whose rows do not start on 16 bytes (Dh 128 inside rows of 132, the
+    # base off by one element: the kernel's element loads)
+    for P, view in ((1, False), (8, False), (64, False), (PAGE, True)):
+        for adt, tol, why in ((f32, 2e-5, "f32; summation order"),
+                              (i8, 2e-4, "same dequantised int8 values")):
+            n_log = -(-(max(pos) + S) // P)
+            a = build_arena(gen, [p + S for p in pos], n_log, adt, dev,
+                            n_layers=4, sentinel_rows=(7,), page=P,
+                            dh=DH + 4 if view else DH)
+            kv = [a["k"], a["v"]]
+            if view:
+                kv = [x[..., 1:DH + 1] for x in kv]
+            q = torch.randn((8, S, HQ, DH), generator=gen, device=dev)
+            args = (*kv, a["slot_pos"], a["block_table"], ps, 2)
+            sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
+            out = paged_extend_attention(q, *args, **sc)
+            ref = paged_extend_attention_ref(q.transpose(1, 2), *args,
+                                             **sc).transpose(1, 2)
+            torch.cuda.synchronize()
+            if out[7].any():
+                raise AssertionError("float32 paged extend: a fully "
+                                     "sentinel row is not 0")
+            hold("paged_extend_attention" + ("_int8" if adt == i8 else ""),
+                 out[:7], ref[:7], tol, why,
+                 f"q f32 arena {adt} P{P} n_log{n_log}" + (
+                     ", rows off 16 bytes" if view else ""))
     q = torch.zeros((1, 8, HQ, 72), dtype=bf16, device=dev)
     a72 = torch.zeros((2, PAGE, 1, HKV, 80), dtype=bf16, device=dev)
     sp1 = torch.full((2, PAGE, 1), -1, dtype=torch.int32, device=dev)
@@ -651,12 +692,19 @@ def check_kernels(dev, kernels: dict):
         k = torch.randn((2, skv, HKV, DH), generator=gen, device=dev).to(dt)
         v = torch.randn((2, skv, HKV, DH), generator=gen, device=dev).to(dt)
         out = flash_attention(q, k, v, causal=causal, window=window)
-        ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal,
-                            window=window).transpose(1, 2)
+        ref, ref_lse = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     window=window, return_lse=True)
         torch.cuda.synchronize()
-        hold("flash_attention", out, ref, tol, why,
+        hold("flash_attention", out, ref.transpose(1, 2), tol, why,
              f"{dt} Sq{sq} Skv{skv} causal={causal} window={window}")
+        if dt == f32:       # the LSE the backward reads, and a repeat
+            out2, lse = _flash_forward(q, k, v, causal, window, None, True)
+            torch.cuda.synchronize()
+            hold("flash_attention", lse, ref_lse, 1e-5, why,
+                 f"f32 LSE Sq{sq} Skv{skv} causal={causal} window={window}")
+            if not torch.equal(out, out2):
+                raise AssertionError("float32 flash: two calls differ")
     q = torch.zeros((1, 8, 2, 72), dtype=bf16, device=dev)
     try:
         flash_attention(q, q, q)
@@ -884,6 +932,7 @@ def check_kernels(dev, kernels: dict):
             n_layers=layers or get_arch(arch).num_layers)
     time_long_decode(dev, gen, flush)
     time_flash_bwd(dev, gen, flush, kernels, hold)
+    time_flash_f32(dev, gen, flush, kernels, hold)
     errs["gmm_prefill"] = errs["gmm"]     # one kernel, held at both shapes
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = e
@@ -1215,14 +1264,8 @@ def time_ssd_bwd(dev, gen, flush, kernels) -> None:
             f"forward with its states {fwd:.4f} ms")
         kernels[name].update(rep)
         if not tc:
-            # three calls traced, each kernel's mean: a trace of a single
-            # call has come back without one of its kernels
-            _, split = profile_step(lambda: [ssd_bwd(
-                *args, states=states, **call) for _ in range(3)],
-                cpu=False)[:2]
-            log(f"  {name} kernels of one call (mean of 3 traced): "
-                + ", ".join(f"{k_[:40]} {t / n * 1e3:.4f} ms x {n}"
-                            for k_, t, n in split))
+            log(f"  {name} kernels of a call: " + kernel_split(
+                lambda: ssd_bwd(*args, states=states, **call)))
 
 
 #: seed of the grouped GEMM backward's phase-3 inputs
@@ -1615,10 +1658,8 @@ def time_flash_bwd(dev, gen, flush, kernels, hold):
             f"{rep['ms']:.4f} ms, {rep['bound_ms'] / rep['ms']:.3f} of the "
             f"bound ({rep['bound_by']}), {rep['ms'] / rep['library_ms']:.3f}x "
             "SDPA")
-        _, split = profile_step(
-            lambda: flash_attention_bwd(q, k, v, out, do, lse), cpu=False)[:2]
-        log(f"  {name} kernels of one call: " + ", ".join(
-            f"{k_[:40]} {t * 1e3:.4f} ms" for k_, t, _ in split))
+        log(f"  {name} kernels of a call: " + kernel_split(
+            lambda: flash_attention_bwd(q, k, v, out, do, lse)))
         if dt != torch.bfloat16:
             continue
         want, want_lse = attention_ref(*plain[:3], return_lse=True)
@@ -1638,6 +1679,140 @@ def time_flash_bwd(dev, gen, flush, kernels, hold):
                                                    return_lse=True),
                              flush=flush),
             library_ms=fwd, **bound(n_bytes, n_ops, dt))
+
+
+def time_flash_f32(dev, gen, flush, kernels, hold) -> None:
+    """Rows 1i, 2e and 2e': the float32 routes of prefill flash and paged
+    extend (CUDA cores, exact float32 products).  1i: the forward with
+    its LSE at qwen3-4b's training shape (B4 S512, causal; what a float32
+    train step launches, beside row 1f's backward), also logged at row
+    1's serving shape (B8 S128, no LSE); 2e and 2e': row 2's extend (B8,
+    64 suffix queries behind a 64-token prefix, n_log 8, P 16) in float32
+    over a float32 and an int8 arena.  Each is held to its plain version
+    (the LSE too), two calls must be bitwise equal, and each is timed
+    beside its plain version, one float32 SDPA call (the forward over K/V
+    repeated to the q heads; the extend's over the pages gathered
+    beforehand, with a boolean mask; the backend PyTorch picks is named
+    from profiled calls at 1i's shape) and its bound at the float32 peak,
+    with the kernels of a call (``kernel_split``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_forward,
+        paged_extend_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref,
+        gather_pages_ref,
+        paged_extend_attention_ref,
+    )
+    f32, g = torch.float32, HQ // HKV
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+
+    def expand(x):      # (B, S, Hkv, Dh) -> (B, Hq, S, Dh)
+        return x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+
+    def repeat_equal(name, fn):
+        a, b = fn(), fn()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)
+                   if x is not None):
+            raise AssertionError(f"{name}: two float32 calls differ")
+        log(f"  {name:24s} two calls bitwise equal: ok")
+
+    for B, S, lse in ((TRAIN_B, TRAIN_S, True), (SLOTS, 128, False)):
+        q, k, v = r(B, S, HQ, DH), r(B, S, HKV, DH), r(B, S, HKV, DH)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ke, ve = expand(k), expand(v)
+        out, got_lse = _flash_forward(q, k, v, True, None, None, lse)
+        want = attention_ref(qt, kt, vt, return_lse=lse)
+        name = "flash_attention_f32_train"
+        shape = f"B{B} S{S} Hq{HQ} Hkv{HKV} Dh{DH} f32 causal" + (
+            ", LSE" if lse else "")
+        if lse:
+            want, want_lse = want
+            hold(name, got_lse, want_lse, 1e-5, "f32; summation order",
+                 f"lse {shape}")
+        hold(name, out, want.transpose(1, 2), 2e-5, "f32; summation order",
+             f"out {shape}")
+        repeat_equal(name, lambda: _flash_forward(q, k, v, True, None, None,
+                                                  lse))
+
+        def sdpa():
+            F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)
+
+        rep = dict(
+            shape=shape,
+            ms=time_ms(lambda: _flash_forward(q, k, v, True, None, None, lse),
+                       flush=flush),
+            plain_ms=time_ms(lambda: attention_ref(qt, kt, vt,
+                                                   return_lse=lse),
+                             flush=flush),
+            library_ms=time_ms(sdpa, flush=flush),
+            **bound((2 * q.numel() + 2 * k.numel()) * 4
+                    + (B * HQ * S * 4 if lse else 0),
+                    4 * DH * HQ * B * S * (S + 1) // 2, f32))
+        log(f"  {name} {shape}: kernel {rep['ms']:.4f} ms, "
+            f"{rep['bound_ms'] / rep['ms']:.3f} of the bound "
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}), plain "
+            f"{rep['plain_ms']:.4f} ms, SDPA {rep['library_ms']:.4f} ms")
+        log(f"  {name} kernels of a call: " + kernel_split(
+            lambda: _flash_forward(q, k, v, True, None, None, lse)))
+        if lse:
+            log(f"  {name} SDPA's kernels (the backend PyTorch picks): "
+                + kernel_split(sdpa))
+            kernels[name].update(rep)
+        del q, k, v, qt, kt, vt, ke, ve
+
+    sh = main_path_shapes()
+    S, pos0, n_log = sh["S_ext"], SHARED, sh["n_log_ext"]
+    pos = torch.full((SLOTS,), pos0, dtype=torch.int32, device=dev)
+    q_pos = pos[:, None] + torch.arange(S, device=dev)[None]
+    q = r(SLOTS, S, HQ, DH)
+    qt = q.transpose(1, 2).contiguous()
+    n_ops = 4 * DH * HQ * SLOTS * sum(pos0 + i + 1 for i in range(S))
+    for name, adt, tol, why in (
+            ("paged_extend_attention_f32", f32, 2e-5, "f32; summation order"),
+            ("paged_extend_attention_f32_int8", torch.int8, 2e-4,
+             "same int8 values and scales dequantised on both sides")):
+        a = build_arena(gen, [pos0 + S] * SLOTS, n_log, adt, dev)
+        args = (a["k"], a["v"], a["slot_pos"], a["block_table"], pos, LAYER)
+        sc = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
+        kd, vd, spd = gather_pages_ref(*args[:4], LAYER, **sc)
+        kd, vd = expand(kd.float()), expand(vd.float())
+        mask = ((spd[:, None, :] >= 0)
+                & (spd[:, None, :] <= q_pos[:, :, None]))[:, None]
+        shape = (f"B{SLOTS} S{S} pos{pos0} n_log{n_log} P{PAGE} L{LAYERS} "
+                 f"Hq{HQ} Hkv{HKV} Dh{DH} q f32 arena {str(adt)[6:]}")
+        hold(name, paged_extend_attention(q, *args, **sc),
+             paged_extend_attention_ref(qt, *args, **sc).transpose(1, 2),
+             tol, why, shape)
+        repeat_equal(name, lambda: paged_extend_attention(q, *args, **sc))
+
+        def sdpa():
+            F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask)
+
+        n_slots = pages_read([pos0 + S] * SLOTS, n_log) * PAGE
+        rep = dict(
+            shape=shape,
+            ms=time_ms(lambda: paged_extend_attention(q, *args, **sc),
+                       flush=flush),
+            plain_ms=time_ms(lambda: paged_extend_attention_ref(qt, *args,
+                                                                **sc),
+                             flush=flush),
+            library_ms=time_ms(sdpa, flush=flush),
+            **bound(2 * q.numel() * 4 + n_slots * (
+                2 * HKV * DH * a["k"].element_size() + 4)
+                + scale_bytes(a, n_slots), n_ops, f32))
+        kernels[name].update(rep)
+        log(f"  {name} {shape}: kernel {rep['ms']:.4f} ms, "
+            f"{rep['bound_ms'] / rep['ms']:.3f} of the bound "
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}), plain "
+            f"{rep['plain_ms']:.4f} ms, SDPA {rep['library_ms']:.4f} ms")
+        log(f"  {name} kernels of a call: " + kernel_split(
+            lambda: paged_extend_attention(q, *args, **sc)))
+        del a, args, kd, vd
 
 
 def ssd_work(Bb, S, H, P, G, N, Q, *, esize=2, checkpoints=True):
@@ -2513,14 +2688,30 @@ def rows_parity_run(dev, arch, weight_seed, prompt_seed, cfg_kw=None,
     return toks, graphs, colls
 
 
-def phase_parity(dev):
+def phase_parity(dev) -> dict:
+    """Phase 4: every case float32, the card's tokens equal to the CPU's.
+    Returns the float32 forward routes' launches on the card (``flash``,
+    the extend over a float32 arena and over an int8 one), which also
+    must include none on the tensor cores."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import gmm
     from repro_torch.kernels.flash_attention.ops import paged_extend_attention
     tc0 = (flash_attention.launches_tc, gmm.launches_tc,
            paged_extend_attention.launches_tc)
+    f32 = {"flash_attention_f32": 0, "paged_extend_attention_f32": 0,
+           "paged_extend_attention_f32_int8": 0}
+
+    @contextlib.contextmanager
+    def counted(int8: bool = False):
+        n0 = (flash_attention.launches, paged_extend_attention.launches)
+        yield
+        f32["flash_attention_f32"] += flash_attention.launches - n0[0]
+        f32["paged_extend_attention_f32" + ("_int8" if int8 else "")] += (
+            paged_extend_attention.launches - n0[1])
+
     for name, arch, opts, wseed, pseed, waves in PARITY:
-        toks, hits = parity_run(dev, arch, opts, wseed, pseed, waves)
+        with counted(opts.get("kv_dtype") == "int8"):
+            toks, hits = parity_run(dev, arch, opts, wseed, pseed, waves)
         cpu, card_ = toks["cpu"], toks[str(dev)]
         log(f"[4] {name}: cpu {cpu}")
         log(f"[4] {name}: {dev} {card_}")
@@ -2533,16 +2724,18 @@ def phase_parity(dev):
         log(f"[4] {name}: identical on {dev} (kernels) and cpu (plain "
             f"versions), {hits['cpu']} prefix-hit tokens")
     for name, arch, replicas, wseed, pseed, waves in DISAGG_PARITY:
-        toks, graphs = disagg_parity_run(dev, arch, replicas, wseed, pseed,
-                                         waves)
+        with counted():
+            toks, graphs = disagg_parity_run(dev, arch, replicas, wseed,
+                                             pseed, waves)
         log(f"[4] {name}: {dev} {toks[str(dev)]}")
         if not toks["cpu"] == toks[str(dev)] == toks["colocated"]:
             raise AssertionError(f"{name}: tokens differ: {toks}")
         log(f"[4] {name}: identical on {dev}, on cpu and in a colocated "
             f"batcher on cpu; the card's step graphs {graphs[str(dev)]}")
     for name, arch, wseed, pseed, waves in SHARDED_PARITY:
-        toks, graphs, colls = sharded_parity_run(dev, arch, wseed, pseed,
-                                                 waves)
+        with counted():
+            toks, graphs, colls = sharded_parity_run(dev, arch, wseed, pseed,
+                                                     waves)
         log(f"[4] {name}: {toks['two']}")
         if toks["one"] != toks["two"]:
             raise AssertionError(f"{name}: a two-position cell's tokens "
@@ -2552,7 +2745,8 @@ def phase_parity(dev):
         log(f"[4] {name}: identical to a one-position cell on {dev}; "
             f"collective bytes per step key {colls}")
     for name, arch, wseed, pseed in ROWS_PARITY:
-        toks, graphs, colls = rows_parity_run(dev, arch, wseed, pseed)
+        with counted():
+            toks, graphs, colls = rows_parity_run(dev, arch, wseed, pseed)
         log(f"[4] {name}: {toks['rows']}")
         if toks["cpu"] != toks["rows"]:
             raise AssertionError(f"{name}: the (2, 2) cell's tokens on the "
@@ -2565,9 +2759,10 @@ def phase_parity(dev):
             f"each data row's arena the same; collective bytes per step "
             f"key {colls}")
     name = "qwen3-4b, 4 kv heads, int8 paged pool over 2 rows of 2 positions"
-    toks, _, _ = rows_parity_run(dev, "qwen3-4b", 0, 4,
-                                 cfg_kw=dict(num_kv_heads=4),
-                                 bat_kw=dict(kv_dtype="int8"))
+    with counted(int8=True):
+        toks, _, _ = rows_parity_run(dev, "qwen3-4b", 0, 4,
+                                     cfg_kw=dict(num_kv_heads=4),
+                                     bat_kw=dict(kv_dtype="int8"))
     log(f"[4] {name}: {toks['rows']}")
     if toks["cpu"] != toks["rows"]:
         raise AssertionError(f"{name}: the (2, 2) cell's tokens on the card "
@@ -2577,7 +2772,8 @@ def phase_parity(dev):
         "same")
     name = ("qwen3-4b, 4 kv heads, disaggregated: prefill over (2, 2), "
             "replicas over (2, 1), scaled 2 -> 1")
-    toks, stats = disagg_mesh_parity_run(dev)
+    with counted():
+        toks, stats = disagg_mesh_parity_run(dev)
     log(f"[4] {name}: {dev} {toks[str(dev)]}")
     if not toks["cpu"] == toks[str(dev)] == toks["colocated"]:
         raise AssertionError(f"{name}: tokens differ: {toks}")
@@ -2586,6 +2782,9 @@ def phase_parity(dev):
     if (flash_attention.launches_tc, gmm.launches_tc,
             paged_extend_attention.launches_tc) != tc0:
         raise AssertionError("a float32 run launched a tensor-core kernel")
+    log(f"[4] float32 forward launches on the card (CUDA cores, none on "
+        f"the tensor cores): {f32}")
+    return {"launches": f32}
 
 
 # --------------------------------------------------------------------------
@@ -4975,7 +5174,10 @@ def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import DeviceGrid, Supervisor, single_device_grid
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+    )
     from repro_torch.kernels.moe_gmm.ops import gmm_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd_bwd
     from repro_torch.models.param import gather_tree, jax_leaves
@@ -4989,7 +5191,7 @@ def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
     batches = [pipe.get_batch(i) for i in range(MESH_F32_STEPS)]
     rows, cols = mesh
     out = {}
-    counters = (flash_attention_bwd, gmm_bwd, ssd_bwd)
+    counters = (flash_attention, flash_attention_bwd, gmm_bwd, ssd_bwd)
     for name, grid in (("one", single_device_grid(dev)),
                        ("mesh", DeviceGrid.from_flat([dev] * rows * cols, 1,
                                                      rows, cols))):
@@ -5002,15 +5204,17 @@ def mesh_train_parity(dev, tag: str, arch: str, mesh: tuple) -> dict:
                 for _ in range(MESH_F32_STEPS)]
         launches = read_counters(counters)
         tc = sum(launches.get(k, 0) for k in (
-            "flash_attention_bwd_tc", "gmm_bwd_tc", "ssd_bwd_tc"))
+            "flash_attention_tc", "flash_attention_bwd_tc", "gmm_bwd_tc",
+            "ssd_bwd_tc"))
         if tc or not any(launches.get(k, 0) for k in (
                 "flash_attention_bwd", "gmm_bwd", "ssd_bwd")):
             raise AssertionError(f"[{tag}] float32 {name}: backward "
                                  f"launches {launches}")
         bwd = {k: launches.get(k, 0) for k in (
             "flash_attention_bwd", "gmm_bwd", "ssd_bwd")}
-        log(f"[{tag}] float32 {name}: backward launches {bwd}, none on "
-            "the tensor cores")
+        log(f"[{tag}] float32 {name}: flash forward launches "
+            f"{launches['flash_attention']}, backward launches {bwd}, none "
+            "on the tensor cores")
         if name == "mesh":
             out["f32_bwd_launches"] = bwd
         out[name] = ([(m["loss_step"], m["grad_norm"]) for m in mets],
@@ -5058,6 +5262,16 @@ def phase_train_mesh(dev, name_limit: str, tag: str, arch: str, mesh: tuple,
                       mesh=mesh, ref=ref, collectives=tag == MESH_PROFILED)
     run.update(parity)
     return run
+
+
+def kernel_split(fn, calls: int = 3) -> str:
+    """The kernels of ``calls`` traced calls of ``fn``, each with its mean
+    device time a launch and its launches: a trace of a single call has
+    come back without its kernels late in a long run."""
+    _, split, _ = profile_step(lambda: [fn() for _ in range(calls)],
+                               cpu=False)
+    return ", ".join(f"{k_[:50]} {t / n * 1e3:.4f} ms x {n}"
+                     for k_, t, n in split)
 
 
 def profile_step(fn, collectives: bool = False, cpu: bool = True):
@@ -5121,7 +5335,10 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     from repro_torch.core import DeviceGrid, Supervisor
     from repro_torch.core.resharding import reshard_tree
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+    )
     from repro_torch.kernels.moe_gmm.ops import gmm_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd_bwd
     from repro_torch.models.param import DTYPES, jax_leaves
@@ -5164,6 +5381,18 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
                                  f"{opt_cfg.m_dtype}")
         return xent, [e["op"] for e in sup.events]
 
+    fwd = {}     # each float32 card run's flash forward launches
+
+    def card_run(arch, cfg, **kw):
+        """``run`` of a float32 ``cfg`` on the card, its flash forward
+        launches counted into ``fwd``, none on the tensor cores."""
+        n0, tc0 = flash_attention.launches, flash_attention.launches_tc
+        out = run(cfg, dev, kill=False, cpu_weights=True, **kw)
+        fwd[arch] = flash_attention.launches - n0
+        expect(f"[13b] {arch} float32 flash forward launches on the tensor "
+               "cores", flash_attention.launches_tc - tc0, 0)
+        return out
+
     cfg = smoke_config(get_arch("qwen3-4b"))
     want, _ = run(cfg, dev, kill=False)
     got, ops = run(cfg, dev, kill=True)
@@ -5175,7 +5404,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
         f"{got} equal the uninterrupted run's bit for bit; events {ops}")
     f32 = cfg.replace(dtype="float32")
     reset_counters((flash_attention_bwd,))
-    card_x, _ = run(f32, dev, kill=False, cpu_weights=True)
+    card_x, _ = card_run("qwen3-4b", f32)
     launches = read_counters((flash_attention_bwd,))
     if launches["flash_attention_bwd"] == 0:
         raise AssertionError("[13b] the float32 steps launched no backward")
@@ -5193,7 +5422,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     for arch in ("mamba2-2.7b", "zamba2-2.7b"):
         f32 = smoke_config(get_arch(arch)).replace(dtype="float32")
         reset_counters((ssd_bwd,))
-        card_x, _ = run(f32, dev, kill=False, cpu_weights=True)
+        card_x, _ = card_run(arch, f32)
         n_bwd = ssd_bwd.launches
         if n_bwd == 0:
             raise AssertionError(f"[13b] {arch}: no SSD backward launch")
@@ -5211,7 +5440,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
             f"backward launches {n_bwd}")
     f32 = smoke_config(get_arch("deepseek-moe-16b")).replace(dtype="float32")
     reset_counters((gmm_bwd,))
-    card_x, _ = run(f32, dev, kill=False, cpu_weights=True)
+    card_x, _ = card_run("deepseek-moe-16b", f32)
     gmm_f32 = read_counters((gmm_bwd,))
     if gmm_f32["gmm_bwd"] == 0 or gmm_f32["gmm_bwd_dw"] == 0:
         raise AssertionError("[13b] deepseek-moe-16b: no grouped GEMM "
@@ -5233,7 +5462,7 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
     f32 = real_heads("nemotron-4-340b").replace(dtype="float32")
     opt_m = dataclasses.replace(opt, m_dtype=f32.optimizer_m_dtype)
     reset_counters((flash_attention_bwd,))
-    card_x, _ = run(f32, dev, kill=False, cpu_weights=True, opt_cfg=opt_m)
+    card_x, _ = card_run("nemotron-4-340b", f32, opt_cfg=opt_m)
     nem = read_counters((flash_attention_bwd,))
     if nem["flash_attention_bwd"] == 0:
         raise AssertionError("[13b] nemotron-4-340b: no backward launch")
@@ -5248,9 +5477,12 @@ def phase_train_recovery(dev, name_limit: str) -> dict:
         f"first moment {opt_m.m_dtype}: card xent {card_x}, CPU {cpu_x}, "
         f"worst rel {nem_rel:.2e} (tol 1e-5); backward launches {nem}")
     shutil.rmtree(d, ignore_errors=True)
+    log(f"[13b] float32 flash forward launches (CUDA cores, none on the "
+        f"tensor cores): {fwd}")
     return {"xent": got, "f32_rel": worst, "ssm_f32_rel": ssm_rel,
             "moe_f32_rel": moe_rel, "nemotron_f32_rel": nem_rel,
             "launches": {
+                "flash_attention_f32": sum(fwd.values()),
                 "flash_attention_bwd_f32": launches["flash_attention_bwd"],
                 "ssd_scan_bwd_f32": ssd_f32["mamba2-2.7b"],
                 "ssd_scan_bwd_f32_zamba2": ssd_f32["zamba2-2.7b"],
@@ -5344,6 +5576,25 @@ KERNELS = {
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
         "path": "13b", "count": "flash_attention_bwd_f32"},
+    # the float32 routes of the forward kernels (CUDA cores, exact float32
+    # products): flash with its LSE at the training shape, its launches
+    # those of phase 13b's float32 train steps; the extend over a float32
+    # and an int8 arena, their launches phase 4's (every case float32)
+    "flash_attention_f32_train": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "path": "13b", "count": "flash_attention_f32"},
+    "paged_extend_attention_f32": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:142",
+        "path": 4},
+    "paged_extend_attention_f32_int8": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:142",
+        "path": 4},
     # the backward of the SSD scan (the TPU package has none: JAX trains
     # through jax.grad of the plain ssd_chunked): the bf16 tensor-core
     # route at mamba2's training microbatch (phase 14) and zamba2's (phase
@@ -5407,9 +5658,9 @@ def main() -> int:
     log("[3] kernels against their plain versions on the card")
     with timed(3):
         check_kernels(dev, kernels)
-    with timed(4):
-        phase_parity(dev)
     runs = {}
+    with timed(4):
+        runs[4] = phase_parity(dev)
     with timed(5):
         model, params = full_width(dev, "qwen3-4b", 5)
         runs[5] = phase_main_path(dev, name_limit, model, params)

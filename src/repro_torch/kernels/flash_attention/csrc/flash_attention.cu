@@ -10,7 +10,7 @@
 // float32.  The route is by dtype alone:
 //
 // * bf16: flash_tc_kernel (the body flash_tc_body over a dense key
-//   source, DenseKeys), on the tensor cores.
+//   source, DenseKeys<bf16>), on the tensor cores.
 //   Bound on the H100: at the serving buckets (S 128) the call is bound by
 //   latency and by the Q, K, V and output bytes (B8 S128 Hq32 Hkv8 Dh128:
 //   21 MB, 0.006 ms at 3.35 TB/s, and 1.1 GFLOP of products, 0.001 ms at
@@ -40,12 +40,32 @@
 //   256 is taken (three instantiations: Dh <= 64, <= 128, <= 256); the
 //   wrapper raises on any other bf16 head dim.
 //
-// * float32: flash_kernel, on CUDA cores, so that the products stay exact
-//   float32 (the card's greedy tokens are held to the CPU's in float32,
-//   and TF32 tensor-core products would break that).  One block per (row,
-//   q head, tile of 64 q positions) loops over 32-key tiles up to the
-//   causal limit, skipping tiles wholly outside the window, with the
-//   online softmax in float32 shared memory (tile_attention.cuh).
+// * float32: flash_kernel (the body flash_f32_body over the same dense
+//   key source, DenseKeys<float>), on CUDA cores, so that the products
+//   stay exact float32: every product is an fmaf, each output element is
+//   summed over the keys in one fixed order, with no atomics (the card's
+//   greedy tokens and train steps are held to the CPU's in float32, and
+//   TF32 tensor-core products would break that; two calls give the same
+//   bits).
+//   Bound on the H100 by its operations: at qwen3-4b's training shape
+//   (B4 S512 Hq32 Hkv8 Dh128, causal, with the LSE) 8.61 GFLOP, 0.1285 ms
+//   at the 67 TFLOP/s of float32 FMAs, against 0.0251 ms for its 84 MB.
+//   Design (the bf16 route's shape on CUDA cores): a block of 4 warps owns
+//   64 packed rows (32 past Dh 128) of one kv head, so one K/V tile in
+//   shared memory serves its G q heads; the grid is (Hkv, B, row tiles),
+//   the last rows (the longest causal walks) first.  K/V tiles of 32 keys
+//   stream through a two-stage ring of 16-byte cp.async copies.  Each
+//   thread holds a 4 x 4 tile of S (4 rows x 4 keys) and a 4 x 16 tile of
+//   the output at Dh 128 in registers, every operand a float4 read from
+//   rows padded to Dh + 4 floats (a warp's reads of 4 or 8 consecutive
+//   rows fall on distinct banks), so each float4 pair feeds 16 or 32
+//   fmafs.  The running max is reduced across the 8 lanes of a row by
+//   shuffles, each lane keeps its part of the running sum to the end, and
+//   P crosses the warp's lanes through the warp's own shared buffer (a
+//   warp barrier, not a block one): one block barrier a kv tile.  Masks
+//   apply only in tiles that cross a limit.  Any Dh % 4 == 0 up to 256
+//   runs in three classes (64, 128, 256), a smaller Dh with zero columns;
+//   at Dh 128 a block takes 110 KB of shared memory, so two share an SM.
 //
 // Both routes also write, when given a float32 (B, Hq, Sq) pointer, each
 // row's log-sum-exp of its scaled scores (the running max plus the log of
@@ -97,9 +117,16 @@
 //   bf16 tile in place of a second bf16 stage keeps the block at the bf16
 //   route's 52 KB at Dh 128, so four blocks still fit on an SM.
 // * float32 q (exact products, for the card-vs-CPU parity), over a
-//   float32 or an int8 arena: paged_extend_kernel on CUDA cores, one
-//   block per (row, q head, 32 suffix positions) walking the pages with
-//   the tile of tile_attention.cuh.
+//   float32 or an int8 arena: paged_extend_kernel<., float / int8_t>,
+//   flash_kernel's body (flash_f32_body) over a paged key source
+//   (PagedF32Keys, on the bf16 route's page walk, PagedWalk): the same
+//   packed rows, 32-key tiles of any page size and slot-position mask.
+//   Arena rows on 16 bytes stream through the cp.async ring; any other
+//   view (the wrapper cannot copy an arena cheaply) is read element by
+//   element into the same tiles.  An int8 arena's codes land in a ring of their own with each
+//   key's k and v scale, and each landed stage is written as code * scale
+//   (JAX's dequantised values, exactly) into one float K/V tile.  Dh % 4
+//   == 0 up to 256.
 //
 // Both tensor-core routes take Dh % 16 == 0 up to 256 and arena rows that
 // start on 16 bytes (the wrapper raises otherwise).
@@ -110,10 +137,6 @@
 
 namespace rt {
 
-constexpr int kFlashQ = 64;   // q positions per prefill block
-constexpr int kFlashK = 32;   // key positions per prefill kv tile
-constexpr int kExtendQ = 32;  // suffix positions per extend block
-
 // Keys [0, key_limit) of row b take part: all Skv, or with a key-length
 // mask (kv_len != nullptr) the first min(Skv, kv_len[b]).  The walk stops
 // there, so tiles wholly past the limit are never read.
@@ -121,66 +144,21 @@ __device__ __forceinline__ int key_limit(const int* kv_len, int b, int Skv) {
   return kv_len != nullptr ? max(0, min(Skv, kv_len[b])) : Skv;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    const T* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    const T* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    T* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
-    float scale, float* __restrict__ lse) {
-  extern __shared__ float smem[];
-  const int i0 = blockIdx.x * kFlashQ, hq = blockIdx.y, b = blockIdx.z;
-  const int hkv = hq / G;
-  const int nr = min(kFlashQ, Sq - i0);
-  const int q_lo = Skv - Sq + i0;           // absolute position of row 0
-  const int q_hi = q_lo + nr - 1;
-  const int n_keys = key_limit(kv_len, b, Skv);
-  Tile t = carve_tile(smem, kFlashQ, kFlashK, Dh);
-
-  load_rows(t.q, q + b * q_sb + i0 * q_ss + hq * q_sh, q_ss, 1.f, (float*)nullptr,
-            (const T*)nullptr, 0, 0.f, t.ld, nr, nr, Dh);
-  tile_init(t, nr);
-  __syncthreads();
-
-  const int n_tiles = (n_keys + kFlashK - 1) / kFlashK;
-  const int end = causal ? min(n_tiles, q_hi / kFlashK + 1) : n_tiles;
-  const T* kb = k + b * k_sb + hkv * k_sh;
-  const T* vb = v + b * v_sb + hkv * v_sh;
-  for (int kt = 0; kt < end; ++kt) {
-    const int k0 = kt * kFlashK;
-    const int nc = min(kFlashK, n_keys - k0);
-    // every key of the tile is older than the window of the oldest row
-    if (window >= 0 && k0 + nc - 1 <= q_lo - window) continue;
-    load_rows(t.k, kb + k0 * k_ss, k_ss, 1.f, t.v, vb + k0 * v_ss, v_ss, 1.f, t.ld,
-              nc, nc, Dh);
-    __syncthreads();
-    tile_step(t, nr, nc, scale, [&](int r, int c) {
-      const int qp = q_lo + r, kp = k0 + c;
-      return (!causal || qp >= kp) && (window < 0 || kp > qp - window);
-    });
-  }
-  tile_store(t, nr, out + b * o_sb + i0 * o_ss + hq * o_sh, o_ss);
-  if (lse != nullptr)
-    for (int r = threadIdx.x; r < nr; r += blockDim.x)
-      lse[((int64_t)b * gridDim.y + hq) * Sq + i0 + r] = t.m[r] + logf(fmaxf(t.l[r], 1e-30f));
-}
-
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcRows = 64;    // packed (q position, q head) rows per block, 16 a warp
-constexpr int kTcBN = 32;      // keys per kv tile
-constexpr int kTcStages = 2;   // kv tiles in the cp.async ring
+constexpr int kBN = 32;        // keys per kv tile, both routes
+constexpr int kStages = 2;     // kv tiles in the cp.async ring, both routes
+constexpr int kTcRows = 64;    // packed (q position, q head) rows per bf16 block, 16 a warp
 
 // The Q rows and n_tiles K and V tiles, bf16 with a row stride of Dh + 8.
 __host__ __device__ inline size_t tc_tile_bytes(int dh, int n_tiles) {
-  return sizeof(bf16) * (size_t)(dh + 8) * (kTcRows + 2 * n_tiles * kTcBN);
+  return sizeof(bf16) * (size_t)(dh + 8) * (kTcRows + 2 * n_tiles * kBN);
 }
 
 // Shared memory of flash_tc_kernel: the Q rows and a two-stage ring of K
 // and V tiles.
 __host__ __device__ inline size_t flash_tc_smem_bytes(int dh) {
-  return tc_tile_bytes(dh, kTcStages);
+  return tc_tile_bytes(dh, kStages);
 }
 
 // Eight int8 codes as eight bf16 (the lower code in each word's low
@@ -202,36 +180,38 @@ __device__ __forceinline__ uint4 bf16x8_of_int8x8(uint2 w) {
   return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
-// Key source of flash_tc_body for prefill: key row k of (b, hkv) at
-// kb + k * k_ss; causal and window masks by key index, applied only in
-// tiles that cross a limit or the ragged end.
+// Key source of both bodies for prefill: key k of (b, hkv) is the row at
+// kb + k k_ss, on 16 bytes; causal and window masks by key index, applied
+// only in tiles that cross a limit or the ragged end.
+template <typename T>
 struct DenseKeys {
   static constexpr bool kInt8 = false;
-  const bf16* kb;
-  const bf16* vb;
+  const T* kb;
+  const T* vb;
   int64_t k_ss, v_ss;
   int Skv, causal, window;
 
   __device__ int t_begin(int q_lo) const {
-    return window >= 0 ? max(0, q_lo - window + 1) / kTcBN : 0;
+    return window >= 0 ? max(0, q_lo - window + 1) / kBN : 0;
   }
   __device__ int t_end(int q_hi) const {
-    const int n_tiles = (Skv + kTcBN - 1) / kTcBN;
-    return causal ? min(n_tiles, q_hi / kTcBN + 1) : n_tiles;
+    const int n_tiles = (Skv + kBN - 1) / kBN;
+    return causal ? min(n_tiles, q_hi / kBN + 1) : n_tiles;
   }
-  __device__ void load(int t, int stage, bf16* kd, bf16* vd, int ld, int chunks) const {
-    const int k0 = t * kTcBN;
-    for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
-      const int r = c / chunks, d = (c - r * chunks) * 8;
+  // tile t into kd / vd, row stride ld, `chunks` 16-byte copies a row
+  __device__ void load(int t, int, T* kd, T* vd, int ld, int chunks) const {
+    const int k0 = t * kBN;
+    for (int c = threadIdx.x; c < kBN * chunks; c += kThreads) {
+      const int r = c / chunks, d = (c - r * chunks) * (16 / (int)sizeof(T));
       const bool ok = k0 + r < Skv;  // keys past Skv are zeros: 0 * V stays 0
       const int64_t row = ok ? k0 + r : 0;
       cp_async16(kd + r * ld + d, kb + row * k_ss + d, ok);
       cp_async16(vd + r * ld + d, vb + row * v_ss + d, ok);
     }
   }
-  // does tile t need the per-element mask for rows at [wq_lo, wq_hi]?
+  // does tile k0 need the per-element mask for rows at [wq_lo, wq_hi]?
   __device__ bool masked(int k0, int wq_lo, int wq_hi) const {
-    return k0 + kTcBN > Skv || (causal && k0 + kTcBN - 1 > wq_lo) ||
+    return k0 + kBN > Skv || (causal && k0 + kBN - 1 > wq_lo) ||
            (window >= 0 && k0 <= wq_hi - window);
   }
   __device__ bool ok(int k0, int c, int, int qp) const {
@@ -240,40 +220,32 @@ struct DenseKeys {
   }
 };
 
-// Key source of flash_tc_body for paged extend: logical key k of row b is
-// slot k % P of page bt[k / P] of a (N, P, L, Hkv, Dh) arena.  The block
-// table row sits in shared memory; each tile's slot positions land beside
-// its K and V (4-byte cp.async), and a key counts iff 0 <= slot_pos <=
+// What the paged key sources of both bodies share: logical key k of row b
+// is slot k % P of page bt[k / P] of a (N, P, L, Hkv, Dh) arena, any P.
+// The block table row sits in shared memory; each tile's slot positions
+// land in sps (4-byte cp.async), and a key counts iff 0 <= slot_pos <=
 // q_pos.  Keys of unmapped pages (id < 0 or >= N) or past n_log are never
-// read: their K/V rows are zero-filled and their slot_pos is -1.
-//
-// KT int8_t: the stage's codes land in a ring of their own ([kTcStages]
-// [K, V][kTcBN][Dh] codes) and each key's k and v scale of its (page,
-// layer) in scs ([kTcStages][k, v][kTcBN], 0 for unmapped pages);
-// convert() turns a stage's codes into the bf16 tile the products read.
-template <typename KT>
-struct PagedKeys {
-  static constexpr bool kInt8 = std::is_same_v<KT, int8_t>;
-  const KT* k;
-  const KT* v;
-  int64_t a_sn, a_sp, lh;  // lh: the layer's and kv head's offset
+// read: their K/V rows are zero-filled and their slot_pos is -1.  Over
+// int8 codes each key's k and v scale of its (page, layer) lands in scs
+// ([kStages][k, v][kBN], 0 for unmapped pages): a tile spans kBN / P
+// pages, so the scales are per key.
+struct PagedWalk {
   const int* sp;           // slot_pos + layer * sp_sl
   int64_t sp_sn, sp_sp;
   const int* bts;          // the row's block table, shared memory [n_log]
-  int* sps;                // slot positions, shared memory [kTcStages][kTcBN]
+  int* sps;                // slot positions, shared memory [kStages][kBN]
   int n_log, N, P;
   // int8 only
   const float* ksc;        // k_scale + layer * sc_sl
   const float* vsc;        // v_scale + layer * sc_sl
   int64_t sc_sn;
   float* scs;              // the keys' scales, shared memory
-  int8_t* codes;           // the ring of codes, shared memory
 
   __device__ int t_begin(int) const { return 0; }
   // the walk stops after the tile holding the newest row's position, as
   // logical page j holds positions [j * P, (j + 1) * P)
   __device__ int t_end(int q_hi) const {
-    return min((n_log * P + kTcBN - 1) / kTcBN, q_hi / kTcBN + 1);
+    return min((n_log * P + kBN - 1) / kBN, q_hi / kBN + 1);
   }
   __device__ int page_of(int key, int& slot) const {
     const int j = key / P;
@@ -281,15 +253,60 @@ struct PagedKeys {
     const int page = j < n_log ? bts[j] : -1;
     return page >= 0 && page < N ? page : -1;
   }
+  // tile t's slot positions and, over int8 codes, its keys' scales into
+  // stage `stage`: threads 0 .. kBN - 1 the positions, kBN .. 3 kBN - 1
+  // key c % kBN's k (c < kBN) or v scale
+  __device__ void load_meta(int t, int stage, bool int8) const {
+    const int k0 = t * kBN;
+    const int c = threadIdx.x - kBN;
+    if (int8 && c >= 0 && c < 2 * kBN) {
+      int slot;
+      const int page = page_of(k0 + c % kBN, slot);
+      float* dst = scs + stage * 2 * kBN + c;
+      if (page >= 0)
+        cp_async_ca<4>(dst, (c < kBN ? ksc : vsc) + page * sc_sn);
+      else
+        *dst = 0.f;
+    }
+    if (threadIdx.x < kBN) {
+      int slot;
+      const int page = page_of(k0 + threadIdx.x, slot);
+      int* dst = sps + stage * kBN + threadIdx.x;
+      if (page >= 0)
+        cp_async_ca<4>(dst, sp + page * sp_sn + slot * sp_sp);
+      else
+        *dst = -1;
+    }
+  }
+  __device__ bool masked(int, int, int) const { return true; }
+  __device__ bool ok(int, int c, int stage, int qp) const {
+    const int s = sps[stage * kBN + c];
+    return s >= 0 && s <= qp;
+  }
+};
+
+// Key source of flash_tc_body for paged extend (PagedWalk's pages): bf16
+// K/V rows land in the stage's tiles.  KT int8_t: the stage's codes land
+// in a ring of their own ([kStages][K, V][kBN][Dh] codes), and convert()
+// turns a landed stage's codes into the bf16 tile the products read; the
+// scales apply to the scores and to P.
+template <typename KT>
+struct PagedKeys : PagedWalk {
+  static constexpr bool kInt8 = std::is_same_v<KT, int8_t>;
+  const KT* k;
+  const KT* v;
+  int64_t a_sn, a_sp, lh;  // lh: the layer's and kv head's offset
+  int8_t* codes;           // int8: the ring of codes, shared memory
+
   // tile t into stage `stage`: bf16 rows into kd / vd (row stride ld),
   // int8 codes into the stage of the ring (kd / vd unused)
   __device__ void load(int t, int stage, bf16* kd, bf16* vd, int ld, int chunks) const {
-    const int k0 = t * kTcBN;
+    const int k0 = t * kBN;
     if constexpr (kInt8) {
       const int dh = chunks * 8, n16 = chunks / 2;  // 16 codes a copy
-      int8_t* kc = codes + stage * 2 * kTcBN * dh;
-      int8_t* vc = kc + kTcBN * dh;
-      for (int c = threadIdx.x; c < kTcBN * n16; c += kThreads) {
+      int8_t* kc = codes + stage * 2 * kBN * dh;
+      int8_t* vc = kc + kBN * dh;
+      for (int c = threadIdx.x; c < kBN * n16; c += kThreads) {
         const int r = c / n16, d = (c - r * n16) * 16;
         int slot;
         const int page = page_of(k0 + r, slot);
@@ -297,19 +314,8 @@ struct PagedKeys {
         cp_async16(kc + r * dh + d, k + off + d, page >= 0);
         cp_async16(vc + r * dh + d, v + off + d, page >= 0);
       }
-      // threads kTcBN .. 3 kTcBN - 1: key c % kTcBN's k (c < kTcBN) or v scale
-      const int c = threadIdx.x - kTcBN;
-      if (c >= 0 && c < 2 * kTcBN) {
-        int slot;
-        const int page = page_of(k0 + c % kTcBN, slot);
-        float* dst = scs + stage * 2 * kTcBN + c;
-        if (page >= 0)
-          cp_async_ca<4>(dst, (c < kTcBN ? ksc : vsc) + page * sc_sn);
-        else
-          *dst = 0.f;
-      }
     } else {
-      for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
+      for (int c = threadIdx.x; c < kBN * chunks; c += kThreads) {
         const int r = c / chunks, d = (c - r * chunks) * 8;
         int slot;
         const int page = page_of(k0 + r, slot);
@@ -318,22 +324,14 @@ struct PagedKeys {
         cp_async16(vd + r * ld + d, v + off + d, page >= 0);
       }
     }
-    if (threadIdx.x < kTcBN) {
-      int slot;
-      const int page = page_of(k0 + threadIdx.x, slot);
-      int* dst = sps + stage * kTcBN + threadIdx.x;
-      if (page >= 0)
-        cp_async_ca<4>(dst, sp + page * sp_sn + slot * sp_sp);
-      else
-        *dst = -1;
-    }
+    load_meta(t, stage, kInt8);
   }
   // int8: a landed stage's codes as bf16 into the tile kd / vd
   __device__ void convert(int stage, bf16* kd, bf16* vd, int ld, int chunks) const {
     const int dh = chunks * 8;
-    const int8_t* kc = codes + stage * 2 * kTcBN * dh;
-    const int8_t* vc = kc + kTcBN * dh;
-    for (int c = threadIdx.x; c < kTcBN * chunks; c += kThreads) {
+    const int8_t* kc = codes + stage * 2 * kBN * dh;
+    const int8_t* vc = kc + kBN * dh;
+    for (int c = threadIdx.x; c < kBN * chunks; c += kThreads) {
       const int r = c / chunks, d = (c - r * chunks) * 8;
       *reinterpret_cast<uint4*>(kd + r * ld + d) =
           bf16x8_of_int8x8(*reinterpret_cast<const uint2*>(kc + r * dh + d));
@@ -343,15 +341,10 @@ struct PagedKeys {
   }
   // int8: the k or v scales of keys c and c + 1 of a stage (c even)
   __device__ float2 k_scales(int stage, int c) const {
-    return *reinterpret_cast<const float2*>(scs + stage * 2 * kTcBN + c);
+    return *reinterpret_cast<const float2*>(scs + stage * 2 * kBN + c);
   }
   __device__ float2 v_scales(int stage, int c) const {
-    return *reinterpret_cast<const float2*>(scs + stage * 2 * kTcBN + kTcBN + c);
-  }
-  __device__ bool masked(int, int, int) const { return true; }
-  __device__ bool ok(int, int c, int stage, int qp) const {
-    const int s = sps[stage * kTcBN + c];
-    return s >= 0 && s <= qp;
+    return *reinterpret_cast<const float2*>(scs + stage * 2 * kBN + kBN + c);
   }
 };
 
@@ -366,11 +359,11 @@ __device__ __forceinline__ void flash_tc_body(
     bf16* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh, float* __restrict__ lse,
     int Sq, int G, int Dh, int off, float scale_log2, const Keys& keys, bf16* qs) {
   const int ld = Dh + 8;
-  constexpr int kTiles = Keys::kInt8 ? 1 : kTcStages;  // bf16 K/V tiles
-  bf16* ks = qs + kTcRows * ld;                   // [kTiles][kTcBN][ld]
-  bf16* vs = ks + kTiles * kTcBN * ld;            // [kTiles][kTcBN][ld]
+  constexpr int kTiles = Keys::kInt8 ? 1 : kStages;  // bf16 K/V tiles
+  bf16* ks = qs + kTcRows * ld;                   // [kTiles][kBN][ld]
+  bf16* vs = ks + kTiles * kBN * ld;            // [kTiles][kBN][ld]
   // offset of the tile a stage's keys are read from
-  auto tile = [&](int st) { return (Keys::kInt8 ? 0 : st) * kTcBN * ld; };
+  auto tile = [&](int st) { return (Keys::kInt8 ? 0 : st) * kBN * ld; };
   const int p0 = blockIdx.x * kTcRows, hkv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -392,10 +385,10 @@ __device__ __forceinline__ void flash_tc_body(
   const int t_end = keys.t_end(q_hi);
   const int t_begin = keys.t_begin(q_lo);
 
-  // prologue: tiles t_begin .. t_begin + kTcStages - 2 in flight, one
+  // prologue: tiles t_begin .. t_begin + kStages - 2 in flight, one
   // commit group each (Q rides in the first)
 #pragma unroll
-  for (int st = 0; st < kTcStages - 1; ++st) {
+  for (int st = 0; st < kStages - 1; ++st) {
     if (t_begin + st < t_end)
       keys.load(t_begin + st, st, ks + tile(st), vs + tile(st), ld, chunks);
     cp_async_commit();
@@ -414,12 +407,12 @@ __device__ __forceinline__ void flash_tc_body(
   const bf16* qw = qs + (warp * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int stage = (t - t_begin) % kTcStages;
-    cp_async_wait<kTcStages - 2>();  // this tile (and Q) landed
+    const int stage = (t - t_begin) % kStages;
+    cp_async_wait<kStages - 2>();  // this tile (and Q) landed
     __syncthreads();                 // ... for every warp; tile t - 1 is consumed
-    const int nxt = t + kTcStages - 1;
+    const int nxt = t + kStages - 1;
     if (nxt < t_end) {               // into t - 1's stage
-      const int ns = (nxt - t_begin) % kTcStages;
+      const int ns = (nxt - t_begin) % kStages;
       keys.load(nxt, ns, ks + tile(ns), vs + tile(ns), ld, chunks);
     }
     cp_async_commit();
@@ -430,17 +423,17 @@ __device__ __forceinline__ void flash_tc_body(
     const bf16* kt = ks + tile(stage);
     const bf16* vt = vs + tile(stage);
 
-    // S = Q K^T, 16 rows x kTcBN keys per warp
-    float s[kTcBN / 8][4];
+    // S = Q K^T, 16 rows x kBN keys per warp
+    float s[kBN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTcBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < kBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kDhMax / 16; ++kk) {
       if (kk < n_kk) {
         uint32_t a[4];
         ldmatrix_x4(a, qw + kk * 16);
 #pragma unroll
-        for (int j = 0; j < kTcBN / 16; ++j) {
+        for (int j = 0; j < kBN / 16; ++j) {
           uint32_t bk[4];
           ldmatrix_x4(bk, kt + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld + kk * 16 +
                               ((lane >> 3) & 1) * 8);
@@ -452,10 +445,10 @@ __device__ __forceinline__ void flash_tc_body(
 
     // scale into log2 units (int8: times the key's k scale, in float32 as
     // JAX dequantises); mask where the key source asks for it
-    const int k0 = t * kTcBN;
+    const int k0 = t * kBN;
     const bool masked = keys.masked(k0, wq_lo, wq_hi);
 #pragma unroll
-    for (int j = 0; j < kTcBN / 8; ++j) {
+    for (int j = 0; j < kBN / 8; ++j) {
       float f[2] = {scale_log2, scale_log2};  // this lane's key columns of s[j]
       if constexpr (Keys::kInt8) {
         const float2 sk = keys.k_scales(stage, j * 8 + 2 * t4);
@@ -475,7 +468,7 @@ __device__ __forceinline__ void flash_tc_body(
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kTcBN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      for (int j = 0; j < kBN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[h], mx);  // finite: m starts at -1e30
@@ -483,7 +476,7 @@ __device__ __forceinline__ void flash_tc_body(
       m[h] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kTcBN / 8; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
         s[j][2 * h] = exp2f(s[j][2 * h] - m_new);  // -inf -> 0
         s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - m_new);
         sum += s[j][2 * h] + s[j][2 * h + 1];
@@ -500,7 +493,7 @@ __device__ __forceinline__ void flash_tc_body(
     // (the sum l above keeps the unscaled p)
     if constexpr (Keys::kInt8) {
 #pragma unroll
-      for (int j = 0; j < kTcBN / 8; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
         const float2 sv = keys.v_scales(stage, j * 8 + 2 * t4);
         s[j][0] *= sv.x;
         s[j][1] *= sv.y;
@@ -511,7 +504,7 @@ __device__ __forceinline__ void flash_tc_body(
 
     // O += P V: P rounded to bf16 in registers is the A operand
 #pragma unroll
-    for (int kk = 0; kk < kTcBN / 16; ++kk) {
+    for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -567,8 +560,8 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
   const int hkv = blockIdx.y, b = blockIdx.z;
   // q positions stay aligned to the end of all Skv keys; the key source
   // ends at the row's limit
-  const DenseKeys keys{k + b * k_sb + hkv * k_sh, v + b * v_sb + hkv * v_sh, k_ss, v_ss,
-                       key_limit(kv_len, b, Skv), causal, window};
+  const DenseKeys<bf16> keys{k + b * k_sb + hkv * k_sh, v + b * v_sb + hkv * v_sh, k_ss, v_ss,
+                             key_limit(kv_len, b, Skv), causal, window};
   flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, lse, Sq, G, Dh, Skv - Sq,
                         scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
 }
@@ -581,13 +574,13 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) flash_tc_kern
 template <typename KT>
 __host__ __device__ inline size_t paged_extend_tc_tiles_bytes(int dh) {
   if constexpr (std::is_same_v<KT, int8_t>)
-    return tc_tile_bytes(dh, 1) + (size_t)kTcStages * 2 * kTcBN * (dh + sizeof(float));
+    return tc_tile_bytes(dh, 1) + (size_t)kStages * 2 * kBN * (dh + sizeof(float));
   else
     return flash_tc_smem_bytes(dh);
 }
 template <typename KT>
 __host__ __device__ inline size_t paged_extend_tc_smem_bytes(int dh, int n_log) {
-  return paged_extend_tc_tiles_bytes<KT>(dh) + sizeof(int) * ((size_t)kTcStages * kTcBN + n_log);
+  return paged_extend_tc_tiles_bytes<KT>(dh) + sizeof(int) * ((size_t)kStages * kBN + n_log);
 }
 
 template <int kDhMax, typename KT>
@@ -606,84 +599,17 @@ __global__ void __launch_bounds__(kThreads, kDhMax <= 128 ? 4 : 1) paged_extend_
   const int hkv = blockIdx.y, b = blockIdx.z;
   // int8: [codes | scales] after the Q rows and the one K/V tile
   int8_t* codes = reinterpret_cast<int8_t*>(smem_raw + tc_tile_bytes(Dh, 1));
-  float* scs = reinterpret_cast<float*>(codes + kTcStages * 2 * kTcBN * Dh);
+  float* scs = reinterpret_cast<float*>(codes + kStages * 2 * kBN * Dh);
   int* sps = reinterpret_cast<int*>(smem_raw + paged_extend_tc_tiles_bytes<KT>(Dh));
-  int* bts = sps + kTcStages * kTcBN;
+  int* bts = sps + kStages * kBN;
   load_block_table(bts, block_table + b * bt_sb, n_log);
   const int off = pos[b];
   __syncthreads();
-  const PagedKeys<KT> keys{k, v, a_sn, a_sp, layer * a_sl + hkv * a_sh,
-                           slot_pos + layer * sp_sl, sp_sn, sp_sp, bts, sps, n_log, N, P,
-                           k_scale + layer * sc_sl, v_scale + layer * sc_sl, sc_sn, scs,
-                           codes};
+  const PagedKeys<KT> keys{{slot_pos + layer * sp_sl, sp_sn, sp_sp, bts, sps, n_log, N, P,
+                            k_scale + layer * sc_sl, v_scale + layer * sc_sl, sc_sn, scs},
+                           k, v, a_sn, a_sp, layer * a_sl + hkv * a_sh, codes};
   flash_tc_body<kDhMax>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, nullptr, Sq, G, Dh, off,
                         scale_log2, keys, reinterpret_cast<bf16*>(smem_raw));
-}
-
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads) paged_extend_kernel(
-    const QT* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    const KT* __restrict__ k, const KT* __restrict__ v,
-    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
-    const int* __restrict__ slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
-    const int* __restrict__ block_table, int64_t bt_sb, int n_log,
-    const int* __restrict__ pos, int layer,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    int64_t sc_sn, int64_t sc_sl,
-    QT* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int Sq, int G, int Dh, int N, int P, float scale) {
-  extern __shared__ float smem[];
-  const int i0 = blockIdx.x * kExtendQ, hq = blockIdx.y, b = blockIdx.z;
-  const int hkv = hq / G;
-  const int nr = min(kExtendQ, Sq - i0);
-  const int q_lo = pos[b] + i0;             // absolute position of row 0
-  const int q_hi = q_lo + nr - 1;           // newest attendable position
-  Tile t = carve_tile(smem, kExtendQ, P, Dh);
-  int* sp_tile = reinterpret_cast<int*>(tile_end(t, kExtendQ));   // [P]
-  int* bt_tile = sp_tile + P;                                      // [n_log]
-
-  load_rows(t.q, q + b * q_sb + i0 * q_ss + hq * q_sh, q_ss, 1.f, (float*)nullptr,
-            (const QT*)nullptr, 0, 0.f, t.ld, nr, nr, Dh);
-  load_block_table(bt_tile, block_table + b * bt_sb, n_log);
-  tile_init(t, nr);
-  __syncthreads();
-
-  for (int j = 0; j < n_log && j * P <= q_hi; ++j) {
-    const int page = bt_tile[j];
-    if (page < 0 || page >= N) continue;  // unmapped sentinel page
-    float ks = 1.f, vs = 1.f;
-    if (k_scale != nullptr) {
-      ks = k_scale[page * sc_sn + layer * sc_sl];
-      vs = v_scale[page * sc_sn + layer * sc_sl];
-    }
-    const int64_t base = page * a_sn + layer * a_sl + hkv * a_sh;
-    const int sp = fetch_slot_pos(slot_pos + page * sp_sn + layer * sp_sl, sp_sp, P);
-    load_rows(t.k, k + base, a_sp, ks, t.v, v + base, a_sp, vs, t.ld, P, P, Dh);
-    if (threadIdx.x < P) sp_tile[threadIdx.x] = sp;
-    __syncthreads();
-    tile_step(t, nr, P, scale, [&](int r, int c) {
-      const int sp = sp_tile[c];
-      return sp >= 0 && sp <= q_lo + r;
-    });
-  }
-  tile_store(t, nr, out + b * o_sb + i0 * o_ss + hq * o_sh, o_ss);
-}
-
-template <typename T>
-cudaError_t launch_flash(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                         const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                         const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                         void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                         int B, int Hq, int Hkv, int Sq, int Skv, const int* kv_len, int Dh,
-                         int causal, int window, float* lse, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(kFlashQ, kFlashK, Dh);
-  auto kernel = flash_kernel<T>;
-  const dim3 grid((Sq + kFlashQ - 1) / kFlashQ, Hq, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), q_sb, q_ss, q_sh, static_cast<const T*>(k), k_sb, k_ss,
-      k_sh, static_cast<const T*>(v), v_sb, v_ss, v_sh, static_cast<T*>(out), o_sb, o_ss,
-      o_sh, Sq, Skv, kv_len, Hq / Hkv, Dh, causal, window, rsqrtf(static_cast<float>(Dh)), lse);
-  return cudaGetLastError();
 }
 
 template <int kDhMax>
@@ -730,27 +656,6 @@ inline cudaError_t launch_flash_bf16(const void* q, int64_t q_sb, int64_t q_ss, 
 #undef RT_FLASH_TC
 }
 
-template <typename QT, typename KT>
-cudaError_t launch_paged_extend(
-    const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh, const void* k, const void* v,
-    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
-    const int* slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
-    const int* block_table, int64_t bt_sb, int n_log, const int* pos, int layer,
-    const float* k_scale, const float* v_scale, int64_t sc_sn, int64_t sc_sl,
-    void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int B, int Hq, int Hkv, int Sq, int Dh, int N, int P, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(kExtendQ, P, Dh) + sizeof(int) * (P + n_log);
-  auto kernel = paged_extend_kernel<QT, KT>;
-  const dim3 grid((Sq + kExtendQ - 1) / kExtendQ, Hq, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), q_sb, q_ss, q_sh,
-      static_cast<const KT*>(k), static_cast<const KT*>(v), a_sn, a_sp, a_sl, a_sh,
-      slot_pos, sp_sn, sp_sp, sp_sl, block_table, bt_sb, n_log, pos, layer,
-      k_scale, v_scale, sc_sn, sc_sl, static_cast<QT*>(out), o_sb, o_ss, o_sh,
-      Sq, Hq / Hkv, Dh, N, P, rsqrtf(static_cast<float>(Dh)));
-  return cudaGetLastError();
-}
-
 // The bf16 q paged extend routes: flash_tc_body over a paged key source
 // of bf16 rows or int8 codes (KT).  Dh % 16 == 0 up to 256; 16-byte
 // aligned q, out and arena rows (the wrapper checks both and copies q if
@@ -790,16 +695,455 @@ cudaError_t launch_paged_extend_tc(
 #undef RT_EXTEND_TC
 }
 
+// ---------------------------------------------------------------------------
+// float32 route: CUDA cores, exact float32 products
+// ---------------------------------------------------------------------------
+// Tiles of the float32 body in the head-dim class kDh (64, 128 or 256; a
+// smaller Dh runs in its class with zero columns).  A warp owns kWarpRows
+// packed rows; its lane (rg, cg) = (lane / 8, lane % 8) holds rows rg +
+// 4 i (i < kTR) of them: of S, keys cg + 8 j of the tile (j < 4), of the
+// output accumulator, columns 4 cg + 32 u .. + 3 (u < kCU).  Q, K and V
+// rows are kDh + 4 floats: the float4 reads of 4 (or 8) consecutive rows
+// by a warp fall on distinct banks.  Each warp has its own P buffer,
+// [key][the warp's rows], so P crosses lanes with no block barrier.
+template <int kDh>
+struct F32Fwd {
+  static constexpr int kTR = kDh > 128 ? 2 : 4;
+  static constexpr int kWarpRows = 4 * kTR;
+  static constexpr int kRows = 4 * kWarpRows;   // a block: 64, or 32 past Dh 128
+  static constexpr int kLd = kDh + 4;
+  static constexpr int kCU = kDh / 32;
+  static constexpr int kChunks = kDh / 4;       // 16-byte chunks of a row
+  // Q rows, kTiles K and V tiles, the warps' P buffers (floats)
+  __host__ __device__ static constexpr size_t body_bytes(int tiles) {
+    return sizeof(float) *
+           ((size_t)kRows * kLd + 2 * (size_t)tiles * kBN * kLd + 4 * kBN * kWarpRows);
+  }
+};
+
+// Key source of flash_f32_body for paged extend (PagedWalk's pages):
+// float rows land in the stage's tiles.  Arena rows on 16 bytes (vec)
+// stream through 16-byte cp.async copies; any other view, which the
+// wrapper cannot copy cheaply, through element loads into the same tiles.
+// KT int8_t: the stage's codes land in a ring of their own ([kStages][K,
+// V][kBN][kDh] codes), and convert() writes a landed stage as code *
+// scale, the arena's values exactly as JAX dequantises them, into the one
+// float K/V tile.
+template <typename KT, int kDh>
+struct PagedF32Keys : PagedWalk {
+  static constexpr bool kInt8 = std::is_same_v<KT, int8_t>;
+  using T = F32Fwd<kDh>;
+  const KT* k;
+  const KT* v;
+  int64_t a_sn, a_sp, lh;  // lh: the layer's and kv head's offset
+  int8_t* codes;           // int8: the ring of codes, shared memory
+  int Dh, vec;
+
+  // tile t into stage `stage`: float rows into kd / vd, int8 codes into
+  // the stage of the ring (kd / vd unused); columns past Dh are zeros
+  __device__ void load(int t, int stage, float* kd, float* vd, int, int) const {
+    const int k0 = t * kBN;
+    constexpr int kCpr = kInt8 ? kDh / 16 : T::kChunks;  // 16-byte copies a row
+    constexpr int kE = 16 / sizeof(KT);                  // elements a copy
+    KT* kc;
+    KT* vc;
+    int ld;
+    if constexpr (kInt8) {
+      kc = codes + stage * 2 * kBN * kDh;
+      vc = kc + kBN * kDh;
+      ld = kDh;
+    } else {
+      kc = kd;
+      vc = vd;
+      ld = T::kLd;
+    }
+    if (vec) {
+      for (int c = threadIdx.x; c < kBN * kCpr; c += kThreads) {
+        const int r = c / kCpr, e = (c % kCpr) * kE;
+        int slot;
+        const int page = page_of(k0 + r, slot);
+        const bool ok = page >= 0 && e < Dh;
+        const int64_t off = ok ? page * a_sn + slot * a_sp + lh + e : 0;
+        cp_async16(kc + r * ld + e, k + off, ok);
+        cp_async16(vc + r * ld + e, v + off, ok);
+      }
+    } else {
+      for (int c = threadIdx.x; c < kBN * kDh; c += kThreads) {
+        const int r = c / kDh, e = c % kDh;
+        int slot;
+        const int page = page_of(k0 + r, slot);
+        const bool ok = page >= 0 && e < Dh;
+        const int64_t off = ok ? page * a_sn + slot * a_sp + lh + e : 0;
+        kc[r * ld + e] = ok ? k[off] : KT(0);
+        vc[r * ld + e] = ok ? v[off] : KT(0);
+      }
+    }
+    load_meta(t, stage, kInt8);
+  }
+  // int8: a landed stage's codes times their keys' scales into kd / vd
+  __device__ void convert(int stage, float* kd, float* vd) const {
+    const int8_t* kc = codes + stage * 2 * kBN * kDh;
+    const int8_t* vc = kc + kBN * kDh;
+    const float* sc = scs + stage * 2 * kBN;
+    for (int c = threadIdx.x; c < kBN * T::kChunks; c += kThreads) {
+      const int r = c / T::kChunks, e = (c % T::kChunks) * 4;
+      const char4 a = *reinterpret_cast<const char4*>(kc + r * kDh + e);
+      const char4 w = *reinterpret_cast<const char4*>(vc + r * kDh + e);
+      const float s = sc[r], t = sc[kBN + r];
+      *reinterpret_cast<float4*>(kd + r * T::kLd + e) =
+          make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+      *reinterpret_cast<float4*>(vd + r * T::kLd + e) =
+          make_float4(w.x * t, w.y * t, w.z * t, w.w * t);
+    }
+  }
+};
+
+// The body shared by the float32 prefill and paged extend kernels: packed
+// rows p0 .. p0 + kRows - 1 of kv head hkv = blockIdx.x in row b =
+// blockIdx.y, the last rows (the longest causal walks) in the first
+// blocks; row p is q position p / G (absolute position off + p / G) of q
+// head hkv * G + p % G.  K/V tiles of kBN keys stream through a
+// two-stage cp.async ring (an int8 source: its codes do, and each landed
+// stage is converted into one float tile).  A thread's S and output
+// tiles stay in registers (F32Fwd); the running max is reduced across the
+// 8 lanes that share a row by shuffles, each lane keeps its part of the
+// running sum until the end, and P crosses the warp's lanes through its
+// own shared buffer.  Every product is an fmaf, each output element is
+// summed over the keys in one order: two calls give the same bits.
+template <int kDh, class Keys>
+__device__ __forceinline__ void flash_f32_body(
+    const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    float* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh, float* __restrict__ lse,
+    int Sq, int G, int Dh, int off, float scale_log2, const Keys& keys, float* smem) {
+  using T = F32Fwd<kDh>;
+  constexpr int kTR = T::kTR, kLd = T::kLd, kCU = T::kCU, kWR = T::kWarpRows;
+  constexpr int kTiles = Keys::kInt8 ? 1 : kStages;  // float K/V tiles
+  float* qs = smem;                                     // [kRows][kLd]
+  float* ks = qs + T::kRows * kLd;                      // [kTiles][kBN][kLd]
+  float* vs = ks + kTiles * kBN * kLd;               // [kTiles][kBN][kLd]
+  float* ps = vs + kTiles * kBN * kLd;               // [4 warps][kBN][kWR]
+  auto tile = [&](int st) { return (Keys::kInt8 ? 0 : st) * kBN * kLd; };
+  const int hkv = blockIdx.x, b = blockIdx.y;
+  const int p0 = (gridDim.z - 1 - blockIdx.z) * T::kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int nch = Dh / 4;
+
+  // the block's Q rows; rows past Sq and columns past Dh are zeros
+  for (int c = tid; c < T::kRows * T::kChunks; c += kThreads) {
+    const int r = c / T::kChunks, ch = c % T::kChunks;
+    const int p = p0 + r, i = p / G;
+    const bool ok = i < Sq && ch < nch;
+    const float* src = ok ? q + b * q_sb + i * q_ss + (hkv * G + p % G) * q_sh + 4 * ch : q;
+    cp_async16(qs + r * kLd + 4 * ch, src, ok);
+  }
+
+  // the dense source copies Dh columns a row: the K/V tiles' columns
+  // past Dh are zeroed here once, for every stage
+  if constexpr (std::is_same_v<Keys, DenseKeys<float>>)
+    if (Dh < kDh)
+      for (int c = tid; c < 2 * kTiles * kBN * (kDh - Dh) / 4; c += kThreads) {
+        const int r = c / ((kDh - Dh) / 4), e = Dh + 4 * (c % ((kDh - Dh) / 4));
+        *reinterpret_cast<float4*>(ks + r * kLd + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+
+  // the kv tiles the block's rows can see; the first rides with Q
+  const int q_lo = off + p0 / G;
+  const int q_hi = off + min(Sq - 1, (p0 + T::kRows - 1) / G);
+  const int t_end = keys.t_end(q_hi);
+  const int t_begin = keys.t_begin(q_lo);
+  if (t_begin < t_end) keys.load(t_begin, 0, ks + tile(0), vs + tile(0), kLd, nch);
+  cp_async_commit();
+
+  const int wr = warp * kWR;  // the warp's first row in the block
+  int qpos[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) qpos[i] = off + (p0 + wr + rg + 4 * i) / G;
+  const int wq_lo = off + (p0 + wr) / G, wq_hi = off + (p0 + wr + kWR - 1) / G;
+  float o[kTR][4 * kCU];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * kCU; ++c) o[i][c] = 0.f;
+  float m[kTR], l[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) m[i] = kNegInit, l[i] = 0.f;
+  const float* qw = qs + (wr + rg) * kLd;
+  float* pw = ps + warp * kBN * kWR;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) & 1;
+    cp_async_wait<0>();  // this tile (and Q) landed
+    __syncthreads();     // ... for every thread; tile t - 1 is consumed
+    if (t + 1 < t_end)
+      keys.load(t + 1, stage ^ 1, ks + tile(stage ^ 1), vs + tile(stage ^ 1), kLd, nch);
+    cp_async_commit();
+    if constexpr (Keys::kInt8) {
+      keys.convert(stage, ks, vs);
+      __syncthreads();  // the float tile is whole for every warp
+    }
+    const float* kt = ks + tile(stage) + cg * kLd;
+    const float* vt = vs + tile(stage) + 4 * cg;
+
+    // S = Q K^T: rows rg + 4 i, keys cg + 8 j
+    float s[kTR][4];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < kDh; d += 4) {
+      float4 qv[kTR], kv[4];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) qv[i] = lds4(qw + 4 * i * kLd + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = lds4(kt + 8 * j * kLd + d);
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fma4(qv[i], kv[j], s[i][j]);
+    }
+
+    // scores in log2 units, masked where the key source asks; online
+    // softmax: the row max over the 8 lanes of the row, p = 2^(s - m),
+    // the lane's part of the sum, O rescaled
+    const int k0 = t * kBN;
+    const bool masked = keys.masked(k0, wq_lo, wq_hi);
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (masked && !keys.ok(k0, cg + 8 * j, stage, qpos[i])) x = -INFINITY;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);  // finite: m starts at -1e30
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = exp2f(s[i][j] - m_new);  // -inf -> 0
+        sum += s[i][j];
+      }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < 4 * kCU; ++c) o[i][c] *= corr;
+    }
+
+    // P into the warp's buffer, [key][rg * kTR + i], then O += P V
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* dst = pw + (cg + 8 * j) * kWR + rg * kTR;
+      if constexpr (kTR == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      else
+        *reinterpret_cast<float2*>(dst) = make_float2(s[0][j], s[1][j]);
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int c = 0; c < kBN; ++c) {
+      float pv[kTR];
+      const float* src = pw + c * kWR + rg * kTR;
+      if constexpr (kTR == 4) {
+        const float4 x = lds4(src);
+        pv[0] = x.x, pv[1] = x.y, pv[2] = x.z, pv[3] = x.w;
+      } else {
+        const float2 x = *reinterpret_cast<const float2*>(src);
+        pv[0] = x.x, pv[1] = x.y;
+      }
+      float4 vv[kCU];
+#pragma unroll
+      for (int u = 0; u < kCU; ++u) vv[u] = lds4(vt + c * kLd + 32 * u);
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int u = 0; u < kCU; ++u) {
+          o[i][4 * u] = fmaf(pv[i], vv[u].x, o[i][4 * u]);
+          o[i][4 * u + 1] = fmaf(pv[i], vv[u].y, o[i][4 * u + 1]);
+          o[i][4 * u + 2] = fmaf(pv[i], vv[u].z, o[i][4 * u + 2]);
+          o[i][4 * u + 3] = fmaf(pv[i], vv[u].w, o[i][4 * u + 3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  // out = O / l, rows past Sq dropped; a row with no valid key stores 0;
+  // lse (when given) = (m + log2 l) ln 2, m and l being in log2 units
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    const int p = p0 + wr + rg + 4 * i, qi = p / G, h = hkv * G + p % G;
+    if (qi >= Sq) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    if (lse != nullptr && cg == 0)
+      lse[((int64_t)b * gridDim.x * G + h) * Sq + qi] =
+          (m[i] + log2f(fmaxf(sum, 1e-30f))) * 0.6931471805599453f;
+    float* orow = out + b * o_sb + qi * o_ss + h * o_sh + 4 * cg;
+#pragma unroll
+    for (int u = 0; u < kCU; ++u)
+      if (4 * cg + 32 * u < Dh)
+        *reinterpret_cast<float4*>(orow + 32 * u) =
+            make_float4(o[i][4 * u] * inv, o[i][4 * u + 1] * inv, o[i][4 * u + 2] * inv,
+                        o[i][4 * u + 3] * inv);
+  }
+}
+
+// Up to Dh 128 two blocks share an SM (110 KB of shared memory at Dh
+// 128); past it one block of 32 rows.
+template <int kDh>
+__global__ void __launch_bounds__(kThreads, kDh > 128 ? 1 : 2) flash_kernel(
+    const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    const float* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    const float* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    float* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    int Sq, int Skv, const int* __restrict__ kv_len, int G, int Dh, int causal, int window,
+    float scale_log2, float* __restrict__ lse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hkv = blockIdx.x, b = blockIdx.y;
+  // q positions stay aligned to the end of all Skv keys; the key source
+  // ends at the row's limit
+  const DenseKeys<float> keys{k + b * k_sb + hkv * k_sh, v + b * v_sb + hkv * v_sh, k_ss, v_ss,
+                              key_limit(kv_len, b, Skv), causal, window};
+  flash_f32_body<kDh>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, lse, Sq, G, Dh, Skv - Sq,
+                      scale_log2, keys, reinterpret_cast<float*>(smem_raw));
+}
+
+// Shared memory of paged_extend_kernel: the body's tiles (an int8 arena:
+// one float K/V tile, then the ring of codes and the keys' scales), then
+// the stages' slot positions and the row's block table.
+template <int kDh, typename KT>
+__host__ __device__ inline size_t paged_extend_tiles_bytes() {
+  if constexpr (std::is_same_v<KT, int8_t>)
+    return F32Fwd<kDh>::body_bytes(1) + (size_t)kStages * 2 * kBN * (kDh + sizeof(float));
+  else
+    return F32Fwd<kDh>::body_bytes(kStages);
+}
+
+template <int kDh, typename KT>
+__global__ void __launch_bounds__(kThreads, kDh > 128 ? 1 : 2) paged_extend_kernel(
+    const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    const KT* __restrict__ k, const KT* __restrict__ v,
+    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
+    const int* __restrict__ slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
+    const int* __restrict__ block_table, int64_t bt_sb, int n_log,
+    const int* __restrict__ pos, int layer,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    int64_t sc_sn, int64_t sc_sl,
+    float* __restrict__ out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    int Sq, int G, int Dh, int N, int P, int vec, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hkv = blockIdx.x, b = blockIdx.y;
+  // int8: [codes | scales] after the Q rows, the one K/V tile and P
+  int8_t* codes = reinterpret_cast<int8_t*>(smem_raw + F32Fwd<kDh>::body_bytes(1));
+  float* scs = reinterpret_cast<float*>(codes + kStages * 2 * kBN * kDh);
+  int* sps = reinterpret_cast<int*>(smem_raw + paged_extend_tiles_bytes<kDh, KT>());
+  int* bts = sps + kStages * kBN;
+  load_block_table(bts, block_table + b * bt_sb, n_log);
+  const int off = pos[b];
+  __syncthreads();
+  const PagedF32Keys<KT, kDh> keys{
+      {slot_pos + layer * sp_sl, sp_sn, sp_sp, bts, sps, n_log, N, P, k_scale + layer * sc_sl,
+       v_scale + layer * sc_sl, sc_sn, scs},
+      k, v, a_sn, a_sp, layer * a_sl + hkv * a_sh, codes, Dh, vec};
+  flash_f32_body<kDh>(q, q_sb, q_ss, q_sh, out, o_sb, o_ss, o_sh, nullptr, Sq, G, Dh, off,
+                      scale_log2, keys, reinterpret_cast<float*>(smem_raw));
+}
+
+// The float32 route: Dh % 4 == 0 up to 256; q, out and (prefill) k, v
+// rows on 16 bytes (the wrapper copies q, k and v otherwise).  An extend's
+// arena may lie anywhere: rows off 16 bytes (or int8 rows of a head dim
+// that is not a multiple of 16) take element loads.
+inline cudaError_t launch_flash_f32(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                    const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                                    const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                                    void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                                    int B, int Hq, int Hkv, int Sq, int Skv,
+                                    const int* kv_len, int Dh, int causal, int window,
+                                    float* lse, cudaStream_t stream) {
+  if (Dh % 4 || Dh > 256) return cudaErrorInvalidValue;
+  const int64_t strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh |
+                          o_sb | o_ss | o_sh;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (strides % 4 || bases % 16) return cudaErrorMisalignedAddress;
+  const int G = Hq / Hkv;
+  const float scale_log2 = rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f;
+#define RT_FLASH_F32(DH)                                                                      \
+  {                                                                                           \
+    const dim3 grid(Hkv, B, (Sq * G + F32Fwd<DH>::kRows - 1) / F32Fwd<DH>::kRows);            \
+    flash_kernel<DH><<<grid, kThreads, F32Fwd<DH>::body_bytes(kStages), stream>>>(         \
+        static_cast<const float*>(q), q_sb, q_ss, q_sh, static_cast<const float*>(k), k_sb,   \
+        k_ss, k_sh, static_cast<const float*>(v), v_sb, v_ss, v_sh, static_cast<float*>(out), \
+        o_sb, o_ss, o_sh, Sq, Skv, kv_len, G, Dh, causal, window, scale_log2, lse);           \
+    return cudaGetLastError();                                                                \
+  }
+  if (Dh <= 64) RT_FLASH_F32(64);
+  if (Dh <= 128) RT_FLASH_F32(128);
+  RT_FLASH_F32(256);
+#undef RT_FLASH_F32
+}
+
+template <typename KT>
+cudaError_t launch_paged_extend_f32(
+    const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh, const void* k, const void* v,
+    int64_t a_sn, int64_t a_sp, int64_t a_sl, int64_t a_sh,
+    const int* slot_pos, int64_t sp_sn, int64_t sp_sp, int64_t sp_sl,
+    const int* block_table, int64_t bt_sb, int n_log, const int* pos, int layer,
+    const float* k_scale, const float* v_scale, int64_t sc_sn, int64_t sc_sl,
+    void* out, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+    int B, int Hq, int Hkv, int Sq, int Dh, int N, int P, cudaStream_t stream) {
+  if (Dh % 4 || Dh > 256) return cudaErrorInvalidValue;
+  const int64_t q_strides = q_sb | q_ss | q_sh | o_sb | o_ss | o_sh;
+  const uintptr_t q_bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out);
+  if (q_strides % 4 || q_bases % 16) return cudaErrorMisalignedAddress;
+  constexpr int64_t kRow = 16 / sizeof(KT);  // arena elements in 16 bytes
+  const int64_t a_strides = a_sn | a_sp | a_sl | a_sh;
+  const uintptr_t a_bases = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  const int vec = a_strides % kRow == 0 && a_bases % 16 == 0 && Dh % kRow == 0;
+  const int G = Hq / Hkv;
+  const float scale_log2 = rsqrtf(static_cast<float>(Dh)) * 1.4426950408889634f;
+  const size_t table = sizeof(int) * ((size_t)kStages * kBN + n_log);
+#define RT_EXTEND_F32(DH)                                                                     \
+  {                                                                                           \
+    const dim3 grid(Hkv, B, (Sq * G + F32Fwd<DH>::kRows - 1) / F32Fwd<DH>::kRows);            \
+    paged_extend_kernel<DH, KT><<<grid, kThreads, paged_extend_tiles_bytes<DH, KT>() + table, \
+                                  stream>>>(                                                  \
+        static_cast<const float*>(q), q_sb, q_ss, q_sh, static_cast<const KT*>(k),            \
+        static_cast<const KT*>(v), a_sn, a_sp, a_sl, a_sh, slot_pos, sp_sn, sp_sp, sp_sl,     \
+        block_table, bt_sb, n_log, pos, layer, k_scale, v_scale, sc_sn, sc_sl,                \
+        static_cast<float*>(out), o_sb, o_ss, o_sh, Sq, G, Dh, N, P, vec, scale_log2);        \
+    return cudaGetLastError();                                                                \
+  }
+  if (Dh <= 64) RT_EXTEND_F32(64);
+  if (Dh <= 128) RT_EXTEND_F32(128);
+  RT_EXTEND_F32(256);
+#undef RT_EXTEND_F32
+}
+
 }  // namespace rt
 
 // Once per process, when the library is bound: every flash and paged
 // extend instantiation (prepare_kernels).
 extern "C" int rt_prepare_flash() {
   using namespace rt;
-  return prepare_kernels({(const void*)flash_kernel<float>, (const void*)flash_tc_kernel<64>,
+  return prepare_kernels({(const void*)flash_kernel<64>, (const void*)flash_kernel<128>,
+                          (const void*)flash_kernel<256>, (const void*)flash_tc_kernel<64>,
                           (const void*)flash_tc_kernel<128>, (const void*)flash_tc_kernel<256>,
-                          (const void*)paged_extend_kernel<float, float>,
-                          (const void*)paged_extend_kernel<float, int8_t>,
+                          (const void*)paged_extend_kernel<64, float>,
+                          (const void*)paged_extend_kernel<128, float>,
+                          (const void*)paged_extend_kernel<256, float>,
+                          (const void*)paged_extend_kernel<64, int8_t>,
+                          (const void*)paged_extend_kernel<128, int8_t>,
+                          (const void*)paged_extend_kernel<256, int8_t>,
                           (const void*)paged_extend_tc_kernel<64, bf16>,
                           (const void*)paged_extend_tc_kernel<128, bf16>,
                           (const void*)paged_extend_tc_kernel<256, bf16>,
@@ -829,9 +1173,9 @@ extern "C" int rt_flash_attention(
   float* ls = static_cast<float*>(lse);
   switch (dtype) {
     case F32:  // CUDA cores: exact float32 products
-      return launch_flash<float>(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss,
-                                 v_sh, out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kl, Dh,
-                                 causal, window, ls, s);
+      return launch_flash_f32(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh,
+                              out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kl, Dh, causal,
+                              window, ls, s);
     case BF16:  // tensor cores
       return launch_flash_bf16(q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh,
                                out, o_sb, o_ss, o_sh, B, Hq, Hkv, Sq, Skv, kl, Dh, causal,
@@ -859,11 +1203,11 @@ extern "C" int rt_paged_extend_attention(
   const float* ksc = static_cast<const float*>(k_scale);
   const float* vsc = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RT_EXTEND(QT, KT)                                                               \
-  return launch_paged_extend<QT, KT>(q, q_sb, q_ss, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, \
-                                     sp, sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, ps,     \
-                                     layer, ksc, vsc, sc_sn, sc_sl, out, o_sb, o_ss,    \
-                                     o_sh, B, Hq, Hkv, Sq, Dh, N, P, s)
+#define RT_EXTEND_F32(KT)                                                                   \
+  return launch_paged_extend_f32<KT>(q, q_sb, q_ss, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, sp, \
+                                     sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, ps, layer, ksc,   \
+                                     vsc, sc_sn, sc_sl, out, o_sb, o_ss, o_sh, B, Hq, Hkv,    \
+                                     Sq, Dh, N, P, s)
 #define RT_EXTEND_BF16(KT)                                                                 \
   return launch_paged_extend_tc<KT>(q, q_sb, q_ss, q_sh, k, v, a_sn, a_sp, a_sl, a_sh, sp, \
                                     sp_sn, sp_sp, sp_sl, bt, bt_sb, n_log, ps, layer, ksc,   \
@@ -873,8 +1217,8 @@ extern "C" int rt_paged_extend_attention(
   if (!quant && kv_dtype != q_dtype) return cudaErrorInvalidValue;
   switch (q_dtype) {
     case F32:  // CUDA cores: exact float32 products
-      if (quant) RT_EXTEND(float, int8_t);
-      RT_EXTEND(float, float);
+      if (quant) RT_EXTEND_F32(int8_t);
+      RT_EXTEND_F32(float);
     case BF16:  // tensor cores, over a bf16 or an int8 arena
       if (quant) RT_EXTEND_BF16(int8_t);
       RT_EXTEND_BF16(bf16);
@@ -882,5 +1226,5 @@ extern "C" int rt_paged_extend_attention(
       return cudaErrorInvalidValue;
   }
 #undef RT_EXTEND_BF16
-#undef RT_EXTEND
+#undef RT_EXTEND_F32
 }

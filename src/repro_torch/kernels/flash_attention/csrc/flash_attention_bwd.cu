@@ -21,8 +21,8 @@
 // * float32: bwd_dot_kernel (D, one warp a row), then bwd_dkdv_kernel,
 //   which also stores dS^T, then bwd_dq_kernel, on CUDA cores, so that the
 //   products stay exact float32 (each a fmaf in a fixed order: the card's
-//   float32 train steps are held to the CPU's), as the forward keeps
-//   flash_kernel.
+//   float32 train steps are held to the CPU's), as the forward's
+//   flash_kernel does.
 //
 // Bound on the H100 at qwen3-4b's training shape (bf16, causal, B4 S512
 // Hq32 Hkv8 Dh128): 84.2 MB of q, k, v, out, dout and lse in and dq, dk,
@@ -173,15 +173,6 @@ struct BwdF32Params {
   float* ds;      // dS^T (B, Hkv, Skv, ds_ld): row key, column packed row
   int64_t ds_ld;  // G Sq rounded up to 64
 };
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc + a.x b.x + a.y b.y + a.z b.z + a.w b.w, one fmaf at a time, in order.
-__device__ __forceinline__ float fma4(const float4& a, const float4& b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
 
 // acc[r][c] += sum over a in [a_lo, a_lo + n) of w[a][x_r] o[a][col_c], a
 // thread's rows x = ai * kAX .. + kAX - 1 and columns aj * 4 + 64 u .. +

@@ -31,9 +31,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     optional (B,) int32 key-length mask, key ``kp`` of row b counts iff
     ``kp < kv_len[b]`` (a row with none stores 0 on the card).  On the
     card the route is by dtype alone: bfloat16 launches the tensor-core
-    kernel, which takes ``Dh % 16 == 0`` and ``Dh <= 256`` (any other
-    bfloat16 head dim raises ``ValueError``); float32 launches the
-    CUDA-core kernel, whose products stay exact float32.
+    kernel, which takes ``Dh % 16 == 0`` and ``Dh <= 256``; float32
+    launches the CUDA-core kernel (the same packed rows and tiled walk,
+    exact float32 products, each output summed in one fixed order), which
+    takes ``Dh % 4 == 0`` and ``Dh <= 256``.  Any other head dim raises
+    ``ValueError``; q, k and v whose rows do not start on 16 bytes are
+    copied first.
     ``flash_attention.launches`` counts kernel launches,
     ``flash_attention.launches_tc`` those of the tensor-core kernel and
     ``flash_attention.launches_kv_len`` those under a key-length mask,
@@ -96,11 +99,11 @@ def _flash_forward(q, k, v, causal, window, kv_len, with_lse: bool):
         raise ValueError("q, k and v must be on one device")
     kl = _kv_len_arg(kv_len, B, q.device)
     tc = q.dtype == torch.bfloat16
-    if tc:
-        if Dh % 16 or Dh > 256:
-            raise ValueError(f"the bfloat16 flash kernel takes a head dim "
-                             f"that is a multiple of 16 up to 256, not {Dh}")
-        q, k, v = (_rows16(t) for t in (q, k, v))
+    step = 16 if tc else 4
+    if Dh % step or Dh > 256:
+        raise ValueError(f"the {q.dtype} flash kernel takes a head dim that "
+                         f"is a multiple of {step} up to 256, not {Dh}")
+    q, k, v = (_rows16(t) for t in (q, k, v))
     out = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -231,7 +234,10 @@ def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,
     takes ``Dh % 16 == 0`` up to 256 and an arena whose rows start on 16
     bytes (a 16-byte aligned base and strides that are multiples of 16
     bytes); either failing raises ``ValueError``.  float32 q, over a
-    float32 or an int8 arena, launches the CUDA-core kernel.
+    float32 or an int8 arena, launches the CUDA-core kernel (prefill
+    flash's float32 body over the pages, exact float32 products), which
+    takes ``Dh % 4 == 0`` up to 256 (else ``ValueError``) and any arena
+    view: rows off 16 bytes are read element by element.
     ``paged_extend_attention.launches`` counts kernel launches,
     ``paged_extend_attention.launches_tc`` those of the tensor-core
     kernel."""
@@ -250,11 +256,12 @@ def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,
         raise ValueError("block_table and pos need one row per query row")
     ps = pos.to(device=q.device, dtype=torch.int32).contiguous()
     tc = q.dtype == torch.bfloat16
+    step = 16 if tc else 4
+    if Dh % step or Dh > 256:
+        raise ValueError(f"the {q.dtype} paged extend kernel takes a head "
+                         f"dim that is a multiple of {step} up to 256, not "
+                         f"{Dh}")
     if tc:
-        if Dh % 16 or Dh > 256:
-            raise ValueError(f"the bfloat16 paged extend kernel takes a head "
-                             f"dim that is a multiple of 16 up to 256, not "
-                             f"{Dh}")
         row = 16 // k_arena.element_size()   # elements in 16 bytes
         if any(t.data_ptr() % 16 or any(s % row for s in t.stride()[:4])
                for t in (k_arena, v_arena)):
@@ -262,7 +269,7 @@ def paged_extend_attention(q, k_arena, v_arena, slot_pos, block_table, pos,
                              f"{k_arena.dtype} arena rows that start on 16 "
                              f"bytes (a 16-byte aligned base and strides "
                              f"that are multiples of {row})")
-        q = _rows16(q)
+    q = _rows16(q)
     out = torch.empty((B, S, Hq, Dh), dtype=q.dtype, device=q.device)
     fn = _build.kernel("rt_paged_extend_attention",
                        "PLLLI PPI LLLL PLLL PLI PI PPLL PLLL IIIIIII P")

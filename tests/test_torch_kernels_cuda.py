@@ -16,9 +16,13 @@ key-length mask, bidirectional with Skv below and above Sq and causal,
 rows with kv_len 0 and above Skv; dense decode over a cross memory), and the SSD scan (``ops.ssd``, one launch) at the chunk
 lengths and widths of mamba2-2.7b and zamba2-2.7b, with and without
 checkpoints, at N 32 to 256.  bf16
-takes the tensor-core flash, paged extend and GEMM kernels: their cases
-cover every mask, head dims 16 to 256, GQA 4 and 5, page sizes 1 to 64,
-and counts on each side of the GEMM's 16- and 128-row tiles.  Paged
+takes the tensor-core flash, paged extend and GEMM kernels, float32 the
+CUDA-core ones: every flash case runs through both routes (every mask,
+head dims 16 to 256, GQA 4 and 5), extend at page sizes 1 to 64, the
+GEMM at counts on each side of its 16- and 128-row tiles; the float32
+flash and extend also give their LSE within 1e-5 of the plain version's,
+the same bits on a second call, read an arena view whose rows are off 16
+bytes element by element, and raise on a head dim of 18.  Paged
 decode and extend run every dtype pair (q float32 or bf16, arena the same
 or int8; bf16 q over int8 takes the tensor-core extend, held also with
 per-page scales from 1e-3 to 1e2 under one 32-key tile and a page of
@@ -118,37 +122,41 @@ def _tol(qdt, quant):
 
 
 FLASH = [
-    # B, Hq, Hkv, Sq, Skv, Dh, causal, window, dtype
-    (2, 4, 2, 128, 128, 64, True, None, torch.float32),
-    (1, 8, 8, 256, 256, 64, True, None, torch.bfloat16),
-    (2, 4, 1, 128, 128, 32, True, 64, torch.bfloat16),
-    (1, 2, 2, 128, 256, 64, True, None, torch.float32),
-    (2, 4, 2, 128, 128, 64, False, None, torch.float32),
-    (1, 4, 4, 64, 64, 128, True, None, torch.float32),
-    (2, 32, 8, 100, 100, 128, True, None, torch.float32),   # ragged Sq
-    (2, 32, 32, 100, 100, 80, True, None, torch.float32),   # zamba2 Dh 80
-    (2, 32, 32, 128, 128, 80, True, None, torch.bfloat16),
-    # the bf16 tensor-core kernel at every mask and shape the f32 one takes
-    (2, 32, 8, 100, 100, 128, True, None, torch.bfloat16),  # ragged Sq
-    (1, 2, 2, 128, 256, 64, True, None, torch.bfloat16),    # Skv > Sq
-    (2, 32, 8, 72, 200, 128, True, None, torch.bfloat16),   # ragged, Skv > Sq
-    (2, 4, 2, 128, 128, 64, False, None, torch.bfloat16),   # bidirectional
-    (2, 32, 8, 200, 200, 128, True, 64, torch.bfloat16),    # window, Dh 128
-    (2, 32, 8, 128, 128, 128, True, None, torch.bfloat16),  # GQA 4, qwen3-4b
-    (2, 10, 2, 100, 100, 128, True, None, torch.bfloat16),  # GQA 5
-    (1, 4, 4, 100, 100, 16, True, None, torch.bfloat16),    # Dh 16
-    (1, 8, 2, 100, 100, 192, True, None, torch.bfloat16),   # Dh 192
-    (1, 4, 2, 100, 100, 256, False, 40, torch.bfloat16),    # Dh 256, window
+    # B, Hq, Hkv, Sq, Skv, Dh, causal, window: every case through both
+    # routes (float32 CUDA cores, bf16 tensor cores)
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 8, 256, 256, 64, True, None),
+    (2, 4, 1, 128, 128, 32, True, 64),
+    (1, 2, 2, 128, 256, 64, True, None),     # Skv > Sq
+    (2, 4, 2, 128, 128, 64, False, None),    # bidirectional
+    (1, 4, 4, 64, 64, 128, True, None),
+    (2, 32, 8, 100, 100, 128, True, None),   # ragged Sq
+    (2, 32, 32, 100, 100, 80, True, None),   # zamba2 Dh 80
+    (2, 32, 32, 128, 128, 80, True, None),
+    (2, 32, 8, 72, 200, 128, True, None),    # ragged, Skv > Sq
+    (2, 32, 8, 200, 200, 128, True, 64),     # window, Dh 128
+    (2, 32, 8, 128, 128, 128, True, None),   # GQA 4, qwen3-4b
+    (2, 10, 2, 100, 100, 128, True, None),   # GQA 5
+    (1, 4, 4, 100, 100, 16, True, None),     # Dh 16
+    (1, 8, 2, 100, 100, 192, True, None),    # Dh 192
+    (1, 4, 2, 100, 100, 256, False, 40),     # Dh 256, window
 ]
 
 
-@pytest.mark.parametrize("case", FLASH)
-def test_flash_attention_kernel(dev, case):
-    B, Hq, Hkv, Sq, Skv, Dh, causal, win, dt = case
-    g = torch.Generator(device=dev).manual_seed(0)
+def _flash_inputs(dev, case, dt, seed=0):
+    B, Hq, Hkv, Sq, Skv, Dh = case[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, Sq, Hq, Dh), generator=g, device=dev).to(dt)
     k = torch.randn((B, Skv, Hkv, Dh), generator=g, device=dev).to(dt)
     v = torch.randn((B, Skv, Hkv, Dh), generator=g, device=dev).to(dt)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_attention_kernel(dev, case, dt):
+    causal, win = case[6:]
+    q, k, v = _flash_inputs(dev, case, dt)
     n0 = fops.flash_attention.launches
     out = fops.flash_attention(q, k, v, causal=causal, window=win)
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -157,6 +165,22 @@ def test_flash_attention_kernel(dev, case):
     torch.cuda.synchronize()
     assert fops.flash_attention.launches == n0 + 1
     assert _rel(out, ref) < (2e-2 if dt == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_attention_f32_lse(dev, case):
+    """The float32 route's log-sum-exp (what the backward reads) against
+    the plain version's at 1e-5, beside its output at 2e-5."""
+    causal, win = case[6:]
+    q, k, v = _flash_inputs(dev, case, torch.float32)
+    out, lse = fops._flash_forward(q, k, v, causal, win, None, True)
+    ref, ref_lse = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=win, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == ref_lse.shape
+    assert _rel(lse, ref_lse) < 1e-5
+    assert _rel(out, ref.transpose(1, 2)) < 2e-5
 
 
 # the key-length mask (encdec): B, Hq, Hkv, Sq, Skv, Dh, causal, kv_len
@@ -206,6 +230,40 @@ def test_flash_attention_bf16_rejects_head_dim(dev):
     with pytest.raises(ValueError, match="multiple of 16"):
         fops.flash_attention(q, q, q)
     assert fops.flash_attention.launches == n0
+
+
+def test_flash_attention_f32_rejects_head_dim(dev):
+    """The float32 routes take Dh % 4 == 0 up to 256: a head dim of 18
+    raises in flash and in paged extend, and nothing launches."""
+    q = torch.zeros((1, 8, 2, 18), device=dev)
+    n0 = (fops.flash_attention.launches, fops.paged_extend_attention.launches)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fops.flash_attention(q, q, q)
+    k, v, sp, bt, sc = _arena(dev, 1, 2, 18, 1, 16, 2, (24,), False)
+    ps = torch.tensor([16], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fops.paged_extend_attention(q, k, v, sp, bt, ps, 0, **sc)
+    assert (fops.flash_attention.launches,
+            fops.paged_extend_attention.launches) == n0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_f32_routes_repeat_bitwise(dev, quant):
+    """Two float32 calls of each route on the same inputs give the same
+    bits: flash with its LSE, and the extend over a float32 or an int8
+    arena (every product an fmaf, each sum in one order, no atomics)."""
+    q, k, v = _flash_inputs(dev, (2, 32, 8, 200, 200, 128), torch.float32)
+    a = fops._flash_forward(q, k, v, True, None, None, True)
+    b = fops._flash_forward(q, k, v, True, None, None, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    k, v, sp, bt, sc = _arena(dev, 3, 8, 128, 2, 16, 8, (104, 70, 128),
+                              quant)
+    q = torch.randn((3, 40, 32, 128), device=dev)
+    ps = torch.tensor([64, 30, 88], dtype=torch.int32, device=dev)
+    a = fops.paged_extend_attention(q, k, v, sp, bt, ps, 1, **sc)
+    b = fops.paged_extend_attention(q, k, v, sp, bt, ps, 1, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_flash_attention_bf16_strided_views(dev):
@@ -420,6 +478,30 @@ def test_paged_extend_bf16_rejects(dev, quant):
     with pytest.raises(ValueError, match="16 bytes"):
         fops.paged_extend_attention(q, k, v, sp, bt, ps, 0, **sc)
     assert fops.paged_extend_attention.launches == n0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_paged_extend_f32_unaligned_arena(dev, quant):
+    """float32 q over an arena view whose rows do not start on 16 bytes
+    (Dh 64 inside rows of 68, the base off by one element; the wrapper
+    cannot copy an arena cheaply): the CUDA-core kernel reads it element
+    by element, held to the plain version (2e-5; an int8 arena 2e-4)."""
+    B, Hq, Hkv, L, P, S, pos = 2, 8, 2, 2, 16, 24, (40, 7)
+    n_log = -(-(max(pos) + S) // P)
+    k, v, sp, bt, sc = _arena(dev, B, Hkv, 68, L, P, n_log,
+                              tuple(p + S for p in pos), quant)
+    k, v = k[..., 1:65], v[..., 1:65]
+    assert k.data_ptr() % 16 and k.stride(-1) == 1
+    q = torch.randn((B, S, Hq, 64), device=dev)
+    ps = torch.tensor(pos, dtype=torch.int32, device=dev)
+    f = fops.paged_extend_attention
+    n0 = (f.launches, f.launches_tc)
+    out = f(q, k, v, sp, bt, ps, L - 1, **sc)
+    ref = paged_extend_attention_ref(q.transpose(1, 2), k, v, sp, bt, ps,
+                                     L - 1, **sc).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_tc) == (n0[0] + 1, n0[1])
+    assert _rel(out, ref) < _tol(torch.float32, quant)
 
 
 @pytest.mark.parametrize("P", [8, 16])
